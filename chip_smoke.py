@@ -1,23 +1,35 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --steps 3  # fewer training steps
+    python3 chip_smoke.py --steps 3  # fewer training steps (at least 3)
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
-1. build: compile the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV)
-   from ``tpu_engine_torch/csrc`` with nvcc for sm_90a;
+1. build: compile the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV,
+   each causal and non-causal, head dims 16/32/64/128) from
+   ``tpu_engine_torch/csrc`` with nvcc for sm_90a;
 2. kernels: hold each kernel to its plain PyTorch version at the training
-   shape (B·H 4·16, S 2048, D 128, bf16), on small fp32 cases with TF32 off,
-   on a sliding-window case and a D=64 case; time each kernel beside its
-   plain version, its bound and the ``scaled_dot_product_attention``
-   yardstick (timed only, never called by the port);
+   shape (B·H 4·16, S 2048, D 128, bf16), the non-causal kernels at the
+   ring shard's shape (B·H 16, S 2048, D 128), on small fp32 cases with
+   TF32 off, on sliding-window cases and at D 16, 32 and 64; show that an
+   unbuilt head dim (256) raises; hold ``FlashAttentionLSE``'s backward
+   under random (dO, dlse) to autograd through the plain forward; time each
+   kernel beside its plain version, its bound and the
+   ``scaled_dot_product_attention`` yardstick (timed only, never called by
+   the port);
 3. model: a small llama through the flash kernels against the plain
    attention path, in fp32 and in bf16 compute; head: the LM head's
    backward against fp32 products;
 4. train: a llama-1b training step at full width (seq 2048, bf16 compute,
    fp32 masters, AdamW, activation checkpointing, attention "auto"), with the
-   kernel launch counts read around the run.
+   kernel launch counts read around the run;
+5. ring: ``ring_mha`` over 4 ranks against ``flash_mha`` at S 8192 (and a
+   GQA case), output and gradients, and both timed;
+6. train_ring: llama-1b at full width and depth with ring attention
+   (seq 8192, sequence 4, micro-batch 1), with the launch counts of every
+   kernel checked exactly; then the same steps with flash attention, to
+   which the ring's losses, gradient norm and (in fp32 compute) initial
+   gradients are held.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results, and as the last line
@@ -113,21 +125,21 @@ def _inputs(bh, s, d, dtype, seed):
             for _ in range(4)]  # q, k, v, dO
 
 
-def check_case(fc, bh, s, d, dtype, window, seed) -> dict:
+def check_case(fc, bh, s, d, dtype, window, seed, causal=True) -> dict:
     """Run K1, K2 and K3 and their plain versions on one case; raise if any
     result is outside its limits. Returns max |err| per output."""
     import torch
 
     q, k, v, do = _inputs(bh, s, d, dtype, seed)
     kind = "bf16" if dtype == torch.bfloat16 else "fp32"
-    o, lse = fc.flash_fwd(q, k, v, window)
+    o, lse = fc.flash_fwd(q, k, v, window, causal)
     delta = fc.flash_delta(o, do)
-    dq = fc.flash_bwd_dq(q, k, v, do, lse, delta, window)
-    dk, dv = fc.flash_bwd_dkv(q, k, v, do, lse, delta, window)
+    dq = fc.flash_bwd_dq(q, k, v, do, lse, delta, window, causal)
+    dk, dv = fc.flash_bwd_dkv(q, k, v, do, lse, delta, window, causal)
     torch.cuda.synchronize()
-    po, plse = fc.flash_fwd_plain(q, k, v, window)
-    pdq, pdk, pdv = fc.flash_bwd_plain(q, k, v, po, plse, do, window)
-    label = f"bh{bh} s{s} d{d} {kind} w{window}"
+    po, plse = fc.flash_fwd_plain(q, k, v, window, causal)
+    pdq, pdk, pdv = fc.flash_bwd_plain(q, k, v, po, plse, do, window, causal)
+    label = f"bh{bh} s{s} d{d} {kind} w{window} {'causal' if causal else 'full'}"
     out, grad, rel = TOL[f"{kind}_out"], TOL[f"{kind}_grad"], REL[kind]
     checks = {"o": (o, po, out, rel), "lse": (lse, plse, TOL["fp32_out"], REL["fp32"]),
               "dq": (dq, pdq, grad, rel), "dk": (dk, pdk, grad, rel), "dv": (dv, pdv, grad, rel)}
@@ -137,11 +149,14 @@ def check_case(fc, bh, s, d, dtype, window, seed) -> dict:
     return {n: e for n, (e, _) in errs.items()}
 
 
-def kernel_bounds(bh, s, d, window, elem_bytes) -> dict:
+def kernel_bounds(bh, s, d, window, elem_bytes, causal=True) -> dict:
     """Least time on the card for each kernel's work at this shape: FLOPs
     of the visible (q, k) pairs over the bf16 tensor-core peak, or bytes
     (each input read once, each output written once) over HBM bandwidth."""
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    if causal:
+        pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    else:
+        pairs = s * s
     work = {  # (products of pairs·D, tensors of [BH,S,D] moved, row vectors moved)
         "flash_fwd": (2, 4, 1),      # q,k,v → o; lse
         "flash_bwd_dq": (3, 5, 2),   # q,k,v,dO → dq; lse, Δ
@@ -158,6 +173,92 @@ def kernel_bounds(bh, s, d, window, elem_bytes) -> dict:
     return out
 
 
+# The TPU kernel each CUDA kernel replaces. The causal form is listed under
+# the kernel's name and the non-causal one under ``<name>_full``, as in
+# ``_flash_cuda.launches``; both replace the same Pallas function.
+REPLACES = {
+    "flash_fwd": "tpu_engine/ops/_flash_pallas.py:117",
+    "flash_bwd_dq": "tpu_engine/ops/_flash_pallas.py:306",
+    "flash_bwd_dkv": "tpu_engine/ops/_flash_pallas.py:341",
+}
+RING = 4          # ranks of the ring in the ring and train_ring phases
+RING_SEQ = 8192   # sequence length of those phases (local shard 2048)
+# The ring's training step against flash's at RING_SEQ, from the same
+# weights and batch, with attention rounded to bf16 in two orders: the loss
+# at the initial weights (step 0) and after one update (step 2), absolute;
+# the gradient norm at the initial weights (step 1, where the step-0
+# learning rate of 0 has left them), relative. Neither sees a fault in the
+# ring's backward: on an H100, a backward that drops the lse cotangent moved
+# the norm by 8e-5, and each parameter's bf16 gradient differs between ring
+# and flash by 1e-2 to 3e-2 on the clean code, more than such a fault adds.
+# So every parameter's gradient at the initial weights is also held to
+# flash's in fp32 compute (TF32 off), by relative norm error: there the
+# clean code agreed within 9e-6, and the same fault moved the Q and K
+# projections' gradients by 2e-2 (halving the cotangent, by 1e-2). The
+# attention itself is held to REL in the ring phase.
+RING_LOSS_TOL = 5e-3
+RING_GRAD_NORM_REL = 1e-3
+RING_PARAM_GRAD_REL = 1e-4
+# Optimizer settings of both training phases: the learning rate is 0 at step
+# 0 (warmup) and constant after. At a peak of 3e-4 the loss on the repeated
+# batch rose again from the fourth step on; this rate keeps it falling.
+TRAIN_LR = dict(learning_rate=3e-5, warmup_steps=1, lr_schedule="constant")
+
+
+def check_lse_backward(fc) -> dict:
+    """``FlashAttentionLSE``'s backward under a random (dO, dlse) pair
+    against autograd through the plain forward on the same inputs, causal
+    and non-causal: at the ring shard's shape in bf16, and at a small fp32
+    case. Returns max |err| per case and gradient."""
+    import torch
+
+    out = {}
+    for bh, s, d, dtype in ((16, 2048, 128, torch.bfloat16), (4, 256, 64, torch.float32)):
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for causal in (True, False):
+            q, k, v, do = _inputs(bh, s, d, dtype, seed=3)
+            dlse = torch.randn((bh, s), generator=torch.Generator(device="cuda").manual_seed(4),
+                               device="cuda")
+            xs = [t.requires_grad_(True) for t in (q.clone(), k.clone(), v.clone())]
+            o, lse = fc.flash_fwd_lse(*xs, causal=causal)
+            got = torch.autograd.grad((o, lse), xs, (do, dlse))
+            ys = [t.requires_grad_(True) for t in (q.clone(), k.clone(), v.clone())]
+            want = torch.autograd.grad(fc.flash_fwd_plain(*ys, causal=causal), ys, (do, dlse))
+            label = f"lse bwd bh{bh} s{s} d{d} {kind} {'causal' if causal else 'full'}"
+            errs = {n: _close(f"{label} {n}", a, b, TOL[f"{kind}_grad"], REL[kind])
+                    for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+            print(f"kernels {label}: " + " ".join(f"{n}={e:.3e} (rel {r:.2e})"
+                                                  for n, (e, r) in errs.items()), flush=True)
+            out[label] = {n: e for n, (e, _) in errs.items()}
+    return out
+
+
+def check_unbuilt_head_dim(fc) -> dict:
+    """A head dim with no CUDA build (256) must raise on the card, from the
+    kernel wrapper and from ``mha``, and never run the plain path."""
+    import torch
+
+    from tpu_engine_torch.ops import flash_attention as tfa
+
+    x = torch.zeros((1, 128, 2, 256), device="cuda", dtype=torch.bfloat16)
+    xb = torch.zeros((2, 128, 256), device="cuda", dtype=torch.bfloat16)
+    calls = {"flash_fwd": lambda: fc.flash_fwd(xb, xb, xb),
+             "flash_fwd_lse": lambda: fc.flash_fwd_lse(xb, xb, xb, causal=False),
+             "mha": lambda: tfa.mha(x, x, x)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except tfa.FlashUnsupported as e:
+            raise AssertionError(f"{name} at head dim 256 raised FlashUnsupported: {e}")
+        except ValueError as e:
+            out[name] = str(e)
+        else:
+            raise AssertionError(f"{name} ran at head dim 256")
+    print(f"kernels head dim 256 raises: {out}", flush=True)
+    return out
+
+
 def phase_kernels(res: dict) -> None:
     import torch
     import torch.nn.functional as F
@@ -166,32 +267,64 @@ def phase_kernels(res: dict) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
     B, H, S, D = 4, 16, 2048, 128
-    main = check_case(fc, B * H, S, D, torch.bfloat16, 0, seed=0)
-    for case in ((4, 256, 128, torch.float32, 0), (4, 256, 64, torch.float32, 37),
-                 (8, 512, 128, torch.bfloat16, 100), (16, 1024, 64, torch.bfloat16, 0),
-                 (2, 512, 64, torch.float32, 100)):
-        check_case(fc, *case, seed=1)
+    RB = H  # the ring shard: batch 1, 16 heads, local S 2048
+    main = check_case(fc, B * H, S, D, bf16, 0, seed=0)
+    main_full = check_case(fc, RB, S, D, bf16, 0, seed=0, causal=False)
+    for bh, s, d, dtype, window, causal in (
+            (4, 256, 128, f32, 0, True), (4, 256, 64, f32, 37, True),
+            (8, 512, 128, bf16, 100, True), (16, 1024, 64, bf16, 0, True),
+            (2, 512, 64, f32, 100, True),
+            (4, 256, 128, f32, 0, False), (4, 192, 64, f32, 0, False),
+            (16, 1024, 64, bf16, 0, False),
+            # D 16 and 32: gpt-tiny's heads, and qwen-tiny's and gemma-tiny's
+            (8, 512, 16, bf16, 0, True), (8, 512, 16, bf16, 0, False),
+            (8, 512, 32, bf16, 0, True), (8, 512, 32, bf16, 0, False),
+            (8, 256, 32, bf16, 50, True), (4, 256, 16, f32, 0, False),
+            (4, 192, 16, f32, 20, True), (4, 192, 32, f32, 0, True),
+            (4, 256, 32, f32, 0, False)):
+        check_case(fc, bh, s, d, dtype, window, seed=1, causal=causal)
+    res["lse_backward"] = check_lse_backward(fc)
+    res["unbuilt_head_dim"] = check_unbuilt_head_dim(fc)
 
-    q, k, v, do = _inputs(B * H, S, D, torch.bfloat16, 0)
+    q, k, v, do = _inputs(B * H, S, D, bf16, 0)
     o, lse = fc.flash_fwd(q, k, v)
     delta = fc.flash_delta(o, do)
+    qf, kf, vf, dof = _inputs(RB, S, D, bf16, 0)
+    of, lsef = fc.flash_fwd(qf, kf, vf, causal=False)
+    deltaf = fc.flash_delta(of, dof)
     t = {
         "flash_fwd": _time_ms(lambda: fc.flash_fwd(q, k, v)),
         "flash_bwd_dq": _time_ms(lambda: fc.flash_bwd_dq(q, k, v, do, lse, delta)),
         "flash_bwd_dkv": _time_ms(lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta)),
+        "flash_fwd_full": _time_ms(lambda: fc.flash_fwd(qf, kf, vf, causal=False)),
+        "flash_bwd_dq_full": _time_ms(
+            lambda: fc.flash_bwd_dq(qf, kf, vf, dof, lsef, deltaf, causal=False)),
+        "flash_bwd_dkv_full": _time_ms(
+            lambda: fc.flash_bwd_dkv(qf, kf, vf, dof, lsef, deltaf, causal=False)),
     }
+    slow = dict(iters=3, warmup=1)
     plain = {
-        "flash_fwd": _time_ms(lambda: fc.flash_fwd_plain(q, k, v), iters=3, warmup=1),
-        "flash_bwd_dq": _time_ms(lambda: fc.flash_bwd_dq_plain(q, k, v, do, lse, delta),
-                                 iters=3, warmup=1),
+        "flash_fwd": _time_ms(lambda: fc.flash_fwd_plain(q, k, v), **slow),
+        "flash_bwd_dq": _time_ms(lambda: fc.flash_bwd_dq_plain(q, k, v, do, lse, delta), **slow),
         "flash_bwd_dkv": _time_ms(lambda: fc.flash_bwd_dkv_plain(q, k, v, do, lse, delta),
-                                  iters=3, warmup=1),
+                                  **slow),
+        "flash_fwd_full": _time_ms(lambda: fc.flash_fwd_plain(qf, kf, vf, causal=False), **slow),
+        "flash_bwd_dq_full": _time_ms(
+            lambda: fc.flash_bwd_dq_plain(qf, kf, vf, dof, lsef, deltaf, causal=False), **slow),
+        "flash_bwd_dkv_full": _time_ms(
+            lambda: fc.flash_bwd_dkv_plain(qf, kf, vf, dof, lsef, deltaf, causal=False), **slow),
     }
     # Library yardstick on the same data, [B, H, S, D] views (timed only).
     ql, kl, vl = (x.view(B, H, S, D).detach().requires_grad_(True) for x in (q, k, v))
     dol = do.view(B, H, S, D)
-    sdpa_fwd = _time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True))
+    qfl, kfl, vfl = (x.view(1, RB, S, D) for x in (qf, kf, vf))
+    library = {
+        "flash_fwd": _time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)),
+        "flash_fwd_full": _time_ms(
+            lambda: F.scaled_dot_product_attention(qfl, kfl, vfl, is_causal=False)),
+    }
 
     def sdpa_fwd_bwd():
         out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
@@ -200,26 +333,27 @@ def phase_kernels(res: dict) -> None:
     sdpa_both = _time_ms(sdpa_fwd_bwd)
     ours_both = _time_ms(lambda: fc.flash_bwd(q, k, v, *fc.flash_fwd(q, k, v), do))
     bounds = kernel_bounds(B * H, S, D, 0, 2)
-    errs = {"flash_fwd": max(main["o"], main["lse"]), "flash_bwd_dq": main["dq"],
-            "flash_bwd_dkv": max(main["dk"], main["dv"])}
-    replaces = {
-        "flash_fwd": "tpu_engine/ops/_flash_pallas.py:117",
-        "flash_bwd_dq": "tpu_engine/ops/_flash_pallas.py:306",
-        "flash_bwd_dkv": "tpu_engine/ops/_flash_pallas.py:341",
-    }
+    bounds.update({f"{n}_full": b for n, b in
+                   kernel_bounds(RB, S, D, 0, 2, causal=False).items()})
+    errs = {}
+    for suffix, m in (("", main), ("_full", main_full)):
+        errs.update({f"flash_fwd{suffix}": max(m["o"], m["lse"]),
+                     f"flash_bwd_dq{suffix}": m["dq"],
+                     f"flash_bwd_dkv{suffix}": max(m["dk"], m["dv"])})
     res["kernels"] = [
         {"name": name, "route": "cuda", "source": "tpu_engine_torch/csrc/flash_attention.cu",
-         "replaces": replaces[name], "launches": None, "max_abs_err": errs[name],
-         "ms": t[name], "plain_ms": plain[name], "bound_ms": bounds[name]["bound_ms"],
-         "bound_by": bounds[name]["bound_by"],
-         "library_ms": sdpa_fwd if name == "flash_fwd" else None}
+         "replaces": REPLACES[name.removesuffix("_full")], "launches": None,
+         "max_abs_err": errs[name], "ms": t[name], "plain_ms": plain[name],
+         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+         "library_ms": library.get(name),
+         "shape": [B * H if name in REPLACES else RB, S, D]}
         for name in t
     ]
     res["attention_fwd_bwd"] = {"kernels_ms": ours_both, "library_ms": sdpa_both,
                                 "shape": [B, H, S, D]}
     for kr in res["kernels"]:
-        print(f"time {kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.3f}, bound "
-              f"{kr['bound_ms']:.4f} by {kr['bound_by']}, library {kr['library_ms']})",
+        print(f"time {kr['name']} {kr['shape']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.3f}, "
+              f"bound {kr['bound_ms']:.4f} by {kr['bound_by']}, library {kr['library_ms']})",
               flush=True)
     print(f"time fwd+bwd: kernels {ours_both:.4f} ms, sdpa {sdpa_both:.4f} ms", flush=True)
 
@@ -290,65 +424,221 @@ def phase_head(res: dict) -> None:
           flush=True)
 
 
-def phase_train(res: dict, steps: int) -> None:
+def _run_steps(cfg, steps: int, want_impl: str):
+    """Build ``cfg``'s program on the card and take ``steps`` steps on one
+    synthetic batch, repeated, with every launch counter set to 0 just
+    before. Returns (program, state, batch, losses, gradient norms, step
+    seconds, launches)."""
     import torch
 
-    from tpu_engine_torch.models import transformer as tfm
     from tpu_engine_torch.ops import _flash_cuda as fc
-    from tpu_engine_torch.train import TrainConfig, build_train_program
+    from tpu_engine_torch.train import build_train_program
 
-    cfg = TrainConfig(model_name="llama-1b", micro_batch_size=4, gradient_accumulation_steps=1,
-                      seq_len=2048, precision="bf16", param_dtype="fp32",
-                      activation_checkpointing=True, attention_impl="auto",
-                      learning_rate=3e-4, warmup_steps=2, total_steps=100)
     prog = build_train_program(cfg, device="cuda")
-    assert prog.model_config.attention_impl == "flash", prog.model_config.attention_impl
+    if prog.model_config.attention_impl != want_impl:
+        raise AssertionError(f"attention resolved to {prog.model_config.attention_impl!r}, "
+                             f"want {want_impl!r}")
     state = prog.init()
     batch = prog.synthetic_batch(seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     fc.reset_launches()
-    losses, times = [], []
+    losses, norms, times = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         state, m = prog.step(state, batch)
         losses.append(float(m["loss"]))  # host sync
+        norms.append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    counts = dict(fc.launches)
+    return prog, state, batch, losses, norms, times, dict(fc.launches)
 
-    L = prog.model_config.n_layers
+
+def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict) -> None:
+    """Train ``cfg`` for ``steps`` steps (:func:`_run_steps`) and check the
+    losses and the launch counts read just after. ``want`` is the launch
+    count per microbatch of each kernel; a kernel missing from it must not
+    launch at all."""
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    prog, state, batch, losses, norms, times, counts = _run_steps(cfg, steps, want_impl)
+
     micro = steps * cfg.gradient_accumulation_steps
-    want = {"flash_fwd": 2 * L * micro, "flash_bwd_dq": L * micro, "flash_bwd_dkv": L * micro}
+    want = {name: want.get(name, 0) * micro for name in counts}
     tokens = math.prod(prog.global_batch_shape())
     step_s = min(times[1:]) if len(times) > 1 else times[0]
     flops_tok = tfm.train_flops_per_token(prog.model_config, cfg.seq_len)
-    res["train"] = {
-        "model": "llama-1b", "micro_batch": cfg.micro_batch_size, "seq_len": cfg.seq_len,
-        "steps": steps, "losses": losses, "step_ms_each": [t * 1e3 for t in times],
+    out = res[key] = {
+        "model": cfg.model_name, "micro_batch": cfg.micro_batch_size, "seq_len": cfg.seq_len,
+        "sequence": cfg.sequence, "steps": steps, "losses": losses, "grad_norms": norms,
+        "step_ms_each": [t * 1e3 for t in times],
         "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
         "mfu": tokens / step_s * flops_tok / PEAK_BF16_FLOPS,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": counts, "launches_expected": want,
     }
-    print(f"train: losses {[round(x, 4) for x in losses]}", flush=True)
-    print(f"train: step {step_s * 1e3:.1f} ms (min of steps 2..{steps}), "
-          f"{tokens / step_s:.0f} tokens/s, MFU {res['train']['mfu']:.4f} vs 989 TFLOP/s, "
-          f"peak {res['train']['peak_mem_gib']:.2f} GiB, launches {counts}", flush=True)
+    print(f"{key}: losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"{key}: step {step_s * 1e3:.1f} ms (min of steps 2..{steps}), "
+          f"{tokens / step_s:.0f} tokens/s, MFU {out['mfu']:.4f} vs 989 TFLOP/s, "
+          f"peak {out['peak_mem_gib']:.2f} GiB, launches {counts}", flush=True)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if abs(losses[0] - math.log(prog.model_config.vocab_size)) > 0.5:
         raise AssertionError(f"first loss {losses[0]} is not near ln(vocab)")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall on a repeated batch: {losses}")
+    if not all(b < a for a, b in zip(losses[1:], losses[2:])):
+        raise AssertionError(f"loss did not fall at every step on a repeated batch: {losses}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
-    res["train"]["profile"] = _profile_step(prog, state, batch)
-    res["train"]["optimizer_ms"] = _time_optimizer(prog, state)
+    out["profile"] = _profile_step(prog, state, batch, key)
+    out["optimizer_ms"] = _time_optimizer(prog, state, key)
 
 
-def _time_optimizer(prog, state) -> float:
+def phase_train(res: dict, steps: int) -> None:
+    """llama-1b, seq 2048, micro-batch 4, flash attention: per microbatch K1
+    runs twice per layer (forward and the checkpoint's recompute), K2 and
+    K3 once."""
+    from tpu_engine_torch.train import TrainConfig
+
+    cfg = TrainConfig(model_name="llama-1b", micro_batch_size=4, gradient_accumulation_steps=1,
+                      seq_len=2048, precision="bf16", param_dtype="fp32",
+                      activation_checkpointing=True, attention_impl="auto", **TRAIN_LR)
+    L = 16
+    _train(res, "train", cfg, steps, "flash",
+           {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+
+
+def _initial_grads(cfg, want_impl: str) -> dict:
+    """Every parameter's gradient of ``cfg``'s training loss at its initial
+    weights on the synthetic batch: the backward of a step, before its
+    update."""
+    from tpu_engine_torch.train import accumulate_grads, build_train_program
+
+    prog = build_train_program(cfg, device="cuda")
+    if prog.model_config.attention_impl != want_impl:
+        raise AssertionError(f"attention resolved to {prog.model_config.attention_impl!r}")
+    params = prog.init()["params"]
+    accumulate_grads(prog.loss_fn, params, prog.synthetic_batch(seed=0))
+    return {k: p.grad for k, p in params.items()}
+
+
+def phase_train_ring(res: dict, steps: int) -> None:
+    """llama-1b, seq 8192 over a ring of 4 (local shard 2048), micro-batch 1:
+    per layer each rank runs its diagonal hop causal and its past hops
+    unmasked, 4 causal and 6 non-causal hops, and skips the 6 future ones;
+    K1 runs each twice (forward and the checkpoint's recompute).
+
+    Then the same steps with flash attention over the whole sequence, the
+    reference at full size: the two differ only in attention's bf16
+    rounding (the ring merges per-hop bf16 outputs). From the same weights,
+    their losses at steps 0 and 2 must agree within RING_LOSS_TOL, and
+    their gradient norms at step 1 within RING_GRAD_NORM_REL: the ring's
+    forward, its backward through the whole model, and the update it
+    drives; and, in fp32 compute, every parameter's gradient at the initial
+    weights within RING_PARAM_GRAD_REL."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_engine_torch.train import TrainConfig
+
+    cfg = TrainConfig(model_name="llama-1b", micro_batch_size=1, gradient_accumulation_steps=1,
+                      seq_len=RING_SEQ, sequence=RING, precision="bf16", param_dtype="fp32",
+                      activation_checkpointing=True, attention_impl="auto", **TRAIN_LR)
+    L, diag, past = 16, RING, RING * (RING - 1) // 2
+    _train(res, "train_ring", cfg, steps, "ring",
+           {"flash_fwd": 2 * L * diag, "flash_fwd_full": 2 * L * past,
+            "flash_bwd_dq": L * diag, "flash_bwd_dq_full": L * past,
+            "flash_bwd_dkv": L * diag, "flash_bwd_dkv_full": L * past})
+    losses, norms, times = _run_steps(replace(cfg, sequence=1), steps, "flash")[3:6]
+    ring, ring_norms = res["train_ring"]["losses"], res["train_ring"]["grad_norms"]
+    diffs = [abs(a - b) for a, b in zip(ring, losses)]
+    norm_rel = [abs(a - b) / b for a, b in zip(ring_norms, norms)]
+    res["train_ring"]["flash_reference"] = {
+        "losses": losses, "abs_diff": diffs, "grad_norms": norms, "grad_norm_rel_diff": norm_rel,
+        "step_ms": min(times[1:] or times) * 1e3}
+    print(f"train_ring: flash at seq {RING_SEQ}: losses {[round(x, 4) for x in losses]}, "
+          f"grad norms {[round(x, 4) for x in norms]}, "
+          f"step {res['train_ring']['flash_reference']['step_ms']:.1f} ms; "
+          f"|ring - flash| losses {[f'{x:.2e}' for x in diffs]}, "
+          f"grad norms (relative) {[f'{x:.2e}' for x in norm_rel]}", flush=True)
+    for i in (0, 2):
+        if not diffs[i] <= RING_LOSS_TOL:
+            raise AssertionError(f"loss at step {i}: ring {ring[i]} vs flash {losses[i]}")
+    if not norm_rel[1] <= RING_GRAD_NORM_REL:
+        raise AssertionError(f"gradient norm at step 1: ring {ring_norms[1]} vs flash {norms[1]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32 = replace(cfg, precision="fp32")
+    ring_grads = _initial_grads(fp32, "ring")
+    flash_grads = _initial_grads(replace(fp32, sequence=1), "flash")
+    grad_rel = {k: float((g.float() - flash_grads[k].float()).norm()
+                         / flash_grads[k].float().norm().clamp_min(1e-30))
+                for k, g in ring_grads.items()}
+    res["train_ring"]["flash_reference"]["param_grad_rel_err"] = grad_rel
+    print("train_ring: initial fp32 gradients, ring vs flash, relative norm error: "
+          + " ".join(f"{k}={e:.2e}" for k, e in grad_rel.items()), flush=True)
+    worst = max(grad_rel, key=grad_rel.get)
+    if not grad_rel[worst] <= RING_PARAM_GRAD_REL:
+        raise AssertionError(f"gradient of {worst}: relative norm error {grad_rel[worst]:.3e} "
+                             f"> {RING_PARAM_GRAD_REL}")
+
+
+def phase_ring(res: dict) -> None:
+    """``ring_mha`` over 4 ranks against ``flash_mha`` on the same causal
+    inputs at S 8192 (and a GQA case): the output and the gradients of q,
+    k and v under one random cotangent, by relative norm error, and the
+    ring's launches; then both timed, forward and backward."""
+    import torch
+
+    from tpu_engine_torch.ops import _flash_cuda as fc
+    from tpu_engine_torch.ops import flash_attention as tfa
+    from tpu_engine_torch.parallel.ring_attention import ring_mha
+
+    no_abs = dict(atol=math.inf, rtol=0.0)
+    diag, past = RING, RING * (RING - 1) // 2
+    want = {"flash_fwd": diag, "flash_fwd_full": past, "flash_bwd_dq": diag,
+            "flash_bwd_dq_full": past, "flash_bwd_dkv": diag, "flash_bwd_dkv_full": past}
+    impls = {"ring": lambda q, k, v: ring_mha(q, k, v, RING), "flash": tfa.flash_mha}
+    res["ring"] = {}
+    for label, kv_heads in (("mha", 16), ("gqa", 4)):
+        g = torch.Generator(device="cuda").manual_seed(5)
+
+        def rand(heads):
+            return torch.randn((1, RING_SEQ, heads, 128), generator=g, device="cuda").bfloat16()
+
+        q, k, v, do = rand(16), rand(kv_heads), rand(kv_heads), rand(16)
+        got, counts = {}, {}
+        for name, fn in impls.items():
+            xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            fc.reset_launches()
+            o = fn(*xs)
+            got[name] = (o.detach(), *torch.autograd.grad(o, xs, do))
+            torch.cuda.synchronize()
+            counts[name] = dict(fc.launches)
+        errs = {n: _close(f"ring {label} {n}", a, b, no_abs, REL["bf16"])[1]
+                for n, a, b in zip(("o", "dq", "dk", "dv"), got["ring"], got["flash"])}
+        ring_counts = {n: c for n, c in counts["ring"].items() if c}
+        if ring_counts != {n: c for n, c in want.items() if c}:
+            raise AssertionError(f"ring {label} launches {counts['ring']} != {want}")
+        res["ring"][label] = {"rel_err": errs, "launches": counts["ring"]}
+        print(f"ring {label} (S {RING_SEQ}, ring {RING}, kv heads {kv_heads}) vs flash_mha, "
+              "relative norm error: " + " ".join(f"{n}={e:.2e}" for n, e in errs.items()),
+              flush=True)
+        if label == "mha":
+            def fwd_bwd(fn):
+                xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                torch.autograd.grad(fn(*xs), xs, do)
+
+            res["ring"]["fwd_bwd_ms"] = {name: _time_ms(lambda fn=fn: fwd_bwd(fn), iters=5,
+                                                        warmup=1)
+                                         for name, fn in impls.items()}
+            print(f"ring: fwd+bwd at S {RING_SEQ}: " + json.dumps(res["ring"]["fwd_bwd_ms"]),
+                  flush=True)
+
+
+def _time_optimizer(prog, state, key: str) -> float:
     """Device time of the AdamW update alone over the llama-1b masters (CUDA
     events), on zero gradients at lr 0: the same tensors and passes as in a
     step, leaving the weights unchanged."""
@@ -358,11 +648,11 @@ def _time_optimizer(prog, state) -> float:
     grads = {k: torch.zeros_like(p) for k, p in params.items()}
     ms = _time_ms(lambda: prog.tx.update(params, grads, state["opt_state"], 0.0),
                   iters=3, warmup=1)
-    print(f"train: optimizer update {ms:.2f} ms", flush=True)
+    print(f"{key}: optimizer update {ms:.2f} ms", flush=True)
     return ms
 
 
-def _profile_step(prog, state, batch) -> dict:
+def _profile_step(prog, state, batch, key: str) -> dict:
     """Device time of one more training step by kernel family, from
     torch.profiler (CUPTI). Families: the port's flash kernels, matrix
     products (cuBLAS/CUTLASS), and everything else (elementwise, norms,
@@ -397,17 +687,20 @@ def _profile_step(prog, state, batch) -> dict:
         "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count}
                 for e in top],
     }
-    print(f"profile: step wall {wall_ms:.1f} ms, device {busy:.1f} ms, families "
+    print(f"profile {key}: step wall {wall_ms:.1f} ms, device {busy:.1f} ms, families "
           + json.dumps({k: round(v, 2) for k, v in fam.items()}), flush=True)
     for t in out["top"]:
-        print(f"profile:   {t['ms']:9.3f} ms {t['calls']:5d}x {t['name']}", flush=True)
+        print(f"profile {key}:   {t['ms']:9.3f} ms {t['calls']:5d}x {t['name']}", flush=True)
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=5, help="llama-1b training steps")
+    ap.add_argument("--steps", type=int, default=5,
+                    help="llama-1b training steps of each training phase (at least 3)")
     args = ap.parse_args()
+    if args.steps < 3:
+        ap.error("--steps must be at least 3: step 0 has a learning rate of 0")
 
     sys.path.insert(0, str(ROOT))
     import torch
@@ -447,8 +740,13 @@ def main() -> int:
         run("model", phase_model, res)
         run("head", phase_head, res)
         run("train", phase_train, res, args.steps)
+        run("ring", phase_ring, res)
+        run("train_ring", phase_train_ring, res, args.steps)
+    # Launches on the main paths, each counted from 0 around its own run.
     for kr in res.get("kernels", []):
-        kr["launches"] = res.get("train", {}).get("launches", {}).get(kr["name"])
+        kr["launches_by_path"] = {p: res.get(p, {}).get("launches", {}).get(kr["name"])
+                                  for p in ("train", "train_ring")}
+        kr["launches"] = sum(n or 0 for n in kr["launches_by_path"].values())
     print(f"phases: {json.dumps(res.get('phase_s', {}))}", flush=True)
 
     out_dir = ROOT / "chiprun_out"

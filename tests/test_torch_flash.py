@@ -118,7 +118,14 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     _flash_cuda.reset_launches()
     q, k, v = (_t(x).requires_grad_(True) for x in _qkv(7, (1, 64, 2, 64), (1, 64, 2, 64)))
     tfa.flash_mha(q, k, v).sum().backward()
-    assert _flash_cuda.launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    qb, kb, vb = (x.detach().reshape(2, 64, 64).requires_grad_(True) for x in (q, k, v))
+    for causal in (True, False):
+        o, lse = _flash_cuda.flash_fwd_lse(qb, kb, vb, causal=causal)
+        (o.sum() + lse.sum()).backward()
+    assert set(_flash_cuda.launches) == {
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+        "flash_fwd_full", "flash_bwd_dq_full", "flash_bwd_dkv_full"}
+    assert all(n == 0 for n in _flash_cuda.launches.values()), _flash_cuda.launches
     meta = torch.empty((2, 64, 64), device="meta")
     with pytest.raises(ValueError, match="meta"):
         _flash_cuda.flash_fwd(meta, meta, meta)
@@ -129,3 +136,81 @@ def test_library_path_is_keyed_on_the_sources():
     assert path.parent == _flash_cuda.BUILD_DIR
     assert path.name.startswith("libtpe_flash_") and path.suffix == ".so"
     assert _flash_cuda.library_path() == path
+
+
+# -- the non-causal kernels and the (o, lse) entry of ring attention ---------
+
+
+@pytest.mark.parametrize("S,D", [(64, 16), (128, 32), (128, 64)])
+def test_non_causal_forward_matches_pallas(S, D):
+    q, k, v = _qkv(8, (3, S, D), (3, S, D))
+    jo, jlse = _flash_pallas._flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        _flash_pallas._pick_block(S), True, 0, causal=False)
+    to, tlse = _flash_cuda.flash_fwd(_t(q), _t(k), _t(v), causal=False)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_lse_matches_pallas(causal):
+    """(o, lse) and the gradients under a random (dO, dlse) cotangent pair,
+    against ``_flash_pallas.flash_fwd_lse`` in interpret mode: the lse
+    cotangent enters the backward as Δ′ = rowsum(dO ∘ O) − dlse."""
+    q, k, v = _qkv(9, (4, 128, 64), (4, 128, 64))
+    rng = np.random.default_rng(10)
+    do = rng.standard_normal((4, 128, 64)).astype(np.float32)
+    dlse = rng.standard_normal((4, 128)).astype(np.float32)
+    block = _flash_pallas._pick_block(128)
+
+    def jfn(q, k, v):
+        return _flash_pallas.flash_fwd_lse(q, k, v, block, True, causal)
+
+    (jo, jlse), vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jg = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    to, tlse = _flash_cuda.flash_fwd_lse(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(tlse.detach().numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
+    tg = torch.autograd.grad((to, tlse), (tq, tk, tv), (_t(do), _t(dlse)))
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4, rtol=5e-4)
+
+
+def test_flash_fwd_lse_treats_a_missing_cotangent_as_zeros():
+    """Gradients through o alone and through lse alone each equal autograd
+    through the plain forward with the other cotangent zero."""
+    q, k, v = (_t(x) for x in _qkv(11, (2, 64, 16), (2, 64, 16)))
+    for pick in (0, 1):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = _flash_cuda.flash_fwd_lse(*xs, causal=False)[pick]
+        got = torch.autograd.grad(out.sum(), xs)
+        ys = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        want = torch.autograd.grad(  # lse does not depend on v: its gradient is 0
+            _flash_cuda.flash_fwd_plain(*ys, causal=False)[pick].sum(), ys,
+            allow_unused=True, materialize_grads=True)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_built_head_dims_cover_every_llama_config():
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+
+    heads = {c.head_dim for c in MODEL_CONFIGS.values() if c.arch == "llama"}
+    heads |= {MODEL_CONFIGS[n].head_dim for n in ("qwen-tiny", "gemma-tiny")}
+    assert heads <= set(_flash_cuda.SUPPORTED_HEAD_DIMS), heads
+
+
+def test_unbuilt_head_dim_raises_on_the_card_not_flash_unsupported():
+    """The check the wrappers and ``flash_mha`` run: a CUDA device with an
+    unbuilt head dim raises ``ValueError``, which ``mha`` does not turn into
+    the plain path; the CPU takes any head dim."""
+    for d in _flash_cuda.SUPPORTED_HEAD_DIMS:
+        _flash_cuda.check_head_dim(d, "cuda")
+    with pytest.raises(ValueError, match="head_dim=256") as err:
+        _flash_cuda.check_head_dim(256, torch.device("cuda"))
+    assert not isinstance(err.value, tfa.FlashUnsupported)
+    _flash_cuda.check_head_dim(256, "cpu")
+    q = _t(_qkv(12, (1, 64, 2, 256), (1, 64, 2, 256))[0])
+    np.testing.assert_allclose(tfa.mha(q, q, q).numpy(),
+                               tfa.mha(q, q, q, force_xla=True).numpy(), atol=2e-5, rtol=2e-5)

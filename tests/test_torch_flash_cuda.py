@@ -46,23 +46,30 @@ def _inputs(bh, s, d, dtype, seed=0):
     return [torch.randn((bh, s, d), generator=g, device="cuda").to(dtype) for _ in range(4)]
 
 
-@pytest.mark.parametrize("bh,s,d,dtype,window", [
-    (4, 128, 64, torch.bfloat16, 0), (4, 256, 128, torch.bfloat16, 0),
-    (2, 256, 128, torch.bfloat16, 70), (2, 192, 64, torch.float32, 0),
-    (2, 256, 128, torch.float32, 33),
+@pytest.mark.parametrize("bh,s,d,dtype,window,causal", [
+    (4, 128, 64, torch.bfloat16, 0, True), (4, 256, 128, torch.bfloat16, 0, True),
+    (2, 256, 128, torch.bfloat16, 70, True), (2, 192, 64, torch.float32, 0, True),
+    (2, 256, 128, torch.float32, 33, True),
+    (4, 256, 128, torch.bfloat16, 0, False), (2, 192, 64, torch.float32, 0, False),
+    (4, 256, 16, torch.bfloat16, 0, True), (4, 256, 32, torch.bfloat16, 0, False),
+    (2, 128, 16, torch.float32, 0, False), (2, 192, 32, torch.float32, 40, True),
 ])
-def test_kernels_match_plain(cuda, bh, s, d, dtype, window):
+def test_kernels_match_plain(cuda, bh, s, d, dtype, window, causal):
     q, k, v, do = _inputs(bh, s, d, dtype)
     out_tol, grad_tol = TOL[dtype]
-    o, lse = fc.flash_fwd(q, k, v, window)
-    po, plse = fc.flash_fwd_plain(q, k, v, window)
+    o, lse = fc.flash_fwd(q, k, v, window, causal)
+    po, plse = fc.flash_fwd_plain(q, k, v, window, causal)
     _assert_close(o, po, out_tol, REL[dtype])
     _assert_close(lse, plse, TOL[torch.float32][0], REL[torch.float32])
-    got = fc.flash_bwd(q, k, v, o, lse, do, window)
-    want = fc.flash_bwd_plain(q, k, v, po, plse, do, window)
+    got = fc.flash_bwd(q, k, v, o, lse, do, window, causal)
+    want = fc.flash_bwd_plain(q, k, v, po, plse, do, window, causal)
     for a, b in zip(got, want):
         assert a.dtype == dtype
         _assert_close(a, b, grad_tol, REL[dtype])
+
+
+def _counts(**nonzero):
+    return {name: nonzero.get(name, 0) for name in fc.launches}
 
 
 def test_each_wrapper_counts_one_launch(cuda):
@@ -70,7 +77,11 @@ def test_each_wrapper_counts_one_launch(cuda):
     fc.reset_launches()
     o, lse = fc.flash_fwd(q, k, v)
     fc.flash_bwd(q, k, v, o, lse, do)
-    assert fc.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert fc.launches == _counts(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+    fc.reset_launches()
+    o, lse = fc.flash_fwd(q, k, v, causal=False)
+    fc.flash_bwd(q, k, v, o, lse, do, causal=False)
+    assert fc.launches == _counts(flash_fwd_full=1, flash_bwd_dq_full=1, flash_bwd_dkv_full=1)
 
 
 def test_autograd_through_mha_runs_the_kernels(cuda):
@@ -79,7 +90,7 @@ def test_autograd_through_mha_runs_the_kernels(cuda):
                .requires_grad_(True) for _ in range(3))
     fc.reset_launches()
     tfa.mha(q, k, v).float().sum().backward()
-    assert fc.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert fc.launches == _counts(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1)
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
@@ -93,9 +104,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fc.flash_fwd(q[:, :100].contiguous(), k[:, :100].contiguous(), v[:, :100].contiguous())
     with pytest.raises(ValueError):
         fc.flash_fwd(q, k.float(), v)
-    small = torch.zeros((1, 64, 2, 16), device="cuda")
+    untileable = torch.zeros((1, 100, 2, 16), device="cuda")
     with pytest.raises(tfa.FlashUnsupported):
-        tfa.flash_mha(small, small, small)
+        tfa.flash_mha(untileable, untileable, untileable)
 
 
 def test_head_backward_keeps_the_fp32_cotangent(cuda):
@@ -109,3 +120,47 @@ def test_head_backward_keeps_the_fp32_cotangent(cuda):
     for got, want in ((dx, dy @ w.float().t()), (dw, x.float().t() @ dy)):
         assert got.dtype == torch.float32
         assert float((got - want).norm() / want.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_lse_backward_matches_autograd_of_plain(cuda, causal, dtype):
+    q, k, v, do = _inputs(2, 256, 64, dtype)
+    dlse = torch.randn((2, 256), generator=torch.Generator(device="cuda").manual_seed(9),
+                       device="cuda")
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fc.flash_fwd_lse(*xs, causal=causal), xs, (do, dlse))
+    ys = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fc.flash_fwd_plain(*ys, causal=causal), ys, (do, dlse))
+    for a, b in zip(got, want):
+        _assert_close(a, b, TOL[dtype][1], REL[dtype])
+
+
+def test_unbuilt_head_dim_raises_instead_of_the_plain_path(cuda):
+    x = torch.zeros((1, 128, 2, 256), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim=256"):
+        tfa.mha(x, x, x)
+    with pytest.raises(ValueError, match="head_dim=256"):
+        fc.flash_fwd(x[0].transpose(0, 1).contiguous(), x[0].transpose(0, 1).contiguous(),
+                     x[0].transpose(0, 1).contiguous())
+
+
+def test_ring_launches_diagonal_causal_and_past_full(cuda):
+    from tpu_engine_torch.parallel.ring_attention import ring_mha
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((1, 512, 4, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    fc.reset_launches()
+    ring_mha(q, k, v, sequence=4).float().sum().backward()
+    assert fc.launches == _counts(flash_fwd=4, flash_fwd_full=6, flash_bwd_dq=4,
+                                  flash_bwd_dq_full=6, flash_bwd_dkv=4, flash_bwd_dkv_full=6)
+
+
+def test_batch_one_heads_reach_the_kernels_contiguous(cuda):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn((1, 128, 2, 16), generator=g, device="cuda").requires_grad_(True)
+               for _ in range(3))
+    out = tfa.flash_mha(q, k, v)
+    want = tfa.mha(q, k, v, force_xla=True)
+    _assert_close(out, want, TOL[torch.float32][0], REL[torch.float32])

@@ -36,8 +36,10 @@ def test_make_schedule_matches_jax(shape):
 def test_train_config_rejects_unsupported_values():
     with pytest.raises(ValueError, match="precision"):
         ttrain.TrainConfig(precision="fp8")
-    with pytest.raises(ValueError, match="ring"):
-        ttrain.TrainConfig(attention_impl="ring")
+    with pytest.raises(ValueError, match="attention_impl"):
+        ttrain.TrainConfig(attention_impl="paged")
+    with pytest.raises(ValueError, match="sequence"):
+        ttrain.TrainConfig(seq_len=2048, sequence=3)
     with pytest.raises(ValueError, match="loss_chunk_size"):
         ttrain.TrainConfig(seq_len=32, loss_chunk_size=5)
     with pytest.raises(NotImplementedError):

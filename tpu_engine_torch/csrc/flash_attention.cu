@@ -1,10 +1,12 @@
-// Causal (optionally sliding-window) flash attention for Hopper (sm_90a):
-// one forward kernel and two backward kernels, with a plain C interface
-// loaded from Python through ctypes (tpu_engine_torch/ops/_flash_cuda.py).
+// Causal (optionally sliding-window) and non-causal flash attention for
+// Hopper (sm_90a): one forward kernel and two backward kernels, with a plain C
+// interface loaded from Python through ctypes
+// (tpu_engine_torch/ops/_flash_cuda.py).
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [BH, S, D] contiguous, bf16 or
 // fp32; lse and delta are [BH, S] fp32. S is a multiple of 64; D is a
-// template parameter, instantiated for 64 and 128. scale = 1/sqrt(D).
+// template parameter, instantiated for 16, 32, 64 and 128 (every llama-arch
+// head of MODEL_CONFIGS). scale = 1/sqrt(D).
 //
 // What each kernel replaces, what bounds it on the H100, and what the design
 // does about that:
@@ -19,6 +21,15 @@
 //   Bound: operations, 3 causal products, ~1.03e11 FLOP, ~104 us.
 // K3 flash_bwd_dkv replaces _bwd_dkv_kernel. It accumulates dV = P^T dO and
 //   dK = dS^T q. Bound: operations, 4 causal products, ~1.37e11 FLOP, ~139 us.
+//
+// Each kernel has a causal and a non-causal form (the kCausal template flag,
+// the causal=True/False branches of the Pallas kernels). Non-causal is ring
+// attention's past hops (flash_fwd_lse(..., causal=False)): every tile pair is
+// visited, no visibility mask is computed, and there is no window. At a ring
+// shard (BH 16, S 2048, D 128) it does twice the causal work: K1 3.4e10 FLOP,
+// ~35 us; K2 ~52 us; K3 ~69 us, all operations-bound. The lse cotangent of
+// flash_fwd_lse needs no kernel change: it enters through delta
+// (delta' = rowsum(dO o o) - dlse, _flash_bwd).
 //
 // Design, shared by the three. One 128-thread block (four warps) per
 // (bh, 64-row tile): a Q tile for K1 and K2, a K tile for K3. A loop inside
@@ -233,8 +244,21 @@ struct SmemBf16 {
 // K1 (bf16): forward
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// The Q-major kernels' (K1, K2) row tile and their range of K tiles [lo, hi]:
+// causal blocks with the longest loops first, non-causal every K tile.
+template <bool kCausal>
+__device__ __forceinline__ void q_major_range(int n_blk, int window, int& i, int& lo, int& hi) {
+  i = kCausal ? n_blk - 1 - static_cast<int>(blockIdx.y) : static_cast<int>(blockIdx.y);
+  lo = kCausal ? first_k_tile(i, window) : 0;
+  hi = kCausal ? i : n_blk - 1;
+}
+
+// At D 128, a minimum of one block per SM: under the default heuristics
+// ptxas gives the causal instantiation 168 registers and a spill; with it,
+// 196 and none. Below D 128 the minimum is 0, which leaves the default
+// allocation (more registers there would cost a resident block per SM).
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 0)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                int S, int window, float scale) {
@@ -246,11 +270,11 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + 2 * L::SIZE;  // stages 0, 1
 
   const int n_blk = S / kBlock;
-  const int i = n_blk - 1 - blockIdx.y;  // longest loops first
+  int i, lo, hi;
+  q_major_range<kCausal>(n_blk, window, i, lo, hi);
   const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane & 3;
   const int qpos = i * kBlock + warp * 16 + (lane >> 2);  // rows qpos, qpos + 8
-  const int lo = first_k_tile(i, window);
   const float scale2 = scale * kLog2e;  // base-2 logits
 
   load_tile_async<D>(Qs, q + base + static_cast<size_t>(i) * kBlock * D, tid);
@@ -260,9 +284,9 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   float acc[DT][4] = {};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};  // l: this lane's share
-  for (int j = lo; j <= i; ++j) {
+  for (int j = lo; j <= hi; ++j) {
     const int st = (j - lo) & 1;
-    if (j < i) {  // prefetch the next K/V tiles into the other stage
+    if (j < hi) {  // prefetch the next K/V tiles into the other stage
       const size_t nxt = base + static_cast<size_t>(j + 1) * kBlock * D;
       load_tile_async<D>(Ks + (st ^ 1) * L::SIZE, k + nxt, tid);
       load_tile_async<D>(Vs + (st ^ 1) * L::SIZE, v + nxt, tid);
@@ -275,7 +299,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float s[NT][4];
     mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Ks + st * L::SIZE, L::LD, lane);
-    const bool masked = needs_mask(i, j, window);
+    const bool masked = kCausal && needs_mask(i, j, window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -333,7 +357,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // K2 (bf16): dQ
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -348,11 +372,11 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + 2 * L::SIZE;  // stages 0, 1
 
   const int n_blk = S / kBlock;
-  const int i = n_blk - 1 - blockIdx.y;
+  int i, lo, hi;
+  q_major_range<kCausal>(n_blk, window, i, lo, hi);
   const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane & 3;
   const int qpos = i * kBlock + warp * 16 + (lane >> 2);
-  const int lo = first_k_tile(i, window);
   const float scale2 = scale * kLog2e;
 
   load_tile_async<D>(Qs, q + base + static_cast<size_t>(i) * kBlock * D, tid);
@@ -366,9 +390,9 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float dl[2] = {delta[rb], delta[rb + 8]};
 
   float acc[DT][4] = {};
-  for (int j = lo; j <= i; ++j) {
+  for (int j = lo; j <= hi; ++j) {
     const int st = (j - lo) & 1;
-    if (j < i) {
+    if (j < hi) {
       const size_t nxt = base + static_cast<size_t>(j + 1) * kBlock * D;
       load_tile_async<D>(Ks + (st ^ 1) * L::SIZE, k + nxt, tid);
       load_tile_async<D>(Vs + (st ^ 1) * L::SIZE, v + nxt, tid);
@@ -383,7 +407,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[NT][4], dp[NT][4];
     mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Kt, L::LD, lane);
     mma_abt<D, NT>(dp, dOs + warp * 16 * L::LD, Vs + st * L::SIZE, L::LD, lane);
-    const bool masked = needs_mask(i, j, window);
+    const bool masked = kCausal && needs_mask(i, j, window);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -406,7 +430,15 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // K3 (bf16): dK and dV
 // ---------------------------------------------------------------------------
 
-template <int D>
+// The K-major kernel's (K3) range of Q tiles [lo, hi] for K tile j: causal
+// from the diagonal to the last tile the window lets see j, non-causal all.
+template <bool kCausal>
+__device__ __forceinline__ void k_major_range(int j, int n_blk, int window, int& lo, int& hi) {
+  lo = kCausal ? j : 0;
+  hi = kCausal ? last_q_tile(j, n_blk, window) : n_blk - 1;
+}
+
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -429,7 +461,8 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane & 3;
   const int kpos = j * kBlock + warp * 16 + (lane >> 2);  // rows kpos, kpos + 8
-  const int hi = last_q_tile(j, n_blk, window);
+  int lo, hi;
+  k_major_range<kCausal>(j, n_blk, window, lo, hi);
   const float scale2 = scale * kLog2e;
 
   // Q, dO, lse and delta of Q tile i into stage st.
@@ -446,12 +479,12 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_tile_async<D>(Ks, k + base + static_cast<size_t>(j) * kBlock * D, tid);
   load_tile_async<D>(Vs, v + base + static_cast<size_t>(j) * kBlock * D, tid);
-  load_q_side(j, 0);
+  load_q_side(lo, 0);
   cp_async_commit();
 
   float dk_acc[DT][4] = {}, dv_acc[DT][4] = {};
-  for (int i = j; i <= hi; ++i) {
-    const int st = (i - j) & 1;
+  for (int i = lo; i <= hi; ++i) {
+    const int st = (i - lo) & 1;
     if (i < hi) {
       load_q_side(i + 1, st ^ 1);
       cp_async_commit();
@@ -464,7 +497,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* dOt = dOs + st * L::SIZE;
     const float* ls = lse_s + st * kBlock;
     const float* dls = delta_s + st * kBlock;
-    const bool masked = needs_mask(i, j, window);
+    const bool masked = kCausal && needs_mask(i, j, window);
 
 #pragma unroll 1
     for (int h = 0; h < 2; ++h) {  // not unrolled: keeps dK and dV in registers
@@ -550,11 +583,12 @@ __device__ __forceinline__ void warp_abt_f32(const float* A, const float* B, flo
 }
 
 // C[16, D] += A[16, 64] * B[64, D] for one warp. Each lane owns columns
-// lane + 32 t of all 16 rows.
+// lane + 32 t of all 16 rows; below D = 32 only the first D lanes own one.
 template <int D>
 __device__ __forceinline__ void warp_ab_acc_f32(const float* A, const float* B, float* C,
                                                 int lane) {
-  constexpr int kT = D / 32;
+  constexpr int kT = D >= 32 ? D / 32 : 1;
+  if (D < 32 && lane >= D) return;
   float acc[16][kT];
 #pragma unroll
   for (int r = 0; r < 16; ++r)
@@ -596,7 +630,7 @@ __device__ __forceinline__ void p_ds_rows_f32(float* Sw, float* dPw, const float
   }
 }
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
@@ -613,7 +647,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* ls = cv.take(L::rows);
 
   const int n_blk = S / kBlock;
-  const int i = n_blk - 1 - blockIdx.y;
+  int i, lo, hi;
+  q_major_range<kCausal>(n_blk, window, i, lo, hi);
   const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float scale2 = scale * kLog2e;
@@ -629,7 +664,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int row = warp * 16 + r;
   const int qpos = i * kBlock + row;
 
-  for (int j = first_k_tile(i, window); j <= i; ++j) {
+  for (int j = lo; j <= hi; ++j) {
     __syncthreads();  // every warp is done with the previous K/V tiles
     load_tile_f32<D>(Ks, k + base + static_cast<size_t>(j) * kBlock * D, tid);
     load_tile_f32<D>(Vs, v + base + static_cast<size_t>(j) * kBlock * D, tid);
@@ -637,7 +672,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
     warp_abt_f32<D>(Qs + warp * 16 * D, Ks, Ss + warp * 16 * kBlock, lane);
     __syncwarp();
-    const bool masked = needs_mask(i, j, window);
+    const bool masked = kCausal && needs_mask(i, j, window);
     float* srow = Ss + row * kBlock + half * 32;
     float mx = kNegInf;
     for (int c = 0; c < 32; ++c) {
@@ -678,7 +713,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         ms[tid] * kLn2 + logf(fmaxf(ls[tid], 1e-30f));
 }
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
@@ -698,7 +733,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* delta_s = cv.take(L::rows);
 
   const int n_blk = S / kBlock;
-  const int i = n_blk - 1 - blockIdx.y;
+  int i, lo, hi;
+  q_major_range<kCausal>(n_blk, window, i, lo, hi);
   const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
   const size_t rbase = static_cast<size_t>(blockIdx.x) * S + i * kBlock;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -713,7 +749,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Sw = Ss + warp * 16 * kBlock;
   float* dPw = dPs + warp * 16 * kBlock;
 
-  for (int j = first_k_tile(i, window); j <= i; ++j) {
+  for (int j = lo; j <= hi; ++j) {
     __syncthreads();
     load_tile_f32<D>(Ks, k + base + static_cast<size_t>(j) * kBlock * D, tid);
     load_tile_f32<D>(Vs, v + base + static_cast<size_t>(j) * kBlock * D, tid);
@@ -723,7 +759,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     warp_abt_f32<D>(dOs + warp * 16 * D, Vs, dPw, lane);
     __syncwarp();
     p_ds_rows_f32<false>(Sw, dPw, lse_s, delta_s, i, j, warp, lane, window, scale,
-                         needs_mask(i, j, window));
+                         kCausal && needs_mask(i, j, window));
     __syncwarp();
     warp_ab_acc_f32<D>(dPw, Ks, dQs + warp * 16 * D, lane);
     __syncwarp();
@@ -734,7 +770,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = tid; idx < kBlock * D; idx += kThreads) g[idx] = dQs[idx];
 }
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
@@ -766,7 +802,9 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Sw = Ss + warp * 16 * kBlock;
   float* dPw = dPs + warp * 16 * kBlock;
 
-  for (int i = j, hi = last_q_tile(j, n_blk, window); i <= hi; ++i) {
+  int lo, hi;
+  k_major_range<kCausal>(j, n_blk, window, lo, hi);
+  for (int i = lo; i <= hi; ++i) {
     __syncthreads();
     load_tile_f32<D>(Qs, q + base + static_cast<size_t>(i) * kBlock * D, tid);
     load_tile_f32<D>(dOs, dout + base + static_cast<size_t>(i) * kBlock * D, tid);
@@ -781,7 +819,7 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     warp_abt_f32<D>(Vs + warp * 16 * D, dOs, dPw, lane);
     __syncwarp();
     p_ds_rows_f32<true>(Sw, dPw, lse_s, delta_s, i, j, warp, lane, window, scale,
-                        needs_mask(i, j, window));
+                        kCausal && needs_mask(i, j, window));
     __syncwarp();
     warp_ab_acc_f32<D>(Sw, dOs, dVs + warp * 16 * D, lane);
     warp_ab_acc_f32<D>(dPw, Qs, dKs + warp * 16 * D, lane);
@@ -814,21 +852,21 @@ int launch(K kernel, size_t smem, int bh, int s, cudaStream_t st, Args... args) 
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool C>
 int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void* lse, int bh,
         int s, int window, cudaStream_t st) {
   const float sc = softmax_scale(D);
   float* l = static_cast<float*>(lse);
   if (is_bf16)
-    return launch(flash_fwd_bf16<D>, SmemBf16<D>::fwd, bh, s, st, static_cast<const bf16*>(q),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                  l, s, window, sc);
-  return launch(flash_fwd_f32<D>, SmemF32<D>::fwd, bh, s, st, static_cast<const float*>(q),
+    return launch(flash_fwd_bf16<D, C>, SmemBf16<D>::fwd, bh, s, st,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(o), l, s, window, sc);
+  return launch(flash_fwd_f32<D, C>, SmemF32<D>::fwd, bh, s, st, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v),
                 static_cast<float*>(o), l, s, window, sc);
 }
 
-template <int D>
+template <int D, bool C>
 int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int bh, int s, int window,
            cudaStream_t st) {
@@ -836,17 +874,17 @@ int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (is_bf16)
-    return launch(flash_bwd_dq_bf16<D>, SmemBf16<D>::bwd_dq, bh, s, st,
+    return launch(flash_bwd_dq_bf16<D, C>, SmemBf16<D>::bwd_dq, bh, s, st,
                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
                   static_cast<bf16*>(dq), s, window, sc);
-  return launch(flash_bwd_dq_f32<D>, SmemF32<D>::bwd_dq, bh, s, st,
+  return launch(flash_bwd_dq_f32<D, C>, SmemF32<D>::bwd_dq, bh, s, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
                 static_cast<float*>(dq), s, window, sc);
 }
 
-template <int D>
+template <int D, bool C>
 int bwd_dkv(bool is_bf16, const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int bh, int s, int window,
             cudaStream_t st) {
@@ -854,18 +892,44 @@ int bwd_dkv(bool is_bf16, const void* q, const void* k, const void* v, const voi
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (is_bf16)
-    return launch(flash_bwd_dkv_bf16<D>, SmemBf16<D>::bwd_dkv, bh, s, st,
+    return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, st,
                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
                   static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, window, sc);
-  return launch(flash_bwd_dkv_f32<D>, SmemF32<D>::bwd_dkv, bh, s, st,
+  return launch(flash_bwd_dkv_f32<D, C>, SmemF32<D>::bwd_dkv, bh, s, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
                 static_cast<float*>(dk), static_cast<float*>(dv), s, window, sc);
 }
 
-bool bad_shape(int bh, int s, int window) {
-  return bh <= 0 || s <= 0 || s % kBlock != 0 || s / kBlock > 65535 || window < 0;
+// The (head dim, causal) pair as types, for dispatch from runtime values.
+template <int D_, bool C_>
+struct Variant {
+  static constexpr int D = D_;
+  static constexpr bool causal = C_;
+};
+
+template <int D, typename F>
+int with_causal(bool causal, F&& f) {
+  return causal ? f(Variant<D, true>{}) : f(Variant<D, false>{});
+}
+
+// Calls f(Variant<d, causal>{}) for a built head dim; refuses any other.
+template <typename F>
+int dispatch(int d, bool causal, F&& f) {
+  switch (d) {
+    case 16: return with_causal<16>(causal, f);
+    case 32: return with_causal<32>(causal, f);
+    case 64: return with_causal<64>(causal, f);
+    case 128: return with_causal<128>(causal, f);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A window needs the causal kernels: non-causal attention has no window.
+bool bad_shape(int bh, int s, int window, int causal) {
+  return bh <= 0 || s <= 0 || s % kBlock != 0 || s / kBlock > 65535 || window < 0 ||
+         (!causal && window != 0);
 }
 
 }  // namespace
@@ -873,36 +937,39 @@ bool bad_shape(int bh, int s, int window) {
 extern "C" {
 
 // Each entry returns the cudaError_t of its launch (0 = success); a head dim
-// other than 64 or 128 or a bad shape is refused before any launch.
+// other than 16, 32, 64 or 128 or a bad shape is refused before any launch.
 
 int tpe_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                  int s, int d, int window, int is_bf16, void* stream) {
-  if (bad_shape(bh, s, window)) return cudaErrorInvalidValue;
+                  int s, int d, int window, int causal, int is_bf16, void* stream) {
+  if (bad_shape(bh, s, window, causal)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (d == 64) return fwd<64>(is_bf16, q, k, v, o, lse, bh, s, window, st);
-  if (d == 128) return fwd<128>(is_bf16, q, k, v, o, lse, bh, s, window, st);
-  return cudaErrorInvalidValue;
+  return dispatch(d, causal != 0, [&](auto var) {
+    using V = decltype(var);
+    return fwd<V::D, V::causal>(is_bf16, q, k, v, o, lse, bh, s, window, st);
+  });
 }
 
 int tpe_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq, int bh, int s, int d,
-                     int window, int is_bf16, void* stream) {
-  if (bad_shape(bh, s, window)) return cudaErrorInvalidValue;
+                     int window, int causal, int is_bf16, void* stream) {
+  if (bad_shape(bh, s, window, causal)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (d == 64) return bwd_dq<64>(is_bf16, q, k, v, dout, lse, delta, dq, bh, s, window, st);
-  if (d == 128) return bwd_dq<128>(is_bf16, q, k, v, dout, lse, delta, dq, bh, s, window, st);
-  return cudaErrorInvalidValue;
+  return dispatch(d, causal != 0, [&](auto var) {
+    using V = decltype(var);
+    return bwd_dq<V::D, V::causal>(is_bf16, q, k, v, dout, lse, delta, dq, bh, s, window, st);
+  });
 }
 
 int tpe_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
-                      int d, int window, int is_bf16, void* stream) {
-  if (bad_shape(bh, s, window)) return cudaErrorInvalidValue;
+                      int d, int window, int causal, int is_bf16, void* stream) {
+  if (bad_shape(bh, s, window, causal)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (d == 64) return bwd_dkv<64>(is_bf16, q, k, v, dout, lse, delta, dk, dv, bh, s, window, st);
-  if (d == 128)
-    return bwd_dkv<128>(is_bf16, q, k, v, dout, lse, delta, dk, dv, bh, s, window, st);
-  return cudaErrorInvalidValue;
+  return dispatch(d, causal != 0, [&](auto var) {
+    using V = decltype(var);
+    return bwd_dkv<V::D, V::causal>(is_bf16, q, k, v, dout, lse, delta, dk, dv, bh, s, window,
+                                    st);
+  });
 }
 
 }  // extern "C"

@@ -3,8 +3,8 @@
 
 The copy is a plain dataclass with no JAX dependency. ``attention_impl``
 keeps the JAX strings so configs compare equal across packages: in the
-port ``"xla"`` means the plain PyTorch attention and ``"flash"`` the CUDA
-flash kernels.
+port ``"xla"`` means the plain PyTorch attention, ``"flash"`` the CUDA
+flash kernels and ``"ring"`` ring attention over those kernels.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ class ModelConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
-    # "xla" (plain PyTorch attention) or "flash" (CUDA flash kernels).
+    # "xla" (plain PyTorch attention), "flash" (CUDA flash kernels) or
+    # "ring" (sequence-parallel ring attention over the flash kernels).
     attention_impl: str = "xla"
     # Sliding-window attention: each query sees the trailing
     # ``sliding_window`` keys. 0 = full causal.

@@ -11,8 +11,13 @@ Activation checkpointing (JAX ``jax.checkpoint`` with ``nothing_saveable``
 around each scanned block) is ``torch.utils.checkpoint`` around each block:
 only the block's input is kept, and the block is recomputed in backward.
 
-Other archs (gpt2, gemma, qwen), MoE, LoRA and quantized weights are not
-ported yet and raise ``NotImplementedError``.
+Attention is ``"flash"`` (the CUDA kernels), ``"xla"`` (plain PyTorch) or
+``"ring"`` (sequence-parallel ring attention over ``sequence`` ranks, all in
+this process; ``tpu_engine_torch/parallel/ring_attention.py``). Where JAX
+threads the mesh down to ``_attention``, the port threads the ring size.
+
+Other archs (gpt2, gemma, qwen), MoE, LoRA, quantized weights and Ulysses
+attention are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig  # noqa: F401
 from tpu_engine_torch.models.convert import LLAMA_KEYS
 from tpu_engine_torch.ops import flash_attention
+from tpu_engine_torch.parallel.ring_attention import ring_mha
 
 LAYER_KEYS = tuple(k[len("layers."):] for k in LLAMA_KEYS if k.startswith("layers."))
 
@@ -144,9 +150,26 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _attention(q, k, v, impl: str, window: int = 0):
-    """Causal attention: ``"flash"`` (CUDA kernels; their plain versions on
-    CPU tensors) or ``"xla"`` (plain PyTorch)."""
+def _attention(q, k, v, impl: str, window: int = 0, sequence: int = 1):
+    """Causal attention dispatch:
+
+    - ``"ring"``: ring attention over ``sequence`` ranks;
+    - ``"flash"``: the CUDA kernels (their plain versions on CPU tensors);
+    - ``"xla"``: plain PyTorch.
+
+    ``window > 0`` is sliding-window attention, on the flash and xla paths
+    only: sequence parallelism is full-context by construction."""
+    if impl in ("ring", "ulysses"):
+        if window:
+            raise ValueError(
+                f"sliding_window is not supported with attention_impl={impl!r}; "
+                "use 'flash' or 'xla' (a windowed model has no use for "
+                "full-sequence context parallelism)"
+            )
+        if impl == "ulysses":
+            raise NotImplementedError(
+                "attention_impl='ulysses' is not ported (queued with multi-GPU)")
+        return ring_mha(q, k, v, sequence=sequence, causal=True)
     if impl not in ("flash", "xla"):
         raise NotImplementedError(f"attention_impl={impl!r} is not ported")
     return flash_attention.mha(q, k, v, causal=True, force_xla=(impl != "flash"),
@@ -166,7 +189,7 @@ def _dense_mlp(h: torch.Tensor, lp: dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, sequence: int = 1) -> torch.Tensor:
     """One llama block. x: [B, S, D] → [B, S, D]."""
     B, S, _ = x.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -176,7 +199,8 @@ def _block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
     v = _proj(h, lp["v.kernel"]).reshape(B, S, KV, HD)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    attn = _attention(q, k, v, cfg.attention_impl, window=cfg.sliding_window)
+    attn = _attention(q, k, v, cfg.attention_impl, window=cfg.sliding_window,
+                      sequence=sequence)
     x = x + _proj(attn.reshape(B, S, H * HD), lp["o.kernel"])
     h = _rms_norm(x, lp["mlp_norm.scale"], cfg.norm_eps)
     return x + _dense_mlp(h, lp)
@@ -261,9 +285,11 @@ def forward_hidden_and_aux(
     compute_dtype=torch.bfloat16,
     remat: bool = False,
     positions: Optional[torch.Tensor] = None,
+    sequence: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decoder stack only: tokens [B, S] → (hidden [B, S, D] in the compute
-    dtype, before the final norm; the mean MoE aux loss, 0 for dense)."""
+    dtype, before the final norm; the mean MoE aux loss, 0 for dense).
+    ``sequence`` is the ring size of ``attention_impl="ring"``."""
     _require_llama(cfg)
     B, S = tokens.shape
     if positions is None:
@@ -276,9 +302,9 @@ def forward_hidden_and_aux(
     for i in range(cfg.n_layers):
         lp = {k: layers[k][i] for k in LAYER_KEYS}
         if remat:
-            x = checkpoint(_block, x, lp, cfg, positions, use_reentrant=False)
+            x = checkpoint(_block, x, lp, cfg, positions, sequence, use_reentrant=False)
         else:
-            x = _block(x, lp, cfg, positions)
+            x = _block(x, lp, cfg, positions, sequence)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

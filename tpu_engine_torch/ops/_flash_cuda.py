@@ -1,5 +1,5 @@
 """Wrappers of the three CUDA flash-attention kernels, their plain PyTorch
-versions, the launch counters, the loader, and the autograd function.
+versions, the launch counters, the loader, and the autograd functions.
 
 Kernels (``tpu_engine_torch/csrc/flash_attention.cu``), each replacing one
 Pallas kernel of ``tpu_engine/ops/_flash_pallas.py``:
@@ -7,6 +7,12 @@ Pallas kernel of ``tpu_engine/ops/_flash_pallas.py``:
 - K1 ``flash_fwd``      ← ``_fwd_kernel``      (o, lse) from (q, k, v);
 - K2 ``flash_bwd_dq``   ← ``_bwd_dq_kernel``   dq from (q, k, v, dO, lse, Δ);
 - K3 ``flash_bwd_dkv``  ← ``_bwd_dkv_kernel``  (dk, dv) from the same.
+
+Each has a causal form (optionally windowed) and a non-causal one
+(``causal=False``, ring attention's past hops), counted apart in
+:data:`launches`. One autograd function sits on top,
+:class:`FlashAttentionLSE` (``flash_fwd_lse``): ``(o, lse)``, both
+differentiable. ``flash_mha`` takes its ``o``; ring attention merges both.
 
 Every wrapper takes ``[BH, S, D]`` tensors. On a CPU tensor it runs the plain
 PyTorch version of the same function; on a CUDA tensor it launches the
@@ -36,14 +42,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
-# Head dims the CUDA build instantiates (the D template parameter).
-SUPPORTED_HEAD_DIMS = (64, 128)
+# Head dims the CUDA build instantiates (the D template parameter): every
+# llama-arch head of MODEL_CONFIGS, and qwen-tiny's and gemma-tiny's 32.
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 BLOCK = 64  # the kernels' Q/K tile rows; S must be a multiple
 
-# Launches of each kernel since the last reset_launches(). A wrapper adds
-# one where it launches its kernel and nowhere else; the plain CPU path
-# does not count.
-launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# Launches of each kernel since the last reset_launches(), the causal form
+# under the kernel's name and the non-causal one under ``<name>_full``. A
+# wrapper adds one where it launches its kernel and nowhere else; the plain
+# CPU path does not count.
+launches = {f"{name}{suffix}": 0 for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+            for suffix in ("", "_full")}
 
 
 def reset_launches() -> None:
@@ -102,9 +111,9 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tpe_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-        lib.tpe_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.tpe_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.tpe_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.tpe_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.tpe_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         for fn in (lib.tpe_flash_fwd, lib.tpe_flash_bwd_dq, lib.tpe_flash_bwd_dkv):
             fn.restype = ctypes.c_int
         _lib = lib
@@ -116,23 +125,33 @@ def _check(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
+def check_head_dim(d: int, device) -> None:
+    """Raise ``ValueError`` for a head dim the CUDA build does not
+    instantiate, on a CUDA device (the plain CPU path takes any). It is not
+    ``FlashUnsupported``: ``mha`` must not turn it into the plain path."""
+    if torch.device(device).type == "cuda" and d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head_dim={d} has no CUDA flash kernel (built: {SUPPORTED_HEAD_DIMS})")
+
+
 def _check_inputs(name: str, tensors: dict, dtype_of: str = "q") -> tuple[int, int, int]:
-    """Device, dtype, contiguity and shape checks shared by the wrappers."""
+    """Device, dtype, contiguity, alignment and shape checks shared by the
+    wrappers."""
     ref = tensors[dtype_of]
     if ref.dim() != 3:
         raise ValueError(f"{name}: {dtype_of} must be [BH, S, D], got {tuple(ref.shape)}")
     BH, S, D = ref.shape
     if ref.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: dtype {ref.dtype} unsupported (bf16 or fp32)")
-    if S % BLOCK or D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"{name}: S={S} must be a multiple of {BLOCK} and D={D} in {SUPPORTED_HEAD_DIMS}"
-        )
+    if S % BLOCK:
+        raise ValueError(f"{name}: S={S} must be a multiple of {BLOCK}")
+    check_head_dim(D, ref.device)
     for key, t in tensors.items():
         if t.device != ref.device:
             raise ValueError(f"{name}: {key} on {t.device}, {dtype_of} on {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned (the kernels copy 16 B)")
         row = key in ("lse", "delta")
         want_dtype = torch.float32 if row else ref.dtype
         want_shape = (BH, S) if row else (BH, S, D)
@@ -169,51 +188,58 @@ def _visible(S: int, window: int, device) -> torch.Tensor:
     return vis
 
 
-def flash_fwd_plain(q, k, v, window: int = 0):
-    """(o, lse) of causal (windowed) attention on [BH, S, D]; lse natural log."""
+def flash_fwd_plain(q, k, v, window: int = 0, causal: bool = True):
+    """(o, lse) of causal (windowed) or, with ``causal=False``, unmasked
+    attention on [BH, S, D]; lse natural log."""
     D = q.shape[-1]
     scale = 1.0 / (D ** 0.5)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    s = s.masked_fill(~_visible(q.shape[1], window, q.device), float("-inf"))
+    if causal:
+        s = s.masked_fill(~_visible(q.shape[1], window, q.device), float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     return torch.matmul(p, v.float()).to(q.dtype), lse
 
 
-def _p_ds_plain(q, k, v, do, lse, delta, window):
+def _p_ds_plain(q, k, v, do, lse, delta, window, causal):
     D = q.shape[-1]
     scale = 1.0 / (D ** 0.5)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.exp(s - lse[..., None])
-    p = p.masked_fill(~_visible(q.shape[1], window, q.device), 0.0)
+    if causal:
+        p = p.masked_fill(~_visible(q.shape[1], window, q.device), 0.0)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * scale
     return p, ds
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, window: int = 0):
-    _, ds = _p_ds_plain(q, k, v, do, lse, delta, window)
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, window: int = 0, causal: bool = True):
+    _, ds = _p_ds_plain(q, k, v, do, lse, delta, window, causal)
     return torch.matmul(ds, k.float()).to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, window: int = 0):
-    p, ds = _p_ds_plain(q, k, v, do, lse, delta, window)
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, window: int = 0, causal: bool = True):
+    p, ds = _p_ds_plain(q, k, v, do, lse, delta, window, causal)
     dv = torch.matmul(p.transpose(-1, -2), do.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_delta(o, do):
-    """Δ = rowsum(dO ∘ O) in fp32: the backward prologue, plain torch on both
-    devices (it is jnp code outside Pallas in the JAX package)."""
-    return torch.sum(do.float() * o.float(), dim=-1)
+def flash_delta(o, do, dlse=None):
+    """Δ = rowsum(dO ∘ O) in fp32, minus the lse cotangent ``dlse`` when
+    there is one (Δ′, ``_flash_bwd``): the backward prologue, plain torch on
+    both devices (it is jnp code outside Pallas in the JAX package)."""
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, window: int = 0):
+def flash_bwd_plain(q, k, v, o, lse, do, window: int = 0, causal: bool = True):
     """(dq, dk, dv) from (q, k, v, o, lse, dO): the reference for K2 + K3."""
     delta = flash_delta(o, do)
-    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, window)
-    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, window)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, window, causal)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, window, causal)
     return dq, dk, dv
 
 
@@ -222,81 +248,110 @@ def flash_bwd_plain(q, k, v, o, lse, do, window: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def flash_fwd(q, k, v, window: int = 0):
-    """K1: (o [BH, S, D], lse [BH, S] fp32) of causal attention."""
-    if not _route(q, "flash_fwd"):
-        return flash_fwd_plain(q, k, v, window)
-    BH, S, D = _check_inputs("flash_fwd", {"q": q, "k": k, "v": v})
+def _counter(name: str, causal: bool) -> str:
+    return name if causal else name + "_full"
+
+
+def _check_window(name: str, window: int, causal: bool) -> None:
     if window < 0:
-        raise ValueError(f"flash_fwd: window must be >= 0, got {window}")
+        raise ValueError(f"{name}: window must be >= 0, got {window}")
+    if window and not causal:
+        raise ValueError(f"{name}: a window needs causal=True")
+
+
+def flash_fwd(q, k, v, window: int = 0, causal: bool = True):
+    """K1: (o [BH, S, D], lse [BH, S] fp32) of causal (windowed) or
+    unmasked attention."""
+    if not _route(q, "flash_fwd"):
+        return flash_fwd_plain(q, k, v, window, causal)
+    BH, S, D = _check_inputs("flash_fwd", {"q": q, "k": k, "v": v})
+    _check_window("flash_fwd", window, causal)
     o = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
     err = _load().tpe_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        BH, S, D, window, int(q.dtype == torch.bfloat16), _stream(),
+        BH, S, D, window, int(causal), int(q.dtype == torch.bfloat16), _stream(),
     )
     _check("flash_fwd", err)
-    launches["flash_fwd"] += 1
+    launches[_counter("flash_fwd", causal)] += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0):
+def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0, causal: bool = True):
     """K2: dq [BH, S, D]."""
     if not _route(q, "flash_bwd_dq"):
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, window)
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, window, causal)
     BH, S, D = _check_inputs(
         "flash_bwd_dq", {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
     )
+    _check_window("flash_bwd_dq", window, causal)
     dq = torch.empty_like(q)
     err = _load().tpe_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), BH, S, D, window,
+        delta.data_ptr(), dq.data_ptr(), BH, S, D, window, int(causal),
         int(q.dtype == torch.bfloat16), _stream(),
     )
     _check("flash_bwd_dq", err)
-    launches["flash_bwd_dq"] += 1
+    launches[_counter("flash_bwd_dq", causal)] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0):
+def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, causal: bool = True):
     """K3: (dk, dv) [BH, S, D]."""
     if not _route(q, "flash_bwd_dkv"):
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, window)
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, window, causal)
     BH, S, D = _check_inputs(
         "flash_bwd_dkv", {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
     )
+    _check_window("flash_bwd_dkv", window, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _load().tpe_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, S, D, window,
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, S, D, window, int(causal),
         int(q.dtype == torch.bfloat16), _stream(),
     )
     _check("flash_bwd_dkv", err)
-    launches["flash_bwd_dkv"] += 1
+    launches[_counter("flash_bwd_dkv", causal)] += 1
     return dk, dv
 
 
-def flash_bwd(q, k, v, o, lse, do, window: int = 0):
-    """(dq, dk, dv): the Δ prologue, then K2 and K3 (separate, no atomics)."""
-    delta = flash_delta(o, do)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, window)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, window)
+def flash_bwd(q, k, v, o, lse, do, window: int = 0, causal: bool = True, dlse=None):
+    """(dq, dk, dv): the Δ (or Δ′) prologue, then K2 and K3 (separate, no
+    atomics)."""
+    delta = flash_delta(o, do, dlse)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, window, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, window, causal)
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """Causal flash attention on [BH, S, D] (``_flash_bhsd`` in JAX): the
-    forward saves (q, k, v, o, lse) and the backward runs K2 and K3."""
+class FlashAttentionLSE(torch.autograd.Function):
+    """Flash attention on [BH, S, D] returning ``(o, lse)``, differentiable in
+    both (``flash_fwd_lse`` in JAX, the per-hop entry of ring attention,
+    and ``_flash_bhsd`` when only ``o`` is used). The forward saves (q, k,
+    v, o, lse). The backward takes cotangents (dO, dlse), either of which
+    may be None (zeros), and runs K2 and K3 with Δ′ = rowsum(dO ∘ O) − dlse:
+    with that substitution the score gradient P ∘ (dO·Vᵀ − Δ + dlse) is the
+    standard one, so the kernels need no change."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int):
-        o, lse = flash_fwd(q, k, v, window)
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = flash_fwd(q, k, v, window, causal)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.window = window
-        return o
+        ctx.causal, ctx.window = causal, window
+        ctx.set_materialize_grads(False)
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.window)
-        return dq, dk, dv, None
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.window, ctx.causal, dlse)
+        return dq, dk, dv, None, None
+
+
+def flash_fwd_lse(q, k, v, causal: bool = True, window: int = 0):
+    """``(o, lse)`` of flash attention on [BH, S, D], with gradients through
+    both: the port of ``_flash_pallas.flash_fwd_lse``. ``causal=False`` runs
+    the unmasked kernels (a ring hop strictly in the past is fully visible);
+    ``window`` (causal only) limits each query to its last ``window`` keys."""
+    return FlashAttentionLSE.apply(q, k, v, causal, window)

@@ -40,15 +40,14 @@ def _xla_mha(q, k, v, causal: bool = True, window: int = 0):
 def flash_mha(q, k, v, causal: bool = True, window: int = 0):
     """Flash attention on [B, S, H, D]; returns [B, S, H, D].
 
-    Raises :class:`FlashUnsupported` for non-causal attention, S not a
-    multiple of 64 or below 64, and (on the card) a head dim the CUDA build
-    does not instantiate. ``window >= S`` is plain causal."""
+    Raises :class:`FlashUnsupported` for non-causal attention and for S not
+    a multiple of 64 or below 64, as the JAX dispatcher does. On the card, a
+    head dim the CUDA build does not instantiate raises ``ValueError``,
+    which ``mha`` does not catch. ``window >= S`` is plain causal."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     if not causal or S % _flash_cuda.BLOCK or S < _flash_cuda.BLOCK:
         raise FlashUnsupported(f"no flash tiling for seq_len={S}, causal={causal}")
-    if q.is_cuda and D not in _flash_cuda.SUPPORTED_HEAD_DIMS:
-        raise FlashUnsupported(f"head_dim={D} not built (have {_flash_cuda.SUPPORTED_HEAD_DIMS})")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if window >= S:
@@ -58,9 +57,11 @@ def flash_mha(q, k, v, causal: bool = True, window: int = 0):
         v = torch.repeat_interleave(v, H // KV, dim=2)
 
     def to_bhsd(x):
-        return x.transpose(1, 2).reshape(B * H, S, D)
+        # At B = 1 the reshape can stay a strided view; the kernels take
+        # contiguous [BH, S, D].
+        return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
 
-    o = _flash_cuda.FlashAttention.apply(to_bhsd(q), to_bhsd(k), to_bhsd(v), window)
+    o = _flash_cuda.flash_fwd_lse(to_bhsd(q), to_bhsd(k), to_bhsd(v), window=window)[0]
     return o.reshape(B, H, S, D).transpose(1, 2)
 
 

@@ -1,5 +1,6 @@
 """Single-GPU training program: schedule, AdamW, loss and the train step
-(port of the single-device path of ``tpu_engine/train.py``).
+(port of the single-device path of ``tpu_engine/train.py``, and of its
+sequence-parallel path with the ring's ranks in one process).
 
 The JAX step is one jitted function over a pytree state; here the state is a
 dict of tensors and the step runs eagerly. The optimizer updates the fp32
@@ -26,7 +27,9 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 @dataclass
 class TrainConfig:
     """The single-device fields of ``TPUTrainConfig`` (``tpu_engine/sharding.py``),
-    with its defaults. Values the port does not support raise."""
+    with its defaults, and ``sequence``, the counterpart of
+    ``MeshConfig.sequence``: the ring size of sequence-parallel attention.
+    Values the port does not support raise."""
 
     model_name: str = "gpt-125m"
     micro_batch_size: int = 1
@@ -48,7 +51,8 @@ class TrainConfig:
     activation_checkpointing: bool = True
     loss_chunk_size: Optional[int] = None
     z_loss_coef: float = 0.0
-    attention_impl: str = "auto"     # auto | xla | flash
+    attention_impl: str = "auto"     # auto | xla | flash | ring | ulysses
+    sequence: int = 1                # ring size; > 1 selects ring attention
     seed: int = 0
 
     def __post_init__(self):
@@ -72,9 +76,10 @@ class TrainConfig:
             (self.weight_decay >= 0 and self.grad_clip_norm > 0, "bad weight_decay/grad_clip_norm"),
             (0 < self.beta1 < 1 and 0 < self.beta2 < 1, "betas must be in (0, 1)"),
             (self.z_loss_coef >= 0, "z_loss_coef must be >= 0"),
-            (self.attention_impl in ("auto", "xla", "flash"),
-             f"attention_impl={self.attention_impl!r}: auto, xla or flash "
-             "(ring/ulysses are multi-GPU, not ported)"),
+            (self.attention_impl in ("auto", "xla", "flash", "ring", "ulysses"),
+             f"attention_impl={self.attention_impl!r}: auto, xla, flash, ring or ulysses"),
+            (self.sequence >= 1 and self.seq_len % self.sequence == 0,
+             f"sequence={self.sequence} must be >= 1 and divide seq_len={self.seq_len}"),
             (self.loss_chunk_size is None
              or (self.loss_chunk_size >= 1 and self.seq_len % self.loss_chunk_size == 0),
              f"loss_chunk_size={self.loss_chunk_size} must divide seq_len={self.seq_len}"),
@@ -347,7 +352,7 @@ class TrainProgram:
         tokens, loss_tokens = decode_masked_tokens(raw_tokens)
         hidden, _ = tfm.forward_hidden_and_aux(
             params, tokens, self.model_config, compute_dtype=cfg.compute_dtype(),
-            remat=cfg.activation_checkpointing,
+            remat=cfg.activation_checkpointing, sequence=cfg.sequence,
         )
         if cfg.loss_chunk_size:
             ll_sum, z_sum, n_valid = _chunked_ce_sums(
@@ -389,20 +394,36 @@ class TrainProgram:
 
 def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = None,
                         device="cuda") -> TrainProgram:
-    """The program for ``cfg`` on ``device``. ``attention_impl="auto"`` is the
-    flash kernels on a CUDA device and the plain path on the CPU."""
+    """The program for ``cfg`` on ``device``. Attention resolves as in JAX
+    (``tpu_engine/train.py``): ``sequence > 1`` is ring attention (Ulysses
+    when asked for, which is not ported and raises); otherwise ``"auto"`` is
+    the flash kernels on a CUDA device and the plain path on the CPU, and an
+    explicit choice is honoured."""
     device = torch.device(device)
     if model_cfg is None:
         if cfg.model_name not in MODEL_CONFIGS:
             raise ValueError(f"unknown model {cfg.model_name!r}; known: {sorted(MODEL_CONFIGS)}")
         model_cfg = MODEL_CONFIGS[cfg.model_name]
     tfm._require_llama(model_cfg)
-    if cfg.attention_impl == "auto":
+    if cfg.sequence > 1:
+        impl = "ulysses" if cfg.attention_impl == "ulysses" else "ring"
+    elif cfg.attention_impl == "auto":
         impl = "flash" if device.type == "cuda" else "xla"
     else:
         impl = cfg.attention_impl
+    if impl == "ulysses":
+        raise NotImplementedError(
+            "attention_impl='ulysses' is not ported (queued with multi-GPU)")
     if model_cfg.attention_impl != impl:
         model_cfg = model_cfg.with_(attention_impl=impl)
+    # Reject window × sequence parallelism at build time, as JAX does,
+    # rather than at the first step deep inside _attention.
+    if model_cfg.sliding_window and impl == "ring":
+        raise ValueError(
+            f"sliding_window={model_cfg.sliding_window} is not supported with "
+            f"attention_impl={impl!r} (a windowed model has no use for "
+            "full-sequence context parallelism); set sequence=1 or sliding_window=0"
+        )
     tx, schedule = make_optimizer(cfg)
     return TrainProgram(config=cfg, model_config=model_cfg, device=device, tx=tx,
                         schedule=schedule)

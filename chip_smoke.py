@@ -7,16 +7,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. build: compile the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV,
    each causal and non-causal, head dims 16/32/64/128) from
-   ``tpu_engine_torch/csrc`` with nvcc for sm_90a;
+   ``tpu_engine_torch/csrc`` with nvcc for sm_90a, one compiler per source,
+   all at once; check that the Hopper K1 (``flash_fwd_sm90``, bf16 at D 64
+   and 128) is built from wgmma and TMA loads (``HGMMA``, ``UTMALDG`` in its
+   SASS);
 2. kernels: hold each kernel to its plain PyTorch version at the training
    shape (B·H 4·16, S 2048, D 128, bf16), the non-causal kernels at the
    ring shard's shape (B·H 16, S 2048, D 128), on small fp32 cases with
-   TF32 off, on sliding-window cases and at D 16, 32 and 64; show that an
-   unbuilt head dim (256) raises; hold ``FlashAttentionLSE``'s backward
-   under random (dO, dlse) to autograd through the plain forward; time each
-   kernel beside its plain version, its bound and the
-   ``scaled_dot_product_attention`` yardstick (timed only, never called by
-   the port);
+   TF32 off, on sliding-window cases and at D 16, 32 and 64; hold K1 alone
+   on the edges of the Hopper kernel's 128-row tiling (ragged S, window
+   edges, B·H 1 and 256); show that an unbuilt head dim (256) raises; hold
+   ``FlashAttentionLSE``'s backward under random (dO, dlse) to autograd
+   through the plain forward; time each kernel beside its plain version,
+   its bound and a library yardstick (``scaled_dot_product_attention`` for
+   K1, the flash-attention backward op for K2 + K3; timed only, never called
+   by the port);
 3. model: a small llama through the flash kernels against the plain
    attention path, in fp32 and in bf16 compute; head: the LM head's
    backward against fp32 products;
@@ -32,7 +37,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    gradients are held.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
-of per-kernel results, and as the last line
+of per-kernel results (``launches`` per training step, summed over ``train``
+and ``train_ring``; ``launches_by_path`` per step of each), and as the last
+line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -84,19 +91,31 @@ def _card_line() -> str:
         return "unknown"
 
 
-def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def _time_ms(fn, iters: int = 10, warmup: int = 2, queue: bool = False) -> float:
+    """Mean time of ``fn`` over ``iters`` calls, by CUDA events. With
+    ``queue``, the calls are enqueued behind a spin of about 0.05 s on the
+    card, so the events time the device's work alone and not the host's
+    launch gaps (kernel times); without it, host time between launches
+    counts too (times of host-bound work)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queue:
+        torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, **kw) -> float:
+    """Device time of ``fn``: :func:`_time_ms` with its calls queued."""
+    return _time_ms(fn, queue=True, **kw)
 
 
 def _close(name, got, want, tol, rel=None) -> tuple[float, float]:
@@ -181,6 +200,13 @@ REPLACES = {
     "flash_bwd_dq": "tpu_engine/ops/_flash_pallas.py:306",
     "flash_bwd_dkv": "tpu_engine/ops/_flash_pallas.py:341",
 }
+# The source of each kernel at the timed shapes (bf16, D 128).
+SOURCE = {
+    "flash_fwd": "tpu_engine_torch/csrc/flash_fwd_sm90.cu",
+    "flash_bwd_dq": "tpu_engine_torch/csrc/flash_attention.cu",
+    "flash_bwd_dkv": "tpu_engine_torch/csrc/flash_attention.cu",
+}
+SM90_KERNEL = "flash_fwd_sm90"  # the Hopper K1's symbol, four instantiations
 RING = 4          # ranks of the ring in the ring and train_ring phases
 RING_SEQ = 8192   # sequence length of those phases (local shard 2048)
 # The ring's training step against flash's at RING_SEQ, from the same
@@ -231,6 +257,66 @@ def check_lse_backward(fc) -> dict:
                                                   for n, (e, r) in errs.items()), flush=True)
             out[label] = {n: e for n, (e, _) in errs.items()}
     return out
+
+
+def check_sm90_sass(fc) -> dict:
+    """The Hopper K1's four instantiations (D 64 and 128, causal and not)
+    must be built from wgmma (``HGMMA``) and TMA loads (``UTMALDG``): proof
+    that bf16 K1 at those head dims runs the Hopper design. Returns the count
+    of each instruction per instantiation."""
+    found = fc.sass_op_counts(SM90_KERNEL, ("HGMMA", "UTMALDG"))
+    print(f"sass {SM90_KERNEL}: {json.dumps(found)}", flush=True)
+    if len(found) != 4 or not all(n["HGMMA"] and n["UTMALDG"] for n in found.values()):
+        raise AssertionError(f"{SM90_KERNEL}: want 4 instantiations with HGMMA and UTMALDG, "
+                             f"found {found}")
+    return found
+
+
+def check_fwd_edges(fc) -> dict:
+    """K1 alone against its plain version, bf16 at D 64 and 128, on the
+    edges of the Hopper kernel's 128-row tiles: S 64, 192 and 320 (a ragged
+    last tile), causal and not; windows 37, 100, 128 and 200 at S 320 and
+    1024; B·H 1 and 256. The limits are those of ``check_case``. Returns
+    max |err| of o and lse per case."""
+    import torch
+
+    cases = []
+    for d in (64, 128):
+        cases += [(4, s, d, 0, causal) for s in (64, 192, 320) for causal in (True, False)]
+        cases += [(2, s, d, w, True) for s in (320, 1024) for w in (37, 100, 128, 200)]
+        cases += [(bh, 512, d, 0, causal) for bh in (1, 256) for causal in (True, False)]
+    out = {}
+    for bh, s, d, window, causal in cases:
+        q, k, v, _ = _inputs(bh, s, d, torch.bfloat16, seed=6)
+        o, lse = fc.flash_fwd(q, k, v, window, causal)
+        torch.cuda.synchronize()
+        po, plse = fc.flash_fwd_plain(q, k, v, window, causal)
+        label = f"fwd bh{bh} s{s} d{d} w{window} {'causal' if causal else 'full'}"
+        out[label] = {"o": _close(f"{label} o", o, po, TOL["bf16_out"], REL["bf16"])[0],
+                      "lse": _close(f"{label} lse", lse, plse, TOL["fp32_out"], REL["fp32"])[0]}
+    worst = {n: max(e[n] for e in out.values()) for n in ("o", "lse")}
+    print(f"kernels K1 tile edges: {len(out)} cases, max |err| o {worst['o']:.3e}, "
+          f"lse {worst['lse']:.3e}", flush=True)
+    return out
+
+
+def _library_bwd_ms(q, k, v, do, shape, causal: bool):
+    """Time of the library's flash-attention backward (dq, dk, dv) on the
+    outputs of its own forward, same data, [B, H, S, D] views; or None with
+    the reason when this torch has no such op."""
+    import torch
+
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention
+    bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    try:
+        ql, kl, vl, dol = (x.view(*shape) for x in (q, k, v, do))
+        o, lse, cq, ck, mq, mk, seed, offset = fwd(ql, kl, vl, 0.0, causal, False)[:8]
+        ms = _device_ms(lambda: bwd(dol, ql, kl, vl, o, lse, cq, ck, mq, mk, 0.0, causal, seed,
+                                    offset))
+        return ms, str(bwd.default._schema)
+    except (RuntimeError, TypeError, AttributeError) as e:
+        print(f"library backward not timed: {e}", flush=True)
+        return None, str(e)
 
 
 def check_unbuilt_head_dim(fc) -> dict:
@@ -285,6 +371,7 @@ def phase_kernels(res: dict) -> None:
             (4, 192, 16, f32, 20, True), (4, 192, 32, f32, 0, True),
             (4, 256, 32, f32, 0, False)):
         check_case(fc, bh, s, d, dtype, window, seed=1, causal=causal)
+    res["fwd_edges"] = check_fwd_edges(fc)
     res["lse_backward"] = check_lse_backward(fc)
     res["unbuilt_head_dim"] = check_unbuilt_head_dim(fc)
 
@@ -295,25 +382,25 @@ def phase_kernels(res: dict) -> None:
     of, lsef = fc.flash_fwd(qf, kf, vf, causal=False)
     deltaf = fc.flash_delta(of, dof)
     t = {
-        "flash_fwd": _time_ms(lambda: fc.flash_fwd(q, k, v)),
-        "flash_bwd_dq": _time_ms(lambda: fc.flash_bwd_dq(q, k, v, do, lse, delta)),
-        "flash_bwd_dkv": _time_ms(lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta)),
-        "flash_fwd_full": _time_ms(lambda: fc.flash_fwd(qf, kf, vf, causal=False)),
-        "flash_bwd_dq_full": _time_ms(
+        "flash_fwd": _device_ms(lambda: fc.flash_fwd(q, k, v)),
+        "flash_bwd_dq": _device_ms(lambda: fc.flash_bwd_dq(q, k, v, do, lse, delta)),
+        "flash_bwd_dkv": _device_ms(lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta)),
+        "flash_fwd_full": _device_ms(lambda: fc.flash_fwd(qf, kf, vf, causal=False)),
+        "flash_bwd_dq_full": _device_ms(
             lambda: fc.flash_bwd_dq(qf, kf, vf, dof, lsef, deltaf, causal=False)),
-        "flash_bwd_dkv_full": _time_ms(
+        "flash_bwd_dkv_full": _device_ms(
             lambda: fc.flash_bwd_dkv(qf, kf, vf, dof, lsef, deltaf, causal=False)),
     }
     slow = dict(iters=3, warmup=1)
     plain = {
-        "flash_fwd": _time_ms(lambda: fc.flash_fwd_plain(q, k, v), **slow),
-        "flash_bwd_dq": _time_ms(lambda: fc.flash_bwd_dq_plain(q, k, v, do, lse, delta), **slow),
-        "flash_bwd_dkv": _time_ms(lambda: fc.flash_bwd_dkv_plain(q, k, v, do, lse, delta),
+        "flash_fwd": _device_ms(lambda: fc.flash_fwd_plain(q, k, v), **slow),
+        "flash_bwd_dq": _device_ms(lambda: fc.flash_bwd_dq_plain(q, k, v, do, lse, delta), **slow),
+        "flash_bwd_dkv": _device_ms(lambda: fc.flash_bwd_dkv_plain(q, k, v, do, lse, delta),
                                   **slow),
-        "flash_fwd_full": _time_ms(lambda: fc.flash_fwd_plain(qf, kf, vf, causal=False), **slow),
-        "flash_bwd_dq_full": _time_ms(
+        "flash_fwd_full": _device_ms(lambda: fc.flash_fwd_plain(qf, kf, vf, causal=False), **slow),
+        "flash_bwd_dq_full": _device_ms(
             lambda: fc.flash_bwd_dq_plain(qf, kf, vf, dof, lsef, deltaf, causal=False), **slow),
-        "flash_bwd_dkv_full": _time_ms(
+        "flash_bwd_dkv_full": _device_ms(
             lambda: fc.flash_bwd_dkv_plain(qf, kf, vf, dof, lsef, deltaf, causal=False), **slow),
     }
     # Library yardstick on the same data, [B, H, S, D] views (timed only).
@@ -321,8 +408,8 @@ def phase_kernels(res: dict) -> None:
     dol = do.view(B, H, S, D)
     qfl, kfl, vfl = (x.view(1, RB, S, D) for x in (qf, kf, vf))
     library = {
-        "flash_fwd": _time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)),
-        "flash_fwd_full": _time_ms(
+        "flash_fwd": _device_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)),
+        "flash_fwd_full": _device_ms(
             lambda: F.scaled_dot_product_attention(qfl, kfl, vfl, is_causal=False)),
     }
 
@@ -330,8 +417,27 @@ def phase_kernels(res: dict) -> None:
         out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
         torch.autograd.grad(out, (ql, kl, vl), dol)
 
-    sdpa_both = _time_ms(sdpa_fwd_bwd)
-    ours_both = _time_ms(lambda: fc.flash_bwd(q, k, v, *fc.flash_fwd(q, k, v), do))
+    sdpa_both = _device_ms(sdpa_fwd_bwd)
+    ours_both = _device_ms(lambda: fc.flash_bwd(q, k, v, *fc.flash_fwd(q, k, v), do))
+    # K1 causal at the ring shard, where train_ring's diagonal hops run it.
+    ring_causal = {"ms": _device_ms(lambda: fc.flash_fwd(qf, kf, vf)),
+                   "library_ms": _device_ms(
+                       lambda: F.scaled_dot_product_attention(qfl, kfl, vfl, is_causal=True)),
+                   "bound_ms": kernel_bounds(RB, S, D, 0, 2)["flash_fwd"]["bound_ms"],
+                   "shape": [RB, S, D]}
+    res["flash_fwd_ring_shard"] = ring_causal
+    # K2 + K3 against the library's flash backward, causal at the training
+    # shape and non-causal at the ring shard.
+    bwd_pair = {}
+    for key, args, shape, causal in (
+            ("causal", (q, k, v, do, lse, delta), (B, H, S, D), True),
+            ("full", (qf, kf, vf, dof, lsef, deltaf), (1, RB, S, D), False)):
+        lib_ms, schema = _library_bwd_ms(*args[:4], shape, causal)
+        kernels_ms = t[f"flash_bwd_dq{'' if causal else '_full'}"] + \
+            t[f"flash_bwd_dkv{'' if causal else '_full'}"]
+        bwd_pair[key] = {"kernels_ms": kernels_ms, "library_ms": lib_ms,
+                         "library_op": schema, "shape": list(shape)}
+    res["backward_pair"] = bwd_pair
     bounds = kernel_bounds(B * H, S, D, 0, 2)
     bounds.update({f"{n}_full": b for n, b in
                    kernel_bounds(RB, S, D, 0, 2, causal=False).items()})
@@ -341,7 +447,7 @@ def phase_kernels(res: dict) -> None:
                      f"flash_bwd_dq{suffix}": m["dq"],
                      f"flash_bwd_dkv{suffix}": max(m["dk"], m["dv"])})
     res["kernels"] = [
-        {"name": name, "route": "cuda", "source": "tpu_engine_torch/csrc/flash_attention.cu",
+        {"name": name, "route": "cuda", "source": SOURCE[name.removesuffix("_full")],
          "replaces": REPLACES[name.removesuffix("_full")], "launches": None,
          "max_abs_err": errs[name], "ms": t[name], "plain_ms": plain[name],
          "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
@@ -356,6 +462,12 @@ def phase_kernels(res: dict) -> None:
               f"bound {kr['bound_ms']:.4f} by {kr['bound_by']}, library {kr['library_ms']})",
               flush=True)
     print(f"time fwd+bwd: kernels {ours_both:.4f} ms, sdpa {sdpa_both:.4f} ms", flush=True)
+    print(f"time flash_fwd (causal) {ring_causal['shape']}: {ring_causal['ms']:.4f} ms "
+          f"(bound {ring_causal['bound_ms']:.4f}, library {ring_causal['library_ms']:.4f})",
+          flush=True)
+    for key, row in bwd_pair.items():
+        print(f"time K2+K3 {key} {row['shape']}: kernels {row['kernels_ms']:.4f} ms, "
+              f"library {row['library_ms']}", flush=True)
 
 
 def phase_model(res: dict) -> None:
@@ -473,7 +585,8 @@ def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict) -> 
     flops_tok = tfm.train_flops_per_token(prog.model_config, cfg.seq_len)
     out = res[key] = {
         "model": cfg.model_name, "micro_batch": cfg.micro_batch_size, "seq_len": cfg.seq_len,
-        "sequence": cfg.sequence, "steps": steps, "losses": losses, "grad_norms": norms,
+        "sequence": cfg.sequence, "steps": steps,
+        "accum": cfg.gradient_accumulation_steps, "losses": losses, "grad_norms": norms,
         "step_ms_each": [t * 1e3 for t in times],
         "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
         "mfu": tokens / step_s * flops_tok / PEAK_BF16_FLOPS,
@@ -730,8 +843,10 @@ def main() -> int:
         log = Path(str(lib) + ".log").read_text()
         res["build"] = {"library": str(lib.relative_to(ROOT))}
         for line in log.splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill", "error")):
+            if any(w in line for w in ("entry function", "registers", "spill", "error",
+                                       "setmaxnreg", "==")):
                 print(f"ptxas: {line.strip()}", flush=True)
+        res["build"]["sass"] = check_sm90_sass(fc)
         fc._load()
 
     run("build", build)
@@ -742,10 +857,14 @@ def main() -> int:
         run("train", phase_train, res, args.steps)
         run("ring", phase_ring, res)
         run("train_ring", phase_train_ring, res, args.steps)
-    # Launches on the main paths, each counted from 0 around its own run.
+    # Launches per training step on the main paths, each counted from 0
+    # around its own run of steps x accumulation microbatches.
     for kr in res.get("kernels", []):
-        kr["launches_by_path"] = {p: res.get(p, {}).get("launches", {}).get(kr["name"])
-                                  for p in ("train", "train_ring")}
+        kr["launches_by_path"] = {}
+        for p in ("train", "train_ring"):
+            path = res.get(p, {})
+            n = path.get("launches", {}).get(kr["name"])
+            kr["launches_by_path"][p] = None if n is None else n // (path["steps"] * path["accum"])
         kr["launches"] = sum(n or 0 for n in kr["launches_by_path"].values())
     print(f"phases: {json.dumps(res.get('phase_s', {}))}", flush=True)
 

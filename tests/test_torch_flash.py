@@ -43,6 +43,25 @@ def test_forward_and_lse_match_pallas(S, D, W):
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,W,causal", [
+    (192, 0, True), (192, 37, True), (192, 100, True), (192, 0, False),
+    (320, 0, True), (320, 37, True), (320, 100, True), (320, 0, False),
+])
+def test_forward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
+    """The plain version the card holds the Hopper K1 to, at the edges of
+    its 128-row tiles: S 192 and 320 leave a ragged last tile, and windows
+    37 and 100 cut through tiles. Against the Pallas forward (interpret
+    mode, 64-row blocks) in fp32."""
+    q, k, v = _qkv(13, (2, S, D), (2, S, D))
+    jo, jlse = _flash_pallas._flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        _flash_pallas._pick_block(S), True, W, causal=causal)
+    to, tlse = _flash_cuda.flash_fwd(_t(q), _t(k), _t(v), W, causal)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("S,H,KV,D,W", [
     (64, 2, 2, 16, 0), (128, 4, 2, 16, 0), (128, 2, 2, 64, 32), (64, 4, 2, 64, 32),
 ])
@@ -131,11 +150,24 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
         _flash_cuda.flash_fwd(meta, meta, meta)
 
 
+def test_launch_errors_raise_with_their_cause():
+    """Every nonzero code of a C entry raises; the Hopper K1's tensor-map
+    failures (negative codes) name the call that refused."""
+    _flash_cuda._check("flash_fwd", 0)
+    for code in (-1, -2):
+        with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+            _flash_cuda._check("flash_fwd", code)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        _flash_cuda._check("flash_fwd", 1)
+
+
 def test_library_path_is_keyed_on_the_sources():
     path = _flash_cuda.library_path()
     assert path.parent == _flash_cuda.BUILD_DIR
     assert path.name.startswith("libtpe_flash_") and path.suffix == ".so"
     assert _flash_cuda.library_path() == path
+    assert {src.name for src in _flash_cuda.SOURCES} == {"flash_attention.cu", "flash_fwd_sm90.cu"}
+    assert all(src.exists() for src in _flash_cuda.SOURCES)
 
 
 # -- the non-causal kernels and the (o, lse) entry of ring attention ---------

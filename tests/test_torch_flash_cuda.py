@@ -68,6 +68,30 @@ def test_kernels_match_plain(cuda, bh, s, d, dtype, window, causal):
         _assert_close(a, b, grad_tol, REL[dtype])
 
 
+# The Hopper K1 (bf16, D 64 and 128) at the edges of its 128-row tiles:
+# S 64, 192 and 320 (a ragged last tile), causal and not; windows 37, 100,
+# 128 and 200 at S 320 and 1024; B·H 1 and 256.
+_EDGES = ([(4, s, d, 0, c) for d in (64, 128) for s in (64, 192, 320) for c in (True, False)]
+          + [(2, s, d, w, True) for d in (64, 128) for s in (320, 1024)
+             for w in (37, 100, 128, 200)]
+          + [(bh, 512, d, 0, c) for d in (64, 128) for bh in (1, 256) for c in (True, False)])
+
+
+@pytest.mark.parametrize("bh,s,d,window,causal", _EDGES)
+def test_hopper_forward_at_tile_edges(cuda, bh, s, d, window, causal):
+    q, k, v, _ = _inputs(bh, s, d, torch.bfloat16, seed=6)
+    o, lse = fc.flash_fwd(q, k, v, window, causal)
+    po, plse = fc.flash_fwd_plain(q, k, v, window, causal)
+    _assert_close(o, po, TOL[torch.bfloat16][0], REL[torch.bfloat16])
+    _assert_close(lse, plse, TOL[torch.float32][0], REL[torch.float32])
+
+
+def test_hopper_forward_is_built_from_wgmma_and_tma(cuda):
+    found = fc.sass_op_counts("flash_fwd_sm90", ("HGMMA", "UTMALDG"))
+    assert len(found) == 4, found  # D 64 and 128, causal and not
+    assert all(n["HGMMA"] and n["UTMALDG"] for n in found.values()), found
+
+
 def _counts(**nonzero):
     return {name: nonzero.get(name, 0) for name in fc.launches}
 

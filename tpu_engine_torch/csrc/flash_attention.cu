@@ -48,8 +48,12 @@
 // product, so P and dS never touch shared memory. The tiles of the inner
 // loop are double-buffered with cp.async, so the next tile loads while this
 // one is multiplied. Tensor cores at this rate are limited by the shared-
-// memory reads that feed mma.sync (about one ldmatrix per two mma); wgmma,
-// TMA and warp specialisation, which remove that limit, are left for later.
+// memory reads that feed mma.sync (about one ldmatrix per two mma).
+//
+// K1 in bf16 at D 64 and 128 (every training head but the tiny configs')
+// is not this kernel: tpe_flash_fwd sends it to flash_fwd_sm90.cu, a
+// redesign for Hopper with TMA, wgmma and warp specialisation. The bf16 K1
+// below serves D 16 and 32; K2 and K3 keep this design at every head dim.
 //
 // fp32 keeps the same tiling with plain fp32 FMA loops over tiles staged in
 // shared memory (never TF32), so that the fp32 bounds hold; that path is for
@@ -61,6 +65,11 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+// K1 for bf16 at D 64 and 128 (flash_fwd_sm90.cu).
+extern "C" int tpe_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, void* counters, int bh, int s, int d, int window,
+                                  int causal, void* stream);
 
 namespace {
 
@@ -253,12 +262,9 @@ __device__ __forceinline__ void q_major_range(int n_blk, int window, int& i, int
   hi = kCausal ? i : n_blk - 1;
 }
 
-// At D 128, a minimum of one block per SM: under the default heuristics
-// ptxas gives the causal instantiation 168 registers and a spill; with it,
-// 196 and none. Below D 128 the minimum is 0, which leaves the default
-// allocation (more registers there would cost a resident block per SM).
+// Instantiated for D 16 and 32 only (D 64 and 128: flash_fwd_sm90.cu).
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 0)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                int S, int window, float scale) {
@@ -853,14 +859,18 @@ int launch(K kernel, size_t smem, int bh, int s, cudaStream_t st, Args... args) 
 }
 
 template <int D, bool C>
-int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-        int s, int window, cudaStream_t st) {
+int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void* lse,
+        void* counters, int bh, int s, int window, cudaStream_t st) {
   const float sc = softmax_scale(D);
   float* l = static_cast<float*>(lse);
-  if (is_bf16)
-    return launch(flash_fwd_bf16<D, C>, SmemBf16<D>::fwd, bh, s, st,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<bf16*>(o), l, s, window, sc);
+  if (is_bf16) {
+    if constexpr (D >= 64)  // the Hopper kernel, and no other (no fallback)
+      return tpe_flash_fwd_sm90(q, k, v, o, lse, counters, bh, s, D, window, C, st);
+    else
+      return launch(flash_fwd_bf16<D, C>, SmemBf16<D>::fwd, bh, s, st,
+                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<bf16*>(o), l, s, window, sc);
+  }
   return launch(flash_fwd_f32<D, C>, SmemF32<D>::fwd, bh, s, st, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v),
                 static_cast<float*>(o), l, s, window, sc);
@@ -939,13 +949,16 @@ extern "C" {
 // Each entry returns the cudaError_t of its launch (0 = success); a head dim
 // other than 16, 32, 64 or 128 or a bad shape is refused before any launch.
 
-int tpe_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                  int s, int d, int window, int causal, int is_bf16, void* stream) {
+// counters: the Hopper K1's tile counters (bf16, d 64 and 128: two ints,
+// see flash_fwd_sm90.cu); the other forward kernels do not read them.
+int tpe_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                  void* counters, int bh, int s, int d, int window, int causal, int is_bf16,
+                  void* stream) {
   if (bad_shape(bh, s, window, causal)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return dispatch(d, causal != 0, [&](auto var) {
     using V = decltype(var);
-    return fwd<V::D, V::causal>(is_bf16, q, k, v, o, lse, bh, s, window, st);
+    return fwd<V::D, V::causal>(is_bf16, q, k, v, o, lse, counters, bh, s, window, st);
   });
 }
 

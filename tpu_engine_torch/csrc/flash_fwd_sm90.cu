@@ -1,0 +1,712 @@
+// K1 for Hopper (sm_90a): the bf16 flash-attention forward at head dims 64
+// and 128, causal (optionally sliding-window) and non-causal, built on TMA,
+// wgmma and warp specialisation. tpe_flash_fwd (flash_attention.cu) sends
+// every bf16 call at D 64 or 128 here and nowhere else; fp32 and the bf16
+// head dims 16 and 32 keep flash_attention.cu's mma.sync kernel.
+//
+// It replaces _fwd_kernel (tpu_engine/ops/_flash_pallas.py:117, launched by
+// _flash_fwd through pl.pallas_call). Per (bh, row) it computes
+// o = softmax(q k^T D^-1/2) v in bf16 and lse in fp32 (natural log), with
+// the Pallas kernel's base-2 online softmax and its running-max floor -1e6.
+//
+// Bound: tensor-core operations. It does 2 products of the visible (q, k)
+// pairs x D: at the training shape (BH 64, S 2048, D 128, causal) 6.9e10
+// FLOP, 69.5 us at 989 TFLOP/s, against about 40 us to move q, k, v, o and
+// lse once. Only wgmma reaches that rate: mma.sync fed by ldmatrix stalls on
+// shared-memory reads and on the copies its own warps issue.
+//
+// What the design does about it:
+// - Work: one 128-row Q tile of one head at a time, with the K tiles it
+//   sees. Persistent CTAs, one per SM, take tiles from a counter in device
+//   memory, longest first, in chunks of heads whose q, k and v fit in L2
+//   together (so a head's K and V are read from HBM about once).
+// - Roles: 384 threads, three warpgroups. The producer warpgroup gives up
+//   registers (setmaxnreg.dec to 40); one of its threads issues every TMA
+//   load: the Q tile, then 128-key K and V tiles into two-stage rings, with
+//   a full and an empty mbarrier per buffer (K and V apart, so S = Q K^T can
+//   start before V lands). It loads the next tile's Q and K while the
+//   consumers finish the current one. The two consumer warpgroups take the
+//   registers (setmaxnreg.inc to 232) and own 64 Q rows each; they issue no
+//   copy and no __syncthreads.
+// - TMA: q, k, v and o are 3-D tensor maps [BH, S, D], so rows past S in a
+//   ragged last tile read as zeros, are never taken from the next head, and
+//   are never written. A box is [rows][64 columns] with the 128-byte
+//   swizzle, so a D 128 tile is two boxes. The maps are __grid_constant__
+//   parameters, encoded on each call by cuTensorMapEncodeTiled, which is
+//   looked up with cudaGetDriverEntryPoint: the library needs no link
+//   against libcuda.
+// - wgmma: S = Q K^T is m64n128k16 with both operands K-major in shared
+//   memory. O += P V takes P from registers: the fp32 S accumulator rounded
+//   pairwise to bf16 is the A operand, since the accumulator and the A
+//   fragment share one layout; V is the B operand, MN-major, read with the
+//   transpose bit. Each iteration issues S of K tile j and P V of tile
+//   j - 1 together and runs tile j's softmax while P V is in flight; the two
+//   warpgroups take turns at issuing (named barriers), so one's softmax
+//   overlaps the other's products. A buffer goes back to the producer only
+//   after the product that read it has completed.
+// - Softmax in registers, base 2, one FMA and one exp2 per score; the row
+//   max is reduced over the four lanes that share an accumulator row. Only
+//   the diagonal tile, the window-edge tiles and a ragged last K tile
+//   (zero-filled keys score 0, not -inf) evaluate the mask, and no tile
+//   above the diagonal or outside the window is visited.
+// - Epilogue: o = acc / l in bf16, staged in shared memory and written by a
+//   TMA store that runs on while the next tile starts; lse = m ln2 + log l,
+//   with l floored at 1e-30.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBlockM = 128;   // Q rows of a CTA, 64 per consumer warpgroup
+constexpr int kBlockN = 128;   // keys of a K/V tile: the n of the S product
+constexpr int kStages = 2;     // depth of the K/V ring
+constexpr int kThreads = 384;  // producer and two consumer warpgroups
+constexpr int kBoxCols = 64;   // bf16 columns of a 128-byte swizzled row
+constexpr int kBoxBytes = kBlockN * 128;  // one [128 rows][64 columns] box
+constexpr int kProducerRegs = 40;   // 128 x 40 + 256 x 232 = 384 x 168
+constexpr int kConsumerRegs = 232;
+constexpr float kNegInf = -1e30f;
+constexpr float kM2Floor = -1e6f;  // running-max floor (base-2 units)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+static_assert(kBlockM == kBlockN, "the Q tile and a K or V tile share one size");
+
+// Shared memory, in bytes from a 1024-byte-aligned base (the 128-byte
+// swizzle repeats every 1024 bytes, and the wgmma descriptors assume it):
+// the Q tile, then K and V of each stage, the o tile staged for its TMA
+// store, then the mbarriers (Q full and empty; K and V full and empty, one
+// per stage) and the tile slot.
+template <int D>
+struct Smem {
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kTile = kBoxes * kBoxBytes;
+  static constexpr int kOut = kTile * (1 + 2 * kStages);  // o staging, 64 rows per warpgroup
+  static constexpr int kBars = kOut + kTile;
+  static constexpr int kBytes = kBars + 8 * (3 + 4 * kStages) + 1024;  // + tile slot, alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mbarriers and TMA -----------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Waits for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One box of a 3-D map at (column c0, row c1, head c2) into shared memory,
+// completing `bar`'s transaction count by the box's bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// One box of shared memory to a 3-D map at (column c0, row c1, head c2);
+// rows past the map's bounds are not written. Tracked as a bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// --- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// K-major operand (Q, K): 8-row groups 1024 bytes apart; the leading offset
+// is unused with this swizzle. A k16 slice inside a box starts 32 bytes on.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+// MN-major operand (V as [keys][D]): 64-column boxes kBoxBytes apart, 8-key
+// groups 1024 bytes apart. A k16 slice (16 keys) starts 2048 bytes on.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, kBoxBytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products that own them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) asm volatile("" : "+f"(r[x])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][N]) {
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+#pragma unroll
+    for (int y = 0; y < N; ++y) asm volatile("" : "+r"(r[x][y])::"memory");
+}
+
+#define TPE_ACC8(d, i)                                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], both from shared memory,
+// K-major; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24), TPE_ACC8(d, 32),
+        TPE_ACC8(d, 40), TPE_ACC8(d, 48), TPE_ACC8(d, 56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64 x N] += A[64 x 16] * B[16 x N]: A as bf16 register fragments, B
+// MN-major in shared memory (transpose bit set). N = 128 and 64.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24), TPE_ACC8(d, 32),
+        TPE_ACC8(d, 40), TPE_ACC8(d, 48), TPE_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef TPE_ACC8
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// --- the kernel --------------------------------------------------------------
+
+// Named barriers 1 and 2 order the two consumer warpgroups' turns at issuing
+// their products (0 is __syncthreads); 3 and 4 gather each warpgroup around
+// its o staging.
+constexpr int kTurnBar = 1;
+constexpr int kOutBar = 3;
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Accumulator layout of wgmma m64nN, per thread (warp w of the warpgroup,
+// lane = 4 g + t): d[4n + e] is row 16 w + g + 8 (e >> 1), column
+// 8 n + 2 t + (e & 1). The bf16 A fragment of a k16 slice holds the same
+// positions of two neighbouring n8 tiles, so S slice kt is P's A operand.
+
+// One step of the online softmax on the S tile of K tile j: mask it if the
+// tile needs it, raise the running max m (base 2, floored), turn s into P
+// in place, rescale this lane's share of l, and return the factor corr by
+// which the output accumulator must be rescaled.
+template <bool kCausal>
+__device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], bool masked, int j, int row0,
+                                             int t, int S, int window, float scale2) {
+  if (masked) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = j * kBlockN + n * 8 + 2 * t + (e & 1);
+        const int qpos = row0 + 8 * (e >> 1);
+        bool vis = kpos < S;  // keys past S were zero-filled: they score 0
+        if (kCausal) vis = vis && qpos >= kpos && (window == 0 || qpos - kpos < window);
+        if (!vis) s[4 * n + e] = kNegInf;
+      }
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * n + e]);
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the four lanes of a quad share a row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(fmaxf(m[r], mx[r] * scale2), kM2Floor);
+    corr[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // masked scores underflow to 0
+      const float p = fast_exp2(fmaf(s[4 * n + e], scale2, neg_m[e >> 1]));
+      s[4 * n + e] = p;
+      l[e >> 1] += p;
+    }
+}
+
+// P (fp32, the S accumulator's layout) rounded to bf16 A fragments.
+__device__ __forceinline__ void to_a(uint32_t (&pa)[8][4], const float (&s)[64]) {
+#pragma unroll
+  for (int kt = 0; kt < 8; ++kt)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) pa[kt][h] = pack_bf16(s[8 * kt + 2 * h], s[8 * kt + 2 * h + 1]);
+}
+
+// The tiles of a launch: Q tile i of head bh, with the K tiles [lo, hi] it
+// sees (_n_kv_blocks / _k_index). They are numbered in chunks of heads whose
+// q, k and v fit in L2 together, so that the Q tiles sharing a head's K and
+// V run at about the same time; inside a chunk, longest first (causal: the
+// last Q tiles first). Persistent CTAs take the next number from a counter
+// in device memory, so each SM's share ends close to the mean; the last CTA
+// to find none left sets the counter back to zero.
+template <bool kCausal>
+struct Schedule {
+  int n_blk, bh_count, chunk, total, window;
+  __device__ Schedule(int S, int BH, int heads_per_chunk, int w)
+      : n_blk((S + kBlockN - 1) / kBlockN), bh_count(BH), chunk(heads_per_chunk),
+        total(BH * n_blk), window(w) {}
+  __device__ void unpack(int u, int& i, int& bh, int& lo, int& hi) const {
+    const int first_head = u / (chunk * n_blk) * chunk;
+    const int heads = min(chunk, bh_count - first_head);
+    const int w = u - first_head * n_blk;
+    bh = first_head + w % heads;
+    i = kCausal ? n_blk - 1 - w / heads : w / heads;
+    lo = 0;
+    hi = n_blk - 1;
+    if (kCausal) {
+      hi = i;
+      const int first = i * kBlockM - (window - 1);
+      lo = window != 0 && first > 0 ? first / kBlockN : 0;
+    }
+  }
+};
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse,
+               int* __restrict__ counters, int S, int BH, int heads_per_chunk, int window,
+               float scale2) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  auto sK = [&](int st) { return base + L::kTile * (1 + 2 * st); };
+  auto sV = [&](int st) { return base + L::kTile * (2 + 2 * st); };
+  // mbarriers: Q full and empty; K full, V full, K empty, V empty per stage.
+  const uint32_t full_q = base + L::kBars, empty_q = full_q + 8;
+  auto full_k = [&](int st) { return full_q + 8 * (2 + st); };
+  auto full_v = [&](int st) { return full_q + 8 * (2 + kStages + st); };
+  auto empty_k = [&](int st) { return full_q + 8 * (2 + 2 * kStages + st); };
+  auto empty_v = [&](int st) { return full_q + 8 * (2 + 3 * kStages + st); };
+  // The producer passes each tile's number (-1: none left) to the consumers
+  // in this slot, written before the Q load that full_q reports.
+  const uint32_t slot = full_q + 8 * (2 + 4 * kStages);
+  volatile int* tile_slot = reinterpret_cast<volatile int*>(smem_raw + (slot - smem_u32(smem_raw)));
+  const Schedule<kCausal> sched(S, BH, heads_per_chunk, window);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 8);  // one arrival per consumer warp
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty_k(st), 8);
+      mbar_init(empty_v(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------- producer: one thread issues every load ----------------
+    // Per tile, in order of use: Q; K of tile lo; then K of tile j and V of
+    // tile j - 1; then V of tile hi. The ring's position `it` runs on across
+    // the CTA's tiles, so the next tile's Q and first K load while the
+    // consumers finish this one.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int r = 0;; ++r) {
+        mbar_wait(empty_q, (r & 1) ^ 1);  // both warpgroups are done with Q
+        const int u = atomicAdd(&counters[0], 1);
+        *tile_slot = u < sched.total ? u : -1;
+        if (u >= sched.total) {
+          mbar_arrive(full_q);  // no load: wakes the consumers to stop
+          // The last CTA to run out zeroes the counters for the next launch.
+          if (atomicAdd(&counters[1], 1) == static_cast<int>(gridDim.x) - 1) {
+            atomicExch(&counters[0], 0);
+            atomicExch(&counters[1], 0);
+          }
+          break;
+        }
+        int i, bh, lo, hi;
+        sched.unpack(u, i, bh, lo, hi);
+        auto load = [&](const CUtensorMap* map, uint32_t full, uint32_t empty, uint32_t dst,
+                        int round, int row) {
+          mbar_wait(empty, (round & 1) ^ 1);  // the first round passes
+          mbar_expect_tx(full, L::kTile);
+          for (int b = 0; b < L::kBoxes; ++b)
+            tma_load(dst + b * kBoxBytes, map, full, b * kBoxCols, row, bh);
+        };
+        auto load_k = [&](int n) {  // the n-th K tile of the ring, tile j = lo + n - it
+          const int st = n % kStages;
+          load(&k_map, full_k(st), empty_k(st), sK(st), n / kStages, (lo + n - it) * kBlockN);
+        };
+        auto load_v = [&](int n) {
+          const int st = n % kStages;
+          load(&v_map, full_v(st), empty_v(st), sV(st), n / kStages, (lo + n - it) * kBlockN);
+        };
+        mbar_expect_tx(full_q, L::kTile);
+        for (int b = 0; b < L::kBoxes; ++b)
+          tma_load(sQ + b * kBoxBytes, &q_map, full_q, b * kBoxCols, i * kBlockM, bh);
+        load_k(it);
+        for (int n = it + 1; n <= it + hi - lo; ++n) {
+          load_k(n);
+          load_v(n - 1);
+        }
+        load_v(it + hi - lo);
+        it += hi - lo + 1;
+      }
+    }
+  } else {
+    // ---------------- consumers: 64 Q rows per warpgroup ----------------
+    // Each iteration issues S of tile j and P V of tile j - 1 together, runs
+    // tile j's softmax while P V is in flight, and hands the tensor cores to
+    // the other warpgroup between the issue and the softmax.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, lane = tid % 32, t = lane % 4;
+    const int row_in_tile = c * 64 + (tid / 32) * 16 + lane / 4;  // and + 8
+    const bool ragged = S % kBlockN != 0;
+    const uint32_t sQc = sQ + c * 64 * 128;
+    const uint32_t sOc = base + L::kOut + c * (L::kTile / 2);  // [boxes][64 rows][128 B]
+    auto issue_s = [&](float (&s)[64], int st) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n128(s, kmajor_desc(sQc + off), kmajor_desc(sK(st) + off), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](float (&acc)[D / 2], const uint32_t (&pa)[8][4], int st) {
+#pragma unroll
+      for (int kt = 0; kt < 8; ++kt) wgmma_rs(acc, pa[kt], mnmajor_desc(sV(st) + kt * 16 * 128));
+      wgmma_commit();
+    };
+    auto release = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);  // this warp is done with the buffer
+    };
+
+    if (c == 1) named_arrive(kTurnBar);  // warpgroup 0 takes the first turn
+    int it = 0;
+    for (int r = 0;; ++r) {
+      mbar_wait(full_q, r & 1);
+      const int u = *tile_slot;
+      if (u < 0) break;
+      int i, bh, lo, hi;
+      sched.unpack(u, i, bh, lo, hi);
+      const int row0 = i * kBlockM + row_in_tile;
+      auto masked = [&](int j) {
+        return (kCausal && (j == i || (window != 0 && (i - j + 1) * kBlockN - 1 >= window))) ||
+               (ragged && j == sched.n_blk - 1);
+      };
+      float acc[D / 2];
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) acc[x] = 0.0f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};  // l: this lane's share
+      float s[64], corr[2];
+      uint32_t pa[8][4];
+
+      mbar_wait(full_k(it % kStages), (it / kStages) & 1);
+      named_sync(kTurnBar + c);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_s(s, it % kStages);
+      named_arrive(kTurnBar + (c ^ 1));
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(empty_k(it % kStages));
+      if (lo == hi) release(empty_q);
+      softmax_step<kCausal>(s, m, l, corr, masked(lo), lo, row0, t, S, window, scale2);
+      to_a(pa, s);
+
+      for (int j = lo + 1, n = it + 1; j <= hi; ++j, ++n) {
+        const int st = n % kStages, pst = (n - 1) % kStages;
+        mbar_wait(full_k(st), (n / kStages) & 1);
+        named_sync(kTurnBar + c);
+        fence_regs(acc);
+        fence_regs(pa);
+        wgmma_fence();
+        issue_s(s, st);
+        mbar_wait(full_v(pst), ((n - 1) / kStages) & 1);
+        issue_pv(acc, pa, pst);
+        named_arrive(kTurnBar + (c ^ 1));
+        wgmma_wait<1>();  // S of tile j is done; P V of tile j - 1 may not be
+        fence_regs(s);
+        release(empty_k(st));
+        if (j == hi) release(empty_q);
+        softmax_step<kCausal>(s, m, l, corr, masked(j), j, row0, t, S, window, scale2);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+        release(empty_v(pst));
+#pragma unroll
+        for (int x = 0; x < D / 2; ++x) acc[x] *= corr[(x >> 1) & 1];
+        to_a(pa, s);
+      }
+      const int last = it + hi - lo;
+      mbar_wait(full_v(last % kStages), (last / kStages) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv(acc, pa, last % kStages);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(empty_v(last % kStages));
+      it = last + 1;
+
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        l[h] = fmaxf(l[h], 1e-30f);
+      }
+      // o through shared memory, in the 128-byte swizzle of the o map, and
+      // one TMA store per box; the store runs on while the next tile starts.
+      if (tid == 0) tma_store_wait_read();  // the previous tile's store is out
+      warpgroup_sync(kOutBar + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r_local = (tid / 32) * 16 + lane / 4 + 8 * h;
+        const float inv = 1.0f / l[h];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          st_shared_u32(sOc + (n / 8) * 64 * 128 + r_local * 128 + (((n % 8) ^ (lane / 4)) * 16) +
+                            4 * t,
+                        pack_bf16(acc[4 * n + 2 * h] * inv, acc[4 * n + 2 * h + 1] * inv));
+        const int row = row0 + 8 * h;
+        if (t == 0 && row < S) lse[static_cast<size_t>(bh) * S + row] = m[h] * kLn2 + logf(l[h]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA
+      warpgroup_sync(kOutBar + c);
+      if (tid == 0)
+        for (int b = 0; b < L::kBoxes; ++b)
+          tma_store(&o_map, sOc + b * 64 * 128, b * kBoxCols, i * kBlockM + c * 64, bh);
+    }
+    if (c == 0) named_sync(kTurnBar);  // take warpgroup 1's last hand-over
+    if (tid == 0) tma_store_wait_read();  // shared memory outlives the last store's reads
+  }
+}
+
+// --- host side -----------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Codes outside cudaError_t's range, negative (the Python wrapper names them).
+constexpr int kErrNoEncoder = -1;  // libcuda has no cuTensorMapEncodeTiled
+constexpr int kErrEncode = -2;     // cuTensorMapEncodeTiled refused a tensor map
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A [BH, S, D] bf16 tensor as a 3-D map of [1][rows][64] boxes, 128-byte
+// swizzle; out-of-bounds rows read as zeros and are not written.
+bool make_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int bh, int s, int d, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(bf16),
+                                 static_cast<cuuint64_t>(s) * d * sizeof(bf16)};
+  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The current device's SM count, asked of the runtime once per device.
+cudaError_t sm_count(int* sms) {
+  static int known[64] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device < 64 && known[device] > 0) {
+    *sms = known[device];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess && device < 64) known[device] = *sms;
+  return e;
+}
+
+// Heads per chunk of the tile order: as many as keep the chunk's q, k and v
+// within kChunkBytes (about half of the H100's 50 MB L2), split evenly.
+constexpr double kChunkBytes = 24.0 * (1 << 20);
+
+int heads_per_chunk(int bh, int s, int d) {
+  const double head_bytes = 3.0 * s * d * sizeof(bf16);
+  const int chunks = static_cast<int>(std::ceil(bh * head_bytes / kChunkBytes));
+  return chunks <= 1 ? bh : (bh + chunks - 1) / chunks;
+}
+
+template <int D, bool kCausal>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int* counters,
+           int bh, int s, int window, cudaStream_t stream) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  CUtensorMap qm, km, vm, om;
+  if (!make_map(&qm, fn, q, bh, s, D, kBlockM) || !make_map(&km, fn, k, bh, s, D, kBlockN) ||
+      !make_map(&vm, fn, v, bh, s, D, kBlockN) || !make_map(&om, fn, o, bh, s, D, 64))
+    return kErrEncode;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_sm90<D, kCausal>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
+  if (attr != cudaSuccess) return attr;
+  // 1/sqrt(D) rounded once to fp32, as the JAX kernel's scale is, then to
+  // base-2 units.
+  const float scale2 = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))) * kLog2e;
+  // Persistent: one CTA per SM at most, each walking its share of the tiles.
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const int tiles = bh * ((s + kBlockM - 1) / kBlockM);
+  flash_fwd_sm90<D, kCausal><<<tiles < sms ? tiles : sms, kThreads, Smem<D>::kBytes, stream>>>(
+      qm, km, vm, om, static_cast<float*>(lse), counters, s, bh,
+      heads_per_chunk(bh, s, D), window, scale2);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, o: [bh, s, d] bf16, contiguous, 16-byte aligned; lse [bh, s] fp32;
+// counters: two ints, zero before the first launch and left zero by every
+// launch that completes; launches that share them must be ordered (one
+// stream). d is 64 or 128; the caller (tpe_flash_fwd) has checked the
+// shape. Returns the cudaError_t of the launch, or a negative code for a
+// tensor-map failure.
+extern "C" int tpe_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, void* counters, int bh, int s, int d, int window,
+                                  int causal, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  int* counter = static_cast<int*>(counters);
+  if (d == 64)
+    return causal ? launch<64, true>(q, k, v, o, lse, counter, bh, s, window, st)
+                  : launch<64, false>(q, k, v, o, lse, counter, bh, s, window, st);
+  if (d == 128)
+    return causal ? launch<128, true>(q, k, v, o, lse, counter, bh, s, window, st)
+                  : launch<128, false>(q, k, v, o, lse, counter, bh, s, window, st);
+  return cudaErrorInvalidValue;
+}

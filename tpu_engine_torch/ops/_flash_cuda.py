@@ -1,8 +1,10 @@
 """Wrappers of the three CUDA flash-attention kernels, their plain PyTorch
 versions, the launch counters, the loader, and the autograd functions.
 
-Kernels (``tpu_engine_torch/csrc/flash_attention.cu``), each replacing one
-Pallas kernel of ``tpu_engine/ops/_flash_pallas.py``:
+Kernels (``tpu_engine_torch/csrc/flash_attention.cu``; K1 in bf16 at head
+dims 64 and 128 is ``csrc/flash_fwd_sm90.cu``, TMA + wgmma + warp
+specialisation), each replacing one Pallas kernel of
+``tpu_engine/ops/_flash_pallas.py``:
 
 - K1 ``flash_fwd``      ← ``_fwd_kernel``      (o, lse) from (q, k, v);
 - K2 ``flash_bwd_dq``   ← ``_bwd_dq_kernel``   dq from (q, k, v, dO, lse, Δ);
@@ -19,7 +21,8 @@ PyTorch version of the same function; on a CUDA tensor it launches the
 kernel or raises — there is no fallback from the card to the plain path.
 
 The library is built at first use with ``nvcc`` for ``sm_90a`` from the
-sources in the checkout, into ``tpu_engine_torch/_build/`` (keyed on a hash
+sources in the checkout (one compiler process per source, all started
+together, then one link), into ``tpu_engine_torch/_build/`` (keyed on a hash
 of the sources and flags), and loaded with ``ctypes``.
 """
 
@@ -36,11 +39,11 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "flash_attention.cu",)
+SOURCES = (_PKG / "csrc" / "flash_attention.cu", _PKG / "csrc" / "flash_fwd_sm90.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 # Head dims the CUDA build instantiates (the D template parameter): every
 # llama-arch head of MODEL_CONFIGS, and qwen-tiny's and gemma-tiny's 32.
@@ -85,24 +88,52 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels if this source hash has no library yet. The
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``<lib>.log``. Raises on failure."""
+    """Compile the kernels if this source hash has no library yet: one
+    ``nvcc -c`` per source, all running at once, then one link. The
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept beside the library as ``<lib>.log``. Raises on failure."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        objs = [work / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        log, ok = "", True
+        for src, proc in zip(SOURCES, procs):
+            text = proc.communicate()[0]
+            log += f"== {src.name} (exit {proc.returncode})\n{text}"
+            ok = ok and proc.returncode == 0
+        if ok:
+            link = subprocess.run([nvcc, "-shared", "-o", str(work / "lib.so"), *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += f"== link (exit {link.returncode})\n{link.stdout}{link.stderr}"
+            ok = link.returncode == 0
+        Path(str(out) + ".log").write_text(log)
+        if not ok:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(work / "lib.so", out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def sass_op_counts(symbol: str, ops: tuple[str, ...]) -> dict[str, dict[str, int]]:
+    """How often each SASS opcode of ``ops`` occurs in every built kernel
+    whose mangled name contains ``symbol`` (``cuobjdump -sass`` on the
+    library, which is built first if need be)."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build())], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if symbol in name:
+            out[name] = {op: chunk.count(op) for op in ops}
     return out
 
 
@@ -111,7 +142,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tpe_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.tpe_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.tpe_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.tpe_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         for fn in (lib.tpe_flash_fwd, lib.tpe_flash_bwd_dq, lib.tpe_flash_bwd_dkv):
@@ -120,7 +151,16 @@ def _load():
     return _lib
 
 
+# Negative codes of ``tpe_flash_fwd_sm90`` (csrc/flash_fwd_sm90.cu).
+_TENSOR_MAP_ERRORS = {
+    -1: "libcuda has no cuTensorMapEncodeTiled",
+    -2: "cuTensorMapEncodeTiled refused a tensor map",
+}
+
+
 def _check(name: str, err: int) -> None:
+    if err in _TENSOR_MAP_ERRORS:
+        raise RuntimeError(f"{name}: {_TENSOR_MAP_ERRORS[err]}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
@@ -164,6 +204,19 @@ def _check_inputs(name: str, tensors: dict, dtype_of: str = "q") -> tuple[int, i
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tile_counters(device, stream: int) -> torch.Tensor:
+    """The Hopper K1's two tile counters for this device and stream: zero
+    when made, and set back to zero by every launch that completes, so the
+    launches that share them must run in order, on one stream."""
+    key = (device.index, stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _counters[key]
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -268,9 +321,11 @@ def flash_fwd(q, k, v, window: int = 0, causal: bool = True):
     _check_window("flash_fwd", window, causal)
     o = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+    stream = _stream()
     err = _load().tpe_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        BH, S, D, window, int(causal), int(q.dtype == torch.bfloat16), _stream(),
+        _tile_counters(q.device, stream).data_ptr(), BH, S, D, window, int(causal),
+        int(q.dtype == torch.bfloat16), stream,
     )
     _check("flash_fwd", err)
     launches[_counter("flash_fwd", causal)] += 1

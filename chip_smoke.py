@@ -8,20 +8,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 1. build: compile the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV,
    each causal and non-causal, head dims 16/32/64/128) from
    ``tpu_engine_torch/csrc`` with nvcc for sm_90a, one compiler per source,
-   all at once; check that the Hopper K1 (``flash_fwd_sm90``, bf16 at D 64
-   and 128) is built from wgmma and TMA loads (``HGMMA``, ``UTMALDG`` in its
-   SASS);
+   all at once; check that the Hopper kernels (``flash_fwd_sm90``,
+   ``flash_bwd_dq_sm90``, ``flash_bwd_dkv_sm90``: bf16 at D 64 and 128) are
+   built from wgmma and TMA loads (``HGMMA``, ``UTMALDG`` in their SASS),
+   spill nothing, and keep ``setmaxnreg`` (no ptxas C7508 warning);
 2. kernels: hold each kernel to its plain PyTorch version at the training
    shape (B·H 4·16, S 2048, D 128, bf16), the non-causal kernels at the
    ring shard's shape (B·H 16, S 2048, D 128), on small fp32 cases with
-   TF32 off, on sliding-window cases and at D 16, 32 and 64; hold K1 alone
-   on the edges of the Hopper kernel's 128-row tiling (ragged S, window
-   edges, B·H 1 and 256); show that an unbuilt head dim (256) raises; hold
+   TF32 off, on sliding-window cases and at D 16, 32 and 64; hold K1 alone,
+   and K2 and K3 alone, on the edges of the Hopper kernels' 128-row tiles
+   (ragged S, window edges, B·H 1 and 256), K2 and K3 also to bitwise-equal
+   results when run twice; show that an unbuilt head dim (256) raises; hold
    ``FlashAttentionLSE``'s backward under random (dO, dlse) to autograd
    through the plain forward; time each kernel beside its plain version,
    its bound and a library yardstick (``scaled_dot_product_attention`` for
    K1, the flash-attention backward op for K2 + K3; timed only, never called
-   by the port);
+   by the port), and the causal kernels also at the ring shard;
 3. model: a small llama through the flash kernels against the plain
    attention path, in fp32 and in bf16 compute; head: the LM head's
    backward against fp32 products;
@@ -49,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -203,10 +206,11 @@ REPLACES = {
 # The source of each kernel at the timed shapes (bf16, D 128).
 SOURCE = {
     "flash_fwd": "tpu_engine_torch/csrc/flash_fwd_sm90.cu",
-    "flash_bwd_dq": "tpu_engine_torch/csrc/flash_attention.cu",
-    "flash_bwd_dkv": "tpu_engine_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": "tpu_engine_torch/csrc/flash_bwd_sm90.cu",
+    "flash_bwd_dkv": "tpu_engine_torch/csrc/flash_bwd_sm90.cu",
 }
-SM90_KERNEL = "flash_fwd_sm90"  # the Hopper K1's symbol, four instantiations
+# The Hopper kernels' symbols (K1, K2, K3), four instantiations each.
+SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 RING = 4          # ranks of the ring in the ring and train_ring phases
 RING_SEQ = 8192   # sequence length of those phases (local shard 2048)
 # The ring's training step against flash's at RING_SEQ, from the same
@@ -260,33 +264,64 @@ def check_lse_backward(fc) -> dict:
 
 
 def check_sm90_sass(fc) -> dict:
-    """The Hopper K1's four instantiations (D 64 and 128, causal and not)
-    must be built from wgmma (``HGMMA``) and TMA loads (``UTMALDG``): proof
-    that bf16 K1 at those head dims runs the Hopper design. Returns the count
-    of each instruction per instantiation."""
-    found = fc.sass_op_counts(SM90_KERNEL, ("HGMMA", "UTMALDG"))
-    print(f"sass {SM90_KERNEL}: {json.dumps(found)}", flush=True)
-    if len(found) != 4 or not all(n["HGMMA"] and n["UTMALDG"] for n in found.values()):
-        raise AssertionError(f"{SM90_KERNEL}: want 4 instantiations with HGMMA and UTMALDG, "
-                             f"found {found}")
-    return found
+    """Each Hopper kernel's four instantiations (D 64 and 128, causal and
+    not) must be built from wgmma (``HGMMA``) and TMA loads (``UTMALDG``):
+    proof that bf16 K1, K2 and K3 at those head dims run the Hopper design.
+    Returns the count of each instruction per instantiation."""
+    out = {}
+    for symbol in SM90_KERNELS:
+        found = fc.sass_op_counts(symbol, ("HGMMA", "UTMALDG"))
+        print(f"sass {symbol}: {json.dumps(found)}", flush=True)
+        if len(found) != 4 or not all(n["HGMMA"] and n["UTMALDG"] for n in found.values()):
+            raise AssertionError(f"{symbol}: want 4 instantiations with HGMMA and UTMALDG, "
+                                 f"found {found}")
+        out.update(found)
+    return out
 
 
-def check_fwd_edges(fc) -> dict:
-    """K1 alone against its plain version, bf16 at D 64 and 128, on the
-    edges of the Hopper kernel's 128-row tiles: S 64, 192 and 320 (a ragged
-    last tile), causal and not; windows 37, 100, 128 and 200 at S 320 and
-    1024; B·H 1 and 256. The limits are those of ``check_case``. Returns
-    max |err| of o and lse per case."""
-    import torch
+def check_ptxas(log: str) -> dict:
+    """Registers and spilled bytes of every Hopper kernel, from the build's
+    ``-Xptxas -v`` output. Raises if one spills or if ptxas ignored a
+    ``setmaxnreg`` (warning C7508)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+        elif name and any(k in name for k in SM90_KERNELS):
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out.setdefault(name, {})["spill_bytes"] = int(spill[1]) + int(spill[2])
+            if regs:
+                out.setdefault(name, {})["registers"] = int(regs[1])
+    spills = {n: v for n, v in out.items() if v.get("spill_bytes")}
+    if spills or "C7508" in log:
+        raise AssertionError(f"Hopper kernels spill {spills} or ignore setmaxnreg (C7508: "
+                             f"{'C7508' in log})")
+    return out
 
+
+def _edge_cases() -> list:
+    """The edges of the Hopper kernels' 128-row tiles, bf16 at D 64 and 128:
+    S 64, 192 and 320 (a ragged last tile), causal and not; windows 37, 100,
+    128 and 200 at S 320 and 1024; B·H 1 and 256. (B·H, S, D, window,
+    causal) each."""
     cases = []
     for d in (64, 128):
         cases += [(4, s, d, 0, causal) for s in (64, 192, 320) for causal in (True, False)]
         cases += [(2, s, d, w, True) for s in (320, 1024) for w in (37, 100, 128, 200)]
         cases += [(bh, 512, d, 0, causal) for bh in (1, 256) for causal in (True, False)]
+    return cases
+
+
+def check_fwd_edges(fc) -> dict:
+    """K1 alone against its plain version on ``_edge_cases``. The limits
+    are those of ``check_case``. Returns max |err| of o and lse per case."""
+    import torch
+
     out = {}
-    for bh, s, d, window, causal in cases:
+    for bh, s, d, window, causal in _edge_cases():
         q, k, v, _ = _inputs(bh, s, d, torch.bfloat16, seed=6)
         o, lse = fc.flash_fwd(q, k, v, window, causal)
         torch.cuda.synchronize()
@@ -297,6 +332,34 @@ def check_fwd_edges(fc) -> dict:
     worst = {n: max(e[n] for e in out.values()) for n in ("o", "lse")}
     print(f"kernels K1 tile edges: {len(out)} cases, max |err| o {worst['o']:.3e}, "
           f"lse {worst['lse']:.3e}", flush=True)
+    return out
+
+
+def check_bwd_edges(fc) -> dict:
+    """K2 and K3 alone against their plain versions on ``_edge_cases``, on
+    the plain forward's lse and Δ (the limits of ``check_case``); and each
+    run twice on the same inputs must give bitwise-equal dQ, dK and dV (no
+    atomics: every gradient row is written once). Returns max |err| of dq,
+    dk and dv per case."""
+    import torch
+
+    out = {}
+    for bh, s, d, window, causal in _edge_cases():
+        q, k, v, do = _inputs(bh, s, d, torch.bfloat16, seed=7)
+        po, plse = fc.flash_fwd_plain(q, k, v, window, causal)
+        args = (q, k, v, do, plse, fc.flash_delta(po, do), window, causal)
+        runs = [(fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args)) for _ in range(2)]
+        torch.cuda.synchronize()
+        label = f"bwd bh{bh} s{s} d{d} w{window} {'causal' if causal else 'full'}"
+        for n, a, b in zip(("dq", "dk", "dv"), *runs):
+            if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                raise AssertionError(f"{label} {n}: two runs on the same inputs differ")
+        want = (fc.flash_bwd_dq_plain(*args), *fc.flash_bwd_dkv_plain(*args))
+        out[label] = {n: _close(f"{label} {n}", a, b, TOL["bf16_grad"], REL["bf16"])[0]
+                      for n, a, b in zip(("dq", "dk", "dv"), runs[0], want)}
+    worst = {n: max(e[n] for e in out.values()) for n in ("dq", "dk", "dv")}
+    print(f"kernels K2/K3 tile edges: {len(out)} cases, deterministic, max |err| "
+          + " ".join(f"{n} {e:.3e}" for n, e in worst.items()), flush=True)
     return out
 
 
@@ -372,6 +435,7 @@ def phase_kernels(res: dict) -> None:
             (4, 256, 32, f32, 0, False)):
         check_case(fc, bh, s, d, dtype, window, seed=1, causal=causal)
     res["fwd_edges"] = check_fwd_edges(fc)
+    res["bwd_edges"] = check_bwd_edges(fc)
     res["lse_backward"] = check_lse_backward(fc)
     res["unbuilt_head_dim"] = check_unbuilt_head_dim(fc)
 
@@ -426,6 +490,19 @@ def phase_kernels(res: dict) -> None:
                    "bound_ms": kernel_bounds(RB, S, D, 0, 2)["flash_fwd"]["bound_ms"],
                    "shape": [RB, S, D]}
     res["flash_fwd_ring_shard"] = ring_causal
+    # K2 and K3 causal at the ring shard, where train_ring's diagonal hops
+    # run them, beside their bounds and the library's causal backward.
+    oc, lsec = fc.flash_fwd(qf, kf, vf)
+    deltac = fc.flash_delta(oc, dof)
+    shard_bounds = kernel_bounds(RB, S, D, 0, 2)
+    ring_bwd = {name: {"ms": _device_ms(lambda fn=fn: fn(qf, kf, vf, dof, lsec, deltac)),
+                       "bound_ms": shard_bounds[name]["bound_ms"]}
+                for name, fn in (("flash_bwd_dq", fc.flash_bwd_dq),
+                                 ("flash_bwd_dkv", fc.flash_bwd_dkv))}
+    ring_bwd["pair_ms"] = ring_bwd["flash_bwd_dq"]["ms"] + ring_bwd["flash_bwd_dkv"]["ms"]
+    ring_bwd["library_ms"] = _library_bwd_ms(qf, kf, vf, dof, (1, RB, S, D), True)[0]
+    ring_bwd["shape"] = [RB, S, D]
+    res["flash_bwd_ring_shard"] = ring_bwd
     # K2 + K3 against the library's flash backward, causal at the training
     # shape and non-causal at the ring shard.
     bwd_pair = {}
@@ -465,6 +542,11 @@ def phase_kernels(res: dict) -> None:
     print(f"time flash_fwd (causal) {ring_causal['shape']}: {ring_causal['ms']:.4f} ms "
           f"(bound {ring_causal['bound_ms']:.4f}, library {ring_causal['library_ms']:.4f})",
           flush=True)
+    print(f"time K2+K3 (causal) {ring_bwd['shape']}: dq {ring_bwd['flash_bwd_dq']['ms']:.4f} ms "
+          f"(bound {ring_bwd['flash_bwd_dq']['bound_ms']:.4f}), dkv "
+          f"{ring_bwd['flash_bwd_dkv']['ms']:.4f} ms (bound "
+          f"{ring_bwd['flash_bwd_dkv']['bound_ms']:.4f}), pair {ring_bwd['pair_ms']:.4f} ms, "
+          f"library {ring_bwd['library_ms']}", flush=True)
     for key, row in bwd_pair.items():
         print(f"time K2+K3 {key} {row['shape']}: kernels {row['kernels_ms']:.4f} ms, "
               f"library {row['library_ms']}", flush=True)
@@ -844,8 +926,9 @@ def main() -> int:
         res["build"] = {"library": str(lib.relative_to(ROOT))}
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error",
-                                       "setmaxnreg", "==")):
+                                       "warning", "setmaxnreg", "==")):
                 print(f"ptxas: {line.strip()}", flush=True)
+        res["build"]["ptxas"] = check_ptxas(log)
         res["build"]["sass"] = check_sm90_sass(fc)
         fc._load()
 

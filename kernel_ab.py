@@ -1,18 +1,24 @@
-"""Time the flash-attention forward (K1) of two checkouts of the port on one
-card, in turns, beside the library's attention on the same data.
+"""Time the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV) of two
+checkouts of the port on one card, in turns, beside the library's attention
+on the same data.
 
     python3 kernel_ab.py --base path/to/other/checkout [--rounds 2]
 
 Each checkout's ``tpu_engine_torch/ops/_flash_cuda.py`` is loaded as a module
 of its own, so each builds its own kernels from its own sources. Per round
-the order is base, this tree, this tree, base. Shapes: K1 causal at B·H 64,
+the order is base, this tree, this tree, base. Shapes: causal at B·H 64,
 S 2048, D 128 (llama-1b's training step), and non-causal and causal at the
-ring shard, B·H 16 (llama-1b at seq 8192 over a ring of 4). Times are device
-times by CUDA events over 20 calls queued behind a spin, so host gaps do not
-count; the library's time is ``scaled_dot_product_attention`` (timed only).
-With ``--sweep``, also equal work at other B·H and S (``SWEEP``), and the
-host time of one ``flash_fwd`` call at a small shape (mean of 200 calls
-without a sync). Prints the card, then one JSON line of every time.
+ring shard, B·H 16 (llama-1b at seq 8192 over a ring of 4). K2 and K3 of
+both trees take the same lse and Δ (this tree's K1 forward). Times are
+device times by CUDA events over 20 calls queued behind a spin, so host gaps
+do not count. The library's times (timed only, never called by the port)
+are ``scaled_dot_product_attention`` for K1 and
+``_scaled_dot_product_flash_attention_backward`` (dq, dk and dv together, on
+its own forward's outputs) for the pair K2 + K3. With ``--sweep``, also
+equal work at other B·H and S (``SWEEP``), and the host time of one
+``flash_fwd`` call at a small shape (mean of 200 calls without a sync).
+Prints the card, then one line per tree, kernel and shape, then one JSON
+line of every time.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ SHAPES = {  # name: (B·H, S, D, causal)
 # q, k and v grow from 12.6 MB (fits L2) to 101 MB (does not).
 SWEEP = {f"full_bh{bh}_s{s}": (bh, s, 128, False)
          for bh, s in ((4, 4096), (64, 1024), (256, 512))}
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _load(tree: Path, name: str):
@@ -83,20 +90,40 @@ def main() -> int:
     data = {}
     for key, (bh, s, d, causal) in shapes.items():
         g = torch.Generator(device="cuda").manual_seed(0)
-        data[key] = [torch.randn((bh, s, d), generator=g, device="cuda").bfloat16()
-                     for _ in range(3)]
-    out = {"card": card, "ms": {t: {k: [] for k in shapes} for t in (*trees, "library")}}
+        q, k, v, do = (torch.randn((bh, s, d), generator=g, device="cuda").bfloat16()
+                       for _ in range(4))
+        o, lse = trees["this"].flash_fwd(q, k, v, 0, causal)
+        data[key] = (q, k, v, do, lse, trees["this"].flash_delta(o, do))
+
+    def call(fc, kernel, key):
+        q, k, v, do, lse, delta = data[key]
+        causal = shapes[key][3]
+        if kernel == "flash_fwd":
+            return lambda: fc.flash_fwd(q, k, v, 0, causal)
+        return lambda: getattr(fc, kernel)(q, k, v, do, lse, delta, 0, causal)
+
+    def library(op, key):
+        bh, s, d, causal = shapes[key]
+        q, k, v, do = (x.view(1, bh, s, d) for x in data[key][:4])
+        if op == "sdpa":
+            return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        o, lse, cq, ck, mq, mk, seed, offset = (
+            torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal, False)[:8])
+        bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        return lambda: bwd(do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
+
+    bwd_keys = [key for key in shapes if key in SHAPES]  # the backward at the main shapes
+    jobs = [(kn, key) for key in shapes for kn in KERNELS if kn == "flash_fwd" or key in bwd_keys]
+    out = {"card": card, "ms": {t: {f"{kn}/{key}": [] for kn, key in jobs} for t in trees}}
+    # sdpa: the forward; flash_bwd: dq, dk and dv together.
+    out["ms"]["library"] = {f"{op}/{key}": [] for op in ("sdpa", "flash_bwd") for key in shapes
+                            if op == "sdpa" or key in bwd_keys}
     for _ in range(args.rounds):
         for tree in ("base", "this", "this", "base"):
-            fc = trees[tree]
-            for key, (bh, s, d, causal) in shapes.items():
-                q, k, v = data[key]
-                out["ms"][tree][key].append(
-                    _device_ms(lambda: fc.flash_fwd(q, k, v, 0, causal)))
-        for key, (bh, s, d, causal) in shapes.items():
-            q, k, v = (x.view(1, bh, s, d) for x in data[key])
-            out["ms"]["library"][key].append(
-                _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)))
+            for kn, key in jobs:
+                out["ms"][tree][f"{kn}/{key}"].append(_device_ms(call(trees[tree], kn, key)))
+        for name in out["ms"]["library"]:
+            out["ms"]["library"][name].append(_device_ms(library(*name.split("/"))))
     if args.sweep:
         q, k, v = (torch.randn((1, 128, 128), device="cuda").bfloat16() for _ in range(3))
         out["host_us_per_call"] = {}
@@ -112,7 +139,7 @@ def main() -> int:
         print(f"host us per flash_fwd call: {json.dumps(out['host_us_per_call'])}", flush=True)
     for tree, rows in out["ms"].items():
         for key, times in rows.items():
-            print(f"{tree:8s} {key:12s} " + " ".join(f"{x:.4f}" for x in times), flush=True)
+            print(f"{tree:8s} {key:34s} " + " ".join(f"{x:.4f}" for x in times), flush=True)
     print(json.dumps(out))
     return 0
 

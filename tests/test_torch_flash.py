@@ -62,6 +62,33 @@ def test_forward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,W,causal", [
+    (192, 0, True), (192, 37, True), (192, 100, True), (192, 0, False),
+    (320, 0, True), (320, 37, True), (320, 100, True), (320, 0, False),
+])
+def test_backward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
+    """The plain versions the card holds the Hopper K2 and K3 to, at the
+    edges of their 128-row owned tiles: S 192 and 320 leave a ragged last
+    tile, and windows 37 and 100 cut through the 64-row streamed tiles.
+    ``flash_bwd`` under a random (dO, dlse) cotangent against the Pallas
+    backward (``_flash_bwd`` in interpret mode, on the Pallas forward's
+    residuals) in fp32."""
+    q, k, v = _qkv(14, (2, S, D), (2, S, D))
+    rng = np.random.default_rng(15)
+    do = rng.standard_normal((2, S, D)).astype(np.float32)
+    dlse = rng.standard_normal((2, S)).astype(np.float32)
+    block = _flash_pallas._pick_block(S)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jo, jlse = _flash_pallas._flash_fwd(jq, jk, jv, block, True, W, causal=causal)
+    jg = _flash_pallas._flash_bwd(block, True, W, (jq, jk, jv, jo, jlse), jnp.asarray(do),
+                                  causal, jnp.asarray(dlse))
+    to, tlse = _flash_cuda.flash_fwd(_t(q), _t(k), _t(v), W, causal)
+    tg = _flash_cuda.flash_bwd(_t(q), _t(k), _t(v), to, tlse, _t(do), W, causal, _t(dlse))
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4, rtol=5e-4)
+
+
 @pytest.mark.parametrize("S,H,KV,D,W", [
     (64, 2, 2, 16, 0), (128, 4, 2, 16, 0), (128, 2, 2, 64, 32), (64, 4, 2, 64, 32),
 ])
@@ -166,8 +193,10 @@ def test_library_path_is_keyed_on_the_sources():
     assert path.parent == _flash_cuda.BUILD_DIR
     assert path.name.startswith("libtpe_flash_") and path.suffix == ".so"
     assert _flash_cuda.library_path() == path
-    assert {src.name for src in _flash_cuda.SOURCES} == {"flash_attention.cu", "flash_fwd_sm90.cu"}
-    assert all(src.exists() for src in _flash_cuda.SOURCES)
+    assert {src.name for src in _flash_cuda.SOURCES} == {
+        "flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"}
+    assert {src.name for src in _flash_cuda.HEADERS} == {"sm90.cuh"}
+    assert all(src.exists() for src in (*_flash_cuda.SOURCES, *_flash_cuda.HEADERS))
 
 
 # -- the non-causal kernels and the (o, lse) entry of ring attention ---------

@@ -68,9 +68,9 @@ def test_kernels_match_plain(cuda, bh, s, d, dtype, window, causal):
         _assert_close(a, b, grad_tol, REL[dtype])
 
 
-# The Hopper K1 (bf16, D 64 and 128) at the edges of its 128-row tiles:
-# S 64, 192 and 320 (a ragged last tile), causal and not; windows 37, 100,
-# 128 and 200 at S 320 and 1024; B·H 1 and 256.
+# The Hopper kernels (bf16, D 64 and 128) at the edges of their 128-row
+# tiles: S 64, 192 and 320 (a ragged last tile), causal and not; windows 37,
+# 100, 128 and 200 at S 320 and 1024; B·H 1 and 256.
 _EDGES = ([(4, s, d, 0, c) for d in (64, 128) for s in (64, 192, 320) for c in (True, False)]
           + [(2, s, d, w, True) for d in (64, 128) for s in (320, 1024)
              for w in (37, 100, 128, 200)]
@@ -88,6 +88,41 @@ def test_hopper_forward_at_tile_edges(cuda, bh, s, d, window, causal):
 
 def test_hopper_forward_is_built_from_wgmma_and_tma(cuda):
     found = fc.sass_op_counts("flash_fwd_sm90", ("HGMMA", "UTMALDG"))
+    assert len(found) == 4, found  # D 64 and 128, causal and not
+    assert all(n["HGMMA"] and n["UTMALDG"] for n in found.values()), found
+
+
+def _bwd_args(bh, s, d, window, causal):
+    """K2's and K3's inputs, with lse and Δ from the plain forward."""
+    q, k, v, do = _inputs(bh, s, d, torch.bfloat16, seed=7)
+    po, plse = fc.flash_fwd_plain(q, k, v, window, causal)
+    return q, k, v, do, plse, fc.flash_delta(po, do), window, causal
+
+
+@pytest.mark.parametrize("bh,s,d,window,causal", _EDGES)
+def test_hopper_backward_at_tile_edges(cuda, bh, s, d, window, causal):
+    args = _bwd_args(bh, s, d, window, causal)
+    got = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
+    want = (fc.flash_bwd_dq_plain(*args), *fc.flash_bwd_dkv_plain(*args))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        _assert_close(a, b, TOL[torch.bfloat16][1], REL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_hopper_backward_is_deterministic(cuda, causal):
+    """No atomics on gradients: two runs on the same inputs give
+    bitwise-equal dQ, dK and dV."""
+    args = _bwd_args(16, 1024, 128, 0, causal)
+    first = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
+    second = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("symbol", ["flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"])
+def test_hopper_backward_is_built_from_wgmma_and_tma(cuda, symbol):
+    found = fc.sass_op_counts(symbol, ("HGMMA", "UTMALDG"))
     assert len(found) == 4, found  # D 64 and 128, causal and not
     assert all(n["HGMMA"] and n["UTMALDG"] for n in found.values()), found
 

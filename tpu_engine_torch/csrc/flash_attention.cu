@@ -50,10 +50,11 @@
 // one is multiplied. Tensor cores at this rate are limited by the shared-
 // memory reads that feed mma.sync (about one ldmatrix per two mma).
 //
-// K1 in bf16 at D 64 and 128 (every training head but the tiny configs')
-// is not this kernel: tpe_flash_fwd sends it to flash_fwd_sm90.cu, a
-// redesign for Hopper with TMA, wgmma and warp specialisation. The bf16 K1
-// below serves D 16 and 32; K2 and K3 keep this design at every head dim.
+// K1, K2 and K3 in bf16 at D 64 and 128 (every training head but the tiny
+// configs') are not these kernels: the C entries send K1 to
+// flash_fwd_sm90.cu and K2 and K3 to flash_bwd_sm90.cu, redesigns for
+// Hopper with TMA, wgmma and warp specialisation. The bf16 kernels below
+// serve D 16 and 32.
 //
 // fp32 keeps the same tiling with plain fp32 FMA loops over tiles staged in
 // shared memory (never TF32), so that the fp32 bounds hold; that path is for
@@ -66,10 +67,18 @@
 #include <cstddef>
 #include <cstdint>
 
-// K1 for bf16 at D 64 and 128 (flash_fwd_sm90.cu).
+// K1, K2 and K3 for bf16 at D 64 and 128 (flash_fwd_sm90.cu, flash_bwd_sm90.cu).
 extern "C" int tpe_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, void* counters, int bh, int s, int d, int window,
                                   int causal, void* stream);
+extern "C" int tpe_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dq, void* counters, int bh, int s, int d, int window,
+                                     int causal, void* stream);
+extern "C" int tpe_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dk, void* dv, void* counters, int bh, int s, int d,
+                                      int window, int causal, void* stream);
 
 namespace {
 
@@ -363,6 +372,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // K2 (bf16): dQ
 // ---------------------------------------------------------------------------
 
+// Instantiated for D 16 and 32 only (D 64 and 128: flash_bwd_sm90.cu).
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -444,6 +454,7 @@ __device__ __forceinline__ void k_major_range(int j, int n_blk, int window, int&
   hi = kCausal ? last_q_tile(j, n_blk, window) : n_blk - 1;
 }
 
+// Instantiated for D 16 and 32 only (D 64 and 128: flash_bwd_sm90.cu).
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -878,16 +889,21 @@ int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void
 
 template <int D, bool C>
 int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, int bh, int s, int window,
-           cudaStream_t st) {
+           const void* lse, const void* delta, void* dq, void* counters, int bh, int s,
+           int window, cudaStream_t st) {
   const float sc = softmax_scale(D);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (is_bf16)
-    return launch(flash_bwd_dq_bf16<D, C>, SmemBf16<D>::bwd_dq, bh, s, st,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-                  static_cast<bf16*>(dq), s, window, sc);
+  if (is_bf16) {
+    if constexpr (D >= 64)  // the Hopper kernel, and no other (no fallback)
+      return tpe_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, counters, bh, s, D, window, C,
+                                   st);
+    else
+      return launch(flash_bwd_dq_bf16<D, C>, SmemBf16<D>::bwd_dq, bh, s, st,
+                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
+                    static_cast<bf16*>(dq), s, window, sc);
+  }
   return launch(flash_bwd_dq_f32<D, C>, SmemF32<D>::bwd_dq, bh, s, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
@@ -896,16 +912,21 @@ int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void
 
 template <int D, bool C>
 int bwd_dkv(bool is_bf16, const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv, int bh, int s, int window,
-            cudaStream_t st) {
+            const void* lse, const void* delta, void* dk, void* dv, void* counters, int bh,
+            int s, int window, cudaStream_t st) {
   const float sc = softmax_scale(D);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (is_bf16)
-    return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, st,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, window, sc);
+  if (is_bf16) {
+    if constexpr (D >= 64)  // the Hopper kernel, and no other (no fallback)
+      return tpe_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, counters, bh, s, D,
+                                    window, C, st);
+    else
+      return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, st,
+                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
+                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, window, sc);
+  }
   return launch(flash_bwd_dkv_f32<D, C>, SmemF32<D>::bwd_dkv, bh, s, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
@@ -949,8 +970,9 @@ extern "C" {
 // Each entry returns the cudaError_t of its launch (0 = success); a head dim
 // other than 16, 32, 64 or 128 or a bad shape is refused before any launch.
 
-// counters: the Hopper K1's tile counters (bf16, d 64 and 128: two ints,
-// see flash_fwd_sm90.cu); the other forward kernels do not read them.
+// counters: the Hopper kernels' tile counters (bf16, d 64 and 128: two ints
+// per kernel, see flash_fwd_sm90.cu and flash_bwd_sm90.cu); the other
+// kernels do not read them.
 int tpe_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                   void* counters, int bh, int s, int d, int window, int causal, int is_bf16,
                   void* stream) {
@@ -963,25 +985,26 @@ int tpe_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
 }
 
 int tpe_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, void* dq, int bh, int s, int d,
-                     int window, int causal, int is_bf16, void* stream) {
+                     const void* lse, const void* delta, void* dq, void* counters, int bh, int s,
+                     int d, int window, int causal, int is_bf16, void* stream) {
   if (bad_shape(bh, s, window, causal)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return dispatch(d, causal != 0, [&](auto var) {
     using V = decltype(var);
-    return bwd_dq<V::D, V::causal>(is_bf16, q, k, v, dout, lse, delta, dq, bh, s, window, st);
+    return bwd_dq<V::D, V::causal>(is_bf16, q, k, v, dout, lse, delta, dq, counters, bh, s,
+                                   window, st);
   });
 }
 
 int tpe_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
-                      int d, int window, int causal, int is_bf16, void* stream) {
+                      const void* lse, const void* delta, void* dk, void* dv, void* counters,
+                      int bh, int s, int d, int window, int causal, int is_bf16, void* stream) {
   if (bad_shape(bh, s, window, causal)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return dispatch(d, causal != 0, [&](auto var) {
     using V = decltype(var);
-    return bwd_dkv<V::D, V::causal>(is_bf16, q, k, v, dout, lse, delta, dk, dv, bh, s, window,
-                                    st);
+    return bwd_dkv<V::D, V::causal>(is_bf16, q, k, v, dout, lse, delta, dk, dv, counters, bh, s,
+                                    window, st);
   });
 }
 

@@ -1,0 +1,644 @@
+// K2 and K3 for Hopper (sm_90a): the bf16 flash-attention backward at head
+// dims 64 and 128, causal (optionally sliding-window) and non-causal, built
+// on TMA, wgmma and warp specialisation. tpe_flash_bwd_dq and
+// tpe_flash_bwd_dkv (flash_attention.cu) send every bf16 call at D 64 or 128
+// here and nowhere else; fp32 and the bf16 head dims 16 and 32 keep
+// flash_attention.cu's mma.sync kernels.
+//
+// They replace _bwd_dq_kernel and _bwd_dkv_kernel
+// (tpu_engine/ops/_flash_pallas.py:306 and :341, launched by _flash_bwd
+// through pl.pallas_call). For each (bh, query row i, key j), with P rebuilt
+// from the saved natural-log lse:
+//   P = exp(q k^T D^-1/2 - lse),  dS = P o (dO v^T - delta) D^-1/2,
+//   K2: dQ = dS K;  K3: dV = P^T dO, dK = dS^T Q,
+// accumulated in fp32 and written once in bf16. delta is rowsum(dO o O),
+// less the lse cotangent when there is one (flash_delta, plain torch).
+//
+// Bound: tensor-core operations. K2 does 3 products of the visible (q, k)
+// pairs x D, K3 does 4: at the training shape (BH 64, S 2048, D 128,
+// causal) 1.03e11 and 1.37e11 FLOP, 104 and 139 us at 989 TFLOP/s, against
+// about 45 and 55 us to move their inputs and outputs once.
+//
+// What the design does about it:
+// - Work: a CTA owns 128 rows and writes their gradient once: K2 a Q tile
+//   (dQ), K3 a K tile (dK and dV). The other side streams through a ring in
+//   64-row tiles: K2's K and V tiles, K3's Q and dO tiles with their 64 lse
+//   and delta values. No atomics on gradients: results are deterministic.
+//   Persistent CTAs, one per SM, take owned tiles from a counter in device
+//   memory, longest first (causal), in chunks of heads whose q, k, v and dO
+//   fit in L2 together.
+// - Roles: 384 threads, three warpgroups. The producer warpgroup gives up
+//   registers (setmaxnreg.dec); one of its threads issues every TMA load:
+//   the owned tiles, then the streamed tiles into a two-stage ring with a
+//   full and an empty mbarrier per stage. The two consumer warpgroups take
+//   the registers (setmaxnreg.inc) and own 64 rows each; they issue no copy
+//   and no __syncthreads. They hand the owned tiles back after their last
+//   S and dP products, so the next tile's loads start while they finish
+//   this one.
+// - TMA: q, k, v, dO and the outputs are 3-D tensor maps [BH, S, D] with
+//   [rows][64 columns] boxes in the 128-byte swizzle; lse and delta are 2-D
+//   maps [BH, S] with 64-value boxes. S is a multiple of 64, so a streamed
+//   tile is never ragged; a ragged owned tile (S % 128 == 64) has its upper
+//   64 rows past S, zero-filled, and the warpgroup that owns them computes
+//   and stores nothing.
+// - wgmma, per streamed tile and consumer warpgroup: K2 issues
+//   S = Q K_j^T and dP = dO V_j^T (m64n64, both operands K-major in shared
+//   memory), builds dS in registers and issues dQ += dS K_j with dS as the
+//   register A operand and K_j MN-major (transpose bit). K3 issues
+//   S^T = K Q_i^T and dP^T = V dO_i^T, builds P^T and dS^T in place, and
+//   issues dV += P^T dO_i and dK += dS^T Q_i. Every operand layout is one K1
+//   uses: a streamed tile is read K-major for one product and MN-major for
+//   the other.
+// - P and dS in registers, base 2: one FMA and one exp2 per score against
+//   lse log2e; only the diagonal tile and the window-edge tiles evaluate the
+//   mask, and a warpgroup visits no tile above its diagonal or outside its
+//   window (it hands such a stage straight back to the producer).
+// - Epilogue: the fp32 accumulators in bf16, staged in shared memory and
+//   written by TMA stores that run on while the next owned tile starts.
+
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int kOwn = 128;     // rows a CTA owns: Q rows (K2) or keys (K3)
+constexpr int kStream = 64;   // rows of a streamed tile: keys (K2) or queries (K3)
+constexpr int kStages = 2;    // depth of the streamed ring
+constexpr int kThreads = 384;  // producer and two consumer warpgroups
+constexpr int kOwnBox = kOwn * 128;        // one [128 rows][64 columns] box
+constexpr int kStreamBox = kStream * 128;  // one [64 rows][64 columns] box
+constexpr int kRowBytes = kStream * 4;     // 64 fp32 values of lse or delta
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kOutBar = 1;  // named barriers 1 and 2: each warpgroup around its staging
+
+static_assert(kOwn == 2 * kStream, "a consumer warpgroup owns one streamed tile's rows");
+
+// Registers: 128 x producer + 256 x consumer = 384 x 168, the allocation at
+// launch. K3's consumers hold two D 128 accumulators (128 registers).
+constexpr int kDqProducerRegs = 40, kDqConsumerRegs = 232;
+constexpr int kDkvProducerRegs = 24, kDkvConsumerRegs = 240;
+static_assert(128 * kDqProducerRegs + 256 * kDqConsumerRegs == 384 * 168, "K2 registers");
+static_assert(128 * kDkvProducerRegs + 256 * kDkvConsumerRegs == 384 * 168, "K3 registers");
+
+// Shared memory of K2, in bytes from a 1024-byte-aligned base: Q and dO of
+// the owned tile, K and V of each stage, each warpgroup's dQ staging, then
+// the mbarriers (Q full and empty; full and empty per stage) and the tile
+// slot.
+template <int D>
+struct DqSmem {
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kOwnTile = kBoxes * kOwnBox;
+  static constexpr int kStreamTile = kBoxes * kStreamBox;
+  static constexpr int kDo = kOwnTile;
+  static constexpr int kRing = 2 * kOwnTile;  // stage st: K, then V
+  static constexpr int kOut = kRing + kStages * 2 * kStreamTile;
+  static constexpr int kBars = kOut + 2 * kStreamTile;
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 8 + 1024;
+};
+
+// Shared memory of K3: K and V of the owned tile, Q and dO of each stage,
+// lse and delta of each stage, each warpgroup's dK and dV staging, then the
+// mbarriers (K/V full and empty; full and empty per stage) and the tile
+// slot.
+template <int D>
+struct DkvSmem {
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kOwnTile = kBoxes * kOwnBox;
+  static constexpr int kStreamTile = kBoxes * kStreamBox;
+  static constexpr int kV = kOwnTile;
+  static constexpr int kRing = 2 * kOwnTile;  // stage st: Q, then dO
+  static constexpr int kRows = kRing + kStages * 2 * kStreamTile;  // stage st: lse, then delta
+  static constexpr int kOut = kRows + 1024;
+  static constexpr int kBars = kOut + 4 * kStreamTile;
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 8 + 1024;
+  static_assert(kStages * 2 * kRowBytes <= 1024, "lse and delta fit their region");
+};
+
+// The owned tiles of a launch, numbered in chunks of heads whose streamed
+// tensors fit in L2 together, so that the tiles sharing a head's K and V
+// (K2) or Q and dO (K3) run at about the same time. Inside a chunk, causal
+// K2 takes its last Q tiles first and K3 its first K tiles: those see the
+// most streamed tiles. unpack gives owned tile o of head bh and the CTA's
+// range [lo, hi] of streamed tiles: those either warpgroup sees
+// (_n_kv_blocks / _k_index, _n_q_blocks / _q_index in the Pallas kernels).
+template <bool kCausal, bool kQMajor>
+struct Schedule {
+  int n_own, n_stream, bh_count, chunk, total, window;
+  __device__ Schedule(int S, int BH, int heads, int w)
+      : n_own((S + kOwn - 1) / kOwn), n_stream(S / kStream), bh_count(BH), chunk(heads),
+        total(BH * n_own), window(w) {}
+  __device__ void unpack(int u, int& o, int& bh, int& lo, int& hi) const {
+    const int first_head = u / (chunk * n_own) * chunk;
+    const int heads = min(chunk, bh_count - first_head);
+    const int w = u - first_head * n_own;
+    bh = first_head + w % heads;
+    o = kCausal && kQMajor ? n_own - 1 - w / heads : w / heads;
+    lo = 0;
+    hi = n_stream - 1;
+    if (kCausal && kQMajor) {  // K tiles from the window's start to the diagonal
+      hi = min(2 * o + 1, n_stream - 1);
+      const int first = o * kOwn - (window - 1);
+      lo = window != 0 && first > 0 ? first / kStream : 0;
+    } else if (kCausal) {  // Q tiles from the diagonal to the window's end
+      lo = 2 * o;
+      if (window != 0) hi = min(hi, (o * kOwn + kOwn - 2 + window) / kStream);
+    }
+  }
+};
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int window) {
+  return qpos >= kpos && (window == 0 || qpos - kpos < window);
+}
+
+// ---------------------------------------------------------------------------
+// K2: dQ
+// ---------------------------------------------------------------------------
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap do_map,
+                  const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
+                  const float* __restrict__ delta, int* __restrict__ counters, int S, int BH,
+                  int heads_per_chunk, int window, float scale, float scale2) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sDo = base + L::kDo;
+  auto sK = [&](int st) { return base + L::kRing + st * 2 * L::kStreamTile; };
+  auto sV = [&](int st) { return sK(st) + L::kStreamTile; };
+  const uint32_t full_q = base + L::kBars, empty_q = full_q + 8;
+  auto full = [&](int st) { return full_q + 8 * (2 + st); };
+  auto empty = [&](int st) { return full_q + 8 * (2 + kStages + st); };
+  // The producer passes each tile's number (-1: none left) to the consumers
+  // in this slot, written before the arrival on full_q that reports it.
+  const uint32_t slot = full_q + 8 * (2 + 2 * kStages);
+  volatile int* tile_slot = reinterpret_cast<volatile int*>(smem_raw + (slot - smem_u32(smem_raw)));
+  const Schedule<kCausal, true> sched(S, BH, heads_per_chunk, window);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 8);  // one arrival per consumer warp
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------- producer: one thread issues every load ----------------
+    // Per owned tile: Q and dO, then K and V of each streamed tile in order.
+    // The ring's position `it` runs on across the CTA's tiles, so the next
+    // tile's first K and V load while the consumers finish this one.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kDqProducerRegs));
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int r = 0;; ++r) {
+        mbar_wait(empty_q, (r & 1) ^ 1);  // both warpgroups are done with Q and dO
+        const int u = atomicAdd(&counters[0], 1);
+        *tile_slot = u < sched.total ? u : -1;
+        if (u >= sched.total) {
+          mbar_arrive(full_q);  // no load: wakes the consumers to stop
+          // The last CTA to run out zeroes the counters for the next launch.
+          if (atomicAdd(&counters[1], 1) == static_cast<int>(gridDim.x) - 1) {
+            atomicExch(&counters[0], 0);
+            atomicExch(&counters[1], 0);
+          }
+          break;
+        }
+        int i, bh, lo, hi;
+        sched.unpack(u, i, bh, lo, hi);
+        mbar_expect_tx(full_q, 2 * L::kOwnTile);
+        for (int b = 0; b < L::kBoxes; ++b) {
+          tma_load(sQ + b * kOwnBox, &q_map, full_q, b * kBoxCols, i * kOwn, bh);
+          tma_load(sDo + b * kOwnBox, &do_map, full_q, b * kBoxCols, i * kOwn, bh);
+        }
+        for (int n = it; n <= it + hi - lo; ++n) {
+          const int st = n % kStages, row = (lo + n - it) * kStream;
+          mbar_wait(empty(st), ((n / kStages) & 1) ^ 1);  // the first round passes
+          mbar_expect_tx(full(st), 2 * L::kStreamTile);
+          for (int b = 0; b < L::kBoxes; ++b) {
+            tma_load(sK(st) + b * kStreamBox, &k_map, full(st), b * kBoxCols, row, bh);
+            tma_load(sV(st) + b * kStreamBox, &v_map, full(st), b * kBoxCols, row, bh);
+          }
+        }
+        it += hi - lo + 1;
+      }
+    }
+  } else {
+    // ---------------- consumers: 64 Q rows per warpgroup ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kDqConsumerRegs));
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, lane = tid % 32, t = lane % 4;
+    const int r_in = (tid / 32) * 16 + lane / 4;  // this thread's rows r_in and r_in + 8
+    const uint32_t sQc = sQ + c * 64 * 128, sDoc = sDo + c * 64 * 128;
+    const uint32_t sOut = base + L::kOut + c * L::kStreamTile;  // [boxes][64 rows][128 B]
+    auto release = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);  // this warp is done with the buffer
+    };
+
+    int it = 0;
+    for (int r = 0;; ++r) {
+      mbar_wait(full_q, r & 1);
+      const int u = *tile_slot;
+      if (u < 0) break;
+      int i, bh, lo, hi;
+      sched.unpack(u, i, bh, lo, hi);
+      // This warpgroup's rows and the K tiles they see: up to its own
+      // diagonal, from its own window start; none for rows past S.
+      const int row0 = i * kOwn + c * 64;
+      int lo_c = lo, hi_c = hi;
+      if (kCausal) {
+        hi_c = min(hi, 2 * i + c);
+        const int first = row0 - (window - 1);
+        if (window != 0 && first > 0) lo_c = first / kStream;
+      }
+      if (row0 >= S) lo_c = hi + 1;
+      float lse2[2] = {0.0f, 0.0f}, dl[2] = {0.0f, 0.0f};
+      if (row0 < S) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const size_t row = static_cast<size_t>(bh) * S + row0 + r_in + 8 * h;
+          lse2[h] = lse[row] * kLog2e;
+          dl[h] = delta[row];
+        }
+      }
+      float acc[D / 2];
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) acc[x] = 0.0f;
+
+      for (int j = lo, n = it; j <= hi; ++j, ++n) {
+        const int st = n % kStages;
+        mbar_wait(full(st), (n / kStages) & 1);
+        if (j < lo_c || j > hi_c) {  // above this warpgroup's diagonal or outside its window
+          release(empty(st));
+          if (j == hi) release(empty_q);
+          continue;
+        }
+        float s[32], dp[32];
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t own = (kk / 4) * kOwnBox + (kk % 4) * 32;
+          const uint32_t str = (kk / 4) * kStreamBox + (kk % 4) * 32;
+          wgmma_ss(s, kmajor_desc(sQc + own), kmajor_desc(sK(st) + str), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t own = (kk / 4) * kOwnBox + (kk % 4) * 32;
+          const uint32_t str = (kk / 4) * kStreamBox + (kk % 4) * 32;
+          wgmma_ss(dp, kmajor_desc(sDoc + own), kmajor_desc(sV(st) + str), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (j == hi) release(empty_q);  // the next tile's Q and dO may load
+        // dS = P (dP - delta) scale in place over s; the mask only on the
+        // diagonal tile and the tiles that cross the window's edge.
+        const bool masked =
+            kCausal && (j == 2 * i + c || (window != 0 && row0 + 63 - j * kStream >= window));
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * nn + e, h = e >> 1;
+            float p = fast_exp2(fmaf(s[x], scale2, -lse2[h]));
+            if (masked &&
+                !visible(row0 + r_in + 8 * h, j * kStream + 8 * nn + 2 * t + (e & 1), window))
+              p = 0.0f;
+            s[x] = p * (dp[x] - dl[h]) * scale;
+          }
+        uint32_t da[4][4];
+        to_a(da, s);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < 4; ++kt)
+          wgmma_rs(acc, da[kt], mnmajor_desc<kStream>(sK(st) + kt * 16 * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(da);
+        release(empty(st));
+      }
+      it += hi - lo + 1;
+
+      // dQ through shared memory and one TMA store per box; the store runs
+      // on while the next tile starts.
+      if (row0 < S) {
+        if (tid == 0) tma_store_wait_read();  // the previous tile's store is out
+        warpgroup_sync(kOutBar + c);
+        stage_rows<D>(sOut, acc, tid);
+        fence_async_shared();
+        warpgroup_sync(kOutBar + c);
+        if (tid == 0)
+          for (int b = 0; b < L::kBoxes; ++b)
+            tma_store(&dq_map, sOut + b * kStreamBox, b * kBoxCols, row0, bh);
+      }
+    }
+    if (tid == 0) tma_store_wait_read();  // shared memory outlives the last store's reads
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: dK and dV
+// ---------------------------------------------------------------------------
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap do_map,
+                   const __grid_constant__ CUtensorMap lse_map,
+                   const __grid_constant__ CUtensorMap delta_map,
+                   const __grid_constant__ CUtensorMap dk_map,
+                   const __grid_constant__ CUtensorMap dv_map, int* __restrict__ counters, int S,
+                   int BH, int heads_per_chunk, int window, float scale, float scale2) {
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + L::kV;
+  auto sQ = [&](int st) { return base + L::kRing + st * 2 * L::kStreamTile; };
+  auto sDo = [&](int st) { return sQ(st) + L::kStreamTile; };
+  auto sLse = [&](int st) { return base + L::kRows + st * 2 * kRowBytes; };
+  auto sDelta = [&](int st) { return sLse(st) + kRowBytes; };
+  const uint32_t full_kv = base + L::kBars, empty_kv = full_kv + 8;
+  auto full = [&](int st) { return full_kv + 8 * (2 + st); };
+  auto empty = [&](int st) { return full_kv + 8 * (2 + kStages + st); };
+  const uint32_t slot = full_kv + 8 * (2 + 2 * kStages);
+  volatile int* tile_slot = reinterpret_cast<volatile int*>(smem_raw + (slot - smem_u32(smem_raw)));
+  const Schedule<kCausal, false> sched(S, BH, heads_per_chunk, window);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    mbar_init(empty_kv, 8);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------- producer: one thread issues every load ----------------
+    // Per owned tile: K and V, then Q, dO, lse and delta of each streamed
+    // tile in order, on one full barrier per stage.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kDkvProducerRegs));
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int r = 0;; ++r) {
+        mbar_wait(empty_kv, (r & 1) ^ 1);  // both warpgroups are done with K and V
+        const int u = atomicAdd(&counters[0], 1);
+        *tile_slot = u < sched.total ? u : -1;
+        if (u >= sched.total) {
+          mbar_arrive(full_kv);
+          if (atomicAdd(&counters[1], 1) == static_cast<int>(gridDim.x) - 1) {
+            atomicExch(&counters[0], 0);
+            atomicExch(&counters[1], 0);
+          }
+          break;
+        }
+        int j, bh, lo, hi;
+        sched.unpack(u, j, bh, lo, hi);
+        mbar_expect_tx(full_kv, 2 * L::kOwnTile);
+        for (int b = 0; b < L::kBoxes; ++b) {
+          tma_load(sK + b * kOwnBox, &k_map, full_kv, b * kBoxCols, j * kOwn, bh);
+          tma_load(sV + b * kOwnBox, &v_map, full_kv, b * kBoxCols, j * kOwn, bh);
+        }
+        for (int n = it; n <= it + hi - lo; ++n) {
+          const int st = n % kStages, row = (lo + n - it) * kStream;
+          mbar_wait(empty(st), ((n / kStages) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * L::kStreamTile + 2 * kRowBytes);
+          for (int b = 0; b < L::kBoxes; ++b) {
+            tma_load(sQ(st) + b * kStreamBox, &q_map, full(st), b * kBoxCols, row, bh);
+            tma_load(sDo(st) + b * kStreamBox, &do_map, full(st), b * kBoxCols, row, bh);
+          }
+          tma_load_2d(sLse(st), &lse_map, full(st), row, bh);
+          tma_load_2d(sDelta(st), &delta_map, full(st), row, bh);
+        }
+        it += hi - lo + 1;
+      }
+    }
+  } else {
+    // ---------------- consumers: 64 keys per warpgroup ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kDkvConsumerRegs));
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, lane = tid % 32, t = lane % 4;
+    const int r_in = (tid / 32) * 16 + lane / 4;  // this thread's keys r_in and r_in + 8
+    const uint32_t sKc = sK + c * 64 * 128, sVc = sV + c * 64 * 128;
+    const uint32_t sOutK = base + L::kOut + c * 2 * L::kStreamTile;
+    const uint32_t sOutV = sOutK + L::kStreamTile;
+    auto release = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    int it = 0;
+    for (int r = 0;; ++r) {
+      mbar_wait(full_kv, r & 1);
+      const int u = *tile_slot;
+      if (u < 0) break;
+      int j, bh, lo, hi;
+      sched.unpack(u, j, bh, lo, hi);
+      // This warpgroup's keys and the Q tiles that see them: from its own
+      // diagonal to its own window's end; none for keys past S.
+      const int key0 = j * kOwn + c * 64;
+      int lo_c = lo, hi_c = hi;
+      if (kCausal) {
+        lo_c = 2 * j + c;
+        if (window != 0) hi_c = min(hi, (key0 + 62 + window) / kStream);
+      }
+      if (key0 >= S) lo_c = hi + 1;
+      float dk[D / 2], dv[D / 2];
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.0f;
+
+      for (int i = lo, n = it; i <= hi; ++i, ++n) {
+        const int st = n % kStages;
+        mbar_wait(full(st), (n / kStages) & 1);
+        if (i < lo_c || i > hi_c) {  // below this warpgroup's diagonal or past its window
+          release(empty(st));
+          if (i == hi) release(empty_kv);
+          continue;
+        }
+        // Transposed tiles, rows = this warpgroup's keys, columns = the
+        // queries of Q tile i: P^T and dS^T are then the A operands of dV
+        // and dK untransposed.
+        float s[32], dp[32];
+        fence_regs(dk);
+        fence_regs(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t own = (kk / 4) * kOwnBox + (kk % 4) * 32;
+          const uint32_t str = (kk / 4) * kStreamBox + (kk % 4) * 32;
+          wgmma_ss(s, kmajor_desc(sKc + own), kmajor_desc(sQ(st) + str), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t own = (kk / 4) * kOwnBox + (kk % 4) * 32;
+          const uint32_t str = (kk / 4) * kStreamBox + (kk % 4) * 32;
+          wgmma_ss(dp, kmajor_desc(sVc + own), kmajor_desc(sDo(st) + str), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (i == hi) release(empty_kv);  // the next tile's K and V may load
+        // lse and delta belong to the query, the column: this thread's
+        // columns are 8 nn + 2 t and 8 nn + 2 t + 1.
+        auto rows = [&](uint32_t a) {
+          return reinterpret_cast<const float*>(smem_raw + (a - smem_u32(smem_raw)));
+        };
+        const float *ls = rows(sLse(st)), *dls = rows(sDelta(st));
+        const bool masked =
+            kCausal && (i == 2 * j + c || (window != 0 && i * kStream + 63 - key0 >= window));
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * nn + 2 * t);
+          const float2 d2 = *reinterpret_cast<const float2*>(dls + 8 * nn + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * nn + e;
+            const float lv = (e & 1) ? l2.y : l2.x, dlt = (e & 1) ? d2.y : d2.x;
+            float p = fast_exp2(fmaf(s[x], scale2, -lv * kLog2e));
+            const int qpos = i * kStream + 8 * nn + 2 * t + (e & 1);
+            if (masked && !visible(qpos, key0 + r_in + 8 * (e >> 1), window)) p = 0.0f;
+            s[x] = p;
+            dp[x] = p * (dp[x] - dlt) * scale;
+          }
+        }
+        uint32_t pa[4][4], da[4][4];
+        to_a(pa, s);
+        to_a(da, dp);
+        fence_regs(dk);
+        fence_regs(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < 4; ++kt)
+          wgmma_rs(dv, pa[kt], mnmajor_desc<kStream>(sDo(st) + kt * 16 * 128));
+#pragma unroll
+        for (int kt = 0; kt < 4; ++kt)
+          wgmma_rs(dk, da[kt], mnmajor_desc<kStream>(sQ(st) + kt * 16 * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_regs(pa);
+        fence_regs(da);
+        release(empty(st));
+      }
+      it += hi - lo + 1;
+
+      if (key0 < S) {
+        if (tid == 0) tma_store_wait_read();
+        warpgroup_sync(kOutBar + c);
+        stage_rows<D>(sOutK, dk, tid);
+        stage_rows<D>(sOutV, dv, tid);
+        fence_async_shared();
+        warpgroup_sync(kOutBar + c);
+        if (tid == 0)
+          for (int b = 0; b < L::kBoxes; ++b) {
+            tma_store(&dk_map, sOutK + b * kStreamBox, b * kBoxCols, key0, bh);
+            tma_store(&dv_map, sOutV + b * kStreamBox, b * kBoxCols, key0, bh);
+          }
+      }
+    }
+    if (tid == 0) tma_store_wait_read();
+  }
+}
+
+// --- host side -----------------------------------------------------------------
+
+template <int D, bool kCausal>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int* counters, int bh, int s, int window,
+              cudaStream_t stream) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  CUtensorMap qm, km, vm, dom, dqm;
+  if (!make_map(&qm, fn, q, bh, s, D, kOwn) || !make_map(&dom, fn, dout, bh, s, D, kOwn) ||
+      !make_map(&km, fn, k, bh, s, D, kStream) || !make_map(&vm, fn, v, bh, s, D, kStream) ||
+      !make_map(&dqm, fn, dq, bh, s, D, kStream))
+    return kErrEncode;
+  int ctas = 0;
+  const cudaError_t e = persistent_grid(flash_bwd_dq_sm90<D, kCausal>, DqSmem<D>::kBytes,
+                                        bh * ((s + kOwn - 1) / kOwn), &ctas);
+  if (e != cudaSuccess) return e;
+  const float scale = softmax_scale(D);
+  flash_bwd_dq_sm90<D, kCausal><<<ctas, kThreads, DqSmem<D>::kBytes, stream>>>(
+      qm, km, vm, dom, dqm, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      counters, s, bh, heads_per_chunk(bh, s, D, 4), window, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D, bool kCausal>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int* counters, int bh, int s, int window,
+               cudaStream_t stream) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  CUtensorMap qm, km, vm, dom, lm, dlm, dkm, dvm;
+  if (!make_map(&km, fn, k, bh, s, D, kOwn) || !make_map(&vm, fn, v, bh, s, D, kOwn) ||
+      !make_map(&qm, fn, q, bh, s, D, kStream) || !make_map(&dom, fn, dout, bh, s, D, kStream) ||
+      !make_row_map(&lm, fn, lse, bh, s, kStream) ||
+      !make_row_map(&dlm, fn, delta, bh, s, kStream) ||
+      !make_map(&dkm, fn, dk, bh, s, D, kStream) || !make_map(&dvm, fn, dv, bh, s, D, kStream))
+    return kErrEncode;
+  int ctas = 0;
+  const cudaError_t e = persistent_grid(flash_bwd_dkv_sm90<D, kCausal>, DkvSmem<D>::kBytes,
+                                        bh * ((s + kOwn - 1) / kOwn), &ctas);
+  if (e != cudaSuccess) return e;
+  const float scale = softmax_scale(D);
+  flash_bwd_dkv_sm90<D, kCausal><<<ctas, kThreads, DkvSmem<D>::kBytes, stream>>>(
+      qm, km, vm, dom, lm, dlm, dkm, dvm, counters, s, bh, heads_per_chunk(bh, s, D, 4), window,
+      scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, dout, dq, dk, dv: [bh, s, d] bf16, contiguous, 16-byte aligned;
+// lse, delta [bh, s] fp32, 16-byte aligned; s a multiple of 64. counters:
+// two ints per kernel, zero before the first launch and left zero by every
+// launch that completes; launches that share them must be ordered (one
+// stream). d is 64 or 128; the caller (flash_attention.cu) has checked the
+// shape. Each returns the cudaError_t of the launch, or a negative code for
+// a tensor-map failure.
+extern "C" int tpe_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dq, void* counters, int bh, int s, int d, int window,
+                                     int causal, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  int* ctr = static_cast<int*>(counters);
+  if (d == 64)
+    return causal ? launch_dq<64, true>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st)
+                  : launch_dq<64, false>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st);
+  if (d == 128)
+    return causal ? launch_dq<128, true>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st)
+                  : launch_dq<128, false>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int tpe_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dk, void* dv, void* counters, int bh, int s, int d,
+                                      int window, int causal, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  int* ctr = static_cast<int*>(counters);
+  if (d == 64)
+    return causal
+               ? launch_dkv<64, true>(q, k, v, dout, lse, delta, dk, dv, ctr, bh, s, window, st)
+               : launch_dkv<64, false>(q, k, v, dout, lse, delta, dk, dv, ctr, bh, s, window, st);
+  if (d == 128)
+    return causal
+               ? launch_dkv<128, true>(q, k, v, dout, lse, delta, dk, dv, ctr, bh, s, window, st)
+               : launch_dkv<128, false>(q, k, v, dout, lse, delta, dk, dv, ctr, bh, s, window, st);
+  return cudaErrorInvalidValue;
+}

@@ -2,7 +2,8 @@
 // and 128, causal (optionally sliding-window) and non-causal, built on TMA,
 // wgmma and warp specialisation. tpe_flash_fwd (flash_attention.cu) sends
 // every bf16 call at D 64 or 128 here and nowhere else; fp32 and the bf16
-// head dims 16 and 32 keep flash_attention.cu's mma.sync kernel.
+// head dims 16 and 32 keep flash_attention.cu's mma.sync kernel. The
+// helpers it shares with K2 and K3 (flash_bwd_sm90.cu) are in sm90.cuh.
 //
 // It replaces _fwd_kernel (tpu_engine/ops/_flash_pallas.py:117, launched by
 // _flash_fwd through pl.pallas_call). Per (bh, row) it computes
@@ -53,22 +54,14 @@
 //   TMA store that runs on while the next tile starts; lse = m ln2 + log l,
 //   with l floored at 1e-30.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
+#include "sm90.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kBlockM = 128;   // Q rows of a CTA, 64 per consumer warpgroup
 constexpr int kBlockN = 128;   // keys of a K/V tile: the n of the S product
 constexpr int kStages = 2;     // depth of the K/V ring
 constexpr int kThreads = 384;  // producer and two consumer warpgroups
-constexpr int kBoxCols = 64;   // bf16 columns of a 128-byte swizzled row
 constexpr int kBoxBytes = kBlockN * 128;  // one [128 rows][64 columns] box
 constexpr int kProducerRegs = 40;   // 128 x 40 + 256 x 232 = 384 x 168
 constexpr int kConsumerRegs = 232;
@@ -93,182 +86,6 @@ struct Smem {
   static constexpr int kBytes = kBars + 8 * (3 + 4 * kStages) + 1024;  // + tile slot, alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers and TMA -----------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Waits for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// One box of a 3-D map at (column c0, row c1, head c2) into shared memory,
-// completing `bar`'s transaction count by the box's bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// One box of shared memory to a 3-D map at (column c0, row c1, head c2);
-// rows past the map's bounds are not written. Tracked as a bulk group.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// Waits until this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// --- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-// K-major operand (Q, K): 8-row groups 1024 bytes apart; the leading offset
-// is unused with this swizzle. A k16 slice inside a box starts 32 bytes on.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
-}
-// MN-major operand (V as [keys][D]): 64-column boxes kBoxBytes apart, 8-key
-// groups 1024 bytes apart. A k16 slice (16 keys) starts 2048 bytes on.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, kBoxBytes, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups of products are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products that own them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int x = 0; x < N; ++x) asm volatile("" : "+f"(r[x])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][N]) {
-#pragma unroll
-  for (int x = 0; x < 8; ++x)
-#pragma unroll
-    for (int y = 0; y < N; ++y) asm volatile("" : "+r"(r[x][y])::"memory");
-}
-
-#define TPE_ACC8(d, i)                                                                    \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], both from shared memory,
-// K-major; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24), TPE_ACC8(d, 32),
-        TPE_ACC8(d, 40), TPE_ACC8(d, 48), TPE_ACC8(d, 56)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d[64 x N] += A[64 x 16] * B[16 x N]: A as bf16 register fragments, B
-// MN-major in shared memory (transpose bit set). N = 128 and 64.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24), TPE_ACC8(d, 32),
-        TPE_ACC8(d, 40), TPE_ACC8(d, 48), TPE_ACC8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef TPE_ACC8
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // --- the kernel --------------------------------------------------------------
 
 // Named barriers 1 and 2 order the two consumer warpgroups' turns at issuing
@@ -276,21 +93,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // its o staging.
 constexpr int kTurnBar = 1;
 constexpr int kOutBar = 3;
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void warpgroup_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// Accumulator layout of wgmma m64nN, per thread (warp w of the warpgroup,
-// lane = 4 g + t): d[4n + e] is row 16 w + g + 8 (e >> 1), column
-// 8 n + 2 t + (e & 1). The bf16 A fragment of a k16 slice holds the same
-// positions of two neighbouring n8 tiles, so S slice kt is P's A operand.
 
 // One step of the online softmax on the S tile of K tile j: mask it if the
 // tile needs it, raise the running max m (base 2, floored), turn s into P
@@ -336,14 +138,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
       s[4 * n + e] = p;
       l[e >> 1] += p;
     }
-}
-
-// P (fp32, the S accumulator's layout) rounded to bf16 A fragments.
-__device__ __forceinline__ void to_a(uint32_t (&pa)[8][4], const float (&s)[64]) {
-#pragma unroll
-  for (int kt = 0; kt < 8; ++kt)
-#pragma unroll
-    for (int h = 0; h < 4; ++h) pa[kt][h] = pack_bf16(s[8 * kt + 2 * h], s[8 * kt + 2 * h + 1]);
 }
 
 // The tiles of a launch: Q tile i of head bh, with the K tiles [lo, hi] it
@@ -481,13 +275,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss_n128(s, kmajor_desc(sQc + off), kmajor_desc(sK(st) + off), kk > 0);
+        wgmma_ss(s, kmajor_desc(sQc + off), kmajor_desc(sK(st) + off), kk > 0);
       }
       wgmma_commit();
     };
     auto issue_pv = [&](float (&acc)[D / 2], const uint32_t (&pa)[8][4], int st) {
 #pragma unroll
-      for (int kt = 0; kt < 8; ++kt) wgmma_rs(acc, pa[kt], mnmajor_desc(sV(st) + kt * 16 * 128));
+      for (int kt = 0; kt < 8; ++kt)
+        wgmma_rs(acc, pa[kt], mnmajor_desc<kBlockN>(sV(st) + kt * 16 * 128));
       wgmma_commit();
     };
     auto release = [&](uint32_t bar) {
@@ -597,72 +392,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
 
 // --- host side -----------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Codes outside cudaError_t's range, negative (the Python wrapper names them).
-constexpr int kErrNoEncoder = -1;  // libcuda has no cuTensorMapEncodeTiled
-constexpr int kErrEncode = -2;     // cuTensorMapEncodeTiled refused a tensor map
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A [BH, S, D] bf16 tensor as a 3-D map of [1][rows][64] boxes, 128-byte
-// swizzle; out-of-bounds rows read as zeros and are not written.
-bool make_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int bh, int s, int d, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(bf16),
-                                 static_cast<cuuint64_t>(s) * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The current device's SM count, asked of the runtime once per device.
-cudaError_t sm_count(int* sms) {
-  static int known[64] = {};
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  if (device < 64 && known[device] > 0) {
-    *sms = known[device];
-    return cudaSuccess;
-  }
-  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess && device < 64) known[device] = *sms;
-  return e;
-}
-
-// Heads per chunk of the tile order: as many as keep the chunk's q, k and v
-// within kChunkBytes (about half of the H100's 50 MB L2), split evenly.
-constexpr double kChunkBytes = 24.0 * (1 << 20);
-
-int heads_per_chunk(int bh, int s, int d) {
-  const double head_bytes = 3.0 * s * d * sizeof(bf16);
-  const int chunks = static_cast<int>(std::ceil(bh * head_bytes / kChunkBytes));
-  return chunks <= 1 ? bh : (bh + chunks - 1) / chunks;
-}
-
 template <int D, bool kCausal>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int* counters,
            int bh, int s, int window, cudaStream_t stream) {
@@ -672,20 +401,13 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int*
   if (!make_map(&qm, fn, q, bh, s, D, kBlockM) || !make_map(&km, fn, k, bh, s, D, kBlockN) ||
       !make_map(&vm, fn, v, bh, s, D, kBlockN) || !make_map(&om, fn, o, bh, s, D, 64))
     return kErrEncode;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_sm90<D, kCausal>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
-  if (attr != cudaSuccess) return attr;
-  // 1/sqrt(D) rounded once to fp32, as the JAX kernel's scale is, then to
-  // base-2 units.
-  const float scale2 = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))) * kLog2e;
-  // Persistent: one CTA per SM at most, each walking its share of the tiles.
-  int sms = 0;
-  const cudaError_t e = sm_count(&sms);
+  int ctas = 0;
+  const cudaError_t e = persistent_grid(flash_fwd_sm90<D, kCausal>, Smem<D>::kBytes,
+                                        bh * ((s + kBlockM - 1) / kBlockM), &ctas);
   if (e != cudaSuccess) return e;
-  const int tiles = bh * ((s + kBlockM - 1) / kBlockM);
-  flash_fwd_sm90<D, kCausal><<<tiles < sms ? tiles : sms, kThreads, Smem<D>::kBytes, stream>>>(
+  flash_fwd_sm90<D, kCausal><<<ctas, kThreads, Smem<D>::kBytes, stream>>>(
       qm, km, vm, om, static_cast<float*>(lse), counters, s, bh,
-      heads_per_chunk(bh, s, D), window, scale2);
+      heads_per_chunk(bh, s, D, 3), window, softmax_scale(D) * kLog2e);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 """Wrappers of the three CUDA flash-attention kernels, their plain PyTorch
 versions, the launch counters, the loader, and the autograd functions.
 
-Kernels (``tpu_engine_torch/csrc/flash_attention.cu``; K1 in bf16 at head
-dims 64 and 128 is ``csrc/flash_fwd_sm90.cu``, TMA + wgmma + warp
-specialisation), each replacing one Pallas kernel of
+Kernels (``tpu_engine_torch/csrc/flash_attention.cu``; in bf16 at head dims
+64 and 128, K1 is ``csrc/flash_fwd_sm90.cu`` and K2 and K3 are
+``csrc/flash_bwd_sm90.cu``, TMA + wgmma + warp specialisation, with the
+helpers they share in ``csrc/sm90.cuh``), each replacing one Pallas kernel of
 ``tpu_engine/ops/_flash_pallas.py``:
 
 - K1 ``flash_fwd``      ← ``_fwd_kernel``      (o, lse) from (q, k, v);
@@ -39,7 +40,9 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "flash_attention.cu", _PKG / "csrc" / "flash_fwd_sm90.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in
+                ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"))
+HEADERS = (_PKG / "csrc" / "sm90.cuh",)  # included by the sm90 sources
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -82,7 +85,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtpe_flash_{h.hexdigest()[:16]}.so"
 
@@ -143,15 +146,15 @@ def _load():
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tpe_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.tpe_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.tpe_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.tpe_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.tpe_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         for fn in (lib.tpe_flash_fwd, lib.tpe_flash_bwd_dq, lib.tpe_flash_bwd_dkv):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-# Negative codes of ``tpe_flash_fwd_sm90`` (csrc/flash_fwd_sm90.cu).
+# Negative codes of the Hopper kernels' entries (csrc/sm90.cuh).
 _TENSOR_MAP_ERRORS = {
     -1: "libcuda has no cuTensorMapEncodeTiled",
     -2: "cuTensorMapEncodeTiled refused a tensor map",
@@ -207,16 +210,19 @@ def _stream() -> int:
 
 
 _counters: dict[tuple[int, int], torch.Tensor] = {}
+# Each Hopper kernel's two tile counters: their offset in a device's block.
+_COUNTER_SLOTS = {"flash_fwd": 0, "flash_bwd_dq": 2, "flash_bwd_dkv": 4}
 
 
-def _tile_counters(device, stream: int) -> torch.Tensor:
-    """The Hopper K1's two tile counters for this device and stream: zero
-    when made, and set back to zero by every launch that completes, so the
-    launches that share them must run in order, on one stream."""
+def _tile_counters(device, stream: int, kernel: str) -> int:
+    """Address of the Hopper ``kernel``'s two tile counters for this device
+    and stream: zero when made, and set back to zero by every launch that
+    completes, so the launches that share them must run in order, on one
+    stream. Each kernel has its own pair."""
     key = (device.index, stream)
     if key not in _counters:
-        _counters[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _counters[key]
+        _counters[key] = torch.zeros(2 * len(_COUNTER_SLOTS), dtype=torch.int32, device=device)
+    return _counters[key][_COUNTER_SLOTS[kernel]:].data_ptr()
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -324,7 +330,7 @@ def flash_fwd(q, k, v, window: int = 0, causal: bool = True):
     stream = _stream()
     err = _load().tpe_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _tile_counters(q.device, stream).data_ptr(), BH, S, D, window, int(causal),
+        _tile_counters(q.device, stream, "flash_fwd"), BH, S, D, window, int(causal),
         int(q.dtype == torch.bfloat16), stream,
     )
     _check("flash_fwd", err)
@@ -341,10 +347,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0, causal: bool = True):
     )
     _check_window("flash_bwd_dq", window, causal)
     dq = torch.empty_like(q)
+    stream = _stream()
     err = _load().tpe_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), BH, S, D, window, int(causal),
-        int(q.dtype == torch.bfloat16), _stream(),
+        delta.data_ptr(), dq.data_ptr(), _tile_counters(q.device, stream, "flash_bwd_dq"),
+        BH, S, D, window, int(causal), int(q.dtype == torch.bfloat16), stream,
     )
     _check("flash_bwd_dq", err)
     launches[_counter("flash_bwd_dq", causal)] += 1
@@ -360,10 +367,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, causal: bool = True)
     )
     _check_window("flash_bwd_dkv", window, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stream = _stream()
     err = _load().tpe_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, S, D, window, int(causal),
-        int(q.dtype == torch.bfloat16), _stream(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _tile_counters(q.device, stream, "flash_bwd_dkv"), BH, S, D, window, int(causal),
+        int(q.dtype == torch.bfloat16), stream,
     )
     _check("flash_bwd_dkv", err)
     launches[_counter("flash_bwd_dkv", causal)] += 1

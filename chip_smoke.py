@@ -36,7 +36,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    (seq 8192, sequence 4, micro-batch 1), with the launch counts of every
    kernel checked exactly; then the same steps with flash attention, to
    which the ring's losses, gradient norm and (in fp32 compute) initial
-   gradients are held.
+   gradients are held;
+7. generate: llama-1b inference (seed-0 weights cast once to bf16):
+   ``generate`` at batch 4, prompt 512, 128 new tokens, greedy, its cached
+   logits held to the port's forward (bf16, and fp32 with TF32 off) and its
+   streams teacher-forced through forward; ``speculative_generate`` at
+   batch 1 with a 2-layer draft, its rounds reported;
+8. serve: ``ContinuousBatcher`` (8 slots of 2048 lanes, prefill chunk 256,
+   8 tokens a dispatch, prefix cache of 1024 tokens) on a ``serve_forever``
+   thread, 16 requests (prompts 32-1536, four sharing a 512-token prefix,
+   four sampled), with the bf16 pool, the int8 pool and the bf16 pool again:
+   every request done, no slot left busy, streams teacher-forced, prefix
+   hits, the int8 pool's logits against the bf16 pool's, the repeat's tokens
+   identical; TTFT, decode tokens/s, one decode dispatch timed and profiled.
+   The serving path runs no kernel of the port: its attention is plain
+   batched products over the cache, as in JAX.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results (``launches`` per training step, summed over ``train``
@@ -233,6 +247,39 @@ RING_PARAM_GRAD_REL = 1e-4
 # 0 (warmup) and constant after. At a peak of 3e-4 the loss on the repeated
 # batch rose again from the fourth step on; this rate keeps it falling.
 TRAIN_LR = dict(learning_rate=3e-5, warmup_steps=1, lr_schedule="constant")
+
+# Serving phases (generate, serve): llama-1b at full width and depth, seed-0
+# random weights cast once to bf16. The cached path's logits (prefill, then
+# one-token decode, teacher-forced) are held to the port's forward over the
+# same tokens by relative norm error, in bf16 and in fp32 with TF32 off, and
+# in bf16 also by max |error|. On an H100 (NVIDIA H100 80GB HBM3, 700 W) the
+# first run measured 1.9e-2 and 4.6e-6, max |error| 0.11, and a prefix hit's
+# first-token logits 2.1e-2 from forward: the bounds are about twice those.
+# A greedy stream is held, teacher-forced through forward, to within
+# SERVE_TAU of each position's largest logit: random weights leave top-2
+# gaps below bf16's error, so the streams cannot be compared token by
+# token. SERVE_TAU is about twice the largest gap of sound runs on the same
+# card (0.090, the int8 pool's streams; bf16 pool 0.051, generate 0.033).
+# Planted faults read 1.28 (the second-ranked token fed back) and 1.20
+# (decode RoPE at position + 1; serve_faults.py).
+SERVE_REL = {"bf16": 4e-2, "fp32": 2e-5}
+SERVE_ABS = 0.25
+SERVE_TAU = 0.2
+# The int8 pool's logits against the full-precision pool's, as a share of
+# max |logit|: JAX's bound, 2 %, taken in fp32 compute
+# (tests/test_generate.py:360-372), held here in fp32 compute too. Sound
+# readings on an H100: fp32 1.90e-2; bf16 3.25e-2, the size of bf16's own
+# rounding through 16 layers (cached against forward: max |error| 0.11).
+# Planted faults (serve_faults.py), fp32 / bf16: scales rounded to bf16
+# 2.12e-2 / 3.25e-2 (bf16 compute rounds them anyway), scales x 127/128
+# 3.22e-2 / 4.15e-2, dequantisation skipped 1.36 / 1.25. The bf16 bound
+# lies midway between the sound reading and the scale fault's.
+INT8_SHARE = {"fp32": 0.02, "bf16": 3.7e-2}
+GEN = dict(batch=4, prompt=512, new=128)
+SERVE_CFG = dict(max_slots=8, max_len=2048, prefill_chunk=256, prefill_pad_to=64,
+                 chunk_steps=8, seed=0, prefix_cache_tokens=1024)
+SERVE_SHARED = (2, 3, 10, 11)   # requests whose prompts share a 512-token prefix
+SERVE_SAMPLED = (1, 6, 9, 14)   # requests at temperature 0.8; the rest are greedy
 
 
 def check_lse_backward(fc) -> dict:
@@ -687,7 +734,7 @@ def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict) -> 
         raise AssertionError(f"loss did not fall at every step on a repeated batch: {losses}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
-    out["profile"] = _profile_step(prog, state, batch, key)
+    out["profile"] = _profile(lambda: prog.step(state, batch), key)
     out["optimizer_ms"] = _time_optimizer(prog, state, key)
 
 
@@ -833,6 +880,380 @@ def phase_ring(res: dict) -> None:
                   flush=True)
 
 
+def _llama_1b(state: dict):
+    """llama-1b's inference parameters (seed 0, cast once to bf16, on the
+    card), made on first use and kept in ``state`` for the next phase."""
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    if "params" not in state:
+        cfg = tfm.MODEL_CONFIGS["llama-1b"]
+        masters = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        state["cfg"], state["params"] = cfg, tfm.inference_params(masters)
+    return state["cfg"], state["params"]
+
+
+def _cached_logits(params, cfg, tokens, prompt: int, dtype):
+    """Logits for tokens[:, :-1] by the cached path: one prefill of the first
+    ``prompt`` tokens, then one-token decode steps, teacher-forced."""
+    import torch
+
+    from tpu_engine_torch import generate as tgen
+
+    B, S = tokens.shape
+    cache = tgen.init_cache(cfg, B, S, dtype=dtype)
+    logits, cache = tgen.forward_with_cache(params, tokens[:, :prompt], cache, cfg, dtype)
+    out = [logits]
+    for t in range(prompt, S - 1):
+        logits, cache = tgen.forward_with_cache(params, tokens[:, t:t + 1], cache, cfg, dtype)
+        out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def _forward_logits(params, cfg, tokens, dtype):
+    """The port's forward (plain attention) over ``tokens``."""
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    with torch.inference_mode():
+        return tfm.forward(params, tokens, cfg, compute_dtype=dtype)
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def _stream_gap(params, cfg, prompt: list, stream: list) -> float:
+    """Teacher-forced through the port's forward: the largest gap between a
+    position's largest logit and the logit of the token the stream chose."""
+    import torch
+
+    toks = torch.tensor([list(prompt) + list(stream)], device="cuda")
+    logits = _forward_logits(params, cfg, toks[:, :-1], torch.bfloat16)[0, len(prompt) - 1:]
+    chosen = logits.gather(1, toks[0, len(prompt):, None])[:, 0]
+    return float((logits.max(dim=-1).values - chosen).max())
+
+
+def phase_generate(res: dict, state: dict) -> None:
+    """``generate`` at batch 4, prompt 512, 128 new tokens, greedy, bf16;
+    its cached logits against forward (bf16, and fp32 with TF32 off over
+    prompt 256 + 16 decode steps); its streams teacher-forced; then
+    ``speculative_generate`` at batch 1 with a 2-layer draft of llama-1b's
+    width, its rounds and its stream teacher-forced."""
+    import torch
+
+    from tpu_engine_torch import generate as tgen
+    from tpu_engine_torch.models import transformer as tfm
+
+    cfg, params = _llama_1b(state)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, P, N = GEN["batch"], GEN["prompt"], GEN["new"]
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    tgen.generate(params, prompt[:, :64], cfg, 4)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tgen.generate(params, prompt, cfg, N)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not all(p.is_cuda and p.dtype == bf16 for p in params.values()) or not out.is_cuda:
+        raise AssertionError("generate's parameters or tokens are not bf16 CUDA tensors")
+
+    cached = _cached_logits(params, cfg, out, P, bf16)
+    ref = _forward_logits(params, cfg, out[:, :-1], bf16)
+    rel = _rel_err(cached, ref)
+    max_abs = float((cached - ref).abs().max())
+    max_logit = float(ref.abs().max())
+    lg = ref[:, P - 1:]
+    gap = float((lg.max(dim=-1).values - lg.gather(-1, out[:, P:, None])[..., 0]).max())
+    del cached, ref, lg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p32 = {k: v.float() for k, v in params.items()}
+    t32 = out[:, :256 + 17]
+    rel32 = _rel_err(_cached_logits(p32, cfg, t32, 256, f32),
+                     _forward_logits(p32, cfg, t32[:, :-1], f32))
+    del p32
+
+    dcfg = cfg.with_(n_layers=2)
+    draft = tfm.inference_params(
+        tfm.init_params(dcfg, torch.Generator(device="cuda").manual_seed(2), "cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec, rounds = tgen.speculative_generate(params, draft, prompt[:1], cfg, dcfg, N,
+                                             return_stats=True)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    spec_gap = _stream_gap(params, cfg, prompt[0].tolist(), spec[0, P:].tolist())
+    out_row = res["generate"] = {
+        "batch": B, "prompt": P, "new_tokens": N, "seconds": gen_s,
+        "tokens_per_s": B * N / gen_s, "ms_per_token_step": gen_s / N * 1e3,
+        "logits_rel_err_bf16": rel, "logits_max_abs_err_bf16": max_abs,
+        "max_abs_logit": max_logit,
+        "logits_rel_err_fp32": rel32, "greedy_max_gap": gap,
+        "speculative": {"rounds": rounds, "seconds": spec_s, "max_gap": spec_gap,
+                        "tokens_equal_to_greedy_row0": int((spec[0, P:] == out[0, P:]).sum())},
+    }
+    print(f"generate: batch {B}, prompt {P}, {N} new tokens in {gen_s:.3f} s "
+          f"({B * N / gen_s:.1f} tokens/s, {gen_s / N * 1e3:.2f} ms a step)", flush=True)
+    print(f"generate: cached vs forward logits, relative norm error bf16 {rel:.3e} "
+          f"(bound {SERVE_REL['bf16']}; max |err| {max_abs:.3e}, bound {SERVE_ABS}, of max "
+          f"|logit| {max_logit:.3f}), fp32 {rel32:.3e} "
+          f"(bound {SERVE_REL['fp32']}); greedy streams teacher-forced: largest gap "
+          f"{gap:.3e} (tau {SERVE_TAU})", flush=True)
+    print(f"generate: speculative, batch 1, 2-layer draft, gamma 4: {rounds} rounds for {N} "
+          f"tokens in {spec_s:.3f} s, largest gap {spec_gap:.3e}, "
+          f"{out_row['speculative']['tokens_equal_to_greedy_row0']}/{N} equal to greedy",
+          flush=True)
+    for name, got, bound in (("bf16 logits", rel, SERVE_REL["bf16"]),
+                             ("bf16 logits max |err|", max_abs, SERVE_ABS),
+                             ("fp32 logits", rel32, SERVE_REL["fp32"]),
+                             ("greedy gap", gap, SERVE_TAU), ("speculative gap", spec_gap,
+                                                              SERVE_TAU)):
+        if not got <= bound:
+            raise AssertionError(f"generate {name}: {got:.3e} > {bound}")
+
+
+def _serve_plan(cfg) -> list:
+    """16 requests from seed 0: prompt lengths 32-1536, 64-128 new tokens;
+    SERVE_SHARED share a 512-token prefix, SERVE_SAMPLED sample at 0.8."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    V = cfg.vocab_size
+    lengths, new = rng.integers(32, 1537, 16), rng.integers(64, 129, 16)
+    prefix = rng.integers(1, V, 512).tolist()
+    plan = []
+    for i in range(16):
+        if i in SERVE_SHARED:
+            n = max(int(lengths[i]), 512 + 64)
+            prompt = prefix + rng.integers(1, V, n - 512).tolist()
+        else:
+            prompt = rng.integers(1, V, int(lengths[i])).tolist()
+        plan.append((prompt, int(new[i]), 0.8 if i in SERVE_SAMPLED else 0.0))
+    return plan
+
+
+def _serve_run(params, cfg, plan: list, kv_quant: bool, key: str) -> dict:
+    """Serve ``plan`` with a ContinuousBatcher driven by ``serve_forever`` on
+    a thread, as the router runs it. All requests are submitted before the
+    thread starts: the first 8 fill the slots and the rest queue, so what
+    the server computes depends on the plan alone. Returns the streams,
+    the first-token logits of prefix-cache hits, TTFT, throughput, the
+    thread's device and stream, memory, and a timed and a profiled decode
+    dispatch at 8 active slots."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpu_engine_torch import serving as tsrv
+
+    main_dev, main_stream = torch.cuda.current_device(), torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = tsrv.ContinuousBatcher(params, cfg, kv_quant=kv_quant, **SERVE_CFG)
+    first, hit_len, thread = {}, {}, {}
+    real_first, real_lookup, real_step = srv._first_token, srv._prefix_cache.lookup, srv.step
+
+    def first_token(logits, req):
+        first[req.id] = logits.float().clone()
+        return real_first(logits, req)
+
+    def lookup(prompt):
+        use, entry = real_lookup(prompt)
+        hit_len[tuple(prompt)] = use
+        return use, entry
+
+    def step():
+        thread.setdefault("device", torch.cuda.current_device())
+        thread.setdefault("stream", torch.cuda.current_stream() == main_stream)
+        return real_step()
+
+    srv._first_token, srv._prefix_cache.lookup, srv.step = first_token, lookup, step
+    ids = [srv.submit(p, max_new_tokens=m, temperature=t) for p, m, t in plan]
+    stop = threading.Event()
+    worker = threading.Thread(target=srv.serve_forever, args=(stop,), daemon=True)
+    t0 = time.perf_counter()
+    worker.start()
+    results = [srv.wait(r, timeout=600) for r in ids]
+    wall = time.perf_counter() - t0
+    stats = srv.stats()
+    stop.set()
+    worker.join(timeout=60)
+    pool = srv._cache
+    leak = {"active_slots": stats["active_slots"], "prefilling": stats["prefilling"],
+            "queued": stats["queued"], "lengths": pool.lengths.tolist()}
+    on_card = (pool.k.is_cuda and pool.lengths.is_cuda
+               and all(p.is_cuda for p in srv.params.values()))
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in (pool.k, pool.v, pool.k_scale, pool.v_scale) if t is not None)
+
+    # One decode dispatch (chunk_steps tokens for 8 active slots, greedy),
+    # timed on the host around a synchronize, then profiled.
+    B = srv.max_slots
+    pool.lengths.fill_(1024)
+    z = torch.zeros(B, dtype=torch.int64, device="cuda")
+    args = (srv.params, z, pool, torch.ones(B, dtype=torch.bool, device="cuda"),
+            torch.zeros(B, device="cuda"), z, z, 0, cfg, srv.chunk_steps)
+
+    def dispatch():
+        pool.lengths.fill_(1024)
+        tsrv.decode_chunk(*args)
+        torch.cuda.synchronize()
+
+    dispatch()
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        dispatch()
+        times.append((time.perf_counter() - t1) * 1e3)
+    prof = _profile(dispatch, f"serve {key} decode dispatch")
+    ttft = [r["ttft_ms"] for r in results]
+    tokens = [r["tokens"] for r in results]
+    n_tok = sum(len(t) for t in tokens)
+    out = {
+        "kv_quant": kv_quant, "statuses": [r["status"] for r in results], "tokens": tokens,
+        "wall_s": wall, "tokens_generated": n_tok, "tokens_per_s": n_tok / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "ttft_ms": ttft, "prefix_cache": stats["prefix_cache"], "slot_state": leak,
+        "on_card": on_card, "thread": thread, "main_device": main_dev,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "kv_bytes": kv_bytes,
+        "dispatch_ms_each": times, "dispatch_ms": min(times),
+        "decode_tokens_per_s": B * srv.chunk_steps / (min(times) / 1e3),
+        "dispatch_profile": prof, "device_ms_dispatch": prof["device_ms"],
+        "device_busy_share": prof["device_ms"] / prof["wall_ms"],
+        "device_busy_share_unprofiled_wall": prof["device_ms"] / min(times),
+        "hits": {ids[i]: hit_len.get(tuple(p), 0) for i, (p, _, _) in enumerate(plan)},
+        "first_logits": first,
+    }
+    print(f"serve {key}: {len(ids)} requests, {n_tok} tokens in {wall:.2f} s "
+          f"({out['tokens_per_s']:.1f} tokens/s), TTFT p50 {out['ttft_ms_p50']:.1f} ms, "
+          f"p99 {out['ttft_ms_p99']:.1f} ms; decode dispatch ({srv.chunk_steps} steps, {B} "
+          f"active slots) {out['dispatch_ms']:.2f} ms ({out['decode_tokens_per_s']:.1f} "
+          f"tokens/s), device busy {out['device_ms_dispatch']:.2f} ms: "
+          f"{out['device_busy_share']:.3f} of the profiled wall, "
+          f"{out['device_busy_share_unprofiled_wall']:.3f} of the unprofiled; peak "
+          f"{out['peak_mem_gib']:.2f} GiB, KV pool {kv_bytes / 2**30:.3f} GiB; prefix cache "
+          f"{json.dumps({k: v for k, v in stats['prefix_cache'].items() if k != 'entry_hits'})}",
+          flush=True)
+    return out
+
+
+def _pool_logits(params, cfg, prompts: list, teacher, kv_quant: bool, dtype):
+    """Logits of a slot pool (8 rows, SERVE_CFG's size, compute ``dtype``)
+    fed each prompt by prefill and then ``teacher`` [8, K] one token per
+    step: [K, 8, V]."""
+    import torch
+
+    from tpu_engine_torch import generate as tgen
+    from tpu_engine_torch import serving as tsrv
+
+    pool = tsrv.init_slot_cache(cfg, len(prompts), SERVE_CFG["max_len"], dtype,
+                                prefill_chunk=SERVE_CFG["prefill_chunk"], kv_quant=kv_quant)
+    with torch.inference_mode():
+        for slot, prompt in enumerate(prompts):
+            c1 = tgen.init_cache(cfg, 1, len(prompt), dtype, kv_quant=kv_quant)
+            _, c1 = tgen.forward_with_cache(params, torch.tensor([prompt], device="cuda"), c1,
+                                            cfg, dtype, want_logits=False)
+            tsrv._insert_prefill(pool, c1, slot, len(prompt))
+        active = torch.ones(len(prompts), dtype=torch.bool, device="cuda")
+        out = []
+        for t in range(teacher.shape[1]):
+            logits, pool = tsrv.decode_step(params, teacher[:, t], pool, active, cfg, dtype)
+            out.append(logits)
+    return torch.stack(out)
+
+
+def _int8_pool_error(params, cfg, prompts: list, teacher, dtype) -> dict:
+    """The int8 pool's logits against the full-precision pool's in compute
+    ``dtype``: max |difference| as a share of max |logit|, and the relative
+    norm error."""
+    lq = _pool_logits(params, cfg, prompts, teacher, True, dtype)
+    lf = _pool_logits(params, cfg, prompts, teacher, False, dtype)
+    return {"share": float((lq - lf).abs().max() / lf.abs().max()), "rel": _rel_err(lq, lf)}
+
+
+def phase_serve(res: dict, state: dict) -> None:
+    """The continuous-batching server at llama-1b: 16 requests (SERVE_CFG,
+    :func:`_serve_plan`) with the bf16 pool, the int8 pool and the bf16
+    pool again. Checks: every request done and no slot left busy; pool and
+    parameters on the card, the engine thread on the caller's device and
+    stream; greedy streams of both pools teacher-forced within SERVE_TAU;
+    prefix hits, and a hit's first-token logits within SERVE_REL of forward
+    over its prompt; the int8 pool's logits within INT8_SHARE of max |logit|
+    of the full-precision pool's, in bf16 and in fp32 compute; the repeat's
+    tokens equal to the first run's."""
+    import torch
+
+    cfg, params = _llama_1b(state)
+    plan = _serve_plan(cfg)
+    runs = {key: _serve_run(params, cfg, plan, kv_quant, key)
+            for key, kv_quant in (("bf16", False), ("int8", True), ("bf16_repeat", False))}
+    bf = runs["bf16"]
+    fails = []
+    for key, r in runs.items():
+        if r["statuses"] != ["done"] * len(plan):
+            fails.append(f"{key}: statuses {r['statuses']}")
+        leak = r["slot_state"]
+        if leak["active_slots"] or leak["prefilling"] or leak["queued"] or any(leak["lengths"]):
+            fails.append(f"{key}: slots left busy {leak}")
+        if not r["on_card"]:
+            fails.append(f"{key}: pool or parameters not on the card")
+        if r["thread"] != {"device": r["main_device"], "stream": True}:
+            fails.append(f"{key}: engine thread on {r['thread']}, want device {r['main_device']} "
+                         "and the caller's stream")
+    if runs["bf16_repeat"]["tokens"] != bf["tokens"]:
+        fails.append("bf16 repeat: tokens differ from the first run")
+
+    gaps = [_stream_gap(params, cfg, p, toks)
+            for key in ("bf16", "int8")
+            for (p, _, t), toks in zip(plan, runs[key]["tokens"]) if t == 0.0]
+    hits = {rid: use for rid, use in bf["hits"].items() if use}
+    hit_rel = {rid: _rel_err(bf["first_logits"][rid],
+                             _forward_logits(params, cfg, torch.tensor([plan[rid][0]],
+                                                                       device="cuda"),
+                                             torch.bfloat16)[0, -1])
+               for rid in hits}
+    prompts = [p for p, _, _ in plan[:8]]
+    teacher = torch.tensor([toks[:16] for toks in bf["tokens"][:8]], device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    int8 = {"bf16": _int8_pool_error(params, cfg, prompts, teacher, torch.bfloat16),
+            "fp32": _int8_pool_error({k: v.float() for k, v in params.items()}, cfg, prompts,
+                                     teacher, torch.float32)}
+    if not max(gaps) <= SERVE_TAU:
+        fails.append(f"greedy streams: largest teacher-forced gap {max(gaps):.3e} > {SERVE_TAU}")
+    if not hits:
+        fails.append("no prefix-cache hit")
+    if hit_rel and not max(hit_rel.values()) <= SERVE_REL["bf16"]:
+        fails.append(f"hit first-token logits vs forward {hit_rel} > {SERVE_REL['bf16']}")
+    for kind, e in int8.items():
+        if not e["share"] <= INT8_SHARE[kind]:
+            fails.append(f"int8 pool logits ({kind}): {e['share']:.3e} of max |logit| > "
+                         f"{INT8_SHARE[kind]}")
+    print(f"serve checks: every request done in each run; greedy streams (bf16 and int8 "
+          f"pools) teacher-forced, "
+          f"largest gap {max(gaps):.3e} (tau {SERVE_TAU}); prefix hits {hits} (tokens), "
+          "first-token logits vs forward "
+          f"{json.dumps({k: round(v, 6) for k, v in hit_rel.items()})}"
+          f" (bound {SERVE_REL['bf16']}); int8 pool vs full-precision pool, max |diff| of max "
+          f"|logit| / relative norm: " + ", ".join(
+              f"{k} {e['share']:.3e} (bound {INT8_SHARE[k]}) / {e['rel']:.3e}"
+              for k, e in int8.items()) + "; repeat identical "
+          f"{runs['bf16_repeat']['tokens'] == bf['tokens']}; engine thread {bf['thread']}",
+          flush=True)
+    for r in runs.values():
+        r.pop("first_logits")
+        r["hits"] = {str(k): v for k, v in r["hits"].items()}
+    res["serve"] = {"config": SERVE_CFG, "runs": runs, "greedy_max_gap": max(gaps),
+                    "hit_first_logits_rel_err": {str(k): v for k, v in hit_rel.items()},
+                    "int8_vs_full_precision": int8, "card": res.get("card")}
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
 def _time_optimizer(prog, state, key: str) -> float:
     """Device time of the AdamW update alone over the llama-1b masters (CUDA
     events), on zero gradients at lr 0: the same tensors and passes as in a
@@ -847,18 +1268,18 @@ def _time_optimizer(prog, state, key: str) -> float:
     return ms
 
 
-def _profile_step(prog, state, batch, key: str) -> dict:
-    """Device time of one more training step by kernel family, from
-    torch.profiler (CUPTI). Families: the port's flash kernels, matrix
-    products (cuBLAS/CUTLASS), and everything else (elementwise, norms,
-    reductions, copies)."""
+def _profile(run, key: str) -> dict:
+    """Wall and device time of one call of ``run``, the device's by kernel
+    family, from torch.profiler (CUPTI). Families: the port's flash
+    kernels, matrix products (cuBLAS/CUTLASS), and everything else
+    (elementwise, norms, reductions, copies)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prog.step(state, batch)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -876,13 +1297,14 @@ def _profile_step(prog, state, batch, key: str) -> dict:
     busy = sum(fam.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     out = {
-        "wall_ms": wall_ms, "device_ms": busy,
+        "wall_ms": wall_ms, "device_ms": busy, "launches": sum(e.count for e in kernels),
         "idle_share": (1 - busy / wall_ms) if busy else None,
         "families_ms": fam,
         "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count}
                 for e in top],
     }
-    print(f"profile {key}: step wall {wall_ms:.1f} ms, device {busy:.1f} ms, families "
+    print(f"profile {key}: wall {wall_ms:.1f} ms, device {busy:.1f} ms, "
+          f"{out['launches']} kernel launches, families "
           + json.dumps({k: round(v, 2) for k, v in fam.items()}), flush=True)
     for t in out["top"]:
         print(f"profile {key}:   {t['ms']:9.3f} ms {t['calls']:5d}x {t['name']}", flush=True)
@@ -940,6 +1362,9 @@ def main() -> int:
         run("train", phase_train, res, args.steps)
         run("ring", phase_ring, res)
         run("train_ring", phase_train_ring, res, args.steps)
+        serving: dict = {}
+        run("generate", phase_generate, res, serving)
+        run("serve", phase_serve, res, serving)
     # Launches per training step on the main paths, each counted from 0
     # around its own run of steps x accumulation microbatches.
     for kr in res.get("kernels", []):

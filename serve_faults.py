@@ -1,0 +1,155 @@
+"""Plant faults in the port's serving path on one card and read what the
+serving checks of ``chip_smoke.py`` measure for each, beside the sound code
+in the same run. ``SERVE_TAU`` and ``INT8_SHARE`` there are set from these
+readings.
+
+    python3 serve_faults.py
+
+llama-1b at full width and depth (seed-0 weights cast once to bf16) serves
+the ``serve`` phase's 16 requests (``chip_smoke._serve_plan``, the same
+``ContinuousBatcher`` options), driven by ``step`` on this thread.
+
+Stream faults, read as the largest teacher-forced gap of the greedy streams
+(``chip_smoke._stream_gap``; held to ``SERVE_TAU``):
+
+- ``sound``, ``sound_int8``: the code as it is, with the bf16 and the int8
+  pool;
+- ``second_best``: every greedy decode draw takes the second-ranked token;
+- ``rope_plus_one``: decode steps rotate q and k for position + 1.
+
+int8 faults, read as the int8 pool's logits against the full-precision
+pool's, max |difference| as a share of max |logit|
+(``chip_smoke._pool_logits``; held to ``INT8_SHARE``), in bf16 compute and
+in fp32 compute with TF32 off:
+
+- ``sound``;
+- ``scale_bf16``: the stored scales rounded to bf16 (codes from the exact
+  scale);
+- ``scale_127_128``: the stored scales times 127/128, as if the codes
+  spanned ±128;
+- ``dequant_skipped``: the stored scales 1, so the codes are read as values.
+
+Each fault is a patch of one function of the package for its own run; no
+file changes. Prints the card's name and power limit, one line per reading
+and one JSON line, also written to ``chiprun_out/serve_faults.json``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import sys
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+
+
+def _streams(params, cfg, plan: list, kv_quant: bool) -> list:
+    """Every request of ``plan`` served to its end; the token streams."""
+    import chip_smoke as cs
+    from tpu_engine_torch import serving as tsrv
+
+    srv = tsrv.ContinuousBatcher(params, cfg, kv_quant=kv_quant, **cs.SERVE_CFG)
+    ids = [srv.submit(p, max_new_tokens=m, temperature=t) for p, m, t in plan]
+    while any(srv.result(r)["status"] not in ("done", "failed") for r in ids):
+        srv.step()
+    results = [srv.result(r) for r in ids]
+    if any(r["status"] != "done" for r in results):
+        raise AssertionError(f"statuses {[r['status'] for r in results]}")
+    return [r["tokens"] for r in results]
+
+
+def _second_best(real):
+    def pick(logits, temps, req_ids, counts, seed):
+        second = logits.topk(2, dim=-1).indices[:, 1]
+        return real(logits, temps, req_ids, counts, seed).where(temps > 0.0, second)
+
+    return pick
+
+
+def _rope_plus_one(real):
+    def run(params, x, cache, write, hidden, positions, *rest):
+        return real(params, x, cache, write, hidden, positions + 1, *rest)
+
+    return run
+
+
+def _stored_scale(real, f):
+    def quantize(rows):
+        codes, scale = real(rows)
+        return codes, f(scale)
+
+    return quantize
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("serve_faults: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from tpu_engine_torch import generate as tgen
+    from tpu_engine_torch import serving as tsrv
+
+    card = cs._card_line()
+    print(card, flush=True)
+    cfg, params = cs._llama_1b({})
+    plan = cs._serve_plan(cfg)
+    greedy = [i for i, (_, _, t) in enumerate(plan) if t == 0.0]
+    out: dict = {"card": card, "tau": cs.SERVE_TAU, "int8_share": cs.INT8_SHARE,
+                 "stream_gap": {}, "int8": {}}
+
+    stream_faults = {
+        "sound": (False, None),
+        "sound_int8": (True, None),
+        "second_best": (False, (tsrv, "_pick_tokens", _second_best)),
+        "rope_plus_one": (False, (tsrv, "_run_layers", _rope_plus_one)),
+    }
+    sound_tokens = None
+    for name, (kv_quant, patch) in stream_faults.items():
+        with (mock.patch.object(patch[0], patch[1], patch[2](getattr(patch[0], patch[1])))
+              if patch else contextlib.nullcontext()):
+            tokens = _streams(params, cfg, plan, kv_quant)
+        sound_tokens = sound_tokens or tokens
+        gaps = [cs._stream_gap(params, cfg, plan[i][0], tokens[i]) for i in greedy]
+        out["stream_gap"][name] = {"max": max(gaps), "per_request": gaps,
+                                   "tokens_equal_to_sound": sum(
+                                       a == b for i in greedy
+                                       for a, b in zip(tokens[i], sound_tokens[i]))}
+        print(f"stream {name}: largest teacher-forced gap {max(gaps):.4f} (tau {cs.SERVE_TAU}), "
+              f"{out['stream_gap'][name]['tokens_equal_to_sound']} greedy tokens equal to "
+              "the sound bf16 run's", flush=True)
+
+    prompts = [p for p, _, _ in plan[:8]]
+    teacher = torch.tensor([toks[:16] for toks in sound_tokens[:8]], device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    int8_faults = {
+        "sound": None,
+        "scale_bf16": lambda s: s.bfloat16().float(),
+        "scale_127_128": lambda s: s * (127 / 128),
+        "dequant_skipped": torch.ones_like,
+    }
+    for kind, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        p = params if dtype == torch.bfloat16 else {k: v.float() for k, v in params.items()}
+        full = cs._pool_logits(p, cfg, prompts, teacher, False, dtype)
+        for name, f in int8_faults.items():
+            with (mock.patch.object(tgen, "_quantize_rows", _stored_scale(tgen._quantize_rows, f))
+                  if f else contextlib.nullcontext()):
+                q = cs._pool_logits(p, cfg, prompts, teacher, True, dtype)
+            share = float((q - full).abs().max() / full.abs().max())
+            out["int8"].setdefault(name, {})[kind] = share
+            print(f"int8 {name} ({kind}): {share:.4e} of max |logit| "
+                  f"(bound {cs.INT8_SHARE[kind]})", flush=True)
+        del p, full
+
+    print(json.dumps(out), flush=True)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "serve_faults.json").write_text(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

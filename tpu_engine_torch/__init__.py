@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the ``tpu_engine`` training path, for one NVIDIA H100.
+"""PyTorch/CUDA port of the ``tpu_engine`` training and serving paths, for one
+NVIDIA H100.
 
 The JAX package ``tpu_engine`` stays the reference. This package imports
 ``torch`` and never ``jax`` or ``tpu_engine``; the tests move weights and
@@ -12,7 +13,14 @@ Slice 1 ports the single-GPU llama-family training step:
   flash-attention kernels (``csrc/flash_attention.cu``);
 - ``tpu_engine_torch.train`` — ``TrainConfig`` and ``TrainProgram``.
 
+Slice 5 ports serving on one card:
+
+- ``tpu_engine_torch.generate`` — the KV-cached forward, ``generate`` and
+  ``speculative_generate``;
+- ``tpu_engine_torch.serving`` — the continuous-batching
+  ``ContinuousBatcher``.
+
 Imports here stay light: submodules are imported by the caller.
 """
 
-__all__ = ["models", "ops", "train"]
+__all__ = ["generate", "models", "ops", "serving", "train"]

@@ -207,12 +207,16 @@ def _block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
-                 compute_dtype=torch.bfloat16, *, cfg: ModelConfig) -> torch.Tensor:
+                 compute_dtype=torch.bfloat16,
+                 positions: Optional[torch.Tensor] = None, *,
+                 cfg: ModelConfig) -> torch.Tensor:
     """tokens [..., S] int → activations [..., S, D] in the compute dtype.
 
     The rows are gathered from the master table and then cast, which gives
     the same values as JAX's cast-then-gather while its backward scatters
-    into fp32 rather than into a compute-dtype copy of the whole table."""
+    into fp32 rather than into a compute-dtype copy of the whole table.
+    ``positions`` is JAX's argument for gpt2's learned position table; the
+    llama arch has none and ignores it."""
     _require_llama(cfg)
     return F.embedding(tokens, params["embed.embedding"]).to(compute_dtype)
 
@@ -241,7 +245,7 @@ class _MatmulF32Out(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=torch.float32)
+        return f32_out(torch.mm, x, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -250,18 +254,26 @@ class _MatmulF32Out(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(w.dtype)
 
 
-def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` over the last dim with an fp32 result. bf16 on the card
-    takes ``torch.mm(..., out_dtype=float32)``; on the CPU, where that
+def f32_out(op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``op(a, b)``, ``op`` being ``torch.mm`` or ``torch.bmm``, with an fp32
+    result (JAX's ``preferred_element_type=float32``). bf16 on the card
+    takes the op's ``out_dtype=float32`` overload; on the CPU, where that
     overload does not exist, the operands are upcast (the same products,
     since bf16 values are exact in fp32)."""
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return torch.matmul(x, w)
-    if x.is_cuda:
-        lead = x.shape[:-1]
-        out = _MatmulF32Out.apply(x.reshape(-1, x.shape[-1]), w)
-        return out.reshape(*lead, w.shape[-1])
-    return torch.matmul(x.float(), w.float())
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return op(a, b)
+    if a.is_cuda:
+        return op(a, b, out_dtype=torch.float32)
+    return op(a.float(), b.float())
+
+
+def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over the last dim with an fp32 result (:func:`f32_out`);
+    bf16 on the card goes through :class:`_MatmulF32Out` for its backward."""
+    x2 = x.reshape(-1, x.shape[-1])
+    out = (_MatmulF32Out.apply(x2, w) if x.is_cuda and x.dtype != torch.float32
+           else f32_out(torch.mm, x2, w))
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def unembed(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -276,6 +288,19 @@ def cast_layer_stack(params: dict[str, torch.Tensor],
     """The stacked per-layer params cast to the compute dtype, once per call.
     Gradients flow back through the cast onto the fp32 masters."""
     return {k: params["layers." + k].to(compute_dtype) for k in LAYER_KEYS}
+
+
+def inference_params(params: dict[str, torch.Tensor], compute_dtype=torch.bfloat16,
+                     device=None) -> dict[str, torch.Tensor]:
+    """Every leaf detached and cast once to the compute dtype (and moved to
+    ``device``, if given), for the cached forward of ``generate`` and
+    ``serving``. JAX casts the fp32 masters inside each jitted dispatch
+    (``cast_layer_stack``, ``unembed``); eager torch would pay that as a
+    pass over every weight per decode step. A cast is deterministic, so
+    casting once gives the same numbers: ``cast_layer_stack`` and
+    ``unembed`` then cast nothing, and the embedding rows equal the cast
+    master rows."""
+    return {k: p.detach().to(device=device, dtype=compute_dtype) for k, p in params.items()}
 
 
 def forward_hidden_and_aux(
@@ -327,5 +352,5 @@ def forward(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16,
 __all__ = [
     "ModelConfig", "MODEL_CONFIGS", "init_params", "param_count",
     "active_param_count", "train_flops_per_token", "embed_tokens", "unembed",
-    "cast_layer_stack", "forward_hidden_and_aux", "forward_and_aux", "forward",
+    "cast_layer_stack", "inference_params", "forward_hidden_and_aux", "forward_and_aux", "forward",
 ]

@@ -6,27 +6,31 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. build: compile the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV,
-   each causal and non-causal, head dims 16/32/64/128) from
+   each causal and non-causal, head dims 16/32/64/128/256) from
    ``tpu_engine_torch/csrc`` with nvcc for sm_90a, one compiler per source,
    all at once; check that the Hopper kernels (``flash_fwd_sm90``,
    ``flash_bwd_dq_sm90``, ``flash_bwd_dkv_sm90``: bf16 at D 64 and 128) are
    built from wgmma and TMA loads (``HGMMA``, ``UTMALDG`` in their SASS),
-   spill nothing, and keep ``setmaxnreg`` (no ptxas C7508 warning);
+   spill nothing, and keep ``setmaxnreg`` (no ptxas C7508 warning); report
+   the registers and spills of the D 256 ``mma.sync`` kernels;
 2. kernels: hold each kernel to its plain PyTorch version at the training
    shape (B·H 4·16, S 2048, D 128, bf16), the non-causal kernels at the
    ring shard's shape (B·H 16, S 2048, D 128), on small fp32 cases with
-   TF32 off, on sliding-window cases and at D 16, 32 and 64; hold K1 alone,
-   and K2 and K3 alone, on the edges of the Hopper kernels' 128-row tiles
-   (ragged S, window edges, B·H 1 and 256), K2 and K3 also to bitwise-equal
-   results when run twice; show that an unbuilt head dim (256) raises; hold
-   ``FlashAttentionLSE``'s backward under random (dO, dlse) to autograd
-   through the plain forward; time each kernel beside its plain version,
-   its bound and a library yardstick (``scaled_dot_product_attention`` for
-   K1, the flash-attention backward op for K2 + K3; timed only, never called
-   by the port), and the causal kernels also at the ring shard;
-3. model: a small llama through the flash kernels against the plain
-   attention path, in fp32 and in bf16 compute; head: the LM head's
-   backward against fp32 products;
+   TF32 off, on sliding-window cases and at D 16, 32 and 64; at D 256
+   in bf16 at gemma-2b's training shape (B·H 4·8, S 2048), causal and
+   non-causal, and on window and fp32 cases; hold K1 alone, and K2 and K3 alone, on
+   the edges of the Hopper kernels' 128-row tiles (ragged S, window edges,
+   B·H 1 and 256) at D 64, 128 and 256, K2 and K3 also to bitwise-equal
+   results when run twice; show that an unbuilt head dim (80) raises; hold ``FlashAttentionLSE``'s backward under random (dO,
+   dlse) to autograd through the plain forward; time each kernel beside its
+   plain version, its bound and a library yardstick
+   (``scaled_dot_product_attention`` for K1, the flash-attention backward
+   op for K2 + K3; timed only, never called by the port), the causal
+   kernels also at the ring shard, and the D 256 kernels at gemma-2b's
+   shape;
+3. model: a small llama, gpt2-124m, and qwen3-4b and gemma-2b at full width
+   and 2 layers, through the flash kernels against the plain attention
+   path, in fp32 and in bf16 compute; head: the LM head's backward against fp32 products;
 4. train: a llama-1b training step at full width (seq 2048, bf16 compute,
    fp32 masters, AdamW, activation checkpointing, attention "auto"), with the
    kernel launch counts read around the run;
@@ -37,12 +41,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    kernel checked exactly; then the same steps with flash attention, to
    which the ring's losses, gradient norm and (in fp32 compute) initial
    gradients are held;
-7. generate: llama-1b inference (seed-0 weights cast once to bf16):
+7. train_gemma: gemma-2b at full width and depth (seq 2048 × 4, bf16
+   compute, fp32 masters, AdamW, checkpointing, flash attention through the
+   D 256 kernels, loss chunks of 256 over the 256000-token vocabulary),
+   with the launch counts checked exactly and the first loss held to the
+   plain attention path's on the same weights and batch;
+8. generate: llama-1b inference (seed-0 weights cast once to bf16):
    ``generate`` at batch 4, prompt 512, 128 new tokens, greedy, its cached
    logits held to the port's forward (bf16, and fp32 with TF32 off) and its
    streams teacher-forced through forward; ``speculative_generate`` at
    batch 1 with a 2-layer draft, its rounds reported;
-8. serve: ``ContinuousBatcher`` (8 slots of 2048 lanes, prefill chunk 256,
+9. generate_gemma: the same for gemma-2b at batch 4, prompt 512, 64 new
+   tokens (no speculative run);
+10. serve: ``ContinuousBatcher`` (8 slots of 2048 lanes, prefill chunk 256,
    8 tokens a dispatch, prefix cache of 1024 tokens) on a ``serve_forever``
    thread, 16 requests (prompts 32-1536, four sharing a 512-token prefix,
    four sampled), with the bf16 pool, the int8 pool and the bf16 pool again:
@@ -54,8 +65,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results (``launches`` per training step, summed over ``train``
-and ``train_ring``; ``launches_by_path`` per step of each), and as the last
-line
+and ``train_ring`` for the D 16-128 kernels and from ``train_gemma`` for the
+D 256 ones; ``launches_by_path`` per step of each), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -82,8 +93,9 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # norm error ||got - want|| / ||want||. A dropped tile or a wrong row scale
 # moves that by far more than bf16 rounding does: on an H100, rounding gives
 # at most 2.8e-3 at the training shape, and dQ with its later half of rows
-# scaled by 0.97 gives 1.2e-2, which the elementwise limits let pass. lse is
-# fp32 in every kernel, so it is held to fp32 limits whatever the dtype.
+# scaled by 0.97 gives 1.2e-2, which the elementwise limits let pass. At
+# D 256 the same holds (kernel_faults.py: readings in PERF.md). lse is fp32
+# in every kernel, so it is held to fp32 limits whatever the dtype.
 TOL = {
     "bf16_out": dict(atol=3e-2, rtol=3e-2),   # o
     "bf16_grad": dict(atol=0.15, rtol=0.1),   # dq, dk, dv
@@ -95,6 +107,9 @@ REL = {"bf16": 6e-3, "fp32": 1e-5}
 # norm error of the logits and of dWq; and the LM head's backward against
 # fp32 products.
 MODEL_REL = {"bf16": 2e-2, "fp32": 1e-5}
+# bf16 flash may be at most this much further than bf16 plain from the fp32
+# plain result (relative norm error of logits and dWq).
+MODEL_BF16_RATIO = 1.5
 HEAD_REL = 1e-4
 
 
@@ -217,12 +232,15 @@ REPLACES = {
     "flash_bwd_dq": "tpu_engine/ops/_flash_pallas.py:306",
     "flash_bwd_dkv": "tpu_engine/ops/_flash_pallas.py:341",
 }
-# The source of each kernel at the timed shapes (bf16, D 128).
+# The source of each kernel at the timed shapes: bf16 at D 128 (the Hopper
+# kernels) and at D 256 (the mma.sync kernels, rows named ``<kernel>_d256``).
 SOURCE = {
     "flash_fwd": "tpu_engine_torch/csrc/flash_fwd_sm90.cu",
     "flash_bwd_dq": "tpu_engine_torch/csrc/flash_bwd_sm90.cu",
     "flash_bwd_dkv": "tpu_engine_torch/csrc/flash_bwd_sm90.cu",
 }
+SOURCE_D256 = "tpu_engine_torch/csrc/flash_attention.cu"
+GEMMA_SHAPE = (4, 8, 2048, 256)  # gemma-2b's attention in train_gemma: B, H, S, D
 # The Hopper kernels' symbols (K1, K2, K3), four instantiations each.
 SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 RING = 4          # ranks of the ring in the ring and train_ring phases
@@ -241,6 +259,11 @@ RING_SEQ = 8192   # sequence length of those phases (local shard 2048)
 # projections' gradients by 2e-2 (halving the cotangent, by 1e-2). The
 # attention itself is held to REL in the ring phase.
 RING_LOSS_TOL = 5e-3
+# train_gemma's first loss (step 0, initial weights) against the same
+# weights and batch through the plain attention path: a coarse end-to-end
+# check of the path (the kernels themselves are held by REL); both run the
+# model in bf16 and differ in attention's rounding.
+FIRST_LOSS_REL = 1e-2
 RING_GRAD_NORM_REL = 1e-3
 RING_PARAM_GRAD_REL = 1e-4
 # Optimizer settings of both training phases: the learning rate is 0 at step
@@ -326,22 +349,29 @@ def check_sm90_sass(fc) -> dict:
     return out
 
 
-def check_ptxas(log: str) -> dict:
-    """Registers and spilled bytes of every Hopper kernel, from the build's
-    ``-Xptxas -v`` output. Raises if one spills or if ptxas ignored a
-    ``setmaxnreg`` (warning C7508)."""
+def _ptxas_table(log: str) -> dict:
+    """Registers and spilled bytes (stores + loads) of every kernel in the
+    build's ``-Xptxas -v`` output, keyed by its mangled name."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             name = m.group(1)
-        elif name and any(k in name for k in SM90_KERNELS):
+        elif name:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             regs = re.search(r"Used (\d+) registers", line)
             if spill:
                 out.setdefault(name, {})["spill_bytes"] = int(spill[1]) + int(spill[2])
             if regs:
                 out.setdefault(name, {})["registers"] = int(regs[1])
+    return out
+
+
+def check_ptxas(log: str) -> dict:
+    """Registers and spilled bytes of every Hopper kernel, from the build's
+    ``-Xptxas -v`` output. Raises if one spills or if ptxas ignored a
+    ``setmaxnreg`` (warning C7508)."""
+    out = {n: v for n, v in _ptxas_table(log).items() if any(k in n for k in SM90_KERNELS)}
     spills = {n: v for n, v in out.items() if v.get("spill_bytes")}
     if spills or "C7508" in log:
         raise AssertionError(f"Hopper kernels spill {spills} or ignore setmaxnreg (C7508: "
@@ -349,13 +379,32 @@ def check_ptxas(log: str) -> dict:
     return out
 
 
-def _edge_cases() -> list:
-    """The edges of the Hopper kernels' 128-row tiles, bf16 at D 64 and 128:
+def check_ptxas_d256(log: str) -> dict:
+    """Registers and spilled bytes of each D 256 instantiation (the mma.sync
+    and fp32 kernels of flash_attention.cu), keyed ``<kernel><256,
+    causal|full>``. Reported, not gated: a spill costs time, not
+    correctness."""
+    out = {}
+    for name, v in _ptxas_table(log).items():
+        k = re.search(r"\d+(flash_\w+?)ILi256ELb([01])E", name)
+        if k:
+            out[f"{k[1]}<256, {'causal' if k[2] == '1' else 'full'}>"] = v
+    if len(out) != 12:  # K1, K2, K3 x causal, full x bf16, fp32
+        raise AssertionError(f"want 12 D 256 instantiations in the ptxas log, found {out}")
+    for n, v in sorted(out.items()):
+        print(f"ptxas D 256: {n}: {v.get('registers')} registers, "
+              f"{v.get('spill_bytes')} bytes spilled (stores + loads)", flush=True)
+    return out
+
+
+def _edge_cases(dims=(64, 128)) -> list:
+    """The edges of the Hopper kernels' 128-row tiles, bf16 at ``dims``:
     S 64, 192 and 320 (a ragged last tile), causal and not; windows 37, 100,
     128 and 200 at S 320 and 1024; B·H 1 and 256. (B·H, S, D, window,
-    causal) each."""
+    causal) each. At D 256 (the mma.sync kernels' 64-row tiles) the same
+    cases cut through their tiles and windows."""
     cases = []
-    for d in (64, 128):
+    for d in dims:
         cases += [(4, s, d, 0, causal) for s in (64, 192, 320) for causal in (True, False)]
         cases += [(2, s, d, w, True) for s in (320, 1024) for w in (37, 100, 128, 200)]
         cases += [(bh, 512, d, 0, causal) for bh in (1, 256) for causal in (True, False)]
@@ -363,12 +412,13 @@ def _edge_cases() -> list:
 
 
 def check_fwd_edges(fc) -> dict:
-    """K1 alone against its plain version on ``_edge_cases``. The limits
-    are those of ``check_case``. Returns max |err| of o and lse per case."""
+    """K1 alone against its plain version on ``_edge_cases`` at D 64, 128
+    and 256. The limits are those of ``check_case``. Returns max |err| of o
+    and lse per case."""
     import torch
 
     out = {}
-    for bh, s, d, window, causal in _edge_cases():
+    for bh, s, d, window, causal in _edge_cases((64, 128, 256)):
         q, k, v, _ = _inputs(bh, s, d, torch.bfloat16, seed=6)
         o, lse = fc.flash_fwd(q, k, v, window, causal)
         torch.cuda.synchronize()
@@ -387,11 +437,11 @@ def check_bwd_edges(fc) -> dict:
     the plain forward's lse and Δ (the limits of ``check_case``); and each
     run twice on the same inputs must give bitwise-equal dQ, dK and dV (no
     atomics: every gradient row is written once). Returns max |err| of dq,
-    dk and dv per case."""
+    dk and dv per case. D 64, 128 and 256."""
     import torch
 
     out = {}
-    for bh, s, d, window, causal in _edge_cases():
+    for bh, s, d, window, causal in _edge_cases((64, 128, 256)):
         q, k, v, do = _inputs(bh, s, d, torch.bfloat16, seed=7)
         po, plse = fc.flash_fwd_plain(q, k, v, window, causal)
         args = (q, k, v, do, plse, fc.flash_delta(po, do), window, causal)
@@ -430,14 +480,14 @@ def _library_bwd_ms(q, k, v, do, shape, causal: bool):
 
 
 def check_unbuilt_head_dim(fc) -> dict:
-    """A head dim with no CUDA build (256) must raise on the card, from the
+    """A head dim with no CUDA build (80) must raise on the card, from the
     kernel wrapper and from ``mha``, and never run the plain path."""
     import torch
 
     from tpu_engine_torch.ops import flash_attention as tfa
 
-    x = torch.zeros((1, 128, 2, 256), device="cuda", dtype=torch.bfloat16)
-    xb = torch.zeros((2, 128, 256), device="cuda", dtype=torch.bfloat16)
+    x = torch.zeros((1, 128, 2, 80), device="cuda", dtype=torch.bfloat16)
+    xb = torch.zeros((2, 128, 80), device="cuda", dtype=torch.bfloat16)
     calls = {"flash_fwd": lambda: fc.flash_fwd(xb, xb, xb),
              "flash_fwd_lse": lambda: fc.flash_fwd_lse(xb, xb, xb, causal=False),
              "mha": lambda: tfa.mha(x, x, x)}
@@ -446,12 +496,12 @@ def check_unbuilt_head_dim(fc) -> dict:
         try:
             call()
         except tfa.FlashUnsupported as e:
-            raise AssertionError(f"{name} at head dim 256 raised FlashUnsupported: {e}")
+            raise AssertionError(f"{name} at an unbuilt head dim raised FlashUnsupported: {e}")
         except ValueError as e:
             out[name] = str(e)
         else:
-            raise AssertionError(f"{name} ran at head dim 256")
-    print(f"kernels head dim 256 raises: {out}", flush=True)
+            raise AssertionError(f"{name} ran at an unbuilt head dim")
+    print(f"kernels unbuilt head dims raise: {out}", flush=True)
     return out
 
 
@@ -468,6 +518,9 @@ def phase_kernels(res: dict) -> None:
     RB = H  # the ring shard: batch 1, 16 heads, local S 2048
     main = check_case(fc, B * H, S, D, bf16, 0, seed=0)
     main_full = check_case(fc, RB, S, D, bf16, 0, seed=0, causal=False)
+    GB, GH, GS, GD = GEMMA_SHAPE
+    main256 = check_case(fc, GB * GH, GS, GD, bf16, 0, seed=0)
+    main256_full = check_case(fc, GB * GH, GS, GD, bf16, 0, seed=0, causal=False)
     for bh, s, d, dtype, window, causal in (
             (4, 256, 128, f32, 0, True), (4, 256, 64, f32, 37, True),
             (8, 512, 128, bf16, 100, True), (16, 1024, 64, bf16, 0, True),
@@ -479,7 +532,11 @@ def phase_kernels(res: dict) -> None:
             (8, 512, 32, bf16, 0, True), (8, 512, 32, bf16, 0, False),
             (8, 256, 32, bf16, 50, True), (4, 256, 16, f32, 0, False),
             (4, 192, 16, f32, 20, True), (4, 192, 32, f32, 0, True),
-            (4, 256, 32, f32, 0, False)):
+            (4, 256, 32, f32, 0, False),
+            # D 256: gemma's heads (fp32: the staged kernels)
+            (8, 512, 256, bf16, 100, True), (8, 1024, 256, bf16, 0, False),
+            (2, 256, 256, f32, 0, True), (2, 192, 256, f32, 50, True),
+            (2, 320, 256, f32, 0, False)):
         check_case(fc, bh, s, d, dtype, window, seed=1, causal=causal)
     res["fwd_edges"] = check_fwd_edges(fc)
     res["bwd_edges"] = check_bwd_edges(fc)
@@ -576,9 +633,10 @@ def phase_kernels(res: dict) -> None:
          "max_abs_err": errs[name], "ms": t[name], "plain_ms": plain[name],
          "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
          "library_ms": library.get(name),
-         "shape": [B * H if name in REPLACES else RB, S, D]}
+         "shape": [B * H if name in REPLACES else RB, S, D],
+         "counter": name, "paths": ["train", "train_ring"]}
         for name in t
-    ]
+    ] + _d256_rows(fc, res, main256, main256_full)
     res["attention_fwd_bwd"] = {"kernels_ms": ours_both, "library_ms": sdpa_both,
                                 "shape": [B, H, S, D]}
     for kr in res["kernels"]:
@@ -599,38 +657,130 @@ def phase_kernels(res: dict) -> None:
               f"library {row['library_ms']}", flush=True)
 
 
+def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
+    """The D 256 kernels (causal and non-causal) timed at gemma-2b's
+    training shape beside their plain versions, bounds and the library's
+    yardsticks (SDPA's forward; the flash backward op for K2 + K3, recorded
+    as ``res["backward_pair_d256"]``). Their rows of the kernels line,
+    named ``<kernel>_d256[_full]``, with the launches of ``train_gemma``."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, S, D = GEMMA_SHAPE
+    q, k, v, do = _inputs(B * H, S, D, torch.bfloat16, 0)
+    ql, kl, vl = (x.view(B, H, S, D) for x in (q, k, v))
+    slow = dict(iters=3, warmup=1)
+    rows, pair = [], {}
+    for causal, m in ((True, main), (False, main_full)):
+        suffix = "" if causal else "_full"
+        o, lse = fc.flash_fwd(q, k, v, causal=causal)
+        bwd = (q, k, v, do, lse, fc.flash_delta(o, do))
+        bounds = kernel_bounds(B * H, S, D, 0, 2, causal=causal)
+        kernels = {
+            "flash_fwd": (lambda: fc.flash_fwd(q, k, v, causal=causal),
+                          lambda: fc.flash_fwd_plain(q, k, v, causal=causal),
+                          _device_ms(lambda: F.scaled_dot_product_attention(
+                              ql, kl, vl, is_causal=causal)), max(m["o"], m["lse"])),
+            "flash_bwd_dq": (lambda: fc.flash_bwd_dq(*bwd, causal=causal),
+                             lambda: fc.flash_bwd_dq_plain(*bwd, causal=causal), None, m["dq"]),
+            "flash_bwd_dkv": (lambda: fc.flash_bwd_dkv(*bwd, causal=causal),
+                              lambda: fc.flash_bwd_dkv_plain(*bwd, causal=causal), None,
+                              max(m["dk"], m["dv"])),
+        }
+        for name, (kernel, plain, library, err) in kernels.items():
+            rows.append({
+                "name": f"{name}_d256{suffix}", "route": "cuda", "source": SOURCE_D256,
+                "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
+                "ms": _device_ms(kernel), "plain_ms": _device_ms(plain, **slow),
+                "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+                "library_ms": library, "shape": [B * H, S, D],
+                "counter": name + suffix, "paths": ["train_gemma"]})
+        lib_ms, schema = _library_bwd_ms(q, k, v, do, (B, H, S, D), causal)
+        pair["causal" if causal else "full"] = {
+            "kernels_ms": rows[-2]["ms"] + rows[-1]["ms"], "library_ms": lib_ms,
+            "library_op": schema, "shape": [B, H, S, D]}
+    res["backward_pair_d256"] = pair
+    for key, row in pair.items():
+        print(f"time K2+K3 d256 {key} {row['shape']}: kernels {row['kernels_ms']:.4f} ms, "
+              f"library {row['library_ms']}", flush=True)
+    return rows
+
+
+def _flash_vs_plain(cfg, tokens, bf16_rel=None) -> dict:
+    """``cfg`` (remat) from the same seed-1 weights through the plain
+    attention path in fp32 (TF32 off; the reference) and in bf16, and
+    through the flash kernels in bf16 and fp32: the logits
+    and the fp32 master Wq's gradient, by relative norm error. Held: fp32
+    flash to the reference within MODEL_REL["fp32"]; bf16 flash no further
+    from the reference than MODEL_BF16_RATIO × bf16 plain (two roundings of
+    one function); and, with ``bf16_rel``, bf16 flash to bf16 plain."""
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    out = {}
+    for impl, kind in (("xla", "fp32"), ("xla", "bf16"), ("flash", "bf16"), ("flash", "fp32")):
+        dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+        params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+        logits = tfm.forward(params, tokens, cfg.with_(attention_impl=impl),
+                             compute_dtype=dtype, remat=True)
+        logits.square().mean().backward()
+        out[impl, kind] = {"logits": logits.detach(), "dWq": params["layers.q.kernel"].grad}
+        del params, logits
+    no_abs = dict(atol=math.inf, rtol=0.0)
+    nums, fails = {}, []
+    for part in ("logits", "dWq"):
+        ref = out["xla", "fp32"][part]
+        label = f"model {cfg.name} {part}"
+        nums[f"fp32_{part}"] = _close(f"{label} fp32", out["flash", "fp32"][part], ref,
+                                      no_abs, MODEL_REL["fp32"])[1]
+        nums[f"bf16_{part}"] = _close(f"{label} bf16", out["flash", "bf16"][part],
+                                      out["xla", "bf16"][part], no_abs, bf16_rel)[1]
+        plain, flash = (_rel_err(out[impl, "bf16"][part], ref) for impl in ("xla", "flash"))
+        nums[f"bf16_{part}_to_fp32"] = {"plain": plain, "flash": flash}
+        if not flash <= MODEL_BF16_RATIO * plain:
+            fails.append(f"{label}: bf16 flash {flash:.3e} from fp32, bf16 plain {plain:.3e}")
+    print(f"model {cfg.name} ({cfg.arch}, {cfg.n_layers} layers, head dim {cfg.head_dim}), "
+          "relative norm error: " + ", ".join(
+              f"{part}: fp32 flash vs plain {nums[f'fp32_{part}']:.3e}, "
+              f"bf16 flash vs plain {nums[f'bf16_{part}']:.3e}, bf16 to fp32 plain "
+              f"{nums[f'bf16_{part}_to_fp32']['plain']:.3e} / flash "
+              f"{nums[f'bf16_{part}_to_fp32']['flash']:.3e}" for part in ("logits", "dWq")),
+          flush=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return nums
+
+
 def phase_model(res: dict) -> None:
     """A small llama (GQA, remat) through the flash kernels vs the plain
     attention path, in fp32 (TF32 off) and in bf16 compute: logits and the
     gradient of the fp32 master Wq, each held by relative norm error (the
-    gradients are of order 1e-6, so an absolute limit would say nothing)."""
+    gradients are of order 1e-6, so an absolute limit would say nothing).
+    Then the other archs at their full widths: gpt2-124m (all 12 layers,
+    biases, learned positions, tied head, D 64), qwen3-4b at 2 layers
+    (qk-norm, GQA, D 128) and gemma-2b at 2 layers (MQA, GeGLU, tied head,
+    D 256), on 2 × 256 tokens. The llama case also holds bf16 flash to bf16 plain
+    (MODEL_REL); for the archs that difference is reported, and bf16 is
+    held against the fp32 reference (:func:`_flash_vs_plain`): qwen's
+    per-head norm of q turns bf16 rounding into a 2.7e-2 difference of
+    dWq between two sound bf16 paths."""
     import torch
 
-    from tpu_engine_torch.models import transformer as tfm
-    from tpu_engine_torch.models.config import ModelConfig
+    from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ModelConfig(name="llama-small", vocab_size=1024, d_model=256, n_layers=2,
                       n_heads=2, n_kv_heads=1, d_ff=512, max_seq_len=256)
     gen = torch.Generator(device="cuda").manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device="cuda")
-    no_abs = dict(atol=math.inf, rtol=0.0)
-    res["model"] = {}
-    for kind, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        out = {}
-        for impl in ("xla", "flash"):
-            params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
-            logits = tfm.forward(params, tokens, cfg.with_(attention_impl=impl),
-                                 compute_dtype=dtype, remat=True)
-            logits.square().mean().backward()
-            out[impl] = (logits.detach(), params["layers.q.kernel"].grad)
-        _, r_logits = _close(f"model {kind} logits", out["flash"][0], out["xla"][0], no_abs,
-                             MODEL_REL[kind])
-        _, r_grad = _close(f"model {kind} dWq", out["flash"][1], out["xla"][1], no_abs,
-                           MODEL_REL[kind])
-        res["model"][kind] = {"logits_rel_err": r_logits, "grad_rel_err": r_grad}
-        print(f"model {kind}: flash vs plain relative norm error: logits {r_logits:.3e}, "
-              f"dWq {r_grad:.3e}", flush=True)
+    res["model"] = _flash_vs_plain(cfg, tokens, bf16_rel=MODEL_REL["bf16"])
+    res["model_archs"] = {}
+    for name, layers in (("gpt2-124m", 12), ("qwen3-4b", 2), ("gemma-2b", 2)):
+        acfg = MODEL_CONFIGS[name].with_(n_layers=layers)
+        tokens = torch.randint(0, acfg.vocab_size, (2, 256), generator=gen, device="cuda")
+        res["model_archs"][name] = _flash_vs_plain(acfg, tokens)
+        torch.cuda.empty_cache()
 
 
 def phase_head(res: dict) -> None:
@@ -665,11 +815,12 @@ def phase_head(res: dict) -> None:
           flush=True)
 
 
-def _run_steps(cfg, steps: int, want_impl: str):
+def _run_steps(cfg, steps: int, want_impl: str, before=None):
     """Build ``cfg``'s program on the card and take ``steps`` steps on one
     synthetic batch, repeated, with every launch counter set to 0 just
-    before. Returns (program, state, batch, losses, gradient norms, step
-    seconds, launches)."""
+    before. ``before(prog, state, batch)``, if given, runs on the initial
+    state first. Returns (program, state, batch, losses, gradient norms,
+    step seconds, launches, what ``before`` returned)."""
     import torch
 
     from tpu_engine_torch.ops import _flash_cuda as fc
@@ -681,6 +832,7 @@ def _run_steps(cfg, steps: int, want_impl: str):
                              f"want {want_impl!r}")
     state = prog.init()
     batch = prog.synthetic_batch(seed=0)
+    first = before(prog, state, batch) if before else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -693,19 +845,23 @@ def _run_steps(cfg, steps: int, want_impl: str):
         norms.append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return prog, state, batch, losses, norms, times, dict(fc.launches)
+    return prog, state, batch, losses, norms, times, dict(fc.launches), first
 
 
-def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict) -> None:
+def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
+           first_loss_ref=None) -> None:
     """Train ``cfg`` for ``steps`` steps (:func:`_run_steps`) and check the
     losses and the launch counts read just after. ``want`` is the launch
     count per microbatch of each kernel; a kernel missing from it must not
-    launch at all."""
+    launch at all. The first loss must lie near ln(vocab) or, with
+    ``first_loss_ref(prog, state, batch)`` (the loss of the initial state
+    by another path), within FIRST_LOSS_REL of what that returns."""
     import torch
 
     from tpu_engine_torch.models import transformer as tfm
 
-    prog, state, batch, losses, norms, times, counts = _run_steps(cfg, steps, want_impl)
+    prog, state, batch, losses, norms, times, counts, ref = _run_steps(
+        cfg, steps, want_impl, first_loss_ref)
 
     micro = steps * cfg.gradient_accumulation_steps
     want = {name: want.get(name, 0) * micro for name in counts}
@@ -728,8 +884,14 @@ def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict) -> 
           f"peak {out['peak_mem_gib']:.2f} GiB, launches {counts}", flush=True)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    if abs(losses[0] - math.log(prog.model_config.vocab_size)) > 0.5:
+    if ref is None and abs(losses[0] - math.log(prog.model_config.vocab_size)) > 0.5:
         raise AssertionError(f"first loss {losses[0]} is not near ln(vocab)")
+    if ref is not None:
+        out["first_loss_ref"] = ref
+        print(f"{key}: first loss {losses[0]:.5f}, by the plain attention path {ref:.5f} "
+              f"(relative {abs(losses[0] - ref) / ref:.2e}, bound {FIRST_LOSS_REL})", flush=True)
+        if not abs(losses[0] - ref) <= FIRST_LOSS_REL * ref:
+            raise AssertionError(f"first loss {losses[0]} vs the plain path's {ref}")
     if not all(b < a for a, b in zip(losses[1:], losses[2:])):
         raise AssertionError(f"loss did not fall at every step on a repeated batch: {losses}")
     if counts != want:
@@ -750,6 +912,37 @@ def phase_train(res: dict, steps: int) -> None:
     L = 16
     _train(res, "train", cfg, steps, "flash",
            {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+
+
+def phase_train_gemma(res: dict, steps: int) -> None:
+    """gemma-2b at full width and depth (18 layers, 8 query heads of 256,
+    one kv head, GeGLU d_ff 16384, vocab 256000, tied head), seq 2048 ×
+    micro-batch 4, bf16 compute, fp32 masters, AdamW, checkpointing, flash
+    attention (the D 256 kernels), loss chunks of 256 positions. Per
+    microbatch K1 runs twice per layer, K2 and K3 once. A tied head's
+    logits at random init are far from ln(vocab) (each token's own row
+    scores |e|²/rms(e)), so the first loss is held instead to the loss of
+    the same initial weights and batch through the plain attention path."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_engine_torch.train import TrainConfig, build_train_program
+
+    B, _, S, _ = GEMMA_SHAPE
+    cfg = TrainConfig(model_name="gemma-2b", micro_batch_size=B, gradient_accumulation_steps=1,
+                      seq_len=S, precision="bf16", param_dtype="fp32",
+                      activation_checkpointing=True, attention_impl="auto",
+                      loss_chunk_size=256, **TRAIN_LR)
+
+    def plain_loss(prog, state, batch) -> float:
+        plain = build_train_program(replace(cfg, attention_impl="xla"), device="cuda")
+        return float(plain.eval_step(state, batch))
+
+    L = 18
+    _train(res, "train_gemma", cfg, steps, "flash",
+           {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}, first_loss_ref=plain_loss)
+    torch.cuda.empty_cache()
 
 
 def _initial_grads(cfg, want_impl: str) -> dict:
@@ -936,20 +1129,16 @@ def _stream_gap(params, cfg, prompt: list, stream: list) -> float:
     return float((logits.max(dim=-1).values - chosen).max())
 
 
-def phase_generate(res: dict, state: dict) -> None:
-    """``generate`` at batch 4, prompt 512, 128 new tokens, greedy, bf16;
-    its cached logits against forward (bf16, and fp32 with TF32 off over
-    prompt 256 + 16 decode steps); its streams teacher-forced; then
-    ``speculative_generate`` at batch 1 with a 2-layer draft of llama-1b's
-    width, its rounds and its stream teacher-forced."""
+def _generate_and_hold(params, cfg, B: int, P: int, N: int):
+    """``generate`` at batch B, prompt P, N new tokens, greedy, bf16, timed
+    after a warm-up; its cached logits against forward (bf16, and fp32 with
+    TF32 off over prompt 256 + 16 decode steps); its streams teacher-forced.
+    Returns (prompt, tokens, seconds, numbers)."""
     import torch
 
     from tpu_engine_torch import generate as tgen
-    from tpu_engine_torch.models import transformer as tfm
 
-    cfg, params = _llama_1b(state)
     bf16, f32 = torch.bfloat16, torch.float32
-    B, P, N = GEN["batch"], GEN["prompt"], GEN["new"]
     prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(1))
     tgen.generate(params, prompt[:, :64], cfg, 4)  # warm-up
@@ -963,18 +1152,38 @@ def phase_generate(res: dict, state: dict) -> None:
 
     cached = _cached_logits(params, cfg, out, P, bf16)
     ref = _forward_logits(params, cfg, out[:, :-1], bf16)
-    rel = _rel_err(cached, ref)
-    max_abs = float((cached - ref).abs().max())
-    max_logit = float(ref.abs().max())
+    nums = {"logits_rel_err_bf16": _rel_err(cached, ref),
+            "logits_max_abs_err_bf16": float((cached - ref).abs().max()),
+            "max_abs_logit": float(ref.abs().max())}
     lg = ref[:, P - 1:]
-    gap = float((lg.max(dim=-1).values - lg.gather(-1, out[:, P:, None])[..., 0]).max())
+    nums["greedy_max_gap"] = float(
+        (lg.max(dim=-1).values - lg.gather(-1, out[:, P:, None])[..., 0]).max())
     del cached, ref, lg
     torch.backends.cuda.matmul.allow_tf32 = False
     p32 = {k: v.float() for k, v in params.items()}
     t32 = out[:, :256 + 17]
-    rel32 = _rel_err(_cached_logits(p32, cfg, t32, 256, f32),
-                     _forward_logits(p32, cfg, t32[:, :-1], f32))
+    nums["logits_rel_err_fp32"] = _rel_err(_cached_logits(p32, cfg, t32, 256, f32),
+                                           _forward_logits(p32, cfg, t32[:, :-1], f32))
     del p32
+    return prompt, out, gen_s, nums
+
+
+def phase_generate(res: dict, state: dict) -> None:
+    """``generate`` at batch 4, prompt 512, 128 new tokens, greedy, bf16
+    (:func:`_generate_and_hold`); then ``speculative_generate`` at batch 1
+    with a 2-layer draft of llama-1b's width, its rounds and its stream
+    teacher-forced."""
+    import torch
+
+    from tpu_engine_torch import generate as tgen
+    from tpu_engine_torch.models import transformer as tfm
+
+    cfg, params = _llama_1b(state)
+    B, P, N = GEN["batch"], GEN["prompt"], GEN["new"]
+    prompt, out, gen_s, nums = _generate_and_hold(params, cfg, B, P, N)
+    rel, max_abs, max_logit = (nums[k] for k in ("logits_rel_err_bf16",
+                                                 "logits_max_abs_err_bf16", "max_abs_logit"))
+    rel32, gap = nums["logits_rel_err_fp32"], nums["greedy_max_gap"]
 
     dcfg = cfg.with_(n_layers=2)
     draft = tfm.inference_params(
@@ -988,10 +1197,7 @@ def phase_generate(res: dict, state: dict) -> None:
     spec_gap = _stream_gap(params, cfg, prompt[0].tolist(), spec[0, P:].tolist())
     out_row = res["generate"] = {
         "batch": B, "prompt": P, "new_tokens": N, "seconds": gen_s,
-        "tokens_per_s": B * N / gen_s, "ms_per_token_step": gen_s / N * 1e3,
-        "logits_rel_err_bf16": rel, "logits_max_abs_err_bf16": max_abs,
-        "max_abs_logit": max_logit,
-        "logits_rel_err_fp32": rel32, "greedy_max_gap": gap,
+        "tokens_per_s": B * N / gen_s, "ms_per_token_step": gen_s / N * 1e3, **nums,
         "speculative": {"rounds": rounds, "seconds": spec_s, "max_gap": spec_gap,
                         "tokens_equal_to_greedy_row0": int((spec[0, P:] == out[0, P:]).sum())},
     }
@@ -1013,6 +1219,39 @@ def phase_generate(res: dict, state: dict) -> None:
                                                               SERVE_TAU)):
         if not got <= bound:
             raise AssertionError(f"generate {name}: {got:.3e} > {bound}")
+
+
+def phase_generate_gemma(res: dict) -> None:
+    """gemma-2b inference (seed-0 weights cast once to bf16; D 256 heads,
+    MQA, the tied head): ``generate`` at batch 4, prompt 512, 64 new
+    tokens, greedy, with its cached logits held to forward by relative norm
+    error (SERVE_REL, bf16 and fp32) as ``generate`` is for llama-1b. Its
+    max |error| and teacher-forced gaps are reported, not gated: at random
+    init the tied head scores each token's own row near 25-40, where one
+    bf16 step is 0.125-0.25, so llama-1b's absolute limits do not carry."""
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    cfg = tfm.MODEL_CONFIGS["gemma-2b"]
+    params = tfm.inference_params(
+        tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    torch.cuda.empty_cache()
+    B, P, N = GEN["batch"], GEN["prompt"], 64
+    _, _, gen_s, nums = _generate_and_hold(params, cfg, B, P, N)
+    res["generate_gemma"] = {"batch": B, "prompt": P, "new_tokens": N, "seconds": gen_s,
+                             "tokens_per_s": B * N / gen_s,
+                             "ms_per_token_step": gen_s / N * 1e3, **nums}
+    print(f"generate_gemma: batch {B}, prompt {P}, {N} new tokens in {gen_s:.3f} s "
+          f"({B * N / gen_s:.1f} tokens/s, {gen_s / N * 1e3:.2f} ms a step); cached vs "
+          f"forward logits, relative norm error bf16 {nums['logits_rel_err_bf16']:.3e} "
+          f"(bound {SERVE_REL['bf16']}; max |err| {nums['logits_max_abs_err_bf16']:.3e} of max "
+          f"|logit| {nums['max_abs_logit']:.3f}), fp32 {nums['logits_rel_err_fp32']:.3e} "
+          f"(bound {SERVE_REL['fp32']}); greedy gap {nums['greedy_max_gap']:.3e}", flush=True)
+    for kind in ("bf16", "fp32"):
+        if not nums[f"logits_rel_err_{kind}"] <= SERVE_REL[kind]:
+            raise AssertionError(f"generate_gemma {kind} logits: "
+                                 f"{nums[f'logits_rel_err_{kind}']:.3e} > {SERVE_REL[kind]}")
 
 
 def _serve_plan(cfg) -> list:
@@ -1314,7 +1553,7 @@ def _profile(run, key: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5,
-                    help="llama-1b training steps of each training phase (at least 3)")
+                    help="training steps of each training phase (at least 3)")
     args = ap.parse_args()
     if args.steps < 3:
         ap.error("--steps must be at least 3: step 0 has a learning rate of 0")
@@ -1351,6 +1590,7 @@ def main() -> int:
                                        "warning", "setmaxnreg", "==")):
                 print(f"ptxas: {line.strip()}", flush=True)
         res["build"]["ptxas"] = check_ptxas(log)
+        res["build"]["ptxas_d256"] = check_ptxas_d256(log)
         res["build"]["sass"] = check_sm90_sass(fc)
         fc._load()
 
@@ -1362,16 +1602,20 @@ def main() -> int:
         run("train", phase_train, res, args.steps)
         run("ring", phase_ring, res)
         run("train_ring", phase_train_ring, res, args.steps)
+        run("train_gemma", phase_train_gemma, res, args.steps)
         serving: dict = {}
         run("generate", phase_generate, res, serving)
         run("serve", phase_serve, res, serving)
+        serving.clear()
+        run("generate_gemma", phase_generate_gemma, res)
     # Launches per training step on the main paths, each counted from 0
-    # around its own run of steps x accumulation microbatches.
+    # around its own run of steps x accumulation microbatches: the D 16-128
+    # kernels' on train and train_ring, the D 256 kernels' on train_gemma.
     for kr in res.get("kernels", []):
         kr["launches_by_path"] = {}
-        for p in ("train", "train_ring"):
+        for p in kr.pop("paths"):
             path = res.get(p, {})
-            n = path.get("launches", {}).get(kr["name"])
+            n = path.get("launches", {}).get(kr["counter"])
             kr["launches_by_path"][p] = None if n is None else n // (path["steps"] * path["accum"])
         kr["launches"] = sum(n or 0 for n in kr["launches_by_path"].values())
     print(f"phases: {json.dumps(res.get('phase_s', {}))}", flush=True)

@@ -48,10 +48,23 @@ def test_params_round_trip_exactly():
 
 
 def test_params_from_jax_rejects_unported_archs_and_bad_trees():
+    """MoE raises; a tree missing a leaf of its arch raises ``ValueError``
+    naming it; gemma's tree (no ``lm_head``: the head is tied), which raised
+    before gemma was ported, now round-trips exactly."""
     gemma = jtfm.MODEL_CONFIGS["gemma-tiny"]
     tree = jax.tree.map(np.asarray, jtfm.init_params(jax.random.PRNGKey(0), gemma))
+    back = convert.params_to_numpy(
+        convert.params_from_jax(tree, tcfg.MODEL_CONFIGS["gemma-tiny"], device="cpu"))
+    for (pa, a), (pb, b) in zip(jax.tree_util.tree_leaves_with_path(tree),
+                                jax.tree_util.tree_leaves_with_path(back), strict=True):
+        assert pa == pb
+        np.testing.assert_array_equal(a, b)
+    moe = jtfm.MODEL_CONFIGS["moe-tiny"]
     with pytest.raises(NotImplementedError):
-        convert.params_from_jax(tree, tcfg.MODEL_CONFIGS["gemma-tiny"], device="cpu")
+        convert.params_from_jax(jax.tree.map(np.asarray, jtfm.init_params(
+            jax.random.PRNGKey(0), moe)), tcfg.MODEL_CONFIGS["moe-tiny"], device="cpu")
+    with pytest.raises(ValueError, match="lm_head"):
+        convert.params_from_jax(tree, tcfg.MODEL_CONFIGS["qwen-tiny"], device="cpu")
     llama = jax.tree.map(np.asarray, jtfm.init_params(jax.random.PRNGKey(0),
                                                       jtfm.MODEL_CONFIGS["gpt-tiny"]))
     del llama["lm_head"]

@@ -89,6 +89,29 @@ def test_backward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4, rtol=5e-4)
 
 
+@pytest.mark.parametrize("W,causal", [(0, True), (37, True), (0, False)])
+def test_head_dim_256_matches_pallas(W, causal):
+    """gemma's head dim: the plain versions the card holds the D 256 kernels
+    to, forward (o, lse) and backward under a random (dO, dlse) cotangent,
+    against the Pallas kernels in interpret mode at S 128, in fp32."""
+    S, D = 128, 256
+    q, k, v = _qkv(16, (2, S, D), (2, S, D))
+    rng = np.random.default_rng(17)
+    do = rng.standard_normal((2, S, D)).astype(np.float32)
+    dlse = rng.standard_normal((2, S)).astype(np.float32)
+    block = _flash_pallas._pick_block(S)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jo, jlse = _flash_pallas._flash_fwd(jq, jk, jv, block, True, W, causal=causal)
+    jg = _flash_pallas._flash_bwd(block, True, W, (jq, jk, jv, jo, jlse), jnp.asarray(do),
+                                  causal, jnp.asarray(dlse))
+    to, tlse = _flash_cuda.flash_fwd(_t(q), _t(k), _t(v), W, causal)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
+    tg = _flash_cuda.flash_bwd(_t(q), _t(k), _t(v), to, tlse, _t(do), W, causal, _t(dlse))
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4, rtol=5e-4)
+
+
 @pytest.mark.parametrize("S,H,KV,D,W", [
     (64, 2, 2, 16, 0), (128, 4, 2, 16, 0), (128, 2, 2, 64, 32), (64, 4, 2, 64, 32),
 ])
@@ -255,23 +278,25 @@ def test_flash_fwd_lse_treats_a_missing_cotangent_as_zeros():
 
 
 def test_built_head_dims_cover_every_llama_config():
+    """Every config of MODEL_CONFIGS, of every arch, has a built head dim
+    in bf16 (gemma's 256 included)."""
     from tpu_engine_torch.models.config import MODEL_CONFIGS
 
-    heads = {c.head_dim for c in MODEL_CONFIGS.values() if c.arch == "llama"}
-    heads |= {MODEL_CONFIGS[n].head_dim for n in ("qwen-tiny", "gemma-tiny")}
+    heads = {c.head_dim for c in MODEL_CONFIGS.values()}
+    assert 256 in heads
     assert heads <= set(_flash_cuda.SUPPORTED_HEAD_DIMS), heads
 
 
 def test_unbuilt_head_dim_raises_on_the_card_not_flash_unsupported():
     """The check the wrappers and ``flash_mha`` run: a CUDA device with an
-    unbuilt head dim raises ``ValueError``, which ``mha`` does not turn into
-    the plain path; the CPU takes any head dim."""
+    unbuilt head dim (80) raises ``ValueError``, which ``mha`` does not turn
+    into the plain path; the CPU takes any head dim."""
     for d in _flash_cuda.SUPPORTED_HEAD_DIMS:
         _flash_cuda.check_head_dim(d, "cuda")
-    with pytest.raises(ValueError, match="head_dim=256") as err:
-        _flash_cuda.check_head_dim(256, torch.device("cuda"))
+    with pytest.raises(ValueError, match="head_dim=80") as err:
+        _flash_cuda.check_head_dim(80, torch.device("cuda"))
     assert not isinstance(err.value, tfa.FlashUnsupported)
-    _flash_cuda.check_head_dim(256, "cpu")
-    q = _t(_qkv(12, (1, 64, 2, 256), (1, 64, 2, 256))[0])
+    _flash_cuda.check_head_dim(80, "cpu")
+    q = _t(_qkv(12, (1, 64, 2, 80), (1, 64, 2, 80))[0])
     np.testing.assert_allclose(tfa.mha(q, q, q).numpy(),
                                tfa.mha(q, q, q, force_xla=True).numpy(), atol=2e-5, rtol=2e-5)

@@ -53,6 +53,10 @@ def _inputs(bh, s, d, dtype, seed=0):
     (4, 256, 128, torch.bfloat16, 0, False), (2, 192, 64, torch.float32, 0, False),
     (4, 256, 16, torch.bfloat16, 0, True), (4, 256, 32, torch.bfloat16, 0, False),
     (2, 128, 16, torch.float32, 0, False), (2, 192, 32, torch.float32, 40, True),
+    # D 256 (gemma): causal, windowed and non-causal.
+    (4, 256, 256, torch.bfloat16, 0, True), (2, 320, 256, torch.bfloat16, 37, True),
+    (2, 192, 256, torch.bfloat16, 0, False), (2, 256, 256, torch.float32, 0, True),
+    (2, 192, 256, torch.float32, 50, True), (2, 192, 256, torch.float32, 0, False),
 ])
 def test_kernels_match_plain(cuda, bh, s, d, dtype, window, causal):
     q, k, v, do = _inputs(bh, s, d, dtype)
@@ -196,12 +200,22 @@ def test_lse_backward_matches_autograd_of_plain(cuda, causal, dtype):
 
 
 def test_unbuilt_head_dim_raises_instead_of_the_plain_path(cuda):
-    x = torch.zeros((1, 128, 2, 256), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim=256"):
+    x = torch.zeros((1, 128, 2, 80), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim=80"):
         tfa.mha(x, x, x)
-    with pytest.raises(ValueError, match="head_dim=256"):
+    with pytest.raises(ValueError, match="head_dim=80"):
         fc.flash_fwd(x[0].transpose(0, 1).contiguous(), x[0].transpose(0, 1).contiguous(),
                      x[0].transpose(0, 1).contiguous())
+
+
+def test_d256_backward_is_deterministic(cuda):
+    """K3 at D 256 splits dK and dV over two CTAs a K tile; neither K2
+    nor K3 uses atomics, so two runs give bitwise-equal gradients."""
+    args = _bwd_args(8, 512, 256, 0, True)
+    first = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
+    second = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def test_ring_launches_diagonal_causal_and_past_full(cuda):

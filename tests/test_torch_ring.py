@@ -172,3 +172,28 @@ def test_ring_build_rejects_window_and_ulysses():
                                    device="cpu")
     with pytest.raises(ValueError, match="sequence"):
         ttrain.TrainConfig(**{**_KW, "seq_len": 250}, sequence=4)
+
+
+def test_model_ring_needs_its_size_and_matches_jax_ring_forward():
+    """``forward`` with ``attention_impl="ring"`` and no ring size raises
+    ``ValueError`` (JAX's ring raises without a mesh), rather than run a
+    ring of one; with ``sequence=2`` its logits match JAX's ring forward on
+    a two-device CPU mesh (fp32, local shards of 64: the flash body)."""
+    from tpu_engine.models import transformer as jtfm
+    from tpu_engine_torch.models import transformer as ttfm
+
+    jc = jtfm.MODEL_CONFIGS["gpt-tiny"].with_(attention_impl="ring")
+    cfg = MODEL_CONFIGS["gpt-tiny"].with_(attention_impl="ring")
+    tree = jax.tree.map(np.asarray, jtfm.init_params(jax.random.PRNGKey(6), jc))
+    params = convert.params_from_jax(tree, cfg, device="cpu")
+    tokens = np.random.default_rng(6).integers(0, 512, (2, 128)).astype(np.int32)
+    tt = torch.tensor(tokens, dtype=torch.long)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        jtfm.forward(tree, jnp.asarray(tokens), jc, compute_dtype=jnp.float32)
+    for call in (ttfm.forward, ttfm.forward_and_aux):
+        with pytest.raises(ValueError, match="requires a mesh"):
+            call(params, tt, cfg, compute_dtype=torch.float32)
+    mesh = build_mesh(MeshConfig(sequence=2), devices=jax.devices()[:2])
+    ref = jtfm.forward(tree, jnp.asarray(tokens), jc, compute_dtype=jnp.float32, mesh=mesh)
+    out = ttfm.forward(params, tt, cfg, compute_dtype=torch.float32, sequence=2)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)

@@ -43,7 +43,11 @@ def test_train_config_rejects_unsupported_values():
     with pytest.raises(ValueError, match="loss_chunk_size"):
         ttrain.TrainConfig(seq_len=32, loss_chunk_size=5)
     with pytest.raises(NotImplementedError):
-        ttrain.build_train_program(ttrain.TrainConfig(model_name="gpt2-tiny"), device="cpu")
+        ttrain.build_train_program(ttrain.TrainConfig(model_name="moe-tiny"), device="cpu")
+    # gpt2, qwen and gemma are ported (tests/test_torch_archs.py).
+    for name in ("gpt2-tiny", "qwen-tiny", "gemma-tiny"):
+        prog = ttrain.build_train_program(ttrain.TrainConfig(model_name=name), device="cpu")
+        assert prog.model_config.arch == name.split("-")[0]
 
 
 def test_auto_attention_resolves_to_plain_on_cpu():

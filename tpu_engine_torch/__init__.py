@@ -8,7 +8,8 @@ batches between the two through numpy.
 Slice 1 ports the single-GPU llama-family training step:
 
 - ``tpu_engine_torch.models.config`` — ``ModelConfig`` / ``MODEL_CONFIGS``;
-- ``tpu_engine_torch.models.transformer`` — the dense llama forward;
+- ``tpu_engine_torch.models.transformer`` — the dense forward (llama;
+  gpt2, qwen and gemma since slice 6);
 - ``tpu_engine_torch.ops.flash_attention`` — ``mha`` over three CUDA
   flash-attention kernels (``csrc/flash_attention.cu``);
 - ``tpu_engine_torch.train`` — ``TrainConfig`` and ``TrainProgram``.
@@ -19,6 +20,9 @@ Slice 5 ports serving on one card:
   ``speculative_generate``;
 - ``tpu_engine_torch.serving`` — the continuous-batching
   ``ContinuousBatcher``.
+
+Slice 6 adds the gpt2, qwen and gemma archs to every entry point above, and
+the flash kernels at gemma's head dim of 256.
 
 Imports here stay light: submodules are imported by the caller.
 """

@@ -5,8 +5,8 @@
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [BH, S, D] contiguous, bf16 or
 // fp32; lse and delta are [BH, S] fp32. S is a multiple of 64; D is a
-// template parameter, instantiated for 16, 32, 64 and 128 (every llama-arch
-// head of MODEL_CONFIGS). scale = 1/sqrt(D).
+// template parameter, instantiated for 16, 32, 64, 128 and 256 (every head
+// of MODEL_CONFIGS; 256 is gemma's). scale = 1/sqrt(D).
 //
 // What each kernel replaces, what bounds it on the H100, and what the design
 // does about that:
@@ -50,11 +50,26 @@
 // one is multiplied. Tensor cores at this rate are limited by the shared-
 // memory reads that feed mma.sync (about one ldmatrix per two mma).
 //
-// K1, K2 and K3 in bf16 at D 64 and 128 (every training head but the tiny
-// configs') are not these kernels: the C entries send K1 to
-// flash_fwd_sm90.cu and K2 and K3 to flash_bwd_sm90.cu, redesigns for
-// Hopper with TMA, wgmma and warp specialisation. The bf16 kernels below
-// serve D 16 and 32.
+// K1, K2 and K3 in bf16 at D 64 and 128 (every llama, gpt2 and qwen
+// training head but the tiny configs') are not these kernels: the C entries
+// send K1 to flash_fwd_sm90.cu and K2 and K3 to flash_bwd_sm90.cu, redesigns
+// for Hopper with TMA, wgmma and warp specialisation. The bf16 kernels below
+// serve D 16, 32 and 256.
+//
+// D 256 (gemma-2b and gemma-7b) is where registers run out: one warp's 16
+// rows of an fp32 [16, 256] accumulator cost 128 registers a thread. K1 (O)
+// and K2 (dQ) hold one such accumulator beside their score tiles; their Q
+// and dO operands are read by ldmatrix from shared memory at every k-step,
+// never held, and they score the 64-key tile in two passes of 32 keys
+// (kKeysPerPass), so the score tiles take half the registers. K3 holds two
+// (dK and dV) and would not fit: its grid has a third axis that splits the
+// output columns in two (kSplit), and each of the two CTAs of a K tile
+// recomputes S^T and dP^T over the full D and accumulates only its 128
+// columns of dK and dV. That is 1.5x K3's products
+// at D 256, deterministic, with no atomics. Shared memory at D 256: K1 5
+// skewed [64, 264] bf16 tiles (168,960 B), K2 and K3 6 (202,752 B and
+// 203,776 B with K3's lse and delta), under the 227 KB opt-in. The fp32
+// kernels at D 256 are staged (see the fp32 section).
 //
 // fp32 keeps the same tiling with plain fp32 FMA loops over tiles staged in
 // shared memory (never TF32), so that the fp32 bounds hold; that path is for
@@ -236,16 +251,16 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4], const float (&c)[
   }
 }
 
-// Write a warp's accumulator [16 x D] as bf16: dst points at the lane's row g;
-// rows g and g + 8 are scaled by s0 and s1.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], float s0,
+// Write a warp's accumulator [16 x W] as bf16 into rows of LD elements:
+// dst points at the lane's row g; rows g and g + 8 are scaled by s0 and s1.
+template <int W, int LD = W>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[W / 8][4], float s0,
                                            float s1, int lane) {
   const int t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < W / 8; ++n) {
     *reinterpret_cast<uint32_t*>(dst + n * 8 + 2 * t) = pack_bf16(acc[n][0] * s0, acc[n][1] * s0);
-    *reinterpret_cast<uint32_t*>(dst + 8 * D + n * 8 + 2 * t) =
+    *reinterpret_cast<uint32_t*>(dst + 8 * LD + n * 8 + 2 * t) =
         pack_bf16(acc[n][2] * s1, acc[n][3] * s1);
   }
 }
@@ -262,6 +277,12 @@ struct SmemBf16 {
 // K1 (bf16): forward
 // ---------------------------------------------------------------------------
 
+// Keys a warp scores at a time in K1 and K2: the whole 64-key tile, or two
+// passes of 32 at D 256, where the [16, 256] fp32 accumulator leaves too few
+// registers for a 16x64 score tile beside it.
+template <int D>
+constexpr int kKeysPerPass = D > 128 ? 32 : kBlock;
+
 // The Q-major kernels' (K1, K2) row tile and their range of K tiles [lo, hi]:
 // causal blocks with the longest loops first, non-causal every K tile.
 template <bool kCausal>
@@ -271,14 +292,14 @@ __device__ __forceinline__ void q_major_range(int n_blk, int window, int& i, int
   hi = kCausal ? i : n_blk - 1;
 }
 
-// Instantiated for D 16 and 32 only (D 64 and 128: flash_fwd_sm90.cu).
+// Instantiated for D 16, 32 and 256 (D 64 and 128: flash_fwd_sm90.cu).
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                int S, int window, float scale) {
   using L = Tile<D>;
-  constexpr int NT = kBlock / 8, DT = D / 8;
+  constexpr int kPass = kKeysPerPass<D>, NT = kPass / 8, DT = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + L::SIZE;      // stages 0, 1
@@ -312,45 +333,50 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
 
-    float s[NT][4];
-    mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Ks + st * L::SIZE, L::LD, lane);
     const bool masked = kCausal && needs_mask(i, j, window);
-    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll 1
+    for (int h = 0; h < kBlock / kPass; ++h) {  // keys h * kPass .. of the tile
+      const int key0 = j * kBlock + h * kPass;
+      float s[NT][4];
+      mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Ks + st * L::SIZE + h * kPass * L::LD, L::LD,
+                     lane);
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale2;
-        if (masked && !visible(qpos + 8 * (e >> 1), j * kBlock + n * 8 + 2 * t + (e & 1), window))
-          x = kNegInf;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale2;
+          if (masked && !visible(qpos + 8 * (e >> 1), key0 + n * 8 + 2 * t + (e & 1), window))
+            x = kNegInf;
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the four lanes of a quad share a row
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(fmaxf(m[r], mx[r]), kM2Floor);
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
       }
-    float corr[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {  // the four lanes of a quad share a row
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(fmaxf(m[r], mx[r]), kM2Floor);
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[n][e] - m[e >> 1]);  // masked entries underflow to 0
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+      uint32_t pa[NT / 2][4];  // P rounds to bf16 for the P V product
+      to_a<NT>(pa, s);
+      mma_ab<NT / 2, DT>(acc, pa, Vs + st * L::SIZE + h * kPass * L::LD, L::LD, lane);
     }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m[e >> 1]);  // masked entries underflow to 0
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-    uint32_t pa[NT / 2][4];  // P rounds to bf16 for the P V product
-    to_a<NT>(pa, s);
-    mma_ab<NT / 2, DT>(acc, pa, Vs + st * L::SIZE, L::LD, lane);
     __syncthreads();  // every warp is done with this stage before it refills
   }
 
@@ -372,7 +398,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // K2 (bf16): dQ
 // ---------------------------------------------------------------------------
 
-// Instantiated for D 16 and 32 only (D 64 and 128: flash_bwd_sm90.cu).
+// Instantiated for D 16, 32 and 256 (D 64 and 128: flash_bwd_sm90.cu).
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -380,7 +406,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   bf16* __restrict__ dq, int S, int window, float scale) {
   using L = Tile<D>;
-  constexpr int NT = kBlock / 8, DT = D / 8;
+  constexpr int kPass = kKeysPerPass<D>, NT = kPass / 8, DT = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + L::SIZE;
@@ -418,25 +444,29 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + st * L::SIZE;
-
-    float s[NT][4], dp[NT][4];
-    mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Kt, L::LD, lane);
-    mma_abt<D, NT>(dp, dOs + warp * 16 * L::LD, Vs + st * L::SIZE, L::LD, lane);
     const bool masked = kCausal && needs_mask(i, j, window);
+#pragma unroll 1
+    for (int h = 0; h < kBlock / kPass; ++h) {  // keys h * kPass .. of the tile
+      const bf16* Kt = Ks + st * L::SIZE + h * kPass * L::LD;
+      const int key0 = j * kBlock + h * kPass;
+      float s[NT][4], dp[NT][4];
+      mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Kt, L::LD, lane);
+      mma_abt<D, NT>(dp, dOs + warp * 16 * L::LD, Vs + st * L::SIZE + h * kPass * L::LD, L::LD,
+                     lane);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = exp2f(fmaf(s[n][e], scale2, -lse2[r]));
-        if (masked && !visible(qpos + 8 * r, j * kBlock + n * 8 + 2 * t + (e & 1), window))
-          p = 0.0f;
-        s[n][e] = p * (dp[n][e] - dl[r]) * scale;  // dS
-      }
-    uint32_t da[NT / 2][4];
-    to_a<NT>(da, s);
-    mma_ab<NT / 2, DT>(acc, da, Kt, L::LD, lane);
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = exp2f(fmaf(s[n][e], scale2, -lse2[r]));
+          if (masked && !visible(qpos + 8 * r, key0 + n * 8 + 2 * t + (e & 1), window))
+            p = 0.0f;
+          s[n][e] = p * (dp[n][e] - dl[r]) * scale;  // dS
+        }
+      uint32_t da[NT / 2][4];
+      to_a<NT>(da, s);
+      mma_ab<NT / 2, DT>(acc, da, Kt, L::LD, lane);
+    }
     __syncthreads();
   }
   store_rows<D>(dq + base + static_cast<size_t>(qpos) * D, acc, 1.0f, 1.0f, lane);
@@ -454,7 +484,13 @@ __device__ __forceinline__ void k_major_range(int j, int n_blk, int window, int&
   hi = kCausal ? last_q_tile(j, n_blk, window) : n_blk - 1;
 }
 
-// Instantiated for D 16 and 32 only (D 64 and 128: flash_bwd_sm90.cu).
+// Instantiated for D 16, 32 and 256 (D 64 and 128: flash_bwd_sm90.cu).
+// CTAs that share one K tile, each owning D / kSplit columns of dK and dV
+// (blockIdx.z): two at D 256, where both accumulators would not fit in
+// registers, else one.
+template <int D>
+constexpr int kSplit = D > 128 ? 2 : 1;
+
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -464,7 +500,9 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    float scale) {
   using L = Tile<D>;
   constexpr int NH = 4;  // n-tiles of a half Q tile: 32 queries at a time
-  constexpr int DT = D / 8;
+  constexpr int DW = D / kSplit<D>;  // output columns of this CTA
+  constexpr int DT = DW / 8;
+  const int col0 = static_cast<int>(blockIdx.z) * DW;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + L::SIZE;
@@ -536,31 +574,46 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t pa[NH / 2][4], da[NH / 2][4];
       to_a<NH>(pa, s);
       to_a<NH>(da, dp);
-      mma_ab<NH / 2, DT>(dv_acc, pa, dOt + h * 32 * L::LD, L::LD, lane);
-      mma_ab<NH / 2, DT>(dk_acc, da, Qt + h * 32 * L::LD, L::LD, lane);
+      mma_ab<NH / 2, DT>(dv_acc, pa, dOt + h * 32 * L::LD + col0, L::LD, lane);
+      mma_ab<NH / 2, DT>(dk_acc, da, Qt + h * 32 * L::LD + col0, L::LD, lane);
     }
     __syncthreads();
   }
-  const size_t out = base + static_cast<size_t>(kpos) * D;
-  store_rows<D>(dk + out, dk_acc, 1.0f, 1.0f, lane);
-  store_rows<D>(dv + out, dv_acc, 1.0f, 1.0f, lane);
+  const size_t out = base + static_cast<size_t>(kpos) * D + col0;
+  store_rows<DW, D>(dk + out, dk_acc, 1.0f, 1.0f, lane);
+  store_rows<DW, D>(dv + out, dv_acc, 1.0f, 1.0f, lane);
 }
 
 // ===========================================================================
 // fp32: plain FMA over tiles in shared memory
 // ===========================================================================
+//
+// At D 256 a [64, D] fp32 tile is 64 KB, and the tiles of D 128's layout
+// (Q, K, V, dO and [64, D] accumulators) would need 272-416 KB. These
+// kernels are then "staged": two tile buffers are refilled within each step
+// of the inner loop (K1: K, then V; K2: Q and K, then dO and V, then K
+// again; K3: K and Q, then V and dO, then Q again), and K3 splits its dK
+// and dV columns over two CTAs as the bf16 K3 does. Shared memory at D 256:
+// K1 213,504 B, K2 and K3 229,888 B. It is the checking path: the reloads
+// cost time, not accuracy.
+
+template <int D>
+constexpr bool kStaged = D > 128;
 
 template <int D>
 struct SmemF32 {
-  static constexpr size_t tile = 4 * kBlock * D;     // Q/K/V/dO tiles and [64, D] accumulators
+  static constexpr size_t tile = 4 * kBlock * D;     // a [64, D] fp32 tile
   static constexpr size_t score = 4 * kBlock * kBlock;
   static constexpr size_t rows = 4 * kBlock;
-  // K1: Q, K, V; S (P in place); O; m and l.
-  static constexpr size_t fwd = 4 * tile + score + 2 * rows;
-  // K2: Q, dO, K, V; S, dP (dS in place); dQ; lse and delta.
-  static constexpr size_t bwd_dq = 5 * tile + 2 * score + 2 * rows;
-  // K3: K, V, Q, dO; S^T (P^T in place), dP^T (dS^T in place); dK, dV; lse, delta.
-  static constexpr size_t bwd_dkv = 6 * tile + 2 * score + 2 * rows;
+  // K1: Q, K, V (V in K's buffer when staged); S (P in place); O; m and l.
+  static constexpr size_t fwd = (kStaged<D> ? 3 : 4) * tile + score + 2 * rows;
+  // K2: Q, dO, K, V (staged: dO in Q's buffer, V in K's); S, dP (dS in
+  // place); dQ; lse and delta.
+  static constexpr size_t bwd_dq = (kStaged<D> ? 3 : 5) * tile + 2 * score + 2 * rows;
+  // K3: K, V, Q, dO (staged: V in K's buffer, dO in Q's); S^T (P^T in
+  // place), dP^T (dS^T in place); dK, dV (staged: this CTA's half of the
+  // columns); lse, delta.
+  static constexpr size_t bwd_dkv = (kStaged<D> ? 3 : 6) * tile + 2 * score + 2 * rows;
 };
 
 struct Carver {
@@ -599,22 +652,24 @@ __device__ __forceinline__ void warp_abt_f32(const float* A, const float* B, flo
   }
 }
 
-// C[16, D] += A[16, 64] * B[64, D] for one warp. Each lane owns columns
-// lane + 32 t of all 16 rows; below D = 32 only the first D lanes own one.
-template <int D>
+// C[16, W] += A[16, 64] * B[64, W] for one warp, C with rows of W and B
+// with rows of LDB elements (a column slice of a wider tile). Each lane owns
+// columns lane + 32 t of all 16 rows; below W = 32 only the first W lanes
+// own one.
+template <int W, int LDB = W>
 __device__ __forceinline__ void warp_ab_acc_f32(const float* A, const float* B, float* C,
                                                 int lane) {
-  constexpr int kT = D >= 32 ? D / 32 : 1;
-  if (D < 32 && lane >= D) return;
+  constexpr int kT = W >= 32 ? W / 32 : 1;
+  if (W < 32 && lane >= W) return;
   float acc[16][kT];
 #pragma unroll
   for (int r = 0; r < 16; ++r)
 #pragma unroll
-    for (int c = 0; c < kT; ++c) acc[r][c] = C[r * D + lane + 32 * c];
+    for (int c = 0; c < kT; ++c) acc[r][c] = C[r * W + lane + 32 * c];
   for (int kk = 0; kk < kBlock; ++kk) {
     float b[kT];
 #pragma unroll
-    for (int c = 0; c < kT; ++c) b[c] = B[kk * D + lane + 32 * c];
+    for (int c = 0; c < kT; ++c) b[c] = B[kk * LDB + lane + 32 * c];
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const float a = A[r * kBlock + kk];
@@ -625,7 +680,7 @@ __device__ __forceinline__ void warp_ab_acc_f32(const float* A, const float* B, 
 #pragma unroll
   for (int r = 0; r < 16; ++r)
 #pragma unroll
-    for (int c = 0; c < kT; ++c) C[r * D + lane + 32 * c] = acc[r][c];
+    for (int c = 0; c < kT; ++c) C[r * W + lane + 32 * c] = acc[r][c];
 }
 
 // P and dS for one warp's 16 rows of a score tile, in place over S and dP.
@@ -657,7 +712,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   Carver cv{smem};
   float* Qs = cv.take(L::tile);
   float* Ks = cv.take(L::tile);
-  float* Vs = cv.take(L::tile);
+  float* Vs = kStaged<D> ? Ks : cv.take(L::tile);
   float* Ss = cv.take(L::score);
   float* Os = cv.take(L::tile);
   float* ms = cv.take(L::rows);
@@ -682,9 +737,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int qpos = i * kBlock + row;
 
   for (int j = lo; j <= hi; ++j) {
+    const size_t kv = base + static_cast<size_t>(j) * kBlock * D;
     __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile_f32<D>(Ks, k + base + static_cast<size_t>(j) * kBlock * D, tid);
-    load_tile_f32<D>(Vs, v + base + static_cast<size_t>(j) * kBlock * D, tid);
+    load_tile_f32<D>(Ks, k + kv, tid);
+    if constexpr (!kStaged<D>) load_tile_f32<D>(Vs, v + kv, tid);
     __syncthreads();
 
     warp_abt_f32<D>(Qs + warp * 16 * D, Ks, Ss + warp * 16 * kBlock, lane);
@@ -716,6 +772,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       ms[row] = m_new;
       ls[row] = ls[row] * corr + sum;
     }
+    if constexpr (kStaged<D>) {  // V into K's buffer once every warp has read K
+      __syncthreads();
+      load_tile_f32<D>(Vs, v + kv, tid);
+      __syncthreads();
+    }
     __syncwarp();
     warp_ab_acc_f32<D>(Ss + warp * 16 * kBlock, Vs, Os + warp * 16 * D, lane);
     __syncwarp();
@@ -740,9 +801,9 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ __align__(128) unsigned char smem[];
   Carver cv{smem};
   float* Qs = cv.take(L::tile);
-  float* dOs = cv.take(L::tile);
+  float* dOs = kStaged<D> ? Qs : cv.take(L::tile);
   float* Ks = cv.take(L::tile);
-  float* Vs = cv.take(L::tile);
+  float* Vs = kStaged<D> ? Ks : cv.take(L::tile);
   float* Ss = cv.take(L::score);
   float* dPs = cv.take(L::score);
   float* dQs = cv.take(L::tile);
@@ -753,11 +814,14 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   int i, lo, hi;
   q_major_range<kCausal>(n_blk, window, i, lo, hi);
   const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
+  const size_t qo = base + static_cast<size_t>(i) * kBlock * D;
   const size_t rbase = static_cast<size_t>(blockIdx.x) * S + i * kBlock;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  load_tile_f32<D>(Qs, q + base + static_cast<size_t>(i) * kBlock * D, tid);
-  load_tile_f32<D>(dOs, dout + base + static_cast<size_t>(i) * kBlock * D, tid);
+  if constexpr (!kStaged<D>) {
+    load_tile_f32<D>(Qs, q + qo, tid);
+    load_tile_f32<D>(dOs, dout + qo, tid);
+  }
   for (int idx = tid; idx < kBlock * D; idx += kThreads) dQs[idx] = 0.0f;
   if (tid < kBlock) {
     lse_s[tid] = lse[rbase + tid];
@@ -767,23 +831,36 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* dPw = dPs + warp * 16 * kBlock;
 
   for (int j = lo; j <= hi; ++j) {
+    const size_t kv = base + static_cast<size_t>(j) * kBlock * D;
     __syncthreads();
-    load_tile_f32<D>(Ks, k + base + static_cast<size_t>(j) * kBlock * D, tid);
-    load_tile_f32<D>(Vs, v + base + static_cast<size_t>(j) * kBlock * D, tid);
+    if constexpr (kStaged<D>) load_tile_f32<D>(Qs, q + qo, tid);
+    load_tile_f32<D>(Ks, k + kv, tid);
+    if constexpr (!kStaged<D>) load_tile_f32<D>(Vs, v + kv, tid);
     __syncthreads();
 
     warp_abt_f32<D>(Qs + warp * 16 * D, Ks, Sw, lane);
+    if constexpr (kStaged<D>) {  // dO and V over Q and K once every warp has read them
+      __syncthreads();
+      load_tile_f32<D>(dOs, dout + qo, tid);
+      load_tile_f32<D>(Vs, v + kv, tid);
+      __syncthreads();
+    }
     warp_abt_f32<D>(dOs + warp * 16 * D, Vs, dPw, lane);
     __syncwarp();
     p_ds_rows_f32<false>(Sw, dPw, lse_s, delta_s, i, j, warp, lane, window, scale,
                          kCausal && needs_mask(i, j, window));
+    if constexpr (kStaged<D>) {  // K again, over V
+      __syncthreads();
+      load_tile_f32<D>(Ks, k + kv, tid);
+      __syncthreads();
+    }
     __syncwarp();
     warp_ab_acc_f32<D>(dPw, Ks, dQs + warp * 16 * D, lane);
     __syncwarp();
   }
 
   __syncthreads();
-  float* g = dq + base + static_cast<size_t>(i) * kBlock * D;
+  float* g = dq + qo;
   for (int idx = tid; idx < kBlock * D; idx += kThreads) g[idx] = dQs[idx];
 }
 
@@ -795,36 +872,43 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   float* __restrict__ dk, float* __restrict__ dv, int S, int window,
                   float scale) {
   using L = SmemF32<D>;
+  constexpr int DW = D / kSplit<D>;  // dK and dV columns of this CTA
   extern __shared__ __align__(128) unsigned char smem[];
   Carver cv{smem};
   float* Ks = cv.take(L::tile);
-  float* Vs = cv.take(L::tile);
+  float* Vs = kStaged<D> ? Ks : cv.take(L::tile);
   float* Qs = cv.take(L::tile);
-  float* dOs = cv.take(L::tile);
+  float* dOs = kStaged<D> ? Qs : cv.take(L::tile);
   float* Ss = cv.take(L::score);
   float* dPs = cv.take(L::score);
-  float* dKs = cv.take(L::tile);
-  float* dVs = cv.take(L::tile);
+  float* dKs = cv.take(L::tile / kSplit<D>);
+  float* dVs = cv.take(L::tile / kSplit<D>);
   float* lse_s = cv.take(L::rows);
   float* delta_s = cv.take(L::rows);
 
   const int n_blk = S / kBlock;
   const int j = blockIdx.y;
+  const int col0 = static_cast<int>(blockIdx.z) * DW;
   const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
+  const size_t ko = base + static_cast<size_t>(j) * kBlock * D;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  load_tile_f32<D>(Ks, k + base + static_cast<size_t>(j) * kBlock * D, tid);
-  load_tile_f32<D>(Vs, v + base + static_cast<size_t>(j) * kBlock * D, tid);
-  for (int idx = tid; idx < kBlock * D; idx += kThreads) dKs[idx] = dVs[idx] = 0.0f;
+  if constexpr (!kStaged<D>) {
+    load_tile_f32<D>(Ks, k + ko, tid);
+    load_tile_f32<D>(Vs, v + ko, tid);
+  }
+  for (int idx = tid; idx < kBlock * DW; idx += kThreads) dKs[idx] = dVs[idx] = 0.0f;
   float* Sw = Ss + warp * 16 * kBlock;
   float* dPw = dPs + warp * 16 * kBlock;
 
   int lo, hi;
   k_major_range<kCausal>(j, n_blk, window, lo, hi);
   for (int i = lo; i <= hi; ++i) {
+    const size_t qo = base + static_cast<size_t>(i) * kBlock * D;
     __syncthreads();
-    load_tile_f32<D>(Qs, q + base + static_cast<size_t>(i) * kBlock * D, tid);
-    load_tile_f32<D>(dOs, dout + base + static_cast<size_t>(i) * kBlock * D, tid);
+    if constexpr (kStaged<D>) load_tile_f32<D>(Ks, k + ko, tid);
+    load_tile_f32<D>(Qs, q + qo, tid);
+    if constexpr (!kStaged<D>) load_tile_f32<D>(dOs, dout + qo, tid);
     if (tid < kBlock) {
       const size_t rb = static_cast<size_t>(blockIdx.x) * S + i * kBlock + tid;
       lse_s[tid] = lse[rb];
@@ -833,22 +917,32 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     warp_abt_f32<D>(Ks + warp * 16 * D, Qs, Sw, lane);
+    if constexpr (kStaged<D>) {  // V and dO over K and Q once every warp has read them
+      __syncthreads();
+      load_tile_f32<D>(Vs, v + ko, tid);
+      load_tile_f32<D>(dOs, dout + qo, tid);
+      __syncthreads();
+    }
     warp_abt_f32<D>(Vs + warp * 16 * D, dOs, dPw, lane);
     __syncwarp();
     p_ds_rows_f32<true>(Sw, dPw, lse_s, delta_s, i, j, warp, lane, window, scale,
                         kCausal && needs_mask(i, j, window));
     __syncwarp();
-    warp_ab_acc_f32<D>(Sw, dOs, dVs + warp * 16 * D, lane);
-    warp_ab_acc_f32<D>(dPw, Qs, dKs + warp * 16 * D, lane);
+    warp_ab_acc_f32<DW, D>(Sw, dOs + col0, dVs + warp * 16 * DW, lane);
+    if constexpr (kStaged<D>) {  // Q again, over dO
+      __syncthreads();
+      load_tile_f32<D>(Qs, q + qo, tid);
+      __syncthreads();
+    }
+    warp_ab_acc_f32<DW, D>(dPw, Qs + col0, dKs + warp * 16 * DW, lane);
     __syncwarp();
   }
 
   __syncthreads();
-  float* gk = dk + base + static_cast<size_t>(j) * kBlock * D;
-  float* gv = dv + base + static_cast<size_t>(j) * kBlock * D;
-  for (int idx = tid; idx < kBlock * D; idx += kThreads) {
-    gk[idx] = dKs[idx];
-    gv[idx] = dVs[idx];
+  for (int idx = tid; idx < kBlock * DW; idx += kThreads) {
+    const size_t g = ko + static_cast<size_t>(idx / DW) * D + col0 + idx % DW;
+    dk[g] = dKs[idx];
+    dv[g] = dVs[idx];
   }
 }
 
@@ -856,18 +950,23 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Host launchers
 // ---------------------------------------------------------------------------
 
-// Grid (BH, S / 64): blockIdx.x walks the heads fastest, so the longest
-// tiles of every head start before any shorter one.
+// Grid (BH, S / 64, splits): blockIdx.x walks the heads fastest, so the
+// longest tiles of every head start before any shorter one; blockIdx.z is
+// K3's column split at D 256 (1 elsewhere).
 template <typename K, typename... Args>
-int launch(K kernel, size_t smem, int bh, int s, cudaStream_t st, Args... args) {
+int launch(K kernel, size_t smem, int bh, int s, int splits, cudaStream_t st, Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<dim3(bh, s / kBlock), kThreads, smem, st>>>(args...);
+  kernel<<<dim3(bh, s / kBlock, splits), kThreads, smem, st>>>(args...);
   return cudaGetLastError();
 }
+
+// The Hopper kernels take bf16 at D 64 and 128.
+template <int D>
+constexpr bool kSm90 = D == 64 || D == 128;
 
 template <int D, bool C>
 int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void* lse,
@@ -875,14 +974,14 @@ int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void
   const float sc = softmax_scale(D);
   float* l = static_cast<float*>(lse);
   if (is_bf16) {
-    if constexpr (D >= 64)  // the Hopper kernel, and no other (no fallback)
+    if constexpr (kSm90<D>)  // the Hopper kernel, and no other (no fallback)
       return tpe_flash_fwd_sm90(q, k, v, o, lse, counters, bh, s, D, window, C, st);
     else
-      return launch(flash_fwd_bf16<D, C>, SmemBf16<D>::fwd, bh, s, st,
+      return launch(flash_fwd_bf16<D, C>, SmemBf16<D>::fwd, bh, s, 1, st,
                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<bf16*>(o), l, s, window, sc);
   }
-  return launch(flash_fwd_f32<D, C>, SmemF32<D>::fwd, bh, s, st, static_cast<const float*>(q),
+  return launch(flash_fwd_f32<D, C>, SmemF32<D>::fwd, bh, s, 1, st, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v),
                 static_cast<float*>(o), l, s, window, sc);
 }
@@ -895,16 +994,16 @@ int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (is_bf16) {
-    if constexpr (D >= 64)  // the Hopper kernel, and no other (no fallback)
+    if constexpr (kSm90<D>)  // the Hopper kernel, and no other (no fallback)
       return tpe_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, counters, bh, s, D, window, C,
                                    st);
     else
-      return launch(flash_bwd_dq_bf16<D, C>, SmemBf16<D>::bwd_dq, bh, s, st,
+      return launch(flash_bwd_dq_bf16<D, C>, SmemBf16<D>::bwd_dq, bh, s, 1, st,
                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
                     static_cast<bf16*>(dq), s, window, sc);
   }
-  return launch(flash_bwd_dq_f32<D, C>, SmemF32<D>::bwd_dq, bh, s, st,
+  return launch(flash_bwd_dq_f32<D, C>, SmemF32<D>::bwd_dq, bh, s, 1, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
                 static_cast<float*>(dq), s, window, sc);
@@ -918,16 +1017,16 @@ int bwd_dkv(bool is_bf16, const void* q, const void* k, const void* v, const voi
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (is_bf16) {
-    if constexpr (D >= 64)  // the Hopper kernel, and no other (no fallback)
+    if constexpr (kSm90<D>)  // the Hopper kernel, and no other (no fallback)
       return tpe_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, counters, bh, s, D,
                                     window, C, st);
     else
-      return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, st,
+      return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, kSplit<D>, st,
                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, window, sc);
   }
-  return launch(flash_bwd_dkv_f32<D, C>, SmemF32<D>::bwd_dkv, bh, s, st,
+  return launch(flash_bwd_dkv_f32<D, C>, SmemF32<D>::bwd_dkv, bh, s, kSplit<D>, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
                 static_cast<float*>(dk), static_cast<float*>(dv), s, window, sc);
@@ -953,6 +1052,7 @@ int dispatch(int d, bool causal, F&& f) {
     case 32: return with_causal<32>(causal, f);
     case 64: return with_causal<64>(causal, f);
     case 128: return with_causal<128>(causal, f);
+    case 256: return with_causal<256>(causal, f);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -968,7 +1068,8 @@ bool bad_shape(int bh, int s, int window, int causal) {
 extern "C" {
 
 // Each entry returns the cudaError_t of its launch (0 = success); a head dim
-// other than 16, 32, 64 or 128 or a bad shape is refused before any launch.
+// other than 16, 32, 64, 128 or 256, or a bad shape, is refused before any
+// launch.
 
 // counters: the Hopper kernels' tile counters (bf16, d 64 and 128: two ints
 // per kernel, see flash_fwd_sm90.cu and flash_bwd_sm90.cu); the other

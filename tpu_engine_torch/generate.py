@@ -1,5 +1,5 @@
 """Autoregressive generation with a KV cache (port of ``tpu_engine/generate.py``,
-dense llama arch).
+the dense llama, gpt2, qwen and gemma archs).
 
 One cached forward serves prefill (T = prompt length) and decode (T = 1):
 each block writes its new keys and values into the cache, then attends
@@ -24,8 +24,7 @@ first:
   through a view, where JAX repeats the cache. Buffers are written in place
   (JAX donates them) and ``length`` is a host integer.
 
-Other archs (gpt2, qwen, gemma) and MoE decode raise ``NotImplementedError``,
-as the port's transformer does.
+MoE decode raises ``NotImplementedError``, as the port's transformer does.
 """
 
 from __future__ import annotations
@@ -39,10 +38,10 @@ import torch
 from tpu_engine_torch.models.config import ModelConfig
 from tpu_engine_torch.models.transformer import (
     _dense_mlp,
-    _proj,
-    _require_llama,
-    _rms_norm,
-    _rope,
+    _layer_proj,
+    _norm,
+    _qkv,
+    _require_ported,
     cast_layer_stack,
     embed_tokens,
     f32_out,
@@ -143,7 +142,9 @@ def _hidden_lanes(key_pos: torch.Tensor, positions: torch.Tensor, window: int) -
 
 def _decode_block(x, lp, k_cache, v_cache, write, hidden, positions, cfg: ModelConfig,
                   k_scale_c=None, v_scale_c=None) -> torch.Tensor:
-    """One llama block attending against the cache.
+    """One transformer block attending against the cache: the arch's norms,
+    projections (gpt2's biases), qwen's qk-norm, RoPE (not gpt2) and MLP,
+    as in the training block.
 
     x: [B, T, D]; k_cache/v_cache: [B, KV, M, HD], written in place by
     ``write(cache_arr, rows [B, KV, T, X])``; ``hidden`` [B|1, T, M] from
@@ -153,11 +154,9 @@ def _decode_block(x, lp, k_cache, v_cache, write, hidden, positions, cfg: ModelC
     B, T, _ = x.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
-    h = _rms_norm(x, lp["attn_norm.scale"], cfg.norm_eps)
-    q = _rope(_proj(h, lp["q.kernel"]).reshape(B, T, H, HD), positions, cfg.rope_theta)
-    k = _rope(_proj(h, lp["k.kernel"]).reshape(B, T, KV, HD), positions, cfg.rope_theta)
-    k = k.transpose(1, 2)
-    v = _proj(h, lp["v.kernel"]).reshape(B, T, KV, HD).transpose(1, 2)
+    q, k, v = _qkv(_norm(x, lp["attn_norm.scale"], lp.get("attn_norm.bias"), cfg), lp, cfg,
+                   positions)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
 
     if k_scale_c is not None:
         for arr, sc, rows in ((k_cache, k_scale_c, k), (v_cache, v_scale_c, v)):
@@ -179,9 +178,9 @@ def _decode_block(x, lp, k_cache, v_cache, write, hidden, positions, cfg: ModelC
     probs = torch.softmax(scores, dim=-1).to(x.dtype).view(B * KV, G * T, M)
     attn = torch.bmm(probs, vc.reshape(B * KV, M, HD))
     attn = attn.view(B, KV, G, T, HD).permute(0, 3, 1, 2, 4).reshape(B, T, H * HD)
-    x = x + _proj(attn, lp["o.kernel"])
-    h = _rms_norm(x, lp["mlp_norm.scale"], cfg.norm_eps)
-    return x + _dense_mlp(h, lp)
+    x = x + _layer_proj(attn, lp, "o")
+    h = _norm(x, lp["mlp_norm.scale"], lp.get("mlp_norm.bias"), cfg)
+    return x + _dense_mlp(h, lp, cfg)
 
 
 def _run_layers(params, x, cache, write, hidden, positions, cfg: ModelConfig,
@@ -222,7 +221,7 @@ def forward_with_cache(params: dict[str, torch.Tensor], tokens: torch.Tensor,
             f"chunk of {T} queries needs >= {cfg.sliding_window + T - 1} cache "
             f"slots (window {cfg.sliding_window}), cache has {M}; prefill in "
             "smaller chunks or allocate with a larger max_chunk")
-    _require_llama(cfg)
+    _require_ported(cfg)
     new_pos = cache.length + torch.arange(T, device=tokens.device)
     positions = new_pos[None].expand(B, T)
     if cache.ring and T > 1:

@@ -15,8 +15,8 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "gpt-125m"
-    # Architecture family: "llama" | "gpt2" | "gemma" | "qwen". The port's
-    # forward pass implements "llama"; the others raise NotImplementedError.
+    # Architecture family: "llama" | "gpt2" | "gemma" | "qwen", all four
+    # ported (dense; MoE raises NotImplementedError).
     arch: str = "llama"
     vocab_size: int = 32_000
     d_model: int = 768

@@ -1,11 +1,19 @@
-"""Decoder-only llama transformer in PyTorch (port of
-``tpu_engine/models/transformer.py``, dense llama arch).
+"""Decoder-only transformer in PyTorch (port of
+``tpu_engine/models/transformer.py``, the dense llama, gpt2, qwen and gemma
+archs).
 
 Parameters are the flat dict of :mod:`tpu_engine_torch.models.convert`:
 the JAX leaves, shapes and ``[in, out]`` kernel layout, with every per-layer
 weight stacked on a leading ``[L, ...]`` axis. The forward pass is plain
 functions on tensors. Heavy products run in the compute dtype (bf16 on the
 card) with fp32 accumulation; norms, RoPE and softmax run in fp32.
+
+The archs differ as in JAX: llama is RMSNorm, RoPE, SwiGLU and an untied
+head; gpt2 LayerNorm with bias, biased projections, no RoPE, a learned
+position table added at embedding, a GELU-tanh fc/proj MLP and the head tied
+to the token embedding; qwen is llama with a per-head RMSNorm of q and k
+before RoPE; gemma stores norm scales as offsets from 1, scales the
+embedding by sqrt(d_model), uses GeGLU and ties the head.
 
 Activation checkpointing (JAX ``jax.checkpoint`` with ``nothing_saveable``
 around each scanned block) is ``torch.utils.checkpoint`` around each block:
@@ -14,10 +22,11 @@ only the block's input is kept, and the block is recomputed in backward.
 Attention is ``"flash"`` (the CUDA kernels), ``"xla"`` (plain PyTorch) or
 ``"ring"`` (sequence-parallel ring attention over ``sequence`` ranks, all in
 this process; ``tpu_engine_torch/parallel/ring_attention.py``). Where JAX
-threads the mesh down to ``_attention``, the port threads the ring size.
+threads the mesh down to ``_attention``, the port threads the ring size, and
+``"ring"`` without one raises ``ValueError`` as JAX does without a mesh.
 
-Other archs (gpt2, gemma, qwen), MoE, LoRA, quantized weights and Ulysses
-attention are not ported yet and raise ``NotImplementedError``.
+MoE, LoRA, quantized weights and Ulysses attention are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,20 +38,19 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig  # noqa: F401
-from tpu_engine_torch.models.convert import LLAMA_KEYS
+from tpu_engine_torch.models.convert import param_keys
 from tpu_engine_torch.ops import flash_attention
 from tpu_engine_torch.parallel.ring_attention import ring_mha
 
-LAYER_KEYS = tuple(k[len("layers."):] for k in LLAMA_KEYS if k.startswith("layers."))
 
-
-def _require_llama(cfg: ModelConfig) -> None:
-    if cfg.arch != "llama" or cfg.is_moe or cfg.quant_training != "none":
+def _require_ported(cfg: ModelConfig) -> None:
+    """Refuse what the port does not run yet: MoE and quantised training."""
+    if cfg.is_moe or cfg.quant_training != "none":
         raise NotImplementedError(
-            f"{cfg.name}: arch={cfg.arch!r}, n_experts={cfg.n_experts}, "
-            f"quant_training={cfg.quant_training!r} is not ported "
-            "(slice 1 is the dense llama arch)"
+            f"{cfg.name}: n_experts={cfg.n_experts}, quant_training={cfg.quant_training!r} "
+            "is not ported (the dense llama, gpt2, qwen and gemma archs are)"
         )
+    param_keys(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -52,13 +60,17 @@ def _require_llama(cfg: ModelConfig) -> None:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
-    """Random llama parameters with the JAX init scales: normal(0.02), the
-    residual-out projections (o, down) at 0.02/sqrt(2L), norm scales 1.
-    ``generator`` must live on ``device``. The numbers differ from JAX's for
-    the same seed; parity tests move weights with ``params_from_jax``."""
-    _require_llama(cfg)
+    """Random parameters of ``cfg``'s arch with JAX's tree and init scales:
+    normal(0.02), the residual-out projections (o, down, proj) at
+    0.02/sqrt(2L), gpt2's position table at 0.01, biases 0, norm scales 1
+    (gemma's, stored as offsets from 1, 0). ``generator`` must live on
+    ``device``. The numbers differ from JAX's for the same seed; parity
+    tests move weights with ``params_from_jax``."""
+    _require_ported(cfg)
     L, D, V, F_ = cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.d_ff
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.arch == "gpt2":
+        KV = H  # gpt2's k and v are full width
     std = 0.02
     res_std = std / (2 * L) ** 0.5
 
@@ -66,24 +78,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         t = torch.empty(shape, dtype=torch.float32, device=device)
         return t.normal_(0.0, s, generator=generator).to(dtype)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+    def const(value):
+        return lambda shape: torch.full(shape, value, dtype=dtype, device=device)
 
+    ones, zeros = const(1.0), const(0.0)
+    scale = zeros if cfg.arch == "gemma" else ones
     shapes = {
         "embed.embedding": lambda: norm((V, D), std),
-        "layers.attn_norm.scale": lambda: ones((L, D)),
+        "pos_embed.embedding": lambda: norm((cfg.max_seq_len, D), 0.01),
+        "layers.attn_norm.scale": lambda: scale((L, D)),
+        "layers.attn_norm.bias": lambda: zeros((L, D)),
         "layers.q.kernel": lambda: norm((L, D, H * HD), std),
+        "layers.q.bias": lambda: zeros((L, H * HD)),
         "layers.k.kernel": lambda: norm((L, D, KV * HD), std),
+        "layers.k.bias": lambda: zeros((L, KV * HD)),
         "layers.v.kernel": lambda: norm((L, D, KV * HD), std),
+        "layers.v.bias": lambda: zeros((L, KV * HD)),
         "layers.o.kernel": lambda: norm((L, H * HD, D), res_std),
-        "layers.mlp_norm.scale": lambda: ones((L, D)),
+        "layers.o.bias": lambda: zeros((L, D)),
+        "layers.q_norm.scale": lambda: ones((L, HD)),
+        "layers.k_norm.scale": lambda: ones((L, HD)),
+        "layers.mlp_norm.scale": lambda: scale((L, D)),
+        "layers.mlp_norm.bias": lambda: zeros((L, D)),
         "layers.gate.kernel": lambda: norm((L, D, F_), std),
         "layers.up.kernel": lambda: norm((L, D, F_), std),
         "layers.down.kernel": lambda: norm((L, F_, D), res_std),
-        "final_norm.scale": lambda: ones((D,)),
+        "layers.fc.kernel": lambda: norm((L, D, F_), std),
+        "layers.fc.bias": lambda: zeros((L, F_)),
+        "layers.proj.kernel": lambda: norm((L, F_, D), res_std),
+        "layers.proj.bias": lambda: zeros((L, D)),
+        "final_norm.scale": lambda: scale((D,)),
+        "final_norm.bias": lambda: zeros((D,)),
         "lm_head.kernel": lambda: norm((D, V), std),
     }
-    return {k: shapes[k]().requires_grad_(True) for k in LLAMA_KEYS}
+    return {k: shapes[k]().requires_grad_(True) for k in param_keys(cfg)}
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -135,6 +163,28 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * scale.float()).to(x.dtype)
 
 
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """Mean-subtracting LayerNorm with bias (gpt2), in fp32."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def _norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+          cfg: ModelConfig) -> torch.Tensor:
+    """The arch's norm: LayerNorm with ``bias`` (gpt2), RMSNorm with the
+    stored scale as an offset from 1 (gemma: ``scale``, already in the
+    compute dtype, plus 1 in fp32, as JAX orders it), or RMSNorm."""
+    if cfg.arch == "gpt2":
+        return _layer_norm(x, scale, bias, cfg.norm_eps)
+    if cfg.arch == "gemma":
+        return _rms_norm(x, scale.float() + 1.0, cfg.norm_eps)
+    return _rms_norm(x, scale, cfg.norm_eps)
+
+
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embeddings (split-half form). x: [B, S, H, HD], positions [B, S]."""
     half = x.shape[-1] // 2
@@ -150,10 +200,11 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _attention(q, k, v, impl: str, window: int = 0, sequence: int = 1):
+def _attention(q, k, v, impl: str, window: int = 0, sequence: Optional[int] = None):
     """Causal attention dispatch:
 
-    - ``"ring"``: ring attention over ``sequence`` ranks;
+    - ``"ring"``: ring attention over ``sequence`` ranks (required: JAX's
+      ring requires a mesh);
     - ``"flash"``: the CUDA kernels (their plain versions on CPU tensors);
     - ``"xla"``: plain PyTorch.
 
@@ -166,6 +217,9 @@ def _attention(q, k, v, impl: str, window: int = 0, sequence: int = 1):
                 "use 'flash' or 'xla' (a windowed model has no use for "
                 "full-sequence context parallelism)"
             )
+        if sequence is None:
+            raise ValueError(f"attention_impl={impl!r} requires a mesh "
+                             "(in the port, its ring size: sequence=N)")
         if impl == "ulysses":
             raise NotImplementedError(
                 "attention_impl='ulysses' is not ported (queued with multi-GPU)")
@@ -176,34 +230,60 @@ def _attention(q, k, v, impl: str, window: int = 0, sequence: int = 1):
                                window=window)
 
 
-def _proj(h: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """``h @ W``: h [B, S, in], kernel [in, out] → [B, S, out]."""
-    return torch.matmul(h, kernel)
+def _proj(h: torch.Tensor, kernel: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``h @ W (+ b)``: h [B, S, in], kernel [in, out] → [B, S, out]."""
+    out = torch.matmul(h, kernel)
+    return out if bias is None else out + bias.to(out.dtype)
 
 
-def _dense_mlp(h: torch.Tensor, lp: dict[str, torch.Tensor]) -> torch.Tensor:
-    """SwiGLU: down(silu(h·gate) ∘ h·up)."""
+def _layer_proj(h: torch.Tensor, lp: dict[str, torch.Tensor], name: str) -> torch.Tensor:
+    """The layer's projection ``name`` with its bias, where the arch has one
+    (gpt2)."""
+    return _proj(h, lp[f"{name}.kernel"], lp.get(f"{name}.bias"))
+
+
+def _dense_mlp(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    """The MLP of the training and the decode block: SwiGLU (llama, qwen),
+    biased GELU-tanh fc/proj (gpt2), GeGLU (gemma). h [B, S, D], normed."""
+    if cfg.arch == "gpt2":
+        return _layer_proj(F.gelu(_layer_proj(h, lp, "fc"), approximate="tanh"), lp, "proj")
     gate = _proj(h, lp["gate.kernel"])
     up = _proj(h, lp["up.kernel"])
-    return _proj(F.silu(gate) * up, lp["down.kernel"])
+    act = F.gelu(gate, approximate="tanh") if cfg.arch == "gemma" else F.silu(gate)
+    return _proj(act * up, lp["down.kernel"])
+
+
+def _qkv(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
+         positions: torch.Tensor):
+    """q [B, S, H, HD], k and v [B, S, KV, HD] of the normed input h: qwen's
+    per-head RMSNorm of q and k, then RoPE (not gpt2, whose positions are
+    added at embedding). Shared with the decode block."""
+    B, S, _ = h.shape
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _layer_proj(h, lp, "q").reshape(B, S, H, HD)
+    k = _layer_proj(h, lp, "k").reshape(B, S, KV, HD)
+    v = _layer_proj(h, lp, "v").reshape(B, S, KV, HD)
+    if cfg.arch == "qwen":
+        q = _rms_norm(q, lp["q_norm.scale"], cfg.norm_eps)
+        k = _rms_norm(k, lp["k_norm.scale"], cfg.norm_eps)
+    if cfg.arch != "gpt2":
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def _block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
-           positions: torch.Tensor, sequence: int = 1) -> torch.Tensor:
-    """One llama block. x: [B, S, D] → [B, S, D]."""
+           positions: torch.Tensor, sequence: Optional[int] = None) -> torch.Tensor:
+    """One transformer block. x: [B, S, D] → [B, S, D]."""
     B, S, _ = x.shape
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = _rms_norm(x, lp["attn_norm.scale"], cfg.norm_eps)
-    q = _proj(h, lp["q.kernel"]).reshape(B, S, H, HD)
-    k = _proj(h, lp["k.kernel"]).reshape(B, S, KV, HD)
-    v = _proj(h, lp["v.kernel"]).reshape(B, S, KV, HD)
-    q = _rope(q, positions, cfg.rope_theta)
-    k = _rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(_norm(x, lp["attn_norm.scale"], lp.get("attn_norm.bias"), cfg), lp, cfg,
+                   positions)
     attn = _attention(q, k, v, cfg.attention_impl, window=cfg.sliding_window,
                       sequence=sequence)
-    x = x + _proj(attn.reshape(B, S, H * HD), lp["o.kernel"])
-    h = _rms_norm(x, lp["mlp_norm.scale"], cfg.norm_eps)
-    return x + _dense_mlp(h, lp)
+    x = x + _layer_proj(attn.reshape(B, S, -1), lp, "o")
+    h = _norm(x, lp["mlp_norm.scale"], lp.get("mlp_norm.bias"), cfg)
+    return x + _dense_mlp(h, lp, cfg)
 
 
 def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -215,14 +295,23 @@ def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
     The rows are gathered from the master table and then cast, which gives
     the same values as JAX's cast-then-gather while its backward scatters
     into fp32 rather than into a compute-dtype copy of the whole table.
-    ``positions`` is JAX's argument for gpt2's learned position table; the
-    llama arch has none and ignores it."""
-    _require_llama(cfg)
-    return F.embedding(tokens, params["embed.embedding"]).to(compute_dtype)
+    gpt2 adds the learned position rows at ``positions`` (default 0..S-1;
+    decode passes its offsets); gemma multiplies by sqrt(d_model) rounded to
+    the compute dtype first, as JAX's ``jnp.asarray(..., compute_dtype)``
+    does."""
+    x = F.embedding(tokens, params["embed.embedding"]).to(compute_dtype)
+    if cfg.arch == "gemma":
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype, device=x.device)
+    if "pos_embed.embedding" in params:
+        if positions is None:
+            positions = torch.arange(tokens.shape[-1], device=tokens.device)
+        x = x + F.embedding(positions, params["pos_embed.embedding"]).to(compute_dtype)
+    return x
 
 
 def _head_grads_f32(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
-    """(g @ wᵀ, xᵀ @ g) in fp32 for bf16 x [N, D], w [D, V] and an fp32
+    """(g @ wᵀ, xᵀ @ g) in fp32 for bf16 x [N, D], w [D, V] (an untied head,
+    or a tied one's transposed view of the [V, D] table) and an fp32
     cotangent g [N, V]. g is split into two bf16 terms, hi + lo, which hold
     about 16 of its 24 significant bits; each of the four bf16 products
     accumulates in fp32. This stands in for JAX's fp32 transpose of the head
@@ -277,17 +366,25 @@ def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm + LM head: [..., S, D] → logits [..., S, V] fp32."""
-    _require_llama(cfg)
-    x = _rms_norm(x, params["final_norm.scale"].to(x.dtype), cfg.norm_eps)
-    return _matmul_f32_out(x, params["lm_head.kernel"].to(x.dtype))
+    """Final norm + LM head: [..., S, D] → logits [..., S, V] fp32. gpt2
+    and gemma tie the head to the token embedding: its transposed view, so
+    the table's fp32 gradient sums the gather's scatter and the head's
+    product."""
+    bias = params.get("final_norm.bias")
+    x = _norm(x, params["final_norm.scale"].to(x.dtype),
+              None if bias is None else bias.to(x.dtype), cfg)
+    head = (params["embed.embedding"].t() if cfg.arch in ("gpt2", "gemma")
+            else params["lm_head.kernel"])
+    return _matmul_f32_out(x, head.to(x.dtype))
 
 
 def cast_layer_stack(params: dict[str, torch.Tensor],
                      compute_dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
-    """The stacked per-layer params cast to the compute dtype, once per call.
-    Gradients flow back through the cast onto the fp32 masters."""
-    return {k: params["layers." + k].to(compute_dtype) for k in LAYER_KEYS}
+    """The stacked per-layer params (``layers.*``, without the prefix) cast
+    to the compute dtype, once per call. Gradients flow back through the
+    cast onto the fp32 masters."""
+    return {k[len("layers."):]: p.to(compute_dtype) for k, p in params.items()
+            if k.startswith("layers.")}
 
 
 def inference_params(params: dict[str, torch.Tensor], compute_dtype=torch.bfloat16,
@@ -310,22 +407,30 @@ def forward_hidden_and_aux(
     compute_dtype=torch.bfloat16,
     remat: bool = False,
     positions: Optional[torch.Tensor] = None,
-    sequence: int = 1,
+    sequence: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decoder stack only: tokens [B, S] → (hidden [B, S, D] in the compute
     dtype, before the final norm; the mean MoE aux loss, 0 for dense).
-    ``sequence`` is the ring size of ``attention_impl="ring"``."""
-    _require_llama(cfg)
+    ``sequence`` is the ring size of ``attention_impl="ring"``, which
+    raises ``ValueError`` without it."""
+    _require_ported(cfg)
     B, S = tokens.shape
+    if cfg.arch == "gpt2" and S > cfg.max_seq_len:
+        # Learned position table: a gather past its end would fail or, on
+        # the card, read out of range (RoPE models have no such bound).
+        raise ValueError(
+            f"seq_len {S} exceeds the learned position table "
+            f"(max_seq_len={cfg.max_seq_len}) of gpt2-family model {cfg.name!r}"
+        )
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = embed_tokens(params, tokens, compute_dtype, cfg=cfg)
+    x = embed_tokens(params, tokens, compute_dtype, positions=positions, cfg=cfg)
     stack = cast_layer_stack(params, compute_dtype)
     # One unbind per leaf: its backward stacks the L per-layer gradients in a
     # single op, where per-layer indexing would scatter into L full copies.
     layers = {k: torch.unbind(t, 0) for k, t in stack.items()}
     for i in range(cfg.n_layers):
-        lp = {k: layers[k][i] for k in LAYER_KEYS}
+        lp = {k: t[i] for k, t in layers.items()}
         if remat:
             x = checkpoint(_block, x, lp, cfg, positions, sequence, use_reentrant=False)
         else:
@@ -334,18 +439,20 @@ def forward_hidden_and_aux(
 
 
 def forward_and_aux(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-                    remat: bool = False, positions=None):
-    """tokens [B, S] → (logits [B, S, V] fp32, aux loss scalar)."""
+                    remat: bool = False, positions=None, sequence: Optional[int] = None):
+    """tokens [B, S] → (logits [B, S, V] fp32, aux loss scalar).
+    ``sequence``: the ring size, needed only for ``attention_impl="ring"``
+    (JAX's ``mesh``)."""
     x, aux = forward_hidden_and_aux(params, tokens, cfg, compute_dtype=compute_dtype,
-                                    remat=remat, positions=positions)
+                                    remat=remat, positions=positions, sequence=sequence)
     return unembed(params, x, cfg), aux
 
 
 def forward(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-            remat: bool = False, positions=None) -> torch.Tensor:
+            remat: bool = False, positions=None, sequence: Optional[int] = None) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V] fp32."""
     logits, _ = forward_and_aux(params, tokens, cfg, compute_dtype=compute_dtype,
-                                remat=remat, positions=positions)
+                                remat=remat, positions=positions, sequence=sequence)
     return logits
 
 

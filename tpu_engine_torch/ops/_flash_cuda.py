@@ -1,8 +1,9 @@
 """Wrappers of the three CUDA flash-attention kernels, their plain PyTorch
 versions, the launch counters, the loader, and the autograd functions.
 
-Kernels (``tpu_engine_torch/csrc/flash_attention.cu``; in bf16 at head dims
-64 and 128, K1 is ``csrc/flash_fwd_sm90.cu`` and K2 and K3 are
+Kernels (``tpu_engine_torch/csrc/flash_attention.cu``: ``mma.sync`` in bf16
+at head dims 16, 32 and 256, fp32 FMA at every head dim; in bf16 at head
+dims 64 and 128, K1 is ``csrc/flash_fwd_sm90.cu`` and K2 and K3 are
 ``csrc/flash_bwd_sm90.cu``, TMA + wgmma + warp specialisation, with the
 helpers they share in ``csrc/sm90.cuh``), each replacing one Pallas kernel of
 ``tpu_engine/ops/_flash_pallas.py``:
@@ -48,9 +49,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
-# Head dims the CUDA build instantiates (the D template parameter): every
-# llama-arch head of MODEL_CONFIGS, and qwen-tiny's and gemma-tiny's 32.
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# Head dims the CUDA build instantiates (the D template parameter), in bf16
+# and fp32: every head of MODEL_CONFIGS.
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 BLOCK = 64  # the kernels' Q/K tile rows; S must be a multiple
 
 # Launches of each kernel since the last reset_launches(), the causal form

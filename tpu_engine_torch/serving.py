@@ -1,5 +1,5 @@
 """Continuous-batching generation server on one GPU (port of
-``tpu_engine/serving.py``, dense llama arch).
+``tpu_engine/serving.py``, the dense llama, gpt2, qwen and gemma archs).
 
 A fixed pool of decode slots that requests join and leave independently: a
 finishing request frees its slot for the next queued prompt while the
@@ -69,7 +69,7 @@ from tpu_engine_torch.generate import (
 )
 from tpu_engine_torch.models.config import ModelConfig
 from tpu_engine_torch.models.transformer import (
-    _require_llama,
+    _require_ported,
     embed_tokens,
     inference_params,
     unembed,
@@ -441,7 +441,7 @@ class ContinuousBatcher:
             raise ValueError(
                 f"max_len {max_len} exceeds the learned position table "
                 f"(max_seq_len={cfg.max_seq_len}) of gpt2-family model")
-        _require_llama(cfg)
+        _require_ported(cfg)
         self.params = inference_params(params, compute_dtype, self.device)
 
         self._slots: list[Optional[Request]] = [None] * self.max_slots

@@ -138,8 +138,9 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
 
 def kernel_decay_mask(params: dict[str, torch.Tensor]) -> dict[str, bool]:
     """Weight decay applies to matmul kernels only (path ends in ``kernel``),
-    not to norm scales or embeddings. (JAX's mask also decays LoRA factors,
-    which the port does not have yet.)"""
+    not to biases, norm scales or embedding and position tables (a tied
+    head is its embedding, so it does not decay either). (JAX's mask also
+    decays LoRA factors, which the port does not have yet.)"""
     return {k: k.rsplit(".", 1)[-1] == "kernel" for k in params}
 
 
@@ -404,7 +405,7 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
         if cfg.model_name not in MODEL_CONFIGS:
             raise ValueError(f"unknown model {cfg.model_name!r}; known: {sorted(MODEL_CONFIGS)}")
         model_cfg = MODEL_CONFIGS[cfg.model_name]
-    tfm._require_llama(model_cfg)
+    tfm._require_ported(model_cfg)
     if cfg.sequence > 1:
         impl = "ulysses" if cfg.attention_impl == "ulysses" else "ring"
     elif cfg.attention_impl == "auto":

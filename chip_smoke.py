@@ -8,11 +8,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 1. build: compile the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV,
    each causal and non-causal, head dims 16/32/64/128/256) from
    ``tpu_engine_torch/csrc`` with nvcc for sm_90a, one compiler per source,
-   all at once; check that the Hopper kernels (``flash_fwd_sm90``,
-   ``flash_bwd_dq_sm90``, ``flash_bwd_dkv_sm90``: bf16 at D 64 and 128) are
+   all at once; check that the Hopper kernels (``flash_fwd_sm90``: K1 in
+   bf16 at D 64, 128 and 256; ``flash_bwd_dq_sm90``, ``flash_bwd_dkv_sm90``:
+   K2 and K3 at D 64 and 128; ``flash_bwd_dkv_d256_sm90``: K3 at D 256) are
    built from wgmma and TMA loads (``HGMMA``, ``UTMALDG`` in their SASS),
    spill nothing, and keep ``setmaxnreg`` (no ptxas C7508 warning); report
-   the registers and spills of the D 256 ``mma.sync`` kernels;
+   the registers and spills of the D 256 kernels that remain on
+   ``flash_attention.cu`` (bf16 K2, fp32 K1-K3);
 2. kernels: hold each kernel to its plain PyTorch version at the training
    shape (B·H 4·16, S 2048, D 128, bf16), the non-causal kernels at the
    ring shard's shape (B·H 16, S 2048, D 128), on small fp32 cases with
@@ -233,16 +235,23 @@ REPLACES = {
     "flash_bwd_dkv": "tpu_engine/ops/_flash_pallas.py:341",
 }
 # The source of each kernel at the timed shapes: bf16 at D 128 (the Hopper
-# kernels) and at D 256 (the mma.sync kernels, rows named ``<kernel>_d256``).
+# kernels) and at D 256 (rows named ``<kernel>_d256``: K1 and K3 Hopper
+# kernels, K2 mma.sync).
 SOURCE = {
     "flash_fwd": "tpu_engine_torch/csrc/flash_fwd_sm90.cu",
     "flash_bwd_dq": "tpu_engine_torch/csrc/flash_bwd_sm90.cu",
     "flash_bwd_dkv": "tpu_engine_torch/csrc/flash_bwd_sm90.cu",
 }
-SOURCE_D256 = "tpu_engine_torch/csrc/flash_attention.cu"
+SOURCE_D256 = {
+    "flash_fwd": "tpu_engine_torch/csrc/flash_fwd_sm90.cu",
+    "flash_bwd_dq": "tpu_engine_torch/csrc/flash_attention.cu",
+    "flash_bwd_dkv": "tpu_engine_torch/csrc/flash_bwd_dkv_d256_sm90.cu",
+}
 GEMMA_SHAPE = (4, 8, 2048, 256)  # gemma-2b's attention in train_gemma: B, H, S, D
-# The Hopper kernels' symbols (K1, K2, K3), four instantiations each.
-SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+# The Hopper kernels' symbols and their instantiations (head dims x causal
+# and not): K1 at D 64, 128 and 256; K2 and K3 at 64 and 128; K3 at 256.
+SM90_KERNELS = {"flash_fwd_sm90": 6, "flash_bwd_dq_sm90": 4, "flash_bwd_dkv_sm90": 4,
+                "flash_bwd_dkv_d256_sm90": 2}
 RING = 4          # ranks of the ring in the ring and train_ring phases
 RING_SEQ = 8192   # sequence length of those phases (local shard 2048)
 # The ring's training step against flash's at RING_SEQ, from the same
@@ -334,16 +343,17 @@ def check_lse_backward(fc) -> dict:
 
 
 def check_sm90_sass(fc) -> dict:
-    """Each Hopper kernel's four instantiations (D 64 and 128, causal and
-    not) must be built from wgmma (``HGMMA``) and TMA loads (``UTMALDG``):
-    proof that bf16 K1, K2 and K3 at those head dims run the Hopper design.
-    Returns the count of each instruction per instantiation."""
+    """Each Hopper kernel's instantiations (``SM90_KERNELS``: head dims x
+    causal and not) must be built from wgmma (``HGMMA``) and TMA loads
+    (``UTMALDG``): proof that bf16 K1 at D 64, 128 and 256, K2 at 64 and
+    128 and K3 at 64, 128 and 256 run the Hopper designs. Returns the count
+    of each instruction per instantiation."""
     out = {}
-    for symbol in SM90_KERNELS:
+    for symbol, want in SM90_KERNELS.items():
         found = fc.sass_op_counts(symbol, ("HGMMA", "UTMALDG"))
         print(f"sass {symbol}: {json.dumps(found)}", flush=True)
-        if len(found) != 4 or not all(n["HGMMA"] and n["UTMALDG"] for n in found.values()):
-            raise AssertionError(f"{symbol}: want 4 instantiations with HGMMA and UTMALDG, "
+        if len(found) != want or not all(n["HGMMA"] and n["UTMALDG"] for n in found.values()):
+            raise AssertionError(f"{symbol}: want {want} instantiations with HGMMA and UTMALDG, "
                                  f"found {found}")
         out.update(found)
     return out
@@ -380,17 +390,18 @@ def check_ptxas(log: str) -> dict:
 
 
 def check_ptxas_d256(log: str) -> dict:
-    """Registers and spilled bytes of each D 256 instantiation (the mma.sync
-    and fp32 kernels of flash_attention.cu), keyed ``<kernel><256,
+    """Registers and spilled bytes of each D 256 instantiation left on
+    flash_attention.cu (the bf16 mma.sync K2 and the fp32 K1-K3; the Hopper
+    kernels are gated by ``check_ptxas``), keyed ``<kernel><256,
     causal|full>``. Reported, not gated: a spill costs time, not
     correctness."""
     out = {}
     for name, v in _ptxas_table(log).items():
         k = re.search(r"\d+(flash_\w+?)ILi256ELb([01])E", name)
-        if k:
+        if k and "sm90" not in k[1]:
             out[f"{k[1]}<256, {'causal' if k[2] == '1' else 'full'}>"] = v
-    if len(out) != 12:  # K1, K2, K3 x causal, full x bf16, fp32
-        raise AssertionError(f"want 12 D 256 instantiations in the ptxas log, found {out}")
+    if len(out) != 8:  # bf16 K2, fp32 K1, K2, K3 x causal, full
+        raise AssertionError(f"want 8 D 256 instantiations in the ptxas log, found {out}")
     for n, v in sorted(out.items()):
         print(f"ptxas D 256: {n}: {v.get('registers')} registers, "
               f"{v.get('spill_bytes')} bytes spilled (stores + loads)", flush=True)
@@ -398,11 +409,13 @@ def check_ptxas_d256(log: str) -> dict:
 
 
 def _edge_cases(dims=(64, 128)) -> list:
-    """The edges of the Hopper kernels' 128-row tiles, bf16 at ``dims``:
-    S 64, 192 and 320 (a ragged last tile), causal and not; windows 37, 100,
-    128 and 200 at S 320 and 1024; B·H 1 and 256. (B·H, S, D, window,
-    causal) each. At D 256 (the mma.sync kernels' 64-row tiles) the same
-    cases cut through their tiles and windows."""
+    """The edges of the Hopper kernels' tiles, bf16 at ``dims``: S 64, 192
+    and 320, causal and not, which leave a ragged last 128-row tile (K1's Q
+    tiles; at D 64 and 128 also K1's 128-key tiles and K2's and K3's owned
+    tiles) and, at D 256, a ragged last 80-key tile of K1 at S 64 and 192;
+    windows 37, 100, 128 and 200 at S 320 and 1024, which cut through the
+    64-row tiles (K3's owned keys at D 256, the streamed tiles of K2 and K3)
+    and K1's key tiles; B·H 1 and 256. (B·H, S, D, window, causal) each."""
     cases = []
     for d in dims:
         cases += [(4, s, d, 0, causal) for s in (64, 192, 320) for causal in (True, False)]
@@ -689,7 +702,7 @@ def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
         }
         for name, (kernel, plain, library, err) in kernels.items():
             rows.append({
-                "name": f"{name}_d256{suffix}", "route": "cuda", "source": SOURCE_D256,
+                "name": f"{name}_d256{suffix}", "route": "cuda", "source": SOURCE_D256[name],
                 "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
                 "ms": _device_ms(kernel), "plain_ms": _device_ms(plain, **slow),
                 "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],

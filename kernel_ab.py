@@ -7,11 +7,13 @@ on the same data.
 Each checkout's ``tpu_engine_torch/ops/_flash_cuda.py`` is loaded as a module
 of its own, so each builds its own kernels from its own sources. Per round
 the order is base, this tree, this tree, base. Shapes: causal at B·H 64,
-S 2048, D 128 (llama-1b's training step), and non-causal and causal at the
-ring shard, B·H 16 (llama-1b at seq 8192 over a ring of 4). K2 and K3 of
-both trees take the same lse and Δ (this tree's K1 forward). Times are
-device times by CUDA events over 20 calls queued behind a spin, so host gaps
-do not count. The library's times (timed only, never called by the port)
+S 2048, D 128 (llama-1b's training step), non-causal and causal at the
+ring shard, B·H 16 (llama-1b at seq 8192 over a ring of 4), and causal and
+non-causal at B·H 4·8, S 2048, D 256 (gemma-2b's training step). K2 and K3
+of both trees take the same lse and Δ (this tree's K1 forward). Each
+kernel's bound (``chip_smoke.kernel_bounds``) is printed beside its times.
+Times are device times by CUDA events over 20 calls queued behind a spin,
+so host gaps do not count. The library's times (timed only, never called by the port)
 are ``scaled_dot_product_attention`` for K1 and
 ``_scaled_dot_product_flash_attention_backward`` (dq, dk and dv together, on
 its own forward's outputs) for the pair K2 + K3. With ``--sweep``, also
@@ -36,6 +38,8 @@ SHAPES = {  # name: (B·H, S, D, causal)
     "causal_bh64": (64, 2048, 128, True),
     "full_bh16": (16, 2048, 128, False),
     "causal_bh16": (16, 2048, 128, True),
+    "causal_d256": (32, 2048, 256, True),
+    "full_d256": (32, 2048, 256, False),
 }
 # The same non-causal work (B·H · S^2 fixed) cut into more, shorter heads:
 # q, k and v grow from 12.6 MB (fits L2) to 101 MB (does not).
@@ -77,6 +81,7 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true", help="also the shapes of SWEEP")
     args = ap.parse_args()
     shapes = {**SHAPES, **(SWEEP if args.sweep else {})}
+    sys.path.insert(0, str(ROOT))
     import torch
     import torch.nn.functional as F
 
@@ -114,7 +119,11 @@ def main() -> int:
 
     bwd_keys = [key for key in shapes if key in SHAPES]  # the backward at the main shapes
     jobs = [(kn, key) for key in shapes for kn in KERNELS if kn == "flash_fwd" or key in bwd_keys]
-    out = {"card": card, "ms": {t: {f"{kn}/{key}": [] for kn, key in jobs} for t in trees}}
+    from chip_smoke import kernel_bounds
+
+    out = {"card": card, "ms": {t: {f"{kn}/{key}": [] for kn, key in jobs} for t in trees},
+           "bound_ms": {f"{kn}/{key}": kernel_bounds(bh, s, d, 0, 2, causal)[kn]["bound_ms"]
+                        for kn, key in jobs for bh, s, d, causal in [shapes[key]]}}
     # sdpa: the forward; flash_bwd: dq, dk and dv together.
     out["ms"]["library"] = {f"{op}/{key}": [] for op in ("sdpa", "flash_bwd") for key in shapes
                             if op == "sdpa" or key in bwd_keys}
@@ -139,7 +148,9 @@ def main() -> int:
         print(f"host us per flash_fwd call: {json.dumps(out['host_us_per_call'])}", flush=True)
     for tree, rows in out["ms"].items():
         for key, times in rows.items():
-            print(f"{tree:8s} {key:34s} " + " ".join(f"{x:.4f}" for x in times), flush=True)
+            bound = out["bound_ms"].get(key)
+            print(f"{tree:8s} {key:34s} " + " ".join(f"{x:.4f}" for x in times)
+                  + (f"  (bound {bound:.4f})" if bound else ""), flush=True)
     print(json.dumps(out))
     return 0
 

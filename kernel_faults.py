@@ -5,17 +5,20 @@ relative norm error against the plain version) are set from these readings.
 
     python3 kernel_faults.py
 
-Each fault is a text patch of ``tpu_engine_torch/csrc/flash_attention.cu``
-that changes only the D 256 instantiations, built in a copy of the package
-under ``chip_checkout/kernel_faults/<fault>/`` (git-ignored) and loaded as a
+Each fault is a text patch of one kernel source that changes only the D 256
+instantiations, built in a copy of the package under
+``chip_checkout/kernel_faults/<fault>/`` (git-ignored) and loaded as a
 module of its own, as ``kernel_ab.py`` loads a second tree:
 
 - ``sound``: the sources as they are;
-- ``o_rows_097``: K1 scales the output rows of the later half of the
-  sequence by 0.97;
-- ``dq_rows_097``: K2 scales dQ's rows of the later half by 0.97;
-- ``dkv_drop_q_tile``: K3 skips the last Q tile that each K tile sees (its
-  contributions to dK and dV are lost).
+- ``o_rows_097``: K1 (``flash_fwd_sm90.cu``, its D 256 epilogue from
+  registers) scales the output rows of the later half of the sequence by
+  0.97;
+- ``dq_rows_097``: K2 (``flash_attention.cu``, mma.sync) scales dQ's rows of
+  the later half by 0.97;
+- ``dkv_drop_q_tile``: K3 (``flash_bwd_dkv_d256_sm90.cu``) zeroes P^T of the
+  last Q tile that each owned key tile sees, so that tile's contributions
+  to dV and, through dS^T, to dK are lost.
 
 Each is run at gemma-2b's training shape (B·H 4·8, S 2048, D 256, bf16,
 causal) on the same inputs, with ``chip_smoke.check_case``'s plain
@@ -37,24 +40,27 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "chip_checkout" / "kernel_faults"
 SHAPE = (32, 2048, 256)  # gemma-2b: B·H 4·8, S 2048, D 256
 
-# (fault, [(text in flash_attention.cu, replacement)]): each replacement
-# changes the D 256 instantiations only (``D > 128``).
+# (fault, [(source under csrc/, text in it, replacement)]): each replacement
+# changes the D 256 instantiations only (K1's register epilogue and the K3
+# file serve D 256 alone; K2's patch tests ``D > 128``).
 FAULTS = {
     "sound": [],
     "o_rows_097": [(
-        "store_rows<D>(o + base + static_cast<size_t>(qpos) * D, acc, 1.0f / l[0], "
-        "1.0f / l[1], lane);",
-        "store_rows<D>(o + base + static_cast<size_t>(qpos) * D, acc,"
-        " (D > 128 && qpos >= S / 2 ? 0.97f : 1.0f) / l[0],"
-        " (D > 128 && qpos + 8 >= S / 2 ? 0.97f : 1.0f) / l[1], lane);")],
+        "flash_fwd_sm90.cu",
+        "store_row<D>(o + (static_cast<size_t>(bh) * S + row0 + 8 * h) * D, acc, h,\n"
+        "                         1.0f / l[h], t);",
+        "store_row<D>(o + (static_cast<size_t>(bh) * S + row0 + 8 * h) * D, acc, h,\n"
+        "                         (row0 + 8 * h >= S / 2 ? 0.97f : 1.0f) / l[h], t);")],
     "dq_rows_097": [(
+        "flash_attention.cu",
         "store_rows<D>(dq + base + static_cast<size_t>(qpos) * D, acc, 1.0f, 1.0f, lane);",
         "store_rows<D>(dq + base + static_cast<size_t>(qpos) * D, acc,"
         " D > 128 && qpos >= S / 2 ? 0.97f : 1.0f,"
         " D > 128 && qpos + 8 >= S / 2 ? 0.97f : 1.0f, lane);")],
     "dkv_drop_q_tile": [(
-        "for (int h = 0; h < 2; ++h) {  // not unrolled: keeps dK and dV in registers",
-        "for (int h = 0; h < (D > 128 && i == hi ? 0 : 2); ++h) {")],
+        "flash_bwd_dkv_d256_sm90.cu",
+        "              s[x] = p;",
+        "              s[x] = i == hi ? 0.0f : p;")],
 }
 
 
@@ -64,13 +70,12 @@ def _tree(fault: str) -> Path:
     shutil.rmtree(tree, ignore_errors=True)
     shutil.copytree(ROOT / "tpu_engine_torch", tree / "tpu_engine_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = tree / "tpu_engine_torch" / "csrc" / "flash_attention.cu"
-    text = src.read_text()
-    for old, new in FAULTS[fault]:
+    for name, old, new in FAULTS[fault]:
+        src = tree / "tpu_engine_torch" / "csrc" / name
+        text = src.read_text()
         if text.count(old) != 1:
             raise AssertionError(f"{fault}: the patched text occurs {text.count(old)} times")
-        text = text.replace(old, new)
-    src.write_text(text)
+        src.write_text(text.replace(old, new))
     return tree
 
 

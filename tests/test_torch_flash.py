@@ -43,16 +43,17 @@ def test_forward_and_lse_match_pallas(S, D, W):
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("S,W,causal", [
     (192, 0, True), (192, 37, True), (192, 100, True), (192, 0, False),
     (320, 0, True), (320, 37, True), (320, 100, True), (320, 0, False),
 ])
 def test_forward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
     """The plain version the card holds the Hopper K1 to, at the edges of
-    its 128-row tiles: S 192 and 320 leave a ragged last tile, and windows
-    37 and 100 cut through tiles. Against the Pallas forward (interpret
-    mode, 64-row blocks) in fp32."""
+    its 128-row Q tiles and its key tiles (128 keys at D 64 and 128, 64 at
+    D 256): S 192 and 320 leave a ragged last Q tile (and, at D 64 and 128,
+    a ragged last key tile), and windows 37 and 100 cut through tiles.
+    Against the Pallas forward (interpret mode, 64-row blocks) in fp32."""
     q, k, v = _qkv(13, (2, S, D), (2, S, D))
     jo, jlse = _flash_pallas._flash_fwd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -62,15 +63,17 @@ def test_forward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("S,W,causal", [
     (192, 0, True), (192, 37, True), (192, 100, True), (192, 0, False),
     (320, 0, True), (320, 37, True), (320, 100, True), (320, 0, False),
 ])
 def test_backward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
     """The plain versions the card holds the Hopper K2 and K3 to, at the
-    edges of their 128-row owned tiles: S 192 and 320 leave a ragged last
-    tile, and windows 37 and 100 cut through the 64-row streamed tiles.
+    edges of their tiles: at D 64 and 128 128-row owned tiles (S 192 and
+    320 leave a ragged last one) and 64-row streamed tiles; at D 256 K3's
+    64 owned keys and K2's 64-row tiles. Windows 37 and 100 cut through the
+    64-row tiles.
     ``flash_bwd`` under a random (dO, dlse) cotangent against the Pallas
     backward (``_flash_bwd`` in interpret mode, on the Pallas forward's
     residuals) in fp32."""
@@ -217,7 +220,8 @@ def test_library_path_is_keyed_on_the_sources():
     assert path.name.startswith("libtpe_flash_") and path.suffix == ".so"
     assert _flash_cuda.library_path() == path
     assert {src.name for src in _flash_cuda.SOURCES} == {
-        "flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"}
+        "flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
+        "flash_bwd_dkv_d256_sm90.cu"}
     assert {src.name for src in _flash_cuda.HEADERS} == {"sm90.cuh"}
     assert all(src.exists() for src in (*_flash_cuda.SOURCES, *_flash_cuda.HEADERS))
 

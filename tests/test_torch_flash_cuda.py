@@ -72,13 +72,17 @@ def test_kernels_match_plain(cuda, bh, s, d, dtype, window, causal):
         _assert_close(a, b, grad_tol, REL[dtype])
 
 
-# The Hopper kernels (bf16, D 64 and 128) at the edges of their 128-row
-# tiles: S 64, 192 and 320 (a ragged last tile), causal and not; windows 37,
-# 100, 128 and 200 at S 320 and 1024; B·H 1 and 256.
-_EDGES = ([(4, s, d, 0, c) for d in (64, 128) for s in (64, 192, 320) for c in (True, False)]
-          + [(2, s, d, w, True) for d in (64, 128) for s in (320, 1024)
+# The Hopper kernels (bf16: K1 at D 64, 128 and 256, K2 and K3 at 64 and
+# 128, K3 at 256) at the edges of their tiles: S 64, 192 and 320 (a ragged
+# last 128-row tile), causal and not; windows 37, 100, 128 and 200 at S 320
+# and 1024, through key tiles of 64 and 128; B·H 1 and 256. At D 256 K2 is
+# the mma.sync kernel, held on the same cases.
+_EDGES = ([(4, s, d, 0, c) for d in (64, 128, 256) for s in (64, 192, 320)
+           for c in (True, False)]
+          + [(2, s, d, w, True) for d in (64, 128, 256) for s in (320, 1024)
              for w in (37, 100, 128, 200)]
-          + [(bh, 512, d, 0, c) for d in (64, 128) for bh in (1, 256) for c in (True, False)])
+          + [(bh, 512, d, 0, c) for d in (64, 128, 256) for bh in (1, 256)
+             for c in (True, False)])
 
 
 @pytest.mark.parametrize("bh,s,d,window,causal", _EDGES)
@@ -92,7 +96,7 @@ def test_hopper_forward_at_tile_edges(cuda, bh, s, d, window, causal):
 
 def test_hopper_forward_is_built_from_wgmma_and_tma(cuda):
     found = fc.sass_op_counts("flash_fwd_sm90", ("HGMMA", "UTMALDG"))
-    assert len(found) == 4, found  # D 64 and 128, causal and not
+    assert len(found) == 6, found  # D 64, 128 and 256, causal and not
     assert all(n["HGMMA"] and n["UTMALDG"] for n in found.values()), found
 
 
@@ -124,10 +128,13 @@ def test_hopper_backward_is_deterministic(cuda, causal):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
-@pytest.mark.parametrize("symbol", ["flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"])
-def test_hopper_backward_is_built_from_wgmma_and_tma(cuda, symbol):
+@pytest.mark.parametrize("symbol,count", [
+    ("flash_bwd_dq_sm90", 4), ("flash_bwd_dkv_sm90", 4),  # D 64 and 128, causal and not
+    ("flash_bwd_dkv_d256_sm90", 2),  # K3 at D 256, causal and not
+])
+def test_hopper_backward_is_built_from_wgmma_and_tma(cuda, symbol, count):
     found = fc.sass_op_counts(symbol, ("HGMMA", "UTMALDG"))
-    assert len(found) == 4, found  # D 64 and 128, causal and not
+    assert len(found) == count, found
     assert all(n["HGMMA"] and n["UTMALDG"] for n in found.values()), found
 
 
@@ -209,8 +216,9 @@ def test_unbuilt_head_dim_raises_instead_of_the_plain_path(cuda):
 
 
 def test_d256_backward_is_deterministic(cuda):
-    """K3 at D 256 splits dK and dV over two CTAs a K tile; neither K2
-    nor K3 uses atomics, so two runs give bitwise-equal gradients."""
+    """K3 at D 256 splits dK and dV over two warpgroups of one CTA, which
+    hand P^T over through shared memory; neither K2 nor K3 uses atomics, so
+    two runs give bitwise-equal gradients."""
     args = _bwd_args(8, 512, 256, 0, True)
     first = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
     second = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))

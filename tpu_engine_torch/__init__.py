@@ -22,7 +22,8 @@ Slice 5 ports serving on one card:
   ``ContinuousBatcher``.
 
 Slice 6 adds the gpt2, qwen and gemma archs to every entry point above, and
-the flash kernels at gemma's head dim of 256.
+the flash kernels at gemma's head dim of 256; slice 7 redesigns the forward
+and dK/dV kernels at that head dim for Hopper.
 
 Imports here stay light: submodules are imported by the caller.
 """

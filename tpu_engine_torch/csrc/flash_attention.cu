@@ -50,26 +50,24 @@
 // one is multiplied. Tensor cores at this rate are limited by the shared-
 // memory reads that feed mma.sync (about one ldmatrix per two mma).
 //
-// K1, K2 and K3 in bf16 at D 64 and 128 (every llama, gpt2 and qwen
-// training head but the tiny configs') are not these kernels: the C entries
-// send K1 to flash_fwd_sm90.cu and K2 and K3 to flash_bwd_sm90.cu, redesigns
-// for Hopper with TMA, wgmma and warp specialisation. The bf16 kernels below
-// serve D 16, 32 and 256.
+// Most bf16 calls are not these kernels. The C entries send them to
+// redesigns for Hopper with TMA, wgmma and warp specialisation:
+//   K1 at D 64, 128 and 256  -> flash_fwd_sm90.cu;
+//   K2 at D 64 and 128       -> flash_bwd_sm90.cu;
+//   K3 at D 64 and 128       -> flash_bwd_sm90.cu;
+//   K3 at D 256              -> flash_bwd_dkv_d256_sm90.cu.
+// The bf16 kernels below serve K1 and K3 at D 16 and 32 (the tiny configs'
+// heads) and K2 at D 16, 32 and 256, with no fallback from the Hopper
+// kernels to them.
 //
-// D 256 (gemma-2b and gemma-7b) is where registers run out: one warp's 16
-// rows of an fp32 [16, 256] accumulator cost 128 registers a thread. K1 (O)
-// and K2 (dQ) hold one such accumulator beside their score tiles; their Q
-// and dO operands are read by ldmatrix from shared memory at every k-step,
-// never held, and they score the 64-key tile in two passes of 32 keys
-// (kKeysPerPass), so the score tiles take half the registers. K3 holds two
-// (dK and dV) and would not fit: its grid has a third axis that splits the
-// output columns in two (kSplit), and each of the two CTAs of a K tile
-// recomputes S^T and dP^T over the full D and accumulates only its 128
-// columns of dK and dV. That is 1.5x K3's products
-// at D 256, deterministic, with no atomics. Shared memory at D 256: K1 5
-// skewed [64, 264] bf16 tiles (168,960 B), K2 and K3 6 (202,752 B and
-// 203,776 B with K3's lse and delta), under the 227 KB opt-in. The fp32
-// kernels at D 256 are staged (see the fp32 section).
+// K2 at D 256 (gemma-2b and gemma-7b) is where registers run out: one
+// warp's 16 rows of an fp32 [16, 256] dQ accumulator cost 128 registers a
+// thread. Its Q and dO operands are read by ldmatrix from shared memory at
+// every k-step, never held, and it scores each 64-key tile in two passes of
+// 32 keys (kKeysPerPass), so the score tiles take half the registers. Shared
+// memory at D 256: 6 skewed [64, 264] bf16 tiles, 202,752 B, under the
+// 227 KB opt-in. The fp32 kernels at D 256 are staged (see the fp32
+// section).
 //
 // fp32 keeps the same tiling with plain fp32 FMA loops over tiles staged in
 // shared memory (never TF32), so that the fp32 bounds hold; that path is for
@@ -82,7 +80,9 @@
 #include <cstddef>
 #include <cstdint>
 
-// K1, K2 and K3 for bf16 at D 64 and 128 (flash_fwd_sm90.cu, flash_bwd_sm90.cu).
+// The Hopper kernels: K1 for bf16 at D 64, 128 and 256 (flash_fwd_sm90.cu),
+// K2 and K3 at D 64 and 128 (flash_bwd_sm90.cu), K3 at D 256
+// (flash_bwd_dkv_d256_sm90.cu).
 extern "C" int tpe_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, void* counters, int bh, int s, int d, int window,
                                   int causal, void* stream);
@@ -94,6 +94,10 @@ extern "C" int tpe_flash_bwd_dkv_sm90(const void* q, const void* k, const void* 
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, void* counters, int bh, int s, int d,
                                       int window, int causal, void* stream);
+extern "C" int tpe_flash_bwd_dkv_d256_sm90(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse, const void* delta,
+                                           void* dk, void* dv, void* counters, int bh, int s,
+                                           int window, int causal, void* stream);
 
 namespace {
 
@@ -277,8 +281,8 @@ struct SmemBf16 {
 // K1 (bf16): forward
 // ---------------------------------------------------------------------------
 
-// Keys a warp scores at a time in K1 and K2: the whole 64-key tile, or two
-// passes of 32 at D 256, where the [16, 256] fp32 accumulator leaves too few
+// Keys a warp scores at a time in K2: the whole 64-key tile, or two passes
+// of 32 at D 256, where the [16, 256] fp32 accumulator leaves too few
 // registers for a 16x64 score tile beside it.
 template <int D>
 constexpr int kKeysPerPass = D > 128 ? 32 : kBlock;
@@ -292,14 +296,14 @@ __device__ __forceinline__ void q_major_range(int n_blk, int window, int& i, int
   hi = kCausal ? i : n_blk - 1;
 }
 
-// Instantiated for D 16, 32 and 256 (D 64 and 128: flash_fwd_sm90.cu).
+// Instantiated for D 16 and 32 (D 64, 128 and 256: flash_fwd_sm90.cu).
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                int S, int window, float scale) {
   using L = Tile<D>;
-  constexpr int kPass = kKeysPerPass<D>, NT = kPass / 8, DT = D / 8;
+  constexpr int NT = kBlock / 8, DT = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + L::SIZE;      // stages 0, 1
@@ -334,49 +338,45 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     const bool masked = kCausal && needs_mask(i, j, window);
-#pragma unroll 1
-    for (int h = 0; h < kBlock / kPass; ++h) {  // keys h * kPass .. of the tile
-      const int key0 = j * kBlock + h * kPass;
-      float s[NT][4];
-      mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Ks + st * L::SIZE + h * kPass * L::LD, L::LD,
-                     lane);
-      float mx[2] = {kNegInf, kNegInf};
+    const int key0 = j * kBlock;
+    float s[NT][4];
+    mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Ks + st * L::SIZE, L::LD, lane);
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[n][e] * scale2;
-          if (masked && !visible(qpos + 8 * (e >> 1), key0 + n * 8 + 2 * t + (e & 1), window))
-            x = kNegInf;
-          s[n][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      float corr[2];
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale2;
+        if (masked && !visible(qpos + 8 * (e >> 1), key0 + n * 8 + 2 * t + (e & 1), window))
+          x = kNegInf;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {  // the four lanes of a quad share a row
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(fmaxf(m[r], mx[r]), kM2Floor);
-        corr[r] = exp2f(m[r] - m_new);
-        m[r] = m_new;
-        l[r] *= corr[r];
+    for (int r = 0; r < 2; ++r) {  // the four lanes of a quad share a row
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(fmaxf(m[r], mx[r]), kM2Floor);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m[e >> 1]);  // masked entries underflow to 0
+        s[n][e] = p;
+        l[e >> 1] += p;
       }
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < DT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[n][e] - m[e >> 1]);  // masked entries underflow to 0
-          s[n][e] = p;
-          l[e >> 1] += p;
-        }
-#pragma unroll
-      for (int n = 0; n < DT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-      uint32_t pa[NT / 2][4];  // P rounds to bf16 for the P V product
-      to_a<NT>(pa, s);
-      mma_ab<NT / 2, DT>(acc, pa, Vs + st * L::SIZE + h * kPass * L::LD, L::LD, lane);
-    }
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+    uint32_t pa[NT / 2][4];  // P rounds to bf16 for the P V product
+    to_a<NT>(pa, s);
+    mma_ab<NT / 2, DT>(acc, pa, Vs + st * L::SIZE, L::LD, lane);
     __syncthreads();  // every warp is done with this stage before it refills
   }
 
@@ -484,13 +484,8 @@ __device__ __forceinline__ void k_major_range(int j, int n_blk, int window, int&
   hi = kCausal ? last_q_tile(j, n_blk, window) : n_blk - 1;
 }
 
-// Instantiated for D 16, 32 and 256 (D 64 and 128: flash_bwd_sm90.cu).
-// CTAs that share one K tile, each owning D / kSplit columns of dK and dV
-// (blockIdx.z): two at D 256, where both accumulators would not fit in
-// registers, else one.
-template <int D>
-constexpr int kSplit = D > 128 ? 2 : 1;
-
+// Instantiated for D 16 and 32 (D 64 and 128: flash_bwd_sm90.cu; D 256:
+// flash_bwd_dkv_d256_sm90.cu).
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -500,9 +495,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    float scale) {
   using L = Tile<D>;
   constexpr int NH = 4;  // n-tiles of a half Q tile: 32 queries at a time
-  constexpr int DW = D / kSplit<D>;  // output columns of this CTA
-  constexpr int DT = DW / 8;
-  const int col0 = static_cast<int>(blockIdx.z) * DW;
+  constexpr int DT = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + L::SIZE;
@@ -574,14 +567,14 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t pa[NH / 2][4], da[NH / 2][4];
       to_a<NH>(pa, s);
       to_a<NH>(da, dp);
-      mma_ab<NH / 2, DT>(dv_acc, pa, dOt + h * 32 * L::LD + col0, L::LD, lane);
-      mma_ab<NH / 2, DT>(dk_acc, da, Qt + h * 32 * L::LD + col0, L::LD, lane);
+      mma_ab<NH / 2, DT>(dv_acc, pa, dOt + h * 32 * L::LD, L::LD, lane);
+      mma_ab<NH / 2, DT>(dk_acc, da, Qt + h * 32 * L::LD, L::LD, lane);
     }
     __syncthreads();
   }
-  const size_t out = base + static_cast<size_t>(kpos) * D + col0;
-  store_rows<DW, D>(dk + out, dk_acc, 1.0f, 1.0f, lane);
-  store_rows<DW, D>(dv + out, dv_acc, 1.0f, 1.0f, lane);
+  const size_t out = base + static_cast<size_t>(kpos) * D;
+  store_rows<D>(dk + out, dk_acc, 1.0f, 1.0f, lane);
+  store_rows<D>(dv + out, dv_acc, 1.0f, 1.0f, lane);
 }
 
 // ===========================================================================
@@ -593,12 +586,17 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // kernels are then "staged": two tile buffers are refilled within each step
 // of the inner loop (K1: K, then V; K2: Q and K, then dO and V, then K
 // again; K3: K and Q, then V and dO, then Q again), and K3 splits its dK
-// and dV columns over two CTAs as the bf16 K3 does. Shared memory at D 256:
+// and dV columns over two CTAs (kSplit). Shared memory at D 256:
 // K1 213,504 B, K2 and K3 229,888 B. It is the checking path: the reloads
 // cost time, not accuracy.
 
 template <int D>
 constexpr bool kStaged = D > 128;
+
+// CTAs that share one K tile in the fp32 K3, each owning D / kSplit columns
+// of dK and dV (blockIdx.z): two at D 256, else one.
+template <int D>
+constexpr int kSplit = D > 128 ? 2 : 1;
 
 template <int D>
 struct SmemF32 {
@@ -952,7 +950,7 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // Grid (BH, S / 64, splits): blockIdx.x walks the heads fastest, so the
 // longest tiles of every head start before any shorter one; blockIdx.z is
-// K3's column split at D 256 (1 elsewhere).
+// the fp32 K3's column split at D 256 (1 elsewhere).
 template <typename K, typename... Args>
 int launch(K kernel, size_t smem, int bh, int s, int splits, cudaStream_t st, Args... args) {
   if (smem > 48 * 1024) {
@@ -964,9 +962,12 @@ int launch(K kernel, size_t smem, int bh, int s, int splits, cudaStream_t st, Ar
   return cudaGetLastError();
 }
 
-// The Hopper kernels take bf16 at D 64 and 128.
+// The Hopper kernels take bf16 at D 64 and 128 (K1, K2, K3) and at D 256
+// (K1, and K3 in its own design).
 template <int D>
 constexpr bool kSm90 = D == 64 || D == 128;
+template <int D>
+constexpr bool kSm90Fwd = kSm90<D> || D == 256;
 
 template <int D, bool C>
 int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void* lse,
@@ -974,7 +975,7 @@ int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void
   const float sc = softmax_scale(D);
   float* l = static_cast<float*>(lse);
   if (is_bf16) {
-    if constexpr (kSm90<D>)  // the Hopper kernel, and no other (no fallback)
+    if constexpr (kSm90Fwd<D>)  // the Hopper kernel, and no other (no fallback)
       return tpe_flash_fwd_sm90(q, k, v, o, lse, counters, bh, s, D, window, C, st);
     else
       return launch(flash_fwd_bf16<D, C>, SmemBf16<D>::fwd, bh, s, 1, st,
@@ -1017,11 +1018,14 @@ int bwd_dkv(bool is_bf16, const void* q, const void* k, const void* v, const voi
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (is_bf16) {
-    if constexpr (kSm90<D>)  // the Hopper kernel, and no other (no fallback)
+    if constexpr (D == 256)  // the Hopper kernels, and no other (no fallback)
+      return tpe_flash_bwd_dkv_d256_sm90(q, k, v, dout, lse, delta, dk, dv, counters, bh, s,
+                                         window, C, st);
+    else if constexpr (kSm90<D>)
       return tpe_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, counters, bh, s, D,
                                     window, C, st);
     else
-      return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, kSplit<D>, st,
+      return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, 1, st,
                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, window, sc);
@@ -1071,9 +1075,9 @@ extern "C" {
 // other than 16, 32, 64, 128 or 256, or a bad shape, is refused before any
 // launch.
 
-// counters: the Hopper kernels' tile counters (bf16, d 64 and 128: two ints
-// per kernel, see flash_fwd_sm90.cu and flash_bwd_sm90.cu); the other
-// kernels do not read them.
+// counters: the Hopper kernels' tile counters (two ints per kernel, see
+// flash_fwd_sm90.cu, flash_bwd_sm90.cu and flash_bwd_dkv_d256_sm90.cu); the
+// other kernels do not read them.
 int tpe_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                   void* counters, int bh, int s, int d, int window, int causal, int is_bf16,
                   void* stream) {

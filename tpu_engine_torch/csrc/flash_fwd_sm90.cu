@@ -1,9 +1,10 @@
-// K1 for Hopper (sm_90a): the bf16 flash-attention forward at head dims 64
-// and 128, causal (optionally sliding-window) and non-causal, built on TMA,
-// wgmma and warp specialisation. tpe_flash_fwd (flash_attention.cu) sends
-// every bf16 call at D 64 or 128 here and nowhere else; fp32 and the bf16
-// head dims 16 and 32 keep flash_attention.cu's mma.sync kernel. The
-// helpers it shares with K2 and K3 (flash_bwd_sm90.cu) are in sm90.cuh.
+// K1 for Hopper (sm_90a): the bf16 flash-attention forward at head dims 64,
+// 128 and 256, causal (optionally sliding-window) and non-causal, built on
+// TMA, wgmma and warp specialisation. tpe_flash_fwd (flash_attention.cu)
+// sends every bf16 call at D 64, 128 or 256 here and nowhere else; fp32 and
+// the bf16 head dims 16 and 32 keep flash_attention.cu's mma.sync kernel.
+// The helpers it shares with K2 and K3 (flash_bwd_sm90.cu,
+// flash_bwd_dkv_d256_sm90.cu) are in sm90.cuh.
 //
 // It replaces _fwd_kernel (tpu_engine/ops/_flash_pallas.py:117, launched by
 // _flash_fwd through pl.pallas_call). Per (bh, row) it computes
@@ -13,8 +14,10 @@
 // Bound: tensor-core operations. It does 2 products of the visible (q, k)
 // pairs x D: at the training shape (BH 64, S 2048, D 128, causal) 6.9e10
 // FLOP, 69.5 us at 989 TFLOP/s, against about 40 us to move q, k, v, o and
-// lse once. Only wgmma reaches that rate: mma.sync fed by ldmatrix stalls on
-// shared-memory reads and on the copies its own warps issue.
+// lse once; at gemma-2b's (BH 32, S 2048, D 256, causal) the same 6.9e10
+// FLOP against about 20 us. Only wgmma reaches that rate: mma.sync fed by
+// ldmatrix stalls on shared-memory reads and on the copies its own warps
+// issue.
 //
 // What the design does about it:
 // - Work: one 128-row Q tile of one head at a time, with the K tiles it
@@ -22,68 +25,96 @@
 //   memory, longest first, in chunks of heads whose q, k and v fit in L2
 //   together (so a head's K and V are read from HBM about once).
 // - Roles: 384 threads, three warpgroups. The producer warpgroup gives up
-//   registers (setmaxnreg.dec to 40); one of its threads issues every TMA
-//   load: the Q tile, then 128-key K and V tiles into two-stage rings, with
-//   a full and an empty mbarrier per buffer (K and V apart, so S = Q K^T can
-//   start before V lands). It loads the next tile's Q and K while the
-//   consumers finish the current one. The two consumer warpgroups take the
-//   registers (setmaxnreg.inc to 232) and own 64 Q rows each; they issue no
-//   copy and no __syncthreads.
+//   registers (setmaxnreg.dec); one of its threads issues every TMA load:
+//   the Q tile, then K and V tiles into two-stage rings, with a full and an
+//   empty mbarrier per buffer (K and V apart, so S = Q K^T can start before
+//   V lands). It loads the next tile's Q and K while the consumers finish
+//   the current one. The two consumer warpgroups take the registers
+//   (setmaxnreg.inc) and own 64 Q rows each; they issue no copy and no
+//   __syncthreads.
 // - TMA: q, k, v and o are 3-D tensor maps [BH, S, D], so rows past S in a
 //   ragged last tile read as zeros, are never taken from the next head, and
 //   are never written. A box is [rows][64 columns] with the 128-byte
-//   swizzle, so a D 128 tile is two boxes. The maps are __grid_constant__
-//   parameters, encoded on each call by cuTensorMapEncodeTiled, which is
-//   looked up with cudaGetDriverEntryPoint: the library needs no link
-//   against libcuda.
-// - wgmma: S = Q K^T is m64n128k16 with both operands K-major in shared
-//   memory. O += P V takes P from registers: the fp32 S accumulator rounded
-//   pairwise to bf16 is the A operand, since the accumulator and the A
-//   fragment share one layout; V is the B operand, MN-major, read with the
-//   transpose bit. Each iteration issues S of K tile j and P V of tile
-//   j - 1 together and runs tile j's softmax while P V is in flight; the two
-//   warpgroups take turns at issuing (named barriers), so one's softmax
-//   overlaps the other's products. A buffer goes back to the producer only
-//   after the product that read it has completed.
+//   swizzle, so a D 128 tile is two boxes and a D 256 tile four. The maps
+//   are __grid_constant__ parameters, encoded on each call by
+//   cuTensorMapEncodeTiled, which is looked up with cudaGetDriverEntryPoint:
+//   the library needs no link against libcuda.
+// - wgmma: S = Q K^T has both operands K-major in shared memory. O += P V
+//   takes P from registers: the fp32 S accumulator rounded pairwise to bf16
+//   is the A operand, since the accumulator and the A fragment share one
+//   layout; V is the B operand, MN-major, read with the transpose bit. Each
+//   iteration issues S of K tile j and P V of tile j - 1 together and runs
+//   tile j's softmax while P V is in flight; the two warpgroups take turns
+//   at issuing (named barriers), so one's softmax overlaps the other's
+//   products. A buffer goes back to the producer only after the product
+//   that read it has completed.
 // - Softmax in registers, base 2, one FMA and one exp2 per score; the row
 //   max is reduced over the four lanes that share an accumulator row. Only
-//   the diagonal tile, the window-edge tiles and a ragged last K tile
-//   (zero-filled keys score 0, not -inf) evaluate the mask, and no tile
-//   above the diagonal or outside the window is visited.
-// - Epilogue: o = acc / l in bf16, staged in shared memory and written by a
-//   TMA store that runs on while the next tile starts; lse = m ln2 + log l,
-//   with l floored at 1e-30.
+//   the tiles that cross a warpgroup's diagonal or window edge, and a ragged
+//   last K tile (zero-filled keys score 0, not -inf), evaluate the mask, and
+//   no tile above the diagonal or outside the window is visited.
+//
+// Tiles per head dim (Tiles<D>), set by registers and shared memory:
+// - D 64 and 128: 128-key tiles (S of tile j is m64n128, 64 registers beside
+//   O's 32 or 64), producer 40 registers, consumers 232. Epilogue:
+//   o = acc / l in bf16, staged in shared memory and written by a TMA store
+//   that runs on while the next tile starts.
+// - D 256: O is a [64, 256] fp32 accumulator, 128 registers a thread. With
+//   128-key tiles S (64), the P fragments in flight (32) and O would not fit
+//   in a consumer's 255. So K and V tiles are 80 keys, as in
+//   FlashAttention-3's published hdim-256 forward: S of tile j is m64n80 (40
+//   registers) and P of tile j - 1 20, about 200 with the row state, inside
+//   the 240 the consumers take (producer 24: 128 x 24 + 256 x 240 =
+//   384 x 168). O += P V is one m64n256 product per 16 keys. Shared memory
+//   bounds the tile: Q [128, 256] is 64 KB and two stages of 80-key K and V
+//   160 KB, 230,488 bytes with the barriers and the alignment (96 keys would
+//   need 256 KB); 80 keys take a fifth fewer, longer iterations than 64, and
+//   at S 2048 the last tile is ragged (48 keys, masked). An o staging tile
+//   (64 KB) no longer fits, and staging o in the Q tile would hold the next
+//   tile's Q load until the store has read it. So o leaves from registers:
+//   each thread writes its two rows' bf16 pairs straight to global memory
+//   (rows past S are skipped), and Q goes back to the producer after the
+//   tile's last S product, as at D 128. A key tile may lie wholly past the
+//   diagonal for the first warpgroup's rows: it computes that tile masked to
+//   zero rather than break the two warpgroups' turns.
 
 #include "sm90.cuh"
 
 namespace {
 
 constexpr int kBlockM = 128;   // Q rows of a CTA, 64 per consumer warpgroup
-constexpr int kBlockN = 128;   // keys of a K/V tile: the n of the S product
 constexpr int kStages = 2;     // depth of the K/V ring
 constexpr int kThreads = 384;  // producer and two consumer warpgroups
-constexpr int kBoxBytes = kBlockN * 128;  // one [128 rows][64 columns] box
-constexpr int kProducerRegs = 40;   // 128 x 40 + 256 x 232 = 384 x 168
-constexpr int kConsumerRegs = 232;
 constexpr float kNegInf = -1e30f;
 constexpr float kM2Floor = -1e6f;  // running-max floor (base-2 units)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-static_assert(kBlockM == kBlockN, "the Q tile and a K or V tile share one size");
+template <int D>
+struct Tiles {
+  static constexpr int kBlockN = D > 128 ? 80 : 128;   // keys of a K/V tile: the n of S
+  static constexpr int kProducerRegs = D > 128 ? 24 : 40;
+  static constexpr int kConsumerRegs = D > 128 ? 240 : 232;
+  static constexpr bool kStagedOut = D <= 128;  // o through shared memory and a TMA store
+  static_assert(128 * kProducerRegs + 256 * kConsumerRegs == 384 * 168, "registers");
+};
 
 // Shared memory, in bytes from a 1024-byte-aligned base (the 128-byte
 // swizzle repeats every 1024 bytes, and the wgmma descriptors assume it):
 // the Q tile, then K and V of each stage, the o tile staged for its TMA
-// store, then the mbarriers (Q full and empty; K and V full and empty, one
-// per stage) and the tile slot.
+// store (D <= 128), then the mbarriers (Q full and empty; K and V full and
+// empty, one per stage) and the tile slot.
 template <int D>
 struct Smem {
   static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kTile = kBoxes * kBoxBytes;
-  static constexpr int kOut = kTile * (1 + 2 * kStages);  // o staging, 64 rows per warpgroup
-  static constexpr int kBars = kOut + kTile;
+  static constexpr int kQBox = kBlockM * 128;             // one [128 rows][64 columns] box
+  static constexpr int kKvBox = Tiles<D>::kBlockN * 128;  // one [keys][64 columns] box
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kKvTile = kBoxes * kKvBox;
+  static constexpr int kOut = kQTile + 2 * kStages * kKvTile;  // o staging, 64 rows per warpgroup
+  static constexpr int kBars = kOut + (Tiles<D>::kStagedOut ? kQTile : 0);
   static constexpr int kBytes = kBars + 8 * (3 + 4 * kStages) + 1024;  // + tile slot, alignment
+  static_assert(kBytes <= 232448, "the opt-in shared-memory limit of a block");
 };
 
 // --- the kernel --------------------------------------------------------------
@@ -94,17 +125,19 @@ struct Smem {
 constexpr int kTurnBar = 1;
 constexpr int kOutBar = 3;
 
-// One step of the online softmax on the S tile of K tile j: mask it if the
-// tile needs it, raise the running max m (base 2, floored), turn s into P
-// in place, rescale this lane's share of l, and return the factor corr by
-// which the output accumulator must be rescaled.
-template <bool kCausal>
-__device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], float (&l)[2],
+// One step of the online softmax on the S tile of K tile j (kBlockN keys,
+// N = kBlockN / 2 values a thread): mask it if the tile needs it, raise the
+// running max m (base 2, floored), turn s into P in place, rescale this
+// lane's share of l, and return the factor corr by which the output
+// accumulator must be rescaled.
+template <bool kCausal, int N>
+__device__ __forceinline__ void softmax_step(float (&s)[N], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], bool masked, int j, int row0,
                                              int t, int S, int window, float scale2) {
+  constexpr int kBlockN = 2 * N;
   if (masked) {
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < N / 4; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = j * kBlockN + n * 8 + 2 * t + (e & 1);
@@ -116,7 +149,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
   }
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < N / 4; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * n + e]);
   float neg_m[2];
@@ -131,7 +164,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < N / 4; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {  // masked scores underflow to 0
       const float p = fast_exp2(fmaf(s[4 * n + e], scale2, neg_m[e >> 1]));
@@ -147,12 +180,12 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
 // last Q tiles first). Persistent CTAs take the next number from a counter
 // in device memory, so each SM's share ends close to the mean; the last CTA
 // to find none left sets the counter back to zero.
-template <bool kCausal>
+template <bool kCausal, int kBlockN>
 struct Schedule {
-  int n_blk, bh_count, chunk, total, window;
+  int n_blk, n_kv, bh_count, chunk, total, window;
   __device__ Schedule(int S, int BH, int heads_per_chunk, int w)
-      : n_blk((S + kBlockN - 1) / kBlockN), bh_count(BH), chunk(heads_per_chunk),
-        total(BH * n_blk), window(w) {}
+      : n_blk((S + kBlockM - 1) / kBlockM), n_kv((S + kBlockN - 1) / kBlockN), bh_count(BH),
+        chunk(heads_per_chunk), total(BH * n_blk), window(w) {}
   __device__ void unpack(int u, int& i, int& bh, int& lo, int& hi) const {
     const int first_head = u / (chunk * n_blk) * chunk;
     const int heads = min(chunk, bh_count - first_head);
@@ -160,9 +193,9 @@ struct Schedule {
     bh = first_head + w % heads;
     i = kCausal ? n_blk - 1 - w / heads : w / heads;
     lo = 0;
-    hi = n_blk - 1;
+    hi = n_kv - 1;
     if (kCausal) {
-      hi = i;
+      hi = min((i * kBlockM + kBlockM - 1) / kBlockN, n_kv - 1);
       const int first = i * kBlockM - (window - 1);
       lo = window != 0 && first > 0 ? first / kBlockN : 0;
     }
@@ -174,15 +207,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map,
-               const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse,
-               int* __restrict__ counters, int S, int BH, int heads_per_chunk, int window,
-               float scale2) {
+               const __grid_constant__ CUtensorMap o_map, bf16* __restrict__ o,
+               float* __restrict__ lse, int* __restrict__ counters, int S, int BH,
+               int heads_per_chunk, int window, float scale2) {
   using L = Smem<D>;
+  using T = Tiles<D>;
+  constexpr int kBlockN = T::kBlockN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
-  auto sK = [&](int st) { return base + L::kTile * (1 + 2 * st); };
-  auto sV = [&](int st) { return base + L::kTile * (2 + 2 * st); };
+  auto sK = [&](int st) { return base + L::kQTile + L::kKvTile * (2 * st); };
+  auto sV = [&](int st) { return base + L::kQTile + L::kKvTile * (2 * st + 1); };
   // mbarriers: Q full and empty; K full, V full, K empty, V empty per stage.
   const uint32_t full_q = base + L::kBars, empty_q = full_q + 8;
   auto full_k = [&](int st) { return full_q + 8 * (2 + st); };
@@ -193,7 +228,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
   // in this slot, written before the Q load that full_q reports.
   const uint32_t slot = full_q + 8 * (2 + 4 * kStages);
   volatile int* tile_slot = reinterpret_cast<volatile int*>(smem_raw + (slot - smem_u32(smem_raw)));
-  const Schedule<kCausal> sched(S, BH, heads_per_chunk, window);
+  const Schedule<kCausal, kBlockN> sched(S, BH, heads_per_chunk, window);
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -214,7 +249,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
     // tile j - 1; then V of tile hi. The ring's position `it` runs on across
     // the CTA's tiles, so the next tile's Q and first K load while the
     // consumers finish this one.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::kProducerRegs));
     if (threadIdx.x == 0) {
       int it = 0;
       for (int r = 0;; ++r) {
@@ -235,9 +270,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         auto load = [&](const CUtensorMap* map, uint32_t full, uint32_t empty, uint32_t dst,
                         int round, int row) {
           mbar_wait(empty, (round & 1) ^ 1);  // the first round passes
-          mbar_expect_tx(full, L::kTile);
+          mbar_expect_tx(full, L::kKvTile);
           for (int b = 0; b < L::kBoxes; ++b)
-            tma_load(dst + b * kBoxBytes, map, full, b * kBoxCols, row, bh);
+            tma_load(dst + b * L::kKvBox, map, full, b * kBoxCols, row, bh);
         };
         auto load_k = [&](int n) {  // the n-th K tile of the ring, tile j = lo + n - it
           const int st = n % kStages;
@@ -247,9 +282,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
           const int st = n % kStages;
           load(&v_map, full_v(st), empty_v(st), sV(st), n / kStages, (lo + n - it) * kBlockN);
         };
-        mbar_expect_tx(full_q, L::kTile);
+        mbar_expect_tx(full_q, L::kQTile);
         for (int b = 0; b < L::kBoxes; ++b)
-          tma_load(sQ + b * kBoxBytes, &q_map, full_q, b * kBoxCols, i * kBlockM, bh);
+          tma_load(sQ + b * L::kQBox, &q_map, full_q, b * kBoxCols, i * kBlockM, bh);
         load_k(it);
         for (int n = it + 1; n <= it + hi - lo; ++n) {
           load_k(n);
@@ -264,24 +299,25 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
     // Each iteration issues S of tile j and P V of tile j - 1 together, runs
     // tile j's softmax while P V is in flight, and hands the tensor cores to
     // the other warpgroup between the issue and the softmax.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::kConsumerRegs));
     const int c = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128, lane = tid % 32, t = lane % 4;
     const int row_in_tile = c * 64 + (tid / 32) * 16 + lane / 4;  // and + 8
     const bool ragged = S % kBlockN != 0;
     const uint32_t sQc = sQ + c * 64 * 128;
-    const uint32_t sOc = base + L::kOut + c * (L::kTile / 2);  // [boxes][64 rows][128 B]
-    auto issue_s = [&](float (&s)[64], int st) {
+    const uint32_t sOc = base + L::kOut + c * (L::kQTile / 2);  // [boxes][64 rows][128 B]
+    auto issue_s = [&](float (&s)[kBlockN / 2], int st) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss(s, kmajor_desc(sQc + off), kmajor_desc(sK(st) + off), kk > 0);
+        const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+        const uint32_t k_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
+        wgmma_ss(s, kmajor_desc(sQc + q_off), kmajor_desc(sK(st) + k_off), kk > 0);
       }
       wgmma_commit();
     };
-    auto issue_pv = [&](float (&acc)[D / 2], const uint32_t (&pa)[8][4], int st) {
+    auto issue_pv = [&](float (&acc)[D / 2], const uint32_t (&pa)[kBlockN / 16][4], int st) {
 #pragma unroll
-      for (int kt = 0; kt < 8; ++kt)
+      for (int kt = 0; kt < kBlockN / 16; ++kt)
         wgmma_rs(acc, pa[kt], mnmajor_desc<kBlockN>(sV(st) + kt * 16 * 128));
       wgmma_commit();
     };
@@ -298,16 +334,27 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
       int i, bh, lo, hi;
       sched.unpack(u, i, bh, lo, hi);
       const int row0 = i * kBlockM + row_in_tile;
+      const int wg_row0 = i * kBlockM + c * 64;  // this warpgroup's first row
+      // The tile needs the mask if one of its keys lies past this
+      // warpgroup's first row or as far as the window from its last one:
+      // with square tiles (D <= 128), the diagonal tile and the tiles that
+      // cross the window's edge (a test that runs faster there than the
+      // general one).
       auto masked = [&](int j) {
-        return (kCausal && (j == i || (window != 0 && (i - j + 1) * kBlockN - 1 >= window))) ||
-               (ragged && j == sched.n_blk - 1);
+        if constexpr (kBlockN == kBlockM)
+          return (kCausal && (j == i || (window != 0 && (i - j + 1) * kBlockN - 1 >= window))) ||
+                 (ragged && j == sched.n_kv - 1);
+        else
+          return (kCausal && (j * kBlockN + kBlockN - 1 > wg_row0 ||
+                              (window != 0 && wg_row0 + 63 - j * kBlockN >= window))) ||
+                 (ragged && j == sched.n_kv - 1);
       };
       float acc[D / 2];
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) acc[x] = 0.0f;
       float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};  // l: this lane's share
-      float s[64], corr[2];
-      uint32_t pa[8][4];
+      float s[kBlockN / 2], corr[2];
+      uint32_t pa[kBlockN / 16][4];
 
       mbar_wait(full_k(it % kStages), (it / kStages) & 1);
       named_sync(kTurnBar + c);
@@ -363,30 +410,44 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
         l[h] = fmaxf(l[h], 1e-30f);
       }
-      // o through shared memory, in the 128-byte swizzle of the o map, and
-      // one TMA store per box; the store runs on while the next tile starts.
-      if (tid == 0) tma_store_wait_read();  // the previous tile's store is out
-      warpgroup_sync(kOutBar + c);
+      if constexpr (T::kStagedOut) {
+        // o through shared memory, in the 128-byte swizzle of the o map, and
+        // one TMA store per box; the store runs on while the next tile starts.
+        if (tid == 0) tma_store_wait_read();  // the previous tile's store is out
+        warpgroup_sync(kOutBar + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r_local = (tid / 32) * 16 + lane / 4 + 8 * h;
+          const float inv = 1.0f / l[h];
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n)
+            st_shared_u32(sOc + (n / 8) * 64 * 128 + r_local * 128 +
+                              (((n % 8) ^ (lane / 4)) * 16) + 4 * t,
+                          pack_bf16(acc[4 * n + 2 * h] * inv, acc[4 * n + 2 * h + 1] * inv));
+        }
+        fence_async_shared();  // visible to the TMA
+        warpgroup_sync(kOutBar + c);
+        if (tid == 0)
+          for (int b = 0; b < L::kBoxes; ++b)
+            tma_store(&o_map, sOc + b * 64 * 128, b * kBoxCols, i * kBlockM + c * 64, bh);
+      } else {
+        // o from registers: this thread's bf16 pairs of rows row0 and
+        // row0 + 8, none past S.
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (row0 + 8 * h < S)
+            store_row<D>(o + (static_cast<size_t>(bh) * S + row0 + 8 * h) * D, acc, h,
+                         1.0f / l[h], t);
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r_local = (tid / 32) * 16 + lane / 4 + 8 * h;
-        const float inv = 1.0f / l[h];
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          st_shared_u32(sOc + (n / 8) * 64 * 128 + r_local * 128 + (((n % 8) ^ (lane / 4)) * 16) +
-                            4 * t,
-                        pack_bf16(acc[4 * n + 2 * h] * inv, acc[4 * n + 2 * h + 1] * inv));
         const int row = row0 + 8 * h;
         if (t == 0 && row < S) lse[static_cast<size_t>(bh) * S + row] = m[h] * kLn2 + logf(l[h]);
       }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA
-      warpgroup_sync(kOutBar + c);
-      if (tid == 0)
-        for (int b = 0; b < L::kBoxes; ++b)
-          tma_store(&o_map, sOc + b * 64 * 128, b * kBoxCols, i * kBlockM + c * 64, bh);
     }
     if (c == 0) named_sync(kTurnBar);  // take warpgroup 1's last hand-over
-    if (tid == 0) tma_store_wait_read();  // shared memory outlives the last store's reads
+    if constexpr (T::kStagedOut)
+      if (tid == 0) tma_store_wait_read();  // shared memory outlives the last store's reads
   }
 }
 
@@ -397,16 +458,18 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int*
            int bh, int s, int window, cudaStream_t stream) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kErrNoEncoder;
-  CUtensorMap qm, km, vm, om;
+  constexpr int kBlockN = Tiles<D>::kBlockN;
+  CUtensorMap qm, km, vm, om{};
   if (!make_map(&qm, fn, q, bh, s, D, kBlockM) || !make_map(&km, fn, k, bh, s, D, kBlockN) ||
-      !make_map(&vm, fn, v, bh, s, D, kBlockN) || !make_map(&om, fn, o, bh, s, D, 64))
+      !make_map(&vm, fn, v, bh, s, D, kBlockN) ||
+      (Tiles<D>::kStagedOut && !make_map(&om, fn, o, bh, s, D, 64)))
     return kErrEncode;
   int ctas = 0;
   const cudaError_t e = persistent_grid(flash_fwd_sm90<D, kCausal>, Smem<D>::kBytes,
                                         bh * ((s + kBlockM - 1) / kBlockM), &ctas);
   if (e != cudaSuccess) return e;
   flash_fwd_sm90<D, kCausal><<<ctas, kThreads, Smem<D>::kBytes, stream>>>(
-      qm, km, vm, om, static_cast<float*>(lse), counters, s, bh,
+      qm, km, vm, om, static_cast<bf16*>(o), static_cast<float*>(lse), counters, s, bh,
       heads_per_chunk(bh, s, D, 3), window, softmax_scale(D) * kLog2e);
   return cudaGetLastError();
 }
@@ -416,7 +479,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int*
 // q, k, v, o: [bh, s, d] bf16, contiguous, 16-byte aligned; lse [bh, s] fp32;
 // counters: two ints, zero before the first launch and left zero by every
 // launch that completes; launches that share them must be ordered (one
-// stream). d is 64 or 128; the caller (tpe_flash_fwd) has checked the
+// stream). d is 64, 128 or 256; the caller (tpe_flash_fwd) has checked the
 // shape. Returns the cudaError_t of the launch, or a negative code for a
 // tensor-map failure.
 extern "C" int tpe_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
@@ -430,5 +493,8 @@ extern "C" int tpe_flash_fwd_sm90(const void* q, const void* k, const void* v, v
   if (d == 128)
     return causal ? launch<128, true>(q, k, v, o, lse, counter, bh, s, window, st)
                   : launch<128, false>(q, k, v, o, lse, counter, bh, s, window, st);
+  if (d == 256)
+    return causal ? launch<256, true>(q, k, v, o, lse, counter, bh, s, window, st)
+                  : launch<256, false>(q, k, v, o, lse, counter, bh, s, window, st);
   return cudaErrorInvalidValue;
 }

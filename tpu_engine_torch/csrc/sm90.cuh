@@ -1,12 +1,13 @@
 // Device and host helpers shared by the Hopper (sm_90a) flash-attention
-// kernels: K1 (flash_fwd_sm90.cu) and K2, K3 (flash_bwd_sm90.cu). mbarriers
-// and TMA copies, wgmma descriptors and products, register fences, bf16
-// packing, and the host's tensor-map encoder.
+// kernels: K1 (flash_fwd_sm90.cu), K2 and K3 (flash_bwd_sm90.cu), and K3 at
+// D 256 (flash_bwd_dkv_d256_sm90.cu). mbarriers and TMA copies, wgmma
+// descriptors and products, register fences, bf16 packing and row stores,
+// and the host's tensor-map encoder.
 //
 // Every tile these kernels copy is a box of [rows][64 bf16 columns] with the
 // 128-byte swizzle (one 128-byte row per tile row), so a D 128 tile is two
-// boxes; the swizzle repeats every 1024 bytes (8 rows), and the wgmma
-// descriptors assume 1024-byte-aligned boxes.
+// boxes and a D 256 tile four; the swizzle repeats every 1024 bytes (8
+// rows), and the wgmma descriptors assume 1024-byte-aligned boxes.
 
 #pragma once
 
@@ -195,8 +196,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d[64 x 80] (+)= A[64 x 16] * B[16 x 80], both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[40], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24), TPE_ACC8(d, 32)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d[64 x N] += A[64 x 16] * B[16 x N]: A as bf16 register fragments, B
-// MN-major in shared memory (transpose bit set). N = 128 and 64.
+// MN-major in shared memory (transpose bit set). N = 128, 64 and 256.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -224,6 +236,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24), TPE_ACC8(d, 32), TPE_ACC8(d, 40), TPE_ACC8(d, 48), TPE_ACC8(d, 56), TPE_ACC8(d, 64), TPE_ACC8(d, 72), TPE_ACC8(d, 80), TPE_ACC8(d, 88), TPE_ACC8(d, 96), TPE_ACC8(d, 104), TPE_ACC8(d, 112), TPE_ACC8(d, 120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -268,6 +290,18 @@ __device__ __forceinline__ void stage_rows(uint32_t dst, const float (&acc)[D / 
       st_shared_u32(dst + (n / 8) * 64 * 128 + r * 128 + (((n % 8) ^ g) * 16) + 4 * t,
                     pack_bf16(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]));
   }
+}
+
+// Row h (0: r, 1: r + 8) of this thread's share of an accumulator of D
+// columns, times `scale`, as bf16 into `row`, the row's first column in
+// global memory (lane = 4 g + t).
+template <int D>
+__device__ __forceinline__ void store_row(bf16* row, const float (&acc)[D / 2], int h,
+                                          float scale, int t) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    *reinterpret_cast<uint32_t*>(row + 8 * n + 2 * t) =
+        pack_bf16(acc[4 * n + 2 * h] * scale, acc[4 * n + 2 * h + 1] * scale);
 }
 
 // --- host side -----------------------------------------------------------------

@@ -14,8 +14,8 @@ module of its own, as ``kernel_ab.py`` loads a second tree:
 - ``o_rows_097``: K1 (``flash_fwd_sm90.cu``, its D 256 epilogue from
   registers) scales the output rows of the later half of the sequence by
   0.97;
-- ``dq_rows_097``: K2 (``flash_attention.cu``, mma.sync) scales dQ's rows of
-  the later half by 0.97;
+- ``dq_rows_097``: K2 (``flash_bwd_dq_d256_sm90.cu``, its epilogue from
+  registers) scales dQ's rows of the later half by 0.97;
 - ``dkv_drop_q_tile``: K3 (``flash_bwd_dkv_d256_sm90.cu``) zeroes P^T of the
   last Q tile that each owned key tile sees, so that tile's contributions
   to dV and, through dS^T, to dK are lost.
@@ -41,8 +41,8 @@ WORK = ROOT / "chip_checkout" / "kernel_faults"
 SHAPE = (32, 2048, 256)  # gemma-2b: B·H 4·8, S 2048, D 256
 
 # (fault, [(source under csrc/, text in it, replacement)]): each replacement
-# changes the D 256 instantiations only (K1's register epilogue and the K3
-# file serve D 256 alone; K2's patch tests ``D > 128``).
+# changes the D 256 instantiations only (K1's register epilogue and the K2
+# and K3 files serve D 256 alone).
 FAULTS = {
     "sound": [],
     "o_rows_097": [(
@@ -52,11 +52,9 @@ FAULTS = {
         "store_row<D>(o + (static_cast<size_t>(bh) * S + row0 + 8 * h) * D, acc, h,\n"
         "                         (row0 + 8 * h >= S / 2 ? 0.97f : 1.0f) / l[h], t);")],
     "dq_rows_097": [(
-        "flash_attention.cu",
-        "store_rows<D>(dq + base + static_cast<size_t>(qpos) * D, acc, 1.0f, 1.0f, lane);",
-        "store_rows<D>(dq + base + static_cast<size_t>(qpos) * D, acc,"
-        " D > 128 && qpos >= S / 2 ? 0.97f : 1.0f,"
-        " D > 128 && qpos + 8 >= S / 2 ? 0.97f : 1.0f, lane);")],
+        "flash_bwd_dq_d256_sm90.cu",
+        "                       acc, h, 1.0f, t);",
+        "                       acc, h, row0 + r_in + 8 * h >= S / 2 ? 0.97f : 1.0f, t);")],
     "dkv_drop_q_tile": [(
         "flash_bwd_dkv_d256_sm90.cu",
         "              s[x] = p;",

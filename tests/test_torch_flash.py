@@ -71,9 +71,9 @@ def test_forward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
 def test_backward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
     """The plain versions the card holds the Hopper K2 and K3 to, at the
     edges of their tiles: at D 64 and 128 128-row owned tiles (S 192 and
-    320 leave a ragged last one) and 64-row streamed tiles; at D 256 K3's
-    64 owned keys and K2's 64-row tiles. Windows 37 and 100 cut through the
-    64-row tiles.
+    320 leave a ragged last one) and 64-row streamed tiles; at D 256 64-row
+    owned and streamed tiles, and the 32-key halves of a streamed tile that
+    K2's two warpgroups score. Windows 37 and 100 cut through both.
     ``flash_bwd`` under a random (dO, dlse) cotangent against the Pallas
     backward (``_flash_bwd`` in interpret mode, on the Pallas forward's
     residuals) in fp32."""
@@ -221,7 +221,7 @@ def test_library_path_is_keyed_on_the_sources():
     assert _flash_cuda.library_path() == path
     assert {src.name for src in _flash_cuda.SOURCES} == {
         "flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-        "flash_bwd_dkv_d256_sm90.cu"}
+        "flash_bwd_dq_d256_sm90.cu", "flash_bwd_dkv_d256_sm90.cu"}
     assert {src.name for src in _flash_cuda.HEADERS} == {"sm90.cuh"}
     assert all(src.exists() for src in (*_flash_cuda.SOURCES, *_flash_cuda.HEADERS))
 

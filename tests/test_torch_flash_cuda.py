@@ -72,11 +72,11 @@ def test_kernels_match_plain(cuda, bh, s, d, dtype, window, causal):
         _assert_close(a, b, grad_tol, REL[dtype])
 
 
-# The Hopper kernels (bf16: K1 at D 64, 128 and 256, K2 and K3 at 64 and
-# 128, K3 at 256) at the edges of their tiles: S 64, 192 and 320 (a ragged
-# last 128-row tile), causal and not; windows 37, 100, 128 and 200 at S 320
-# and 1024, through key tiles of 64 and 128; B·H 1 and 256. At D 256 K2 is
-# the mma.sync kernel, held on the same cases.
+# The Hopper kernels (bf16: K1, K2 and K3 at D 64, 128 and 256) at the edges
+# of their tiles: S 64, 192 and 320 (a ragged last 128-row tile), causal and
+# not; windows 37, 100, 128 and 200 at S 320 and 1024, through key tiles of
+# 64 and 128 (and, at D 256, through the 32-key halves K2's warpgroups
+# score); B·H 1 and 256.
 _EDGES = ([(4, s, d, 0, c) for d in (64, 128, 256) for s in (64, 192, 320)
            for c in (True, False)]
           + [(2, s, d, w, True) for d in (64, 128, 256) for s in (320, 1024)
@@ -130,7 +130,7 @@ def test_hopper_backward_is_deterministic(cuda, causal):
 
 @pytest.mark.parametrize("symbol,count", [
     ("flash_bwd_dq_sm90", 4), ("flash_bwd_dkv_sm90", 4),  # D 64 and 128, causal and not
-    ("flash_bwd_dkv_d256_sm90", 2),  # K3 at D 256, causal and not
+    ("flash_bwd_dq_d256_sm90", 2), ("flash_bwd_dkv_d256_sm90", 2),  # D 256, causal and not
 ])
 def test_hopper_backward_is_built_from_wgmma_and_tma(cuda, symbol, count):
     found = fc.sass_op_counts(symbol, ("HGMMA", "UTMALDG"))
@@ -216,14 +216,31 @@ def test_unbuilt_head_dim_raises_instead_of_the_plain_path(cuda):
 
 
 def test_d256_backward_is_deterministic(cuda):
-    """K3 at D 256 splits dK and dV over two warpgroups of one CTA, which
-    hand P^T over through shared memory; neither K2 nor K3 uses atomics, so
-    two runs give bitwise-equal gradients."""
+    """At D 256, K2 splits dQ's columns over two warpgroups of one CTA,
+    which exchange dS through shared memory, and K3 splits dK and dV over
+    two, which hand P^T over; neither uses atomics, so two runs give
+    bitwise-equal gradients."""
     args = _bwd_args(8, 512, 256, 0, True)
     first = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
     second = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
     for a, b in zip(first, second):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("bh,s,window,causal", [
+    (1, 512, 0, True), (1, 512, 0, False), (256, 512, 0, True), (256, 512, 0, False),
+    (2, 512, 100, True),  # the window's edge cuts the 32-key halves of streamed tiles
+])
+def test_d256_dq_matches_plain(cuda, bh, s, window, causal):
+    """K2 at D 256 alone against ``flash_bwd_dq_plain``: one head (a grid
+    of few CTAs), 256 heads (more owned tiles than SMs, in chunks of heads),
+    and a window whose edge falls inside the 32-key half of a streamed tile
+    that each of the two warpgroups scores."""
+    args = _bwd_args(bh, s, 256, window, causal)
+    fc.reset_launches()
+    got = fc.flash_bwd_dq(*args)
+    assert fc.launches == _counts(**{"flash_bwd_dq" if causal else "flash_bwd_dq_full": 1})
+    _assert_close(got, fc.flash_bwd_dq_plain(*args), TOL[torch.bfloat16][1], REL[torch.bfloat16])
 
 
 def test_ring_launches_diagonal_causal_and_past_full(cuda):

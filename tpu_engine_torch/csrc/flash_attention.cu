@@ -40,34 +40,29 @@
 // are launched first. dQ and dK/dV are separate kernels with no atomics, so
 // gradients are deterministic, as on the TPU.
 //
-// bf16 (the training path): each warp owns 16 rows of the block's tile and
-// keeps its scores, probabilities and fp32 accumulators in registers. The
-// products run on tensor cores through mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), with operands fed from shared memory by ldmatrix; an
-// accumulator tile rounded to bf16 is already the A operand of the next
-// product, so P and dS never touch shared memory. The tiles of the inner
-// loop are double-buffered with cp.async, so the next tile loads while this
-// one is multiplied. Tensor cores at this rate are limited by the shared-
-// memory reads that feed mma.sync (about one ldmatrix per two mma).
+// bf16: each warp owns 16 rows of the block's tile and keeps its scores,
+// probabilities and fp32 accumulators in registers. The products run on
+// tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate), with
+// operands fed from shared memory by ldmatrix; an accumulator tile rounded
+// to bf16 is already the A operand of the next product, so P and dS never
+// touch shared memory. The tiles of the inner loop are double-buffered with
+// cp.async, so the next tile loads while this one is multiplied. Tensor
+// cores at this rate are limited by the shared-memory reads that feed
+// mma.sync (about one ldmatrix per two mma).
 //
 // Most bf16 calls are not these kernels. The C entries send them to
 // redesigns for Hopper with TMA, wgmma and warp specialisation:
 //   K1 at D 64, 128 and 256  -> flash_fwd_sm90.cu;
 //   K2 at D 64 and 128       -> flash_bwd_sm90.cu;
 //   K3 at D 64 and 128       -> flash_bwd_sm90.cu;
+//   K2 at D 256              -> flash_bwd_dq_d256_sm90.cu;
 //   K3 at D 256              -> flash_bwd_dkv_d256_sm90.cu.
-// The bf16 kernels below serve K1 and K3 at D 16 and 32 (the tiny configs'
-// heads) and K2 at D 16, 32 and 256, with no fallback from the Hopper
-// kernels to them.
-//
-// K2 at D 256 (gemma-2b and gemma-7b) is where registers run out: one
-// warp's 16 rows of an fp32 [16, 256] dQ accumulator cost 128 registers a
-// thread. Its Q and dO operands are read by ldmatrix from shared memory at
-// every k-step, never held, and it scores each 64-key tile in two passes of
-// 32 keys (kKeysPerPass), so the score tiles take half the registers. Shared
-// memory at D 256: 6 skewed [64, 264] bf16 tiles, 202,752 B, under the
-// 227 KB opt-in. The fp32 kernels at D 256 are staged (see the fp32
-// section).
+// What is left here, with no fallback from the Hopper kernels to it:
+//   fp32 K1, K2 and K3 at every D (the checking path; staged at D 256,
+//     see the fp32 section);
+//   bf16 K1 and K3 at D 16 and 32 (the tiny configs' heads);
+//   bf16 K2 at D 16 and 32.
+// None of them runs on a full-width main path.
 //
 // fp32 keeps the same tiling with plain fp32 FMA loops over tiles staged in
 // shared memory (never TF32), so that the fp32 bounds hold; that path is for
@@ -81,8 +76,8 @@
 #include <cstdint>
 
 // The Hopper kernels: K1 for bf16 at D 64, 128 and 256 (flash_fwd_sm90.cu),
-// K2 and K3 at D 64 and 128 (flash_bwd_sm90.cu), K3 at D 256
-// (flash_bwd_dkv_d256_sm90.cu).
+// K2 and K3 at D 64 and 128 (flash_bwd_sm90.cu), K2 and K3 at D 256
+// (flash_bwd_dq_d256_sm90.cu, flash_bwd_dkv_d256_sm90.cu).
 extern "C" int tpe_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, void* counters, int bh, int s, int d, int window,
                                   int causal, void* stream);
@@ -94,6 +89,10 @@ extern "C" int tpe_flash_bwd_dkv_sm90(const void* q, const void* k, const void* 
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, void* counters, int bh, int s, int d,
                                       int window, int causal, void* stream);
+extern "C" int tpe_flash_bwd_dq_d256_sm90(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dq, void* counters, int bh, int s, int window,
+                                          int causal, void* stream);
 extern "C" int tpe_flash_bwd_dkv_d256_sm90(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse, const void* delta,
                                            void* dk, void* dv, void* counters, int bh, int s,
@@ -281,12 +280,6 @@ struct SmemBf16 {
 // K1 (bf16): forward
 // ---------------------------------------------------------------------------
 
-// Keys a warp scores at a time in K2: the whole 64-key tile, or two passes
-// of 32 at D 256, where the [16, 256] fp32 accumulator leaves too few
-// registers for a 16x64 score tile beside it.
-template <int D>
-constexpr int kKeysPerPass = D > 128 ? 32 : kBlock;
-
 // The Q-major kernels' (K1, K2) row tile and their range of K tiles [lo, hi]:
 // causal blocks with the longest loops first, non-causal every K tile.
 template <bool kCausal>
@@ -398,7 +391,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // K2 (bf16): dQ
 // ---------------------------------------------------------------------------
 
-// Instantiated for D 16, 32 and 256 (D 64 and 128: flash_bwd_sm90.cu).
+// Instantiated for D 16 and 32 (D 64 and 128: flash_bwd_sm90.cu; D 256:
+// flash_bwd_dq_d256_sm90.cu).
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -406,7 +400,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   bf16* __restrict__ dq, int S, int window, float scale) {
   using L = Tile<D>;
-  constexpr int kPass = kKeysPerPass<D>, NT = kPass / 8, DT = D / 8;
+  constexpr int NT = kBlock / 8, DT = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + L::SIZE;
@@ -445,28 +439,23 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
     const bool masked = kCausal && needs_mask(i, j, window);
-#pragma unroll 1
-    for (int h = 0; h < kBlock / kPass; ++h) {  // keys h * kPass .. of the tile
-      const bf16* Kt = Ks + st * L::SIZE + h * kPass * L::LD;
-      const int key0 = j * kBlock + h * kPass;
-      float s[NT][4], dp[NT][4];
-      mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Kt, L::LD, lane);
-      mma_abt<D, NT>(dp, dOs + warp * 16 * L::LD, Vs + st * L::SIZE + h * kPass * L::LD, L::LD,
-                     lane);
+    const bf16* Kt = Ks + st * L::SIZE;
+    const int key0 = j * kBlock;
+    float s[NT][4], dp[NT][4];
+    mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Kt, L::LD, lane);
+    mma_abt<D, NT>(dp, dOs + warp * 16 * L::LD, Vs + st * L::SIZE, L::LD, lane);
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          float p = exp2f(fmaf(s[n][e], scale2, -lse2[r]));
-          if (masked && !visible(qpos + 8 * r, key0 + n * 8 + 2 * t + (e & 1), window))
-            p = 0.0f;
-          s[n][e] = p * (dp[n][e] - dl[r]) * scale;  // dS
-        }
-      uint32_t da[NT / 2][4];
-      to_a<NT>(da, s);
-      mma_ab<NT / 2, DT>(acc, da, Kt, L::LD, lane);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2f(fmaf(s[n][e], scale2, -lse2[r]));
+        if (masked && !visible(qpos + 8 * r, key0 + n * 8 + 2 * t + (e & 1), window)) p = 0.0f;
+        s[n][e] = p * (dp[n][e] - dl[r]) * scale;  // dS
+      }
+    uint32_t da[NT / 2][4];
+    to_a<NT>(da, s);
+    mma_ab<NT / 2, DT>(acc, da, Kt, L::LD, lane);
     __syncthreads();
   }
   store_rows<D>(dq + base + static_cast<size_t>(qpos) * D, acc, 1.0f, 1.0f, lane);
@@ -963,7 +952,7 @@ int launch(K kernel, size_t smem, int bh, int s, int splits, cudaStream_t st, Ar
 }
 
 // The Hopper kernels take bf16 at D 64 and 128 (K1, K2, K3) and at D 256
-// (K1, and K3 in its own design).
+// (K1, and K2 and K3 in their own designs).
 template <int D>
 constexpr bool kSm90 = D == 64 || D == 128;
 template <int D>
@@ -995,7 +984,10 @@ int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (is_bf16) {
-    if constexpr (kSm90<D>)  // the Hopper kernel, and no other (no fallback)
+    if constexpr (D == 256)  // the Hopper kernels, and no other (no fallback)
+      return tpe_flash_bwd_dq_d256_sm90(q, k, v, dout, lse, delta, dq, counters, bh, s, window,
+                                        C, st);
+    else if constexpr (kSm90<D>)
       return tpe_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, counters, bh, s, D, window, C,
                                    st);
     else
@@ -1076,8 +1068,8 @@ extern "C" {
 // launch.
 
 // counters: the Hopper kernels' tile counters (two ints per kernel, see
-// flash_fwd_sm90.cu, flash_bwd_sm90.cu and flash_bwd_dkv_d256_sm90.cu); the
-// other kernels do not read them.
+// flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_dq_d256_sm90.cu and
+// flash_bwd_dkv_d256_sm90.cu); the other kernels do not read them.
 int tpe_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                   void* counters, int bh, int s, int d, int window, int causal, int is_bf16,
                   void* stream) {

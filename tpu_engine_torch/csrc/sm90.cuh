@@ -1,8 +1,8 @@
 // Device and host helpers shared by the Hopper (sm_90a) flash-attention
-// kernels: K1 (flash_fwd_sm90.cu), K2 and K3 (flash_bwd_sm90.cu), and K3 at
-// D 256 (flash_bwd_dkv_d256_sm90.cu). mbarriers and TMA copies, wgmma
-// descriptors and products, register fences, bf16 packing and row stores,
-// and the host's tensor-map encoder.
+// kernels: K1 (flash_fwd_sm90.cu), K2 and K3 (flash_bwd_sm90.cu), and K2 and
+// K3 at D 256 (flash_bwd_dq_d256_sm90.cu, flash_bwd_dkv_d256_sm90.cu).
+// mbarriers and TMA copies, wgmma descriptors and products, register fences,
+// bf16 packing and row stores, and the host's tensor-map encoder.
 //
 // Every tile these kernels copy is a box of [rows][64 bf16 columns] with the
 // 128-byte swizzle (one 128-byte row per tile row), so a D 128 tile is two
@@ -196,6 +196,53 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d[64 x 32] (+)= A[64 x 16] * B[16 x 32], both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], both from shared memory: A
+// K-major, B MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24), TPE_ACC8(d, 32),
+        TPE_ACC8(d, 40), TPE_ACC8(d, 48), TPE_ACC8(d, 56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 32] (+)= A[64 x 16] * B[16 x 32]: A as bf16 register fragments, B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // d[64 x 80] (+)= A[64 x 16] * B[16 x 80], both from shared memory, K-major.
 __device__ __forceinline__ void wgmma_ss(float (&d)[40], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
@@ -250,6 +297,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 }
 
 #undef TPE_ACC8
+
+// Four 8x8 bf16 matrices from shared memory, one row address per lane.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;

@@ -5,10 +5,10 @@ Kernels, each replacing one Pallas kernel of
 ``tpu_engine/ops/_flash_pallas.py``. In bf16, the Hopper designs (TMA +
 wgmma + warp specialisation, helpers shared in ``csrc/sm90.cuh``): K1 at head
 dims 64, 128 and 256 is ``csrc/flash_fwd_sm90.cu``; K2 and K3 at 64 and 128
-are ``csrc/flash_bwd_sm90.cu``; K3 at 256 is
-``csrc/flash_bwd_dkv_d256_sm90.cu``. ``csrc/flash_attention.cu`` holds the
-C entries and the rest: ``mma.sync`` in bf16 for K1 and K3 at head dims 16
-and 32 and K2 at 16, 32 and 256, and fp32 FMA at every head dim:
+are ``csrc/flash_bwd_sm90.cu``; K2 at 256 is ``csrc/flash_bwd_dq_d256_sm90.cu``
+and K3 at 256 ``csrc/flash_bwd_dkv_d256_sm90.cu``. ``csrc/flash_attention.cu``
+holds the C entries and the rest: ``mma.sync`` in bf16 for K1, K2 and K3 at
+head dims 16 and 32, and fp32 FMA at every head dim:
 
 - K1 ``flash_fwd``      ← ``_fwd_kernel``      (o, lse) from (q, k, v);
 - K2 ``flash_bwd_dq``   ← ``_bwd_dq_kernel``   dq from (q, k, v, dO, lse, Δ);
@@ -45,7 +45,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-                 "flash_bwd_dkv_d256_sm90.cu"))
+                 "flash_bwd_dq_d256_sm90.cu", "flash_bwd_dkv_d256_sm90.cu"))
 HEADERS = (_PKG / "csrc" / "sm90.cuh",)  # included by the sm90 sources
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -215,6 +215,8 @@ def _stream() -> int:
 
 _counters: dict[tuple[int, int], torch.Tensor] = {}
 # Each Hopper kernel's two tile counters: their offset in a device's block.
+# K2's pair serves its D 64/128 and D 256 kernels alike: launches on one
+# stream run in order, and each leaves the pair at zero.
 _COUNTER_SLOTS = {"flash_fwd": 0, "flash_bwd_dq": 2, "flash_bwd_dkv": 4}
 
 

@@ -206,8 +206,20 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
     auto release = [&](uint32_t bar) {
       if (lane == 0) mbar_arrive(bar);  // this warp is done with the buffer
     };
-    // S = Q K_c^T and dP = dO V_c^T of the tile in stage st, this
-    // warpgroup's 32 keys (rows 32 c .. of the K and V tiles).
+    // Q of the owned tile as register A fragments, slice kk in qa[kk]: by
+    // ldmatrix, lane l giving row 16 w + l % 8 + 8 ((l / 8) % 2) and 16-byte
+    // chunk 2 (kk % 4) + l / 16 of the swizzled tile.
+    uint32_t qa[D / 16][4];
+    auto load_q = [&]() {
+      const int m = lane / 8, row = (tid / 32) * 16 + lane % 8 + 8 * (m % 2);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int chunk = (kk % 4) * 2 + m / 2;
+        ldsm_x4(qa[kk], sQ + (kk / 4) * kBox + row * 128 + ((chunk ^ (row % 8)) * 16));
+      }
+    };
+    // S = Q K_c^T (Q from registers) and dP = dO V_c^T of the tile in stage
+    // st, this warpgroup's 32 keys (rows 32 c .. of the K and V tiles).
     auto issue_scores = [&](float (&s)[16], float (&dp)[16], int st) {
       fence_regs(s);
       fence_regs(dp);
@@ -215,7 +227,7 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-        wgmma_ss(s, kmajor_desc(sQ + off), kmajor_desc(sK(st) + off + c * kHalf * 128), kk > 0);
+        wgmma_rs_k(s, qa[kk], kmajor_desc(sK(st) + off + c * kHalf * 128), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -233,6 +245,7 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
       int i, bh, lo, hi;
       sched.unpack(u, i, bh, lo, hi);
       const int row0 = i * kRows;
+      load_q();
       float lse2[2], dl[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {

@@ -27,50 +27,56 @@
 //
 // Design: split dQ by columns, with no product done twice.
 // - Work: a CTA owns 64 Q rows of one head and writes their dQ once, with
-//   no atomics: results are deterministic. K and V stream through a
-//   two-stage TMA ring in 64-key tiles, from the window's first tile to the
-//   diagonal (_n_kv_blocks / _k_index). Persistent CTAs, one per SM, take
-//   owned tiles from a counter in device memory: causal the last Q tiles
-//   first (they see the most keys), in chunks of heads whose q, k, v and
-//   dO fit in L2 together.
+//   no atomics: results are deterministic. K and V stream through TMA rings
+//   in 64-key tiles, from the window's first tile to the diagonal
+//   (_n_kv_blocks / _k_index). Persistent CTAs, one per SM, take owned
+//   tiles from a counter in device memory: causal the last Q tiles first
+//   (they see the most keys), in chunks of heads whose q, k, v and dO fit
+//   in L2 together.
 // - Roles: 384 threads, three warpgroups. The producer warpgroup gives up
 //   registers (setmaxnreg.dec); one of its threads issues every TMA load:
-//   Q and dO of the owned tile, then K and V of each streamed tile. The two
-//   consumer warpgroups (setmaxnreg.inc) share the owned rows. Per
-//   streamed tile, warpgroup w scores keys 32 w .. 32 w + 31 over all 64
-//   rows: S_w = Q K_w^T and dP_w = dO V_w^T (m64n32, 16 k-steps over D,
-//   both operands K-major in shared memory), then dS_w in registers (base
-//   2: one FMA and one exp2 per score against lse log2e; the mask only on
-//   the diagonal tile and the window-edge tiles), rounded to bf16 into its
-//   half of a [64, 64] exchange tile. After a barrier of the two
-//   warpgroups, each issues dQ[:, 128 w : 128 w + 128] += dS K_j[:, 128 w :
-//   128 w + 128] (m64n128 over the 64 keys, dS K-major from the exchange
-//   tile, K_j MN-major). Each warpgroup holds 64 accumulator registers and
-//   32 of scores.
+//   dO of the owned tile, its Q, then V and K of each streamed tile. The two
+//   consumer warpgroups (setmaxnreg.inc) share the owned rows. Each loads
+//   Q once per owned tile as register A fragments (ldmatrix). Per streamed
+//   tile, warpgroup w scores keys 32 w .. 32 w + 31 over all 64 rows:
+//   S_w = Q K_w^T (m64n32, Q from registers) and dP_w = dO V_w^T (m64n32,
+//   both operands K-major in shared memory), 16 k-steps over D each; then
+//   dS_w in registers (base 2: one FMA and one exp2 per score against lse
+//   log2e; the mask only on the diagonal tile and the window-edge tiles),
+//   rounded to bf16 into its half of a [64, 64] exchange tile. After a
+//   barrier of the two warpgroups, each issues dQ[:, 128 w : 128 w + 128]
+//   += dS K_j[:, 128 w : 128 w + 128] (m64n128 over the 64 keys, dS K-major
+//   from the exchange tile, K_j MN-major). Each warpgroup holds 64
+//   accumulator registers, 64 of Q and 32 of scores.
+// - Rings: Q in registers frees its buffer, and a K tile is read longer
+//   than a V tile (by dQ as well as S). So K has a ring of three slots,
+//   which also carries each owned tile's Q ahead of its first K tile, and V
+//   a ring of two, each slot handed back as soon as its last product is
+//   done: V after dP, K after dQ, Q's slot once it is in registers. With
+//   one two-stage ring for both, a tile's loads could start only once the
+//   tile two back had finished its dQ product, and arrived late (PERF.md
+//   has the two designs' times).
 // - Overlap: a warpgroup issues the next tile's S and dP right behind this
-//   tile's dQ product, so the tensor cores run them back to back, and hands
-//   the stage back once the dQ product is done (wait_group 1): the load of
-//   tile n + 2 still has about one tile's work to arrive. The exchange tile
-//   is double-buffered: buffer n % 2 is written again only after both
-//   warpgroups have passed tile n + 1's barrier, which each reaches after
-//   its dQ product of tile n completed.
-// - Shared memory: owned Q and dO 64 KB, two stages of K and V 128 KB, the
-//   exchange 16 KB: 214,072 bytes with the barriers and the 1024-byte
+//   tile's dQ product, so the tensor cores run them back to back. The
+//   exchange tile is double-buffered: buffer n % 2 is written again only
+//   after both warpgroups have passed tile n + 1's barrier, which each
+//   reaches after its dQ product of tile n completed.
+// - Shared memory: dO 32 KB, the K ring 96 KB, the V ring 64 KB, the
+//   exchange 16 KB: 214,120 bytes with the barriers and the 1024-byte
 //   alignment, of the 232,448 a block may opt in to. So dQ leaves from
 //   registers: each thread writes its two rows' bf16 pairs straight to
-//   global memory. Q and dO go back to the producer after the last S and
-//   dP products of the owned tile, so the next tile's Q and dO load while
-//   the consumers finish this one.
+//   global memory.
 
 #include "sm90.cuh"
 
 namespace {
 
 constexpr int D = 256;
-constexpr int kRows = 64;      // owned Q rows, and the keys of a streamed tile
-constexpr int kHalf = 32;      // keys a consumer warpgroup scores per tile
-constexpr int kStages = 2;     // depth of the streamed ring
-constexpr int kThreads = 384;  // producer and two consumer warpgroups
+constexpr int kRows = 64;       // owned Q rows, and the keys of a streamed tile
+constexpr int kHalf = 32;       // keys a consumer warpgroup scores per tile
+constexpr int kKStages = 3;     // depth of the K ring (which also carries each owned tile's Q)
+constexpr int kVStages = 2;     // depth of the V ring
+constexpr int kThreads = 384;   // producer and two consumer warpgroups
 constexpr int kBoxes = D / kBoxCols;
 constexpr int kBox = kRows * 128;     // one [64 rows][64 columns] box
 constexpr int kTile = kBoxes * kBox;  // one [64, 256] bf16 tile
@@ -80,15 +86,16 @@ static_assert(128 * kProducerRegs + 256 * kConsumerRegs == 384 * 168, "registers
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kXBar = 1;  // named barrier of the two consumer warpgroups
 
-// Shared memory, in bytes from a 1024-byte-aligned base: Q and dO of the
-// owned tile, K and V of each stage, the two exchange tiles, then the
-// mbarriers (Q full and empty; full and empty per stage) and the tile slot.
+// Shared memory, in bytes from a 1024-byte-aligned base: dO of the owned
+// tile, the K ring, the V ring, the two exchange tiles, then the mbarriers
+// (dO full and empty; full and empty per K slot; full and empty per V slot)
+// and the tile slot.
 struct Smem {
-  static constexpr int kDo = kTile;
-  static constexpr int kRing = 2 * kTile;                    // stage st: K, then V
-  static constexpr int kX = kRing + kStages * 2 * kTile;  // exchange tiles
+  static constexpr int kK = kTile;                       // K slot s: kK + s * kTile
+  static constexpr int kV = kK + kKStages * kTile;        // V slot s: kV + s * kTile
+  static constexpr int kX = kV + kVStages * kTile;        // exchange tiles
   static constexpr int kBars = kX + 2 * kXBytes;
-  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 8 + 1024;
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kKStages + 2 * kVStages) + 8 + 1024;
   static_assert(kBytes <= 232448, "the opt-in shared-memory limit of a block");
 };
 
@@ -133,25 +140,34 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
   using L = Smem;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base, sDo = base + L::kDo;
-  auto sK = [&](int st) { return base + L::kRing + st * 2 * kTile; };
-  auto sV = [&](int st) { return sK(st) + kTile; };
+  const uint32_t sDo = base;
+  auto sK = [&](int m) { return base + L::kK + (m % kKStages) * kTile; };  // K ring position m
+  auto sV = [&](int m) { return base + L::kV + (m % kVStages) * kTile; };  // V ring position m
   auto sX = [&](int b) { return base + L::kX + b * kXBytes; };
-  const uint32_t full_q = base + L::kBars, empty_q = full_q + 8;
-  auto full = [&](int st) { return full_q + 8 * (2 + st); };
-  auto empty = [&](int st) { return full_q + 8 * (2 + kStages + st); };
+  const uint32_t full_do = base + L::kBars, empty_do = full_do + 8;
+  auto full_k = [&](int m) { return full_do + 8 * (2 + m % kKStages); };
+  auto empty_k = [&](int m) { return full_do + 8 * (2 + kKStages + m % kKStages); };
+  auto full_v = [&](int m) { return full_do + 8 * (2 + 2 * kKStages + m % kVStages); };
+  auto empty_v = [&](int m) { return full_do + 8 * (2 + 2 * kKStages + kVStages + m % kVStages); };
+  // The parity of ring position m's phase, and of the phase before it.
+  auto k_par = [](int m) { return static_cast<uint32_t>((m / kKStages) & 1); };
+  auto v_par = [](int m) { return static_cast<uint32_t>((m / kVStages) & 1); };
   // The producer passes each tile's number (-1: none left) to the consumers
-  // in this slot, written before the arrival on full_q that reports it.
-  const uint32_t slot = full_q + 8 * (2 + 2 * kStages);
+  // in this slot, written before the arrival on full_do that reports it.
+  const uint32_t slot = full_do + 8 * (2 + 2 * kKStages + 2 * kVStages);
   volatile int* tile_slot = reinterpret_cast<volatile int*>(smem_raw + (slot - smem_u32(smem_raw)));
   const Schedule<kCausal> sched(S, BH, heads_per_chunk, window);
 
   if (threadIdx.x == 0) {
-    mbar_init(full_q, 1);
-    mbar_init(empty_q, 8);  // one arrival per consumer warp
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(full(st), 1);
-      mbar_init(empty(st), 8);
+    mbar_init(full_do, 1);
+    mbar_init(empty_do, 8);  // one arrival per consumer warp
+    for (int s = 0; s < kKStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(empty_k(s), 8);
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_v(s), 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -159,18 +175,26 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
 
   if (threadIdx.x < 128) {
     // ---------------- producer: one thread issues every load ----------------
-    // Per owned tile: Q and dO, then K and V of each streamed tile in order.
-    // The ring's position `it` runs on across the CTA's tiles, so the next
-    // tile's first K and V load while the consumers finish this one.
+    // Per owned tile: dO; Q into the K ring; then V and K of each streamed
+    // tile in order. The rings' positions run on across the CTA's tiles, so
+    // the next tile's Q and first K and V load while the consumers finish
+    // this one.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      int it = 0;
+      int mk = 0, mv = 0;  // the next K and V ring positions
+      auto load_k = [&](const CUtensorMap* map, int row, int bh) {
+        mbar_wait(empty_k(mk), k_par(mk) ^ 1);  // the first round passes
+        mbar_expect_tx(full_k(mk), kTile);
+        for (int b = 0; b < kBoxes; ++b)
+          tma_load(sK(mk) + b * kBox, map, full_k(mk), b * kBoxCols, row, bh);
+        ++mk;
+      };
       for (int r = 0;; ++r) {
-        mbar_wait(empty_q, (r & 1) ^ 1);  // both warpgroups are done with Q and dO
+        mbar_wait(empty_do, (r & 1) ^ 1);  // both warpgroups are done with dO
         const int u = atomicAdd(&counters[0], 1);
         *tile_slot = u < sched.total ? u : -1;
         if (u >= sched.total) {
-          mbar_arrive(full_q);  // no load: wakes the consumers to stop
+          mbar_arrive(full_do);  // no load: wakes the consumers to stop
           // The last CTA to run out zeroes the counters for the next launch.
           if (atomicAdd(&counters[1], 1) == static_cast<int>(gridDim.x) - 1) {
             atomicExch(&counters[0], 0);
@@ -180,21 +204,18 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
         }
         int i, bh, lo, hi;
         sched.unpack(u, i, bh, lo, hi);
-        mbar_expect_tx(full_q, 2 * kTile);
-        for (int b = 0; b < kBoxes; ++b) {
-          tma_load(sQ + b * kBox, &q_map, full_q, b * kBoxCols, i * kRows, bh);
-          tma_load(sDo + b * kBox, &do_map, full_q, b * kBoxCols, i * kRows, bh);
+        mbar_expect_tx(full_do, kTile);
+        for (int b = 0; b < kBoxes; ++b)
+          tma_load(sDo + b * kBox, &do_map, full_do, b * kBoxCols, i * kRows, bh);
+        load_k(&q_map, i * kRows, bh);
+        for (int j = lo; j <= hi; ++j) {
+          mbar_wait(empty_v(mv), v_par(mv) ^ 1);
+          mbar_expect_tx(full_v(mv), kTile);
+          for (int b = 0; b < kBoxes; ++b)
+            tma_load(sV(mv) + b * kBox, &v_map, full_v(mv), b * kBoxCols, j * kRows, bh);
+          ++mv;
+          load_k(&k_map, j * kRows, bh);
         }
-        for (int n = it; n <= it + hi - lo; ++n) {
-          const int st = n % kStages, row = (lo + n - it) * kRows;
-          mbar_wait(empty(st), ((n / kStages) & 1) ^ 1);  // the first round passes
-          mbar_expect_tx(full(st), 2 * kTile);
-          for (int b = 0; b < kBoxes; ++b) {
-            tma_load(sK(st) + b * kBox, &k_map, full(st), b * kBoxCols, row, bh);
-            tma_load(sV(st) + b * kBox, &v_map, full(st), b * kBoxCols, row, bh);
-          }
-        }
-        it += hi - lo + 1;
       }
     }
   } else {
@@ -206,46 +227,51 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
     auto release = [&](uint32_t bar) {
       if (lane == 0) mbar_arrive(bar);  // this warp is done with the buffer
     };
-    // Q of the owned tile as register A fragments, slice kk in qa[kk]: by
-    // ldmatrix, lane l giving row 16 w + l % 8 + 8 ((l / 8) % 2) and 16-byte
-    // chunk 2 (kk % 4) + l / 16 of the swizzled tile.
+    // Q of the owned tile (K ring position m) as register A fragments, slice
+    // kk in qa[kk]: by ldmatrix, lane l giving row 16 w + l % 8 + 8 ((l / 8)
+    // % 2) and 16-byte chunk 2 (kk % 4) + l / 16 of the swizzled tile.
     uint32_t qa[D / 16][4];
-    auto load_q = [&]() {
-      const int m = lane / 8, row = (tid / 32) * 16 + lane % 8 + 8 * (m % 2);
+    auto load_q = [&](int m) {
+      const int mm = lane / 8, row = (tid / 32) * 16 + lane % 8 + 8 * (mm % 2);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int chunk = (kk % 4) * 2 + m / 2;
-        ldsm_x4(qa[kk], sQ + (kk / 4) * kBox + row * 128 + ((chunk ^ (row % 8)) * 16));
+        const int chunk = (kk % 4) * 2 + mm / 2;
+        ldsm_x4(qa[kk], sK(m) + (kk / 4) * kBox + row * 128 + ((chunk ^ (row % 8)) * 16));
       }
     };
-    // S = Q K_c^T (Q from registers) and dP = dO V_c^T of the tile in stage
-    // st, this warpgroup's 32 keys (rows 32 c .. of the K and V tiles).
-    auto issue_scores = [&](float (&s)[16], float (&dp)[16], int st) {
+    // S = Q K^T (Q from registers) and dP = dO V^T of this warpgroup's 32
+    // keys (rows 32 c .. of K ring position mk and V ring position mv).
+    auto issue_scores = [&](float (&s)[16], float (&dp)[16], int mk, int mv) {
+      mbar_wait(full_k(mk), k_par(mk));
+      mbar_wait(full_v(mv), v_par(mv));
       fence_regs(s);
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-        wgmma_rs_k(s, qa[kk], kmajor_desc(sK(st) + off + c * kHalf * 128), kk > 0);
+        wgmma_rs_k(s, qa[kk], kmajor_desc(sK(mk) + off + c * kHalf * 128), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-        wgmma_ss(dp, kmajor_desc(sDo + off), kmajor_desc(sV(st) + off + c * kHalf * 128), kk > 0);
+        wgmma_ss(dp, kmajor_desc(sDo + off), kmajor_desc(sV(mv) + off + c * kHalf * 128), kk > 0);
       }
       wgmma_commit();
     };
 
-    int it = 0;
+    int mk = 0, mv = 0;  // K and V ring positions of this owned tile's first streamed tile
     for (int r = 0;; ++r) {
-      mbar_wait(full_q, r & 1);
+      mbar_wait(full_do, r & 1);
       const int u = *tile_slot;
       if (u < 0) break;
       int i, bh, lo, hi;
       sched.unpack(u, i, bh, lo, hi);
       const int row0 = i * kRows;
-      load_q();
+      mbar_wait(full_k(mk), k_par(mk));
+      load_q(mk);
+      release(empty_k(mk));  // Q is in registers: the slot may take a K tile
+      ++mk;
       float lse2[2], dl[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -258,21 +284,20 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
       // so that no other instruction defines an accumulator while products
       // are in flight, which would make ptxas serialize them.
       float acc[64], s[16], dp[16];
-      mbar_wait(full(it % kStages), (it / kStages) & 1);
-      issue_scores(s, dp, it % kStages);
-      for (int j = lo, n = it; j <= hi; ++j, ++n) {
-        const int st = n % kStages;
+      issue_scores(s, dp, mk, mv);
+      for (int j = lo; j <= hi; ++j, ++mk, ++mv) {
         wgmma_wait<0>();  // S and dP of tile j
         fence_regs(s);
         fence_regs(dp);
-        if (j == hi) release(empty_q);  // the next tile's Q and dO may load
+        release(empty_v(mv));  // V_j is read: ring position mv + 2 may load
+        if (j == hi) release(empty_do);  // the next tile's dO may load
         // dS = P (dP - delta) scale, in bf16 into this warpgroup's 32
         // columns of the exchange tile, in the 128-byte swizzle of a K-major
         // wgmma operand (row r's 16-byte chunk k lies at chunk k ^ (r % 8);
         // r % 8 is g). This thread's keys are key0 + 8 nn + 2 t and + 1.
         const int key0 = j * kRows + c * kHalf;
         const bool masked = kCausal && (j == i || (window != 0 && row0 + 63 - j * kRows >= window));
-        const uint32_t xb = sX(n % 2);
+        const uint32_t xb = sX(mv % 2);
 #pragma unroll
         for (int nn = 0; nn < 4; ++nn)
 #pragma unroll
@@ -298,19 +323,19 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int kt = 0; kt < kRows / 16; ++kt)
           wgmma_ss_mn(acc, kmajor_desc(xb + kt * 32),
-                      mnmajor_desc<kRows>(sK(st) + 2 * c * kBox + kt * 16 * 128), j > lo || kt > 0);
+                      mnmajor_desc<kRows>(sK(mk) + 2 * c * kBox + kt * 16 * 128), j > lo || kt > 0);
         wgmma_commit();
         if (j < hi) {
-          mbar_wait(full((n + 1) % kStages), ((n + 1) / kStages) & 1);
-          issue_scores(s, dp, (n + 1) % kStages);
+          issue_scores(s, dp, mk + 1, mv + 1);
           wgmma_wait<1>();  // the dQ product, committed first, is done
         } else {
           wgmma_wait<0>();
         }
         fence_regs(acc);
-        release(empty(st));  // K_j and V_j are read: stage n + 2 may load
+        release(empty_k(mk));  // K_j is read: ring position mk + 3 may load
       }
-      it += hi - lo + 1;
+      wgmma_wait<0>();
+      fence_regs(acc);
 
 #pragma unroll
       for (int h = 0; h < 2; ++h)

@@ -72,11 +72,11 @@
 namespace {
 
 constexpr int D = 256;
-constexpr int kRows = 64;       // owned Q rows, and the keys of a streamed tile
-constexpr int kHalf = 32;       // keys a consumer warpgroup scores per tile
-constexpr int kKStages = 3;     // depth of the K ring (which also carries each owned tile's Q)
-constexpr int kVStages = 2;     // depth of the V ring
-constexpr int kThreads = 384;   // producer and two consumer warpgroups
+constexpr int kRows = 64;      // owned Q rows, and the keys of a streamed tile
+constexpr int kHalf = 32;      // keys a consumer warpgroup scores per tile
+constexpr int kKStages = 3;    // slots of the K ring, which also carries each owned tile's Q
+constexpr int kVStages = 2;    // slots of the V ring
+constexpr int kThreads = 384;  // producer and two consumer warpgroups
 constexpr int kBoxes = D / kBoxCols;
 constexpr int kBox = kRows * 128;     // one [64 rows][64 columns] box
 constexpr int kTile = kBoxes * kBox;  // one [64, 256] bf16 tile
@@ -91,9 +91,9 @@ constexpr int kXBar = 1;  // named barrier of the two consumer warpgroups
 // (dO full and empty; full and empty per K slot; full and empty per V slot)
 // and the tile slot.
 struct Smem {
-  static constexpr int kK = kTile;                       // K slot s: kK + s * kTile
-  static constexpr int kV = kK + kKStages * kTile;        // V slot s: kV + s * kTile
-  static constexpr int kX = kV + kVStages * kTile;        // exchange tiles
+  static constexpr int kK = kTile;                  // K slot s: kK + s * kTile
+  static constexpr int kV = kK + kKStages * kTile;  // V slot s: kV + s * kTile
+  static constexpr int kX = kV + kVStages * kTile;  // exchange tiles
   static constexpr int kBars = kX + 2 * kXBytes;
   static constexpr int kBytes = kBars + 8 * (2 + 2 * kKStages + 2 * kVStages) + 8 + 1024;
   static_assert(kBytes <= 232448, "the opt-in shared-memory limit of a block");
@@ -149,7 +149,8 @@ flash_bwd_dq_d256_sm90(const __grid_constant__ CUtensorMap q_map,
   auto empty_k = [&](int m) { return full_do + 8 * (2 + kKStages + m % kKStages); };
   auto full_v = [&](int m) { return full_do + 8 * (2 + 2 * kKStages + m % kVStages); };
   auto empty_v = [&](int m) { return full_do + 8 * (2 + 2 * kKStages + kVStages + m % kVStages); };
-  // The parity of ring position m's phase, and of the phase before it.
+  // The phase parity of ring position m (the slot's use count, mod 2); the
+  // producer waits for the one before (^ 1), which a fresh barrier passes.
   auto k_par = [](int m) { return static_cast<uint32_t>((m / kKStages) & 1); };
   auto v_par = [](int m) { return static_cast<uint32_t>((m / kVStages) & 1); };
   // The producer passes each tile's number (-1: none left) to the consumers

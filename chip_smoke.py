@@ -29,7 +29,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    (``scaled_dot_product_attention`` for K1, the flash-attention backward
    op for K2 + K3; timed only, never called by the port), the causal
    kernels also at the ring shard, and the D 256 kernels at gemma-2b's
-   shape;
+   shape; hold and time the kernels no main path launches
+   (``flash_attention.cu``: fp32 K1-K3 at D 128 and 256, bf16 at D 32) at
+   ``train``'s and ``train_gemma``'s shapes;
 3. model: a small llama, gpt2-124m, and qwen3-4b and gemma-2b at full width
    and 2 layers, through the flash kernels against the plain attention
    path, in fp32 and in bf16 compute; head: the LM head's backward against fp32 products;
@@ -63,7 +65,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    hits, the int8 pool's logits against the bf16 pool's, the repeat's tokens
    identical; TTFT, decode tokens/s, one decode dispatch timed and profiled.
    The serving path runs no kernel of the port: its attention is plain
-   batched products over the cache, as in JAX.
+   batched products over the cache, as in JAX;
+11. serve_spec: the same batcher with a draft model (``spec_gamma`` 4, no
+   prefix cache), serving ``serve``'s 16 prompts, all greedy, with the
+   2-layer draft of ``generate`` and with llama-1b as its own draft: every
+   request done and no slot left busy in either pool, streams
+   teacher-forced, the own draft's mean accepted tokens per round at least
+   SPEC_ACCEPT_MIN, and both pools on the accepted frontier after each of
+   8 rounds driven directly; rounds, acceptance, TTFT and decode tokens/s
+   beside the plain batcher's;
+12. hf_bridge: llama-1b's bf16 weights through ``to_hf_llama`` and
+   ``from_hf_llama`` on the card, bitwise equal, and forward's logits on a
+   512-token prompt bitwise equal before and after.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results (``launches`` per training step, summed over ``train``
@@ -87,6 +100,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 
 # Tolerances: kernel against its plain version on the same inputs. Each
@@ -202,10 +216,11 @@ def check_case(fc, bh, s, d, dtype, window, seed, causal=True) -> dict:
     return {n: e for n, (e, _) in errs.items()}
 
 
-def kernel_bounds(bh, s, d, window, elem_bytes, causal=True) -> dict:
+def kernel_bounds(bh, s, d, window, elem_bytes, causal=True, peak=PEAK_BF16_FLOPS) -> dict:
     """Least time on the card for each kernel's work at this shape: FLOPs
-    of the visible (q, k) pairs over the bf16 tensor-core peak, or bytes
-    (each input read once, each output written once) over HBM bandwidth."""
+    of the visible (q, k) pairs over ``peak`` (the bf16 tensor-core peak by
+    default; the fp32 kernels multiply on the FMA units), or bytes (each
+    input read once, each output written once) over HBM bandwidth."""
     if causal:
         pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     else:
@@ -219,7 +234,7 @@ def kernel_bounds(bh, s, d, window, elem_bytes, causal=True) -> dict:
     for name, (products, tensors, rows) in work.items():
         flops = 2.0 * products * bh * pairs * d
         nbytes = tensors * bh * s * d * elem_bytes + rows * bh * s * 4
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
         out[name] = {"flops": flops, "bytes": nbytes,
                      "bound_ms": max(t_ops, t_bytes) * 1e3,
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -247,6 +262,12 @@ SOURCE_D256 = {
     "flash_bwd_dkv": "tpu_engine_torch/csrc/flash_bwd_dkv_d256_sm90.cu",
 }
 GEMMA_SHAPE = (4, 8, 2048, 256)  # gemma-2b's attention in train_gemma: B, H, S, D
+# The kernels of csrc/flash_attention.cu, which no main path launches (every
+# main path runs bf16 at D 64, 128 or 256): (row suffix, B·H, D, dtype),
+# timed causal at S 2048, at train's B·H for D 128 and 32 and at
+# train_gemma's for D 256.
+OFF_PATH = (("fp32_d128", 64, 128, "fp32"), ("fp32_d256", 32, 256, "fp32"),
+            ("bf16_d32", 64, 32, "bf16"))
 # The Hopper kernels' symbols and their instantiations (head dims x causal
 # and not): K1 at D 64, 128 and 256; K2 and K3 at 64 and 128; K2 and K3 at
 # 256.
@@ -312,6 +333,17 @@ SERVE_CFG = dict(max_slots=8, max_len=2048, prefill_chunk=256, prefill_pad_to=64
                  chunk_steps=8, seed=0, prefix_cache_tokens=1024)
 SERVE_SHARED = (2, 3, 10, 11)   # requests whose prompts share a 512-token prefix
 SERVE_SAMPLED = (1, 6, 9, 14)   # requests at temperature 0.8; the rest are greedy
+# serve_spec: SERVE_CFG's pool with a draft and no prefix cache (a
+# speculative server refuses one; chunk_steps has no effect on it).
+SPEC_CFG = dict(SERVE_CFG, prefix_cache_tokens=0, spec_gamma=4)
+# The mean accepted tokens per round (of spec_gamma + 1) with llama-1b as its
+# own draft, in bf16: the draft's one-token steps and the target's 5-token
+# verify break near-ties differently, so a sound run accepts less than 5. On
+# an H100 (NVIDIA H100 80GB HBM3, 700 W) the sound run read 4.932; planted
+# faults (serve_faults.py) read 3.550 (the target's rewind keeping a rejected
+# lane) and 1.146 (the draft one step short). The bound lies midway between
+# the sound reading and the nearer fault's.
+SPEC_ACCEPT_MIN = 4.2
 
 
 def check_lse_backward(fc) -> dict:
@@ -653,7 +685,8 @@ def phase_kernels(res: dict) -> None:
     ] + _d256_rows(fc, res, main256, main256_full)
     res["attention_fwd_bwd"] = {"kernels_ms": ours_both, "library_ms": sdpa_both,
                                 "shape": [B, H, S, D]}
-    for kr in res["kernels"]:
+    res["kernels_off_path"] = _off_path_rows(fc)
+    for kr in res["kernels"] + res["kernels_off_path"]:
         print(f"time {kr['name']} {kr['shape']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.3f}, "
               f"bound {kr['bound_ms']:.4f} by {kr['bound_by']}, library {kr['library_ms']})",
               flush=True)
@@ -717,6 +750,48 @@ def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
     for key, row in pair.items():
         print(f"time K2+K3 d256 {key} {row['shape']}: kernels {row['kernels_ms']:.4f} ms, "
               f"library {row['library_ms']}", flush=True)
+    return rows
+
+
+def _off_path_rows(fc) -> list:
+    """The ``flash_attention.cu`` kernels (OFF_PATH), causal at S 2048: each
+    held to its plain version (:func:`check_case`) and timed beside it, its
+    bound (fp32 products at the FMA peak) and, for K1, SDPA on the same
+    data. Their rows, ``<kernel>_<suffix>``, have 0 launches on every main
+    path."""
+    import torch
+    import torch.nn.functional as F
+
+    S = 2048
+    slow = dict(iters=3, warmup=1)
+    rows = []
+    for suffix, bh, d, kind in OFF_PATH:
+        dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+        errs = check_case(fc, bh, S, d, dtype, 0, seed=0)
+        q, k, v, do = _inputs(bh, S, d, dtype, 0)
+        o, lse = fc.flash_fwd(q, k, v)
+        bwd = (q, k, v, do, lse, fc.flash_delta(o, do))
+        bounds = kernel_bounds(bh, S, d, 0, q.element_size(),
+                               peak=PEAK_FP32_FLOPS if kind == "fp32" else PEAK_BF16_FLOPS)
+        ql, kl, vl = (x.view(1, bh, S, d) for x in (q, k, v))
+        kernels = {
+            "flash_fwd": (lambda: fc.flash_fwd(q, k, v), lambda: fc.flash_fwd_plain(q, k, v),
+                          _device_ms(lambda: F.scaled_dot_product_attention(
+                              ql, kl, vl, is_causal=True)), max(errs["o"], errs["lse"])),
+            "flash_bwd_dq": (lambda: fc.flash_bwd_dq(*bwd), lambda: fc.flash_bwd_dq_plain(*bwd),
+                             None, errs["dq"]),
+            "flash_bwd_dkv": (lambda: fc.flash_bwd_dkv(*bwd),
+                              lambda: fc.flash_bwd_dkv_plain(*bwd), None,
+                              max(errs["dk"], errs["dv"])),
+        }
+        for name, (kernel, plain, library, err) in kernels.items():
+            rows.append({
+                "name": f"{name}_{suffix}", "route": "cuda",
+                "source": "tpu_engine_torch/csrc/flash_attention.cu",
+                "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+                "ms": _device_ms(kernel), "plain_ms": _device_ms(plain, **slow),
+                "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+                "library_ms": library, "shape": [bh, S, d]})
     return rows
 
 
@@ -1101,6 +1176,20 @@ def _llama_1b(state: dict):
     return state["cfg"], state["params"]
 
 
+def _draft_2l(state: dict):
+    """The speculative draft of the serving phases: llama-1b's width at 2
+    layers, seed 2, cast once to bf16, kept in ``state``."""
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    if "draft" not in state:
+        dcfg = _llama_1b(state)[0].with_(n_layers=2)
+        state["draft"] = dcfg, tfm.inference_params(
+            tfm.init_params(dcfg, torch.Generator(device="cuda").manual_seed(2), "cuda"))
+    return state["draft"]
+
+
 def _cached_logits(params, cfg, tokens, prompt: int, dtype):
     """Logits for tokens[:, :-1] by the cached path: one prefill of the first
     ``prompt`` tokens, then one-token decode steps, teacher-forced."""
@@ -1190,7 +1279,6 @@ def phase_generate(res: dict, state: dict) -> None:
     import torch
 
     from tpu_engine_torch import generate as tgen
-    from tpu_engine_torch.models import transformer as tfm
 
     cfg, params = _llama_1b(state)
     B, P, N = GEN["batch"], GEN["prompt"], GEN["new"]
@@ -1199,9 +1287,7 @@ def phase_generate(res: dict, state: dict) -> None:
                                                  "logits_max_abs_err_bf16", "max_abs_logit"))
     rel32, gap = nums["logits_rel_err_fp32"], nums["greedy_max_gap"]
 
-    dcfg = cfg.with_(n_layers=2)
-    draft = tfm.inference_params(
-        tfm.init_params(dcfg, torch.Generator(device="cuda").manual_seed(2), "cuda"))
+    dcfg, draft = _draft_2l(state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     spec, rounds = tgen.speculative_generate(params, draft, prompt[:1], cfg, dcfg, N,
@@ -1288,14 +1374,16 @@ def _serve_plan(cfg) -> list:
     return plan
 
 
-def _serve_run(params, cfg, plan: list, kv_quant: bool, key: str) -> dict:
-    """Serve ``plan`` with a ContinuousBatcher driven by ``serve_forever`` on
-    a thread, as the router runs it. All requests are submitted before the
-    thread starts: the first 8 fill the slots and the rest queue, so what
-    the server computes depends on the plan alone. Returns the streams,
-    the first-token logits of prefix-cache hits, TTFT, throughput, the
-    thread's device and stream, memory, and a timed and a profiled decode
-    dispatch at 8 active slots."""
+def _serve_run(params, cfg, plan: list, key: str, **batcher) -> dict:
+    """Serve ``plan`` with a ContinuousBatcher (SERVE_CFG, updated by
+    ``batcher``) driven by ``serve_forever`` on a thread, as the router runs
+    it. All requests are submitted before the thread starts: the first 8
+    fill the slots and the rest queue, so what the server computes depends
+    on the plan alone. Returns the streams, the first-token logits of
+    prefix-cache hits, TTFT, throughput, the thread's device and stream,
+    memory, and a timed and a profiled decode dispatch at 8 active slots: a
+    ``decode_chunk``, or with a draft one ``speculative_round`` (its tokens
+    counted at the run's mean acceptance)."""
     import threading
 
     import numpy as np
@@ -1306,9 +1394,9 @@ def _serve_run(params, cfg, plan: list, kv_quant: bool, key: str) -> dict:
     main_dev, main_stream = torch.cuda.current_device(), torch.cuda.current_stream()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    srv = tsrv.ContinuousBatcher(params, cfg, kv_quant=kv_quant, **SERVE_CFG)
+    srv = tsrv.ContinuousBatcher(params, cfg, **{**SERVE_CFG, **batcher})
     first, hit_len, thread = {}, {}, {}
-    real_first, real_lookup, real_step = srv._first_token, srv._prefix_cache.lookup, srv.step
+    real_first, real_step = srv._first_token, srv.step
 
     def first_token(logits, req):
         first[req.id] = logits.float().clone()
@@ -1324,7 +1412,9 @@ def _serve_run(params, cfg, plan: list, kv_quant: bool, key: str) -> dict:
         thread.setdefault("stream", torch.cuda.current_stream() == main_stream)
         return real_step()
 
-    srv._first_token, srv._prefix_cache.lookup, srv.step = first_token, lookup, step
+    srv._first_token, srv.step = first_token, step
+    if srv._prefix_cache is not None:
+        real_lookup, srv._prefix_cache.lookup = srv._prefix_cache.lookup, lookup
     ids = [srv.submit(p, max_new_tokens=m, temperature=t) for p, m, t in plan]
     stop = threading.Event()
     worker = threading.Thread(target=srv.serve_forever, args=(stop,), daemon=True)
@@ -1335,25 +1425,37 @@ def _serve_run(params, cfg, plan: list, kv_quant: bool, key: str) -> dict:
     stats = srv.stats()
     stop.set()
     worker.join(timeout=60)
-    pool = srv._cache
+    pool, dpool = srv._cache, srv._draft_cache
     leak = {"active_slots": stats["active_slots"], "prefilling": stats["prefilling"],
             "queued": stats["queued"], "lengths": pool.lengths.tolist()}
+    if dpool is not None:
+        leak["draft_lengths"] = dpool.lengths.tolist()
     on_card = (pool.k.is_cuda and pool.lengths.is_cuda
                and all(p.is_cuda for p in srv.params.values()))
     kv_bytes = sum(t.numel() * t.element_size()
                    for t in (pool.k, pool.v, pool.k_scale, pool.v_scale) if t is not None)
 
-    # One decode dispatch (chunk_steps tokens for 8 active slots, greedy),
-    # timed on the host around a synchronize, then profiled.
+    # One decode dispatch for 8 active slots (greedy) from lane 1024, timed
+    # on the host around a synchronize, then profiled.
     B = srv.max_slots
-    pool.lengths.fill_(1024)
     z = torch.zeros(B, dtype=torch.int64, device="cuda")
-    args = (srv.params, z, pool, torch.ones(B, dtype=torch.bool, device="cuda"),
-            torch.zeros(B, device="cuda"), z, z, 0, cfg, srv.chunk_steps)
+    ones = torch.ones(B, dtype=torch.bool, device="cuda")
+    if dpool is None:
+        per_dispatch = srv.chunk_steps
+        args = (srv.params, z, pool, ones, torch.zeros(B, device="cuda"), z, z, 0, cfg,
+                srv.chunk_steps)
+        decode = tsrv.decode_chunk
+    else:
+        per_dispatch = stats["spec_tokens_accepted"] / stats["spec_rounds"]
+        args = (srv.params, srv._draft_params, z, pool, dpool, ones, cfg, srv._draft_cfg,
+                srv.spec_gamma)
+        decode = tsrv.speculative_round
 
     def dispatch():
-        pool.lengths.fill_(1024)
-        tsrv.decode_chunk(*args)
+        for p in (pool, dpool):
+            if p is not None:
+                p.lengths.fill_(1024)
+        decode(*args)
         torch.cuda.synchronize()
 
     dispatch()
@@ -1367,31 +1469,33 @@ def _serve_run(params, cfg, plan: list, kv_quant: bool, key: str) -> dict:
     tokens = [r["tokens"] for r in results]
     n_tok = sum(len(t) for t in tokens)
     out = {
-        "kv_quant": kv_quant, "statuses": [r["status"] for r in results], "tokens": tokens,
+        "kv_quant": srv.kv_quant, "statuses": [r["status"] for r in results], "tokens": tokens,
         "wall_s": wall, "tokens_generated": n_tok, "tokens_per_s": n_tok / wall,
         "ttft_ms_p50": float(np.percentile(ttft, 50)),
         "ttft_ms_p99": float(np.percentile(ttft, 99)),
-        "ttft_ms": ttft, "prefix_cache": stats["prefix_cache"], "slot_state": leak,
+        "ttft_ms": ttft, "prefix_cache": stats.get("prefix_cache"), "slot_state": leak,
         "on_card": on_card, "thread": thread, "main_device": main_dev,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "kv_bytes": kv_bytes,
         "dispatch_ms_each": times, "dispatch_ms": min(times),
-        "decode_tokens_per_s": B * srv.chunk_steps / (min(times) / 1e3),
+        "decode_tokens_per_s": B * per_dispatch / (min(times) / 1e3),
         "dispatch_profile": prof, "device_ms_dispatch": prof["device_ms"],
         "device_busy_share": prof["device_ms"] / prof["wall_ms"],
         "device_busy_share_unprofiled_wall": prof["device_ms"] / min(times),
         "hits": {ids[i]: hit_len.get(tuple(p), 0) for i, (p, _, _) in enumerate(plan)},
-        "first_logits": first,
+        "first_logits": first, "tokens_per_dispatch_per_slot": per_dispatch,
+        "spec": {k: v for k, v in stats.items() if k.startswith("spec_")},
     }
+    prefix = {k: v for k, v in (out["prefix_cache"] or {}).items() if k != "entry_hits"}
     print(f"serve {key}: {len(ids)} requests, {n_tok} tokens in {wall:.2f} s "
           f"({out['tokens_per_s']:.1f} tokens/s), TTFT p50 {out['ttft_ms_p50']:.1f} ms, "
-          f"p99 {out['ttft_ms_p99']:.1f} ms; decode dispatch ({srv.chunk_steps} steps, {B} "
-          f"active slots) {out['dispatch_ms']:.2f} ms ({out['decode_tokens_per_s']:.1f} "
-          f"tokens/s), device busy {out['device_ms_dispatch']:.2f} ms: "
+          f"p99 {out['ttft_ms_p99']:.1f} ms; decode dispatch ({per_dispatch:.3f} tokens a "
+          f"slot, {B} active slots) {out['dispatch_ms']:.2f} ms "
+          f"({out['decode_tokens_per_s']:.1f} tokens/s), device busy "
+          f"{out['device_ms_dispatch']:.2f} ms: "
           f"{out['device_busy_share']:.3f} of the profiled wall, "
           f"{out['device_busy_share_unprofiled_wall']:.3f} of the unprofiled; peak "
           f"{out['peak_mem_gib']:.2f} GiB, KV pool {kv_bytes / 2**30:.3f} GiB; prefix cache "
-          f"{json.dumps({k: v for k, v in stats['prefix_cache'].items() if k != 'entry_hits'})}",
-          flush=True)
+          f"{json.dumps(prefix)}; {json.dumps(out['spec'])}", flush=True)
     return out
 
 
@@ -1443,16 +1547,15 @@ def phase_serve(res: dict, state: dict) -> None:
 
     cfg, params = _llama_1b(state)
     plan = _serve_plan(cfg)
-    runs = {key: _serve_run(params, cfg, plan, kv_quant, key)
+    runs = {key: _serve_run(params, cfg, plan, key, kv_quant=kv_quant)
             for key, kv_quant in (("bf16", False), ("int8", True), ("bf16_repeat", False))}
     bf = runs["bf16"]
     fails = []
     for key, r in runs.items():
         if r["statuses"] != ["done"] * len(plan):
             fails.append(f"{key}: statuses {r['statuses']}")
-        leak = r["slot_state"]
-        if leak["active_slots"] or leak["prefilling"] or leak["queued"] or any(leak["lengths"]):
-            fails.append(f"{key}: slots left busy {leak}")
+        if _slots_left_busy(r):
+            fails.append(f"{key}: slots left busy {r['slot_state']}")
         if not r["on_card"]:
             fails.append(f"{key}: pool or parameters not on the card")
         if r["thread"] != {"device": r["main_device"], "stream": True}:
@@ -1505,6 +1608,151 @@ def phase_serve(res: dict, state: dict) -> None:
                     "int8_vs_full_precision": int8, "card": res.get("card")}
     if fails:
         raise AssertionError("; ".join(fails))
+
+
+def _slots_left_busy(r: dict) -> bool:
+    leak = r["slot_state"]
+    return bool(leak["active_slots"] or leak["prefilling"] or leak["queued"]
+                or any(leak["lengths"]) or any(leak.get("draft_lengths", ())))
+
+
+def _spec_plan(cfg) -> list:
+    """:func:`_serve_plan`'s 16 prompts, all greedy (a speculative server
+    refuses sampling)."""
+    return [(p, m, 0.0) for p, m, _ in _serve_plan(cfg)]
+
+
+def spec_frontier(params, cfg, dparams, dcfg, prompts: list, rounds: int = 8) -> dict:
+    """``speculative_round`` driven directly on one slot per prompt, from a
+    prefill of each prompt into both pools: after every round both pools
+    must hold every token but the last emitted one, so each slot's length
+    must equal its prompt plus the tokens accepted so far. Returns the
+    rounds in which either pool was off that frontier, and the mean
+    accepted tokens per round."""
+    import torch
+
+    from tpu_engine_torch import generate as tgen
+    from tpu_engine_torch import serving as tsrv
+
+    bf16, n = torch.bfloat16, len(prompts)
+    pools = [tsrv.init_slot_cache(c, n, SPEC_CFG["max_len"], bf16,
+                                  prefill_chunk=SPEC_CFG["prefill_chunk"]) for c in (cfg, dcfg)]
+    first = []
+    with torch.inference_mode():
+        for slot, p in enumerate(prompts):
+            toks = torch.tensor([p], device="cuda")
+            for pool, pp, c in zip(pools, (params, dparams), (cfg, dcfg)):
+                c1 = tgen.init_cache(c, 1, len(p), bf16)
+                logits, c1 = tgen.forward_with_cache(pp, toks, c1, c, bf16,
+                                                     want_logits=pool is pools[0])
+                tsrv._insert_prefill(pool, c1, slot, len(p))
+                if logits is not None:
+                    first.append(logits[0, -1].argmax())
+        frontier = torch.tensor([len(p) for p in prompts], device="cuda")
+        toks, active = torch.stack(first), torch.ones(n, dtype=torch.bool, device="cuda")
+        off, accepted = 0, 0
+        for _ in range(rounds):
+            tgt, n_acc, *pools = tsrv.speculative_round(params, dparams, toks, *pools, active,
+                                                        cfg, dcfg, SPEC_CFG["spec_gamma"])
+            frontier += n_acc
+            off += not all(torch.equal(p.lengths, frontier) for p in pools)
+            accepted += int(n_acc.sum())
+            toks = tgt.gather(1, n_acc[:, None] - 1)[:, 0]
+    return {"rounds": rounds, "rounds_off_frontier": off,
+            "accepted_per_round": accepted / (rounds * n)}
+
+
+def phase_serve_spec(res: dict, state: dict) -> None:
+    """The batcher with a draft (SPEC_CFG) at llama-1b, serving
+    :func:`_spec_plan` with the 2-layer draft and with llama-1b as its own
+    draft. Checks: every request done and no slot left busy in either
+    pool; greedy streams teacher-forced within SERVE_TAU; the own draft's
+    mean accepted tokens per round at least SPEC_ACCEPT_MIN; both pools on
+    the accepted frontier after every round (:func:`spec_frontier`, the
+    plan's first 8 prompts, with each draft). Prints rounds,
+    acceptance, TTFT and decode tokens/s beside the plain batcher's of the
+    ``serve`` phase in this run."""
+    cfg, params = _llama_1b(state)
+    dcfg, draft = _draft_2l(state)
+    plan = _spec_plan(cfg)
+    runs = {key: _serve_run(params, cfg, plan, key, draft_params=dp, draft_cfg=dc, **SPEC_CFG)
+            for key, dp, dc in (("draft_2l", draft, dcfg), ("own_draft", params, cfg))}
+    fails, out = [], {}
+    for key, r in runs.items():
+        if r["statuses"] != ["done"] * len(plan):
+            fails.append(f"{key}: statuses {r['statuses']}")
+        if _slots_left_busy(r):
+            fails.append(f"{key}: slots left busy {r['slot_state']}")
+        gaps = [_stream_gap(params, cfg, p, toks) for (p, _, _), toks in zip(plan, r["tokens"])]
+        out[key] = {**{k: r[k] for k in ("tokens_generated", "tokens_per_s", "ttft_ms_p50",
+                                          "ttft_ms_p99", "dispatch_ms", "decode_tokens_per_s",
+                                          "device_busy_share", "peak_mem_gib", "slot_state")},
+                    **r["spec"], "accepted_per_round": r["tokens_per_dispatch_per_slot"],
+                    "greedy_max_gap": max(gaps), "gaps": gaps}
+        if not max(gaps) <= SERVE_TAU:
+            fails.append(f"{key}: largest teacher-forced gap {max(gaps):.3e} > {SERVE_TAU}")
+        dp, dc = (draft, dcfg) if key == "draft_2l" else (params, cfg)
+        out[key]["frontier"] = spec_frontier(params, cfg, dp, dc, [p for p, _, _ in plan[:8]])
+        if out[key]["frontier"]["rounds_off_frontier"]:
+            fails.append(f"{key}: pools off the accepted frontier {out[key]['frontier']}")
+    own = out["own_draft"]["accepted_per_round"]
+    if not own >= SPEC_ACCEPT_MIN:
+        fails.append(f"own draft: {own:.3f} accepted tokens a round < {SPEC_ACCEPT_MIN}")
+    plain = res.get("serve", {}).get("runs", {}).get("bf16", {})
+    for key, o in out.items():
+        print(f"serve_spec {key}: {o['spec_rounds']} slot-rounds, {o['accepted_per_round']:.3f} "
+              f"accepted tokens a round (of {SPEC_CFG['spec_gamma'] + 1}), largest gap "
+              f"{o['greedy_max_gap']:.3e} (tau {SERVE_TAU}); {o['tokens_per_s']:.1f} tokens/s "
+              f"end to end, decode {o['decode_tokens_per_s']:.1f} tokens/s, TTFT p50 "
+              f"{o['ttft_ms_p50']:.1f} ms, p99 {o['ttft_ms_p99']:.1f} ms; frontier check "
+              f"{json.dumps(o['frontier'])}", flush=True)
+    if plain:
+        print(f"serve_spec: plain batcher (serve bf16, sampled rows included): "
+              f"{plain['tokens_per_s']:.1f} tokens/s end to end, decode "
+              f"{plain['decode_tokens_per_s']:.1f} tokens/s, TTFT p50 {plain['ttft_ms_p50']:.1f} "
+              f"ms, p99 {plain['ttft_ms_p99']:.1f} ms", flush=True)
+    print(f"serve_spec checks: own draft {own:.3f} accepted a round (bound {SPEC_ACCEPT_MIN})",
+          flush=True)
+    res["serve_spec"] = {"config": SPEC_CFG, "runs": out, "accept_min": SPEC_ACCEPT_MIN,
+                         "card": res.get("card"),
+                         "plain": {k: plain.get(k) for k in ("tokens_per_s", "ttft_ms_p50",
+                                                             "decode_tokens_per_s", "ttft_ms_p99")}}
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def phase_hf_bridge(res: dict, state: dict) -> None:
+    """llama-1b's bf16 inference weights on the card → ``to_hf_llama`` (HF
+    layout, float32 numpy) → ``from_hf_llama`` back to bf16 on the card:
+    every tensor bitwise equal, and forward's logits on one 512-token prompt
+    bitwise equal before and after. No ``transformers`` is needed."""
+    import torch
+
+    from tpu_engine_torch.models import convert
+
+    cfg, params = _llama_1b(state)
+    t0 = time.perf_counter()
+    sd = convert.to_hf_llama(params, cfg)
+    t1 = time.perf_counter()
+    back = convert.from_hf_llama(sd, cfg, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = list(back) == list(params) and all(
+        back[k].dtype == params[k].dtype and back[k].is_cuda and torch.equal(back[k], params[k])
+        for k in params)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    before = _forward_logits(params, cfg, tokens, torch.bfloat16)
+    after = _forward_logits(back, cfg, tokens, torch.bfloat16)
+    logits_same = torch.equal(before, after)
+    res["hf_bridge"] = {"hf_tensors": len(sd), "to_hf_s": t1 - t0, "from_hf_s": t2 - t1,
+                        "weights_bitwise_equal": same, "logits_bitwise_equal": logits_same}
+    print(f"hf_bridge: {cfg.name}, {len(sd)} HF tensors; to_hf_llama {t1 - t0:.2f} s, "
+          f"from_hf_llama {t2 - t1:.2f} s; weights bitwise equal {same}, logits of a "
+          f"512-token prompt bitwise equal {logits_same}", flush=True)
+    del sd, back
+    if not (same and logits_same):
+        raise AssertionError(f"hf_bridge: round trip not exact {res['hf_bridge']}")
 
 
 def _time_optimizer(prog, state, key: str) -> float:
@@ -1620,6 +1868,8 @@ def main() -> int:
         serving: dict = {}
         run("generate", phase_generate, res, serving)
         run("serve", phase_serve, res, serving)
+        run("serve_spec", phase_serve_spec, res, serving)
+        run("hf_bridge", phase_hf_bridge, res, serving)
         serving.clear()
         run("generate_gemma", phase_generate_gemma, res)
     # Launches per training step on the main paths, each counted from 0

@@ -1,7 +1,7 @@
 """Plant faults in the port's serving path on one card and read what the
 serving checks of ``chip_smoke.py`` measure for each, beside the sound code
-in the same run. ``SERVE_TAU`` and ``INT8_SHARE`` there are set from these
-readings.
+in the same run. ``SERVE_TAU``, ``INT8_SHARE`` and ``SPEC_ACCEPT_MIN``
+there are set from these readings.
 
     python3 serve_faults.py
 
@@ -29,6 +29,22 @@ in fp32 compute with TF32 off:
   spanned ±128;
 - ``dequant_skipped``: the stored scales 1, so the codes are read as values.
 
+Speculative faults, on ``chip_smoke.py``'s ``serve_spec`` batcher
+(``SPEC_CFG``: the same pool with a draft, ``spec_gamma`` 4, no prefix
+cache) serving the 16 prompts all greedy (``chip_smoke._spec_plan``), with
+llama-1b as its own draft and with the 2-layer draft of ``generate``; read
+as the largest teacher-forced gap (held to ``SERVE_TAU``), the mean
+accepted tokens per round (the own draft's held to ``SPEC_ACCEPT_MIN``) and
+the rounds off the accepted frontier (``chip_smoke.spec_frontier``, held to
+0):
+
+- ``spec_sound``;
+- ``spec_rewind_keeps_one``: after a round with a rejection, the target's
+  rewind leaves one lane too many, so the first rejected lane stays
+  visible;
+- ``spec_draft_gamma_steps``: the draft runs ``gamma`` steps, not
+  ``gamma + 1``, so the last proposal's K/V never reaches its pool.
+
 Each fault is a patch of one function of the package for its own run; no
 file changes. Prints the card's name and power limit, one line per reading
 and one JSON line, also written to ``chiprun_out/serve_faults.json``.
@@ -45,19 +61,21 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 
 
-def _streams(params, cfg, plan: list, kv_quant: bool) -> list:
-    """Every request of ``plan`` served to its end; the token streams."""
+def _streams(params, cfg, plan: list, **batcher) -> tuple[list, dict]:
+    """Every request of ``plan`` served to its end by a batcher of
+    ``chip_smoke.SERVE_CFG`` updated by ``batcher``; the token streams and
+    the batcher's stats."""
     import chip_smoke as cs
     from tpu_engine_torch import serving as tsrv
 
-    srv = tsrv.ContinuousBatcher(params, cfg, kv_quant=kv_quant, **cs.SERVE_CFG)
+    srv = tsrv.ContinuousBatcher(params, cfg, **{**cs.SERVE_CFG, **batcher})
     ids = [srv.submit(p, max_new_tokens=m, temperature=t) for p, m, t in plan]
     while any(srv.result(r)["status"] not in ("done", "failed") for r in ids):
         srv.step()
     results = [srv.result(r) for r in ids]
     if any(r["status"] != "done" for r in results):
         raise AssertionError(f"statuses {[r['status'] for r in results]}")
-    return [r["tokens"] for r in results]
+    return [r["tokens"] for r in results], srv.stats()
 
 
 def _second_best(real):
@@ -73,6 +91,33 @@ def _rope_plus_one(real):
         return real(params, x, cache, write, hidden, positions + 1, *rest)
 
     return run
+
+
+def _rewind_keeps_one(real):
+    def rewind(cache, draft_cache, overshoot):
+        real(cache, draft_cache, overshoot)
+        cache.lengths += overshoot > 0
+
+    return rewind
+
+
+def _draft_gamma_steps(real):
+    def propose(draft_params, tokens, draft_cache, active, draft_cfg, n_steps, dtype):
+        import torch
+
+        props, draft_cache = real(draft_params, tokens, draft_cache, active, draft_cfg,
+                                  n_steps - 1, dtype)
+        return torch.cat([props, props[:, -1:]], dim=1), draft_cache
+
+    return propose
+
+
+def _patched(patch):
+    """A context with ``patch`` = (module, name, wrap) applied, or none."""
+    if patch is None:
+        return contextlib.nullcontext()
+    module, name, wrap = patch
+    return mock.patch.object(module, name, wrap(getattr(module, name)))
 
 
 def _stored_scale(real, f):
@@ -96,11 +141,13 @@ def main() -> int:
 
     card = cs._card_line()
     print(card, flush=True)
-    cfg, params = cs._llama_1b({})
+    state: dict = {}
+    cfg, params = cs._llama_1b(state)
     plan = cs._serve_plan(cfg)
     greedy = [i for i, (_, _, t) in enumerate(plan) if t == 0.0]
     out: dict = {"card": card, "tau": cs.SERVE_TAU, "int8_share": cs.INT8_SHARE,
-                 "stream_gap": {}, "int8": {}}
+                 "spec_accept_min": cs.SPEC_ACCEPT_MIN, "stream_gap": {}, "int8": {},
+                 "spec": {}}
 
     stream_faults = {
         "sound": (False, None),
@@ -110,9 +157,8 @@ def main() -> int:
     }
     sound_tokens = None
     for name, (kv_quant, patch) in stream_faults.items():
-        with (mock.patch.object(patch[0], patch[1], patch[2](getattr(patch[0], patch[1])))
-              if patch else contextlib.nullcontext()):
-            tokens = _streams(params, cfg, plan, kv_quant)
+        with _patched(patch):
+            tokens, _ = _streams(params, cfg, plan, kv_quant=kv_quant)
         sound_tokens = sound_tokens or tokens
         gaps = [cs._stream_gap(params, cfg, plan[i][0], tokens[i]) for i in greedy]
         out["stream_gap"][name] = {"max": max(gaps), "per_request": gaps,
@@ -122,6 +168,36 @@ def main() -> int:
         print(f"stream {name}: largest teacher-forced gap {max(gaps):.4f} (tau {cs.SERVE_TAU}), "
               f"{out['stream_gap'][name]['tokens_equal_to_sound']} greedy tokens equal to "
               "the sound bf16 run's", flush=True)
+
+    spec_plan = cs._spec_plan(cfg)
+    drafts = {"own_draft": (params, cfg), "draft_2l": cs._draft_2l(state)[::-1]}
+    spec_faults = {
+        "spec_sound": None,
+        "spec_rewind_keeps_one": (tsrv, "_rewind", _rewind_keeps_one),
+        "spec_draft_gamma_steps": (tsrv, "_draft_propose", _draft_gamma_steps),
+    }
+    spec_sound = {}
+    for name, patch in spec_faults.items():
+        for dkey, (dparams, dcfg) in drafts.items():
+            with _patched(patch):
+                tokens, stats = _streams(params, cfg, spec_plan, draft_params=dparams,
+                                         draft_cfg=dcfg, **cs.SPEC_CFG)
+                frontier = cs.spec_frontier(params, cfg, dparams, dcfg,
+                                            [p for p, _, _ in spec_plan[:8]])
+            spec_sound.setdefault(dkey, tokens)
+            gaps = [cs._stream_gap(params, cfg, p, toks)
+                    for (p, _, _), toks in zip(spec_plan, tokens)]
+            row = out["spec"].setdefault(name, {})[dkey] = {
+                "max_gap": max(gaps), "per_request": gaps,
+                "accepted_per_round": stats["spec_tokens_accepted"] / stats["spec_rounds"],
+                "rounds": stats["spec_rounds"], "frontier": frontier,
+                "tokens_equal_to_sound": sum(a == b for t, s in zip(tokens, spec_sound[dkey])
+                                             for a, b in zip(t, s))}
+            print(f"spec {name} ({dkey}): {row['accepted_per_round']:.4f} accepted tokens a "
+                  f"round (bound {cs.SPEC_ACCEPT_MIN} for own_draft), largest teacher-forced "
+                  f"gap {row['max_gap']:.4f} (tau {cs.SERVE_TAU}), {row['tokens_equal_to_sound']}"
+                  f" tokens equal to the sound run's; frontier {json.dumps(frontier)}",
+                  flush=True)
 
     prompts = [p for p, _, _ in plan[:8]]
     teacher = torch.tensor([toks[:16] for toks in sound_tokens[:8]], device="cuda")

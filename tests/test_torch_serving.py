@@ -328,7 +328,9 @@ def test_slot_at_capacity_mid_chunk_matches_jax(llama):
 
 def test_capacity_and_guards(llama, gqa_window):
     """JAX's ValueError guards, and NotImplementedError for what is not
-    ported: mesh, speculative serving, the disaggregated-serving plane."""
+    ported: mesh and the disaggregated-serving plane. Speculative serving
+    is ported: a draft builds on llama, and a windowed model is refused
+    with JAX's ``draft_ring_window``."""
     _, cfg, _, tp = llama
     srv = _port(llama, max_slots=1, max_len=32)
     with pytest.raises(ValueError, match="max_len"):
@@ -337,9 +339,13 @@ def test_capacity_and_guards(llama, gqa_window):
         srv.submit([], max_new_tokens=1)
     with pytest.raises(ValueError, match="sliding-window"):
         _port(gqa_window, max_slots=1, max_len=128, prefill_chunk=16, prefix_cache_tokens=64)
-    for kw in (dict(mesh=object()), dict(draft_params=tp, draft_cfg=cfg)):
-        with pytest.raises(NotImplementedError):
-            _port(llama, **kw)
+    with pytest.raises(NotImplementedError):
+        _port(llama, mesh=object())
+    assert _port(llama, draft_params=tp, draft_cfg=cfg).stats()["speculative"] is True
+    _, wcfg, _, wtp = gqa_window
+    with pytest.raises(tsrv.SpecGeometryError, match="sliding-window") as info:
+        _port(gqa_window, max_len=128, prefill_chunk=16, draft_params=wtp, draft_cfg=wcfg)
+    assert info.value.kind == "draft_ring_window"
     with pytest.raises(NotImplementedError):
         srv.submit([1, 2], max_new_tokens=1, hold_kv=True)
     for name in ("submit_prefilled", "request_handoff", "release_held", "take_handoff",

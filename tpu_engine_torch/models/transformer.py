@@ -298,14 +298,17 @@ def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
     gpt2 adds the learned position rows at ``positions`` (default 0..S-1;
     decode passes its offsets); gemma multiplies by sqrt(d_model) rounded to
     the compute dtype first, as JAX's ``jnp.asarray(..., compute_dtype)``
-    does."""
+    does. A serving row that runs past the table (its outputs discarded)
+    reads the table's last row: JAX's gather fills NaN there, and on CUDA an
+    out-of-range index is a device-side assert."""
     x = F.embedding(tokens, params["embed.embedding"]).to(compute_dtype)
     if cfg.arch == "gemma":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype, device=x.device)
     if "pos_embed.embedding" in params:
         if positions is None:
             positions = torch.arange(tokens.shape[-1], device=tokens.device)
-        x = x + F.embedding(positions, params["pos_embed.embedding"]).to(compute_dtype)
+        table = params["pos_embed.embedding"]
+        x = x + F.embedding(positions.clamp(max=table.shape[0] - 1), table).to(compute_dtype)
     return x
 
 

@@ -11,6 +11,11 @@ lanes. Greedy and sampled requests advance together, ``chunk_steps`` tokens
 per dispatch, with one device-to-host copy of the tokens per dispatch.
 Prompts are ingested ``prefill_chunk`` tokens per engine step, interleaved
 with decode, and a prompt-prefix cache reuses the K/V of shared prefixes.
+With a draft model (``draft_params``) every slot advances by speculative
+rounds instead: the draft proposes ``spec_gamma`` greedy tokens per slot in
+its own pool, the target verifies every slot's chain in one forward
+(:func:`decode_verify`), and each slot keeps the longest agreeing prefix
+plus the target's next token (:func:`speculative_round`).
 
 :class:`ContinuousBatcher` is thread-safe: ``submit`` from any thread,
 drive ``step`` from a serving loop or ``serve_forever`` on a thread. Device
@@ -31,19 +36,20 @@ Deliberate differences from JAX:
   dtype once, at construction (``inference_params``); JAX casts them in
   every dispatch.
 - **Masked, not dropped, out-of-range writes.** A row that finishes inside
-  a chunk keeps decoding to the chunk's end and can run past the pool's
-  last lane. JAX's scatter drops such a write; on CUDA an out-of-range
-  index is a device-side assert, so the port writes that lane's own value
-  back instead (the same pool afterwards).
+  a chunk keeps decoding to the chunk's end, and a verify chain near a
+  slot's end runs past it: both can reach past the pool's last lane. JAX's
+  scatter drops such a write; on CUDA an out-of-range index is a
+  device-side assert, so the port writes the value the last lane ends
+  with instead (the same pool afterwards, :func:`_pool_writer`).
 - **Layout and updates** as in :mod:`tpu_engine_torch.generate`: the pool
   is head-major and updated in place.
 
 Not ported yet; each raises ``NotImplementedError`` when asked for:
-``mesh=`` (multi-GPU), ``draft_params`` (speculative serving with
-``decode_verify`` and ``speculative_round``), and the disaggregated-serving
-plane (``hold_kv``, ``submit_prefilled``, ``request_handoff``,
-``release_held``, ``take_handoff``, ``wait_handoff``, ``export_prefix``,
-``install_prefix``).
+``mesh=`` (multi-GPU) and the disaggregated-serving plane (``hold_kv``,
+``submit_prefilled``, ``request_handoff``, ``release_held``,
+``take_handoff``, ``wait_handoff``, ``export_prefix``, ``install_prefix``),
+after JAX's own guards (a speculative server refuses ``hold_kv`` and
+``submit_prefilled`` with ``ValueError``, as JAX does).
 """
 
 from __future__ import annotations
@@ -120,6 +126,32 @@ def init_slot_cache(cfg: ModelConfig, slots: int, max_len: int, dtype=torch.bflo
     )
 
 
+def _pool_writer(start: torch.Tensor, T: int, S: int):
+    """``write(arr, new)`` storing new [B, KV, T, X] at lanes ``start[b] + t``
+    of a pool layer arr [B, KV, S, X], in place.
+
+    JAX's scatter drops the writes that fall past the last lane. Here every
+    such write is sent to the last lane instead, with the value that lane
+    ends up holding: the chain's own entry for lane S - 1 where the chain
+    reaches it, else the lane's old value. Colliding writes then all carry
+    one value, and the pool afterwards equals JAX's."""
+    B = start.shape[0]
+    rows = torch.arange(B, device=start.device)[:, None]
+    t = torch.arange(T, device=start.device)
+    last = (S - 1 - start)[:, None]               # the chain index landing on lane S - 1
+    lane = (start[:, None] + t).clamp(max=S - 1)  # [B, T]
+    src = torch.minimum(t, last).clamp(min=0)     # [B, T]
+    lands = (last >= 0)[:, :, None, None]         # the row writes at least one lane
+
+    def write(arr, new):
+        new = new.transpose(1, 2).to(arr.dtype)   # [B, T, KV, X], as arr[rows, :, lane]
+        if T > 1:
+            new = new.gather(1, src[:, :, None, None].expand_as(new))
+        arr[rows, :, lane] = torch.where(lands, new, arr[rows, :, lane])
+
+    return write
+
+
 @torch.inference_mode()
 def decode_step(params: dict[str, torch.Tensor], tokens: torch.Tensor, cache: SlotCache,
                 active: torch.Tensor, cfg: ModelConfig,
@@ -128,7 +160,8 @@ def decode_step(params: dict[str, torch.Tensor], tokens: torch.Tensor, cache: Sl
     active [B] bool. Returns (logits [B, V] fp32, the pool, updated in
     place). Inactive rows still compute, but their lengths do not advance
     and their writes land in lanes the mask never shows (a ring row's
-    ``pos`` is not updated)."""
+    ``pos`` is not updated). A row that finished inside a chunk can run past
+    the last lane (:func:`_pool_writer`)."""
     B = tokens.shape[0]
     S = cache.n_lanes
     rows = torch.arange(B, device=tokens.device)
@@ -140,14 +173,7 @@ def decode_step(params: dict[str, torch.Tensor], tokens: torch.Tensor, cache: Sl
     else:
         lane = cache.lengths
         key_pos = torch.arange(S, device=tokens.device)
-    # A row that finished inside a chunk can run past the last lane: write
-    # that lane's own value back instead (JAX drops the write).
-    inside = (lane < S)[:, None, None]
-    lane = lane.clamp(max=S - 1)
-
-    def write(arr, new):  # arr [B, KV, S, X], new [B, KV, 1, X]
-        arr[rows, :, lane] = torch.where(inside, new[:, :, 0].to(arr.dtype), arr[rows, :, lane])
-
+    write = _pool_writer(lane, 1, S)
     hidden = _hidden_lanes(key_pos, positions, cfg.sliding_window)
     x = embed_tokens(params, tokens[:, None], compute_dtype, positions=positions, cfg=cfg)
     x = _run_layers(params, x, cache, write, hidden, positions, cfg, compute_dtype)
@@ -216,6 +242,83 @@ def decode_chunk(params: dict[str, torch.Tensor], tokens: torch.Tensor, cache: S
         cnts = cnts + active
         out.append(nxt)
     return torch.stack(out, dim=1), cache
+
+
+@torch.inference_mode()
+def decode_verify(params: dict[str, torch.Tensor], tokens: torch.Tensor, cache: SlotCache,
+                  active: torch.Tensor, cfg: ModelConfig,
+                  compute_dtype=torch.bfloat16) -> tuple[torch.Tensor, SlotCache]:
+    """T tokens per slot in one forward (the speculative verify pass).
+
+    Row b's inputs tokens [B, T] sit at positions ``lengths[b] + arange(T)``;
+    their K/V rows are written before attention, so causality inside the
+    chain is the ordinary position mask, and logits [B, T, V] fp32 come back
+    for every input (``logits[b, i]`` scores the token after input i).
+    Lengths advance by T on active rows; the caller rewinds them to the
+    accepted frontier, and the rejected lanes stay hidden by length until
+    the next chain overwrites them. Flat (non-ring) pools only."""
+    B, T = tokens.shape
+    S = cache.n_lanes
+    positions = cache.lengths[:, None] + torch.arange(T, device=tokens.device)
+    write = _pool_writer(cache.lengths, T, S)
+    hidden = _hidden_lanes(torch.arange(S, device=tokens.device), positions, cfg.sliding_window)
+    x = embed_tokens(params, tokens, compute_dtype, positions=positions, cfg=cfg)
+    x = _run_layers(params, x, cache, write, hidden, positions, cfg, compute_dtype)
+    cache.lengths += T * active
+    return unembed(params, x, cfg), cache
+
+
+def _draft_propose(draft_params: dict[str, torch.Tensor], tokens: torch.Tensor,
+                   draft_cache: SlotCache, active: torch.Tensor, draft_cfg: ModelConfig,
+                   n_steps: int, compute_dtype) -> tuple[torch.Tensor, SlotCache]:
+    """``n_steps`` greedy draft decode steps from tokens [B], each choice fed
+    back on active rows. Returns (choices [B, n_steps], the draft pool)."""
+    toks, out = tokens, []
+    for _ in range(n_steps):
+        logits, draft_cache = decode_step(draft_params, toks, draft_cache, active, draft_cfg,
+                                          compute_dtype)
+        nxt = logits.argmax(dim=-1)
+        toks = torch.where(active, nxt, toks)
+        out.append(nxt)
+    return torch.stack(out, dim=1), draft_cache
+
+
+def _rewind(cache: SlotCache, draft_cache: SlotCache, overshoot: torch.Tensor) -> None:
+    """Both pools back to the accepted frontier, in place: each row keeps
+    every token except its new last one."""
+    cache.lengths -= overshoot
+    draft_cache.lengths -= overshoot
+
+
+@torch.inference_mode()
+def speculative_round(params: dict[str, torch.Tensor], draft_params: dict[str, torch.Tensor],
+                      tokens: torch.Tensor, cache: SlotCache, draft_cache: SlotCache,
+                      active: torch.Tensor, cfg: ModelConfig, draft_cfg: ModelConfig,
+                      gamma: int, compute_dtype=torch.bfloat16):
+    """One batched draft-propose / target-verify round for every slot.
+
+    Both pools hold the K/V of every token but the last emitted one,
+    tokens [B]. The draft runs ``gamma + 1`` greedy steps: the first
+    ``gamma`` choices are the proposals, and the last step only writes the
+    last proposal's K/V, without which a fully accepted round would leave a
+    hole in the draft's pool. The target verifies the chains [last,
+    proposals] in one forward (:func:`decode_verify`); a row accepts the
+    longest prefix on which the proposals equal the target's choices, plus
+    the target's next token. Both pools then rewind by the overshoot.
+
+    Returns (tgt [B, gamma + 1] the target's choices, n_acc [B] accepted
+    counts in 1..gamma + 1, the target pool, the draft pool). The streams
+    equal plain greedy serving wherever the target's chunked and one-token
+    argmax agree."""
+    props, draft_cache = _draft_propose(draft_params, tokens, draft_cache, active, draft_cfg,
+                                        gamma + 1, compute_dtype)
+    proposals = props[:, :gamma]
+    chain = torch.cat([tokens[:, None], proposals], dim=1)
+    logits, cache = decode_verify(params, chain, cache, active, cfg, compute_dtype)
+    tgt = logits.argmax(dim=-1)
+    n_acc = torch.cumprod((proposals == tgt[:, :gamma]).long(), dim=1).sum(dim=1) + 1
+    _rewind(cache, draft_cache, torch.where(active, gamma + 1 - n_acc, 0))
+    return tgt, n_acc, cache, draft_cache
 
 
 def _slice_prefix(c1: KVCache, L: int) -> KVCache:
@@ -350,16 +453,30 @@ class Request:
     finished_at: Optional[float] = None
 
 
+class SpecGeometryError(ValueError):
+    """A draft/target pairing that can never run a ``speculative_round``,
+    refused at construction. ``.kind`` and ``.reason`` (``{"kind": ...,
+    **detail}``) let callers report it without parsing the message."""
+
+    def __init__(self, kind: str, message: str, **detail: object):
+        self.kind = kind
+        self.reason = {"kind": kind, **detail}
+        super().__init__(message)
+
+
 @dataclass
 class _PrefillState:
     """A prompt mid-ingestion: ``consumed`` of ``padded`` tokens are in
-    ``c1`` (a single-row cache), advanced one bounded chunk per step."""
+    ``c1`` (a single-row cache), advanced one bounded chunk per step. A
+    speculative server ingests the prompt into the draft's cache ``dc1``
+    too."""
 
     req: Request
     slot: int
     c1: KVCache
     toks: np.ndarray    # [1, padded] — the prompt, zero-padded
     consumed: int = 0
+    dc1: Optional[KVCache] = None
     prefix_checked: bool = False
 
     @property
@@ -400,10 +517,6 @@ class ContinuousBatcher:
     ):
         if mesh is not None:
             raise NotImplementedError("mesh-sharded serving is not ported (multi-GPU)")
-        if draft_params is not None:
-            raise NotImplementedError(
-                "speculative serving (draft_params: decode_verify, speculative_round) "
-                "is not ported")
         self.cfg = cfg
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
@@ -428,6 +541,38 @@ class ContinuousBatcher:
                                       prefill_chunk=self.prefill_chunk,
                                       kv_quant=self.kv_quant, device=self.device)
 
+        # Speculative decoding: the draft's pool has the target pool's
+        # slots and lanes, in the compute dtype.
+        self._draft_params = None
+        self._draft_cfg = draft_cfg
+        self.spec_gamma = int(spec_gamma)
+        self._draft_cache: Optional[SlotCache] = None
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise SpecGeometryError("draft_cfg_missing", "draft_params requires draft_cfg")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise SpecGeometryError(
+                    "draft_vocab_mismatch",
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: speculative verify compares token ids",
+                    draft_vocab=draft_cfg.vocab_size, target_vocab=cfg.vocab_size)
+            if self._cache.ring or cfg.sliding_window or draft_cfg.sliding_window:
+                raise SpecGeometryError(
+                    "draft_ring_window",
+                    "speculative serving does not support sliding-window "
+                    "models (the verify chain's rewind assumes flat lanes)",
+                    target_window=cfg.sliding_window, draft_window=draft_cfg.sliding_window)
+            # JAX's draft_mesh_sharded check comes here; mesh= raises above.
+            if self.spec_gamma < 1:
+                raise SpecGeometryError(
+                    "spec_gamma_invalid", f"spec_gamma must be >= 1, got {spec_gamma}",
+                    spec_gamma=self.spec_gamma)
+            _require_ported(draft_cfg)
+            self._draft_cache = init_slot_cache(draft_cfg, self.max_slots, self.max_len,
+                                                compute_dtype, prefill_chunk=self.prefill_chunk,
+                                                device=self.device)
+            self._draft_params = inference_params(draft_params, compute_dtype, self.device)
+
         self._prefix_cache: Optional[_PrefixCache] = None
         if prefix_cache_tokens:
             if self._cache.ring:
@@ -435,6 +580,10 @@ class ContinuousBatcher:
                     "prefix_cache_tokens does not support sliding-window models "
                     "(ring lanes wrap — a stored prefix's lanes are not "
                     "position-stable)")
+            if draft_params is not None:
+                raise ValueError(
+                    "prefix_cache_tokens with speculative serving is not supported "
+                    "(the draft cache would miss the prefix and desynchronise)")
             self._prefix_cache = _PrefixCache(prefix_cache_tokens, self.prefill_chunk,
                                               grain=self.prefill_pad_to)
         if cfg.arch == "gpt2" and max_len > cfg.max_seq_len:
@@ -455,6 +604,8 @@ class ContinuousBatcher:
         self._lock = threading.Lock()
         self._done = threading.Condition(self._lock)
         self._tokens_out = 0
+        self._spec_rounds = 0
+        self._spec_accepted = 0
         self._started = time.time()
         self._stats_window_s = float(stats_window_s)
         self._recent: collections.deque[tuple[float, int]] = collections.deque()
@@ -468,6 +619,19 @@ class ContinuousBatcher:
             raise RuntimeError(f"serving loop failed: {self.last_error}")
         if not prompt:
             raise ValueError("empty prompt")
+        if temperature > 0.0 and self._draft_params is not None:
+            raise ValueError(
+                "speculative server is greedy-only: temperature>0 requests would "
+                "desynchronise the draft cache (verify is exact only for argmax "
+                "streams); start a non-speculative server for sampling")
+        if hold_kv and self._cache.ring:
+            raise ValueError(
+                "hold_kv does not support sliding-window models (ring lanes wrap — "
+                "the held slot's lanes are not position-stable for extraction)")
+        if hold_kv and self._draft_params is not None:
+            raise ValueError(
+                "hold_kv with speculative serving is not supported (the draft cache "
+                "cannot travel on the handoff wire)")
         if hold_kv:
             raise NotImplementedError(f"hold_kv: {_DISAGG}")
         if len(prompt) + max_new_tokens > self.max_len:
@@ -486,7 +650,18 @@ class ContinuousBatcher:
             self._queue.append(req)
         return req.id
 
-    def submit_prefilled(self, *args, **kwargs) -> int:
+    def submit_prefilled(self, handoff: Any, max_new_tokens: int = 64,
+                         temperature: float = 0.0) -> int:
+        """JAX's guards, then ``NotImplementedError``: the handoff plane is
+        not ported."""
+        if self.last_error is not None:
+            raise RuntimeError(f"serving loop failed: {self.last_error}")
+        if self._cache.ring:
+            raise ValueError("submit_prefilled does not support sliding-window pools")
+        if self._draft_params is not None:
+            raise ValueError(
+                "submit_prefilled with speculative serving is not supported (the "
+                "draft cache has no wire form)")
         raise NotImplementedError(_DISAGG)
 
     def request_handoff(self, *args, **kwargs) -> None:
@@ -574,7 +749,7 @@ class ContinuousBatcher:
                 "tokens_per_sec_lifetime": round(self._tokens_out / dt, 2),
                 "chunk_steps": self.chunk_steps,
                 "sharded": False,
-                "speculative": False,
+                "speculative": self._draft_params is not None,
                 "kv_quant": self.kv_quant,
                 "held_slots": 0,
                 "queued_handoffs": 0,
@@ -583,6 +758,14 @@ class ContinuousBatcher:
             }
             if self._prefix_cache is not None:
                 out["prefix_cache"] = self._prefix_cache.stats()
+            if self._draft_params is not None:
+                out["spec_rounds"] = self._spec_rounds
+                out["spec_tokens_accepted"] = self._spec_accepted
+                out["spec_tokens_proposed"] = self._spec_rounds * (self.spec_gamma + 1)
+            if self._spec_rounds:
+                # Mean accepted tokens per round, as a share of gamma + 1.
+                out["spec_accept_rate"] = round(
+                    self._spec_accepted / (self._spec_rounds * (self.spec_gamma + 1)), 3)
             return out
 
     # -- engine side ---------------------------------------------------------
@@ -606,7 +789,11 @@ class ContinuousBatcher:
             M = max(min(-(-pad // self.prefill_chunk) * self.prefill_chunk, self.max_len), pad)
             c1 = init_cache(self.cfg, 1, M, dtype=self._compute_dtype,
                             kv_quant=self.kv_quant, device=self.device)
-        return _PrefillState(req=req, slot=slot, c1=c1, toks=toks)
+        dc1 = None
+        if self._draft_params is not None:
+            dc1 = init_cache(self._draft_cfg, 1, c1.max_len, dtype=self._compute_dtype,
+                             device=self.device)
+        return _PrefillState(req=req, slot=slot, c1=c1, toks=toks, dc1=dc1)
 
     def _advance_prefill(self, st: _PrefillState) -> bool:
         """Ingest one bounded chunk; True when the prompt is fully in and
@@ -630,6 +817,9 @@ class ContinuousBatcher:
         row = min(max(P_len - 1 - t0, 0), t1 - t0 - 1)
         last_row, st.c1 = _prefill_forward(self.params, chunk, st.c1, row, cfg=self.cfg,
                                            compute_dtype=self._compute_dtype)
+        if st.dc1 is not None:  # speculative: the draft ingests the prompt, no logits
+            _, st.dc1 = forward_with_cache(self._draft_params, chunk, st.dc1, self._draft_cfg,
+                                           compute_dtype=self._compute_dtype, want_logits=False)
         st.consumed = t1
         if self._prefix_cache is not None:
             # Insert only at the walk's last cacheable boundary (the largest
@@ -646,6 +836,8 @@ class ContinuousBatcher:
         if st.consumed < st.padded:
             return False
         _insert_prefill(self._cache, st.c1, st.slot, P_len)
+        if st.dc1 is not None:
+            _insert_prefill(self._draft_cache, st.dc1, st.slot, P_len)
         self._last_tokens[st.slot] = st.req.prompt[-1]
         return True
 
@@ -698,15 +890,41 @@ class ContinuousBatcher:
             return produced
 
         active = np.zeros((self.max_slots,), bool)
-        temps = np.zeros((self.max_slots,), np.float32)
-        req_ids = np.zeros((self.max_slots,), np.int64)
-        counts = np.zeros((self.max_slots,), np.int64)
-        for i, r in active_reqs:
-            active[i], temps[i], req_ids[i], counts[i] = True, r.temperature, r.id, len(r.tokens)
+        for i, _ in active_reqs:
+            active[i] = True
 
         def dev(a):
             return torch.from_numpy(a).to(self.device)
 
+        if self._draft_params is not None:
+            # Speculative: each round emits 1..gamma+1 tokens per slot (greedy
+            # only, by the submit guard).
+            tgt, n_acc, self._cache, self._draft_cache = speculative_round(
+                self.params, self._draft_params, dev(self._last_tokens), self._cache,
+                self._draft_cache, dev(active), self.cfg, self._draft_cfg, self.spec_gamma,
+                self._compute_dtype)
+            host = torch.cat([tgt, n_acc[:, None]], dim=1).cpu().numpy()  # one copy a round
+            with self._lock:
+                emitted = 0
+                for slot, req in active_reqs:
+                    if self._slots[slot] is not req:
+                        continue
+                    n = int(host[slot, -1])
+                    self._spec_rounds += 1
+                    self._spec_accepted += n
+                    for t in host[slot, :n]:
+                        self._emit(req, slot, int(t))
+                        emitted += 1
+                        if req.status != "running":
+                            break  # the slot is reset; surplus accepted tokens dropped
+                self._note_tokens(emitted)
+            return produced + emitted
+
+        temps = np.zeros((self.max_slots,), np.float32)
+        req_ids = np.zeros((self.max_slots,), np.int64)
+        counts = np.zeros((self.max_slots,), np.int64)
+        for i, r in active_reqs:
+            temps[i], req_ids[i], counts[i] = r.temperature, r.id, len(r.tokens)
         toks, self._cache = decode_chunk(
             self.params, dev(self._last_tokens), self._cache, dev(active), dev(temps),
             dev(req_ids), dev(counts), self.seed, self.cfg, self.chunk_steps,
@@ -762,6 +980,8 @@ class ContinuousBatcher:
             # Zero the slot's length (and ring positions): its overshoot
             # lanes become invisible and admission reuses it cleanly.
             _reset_slot(self._cache, slot)
+            if self._draft_cache is not None:
+                _reset_slot(self._draft_cache, slot)
             self._done.notify_all()
 
     def serve_forever(self, stop: threading.Event, idle_sleep: float = 0.01):
@@ -835,6 +1055,6 @@ def _reset_slot(cache: SlotCache, slot: int) -> SlotCache:
 
 
 __all__ = [
-    "SlotCache", "init_slot_cache", "decode_step", "decode_chunk", "Request",
-    "ContinuousBatcher",
+    "SlotCache", "init_slot_cache", "decode_step", "decode_chunk", "decode_verify",
+    "speculative_round", "Request", "SpecGeometryError", "ContinuousBatcher",
 ]

@@ -13,8 +13,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    K2 and K3 at D 64 and 128; ``flash_bwd_dq_d256_sm90``,
    ``flash_bwd_dkv_d256_sm90``: K2 and K3 at D 256) are built from wgmma and
    TMA loads (``HGMMA``, ``UTMALDG`` in their SASS), spill nothing, and keep
-   ``setmaxnreg`` (no ptxas C7508 warning); report the registers and spills
-   of the D 256 kernels that remain on ``flash_attention.cu`` (fp32 K1-K3);
+   ``setmaxnreg`` (no ptxas C7508 warning); that the fp32 K1 and K3
+   (``flash_f32_tc.cu``, split TF32, every head dim, causal and not) are
+   built from TF32 ``mma.sync`` (``F32_TC_HMMA`` in their SASS, and no other
+   HMMA) and spill nothing; report the registers and spills of the fp32 K2
+   at D 256, which remains on ``flash_attention.cu``;
 2. kernels: hold each kernel to its plain PyTorch version at the training
    shape (B·H 4·16, S 2048, D 128, bf16), the non-causal kernels at the
    ring shard's shape (B·H 16, S 2048, D 128), on small fp32 cases with
@@ -29,12 +32,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    (``scaled_dot_product_attention`` for K1, the flash-attention backward
    op for K2 + K3; timed only, never called by the port), the causal
    kernels also at the ring shard, and the D 256 kernels at gemma-2b's
-   shape; hold and time the kernels no main path launches
-   (``flash_attention.cu``: fp32 K1-K3 at D 128 and 256, bf16 at D 32) at
-   ``train``'s and ``train_gemma``'s shapes;
+   shape; hold and time the kernels the bf16 paths do not launch
+   (``OFF_PATH``: fp32 K1-K3 causal at D 128 and 256 and non-causal at the
+   ring shard, bf16 at D 32), fp32 K3 also to bitwise-equal results when
+   run twice, fp32 bounds at the split-TF32 rate and at the FMA rate, and the
+   K2 + K3 pair beside the library's backward (memory-efficient in fp32,
+   flash in bf16);
 3. model: a small llama, gpt2-124m, and qwen3-4b and gemma-2b at full width
    and 2 layers, through the flash kernels against the plain attention
-   path, in fp32 and in bf16 compute; head: the LM head's backward against fp32 products;
+   path, in fp32 and in bf16 compute (gemma-2b's fp32 flash pass, forward
+   and backward, is the path whose launches the fp32 D 256 rows read);
+   head: the LM head's backward against fp32 products;
 4. train: a llama-1b training step at full width (seq 2048, bf16 compute,
    fp32 masters, AdamW, activation checkpointing, attention "auto"), with the
    kernel launch counts read around the run;
@@ -45,19 +53,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    kernel checked exactly; then the same steps with flash attention, to
    which the ring's losses, gradient norm and (in fp32 compute) initial
    gradients are held;
-7. train_gemma: gemma-2b at full width and depth (seq 2048 × 4, bf16
+7. train_fp32: ``train_ring``'s llama-1b ring in fp32 compute
+   (``TrainConfig(precision="fp32")``, TF32 off): every attention call on
+   the fp32 kernels, the split-TF32 K1 and K3 causal and non-causal, with
+   the launch counts checked exactly; train_tiny: qwen-tiny (D 32 heads) in
+   bf16, the bf16 D 32 kernels, launch counts checked exactly;
+8. train_gemma: gemma-2b at full width and depth (seq 2048 × 4, bf16
    compute, fp32 masters, AdamW, checkpointing, flash attention through the
    D 256 kernels, loss chunks of 256 over the 256000-token vocabulary),
    with the launch counts checked exactly and the first loss held to the
    plain attention path's on the same weights and batch;
-8. generate: llama-1b inference (seed-0 weights cast once to bf16):
+9. generate: llama-1b inference (seed-0 weights cast once to bf16):
    ``generate`` at batch 4, prompt 512, 128 new tokens, greedy, its cached
    logits held to the port's forward (bf16, and fp32 with TF32 off) and its
    streams teacher-forced through forward; ``speculative_generate`` at
    batch 1 with a 2-layer draft, its rounds reported;
-9. generate_gemma: the same for gemma-2b at batch 4, prompt 512, 64 new
+10. generate_gemma: the same for gemma-2b at batch 4, prompt 512, 64 new
    tokens (no speculative run);
-10. serve: ``ContinuousBatcher`` (8 slots of 2048 lanes, prefill chunk 256,
+11. serve: ``ContinuousBatcher`` (8 slots of 2048 lanes, prefill chunk 256,
    8 tokens a dispatch, prefix cache of 1024 tokens) on a ``serve_forever``
    thread, 16 requests (prompts 32-1536, four sharing a 512-token prefix,
    four sampled), with the bf16 pool, the int8 pool and the bf16 pool again:
@@ -66,7 +79,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    identical; TTFT, decode tokens/s, one decode dispatch timed and profiled.
    The serving path runs no kernel of the port: its attention is plain
    batched products over the cache, as in JAX;
-11. serve_spec: the same batcher with a draft model (``spec_gamma`` 4, no
+12. serve_spec: the same batcher with a draft model (``spec_gamma`` 4, no
    prefix cache), serving ``serve``'s 16 prompts, all greedy, with the
    2-layer draft of ``generate`` and with llama-1b as its own draft: every
    request done and no slot left busy in either pool, streams
@@ -74,14 +87,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    SPEC_ACCEPT_MIN, and both pools on the accepted frontier after each of
    8 rounds driven directly; rounds, acceptance, TTFT and decode tokens/s
    beside the plain batcher's;
-12. hf_bridge: llama-1b's bf16 weights through ``to_hf_llama`` and
+13. hf_bridge: llama-1b's bf16 weights through ``to_hf_llama`` and
    ``from_hf_llama`` on the card, bitwise equal, and forward's logits on a
    512-token prompt bitwise equal before and after.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results (``launches`` per training step, summed over ``train``
-and ``train_ring`` for the D 16-128 kernels and from ``train_gemma`` for the
-D 256 ones; ``launches_by_path`` per step of each), and as the last line
+and ``train_ring`` for the bf16 D 128 kernels, from ``train_gemma`` for the
+bf16 D 256 ones, and over each ``OFF_PATH`` row's paths for the others;
+``launches_by_path`` per step of each; every row must have launched), and
+as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -101,6 +116,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 (tensor cores)
+# An fp32-accurate product on the tensor cores is three TF32 products (split
+# TF32, csrc/tf32_split.cuh): the least time any fp32 kernel could take.
+PEAK_SPLIT_TF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 
 # Tolerances: kernel against its plain version on the same inputs. Each
@@ -262,12 +281,31 @@ SOURCE_D256 = {
     "flash_bwd_dkv": "tpu_engine_torch/csrc/flash_bwd_dkv_d256_sm90.cu",
 }
 GEMMA_SHAPE = (4, 8, 2048, 256)  # gemma-2b's attention in train_gemma: B, H, S, D
-# The kernels of csrc/flash_attention.cu, which no main path launches (every
-# main path runs bf16 at D 64, 128 or 256): (row suffix, B·H, D, dtype),
-# timed causal at S 2048, at train's B·H for D 128 and 32 and at
-# train_gemma's for D 256.
-OFF_PATH = (("fp32_d128", 64, 128, "fp32"), ("fp32_d256", 32, 256, "fp32"),
-            ("bf16_d32", 64, 32, "bf16"))
+# The kernels the bf16 training paths (train, train_ring, train_gemma) do not
+# launch: fp32 K1-K3 (TrainConfig(precision="fp32") and every fp32 check)
+# and bf16 at D 32 (the tiny configs' heads). (row suffix, B·H, D, dtype,
+# causal, the paths whose launches the row reads), timed at S 2048: causal
+# at train's B·H for D 128 and 32 and at train_gemma's for D 256,
+# non-causal at the ring shard's.
+OFF_PATH = (("fp32_d128", 64, 128, "fp32", True, ("train_fp32",)),
+            ("fp32_d256", 32, 256, "fp32", True, ("model_fp32_gemma",)),
+            ("fp32_d128_full", 16, 128, "fp32", False, ("train_fp32",)),
+            ("bf16_d32", 64, 32, "bf16", True, ("train_tiny",)))
+# The source of each OFF_PATH kernel, by dtype: fp32 K1 and K3 are the
+# split-TF32 kernels; fp32 K2 and bf16 at D 32 are flash_attention.cu's.
+SOURCE_OFF_PATH = {
+    ("fp32", "flash_fwd"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
+    ("fp32", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_attention.cu",
+    ("fp32", "flash_bwd_dkv"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
+    ("bf16", "flash_fwd"): "tpu_engine_torch/csrc/flash_attention.cu",
+    ("bf16", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_attention.cu",
+    ("bf16", "flash_bwd_dkv"): "tpu_engine_torch/csrc/flash_attention.cu",
+}
+# The split-TF32 kernels' symbol and its instantiations (K1 and K3, head dims
+# 16-256, causal and not), and the SASS of a TF32 mma.sync m16n8k8: every
+# HMMA of those kernels must be one.
+F32_TC_KERNELS = {"flash_fwd_f32_tc": 10, "flash_bwd_dkv_f32_tc": 10}
+F32_TC_HMMA = "HMMA.1688.F32.TF32"
 # The Hopper kernels' symbols and their instantiations (head dims x causal
 # and not): K1 at D 64, 128 and 256; K2 and K3 at 64 and 128; K2 and K3 at
 # 256.
@@ -391,29 +429,11 @@ def check_sm90_sass(fc) -> dict:
     return out
 
 
-def _ptxas_table(log: str) -> dict:
-    """Registers and spilled bytes (stores + loads) of every kernel in the
-    build's ``-Xptxas -v`` output, keyed by its mangled name."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
-        if m:
-            name = m.group(1)
-        elif name:
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            regs = re.search(r"Used (\d+) registers", line)
-            if spill:
-                out.setdefault(name, {})["spill_bytes"] = int(spill[1]) + int(spill[2])
-            if regs:
-                out.setdefault(name, {})["registers"] = int(regs[1])
-    return out
-
-
-def check_ptxas(log: str) -> dict:
+def check_ptxas(fc, log: str) -> dict:
     """Registers and spilled bytes of every Hopper kernel, from the build's
     ``-Xptxas -v`` output. Raises if one spills or if ptxas ignored a
     ``setmaxnreg`` (warning C7508)."""
-    out = {n: v for n, v in _ptxas_table(log).items() if any(k in n for k in SM90_KERNELS)}
+    out = {n: v for n, v in fc.ptxas_table(log).items() if any(k in n for k in SM90_KERNELS)}
     spills = {n: v for n, v in out.items() if v.get("spill_bytes")}
     if spills or "C7508" in log:
         raise AssertionError(f"Hopper kernels spill {spills} or ignore setmaxnreg (C7508: "
@@ -421,21 +441,54 @@ def check_ptxas(log: str) -> dict:
     return out
 
 
-def check_ptxas_d256(log: str) -> dict:
-    """Registers and spilled bytes of each D 256 instantiation left on
-    flash_attention.cu (the fp32 K1-K3; the Hopper kernels are gated by
-    ``check_ptxas``), keyed ``<kernel><256, causal|full>``. Reported, not
-    gated: a spill costs time, not correctness."""
-    out = {}
-    for name, v in _ptxas_table(log).items():
-        k = re.search(r"\d+(flash_\w+?)ILi256ELb([01])E", name)
-        if k and "sm90" not in k[1]:
-            out[f"{k[1]}<256, {'causal' if k[2] == '1' else 'full'}>"] = v
-    if len(out) != 6:  # fp32 K1, K2, K3 x causal, full
-        raise AssertionError(f"want 6 D 256 instantiations in the ptxas log, found {out}")
-    for n, v in sorted(out.items()):
-        print(f"ptxas D 256: {n}: {v.get('registers')} registers, "
+def _instantiation(name: str):
+    """(kernel, head dim, causal) of a mangled ``flash_*<D, kCausal>`` name,
+    or None."""
+    k = re.search(r"\d+(flash_\w+?)ILi(\d+)ELb([01])E", name)
+    return (k[1], int(k[2]), k[3] == "1") if k else None
+
+
+def check_ptxas_f32(fc, log: str) -> dict:
+    """Registers and spilled bytes of the fp32 kernels, from the build's
+    ``-Xptxas -v`` output, keyed ``<kernel><D, causal|full>``: the
+    split-TF32 K1 and K3 (``F32_TC_KERNELS``, every head dim), gated (each
+    instantiation present, none spills), and the fp32 K2 at D 256 left on
+    flash_attention.cu, reported only (a spill there costs time, not
+    correctness)."""
+    out, f32_k2 = {}, {}
+    for inst, v in sorted((_instantiation(name), v) for name, v in fc.ptxas_table(log).items()
+                          if _instantiation(name)):
+        kernel, d, causal = inst
+        label = f"{kernel}<{d}, {'causal' if causal else 'full'}>"
+        if kernel in F32_TC_KERNELS:
+            out[label] = v
+        elif kernel == "flash_bwd_dq_f32" and d == 256:
+            f32_k2[label] = v
+        else:
+            continue
+        print(f"ptxas fp32: {label}: {v.get('registers')} registers, "
               f"{v.get('spill_bytes')} bytes spilled (stores + loads)", flush=True)
+    want = sum(F32_TC_KERNELS.values())
+    spills = {n: v for n, v in out.items() if v.get("spill_bytes")}
+    if len(out) != want or spills or len(f32_k2) != 2:
+        raise AssertionError(f"split-TF32 kernels: want {want} instantiations and no spill, found "
+                             f"{out}; fp32 K2 at D 256: {f32_k2}")
+    return {"f32_tc": out, "f32_k2_d256": f32_k2}
+
+
+def check_f32_sass(fc) -> dict:
+    """Each split-TF32 kernel's instantiations (``F32_TC_KERNELS``) must
+    multiply on the tensor cores in TF32: ``F32_TC_HMMA`` in their SASS,
+    and no HMMA of another kind. Returns the counts per instantiation."""
+    out = {}
+    for symbol, want in F32_TC_KERNELS.items():
+        found = fc.sass_op_counts(symbol, (F32_TC_HMMA, "HMMA"))
+        print(f"sass {symbol}: {json.dumps(found)}", flush=True)
+        if len(found) != want or not all(n[F32_TC_HMMA] and n[F32_TC_HMMA] == n["HMMA"]
+                                         for n in found.values()):
+            raise AssertionError(f"{symbol}: want {want} instantiations whose every HMMA is "
+                                 f"{F32_TC_HMMA}, found {found}")
+        out.update(found)
     return out
 
 
@@ -507,22 +560,48 @@ def check_bwd_edges(fc) -> dict:
 
 
 def _library_bwd_ms(q, k, v, do, shape, causal: bool):
-    """Time of the library's flash-attention backward (dq, dk, dv) on the
-    outputs of its own forward, same data, [B, H, S, D] views; or None with
-    the reason when this torch has no such op."""
+    """Time of the library's attention backward (dq, dk, dv) on the outputs
+    of its own forward, same data, [B, H, S, D] views: the flash op in bf16;
+    in fp32 the memory-efficient op (the one SDPA takes in fp32), reached
+    through autograd of SDPA held to that backend, since the op's attn_bias
+    argument cannot be left undefined from Python. None with the reason
+    when this torch refuses. Timed only."""
     import torch
+    import torch.nn.functional as F
 
-    fwd = torch.ops.aten._scaled_dot_product_flash_attention
-    bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
     try:
         ql, kl, vl, dol = (x.view(*shape) for x in (q, k, v, do))
-        o, lse, cq, ck, mq, mk, seed, offset = fwd(ql, kl, vl, 0.0, causal, False)[:8]
-        ms = _device_ms(lambda: bwd(dol, ql, kl, vl, o, lse, cq, ck, mq, mk, 0.0, causal, seed,
-                                    offset))
+        if q.dtype == torch.float32:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            xs = [x.detach().requires_grad_(True) for x in (ql, kl, vl)]
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                out = F.scaled_dot_product_attention(*xs, is_causal=causal)
+            ms = _device_ms(lambda: torch.autograd.grad(out, xs, dol, retain_graph=True))
+            bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+        else:
+            fwd = torch.ops.aten._scaled_dot_product_flash_attention
+            bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+            o, lse, cq, ck, mq, mk, seed, offset = fwd(ql, kl, vl, 0.0, causal, False)[:8]
+            ms = _device_ms(lambda: bwd(dol, ql, kl, vl, o, lse, cq, ck, mq, mk, 0.0, causal,
+                                        seed, offset))
         return ms, str(bwd.default._schema)
     except (RuntimeError, TypeError, AttributeError) as e:
         print(f"library backward not timed: {e}", flush=True)
         return None, str(e)
+
+
+def _cuda_kernel_names(fn) -> list:
+    """The device kernels one call of ``fn`` runs, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
 def check_unbuilt_head_dim(fc) -> dict:
@@ -579,10 +658,15 @@ def phase_kernels(res: dict) -> None:
             (8, 256, 32, bf16, 50, True), (4, 256, 16, f32, 0, False),
             (4, 192, 16, f32, 20, True), (4, 192, 32, f32, 0, True),
             (4, 256, 32, f32, 0, False),
-            # D 256: gemma's heads (fp32: the staged kernels)
+            # D 256: gemma's heads
             (8, 512, 256, bf16, 100, True), (8, 1024, 256, bf16, 0, False),
             (2, 256, 256, f32, 0, True), (2, 192, 256, f32, 50, True),
-            (2, 320, 256, f32, 0, False)):
+            (2, 320, 256, f32, 0, False),
+            # fp32 (split TF32), so that every head dim runs causal, windowed
+            # and non-causal; windows cut K1's 32-key and K3's 16-query tiles
+            (4, 256, 16, f32, 0, True), (4, 320, 32, f32, 37, True),
+            (4, 256, 64, f32, 0, True), (2, 320, 128, f32, 100, True),
+            (2, 1024, 256, f32, 200, True), (1, 64, 128, f32, 0, False)):
         check_case(fc, bh, s, d, dtype, window, seed=1, causal=causal)
     res["fwd_edges"] = check_fwd_edges(fc)
     res["bwd_edges"] = check_bwd_edges(fc)
@@ -682,13 +766,13 @@ def phase_kernels(res: dict) -> None:
          "shape": [B * H if name in REPLACES else RB, S, D],
          "counter": name, "paths": ["train", "train_ring"]}
         for name in t
-    ] + _d256_rows(fc, res, main256, main256_full)
+    ] + _d256_rows(fc, res, main256, main256_full) + _off_path_rows(fc, res)
     res["attention_fwd_bwd"] = {"kernels_ms": ours_both, "library_ms": sdpa_both,
                                 "shape": [B, H, S, D]}
-    res["kernels_off_path"] = _off_path_rows(fc)
-    for kr in res["kernels"] + res["kernels_off_path"]:
+    for kr in res["kernels"]:
+        fma = f", FMA bound {kr['bound_fma_ms']:.4f}" if "bound_fma_ms" in kr else ""
         print(f"time {kr['name']} {kr['shape']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.3f}, "
-              f"bound {kr['bound_ms']:.4f} by {kr['bound_by']}, library {kr['library_ms']})",
+              f"bound {kr['bound_ms']:.4f} by {kr['bound_by']}{fma}, library {kr['library_ms']})",
               flush=True)
     print(f"time fwd+bwd: kernels {ours_both:.4f} ms, sdpa {sdpa_both:.4f} ms", flush=True)
     print(f"time flash_fwd (causal) {ring_causal['shape']}: {ring_causal['ms']:.4f} ms "
@@ -741,7 +825,7 @@ def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
                 "ms": _device_ms(kernel), "plain_ms": _device_ms(plain, **slow),
                 "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
                 "library_ms": library, "shape": [B * H, S, D],
-                "counter": name + suffix, "paths": ["train_gemma"]})
+                "counter": name + suffix, "paths": ["train_gemma"] if causal else []})
         lib_ms, schema = _library_bwd_ms(q, k, v, do, (B, H, S, D), causal)
         pair["causal" if causal else "full"] = {
             "kernels_ms": rows[-2]["ms"] + rows[-1]["ms"], "library_ms": lib_ms,
@@ -753,45 +837,72 @@ def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
     return rows
 
 
-def _off_path_rows(fc) -> list:
-    """The ``flash_attention.cu`` kernels (OFF_PATH), causal at S 2048: each
-    held to its plain version (:func:`check_case`) and timed beside it, its
-    bound (fp32 products at the FMA peak) and, for K1, SDPA on the same
-    data. Their rows, ``<kernel>_<suffix>``, have 0 launches on every main
-    path."""
+def _off_path_rows(fc, res: dict) -> list:
+    """The ``OFF_PATH`` kernels at S 2048: each held to its plain version
+    (:func:`check_case`) and timed beside it, its bound and, for K1, SDPA on
+    the same data; fp32 K3 run twice to bitwise-equal dK and dV; the K2 + K3
+    pair beside the library's backward (``res["backward_pair_off_path"]``);
+    and the kernels SDPA runs in fp32 (``res["sdpa_fp32_kernels"]``). fp32
+    rows are bound at the split-TF32 rate (``bound_ms``) and at the FMA rate
+    (``bound_fma_ms``). Their rows of the kernels line, ``<kernel>_<suffix>``,
+    read their launches on the row's paths."""
     import torch
     import torch.nn.functional as F
 
     S = 2048
     slow = dict(iters=3, warmup=1)
-    rows = []
-    for suffix, bh, d, kind in OFF_PATH:
+    rows, pairs = [], {}
+    for suffix, bh, d, kind, causal, paths in OFF_PATH:
         dtype = torch.float32 if kind == "fp32" else torch.bfloat16
-        errs = check_case(fc, bh, S, d, dtype, 0, seed=0)
+        errs = check_case(fc, bh, S, d, dtype, 0, seed=0, causal=causal)
         q, k, v, do = _inputs(bh, S, d, dtype, 0)
-        o, lse = fc.flash_fwd(q, k, v)
+        o, lse = fc.flash_fwd(q, k, v, causal=causal)
         bwd = (q, k, v, do, lse, fc.flash_delta(o, do))
-        bounds = kernel_bounds(bh, S, d, 0, q.element_size(),
-                               peak=PEAK_FP32_FLOPS if kind == "fp32" else PEAK_BF16_FLOPS)
+        if kind == "fp32":
+            first, second = (fc.flash_bwd_dkv(*bwd, causal=causal) for _ in range(2))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(first, second)):
+                raise AssertionError(f"fp32 K3 {suffix}: two runs on the same inputs differ")
+        bounds = kernel_bounds(bh, S, d, 0, q.element_size(), causal=causal,
+                               peak=PEAK_SPLIT_TF32_FLOPS if kind == "fp32" else PEAK_BF16_FLOPS)
+        fma = kernel_bounds(bh, S, d, 0, q.element_size(), causal=causal, peak=PEAK_FP32_FLOPS)
         ql, kl, vl = (x.view(1, bh, S, d) for x in (q, k, v))
         kernels = {
-            "flash_fwd": (lambda: fc.flash_fwd(q, k, v), lambda: fc.flash_fwd_plain(q, k, v),
+            "flash_fwd": (lambda: fc.flash_fwd(q, k, v, causal=causal),
+                          lambda: fc.flash_fwd_plain(q, k, v, causal=causal),
                           _device_ms(lambda: F.scaled_dot_product_attention(
-                              ql, kl, vl, is_causal=True)), max(errs["o"], errs["lse"])),
-            "flash_bwd_dq": (lambda: fc.flash_bwd_dq(*bwd), lambda: fc.flash_bwd_dq_plain(*bwd),
-                             None, errs["dq"]),
-            "flash_bwd_dkv": (lambda: fc.flash_bwd_dkv(*bwd),
-                              lambda: fc.flash_bwd_dkv_plain(*bwd), None,
+                              ql, kl, vl, is_causal=causal)), max(errs["o"], errs["lse"])),
+            "flash_bwd_dq": (lambda: fc.flash_bwd_dq(*bwd, causal=causal),
+                             lambda: fc.flash_bwd_dq_plain(*bwd, causal=causal), None, errs["dq"]),
+            "flash_bwd_dkv": (lambda: fc.flash_bwd_dkv(*bwd, causal=causal),
+                              lambda: fc.flash_bwd_dkv_plain(*bwd, causal=causal), None,
                               max(errs["dk"], errs["dv"])),
         }
         for name, (kernel, plain, library, err) in kernels.items():
             rows.append({
-                "name": f"{name}_{suffix}", "route": "cuda",
-                "source": "tpu_engine_torch/csrc/flash_attention.cu",
-                "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+                "name": f"{name}_{suffix}", "route": "cuda", "source": SOURCE_OFF_PATH[kind, name],
+                "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
                 "ms": _device_ms(kernel), "plain_ms": _device_ms(plain, **slow),
                 "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
-                "library_ms": library, "shape": [bh, S, d]})
+                "library_ms": library, "shape": [bh, S, d],
+                "counter": name if causal else f"{name}_full", "paths": list(paths),
+                **({"bound_fma_ms": fma[name]["bound_ms"]} if kind == "fp32" else {})})
+        lib_ms, schema = _library_bwd_ms(q, k, v, do, (1, bh, S, d), causal)
+        pairs[suffix] = {"kernels_ms": rows[-2]["ms"] + rows[-1]["ms"], "library_ms": lib_ms,
+                         "library_op": schema, "shape": [1, bh, S, d],
+                         "bound_ms": bounds["flash_bwd_dq"]["bound_ms"]
+                         + bounds["flash_bwd_dkv"]["bound_ms"]}
+        if suffix == "fp32_d128":
+            res["sdpa_fp32_kernels"] = _cuda_kernel_names(
+                lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal))
+            print(f"kernels SDPA runs in fp32: {res['sdpa_fp32_kernels']}", flush=True)
+        del q, k, v, do, o, lse, bwd
+        torch.cuda.empty_cache()
+    res["backward_pair_off_path"] = pairs
+    for key, row in pairs.items():
+        print(f"time K2+K3 {key} {row['shape']}: kernels {row['kernels_ms']:.4f} ms "
+              f"(bound {row['bound_ms']:.4f}), library {row['library_ms']}", flush=True)
     return rows
 
 
@@ -802,18 +913,24 @@ def _flash_vs_plain(cfg, tokens, bf16_rel=None) -> dict:
     and the fp32 master Wq's gradient, by relative norm error. Held: fp32
     flash to the reference within MODEL_REL["fp32"]; bf16 flash no further
     from the reference than MODEL_BF16_RATIO × bf16 plain (two roundings of
-    one function); and, with ``bf16_rel``, bf16 flash to bf16 plain."""
+    one function); and, with ``bf16_rel``, bf16 flash to bf16 plain. The
+    launch counts of each flash pass, forward and backward, are read around
+    it (``launches``)."""
     import torch
 
     from tpu_engine_torch.models import transformer as tfm
+    from tpu_engine_torch.ops import _flash_cuda as fc
 
-    out = {}
+    out, launches = {}, {}
     for impl, kind in (("xla", "fp32"), ("xla", "bf16"), ("flash", "bf16"), ("flash", "fp32")):
         dtype = torch.float32 if kind == "fp32" else torch.bfloat16
         params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+        fc.reset_launches()
         logits = tfm.forward(params, tokens, cfg.with_(attention_impl=impl),
                              compute_dtype=dtype, remat=True)
         logits.square().mean().backward()
+        if impl == "flash":
+            launches[kind] = dict(fc.launches)
         out[impl, kind] = {"logits": logits.detach(), "dWq": params["layers.q.kernel"].grad}
         del params, logits
     no_abs = dict(atol=math.inf, rtol=0.0)
@@ -838,6 +955,7 @@ def _flash_vs_plain(cfg, tokens, bf16_rel=None) -> dict:
           flush=True)
     if fails:
         raise AssertionError("; ".join(fails))
+    nums["launches"] = launches
     return nums
 
 
@@ -870,6 +988,10 @@ def phase_model(res: dict) -> None:
         tokens = torch.randint(0, acfg.vocab_size, (2, 256), generator=gen, device="cuda")
         res["model_archs"][name] = _flash_vs_plain(acfg, tokens)
         torch.cuda.empty_cache()
+    # gemma-2b's fp32 flash pass (one forward and backward at D 256) is the
+    # path of the fp32 D 256 rows of the kernels line.
+    res["model_fp32_gemma"] = {"launches": res["model_archs"]["gemma-2b"]["launches"]["fp32"],
+                               "steps": 1, "accum": 1}
 
 
 def phase_head(res: dict) -> None:
@@ -1107,6 +1229,45 @@ def phase_train_ring(res: dict, steps: int) -> None:
     if not grad_rel[worst] <= RING_PARAM_GRAD_REL:
         raise AssertionError(f"gradient of {worst}: relative norm error {grad_rel[worst]:.3e} "
                              f"> {RING_PARAM_GRAD_REL}")
+
+
+def phase_train_fp32(res: dict, steps: int) -> None:
+    """``train_ring``'s llama-1b ring (seq 8192, sequence 4, micro-batch 1)
+    in fp32 compute, ``TrainConfig(precision="fp32")`` with TF32 off: every
+    attention call runs the fp32 kernels, the split-TF32 K1 and K3 and the
+    FMA K2, causal on the diagonal hops and non-causal on the past ones.
+    The launch counts are those of ``train_ring``."""
+    import torch
+
+    from tpu_engine_torch.train import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig(model_name="llama-1b", micro_batch_size=1, gradient_accumulation_steps=1,
+                      seq_len=RING_SEQ, sequence=RING, precision="fp32", param_dtype="fp32",
+                      activation_checkpointing=True, attention_impl="auto", **TRAIN_LR)
+    L, diag, past = 16, RING, RING * (RING - 1) // 2
+    _train(res, "train_fp32", cfg, steps, "ring",
+           {"flash_fwd": 2 * L * diag, "flash_fwd_full": 2 * L * past,
+            "flash_bwd_dq": L * diag, "flash_bwd_dq_full": L * past,
+            "flash_bwd_dkv": L * diag, "flash_bwd_dkv_full": L * past})
+    torch.cuda.empty_cache()
+
+
+def phase_train_tiny(res: dict, steps: int) -> None:
+    """qwen-tiny (2 layers, heads of 32) in bf16 at seq 256 × micro-batch 8,
+    flash attention: the bf16 D 32 kernels (flash_attention.cu's mma.sync),
+    K1 twice per layer (forward and the checkpoint's recompute), K2 and K3
+    once. A tiny model learns slowly at TRAIN_LR's rate, so this one trains
+    at 1e-3 to see its loss fall at every step."""
+    from tpu_engine_torch.train import TrainConfig
+
+    cfg = TrainConfig(model_name="qwen-tiny", micro_batch_size=8, gradient_accumulation_steps=1,
+                      seq_len=256, precision="bf16", param_dtype="fp32",
+                      activation_checkpointing=True, attention_impl="auto",
+                      **dict(TRAIN_LR, learning_rate=1e-3))
+    L = 2
+    _train(res, "train_tiny", cfg, steps, "flash",
+           {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
 
 
 def phase_ring(res: dict) -> None:
@@ -1851,9 +2012,10 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "error",
                                        "warning", "setmaxnreg", "==")):
                 print(f"ptxas: {line.strip()}", flush=True)
-        res["build"]["ptxas"] = check_ptxas(log)
-        res["build"]["ptxas_d256"] = check_ptxas_d256(log)
+        res["build"]["ptxas"] = check_ptxas(fc, log)
+        res["build"]["ptxas_f32"] = check_ptxas_f32(fc, log)
         res["build"]["sass"] = check_sm90_sass(fc)
+        res["build"]["sass_f32"] = check_f32_sass(fc)
         fc._load()
 
     run("build", build)
@@ -1864,6 +2026,8 @@ def main() -> int:
         run("train", phase_train, res, args.steps)
         run("ring", phase_ring, res)
         run("train_ring", phase_train_ring, res, args.steps)
+        run("train_fp32", phase_train_fp32, res, args.steps)
+        run("train_tiny", phase_train_tiny, res, args.steps)
         run("train_gemma", phase_train_gemma, res, args.steps)
         serving: dict = {}
         run("generate", phase_generate, res, serving)
@@ -1872,16 +2036,25 @@ def main() -> int:
         run("hf_bridge", phase_hf_bridge, res, serving)
         serving.clear()
         run("generate_gemma", phase_generate_gemma, res)
-    # Launches per training step on the main paths, each counted from 0
-    # around its own run of steps x accumulation microbatches: the D 16-128
-    # kernels' on train and train_ring, the D 256 kernels' on train_gemma.
+    # Launches per training step on the paths, each counted from 0 around its
+    # own run of steps x accumulation microbatches: the bf16 D 128 kernels'
+    # on train and train_ring, the bf16 D 256 kernels' on train_gemma, each
+    # OFF_PATH row's on its own paths. A row that names paths must have
+    # launched on them; non-causal bf16 D 256 (ring attention's past hops at
+    # gemma's head dim) runs on no path and names none.
+    idle = []
     for kr in res.get("kernels", []):
         kr["launches_by_path"] = {}
-        for p in kr.pop("paths"):
+        for p in kr["paths"]:
             path = res.get(p, {})
             n = path.get("launches", {}).get(kr["counter"])
             kr["launches_by_path"][p] = None if n is None else n // (path["steps"] * path["accum"])
         kr["launches"] = sum(n or 0 for n in kr["launches_by_path"].values())
+        if kr.pop("paths") and not kr["launches"]:
+            idle.append(kr["name"])
+    if idle:
+        print(f"chip_smoke: kernels never launched on their paths: {idle}", file=sys.stderr)
+        res["failed"].append("launches")
     print(f"phases: {json.dumps(res.get('phase_s', {}))}", flush=True)
 
     out_dir = ROOT / "chiprun_out"

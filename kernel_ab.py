@@ -3,6 +3,14 @@ checkouts of the port on one card, in turns, beside the library's attention
 on the same data.
 
     python3 kernel_ab.py --base path/to/other/checkout [--rounds 2]
+    python3 kernel_ab.py --variant presplit_kv --dtype fp32
+
+With ``--variant NAME`` the base is this tree with ``VARIANTS[NAME]``, a
+text patch of one kernel source, built under ``chip_checkout/kernel_ab/``
+(git-ignored): a design measured against the one the tree keeps. With
+``--dtype fp32`` the inputs are fp32 (the split-TF32 K1 and K3, the FMA K2),
+the bounds are at the split-TF32 rate and the library's time is SDPA's
+forward only.
 
 Each checkout's ``tpu_engine_torch/ops/_flash_cuda.py`` is loaded as a module
 of its own, so each builds its own kernels from its own sources. Per round
@@ -47,6 +55,137 @@ SWEEP = {f"full_bh{bh}_s{s}": (bh, s, 128, False)
          for bh, s in ((4, 4096), (64, 1024), (256, 512))}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
+# Designs of the fp32 K1 and K3 (csrc/flash_f32_tc.cu) measured against the
+# kept ones (K1: 32-key K/V tiles, each operand split into TF32 hi and lo as
+# its fragment is loaded, each tile's P V summed into one temporary per
+# accumulator register): (source under csrc/, [(text, replacement)]).
+_KEYS16 = ("  static constexpr int kKeys = 32;",
+           "  static constexpr int kKeys = 16;")
+_PV = "        mma_split(pv[n], a, b);"
+_RESCALE = ("#pragma unroll\n    for (int n = 0; n < NO; ++n)\n#pragma unroll\n"
+            "      for (int e = 0; e < 4; ++e) "
+            "acc[n][e] = fmaf(acc[n][e], corr[e >> 1], pv[n][e]);")
+VARIANTS = {
+    # O += P V chained on the tensor cores across the whole sequence, with
+    # no fp32 additions (the sums drift, see tf32_split.cuh).
+    "k1_chained": ("flash_f32_tc.cu", [
+        ("    float pv[NO][4] = {};\n",
+         "#pragma unroll\n"
+         "    for (int n = 0; n < NO; ++n)\n"
+         "#pragma unroll\n"
+         "      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];\n"),
+        (_PV, "        mma_split(acc[n], a, b);"),
+        (_RESCALE, ""),
+    ]),
+    # Each 8 keys' products summed from zero and added to O in fp32.
+    "k1_kstep_sum": ("flash_f32_tc.cu", [
+        (_PV, "        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
+                 "        mma_split(d, a, b);\n"
+                 "#pragma unroll\n"
+                 "        for (int e = 0; e < 4; ++e) pv[n][e] += d[e];"),
+    ]),
+    # K3: each streamed tile's products summed into one temporary per
+    # accumulator register (queries outer), where the kept design sums the
+    # tile per 8 columns of output (columns outer) in four registers.
+    "k3_tile_sums": ("flash_f32_tc.cu", [(
+        """    SplitA xa[NQ];
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) acc_to_a(xa[kk], x[kk]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
+        SplitB b;
+        load_b_permuted(b, Ct + kk * 8 * LD + n * 8, LD, g, t);
+        mma_split(d, xa[kk], b);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += d[e];
+    }""",
+        """    float d[NO][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      SplitA xa;
+      acc_to_a(xa, x[kk]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        SplitB b;
+        load_b_permuted(b, Ct + kk * 8 * LD + n * 8, LD, g, t);
+        mma_split(d[n], xa, b);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += d[n][e];""")]),
+    # 16-key K/V tiles, still split at each fragment load.
+    "keys16": ("flash_f32_tc.cu", [_KEYS16]),
+    # 16-key K/V tiles (so that two CTAs still fit an SM at D 128), each
+    # split once into hi (in place) and lo (a buffer of its own) after it
+    # lands; the fragments then load hi and lo with no arithmetic.
+    "presplit_kv": ("flash_f32_tc.cu", [
+        _KEYS16,
+        ("kSmemFwd = kTile + 4 * sizeof(float) * kKeys * LD + kXchFwd;",
+         "kSmemFwd = kTile + 6 * sizeof(float) * kKeys * LD + kXchFwd;"),
+        ("  float* xch = Vs + 2 * T::kKeys * LD;",
+         "  float* Klo = Vs + 2 * T::kKeys * LD;\n"
+         "  float* Vlo = Klo + T::kKeys * LD;\n"
+         "  float* xch = Vlo + T::kKeys * LD;"),
+        ("    const float* Vt = Vs + st * T::kKeys * LD + c0;",
+         "    {\n"
+         "      uint32_t* kh = reinterpret_cast<uint32_t*>(Ks + st * T::kKeys * LD);\n"
+         "      uint32_t* vh = reinterpret_cast<uint32_t*>(Vs + st * T::kKeys * LD);\n"
+         "      for (int idx = tid; idx < T::kKeys * LD; idx += T::kFwdThreads) {\n"
+         "        const float x = __uint_as_float(kh[idx]), y = __uint_as_float(vh[idx]);\n"
+         "        kh[idx] = tf32_rna(x);\n"
+         "        reinterpret_cast<uint32_t*>(Klo)[idx] = tf32_rna(x - __uint_as_float(kh[idx]));\n"
+         "        vh[idx] = tf32_rna(y);\n"
+         "        reinterpret_cast<uint32_t*>(Vlo)[idx] = tf32_rna(y - __uint_as_float(vh[idx]));\n"
+         "      }\n"
+         "    }\n"
+         "    __syncthreads();\n"
+         "    const float* Vt = Vs + st * T::kKeys * LD + c0;\n"
+         "    const float* Ktl = Klo + c0;\n"
+         "    const float* Vtl = Vlo + c0;"),
+        ("        load_b_rows(b, Kt + n * 8 * LD + kk * 8, LD, g, t);",
+         "        {\n"
+         "          const int e = n * 8 * LD + kk * 8 + g * LD + t;\n"
+         "          b.hi[0] = __float_as_uint(Kt[e]);\n"
+         "          b.hi[1] = __float_as_uint(Kt[e + 4]);\n"
+         "          b.lo[0] = __float_as_uint(Ktl[e]);\n"
+         "          b.lo[1] = __float_as_uint(Ktl[e + 4]);\n"
+         "        }"),
+        ("        load_b_permuted(b, Vt + kk * 8 * LD + n * 8, LD, g, t);",
+         "        {\n"
+         "          const int e = (kk * 8 + 2 * t) * LD + n * 8 + g;\n"
+         "          b.hi[0] = __float_as_uint(Vt[e]);\n"
+         "          b.hi[1] = __float_as_uint(Vt[e + LD]);\n"
+         "          b.lo[0] = __float_as_uint(Vtl[e]);\n"
+         "          b.lo[1] = __float_as_uint(Vtl[e + LD]);\n"
+         "        }"),
+    ]),
+}
+
+
+def _variant_tree(name: str) -> Path:
+    """A copy of this tree's package with ``VARIANTS[name]`` applied."""
+    import shutil
+
+    tree = ROOT / "chip_checkout" / "kernel_ab" / name
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(ROOT / "tpu_engine_torch", tree / "tpu_engine_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    source, patches = VARIANTS[name]
+    src = tree / "tpu_engine_torch" / "csrc" / source
+    text = src.read_text()
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise AssertionError(f"{name}: {old!r} occurs {text.count(old)} times")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return tree
+
 
 def _load(tree: Path, name: str):
     spec = importlib.util.spec_from_file_location(
@@ -76,7 +215,12 @@ def _device_ms(fn, iters: int = 20) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--base", type=Path, required=True, help="the other checkout's root")
+    which = ap.add_mutually_exclusive_group(required=True)
+    which.add_argument("--base", type=Path, help="the other checkout's root")
+    which.add_argument("--variant", choices=sorted(VARIANTS),
+                       help="this tree with a design variant's patch as the base")
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--sweep", action="store_true", help="also the shapes of SWEEP")
     args = ap.parse_args()
@@ -91,12 +235,17 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    trees = {"base": _load(args.base.resolve(), "flash_base"), "this": _load(ROOT, "flash_this")}
+    base = args.base.resolve() if args.base else _variant_tree(args.variant)
+    trees = {"base": _load(base, "flash_base"), "this": _load(ROOT, "flash_this")}
+    fp32 = args.dtype == "fp32"
+    torch.backends.cuda.matmul.allow_tf32 = False
     data = {}
     for key, (bh, s, d, causal) in shapes.items():
         g = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v, do = (torch.randn((bh, s, d), generator=g, device="cuda").bfloat16()
+        q, k, v, do = (torch.randn((bh, s, d), generator=g, device="cuda")
                        for _ in range(4))
+        if not fp32:
+            q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
         o, lse = trees["this"].flash_fwd(q, k, v, 0, causal)
         data[key] = (q, k, v, do, lse, trees["this"].flash_delta(o, do))
 
@@ -118,15 +267,20 @@ def main() -> int:
         return lambda: bwd(do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
 
     bwd_keys = [key for key in shapes if key in SHAPES]  # the backward at the main shapes
-    jobs = [(kn, key) for key in shapes for kn in KERNELS if kn == "flash_fwd" or key in bwd_keys]
-    from chip_smoke import kernel_bounds
+    jobs = [(kn, key) for key in shapes for kn in args.kernels
+            if kn == "flash_fwd" or key in bwd_keys]
+    from chip_smoke import PEAK_BF16_FLOPS, PEAK_SPLIT_TF32_FLOPS, kernel_bounds
 
-    out = {"card": card, "ms": {t: {f"{kn}/{key}": [] for kn, key in jobs} for t in trees},
-           "bound_ms": {f"{kn}/{key}": kernel_bounds(bh, s, d, 0, 2, causal)[kn]["bound_ms"]
+    peak = PEAK_SPLIT_TF32_FLOPS if fp32 else PEAK_BF16_FLOPS
+    out = {"card": card, "dtype": args.dtype, "base": str(args.base or args.variant),
+           "ms": {t: {f"{kn}/{key}": [] for kn, key in jobs} for t in trees},
+           "bound_ms": {f"{kn}/{key}": kernel_bounds(bh, s, d, 0, 4 if fp32 else 2, causal,
+                                                     peak)[kn]["bound_ms"]
                         for kn, key in jobs for bh, s, d, causal in [shapes[key]]}}
-    # sdpa: the forward; flash_bwd: dq, dk and dv together.
+    # sdpa: the forward; flash_bwd: dq, dk and dv together (bf16 only: the
+    # flash op takes no fp32).
     out["ms"]["library"] = {f"{op}/{key}": [] for op in ("sdpa", "flash_bwd") for key in shapes
-                            if op == "sdpa" or key in bwd_keys}
+                            if op == "sdpa" or (key in bwd_keys and not fp32)}
     for _ in range(args.rounds):
         for tree in ("base", "this", "this", "base"):
             for kn, key in jobs:

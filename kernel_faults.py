@@ -1,7 +1,8 @@
-"""Plant faults in the head-dim-256 flash-attention kernels on one card and
-read what the kernel checks of ``chip_smoke.py`` measure for each, beside the
-sound kernels in the same run. The D 256 limits there (``REL["bf16"]``, the
-relative norm error against the plain version) are set from these readings.
+"""Plant faults in the flash-attention kernels on one card and read what the
+kernel checks of ``chip_smoke.py`` measure for each, beside the sound kernels
+in the same run. The limits there (``REL``, the relative norm error against
+the plain version: ``REL["bf16"]`` at D 256, ``REL["fp32"]`` for the
+split-TF32 fp32 kernels) are set from these readings.
 
     python3 kernel_faults.py
 
@@ -18,14 +19,22 @@ module of its own, as ``kernel_ab.py`` loads a second tree:
   registers) scales dQ's rows of the later half by 0.97;
 - ``dkv_drop_q_tile``: K3 (``flash_bwd_dkv_d256_sm90.cu``) zeroes P^T of the
   last Q tile that each owned key tile sees, so that tile's contributions
-  to dV and, through dS^T, to dK are lost.
+  to dV and, through dS^T, to dK are lost;
+- ``f32_one_pass``: the fp32 K1 and K3 (``flash_f32_tc.cu``) keep only the
+  hi·hi term of each split-TF32 product (``tf32_split.cuh``): plain TF32;
+- ``f32_dkv_drop_q_tile``: the fp32 K3 zeroes P^T of the last streamed Q
+  tile (16 queries) that each owned key tile sees, so that tile's
+  contributions to dV and, through dS^T, to dK are lost.
 
-Each is run at gemma-2b's training shape (B·H 4·8, S 2048, D 256, bf16,
-causal) on the same inputs, with ``chip_smoke.check_case``'s plain
-references: K1 against the plain forward, K2 and K3 on the plain forward's
-lse and Δ. Prints the card's name and power limit, one line per fault with
-the relative norm error and max |error| of o, dq, dk and dv, and one JSON
-line, also written to ``chiprun_out/kernel_faults.json``.
+The bf16 faults (and the sound tree) are read at gemma-2b's training shape
+(B·H 4·8, S 2048, D 256, bf16, causal), the fp32 ones (and the sound tree)
+at ``chip_smoke.OFF_PATH``'s causal fp32 shapes (S 2048: D 128 at B·H 64,
+D 256 at B·H 32), each on the same inputs for every tree, with
+``chip_smoke.check_case``'s plain references (TF32 off): K1 against the
+plain forward, K2 and K3 on the plain forward's lse and Δ. Prints the
+card's name and power limit, one line per fault and shape with the relative
+norm error and max |error| of o, dq, dk and dv, and one JSON line, also
+written to ``chiprun_out/kernel_faults.json``.
 """
 
 from __future__ import annotations
@@ -38,11 +47,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "chip_checkout" / "kernel_faults"
-SHAPE = (32, 2048, 256)  # gemma-2b: B·H 4·8, S 2048, D 256
+# The shapes (B·H, S, D) each kind of fault is read at: gemma-2b's training
+# shape in bf16; chip_smoke.OFF_PATH's fp32 rows.
+SHAPES = {"bf16": ((32, 2048, 256),), "fp32": ((64, 2048, 128), (32, 2048, 256))}
 
-# (fault, [(source under csrc/, text in it, replacement)]): each replacement
-# changes the D 256 instantiations only (K1's register epilogue and the K2
-# and K3 files serve D 256 alone).
+# (fault, [(source under csrc/, text in it, replacement)]): the bf16 ones
+# change the D 256 instantiations only (K1's register epilogue and the K2
+# and K3 files serve D 256 alone); the fp32 ones change flash_f32_tc.cu's
+# kernels, which serve fp32 alone.
 FAULTS = {
     "sound": [],
     "o_rows_097": [(
@@ -59,7 +71,23 @@ FAULTS = {
         "flash_bwd_dkv_d256_sm90.cu",
         "              s[x] = p;",
         "              s[x] = i == hi ? 0.0f : p;")],
+    "f32_one_pass": [(
+        "tf32_split.cuh",
+        "  mma_tf32(c, a.lo, b.hi);\n  mma_tf32(c, a.hi, b.lo);\n  mma_tf32(c, a.hi, b.hi);",
+        "  mma_tf32(c, a.hi, b.hi);")],
+    "f32_dkv_drop_q_tile": [(
+        "flash_f32_tc.cu",
+        "        if (masked && !visible(q0 + qi, kpos + 8 * (e >> 1), window)) p = 0.0f;",
+        "        if ((masked && !visible(q0 + qi, kpos + 8 * (e >> 1), window)) || u == u_hi)"
+        " p = 0.0f;")],
 }
+
+
+def _kind(fault: str) -> tuple[str, ...]:
+    """The shapes' kinds a fault is read at: the sound tree at all."""
+    if fault == "sound":
+        return tuple(SHAPES)
+    return ("fp32",) if fault.startswith("f32_") else ("bf16",)
 
 
 def _tree(fault: str) -> Path:
@@ -128,12 +156,23 @@ def main() -> int:
 
     with ThreadPoolExecutor(len(trees)) as pool:
         list(pool.map(build, trees))
-    q, k, v, do = cs._inputs(*SHAPE, torch.bfloat16, seed=0)
-    res = {"card": card, "shape": list(SHAPE), "bound_rel": cs.REL["bf16"], "readings": {}}
-    for fault, fc in mods.items():
-        r = res["readings"][fault] = _readings(fc, mods["sound"], q, k, v, do)
-        print(f"{fault}: " + " ".join(f"{n} rel {e['rel']:.3e} max {e['max_abs']:.3e}"
-                                      for n, e in r.items()), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"card": card, "shapes": SHAPES, "bound_rel": cs.REL, "readings": {}}
+    for kind, shapes in SHAPES.items():
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        for shape in shapes:
+            q, k, v, do = cs._inputs(*shape, dtype, seed=0)
+            label = f"{kind} bh{shape[0]} s{shape[1]} d{shape[2]}"
+            for fault, fc in mods.items():
+                if kind not in _kind(fault):
+                    continue
+                r = _readings(fc, mods["sound"], q, k, v, do)
+                res["readings"].setdefault(fault, {})[label] = r
+                print(f"{fault} {label}: " + " ".join(
+                    f"{n} rel {e['rel']:.3e} max {e['max_abs']:.3e}" for n, e in r.items()),
+                    flush=True)
+            del q, k, v, do
+            torch.cuda.empty_cache()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "kernel_faults.json").write_text(json.dumps(res, indent=1))

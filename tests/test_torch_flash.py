@@ -221,8 +221,9 @@ def test_library_path_is_keyed_on_the_sources():
     assert _flash_cuda.library_path() == path
     assert {src.name for src in _flash_cuda.SOURCES} == {
         "flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-        "flash_bwd_dq_d256_sm90.cu", "flash_bwd_dkv_d256_sm90.cu"}
-    assert {src.name for src in _flash_cuda.HEADERS} == {"sm90.cuh"}
+        "flash_bwd_dq_d256_sm90.cu", "flash_bwd_dkv_d256_sm90.cu", "flash_f32_tc.cu"}
+    assert {src.name for src in _flash_cuda.HEADERS} == {
+        "sm90.cuh", "flash_common.cuh", "tf32_split.cuh"}
     assert all(src.exists() for src in (*_flash_cuda.SOURCES, *_flash_cuda.HEADERS))
 
 

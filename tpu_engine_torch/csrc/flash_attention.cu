@@ -57,16 +57,13 @@
 //   K3 at D 64 and 128       -> flash_bwd_sm90.cu;
 //   K2 at D 256              -> flash_bwd_dq_d256_sm90.cu;
 //   K3 at D 256              -> flash_bwd_dkv_d256_sm90.cu.
-// What is left here, with no fallback from the Hopper kernels to it:
-//   fp32 K1, K2 and K3 at every D (the checking path; staged at D 256,
-//     see the fp32 section);
-//   bf16 K1 and K3 at D 16 and 32 (the tiny configs' heads);
-//   bf16 K2 at D 16 and 32.
-// None of them runs on a full-width main path.
-//
-// fp32 keeps the same tiling with plain fp32 FMA loops over tiles staged in
-// shared memory (never TF32), so that the fp32 bounds hold; that path is for
-// checking, not speed.
+// Every fp32 K1 and K3 goes to flash_f32_tc.cu, on the tensor cores in
+// split TF32 (each product three TF32 products, so that the fp32 bounds
+// hold; a single TF32 product would not).
+// What is left here, with no fallback from those kernels to it:
+//   bf16 K1, K2 and K3 at D 16 and 32 (the tiny configs' heads);
+//   fp32 K2 at every D, plain fp32 FMA loops over tiles staged in shared
+//     memory (never TF32); staged at D 256, see the fp32 section.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,6 +71,8 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "flash_common.cuh"
 
 // The Hopper kernels: K1 for bf16 at D 64, 128 and 256 (flash_fwd_sm90.cu),
 // K2 and K3 at D 64 and 128 (flash_bwd_sm90.cu), K2 and K3 at D 256
@@ -97,41 +96,20 @@ extern "C" int tpe_flash_bwd_dkv_d256_sm90(const void* q, const void* k, const v
                                            const void* dout, const void* lse, const void* delta,
                                            void* dk, void* dv, void* counters, int bh, int s,
                                            int window, int causal, void* stream);
+// fp32 K1 and K3 on the tensor cores in split TF32 (flash_f32_tc.cu).
+extern "C" int tpe_flash_fwd_f32_tc(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, int bh, int s, int d, int window, int causal,
+                                    void* stream);
+extern "C" int tpe_flash_bwd_dkv_f32_tc(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* lse, const void* delta,
+                                        void* dk, void* dv, int bh, int s, int d, int window,
+                                        int causal, void* stream);
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlock = 64;      // rows of a Q or K tile
-constexpr int kThreads = 128;   // four warps, 16 tile rows each
-constexpr float kNegInf = -1e30f;
-constexpr float kM2Floor = -1e6f;  // running-max floor (base-2 units)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ bool visible(int qpos, int kpos, int window) {
-  return qpos >= kpos && (window == 0 || qpos - kpos < window);
-}
-
-// Does the (Q tile i, K tile j) pair need the visibility mask? Only the
-// diagonal tile and, with a window, the tiles straddling its lower edge.
-__device__ __forceinline__ bool needs_mask(int i, int j, int window) {
-  return i == j || (window != 0 && (i - j + 1) * kBlock - 1 >= window);
-}
-
-// The first K tile that Q tile i sees, and the last Q tile that sees K tile j
-// (_n_kv_blocks / _k_index and _n_q_blocks / _q_index in the Pallas kernels).
-__device__ __forceinline__ int first_k_tile(int i, int window) {
-  if (window == 0) return 0;
-  const int first = i * kBlock - (window - 1);
-  return first > 0 ? first / kBlock : 0;
-}
-__device__ __forceinline__ int last_q_tile(int j, int n_blk, int window) {
-  return window == 0 ? n_blk - 1 : min(n_blk - 1, j + (kBlock + window - 2) / kBlock);
-}
-
-// 1/sqrt(D), rounded once to fp32 as the JAX kernel's Python-side scale is.
-float softmax_scale(int d) { return static_cast<float>(1.0 / std::sqrt(static_cast<double>(d))); }
+constexpr int kThreads = 128;  // four warps, 16 tile rows each
 
 // ===========================================================================
 // bf16: tensor cores through mma.sync
@@ -152,19 +130,6 @@ struct Tile {
   static constexpr int SIZE = kBlock * LD;  // elements
   static constexpr size_t BYTES = sizeof(bf16) * SIZE;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -279,15 +244,6 @@ struct SmemBf16 {
 // ---------------------------------------------------------------------------
 // K1 (bf16): forward
 // ---------------------------------------------------------------------------
-
-// The Q-major kernels' (K1, K2) row tile and their range of K tiles [lo, hi]:
-// causal blocks with the longest loops first, non-causal every K tile.
-template <bool kCausal>
-__device__ __forceinline__ void q_major_range(int n_blk, int window, int& i, int& lo, int& hi) {
-  i = kCausal ? n_blk - 1 - static_cast<int>(blockIdx.y) : static_cast<int>(blockIdx.y);
-  lo = kCausal ? first_k_tile(i, window) : 0;
-  hi = kCausal ? i : n_blk - 1;
-}
 
 // Instantiated for D 16 and 32 (D 64, 128 and 256: flash_fwd_sm90.cu).
 template <int D, bool kCausal>
@@ -465,14 +421,6 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // K3 (bf16): dK and dV
 // ---------------------------------------------------------------------------
 
-// The K-major kernel's (K3) range of Q tiles [lo, hi] for K tile j: causal
-// from the diagonal to the last tile the window lets see j, non-causal all.
-template <bool kCausal>
-__device__ __forceinline__ void k_major_range(int j, int n_blk, int window, int& lo, int& hi) {
-  lo = kCausal ? j : 0;
-  hi = kCausal ? last_q_tile(j, n_blk, window) : n_blk - 1;
-}
-
 // Instantiated for D 16 and 32 (D 64 and 128: flash_bwd_sm90.cu; D 256:
 // flash_bwd_dkv_d256_sm90.cu).
 template <int D, bool kCausal>
@@ -567,40 +515,27 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ===========================================================================
-// fp32: plain FMA over tiles in shared memory
+// fp32 K2: plain FMA over tiles in shared memory
 // ===========================================================================
 //
-// At D 256 a [64, D] fp32 tile is 64 KB, and the tiles of D 128's layout
-// (Q, K, V, dO and [64, D] accumulators) would need 272-416 KB. These
-// kernels are then "staged": two tile buffers are refilled within each step
-// of the inner loop (K1: K, then V; K2: Q and K, then dO and V, then K
-// again; K3: K and Q, then V and dO, then Q again), and K3 splits its dK
-// and dV columns over two CTAs (kSplit). Shared memory at D 256:
-// K1 213,504 B, K2 and K3 229,888 B. It is the checking path: the reloads
-// cost time, not accuracy.
+// (fp32 K1 and K3 are flash_f32_tc.cu's.) At D 256 a [64, D] fp32 tile is
+// 64 KB, and the tiles of D 128's layout (Q, dO, K, V and the [64, D]
+// accumulator) would need 416 KB. This kernel is then "staged": two tile
+// buffers are refilled within each step of the inner loop (Q and K, then dO
+// and V, then K again), in 229,888 B of shared memory. The reloads cost
+// time, not accuracy.
 
 template <int D>
 constexpr bool kStaged = D > 128;
-
-// CTAs that share one K tile in the fp32 K3, each owning D / kSplit columns
-// of dK and dV (blockIdx.z): two at D 256, else one.
-template <int D>
-constexpr int kSplit = D > 128 ? 2 : 1;
 
 template <int D>
 struct SmemF32 {
   static constexpr size_t tile = 4 * kBlock * D;     // a [64, D] fp32 tile
   static constexpr size_t score = 4 * kBlock * kBlock;
   static constexpr size_t rows = 4 * kBlock;
-  // K1: Q, K, V (V in K's buffer when staged); S (P in place); O; m and l.
-  static constexpr size_t fwd = (kStaged<D> ? 3 : 4) * tile + score + 2 * rows;
-  // K2: Q, dO, K, V (staged: dO in Q's buffer, V in K's); S, dP (dS in
-  // place); dQ; lse and delta.
+  // Q, dO, K, V (staged: dO in Q's buffer, V in K's); S, dP (dS in place);
+  // dQ; lse and delta.
   static constexpr size_t bwd_dq = (kStaged<D> ? 3 : 5) * tile + 2 * score + 2 * rows;
-  // K3: K, V, Q, dO (staged: V in K's buffer, dO in Q's); S^T (P^T in
-  // place), dP^T (dS^T in place); dK, dV (staged: this CTA's half of the
-  // columns); lse, delta.
-  static constexpr size_t bwd_dkv = (kStaged<D> ? 3 : 6) * tile + 2 * score + 2 * rows;
 };
 
 struct Carver {
@@ -639,11 +574,10 @@ __device__ __forceinline__ void warp_abt_f32(const float* A, const float* B, flo
   }
 }
 
-// C[16, W] += A[16, 64] * B[64, W] for one warp, C with rows of W and B
-// with rows of LDB elements (a column slice of a wider tile). Each lane owns
-// columns lane + 32 t of all 16 rows; below W = 32 only the first W lanes
-// own one.
-template <int W, int LDB = W>
+// C[16, W] += A[16, 64] * B[64, W] for one warp, all row-major. Each lane
+// owns columns lane + 32 t of all 16 rows; below W = 32 only the first W
+// lanes own one.
+template <int W>
 __device__ __forceinline__ void warp_ab_acc_f32(const float* A, const float* B, float* C,
                                                 int lane) {
   constexpr int kT = W >= 32 ? W / 32 : 1;
@@ -656,7 +590,7 @@ __device__ __forceinline__ void warp_ab_acc_f32(const float* A, const float* B, 
   for (int kk = 0; kk < kBlock; ++kk) {
     float b[kT];
 #pragma unroll
-    for (int c = 0; c < kT; ++c) b[c] = B[kk * LDB + lane + 32 * c];
+    for (int c = 0; c < kT; ++c) b[c] = B[kk * W + lane + 32 * c];
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const float a = A[r * kBlock + kk];
@@ -670,112 +604,20 @@ __device__ __forceinline__ void warp_ab_acc_f32(const float* A, const float* B, 
     for (int c = 0; c < kT; ++c) C[r * W + lane + 32 * c] = acc[r][c];
 }
 
-// P and dS for one warp's 16 rows of a score tile, in place over S and dP.
-// transposed = false (K2): rows are queries of tile i, columns keys of tile j.
-// transposed = true  (K3): rows are keys of tile j, columns queries of tile i.
-template <bool transposed>
+// P and dS for one warp's 16 rows of a score tile (rows queries of tile i,
+// columns keys of tile j), in place over S and dP.
 __device__ __forceinline__ void p_ds_rows_f32(float* Sw, float* dPw, const float* lse_s,
                                               const float* delta_s, int i, int j, int warp,
                                               int lane, int window, float scale, bool masked) {
   const int r = lane >> 1, half = lane & 1;
+  const int qi = warp * 16 + r;  // row statistics belong to the query
   for (int c = half * 32; c < half * 32 + 32; ++c) {
-    const int qi = transposed ? c : warp * 16 + r;  // row statistics belong to the query
-    const int ki = transposed ? warp * 16 + r : c;
     float p = 0.0f;
-    if (!masked || visible(i * kBlock + qi, j * kBlock + ki, window))
+    if (!masked || visible(i * kBlock + qi, j * kBlock + c, window))
       p = expf(Sw[r * kBlock + c] * scale - lse_s[qi]);
     dPw[r * kBlock + c] = p * (dPw[r * kBlock + c] - delta_s[qi]) * scale;
     Sw[r * kBlock + c] = p;
   }
-}
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-              int S, int window, float scale) {
-  using L = SmemF32<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver cv{smem};
-  float* Qs = cv.take(L::tile);
-  float* Ks = cv.take(L::tile);
-  float* Vs = kStaged<D> ? Ks : cv.take(L::tile);
-  float* Ss = cv.take(L::score);
-  float* Os = cv.take(L::tile);
-  float* ms = cv.take(L::rows);
-  float* ls = cv.take(L::rows);
-
-  const int n_blk = S / kBlock;
-  int i, lo, hi;
-  q_major_range<kCausal>(n_blk, window, i, lo, hi);
-  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float scale2 = scale * kLog2e;
-
-  load_tile_f32<D>(Qs, q + base + static_cast<size_t>(i) * kBlock * D, tid);
-  for (int idx = tid; idx < kBlock * D; idx += kThreads) Os[idx] = 0.0f;
-  if (tid < kBlock) {
-    ms[tid] = kNegInf;
-    ls[tid] = 0.0f;
-  }
-  // Lane pair (2r, 2r+1) owns row r of the warp's 16 rows, 32 columns each.
-  const int r = lane >> 1, half = lane & 1;
-  const int row = warp * 16 + r;
-  const int qpos = i * kBlock + row;
-
-  for (int j = lo; j <= hi; ++j) {
-    const size_t kv = base + static_cast<size_t>(j) * kBlock * D;
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile_f32<D>(Ks, k + kv, tid);
-    if constexpr (!kStaged<D>) load_tile_f32<D>(Vs, v + kv, tid);
-    __syncthreads();
-
-    warp_abt_f32<D>(Qs + warp * 16 * D, Ks, Ss + warp * 16 * kBlock, lane);
-    __syncwarp();
-    const bool masked = kCausal && needs_mask(i, j, window);
-    float* srow = Ss + row * kBlock + half * 32;
-    float mx = kNegInf;
-    for (int c = 0; c < 32; ++c) {
-      float x = srow[c] * scale2;
-      if (masked && !visible(qpos, j * kBlock + half * 32 + c, window)) x = kNegInf;
-      srow[c] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_old = ms[row];
-    const float m_new = fmaxf(fmaxf(m_old, mx), kM2Floor);
-    float sum = 0.0f;
-    for (int c = 0; c < 32; ++c) {
-      const float p = exp2f(srow[c] - m_new);
-      sum += p;
-      srow[c] = p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float corr = exp2f(m_old - m_new);
-    float* orow = Os + row * D + half * (D / 2);
-    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
-    __syncwarp();
-    if (half == 0) {
-      ms[row] = m_new;
-      ls[row] = ls[row] * corr + sum;
-    }
-    if constexpr (kStaged<D>) {  // V into K's buffer once every warp has read K
-      __syncthreads();
-      load_tile_f32<D>(Vs, v + kv, tid);
-      __syncthreads();
-    }
-    __syncwarp();
-    warp_ab_acc_f32<D>(Ss + warp * 16 * kBlock, Vs, Os + warp * 16 * D, lane);
-    __syncwarp();
-  }
-
-  __syncthreads();
-  float* og = o + base + static_cast<size_t>(i) * kBlock * D;
-  for (int idx = tid; idx < kBlock * D; idx += kThreads)
-    og[idx] = Os[idx] / fmaxf(ls[idx / D], 1e-30f);
-  if (tid < kBlock)
-    lse[static_cast<size_t>(blockIdx.x) * S + i * kBlock + tid] =
-        ms[tid] * kLn2 + logf(fmaxf(ls[tid], 1e-30f));
 }
 
 template <int D, bool kCausal>
@@ -834,8 +676,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     warp_abt_f32<D>(dOs + warp * 16 * D, Vs, dPw, lane);
     __syncwarp();
-    p_ds_rows_f32<false>(Sw, dPw, lse_s, delta_s, i, j, warp, lane, window, scale,
-                         kCausal && needs_mask(i, j, window));
+    p_ds_rows_f32(Sw, dPw, lse_s, delta_s, i, j, warp, lane, window, scale,
+                  kCausal && needs_mask(i, j, window));
     if constexpr (kStaged<D>) {  // K again, over V
       __syncthreads();
       load_tile_f32<D>(Ks, k + kv, tid);
@@ -851,103 +693,20 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = tid; idx < kBlock * D; idx += kThreads) g[idx] = dQs[idx];
 }
 
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dk, float* __restrict__ dv, int S, int window,
-                  float scale) {
-  using L = SmemF32<D>;
-  constexpr int DW = D / kSplit<D>;  // dK and dV columns of this CTA
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver cv{smem};
-  float* Ks = cv.take(L::tile);
-  float* Vs = kStaged<D> ? Ks : cv.take(L::tile);
-  float* Qs = cv.take(L::tile);
-  float* dOs = kStaged<D> ? Qs : cv.take(L::tile);
-  float* Ss = cv.take(L::score);
-  float* dPs = cv.take(L::score);
-  float* dKs = cv.take(L::tile / kSplit<D>);
-  float* dVs = cv.take(L::tile / kSplit<D>);
-  float* lse_s = cv.take(L::rows);
-  float* delta_s = cv.take(L::rows);
-
-  const int n_blk = S / kBlock;
-  const int j = blockIdx.y;
-  const int col0 = static_cast<int>(blockIdx.z) * DW;
-  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
-  const size_t ko = base + static_cast<size_t>(j) * kBlock * D;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  if constexpr (!kStaged<D>) {
-    load_tile_f32<D>(Ks, k + ko, tid);
-    load_tile_f32<D>(Vs, v + ko, tid);
-  }
-  for (int idx = tid; idx < kBlock * DW; idx += kThreads) dKs[idx] = dVs[idx] = 0.0f;
-  float* Sw = Ss + warp * 16 * kBlock;
-  float* dPw = dPs + warp * 16 * kBlock;
-
-  int lo, hi;
-  k_major_range<kCausal>(j, n_blk, window, lo, hi);
-  for (int i = lo; i <= hi; ++i) {
-    const size_t qo = base + static_cast<size_t>(i) * kBlock * D;
-    __syncthreads();
-    if constexpr (kStaged<D>) load_tile_f32<D>(Ks, k + ko, tid);
-    load_tile_f32<D>(Qs, q + qo, tid);
-    if constexpr (!kStaged<D>) load_tile_f32<D>(dOs, dout + qo, tid);
-    if (tid < kBlock) {
-      const size_t rb = static_cast<size_t>(blockIdx.x) * S + i * kBlock + tid;
-      lse_s[tid] = lse[rb];
-      delta_s[tid] = delta[rb];
-    }
-    __syncthreads();
-
-    warp_abt_f32<D>(Ks + warp * 16 * D, Qs, Sw, lane);
-    if constexpr (kStaged<D>) {  // V and dO over K and Q once every warp has read them
-      __syncthreads();
-      load_tile_f32<D>(Vs, v + ko, tid);
-      load_tile_f32<D>(dOs, dout + qo, tid);
-      __syncthreads();
-    }
-    warp_abt_f32<D>(Vs + warp * 16 * D, dOs, dPw, lane);
-    __syncwarp();
-    p_ds_rows_f32<true>(Sw, dPw, lse_s, delta_s, i, j, warp, lane, window, scale,
-                        kCausal && needs_mask(i, j, window));
-    __syncwarp();
-    warp_ab_acc_f32<DW, D>(Sw, dOs + col0, dVs + warp * 16 * DW, lane);
-    if constexpr (kStaged<D>) {  // Q again, over dO
-      __syncthreads();
-      load_tile_f32<D>(Qs, q + qo, tid);
-      __syncthreads();
-    }
-    warp_ab_acc_f32<DW, D>(dPw, Qs + col0, dKs + warp * 16 * DW, lane);
-    __syncwarp();
-  }
-
-  __syncthreads();
-  for (int idx = tid; idx < kBlock * DW; idx += kThreads) {
-    const size_t g = ko + static_cast<size_t>(idx / DW) * D + col0 + idx % DW;
-    dk[g] = dKs[idx];
-    dv[g] = dVs[idx];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Host launchers
 // ---------------------------------------------------------------------------
 
-// Grid (BH, S / 64, splits): blockIdx.x walks the heads fastest, so the
-// longest tiles of every head start before any shorter one; blockIdx.z is
-// the fp32 K3's column split at D 256 (1 elsewhere).
+// Grid (BH, S / 64): blockIdx.x walks the heads fastest, so the longest
+// tiles of every head start before any shorter one.
 template <typename K, typename... Args>
-int launch(K kernel, size_t smem, int bh, int s, int splits, cudaStream_t st, Args... args) {
+int launch(K kernel, size_t smem, int bh, int s, cudaStream_t st, Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<dim3(bh, s / kBlock, splits), kThreads, smem, st>>>(args...);
+  kernel<<<dim3(bh, s / kBlock), kThreads, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
@@ -961,19 +720,17 @@ constexpr bool kSm90Fwd = kSm90<D> || D == 256;
 template <int D, bool C>
 int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void* lse,
         void* counters, int bh, int s, int window, cudaStream_t st) {
-  const float sc = softmax_scale(D);
-  float* l = static_cast<float*>(lse);
   if (is_bf16) {
     if constexpr (kSm90Fwd<D>)  // the Hopper kernel, and no other (no fallback)
       return tpe_flash_fwd_sm90(q, k, v, o, lse, counters, bh, s, D, window, C, st);
     else
-      return launch(flash_fwd_bf16<D, C>, SmemBf16<D>::fwd, bh, s, 1, st,
+      return launch(flash_fwd_bf16<D, C>, SmemBf16<D>::fwd, bh, s, st,
                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), static_cast<bf16*>(o), l, s, window, sc);
+                    static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
+                    s, window, softmax_scale(D));
   }
-  return launch(flash_fwd_f32<D, C>, SmemF32<D>::fwd, bh, s, 1, st, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<float*>(o), l, s, window, sc);
+  // fp32: the split-TF32 tensor-core kernel, and no other (no fallback).
+  return tpe_flash_fwd_f32_tc(q, k, v, o, lse, bh, s, D, window, C, st);
 }
 
 template <int D, bool C>
@@ -991,12 +748,12 @@ int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void
       return tpe_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, counters, bh, s, D, window, C,
                                    st);
     else
-      return launch(flash_bwd_dq_bf16<D, C>, SmemBf16<D>::bwd_dq, bh, s, 1, st,
+      return launch(flash_bwd_dq_bf16<D, C>, SmemBf16<D>::bwd_dq, bh, s, st,
                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
                     static_cast<bf16*>(dq), s, window, sc);
   }
-  return launch(flash_bwd_dq_f32<D, C>, SmemF32<D>::bwd_dq, bh, s, 1, st,
+  return launch(flash_bwd_dq_f32<D, C>, SmemF32<D>::bwd_dq, bh, s, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
                 static_cast<float*>(dq), s, window, sc);
@@ -1006,9 +763,6 @@ template <int D, bool C>
 int bwd_dkv(bool is_bf16, const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, void* counters, int bh,
             int s, int window, cudaStream_t st) {
-  const float sc = softmax_scale(D);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   if (is_bf16) {
     if constexpr (D == 256)  // the Hopper kernels, and no other (no fallback)
       return tpe_flash_bwd_dkv_d256_sm90(q, k, v, dout, lse, delta, dk, dv, counters, bh, s,
@@ -1017,15 +771,14 @@ int bwd_dkv(bool is_bf16, const void* q, const void* k, const void* v, const voi
       return tpe_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, counters, bh, s, D,
                                     window, C, st);
     else
-      return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, 1, st,
+      return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, st,
                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, window, sc);
+                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                    static_cast<const float*>(lse), static_cast<const float*>(delta),
+                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, window, softmax_scale(D));
   }
-  return launch(flash_bwd_dkv_f32<D, C>, SmemF32<D>::bwd_dkv, bh, s, kSplit<D>, st,
-                static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-                static_cast<float*>(dk), static_cast<float*>(dv), s, window, sc);
+  // fp32: the split-TF32 tensor-core kernel, and no other (no fallback).
+  return tpe_flash_bwd_dkv_f32_tc(q, k, v, dout, lse, delta, dk, dv, bh, s, D, window, C, st);
 }
 
 // The (head dim, causal) pair as types, for dispatch from runtime values.

@@ -6,9 +6,13 @@ Kernels, each replacing one Pallas kernel of
 wgmma + warp specialisation, helpers shared in ``csrc/sm90.cuh``): K1 at head
 dims 64, 128 and 256 is ``csrc/flash_fwd_sm90.cu``; K2 and K3 at 64 and 128
 are ``csrc/flash_bwd_sm90.cu``; K2 at 256 is ``csrc/flash_bwd_dq_d256_sm90.cu``
-and K3 at 256 ``csrc/flash_bwd_dkv_d256_sm90.cu``. ``csrc/flash_attention.cu``
-holds the C entries and the rest: ``mma.sync`` in bf16 for K1, K2 and K3 at
-head dims 16 and 32, and fp32 FMA at every head dim:
+and K3 at 256 ``csrc/flash_bwd_dkv_d256_sm90.cu``. In fp32, K1 and K3 at
+every head dim are ``csrc/flash_f32_tc.cu``: ``mma.sync`` on the tensor cores
+in split TF32 (each product three TF32 products, ``csrc/tf32_split.cuh``), so
+that they keep fp32 accuracy. ``csrc/flash_attention.cu`` holds the C entries
+and the rest: ``mma.sync`` in bf16 for K1, K2 and K3 at head dims 16 and 32,
+and fp32 K2 (FMA) at every head dim. ``csrc/flash_common.cuh`` is the tile
+schedule that it and ``flash_f32_tc.cu`` share.
 
 - K1 ``flash_fwd``      ← ``_fwd_kernel``      (o, lse) from (q, k, v);
 - K2 ``flash_bwd_dq``   ← ``_bwd_dq_kernel``   dq from (q, k, v, dO, lse, Δ);
@@ -35,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,8 +50,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-                 "flash_bwd_dq_d256_sm90.cu", "flash_bwd_dkv_d256_sm90.cu"))
-HEADERS = (_PKG / "csrc" / "sm90.cuh",)  # included by the sm90 sources
+                 "flash_bwd_dq_d256_sm90.cu", "flash_bwd_dkv_d256_sm90.cu", "flash_f32_tc.cu"))
+# Included by the sources: sm90.cuh by the Hopper ones, flash_common.cuh by
+# flash_attention.cu and flash_f32_tc.cu, tf32_split.cuh by flash_f32_tc.cu.
+HEADERS = tuple(_PKG / "csrc" / name for name in
+                ("sm90.cuh", "flash_common.cuh", "tf32_split.cuh"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -127,6 +135,29 @@ def build() -> Path:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def ptxas_table(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spilled bytes (stores + loads) of every kernel in a
+    build log's ``-Xptxas -v`` output, keyed by its mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+        elif name:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out.setdefault(name, {})["spill_bytes"] = int(spill[1]) + int(spill[2])
+            if regs:
+                out.setdefault(name, {})["registers"] = int(regs[1])
+    return out
+
+
+def build_log() -> str:
+    """The compilers' output of the build (built first if need be)."""
+    return Path(str(build()) + ".log").read_text()
 
 
 def sass_op_counts(symbol: str, ops: tuple[str, ...]) -> dict[str, dict[str, int]]:

@@ -13,11 +13,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    K2 and K3 at D 64 and 128; ``flash_bwd_dq_d256_sm90``,
    ``flash_bwd_dkv_d256_sm90``: K2 and K3 at D 256) are built from wgmma and
    TMA loads (``HGMMA``, ``UTMALDG`` in their SASS), spill nothing, and keep
-   ``setmaxnreg`` (no ptxas C7508 warning); that the fp32 K1 and K3
+   ``setmaxnreg`` (no ptxas C7508 warning); that the fp32 K1, K2 and K3
    (``flash_f32_tc.cu``, split TF32, every head dim, causal and not) are
    built from TF32 ``mma.sync`` (``F32_TC_HMMA`` in their SASS, and no other
-   HMMA) and spill nothing; report the registers and spills of the fp32 K2
-   at D 256, which remains on ``flash_attention.cu``;
+   HMMA) and spill nothing;
 2. kernels: hold each kernel to its plain PyTorch version at the training
    shape (B·H 4·16, S 2048, D 128, bf16), the non-causal kernels at the
    ring shard's shape (B·H 16, S 2048, D 128), on small fp32 cases with
@@ -34,10 +33,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    kernels also at the ring shard, and the D 256 kernels at gemma-2b's
    shape; hold and time the kernels the bf16 paths do not launch
    (``OFF_PATH``: fp32 K1-K3 causal at D 128 and 256 and non-causal at the
-   ring shard, bf16 at D 32), fp32 K3 also to bitwise-equal results when
-   run twice, fp32 bounds at the split-TF32 rate and at the FMA rate, and the
-   K2 + K3 pair beside the library's backward (memory-efficient in fp32,
-   flash in bf16);
+   ring shard, bf16 at D 32 and 64), fp32 K2 and K3 also to bitwise-equal
+   results when run twice, fp32 bounds at the split-TF32 rate and at the FMA
+   rate, and the K2 + K3 pair beside the library's backward
+   (memory-efficient in fp32, flash in bf16);
 3. model: a small llama, gpt2-124m, and qwen3-4b and gemma-2b at full width
    and 2 layers, through the flash kernels against the plain attention
    path, in fp32 and in bf16 compute (gemma-2b's fp32 flash pass, forward
@@ -282,29 +281,32 @@ SOURCE_D256 = {
 }
 GEMMA_SHAPE = (4, 8, 2048, 256)  # gemma-2b's attention in train_gemma: B, H, S, D
 # The kernels the bf16 training paths (train, train_ring, train_gemma) do not
-# launch: fp32 K1-K3 (TrainConfig(precision="fp32") and every fp32 check)
-# and bf16 at D 32 (the tiny configs' heads). (row suffix, B·H, D, dtype,
-# causal, the paths whose launches the row reads), timed at S 2048: causal
-# at train's B·H for D 128 and 32 and at train_gemma's for D 256,
-# non-causal at the ring shard's.
+# launch: fp32 K1-K3 (TrainConfig(precision="fp32") and every fp32 check),
+# bf16 at D 32 (the tiny configs' heads) and bf16 at D 64 (gpt-125m's and
+# gpt2-124m's heads). (row suffix, B·H, D, dtype, causal, the paths whose
+# launches the row reads), timed at S 2048: causal at train's B·H for D 128
+# and 32, at train_gemma's for D 256 and at bench_torch.py's gpt-125m
+# micro-batch 16 (16 × 12 heads) for D 64, non-causal at the ring shard's.
 OFF_PATH = (("fp32_d128", 64, 128, "fp32", True, ("train_fp32",)),
             ("fp32_d256", 32, 256, "fp32", True, ("model_fp32_gemma",)),
             ("fp32_d128_full", 16, 128, "fp32", False, ("train_fp32",)),
-            ("bf16_d32", 64, 32, "bf16", True, ("train_tiny",)))
-# The source of each OFF_PATH kernel, by dtype: fp32 K1 and K3 are the
-# split-TF32 kernels; fp32 K2 and bf16 at D 32 are flash_attention.cu's.
+            ("bf16_d32", 64, 32, "bf16", True, ("train_tiny",)),
+            ("bf16_d64", 192, 64, "bf16", True, ("model_bf16_gpt2",)))
+# The source of each OFF_PATH kernel, by dtype: fp32 K1-K3 are the
+# split-TF32 kernels; bf16 at D 32 is flash_attention.cu's, and bf16 at D 64
+# the Hopper kernels of D 128 (``SOURCE``).
 SOURCE_OFF_PATH = {
     ("fp32", "flash_fwd"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
-    ("fp32", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_attention.cu",
+    ("fp32", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
     ("fp32", "flash_bwd_dkv"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
     ("bf16", "flash_fwd"): "tpu_engine_torch/csrc/flash_attention.cu",
     ("bf16", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_attention.cu",
     ("bf16", "flash_bwd_dkv"): "tpu_engine_torch/csrc/flash_attention.cu",
 }
-# The split-TF32 kernels' symbol and its instantiations (K1 and K3, head dims
-# 16-256, causal and not), and the SASS of a TF32 mma.sync m16n8k8: every
-# HMMA of those kernels must be one.
-F32_TC_KERNELS = {"flash_fwd_f32_tc": 10, "flash_bwd_dkv_f32_tc": 10}
+# The split-TF32 kernels' symbol and its instantiations (K1, K2 and K3, head
+# dims 16-256, causal and not), and the SASS of a TF32 mma.sync m16n8k8:
+# every HMMA of those kernels must be one.
+F32_TC_KERNELS = {"flash_fwd_f32_tc": 10, "flash_bwd_dq_f32_tc": 10, "flash_bwd_dkv_f32_tc": 10}
 F32_TC_HMMA = "HMMA.1688.F32.TF32"
 # The Hopper kernels' symbols and their instantiations (head dims x causal
 # and not): K1 at D 64, 128 and 256; K2 and K3 at 64 and 128; K2 and K3 at
@@ -449,31 +451,26 @@ def _instantiation(name: str):
 
 
 def check_ptxas_f32(fc, log: str) -> dict:
-    """Registers and spilled bytes of the fp32 kernels, from the build's
-    ``-Xptxas -v`` output, keyed ``<kernel><D, causal|full>``: the
-    split-TF32 K1 and K3 (``F32_TC_KERNELS``, every head dim), gated (each
-    instantiation present, none spills), and the fp32 K2 at D 256 left on
-    flash_attention.cu, reported only (a spill there costs time, not
-    correctness)."""
-    out, f32_k2 = {}, {}
+    """Registers and spilled bytes of the split-TF32 fp32 kernels K1, K2 and
+    K3 (``F32_TC_KERNELS``, every head dim), from the build's ``-Xptxas -v``
+    output, keyed ``<kernel><D, causal|full>``: each instantiation must be
+    present and none may spill."""
+    out = {}
     for inst, v in sorted((_instantiation(name), v) for name, v in fc.ptxas_table(log).items()
                           if _instantiation(name)):
         kernel, d, causal = inst
-        label = f"{kernel}<{d}, {'causal' if causal else 'full'}>"
-        if kernel in F32_TC_KERNELS:
-            out[label] = v
-        elif kernel == "flash_bwd_dq_f32" and d == 256:
-            f32_k2[label] = v
-        else:
+        if kernel not in F32_TC_KERNELS:
             continue
+        label = f"{kernel}<{d}, {'causal' if causal else 'full'}>"
+        out[label] = v
         print(f"ptxas fp32: {label}: {v.get('registers')} registers, "
               f"{v.get('spill_bytes')} bytes spilled (stores + loads)", flush=True)
     want = sum(F32_TC_KERNELS.values())
     spills = {n: v for n, v in out.items() if v.get("spill_bytes")}
-    if len(out) != want or spills or len(f32_k2) != 2:
+    if len(out) != want or spills:
         raise AssertionError(f"split-TF32 kernels: want {want} instantiations and no spill, found "
-                             f"{out}; fp32 K2 at D 256: {f32_k2}")
-    return {"f32_tc": out, "f32_k2_d256": f32_k2}
+                             f"{out}")
+    return {"f32_tc": out}
 
 
 def check_f32_sass(fc) -> dict:
@@ -840,12 +837,13 @@ def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
 def _off_path_rows(fc, res: dict) -> list:
     """The ``OFF_PATH`` kernels at S 2048: each held to its plain version
     (:func:`check_case`) and timed beside it, its bound and, for K1, SDPA on
-    the same data; fp32 K3 run twice to bitwise-equal dK and dV; the K2 + K3
-    pair beside the library's backward (``res["backward_pair_off_path"]``);
-    and the kernels SDPA runs in fp32 (``res["sdpa_fp32_kernels"]``). fp32
-    rows are bound at the split-TF32 rate (``bound_ms``) and at the FMA rate
-    (``bound_fma_ms``). Their rows of the kernels line, ``<kernel>_<suffix>``,
-    read their launches on the row's paths."""
+    the same data; fp32 K2 and K3 run twice to bitwise-equal dQ, dK and dV;
+    the K2 + K3 pair beside the library's backward
+    (``res["backward_pair_off_path"]``); and the kernels SDPA runs in fp32
+    (``res["sdpa_fp32_kernels"]``). fp32 rows are bound at the split-TF32
+    rate (``bound_ms``) and at the FMA rate (``bound_fma_ms``). Their rows of
+    the kernels line, ``<kernel>_<suffix>``, read their launches on the
+    row's paths."""
     import torch
     import torch.nn.functional as F
 
@@ -859,11 +857,12 @@ def _off_path_rows(fc, res: dict) -> list:
         o, lse = fc.flash_fwd(q, k, v, causal=causal)
         bwd = (q, k, v, do, lse, fc.flash_delta(o, do))
         if kind == "fp32":
-            first, second = (fc.flash_bwd_dkv(*bwd, causal=causal) for _ in range(2))
+            first, second = ((fc.flash_bwd_dq(*bwd, causal=causal),
+                              *fc.flash_bwd_dkv(*bwd, causal=causal)) for _ in range(2))
             torch.cuda.synchronize()
-            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                       for a, b in zip(first, second)):
-                raise AssertionError(f"fp32 K3 {suffix}: two runs on the same inputs differ")
+            for n, a, b in zip(("dq", "dk", "dv"), first, second):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"fp32 {n} {suffix}: two runs on the same inputs differ")
         bounds = kernel_bounds(bh, S, d, 0, q.element_size(), causal=causal,
                                peak=PEAK_SPLIT_TF32_FLOPS if kind == "fp32" else PEAK_BF16_FLOPS)
         fma = kernel_bounds(bh, S, d, 0, q.element_size(), causal=causal, peak=PEAK_FP32_FLOPS)
@@ -880,8 +879,9 @@ def _off_path_rows(fc, res: dict) -> list:
                               max(errs["dk"], errs["dv"])),
         }
         for name, (kernel, plain, library, err) in kernels.items():
+            source = SOURCE[name] if (kind, d) == ("bf16", 64) else SOURCE_OFF_PATH[kind, name]
             rows.append({
-                "name": f"{name}_{suffix}", "route": "cuda", "source": SOURCE_OFF_PATH[kind, name],
+                "name": f"{name}_{suffix}", "route": "cuda", "source": source,
                 "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
                 "ms": _device_ms(kernel), "plain_ms": _device_ms(plain, **slow),
                 "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
@@ -989,9 +989,12 @@ def phase_model(res: dict) -> None:
         res["model_archs"][name] = _flash_vs_plain(acfg, tokens)
         torch.cuda.empty_cache()
     # gemma-2b's fp32 flash pass (one forward and backward at D 256) is the
-    # path of the fp32 D 256 rows of the kernels line.
+    # path of the fp32 D 256 rows of the kernels line, gpt2-124m's bf16 pass
+    # (12 layers at D 64) that of the bf16 D 64 rows.
     res["model_fp32_gemma"] = {"launches": res["model_archs"]["gemma-2b"]["launches"]["fp32"],
                                "steps": 1, "accum": 1}
+    res["model_bf16_gpt2"] = {"launches": res["model_archs"]["gpt2-124m"]["launches"]["bf16"],
+                              "steps": 1, "accum": 1}
 
 
 def phase_head(res: dict) -> None:
@@ -1234,8 +1237,8 @@ def phase_train_ring(res: dict, steps: int) -> None:
 def phase_train_fp32(res: dict, steps: int) -> None:
     """``train_ring``'s llama-1b ring (seq 8192, sequence 4, micro-batch 1)
     in fp32 compute, ``TrainConfig(precision="fp32")`` with TF32 off: every
-    attention call runs the fp32 kernels, the split-TF32 K1 and K3 and the
-    FMA K2, causal on the diagonal hops and non-causal on the past ones.
+    attention call runs the split-TF32 fp32 kernels K1, K2 and K3, causal
+    on the diagonal hops and non-causal on the past ones.
     The launch counts are those of ``train_ring``."""
     import torch
 

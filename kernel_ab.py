@@ -8,7 +8,7 @@ on the same data.
 With ``--variant NAME`` the base is this tree with ``VARIANTS[NAME]``, a
 text patch of one kernel source, built under ``chip_checkout/kernel_ab/``
 (git-ignored): a design measured against the one the tree keeps. With
-``--dtype fp32`` the inputs are fp32 (the split-TF32 K1 and K3, the FMA K2),
+``--dtype fp32`` the inputs are fp32 (the split-TF32 K1, K2 and K3),
 the bounds are at the split-TF32 rate and the library's time is SDPA's
 forward only.
 
@@ -55,10 +55,12 @@ SWEEP = {f"full_bh{bh}_s{s}": (bh, s, 128, False)
          for bh, s in ((4, 4096), (64, 1024), (256, 512))}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
-# Designs of the fp32 K1 and K3 (csrc/flash_f32_tc.cu) measured against the
-# kept ones (K1: 32-key K/V tiles, each operand split into TF32 hi and lo as
-# its fragment is loaded, each tile's P V summed into one temporary per
-# accumulator register): (source under csrc/, [(text, replacement)]).
+# Designs of the fp32 K1, K2 and K3 (csrc/flash_f32_tc.cu) measured against
+# the kept ones (K1: 32-key K/V tiles, each operand split into TF32 hi and lo
+# as its fragment is loaded, each tile's P V summed into one temporary per
+# accumulator register; K2: 16-key K/V tiles, two tiles' dS K summed into
+# one temporary per accumulator register): (source under csrc/, [(text,
+# replacement)]).
 _KEYS16 = ("  static constexpr int kKeys = 32;",
            "  static constexpr int kKeys = 16;")
 _PV = "        mma_split(pv[n], a, b);"
@@ -121,6 +123,28 @@ VARIANTS = {
       for (int e = 0; e < 4; ++e) acc[n][e] += d[n][e];""")]),
     # 16-key K/V tiles, still split at each fragment load.
     "keys16": ("flash_f32_tc.cu", [_KEYS16]),
+    # Each operand's lo rounded to nearest too, both halves masked (five
+    # integer and fp32 operations a value where the kept split takes three).
+    "split_rna": ("tf32_split.cuh", [(
+        """    hi[e] = __float_as_uint(x) + 0x1000u;  // rounds to nearest once truncated
+    lo[e] = __float_as_uint(x - __uint_as_float(hi[e] & 0xffffe000u));""",
+        """    hi[e] = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo[e] = (__float_as_uint(x - __uint_as_float(hi[e])) + 0x1000u) & 0xffffe000u;""")]),
+    # K2 with 32-key K/V tiles at D <= 128 (one CTA an SM at D 128, 135 KB;
+    # D 256 keeps 16).
+    "k2_keys32": ("flash_f32_tc.cu", [
+        ("  static constexpr int kDqKeys = 16;",
+         "  static constexpr int kDqKeys = D > 128 ? 16 : 32;")]),
+    # K2 adding each 16-key tile's dS K to dQ in fp32, where the kept design
+    # sums two tiles on the tensor cores first.
+    "k2_tile_sums": ("flash_f32_tc.cu", [
+        ("const bool add = ((u - u_lo) & 1) || u == u_hi;", "const bool add = true;")]),
+    # K2's dQ += dS K chained on the tensor cores across the whole sequence,
+    # with no fp32 additions (the sums drift, see tf32_split.cuh).
+    "k2_chained": ("flash_f32_tc.cu", [
+        ("const bool add = ((u - u_lo) & 1) || u == u_hi;", "const bool add = false;"),
+        ("        mma_split(dq_sum[n], dsa[kk], b);", "        mma_split(dq_acc[n], dsa[kk], b);"),
+    ]),
     # 16-key K/V tiles (so that two CTAs still fit an SM at D 128), each
     # split once into hi (in place) and lo (a buffer of its own) after it
     # lands; the fragments then load hi and lo with no arithmetic.
@@ -138,10 +162,12 @@ VARIANTS = {
          "      uint32_t* vh = reinterpret_cast<uint32_t*>(Vs + st * T::kKeys * LD);\n"
          "      for (int idx = tid; idx < T::kKeys * LD; idx += T::kFwdThreads) {\n"
          "        const float x = __uint_as_float(kh[idx]), y = __uint_as_float(vh[idx]);\n"
-         "        kh[idx] = tf32_rna(x);\n"
-         "        reinterpret_cast<uint32_t*>(Klo)[idx] = tf32_rna(x - __uint_as_float(kh[idx]));\n"
-         "        vh[idx] = tf32_rna(y);\n"
-         "        reinterpret_cast<uint32_t*>(Vlo)[idx] = tf32_rna(y - __uint_as_float(vh[idx]));\n"
+         "        kh[idx] = (kh[idx] + 0x1000u) & 0xffffe000u;\n"
+         "        reinterpret_cast<uint32_t*>(Klo)[idx] =\n"
+         "            __float_as_uint(x - __uint_as_float(kh[idx]));\n"
+         "        vh[idx] = (vh[idx] + 0x1000u) & 0xffffe000u;\n"
+         "        reinterpret_cast<uint32_t*>(Vlo)[idx] =\n"
+         "            __float_as_uint(y - __uint_as_float(vh[idx]));\n"
          "      }\n"
          "    }\n"
          "    __syncthreads();\n"

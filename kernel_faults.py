@@ -20,8 +20,10 @@ module of its own, as ``kernel_ab.py`` loads a second tree:
 - ``dkv_drop_q_tile``: K3 (``flash_bwd_dkv_d256_sm90.cu``) zeroes P^T of the
   last Q tile that each owned key tile sees, so that tile's contributions
   to dV and, through dS^T, to dK are lost;
-- ``f32_one_pass``: the fp32 K1 and K3 (``flash_f32_tc.cu``) keep only the
-  hi·hi term of each split-TF32 product (``tf32_split.cuh``): plain TF32;
+- ``f32_one_pass``: the fp32 K1, K2 and K3 (``flash_f32_tc.cu``) keep only
+  the hi·hi term of each split-TF32 product (``tf32_split.cuh``): plain TF32;
+- ``f32_dq_drop_k_tile``: the fp32 K2 leaves the last streamed K/V tile's
+  dS·K (16 keys) out of dQ, for every owned Q block;
 - ``f32_dkv_drop_q_tile``: the fp32 K3 zeroes P^T of the last streamed Q
   tile (16 queries) that each owned key tile sees, so that tile's
   contributions to dV and, through dS^T, to dK are lost.
@@ -75,6 +77,10 @@ FAULTS = {
         "tf32_split.cuh",
         "  mma_tf32(c, a.lo, b.hi);\n  mma_tf32(c, a.hi, b.lo);\n  mma_tf32(c, a.hi, b.hi);",
         "  mma_tf32(c, a.hi, b.hi);")],
+    "f32_dq_drop_k_tile": [(
+        "flash_f32_tc.cu",
+        "        mma_split(dq_sum[n], dsa[kk], b);",
+        "        if (u != u_hi) mma_split(dq_sum[n], dsa[kk], b);")],
     "f32_dkv_drop_q_tile": [(
         "flash_f32_tc.cu",
         "        if (masked && !visible(q0 + qi, kpos + 8 * (e >> 1), window)) p = 0.0f;",

@@ -138,10 +138,10 @@ def test_hopper_backward_is_built_from_wgmma_and_tma(cuda, symbol, count):
     assert all(n["HGMMA"] and n["UTMALDG"] for n in found.values()), found
 
 
-# fp32 K1 and K3 (csrc/flash_f32_tc.cu, split TF32) at every head dim,
-# causal, windowed (the window cuts K1's 32-key and K3's 16-query streamed
-# tiles) and non-causal; at D 256 the CTA's two column groups exchange
-# partial scores.
+# fp32 K1, K2 and K3 (csrc/flash_f32_tc.cu, split TF32) at every head dim,
+# causal, windowed (the window cuts K1's 32-key, K2's 16-key and K3's
+# 16-query streamed tiles) and non-causal; at D 256 the CTA's two column
+# groups of K1 and K2 exchange partial scores.
 _F32 = [(2, s, d, w, c) for d in (16, 32, 64, 128, 256)
         for s, w, c in ((256, 0, True), (320, 37, True), (192, 0, False))]
 
@@ -158,7 +158,35 @@ def test_fp32_forward_and_dkv_match_plain(cuda, bh, s, d, window, causal):
         _assert_close(a, b, TOL[torch.float32][1], REL[torch.float32])
 
 
-@pytest.mark.parametrize("symbol", ["flash_fwd_f32_tc", "flash_bwd_dkv_f32_tc"])
+@pytest.mark.parametrize("bh,s,d,window,causal", _F32)
+def test_fp32_dq_matches_plain(cuda, bh, s, d, window, causal):
+    q, k, v, do = _inputs(bh, s, d, torch.float32, seed=5)
+    po, plse = fc.flash_fwd_plain(q, k, v, window, causal)
+    args = (q, k, v, do, plse, fc.flash_delta(po, do), window, causal)
+    _assert_close(fc.flash_bwd_dq(*args), fc.flash_bwd_dq_plain(*args), TOL[torch.float32][1],
+                  REL[torch.float32])
+
+
+@pytest.mark.parametrize("bh,s,d,causal", [(4, 2048, 128, True), (2, 2048, 256, False)])
+def test_fp32_kernels_hold_the_bound_at_s2048(cuda, bh, s, d, causal):
+    """K1, K2 and K3 in fp32 over 2048 positions: the tensor cores truncate
+    the sums they accumulate, so one chain of products along the sequence
+    drifts past the fp32 relative norm bound there (2.2e-5 on dK and dV on
+    an H100); each streamed tile's sums are added in fp32 instead."""
+    q, k, v, do = _inputs(bh, s, d, torch.float32, seed=9)
+    o, lse = fc.flash_fwd(q, k, v, 0, causal)
+    po, plse = fc.flash_fwd_plain(q, k, v, 0, causal)
+    _assert_close(o, po, TOL[torch.float32][0], REL[torch.float32])
+    _assert_close(lse, plse, TOL[torch.float32][0], REL[torch.float32])
+    args = (q, k, v, do, plse, fc.flash_delta(po, do), 0, causal)
+    got = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
+    want = (fc.flash_bwd_dq_plain(*args), *fc.flash_bwd_dkv_plain(*args))
+    for a, b in zip(got, want):
+        _assert_close(a, b, TOL[torch.float32][1], REL[torch.float32])
+
+
+@pytest.mark.parametrize("symbol", ["flash_fwd_f32_tc", "flash_bwd_dq_f32_tc",
+                                    "flash_bwd_dkv_f32_tc"])
 def test_fp32_kernels_multiply_in_tf32_on_the_tensor_cores(cuda, symbol):
     """Every instantiation (D 16-256, causal and not) is built from TF32
     mma.sync (``HMMA.1688.F32.TF32``, and no HMMA of another kind), and
@@ -174,13 +202,13 @@ def test_fp32_kernels_multiply_in_tf32_on_the_tensor_cores(cuda, symbol):
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_fp32_dkv_is_deterministic(cuda, d, causal):
-    """fp32 K3 writes each dK and dV row once (no atomics; at D 256 both
-    column groups add the exchanged partial scores in one order): two runs
-    give bitwise-equal results."""
+    """fp32 K3 writes each dK and dV row once and K2 each dQ row (no
+    atomics; at D 256 both column groups of K2 add the exchanged partial
+    scores in one order): two runs give bitwise-equal results."""
     q, k, v, do = _inputs(4, 512, d, torch.float32, seed=8)
     po, plse = fc.flash_fwd_plain(q, k, v, 0, causal)
     args = (q, k, v, do, plse, fc.flash_delta(po, do), 0, causal)
-    first, second = fc.flash_bwd_dkv(*args), fc.flash_bwd_dkv(*args)
+    first, second = ((fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args)) for _ in range(2))
     for a, b in zip(first, second):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 

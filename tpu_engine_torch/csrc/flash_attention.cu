@@ -57,13 +57,11 @@
 //   K3 at D 64 and 128       -> flash_bwd_sm90.cu;
 //   K2 at D 256              -> flash_bwd_dq_d256_sm90.cu;
 //   K3 at D 256              -> flash_bwd_dkv_d256_sm90.cu.
-// Every fp32 K1 and K3 goes to flash_f32_tc.cu, on the tensor cores in
-// split TF32 (each product three TF32 products, so that the fp32 bounds
-// hold; a single TF32 product would not).
-// What is left here, with no fallback from those kernels to it:
-//   bf16 K1, K2 and K3 at D 16 and 32 (the tiny configs' heads);
-//   fp32 K2 at every D, plain fp32 FMA loops over tiles staged in shared
-//     memory (never TF32); staged at D 256, see the fp32 section.
+// Every fp32 call (K1, K2 and K3) goes to flash_f32_tc.cu, on the tensor
+// cores in split TF32 (each product three TF32 products, so that the fp32
+// bounds hold; a single TF32 product would not).
+// What is left here, with no fallback from those kernels to it: bf16 K1, K2
+// and K3 at D 16 and 32 (the tiny configs' heads).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,10 +94,14 @@ extern "C" int tpe_flash_bwd_dkv_d256_sm90(const void* q, const void* k, const v
                                            const void* dout, const void* lse, const void* delta,
                                            void* dk, void* dv, void* counters, int bh, int s,
                                            int window, int causal, void* stream);
-// fp32 K1 and K3 on the tensor cores in split TF32 (flash_f32_tc.cu).
+// fp32 K1, K2 and K3 on the tensor cores in split TF32 (flash_f32_tc.cu).
 extern "C" int tpe_flash_fwd_f32_tc(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int bh, int s, int d, int window, int causal,
                                     void* stream);
+extern "C" int tpe_flash_bwd_dq_f32_tc(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       void* dq, int bh, int s, int d, int window, int causal,
+                                       void* stream);
 extern "C" int tpe_flash_bwd_dkv_f32_tc(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* delta,
                                         void* dk, void* dv, int bh, int s, int d, int window,
@@ -514,185 +516,6 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dv + out, dv_acc, 1.0f, 1.0f, lane);
 }
 
-// ===========================================================================
-// fp32 K2: plain FMA over tiles in shared memory
-// ===========================================================================
-//
-// (fp32 K1 and K3 are flash_f32_tc.cu's.) At D 256 a [64, D] fp32 tile is
-// 64 KB, and the tiles of D 128's layout (Q, dO, K, V and the [64, D]
-// accumulator) would need 416 KB. This kernel is then "staged": two tile
-// buffers are refilled within each step of the inner loop (Q and K, then dO
-// and V, then K again), in 229,888 B of shared memory. The reloads cost
-// time, not accuracy.
-
-template <int D>
-constexpr bool kStaged = D > 128;
-
-template <int D>
-struct SmemF32 {
-  static constexpr size_t tile = 4 * kBlock * D;     // a [64, D] fp32 tile
-  static constexpr size_t score = 4 * kBlock * kBlock;
-  static constexpr size_t rows = 4 * kBlock;
-  // Q, dO, K, V (staged: dO in Q's buffer, V in K's); S, dP (dS in place);
-  // dQ; lse and delta.
-  static constexpr size_t bwd_dq = (kStaged<D> ? 3 : 5) * tile + 2 * score + 2 * rows;
-};
-
-struct Carver {
-  unsigned char* p;
-  __device__ float* take(size_t bytes) {
-    float* r = reinterpret_cast<float*>(p);
-    p += bytes;
-    return r;
-  }
-};
-
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int tid) {
-  for (int idx = tid; idx < kBlock * D / 4; idx += kThreads)
-    reinterpret_cast<float4*>(dst)[idx] = reinterpret_cast<const float4*>(src)[idx];
-}
-
-// C[16, 64] = A[16, D] * B[64, D]^T for one warp. Each lane owns columns
-// lane and lane + 32 of all 16 rows.
-template <int D>
-__device__ __forceinline__ void warp_abt_f32(const float* A, const float* B, float* C, int lane) {
-  float acc[16][2] = {};
-  for (int kk = 0; kk < D; ++kk) {
-    const float b0 = B[lane * D + kk], b1 = B[(lane + 32) * D + kk];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float a = A[r * D + kk];
-      acc[r][0] = fmaf(a, b0, acc[r][0]);
-      acc[r][1] = fmaf(a, b1, acc[r][1]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    C[r * kBlock + lane] = acc[r][0];
-    C[r * kBlock + lane + 32] = acc[r][1];
-  }
-}
-
-// C[16, W] += A[16, 64] * B[64, W] for one warp, all row-major. Each lane
-// owns columns lane + 32 t of all 16 rows; below W = 32 only the first W
-// lanes own one.
-template <int W>
-__device__ __forceinline__ void warp_ab_acc_f32(const float* A, const float* B, float* C,
-                                                int lane) {
-  constexpr int kT = W >= 32 ? W / 32 : 1;
-  if (W < 32 && lane >= W) return;
-  float acc[16][kT];
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int c = 0; c < kT; ++c) acc[r][c] = C[r * W + lane + 32 * c];
-  for (int kk = 0; kk < kBlock; ++kk) {
-    float b[kT];
-#pragma unroll
-    for (int c = 0; c < kT; ++c) b[c] = B[kk * W + lane + 32 * c];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float a = A[r * kBlock + kk];
-#pragma unroll
-      for (int c = 0; c < kT; ++c) acc[r][c] = fmaf(a, b[c], acc[r][c]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int c = 0; c < kT; ++c) C[r * W + lane + 32 * c] = acc[r][c];
-}
-
-// P and dS for one warp's 16 rows of a score tile (rows queries of tile i,
-// columns keys of tile j), in place over S and dP.
-__device__ __forceinline__ void p_ds_rows_f32(float* Sw, float* dPw, const float* lse_s,
-                                              const float* delta_s, int i, int j, int warp,
-                                              int lane, int window, float scale, bool masked) {
-  const int r = lane >> 1, half = lane & 1;
-  const int qi = warp * 16 + r;  // row statistics belong to the query
-  for (int c = half * 32; c < half * 32 + 32; ++c) {
-    float p = 0.0f;
-    if (!masked || visible(i * kBlock + qi, j * kBlock + c, window))
-      p = expf(Sw[r * kBlock + c] * scale - lse_s[qi]);
-    dPw[r * kBlock + c] = p * (dPw[r * kBlock + c] - delta_s[qi]) * scale;
-    Sw[r * kBlock + c] = p;
-  }
-}
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq, int S, int window, float scale) {
-  using L = SmemF32<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver cv{smem};
-  float* Qs = cv.take(L::tile);
-  float* dOs = kStaged<D> ? Qs : cv.take(L::tile);
-  float* Ks = cv.take(L::tile);
-  float* Vs = kStaged<D> ? Ks : cv.take(L::tile);
-  float* Ss = cv.take(L::score);
-  float* dPs = cv.take(L::score);
-  float* dQs = cv.take(L::tile);
-  float* lse_s = cv.take(L::rows);
-  float* delta_s = cv.take(L::rows);
-
-  const int n_blk = S / kBlock;
-  int i, lo, hi;
-  q_major_range<kCausal>(n_blk, window, i, lo, hi);
-  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
-  const size_t qo = base + static_cast<size_t>(i) * kBlock * D;
-  const size_t rbase = static_cast<size_t>(blockIdx.x) * S + i * kBlock;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  if constexpr (!kStaged<D>) {
-    load_tile_f32<D>(Qs, q + qo, tid);
-    load_tile_f32<D>(dOs, dout + qo, tid);
-  }
-  for (int idx = tid; idx < kBlock * D; idx += kThreads) dQs[idx] = 0.0f;
-  if (tid < kBlock) {
-    lse_s[tid] = lse[rbase + tid];
-    delta_s[tid] = delta[rbase + tid];
-  }
-  float* Sw = Ss + warp * 16 * kBlock;
-  float* dPw = dPs + warp * 16 * kBlock;
-
-  for (int j = lo; j <= hi; ++j) {
-    const size_t kv = base + static_cast<size_t>(j) * kBlock * D;
-    __syncthreads();
-    if constexpr (kStaged<D>) load_tile_f32<D>(Qs, q + qo, tid);
-    load_tile_f32<D>(Ks, k + kv, tid);
-    if constexpr (!kStaged<D>) load_tile_f32<D>(Vs, v + kv, tid);
-    __syncthreads();
-
-    warp_abt_f32<D>(Qs + warp * 16 * D, Ks, Sw, lane);
-    if constexpr (kStaged<D>) {  // dO and V over Q and K once every warp has read them
-      __syncthreads();
-      load_tile_f32<D>(dOs, dout + qo, tid);
-      load_tile_f32<D>(Vs, v + kv, tid);
-      __syncthreads();
-    }
-    warp_abt_f32<D>(dOs + warp * 16 * D, Vs, dPw, lane);
-    __syncwarp();
-    p_ds_rows_f32(Sw, dPw, lse_s, delta_s, i, j, warp, lane, window, scale,
-                  kCausal && needs_mask(i, j, window));
-    if constexpr (kStaged<D>) {  // K again, over V
-      __syncthreads();
-      load_tile_f32<D>(Ks, k + kv, tid);
-      __syncthreads();
-    }
-    __syncwarp();
-    warp_ab_acc_f32<D>(dPw, Ks, dQs + warp * 16 * D, lane);
-    __syncwarp();
-  }
-
-  __syncthreads();
-  float* g = dq + qo;
-  for (int idx = tid; idx < kBlock * D; idx += kThreads) g[idx] = dQs[idx];
-}
-
 // ---------------------------------------------------------------------------
 // Host launchers
 // ---------------------------------------------------------------------------
@@ -737,9 +560,6 @@ template <int D, bool C>
 int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* counters, int bh, int s,
            int window, cudaStream_t st) {
-  const float sc = softmax_scale(D);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   if (is_bf16) {
     if constexpr (D == 256)  // the Hopper kernels, and no other (no fallback)
       return tpe_flash_bwd_dq_d256_sm90(q, k, v, dout, lse, delta, dq, counters, bh, s, window,
@@ -750,13 +570,12 @@ int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void
     else
       return launch(flash_bwd_dq_bf16<D, C>, SmemBf16<D>::bwd_dq, bh, s, st,
                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-                    static_cast<bf16*>(dq), s, window, sc);
+                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                    static_cast<const float*>(lse), static_cast<const float*>(delta),
+                    static_cast<bf16*>(dq), s, window, softmax_scale(D));
   }
-  return launch(flash_bwd_dq_f32<D, C>, SmemF32<D>::bwd_dq, bh, s, st,
-                static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-                static_cast<float*>(dq), s, window, sc);
+  // fp32: the split-TF32 tensor-core kernel, and no other (no fallback).
+  return tpe_flash_bwd_dq_f32_tc(q, k, v, dout, lse, delta, dq, bh, s, D, window, C, st);
 }
 
 template <int D, bool C>

@@ -1,6 +1,6 @@
 // The tile schedule and the cp.async copies shared by the mma.sync flash
-// kernels: flash_attention.cu (bf16 K1-K3 at D 16 and 32, fp32 K2) and
-// flash_f32_tc.cu (fp32 K1 and K3 in split TF32).
+// kernels: flash_attention.cu (bf16 K1-K3 at D 16 and 32) and
+// flash_f32_tc.cu (fp32 K1-K3 in split TF32).
 //
 // The schedule works on 64-row blocks of the sequence: a Q-major kernel (K1,
 // K2) owns Q block i and walks the K blocks [lo, hi] that its causal window

@@ -1,10 +1,10 @@
 // fp32 flash attention on Hopper's tensor cores in split TF32 (sm_90a):
-// K1, the forward, and K3, dK and dV, each causal (optionally
+// K1, the forward, K2, dQ, and K3, dK and dV, each causal (optionally
 // sliding-window) and non-causal, at head dims 16, 32, 64, 128 and 256.
-// Plain C entries, called by flash_attention.cu's tpe_flash_fwd and
-// tpe_flash_bwd_dkv for every fp32 call.
+// Plain C entries, called by flash_attention.cu's tpe_flash_fwd,
+// tpe_flash_bwd_dq and tpe_flash_bwd_dkv for every fp32 call.
 //
-// Layout as in flash_attention.cu: q, k, v, o, dO, dk, dv are [BH, S, D]
+// Layout as in flash_attention.cu: q, k, v, o, dO, dq, dk, dv are [BH, S, D]
 // contiguous fp32; lse (natural log) and delta are [BH, S] fp32; S is a
 // multiple of 64; scale = 1/sqrt(D).
 //
@@ -17,13 +17,17 @@
 //   products (tf32_split.cuh), so the least time is 6.9e10 * 3 / 495
 //   TFLOP/s = 0.42 ms, against 0.08 ms to move its 269 MB: bound by
 //   operations.
+// K2 flash_bwd_dq_f32_tc replaces _bwd_dq_kernel (launched by _flash_bwd):
+//   dQ = dS k, with P rebuilt from (q, k, lse) and dS = P (dO v^T - delta)
+//   * scale. 3 products, 1.03e11 FLOP: 0.63 ms at the same shape, against
+//   0.10 ms for its 337 MB.
 // K3 flash_bwd_dkv_f32_tc replaces _bwd_dkv_kernel: dV = P^T dO and
 //   dK = dS^T q, with P rebuilt from (q, k, lse) and dS = P (dO v^T - delta)
 //   * scale. 4 products, 1.4e11 FLOP: 0.83 ms at the same shape, against
 //   0.12 ms for its bytes.
 //
 // What the design does about what held the scalar-FMA fp32 kernels these
-// replace at 9-15 % of the FMA rate:
+// replace at 5-15 % of the FMA rate:
 //
 // 1. Tensor cores. Every product is mma.sync m16n8k8 with TF32 operands,
 //    each fp32 operand split into hi + lo and each product taken as three
@@ -31,41 +35,48 @@
 //    (495 / 3). One warp owns 16 rows of the CTA's tile and keeps its
 //    scores, probabilities and accumulators in registers. An accumulator is
 //    not an A fragment in TF32 (its lane holds columns 2t, 2t + 1; A wants
-//    t, t + 4), so P (K1) and P^T, dS^T (K3) become the next product's A
-//    operand with the columns of each 8 taken in the order 0, 2, 4, 6, 1, 3,
-//    5, 7 and the B operand's rows in the same order (acc_to_a,
-//    load_b_permuted): no shuffles.
+//    t, t + 4), so P (K1), dS (K2) and P^T, dS^T (K3) become the next
+//    product's A operand with the columns of each 8 taken in the order 0,
+//    2, 4, 6, 1, 3, 5, 7 and the B operand's rows in the same order
+//    (acc_to_a, load_b_permuted): no shuffles.
 // 2. Bank conflicts. Every shared tile has rows of D + 4 floats. A B operand
-//    read as rows g, columns t (K^T; in K3 Q^T and dO^T) then falls on bank
-//    4g + t, and one read as rows 2t, columns g (V; in K3 dO and Q) on bank
-//    8t + g: 32 lanes, 32 banks, one wavefront per load.
+//    read as rows g, columns t (K^T, and V^T in K2; in K3 Q^T and dO^T)
+//    then falls on bank 4g + t, and one read as rows 2t, columns g (V; K in
+//    K2; in K3 dO and Q) on bank 8t + g: 32 lanes, 32 banks, one wavefront
+//    per load.
 // 3. Occupancy and overlap. K1's CTA owns 64 Q rows and streams 32-key K/V
-//    tiles; K3's owns 64 keys and streams 16-query Q/dO tiles (with their
-//    lse and delta). Both double-buffer the streamed tiles with cp.async, so
-//    the next tile loads while this one is multiplied. At D 128 a K1 CTA is
-//    four warps and 101 KB and a K3 CTA eight warps and 106 KB; two of
-//    either fit an SM.
+//    tiles; K2's owns 64 Q rows, keeps Q and dO in shared memory and
+//    streams 16-key K/V tiles; K3's owns 64 keys and streams 16-query Q/dO
+//    tiles (with their lse and delta). All double-buffer the streamed tiles
+//    with cp.async, so the next tile loads while this one is multiplied. At
+//    D 128 a K1 CTA is four warps and 101 KB, a K2 CTA four warps and 101
+//    KB and a K3 CTA eight warps and 106 KB; two of any fit an SM.
 // 4. No repeated work where one warp cannot hold a whole row. A warp of K3
 //    holding both dK and dV of 16 keys would need two accumulators of D / 2
 //    registers each, with no room left at D 128: K3's eight warps take one role
 //    each. Warps 0-3 build P^T = exp(S^T - lse), hand it through shared
 //    memory to the warp of the same keys among 4-7, and accumulate dV; warps
 //    4-7 build dP^T, form dS^T from the P^T they receive, and accumulate dK.
-//    Each takes two of the four products. K1 at D 256 would need 128
-//    registers for o alone, so its eight warps are two column groups: warps
-//    w and w + 4 own the same 16 rows, each takes the score products over
-//    its half of D and o's columns of that half, and the two add each
-//    other's partial scores, exchanged through shared memory, in the same
-//    order, so both hold the same scores. No product is computed twice and
-//    no tile is loaded twice. One named barrier per pair of warps.
+//    Each takes two of the four products. K1 and K2 at D 256 would need 128
+//    registers for o or dQ alone, so their eight warps are two column
+//    groups: warps w and w + 4 own the same 16 rows, each takes the score
+//    products (K2: S and dP) over its half of D and the output's columns of
+//    that half, and the two add each other's partial scores, exchanged
+//    through shared memory, in the same order, so both hold the same scores
+//    (and in K2 the same dS). No product is computed twice and no tile is
+//    loaded twice. One named barrier per pair of warps.
 // 5. fp32 sums. The tensor cores truncate the sums they accumulate, which
 //    along 2048 keys or queries drifts past the fp32 bound: a streamed
-//    tile's products are summed from zero and added to dK and dV in fp32,
-//    and to o with its rescaling in one fused multiply-add
+//    tile's products are summed from zero and added to dQ, dK and dV in
+//    fp32, and to o with its rescaling in one fused multiply-add
 //    (tf32_split.cuh). In K1 that costs nothing: the tile's sums are one
 //    register per accumulator register, and the FMA replaces the rescale.
+//    K2 sums two of its 16-key tiles the same way, one register per
+//    accumulator register, before each addition: adding every tile ran
+//    slower on an H100 (kernel_ab.py --variant k2_tile_sums). K3 sums a
+//    tile per 8 columns of output, in four registers.
 //
-// Operands are split at each fragment load (four integer operations and one
+// Operands are split at each fragment load (two integer operations and one
 // fp32 subtraction per value) rather than kept split in shared memory: that
 // would double the tiles' bytes and the shared-memory reads, which by count
 // already take two thirds of the time of the products they feed (a B
@@ -92,17 +103,25 @@ template <int D>
 struct F32Tiles {
   static constexpr int LD = D + 4;  // floats per shared row (bank-conflict free)
   static constexpr size_t kTile = sizeof(float) * kBlock * LD;  // a [64, D] tile
-  // K1: a warp owns 16 of the CTA's 64 Q rows; at D 256 two warps share
-  // them, one for each half of D (column groups).
+  // K1 and K2: a warp owns 16 of the CTA's 64 Q rows; at D 256 two warps
+  // share them, one for each half of D (column groups).
   static constexpr int kSplit = D > 128 ? 2 : 1;
   static constexpr int kFwdThreads = 128 * kSplit;
-  static constexpr int DW = D / kSplit;  // a K1 warp's columns: of the scores' sum and of o
+  static constexpr int DW = D / kSplit;  // a warp's columns: of the scores' sums, of o or dQ
   static constexpr int kKeys = 32;       // keys of a streamed K/V tile
   // Each warp's partial scores for its partner (column groups only).
   static constexpr size_t kXchFwd =
       kSplit > 1 ? sizeof(float) * 4 * kSplit * kKeys / 2 * 32 : 0;
   // K1: Q; K and V in two stages; the exchange.
   static constexpr size_t kSmemFwd = kTile + 4 * sizeof(float) * kKeys * LD + kXchFwd;
+  // K2: Q and dO stay in shared memory while 16-key K/V tiles stream past
+  // (two CTAs an SM at D 128).
+  static constexpr int kDqKeys = 16;  // keys of a streamed K/V tile
+  // Each warp's partial S and dP for its partner (column groups only).
+  static constexpr size_t kXchDq =
+      kSplit > 1 ? sizeof(float) * 4 * kSplit * 2 * (kDqKeys / 8) * 4 * 32 : 0;
+  // K2: Q, dO; K and V in two stages; the exchange.
+  static constexpr size_t kSmemDq = 2 * kTile + 4 * sizeof(float) * kDqKeys * LD + kXchDq;
   // K3: a warp owns 16 of the CTA's 64 keys and one of two roles (warps
   // 0-3: P^T and dV; warps 4-7: dS^T and dK).
   static constexpr int kBwdThreads = 256;
@@ -301,6 +320,138 @@ flash_fwd_f32_tc(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// K2: dQ
+// ---------------------------------------------------------------------------
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(F32Tiles<D>::kFwdThreads)
+flash_bwd_dq_f32_tc(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int S, int window, float scale) {
+  using T = F32Tiles<D>;
+  constexpr int LD = T::LD, NK = T::kDqKeys / 8, NO = T::DW / 8;
+  constexpr int kSub = kBlock / T::kDqKeys;  // streamed tiles per 64-key block
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + kBlock * LD;
+  float* Ks = dOs + kBlock * LD;          // stages 0, 1
+  float* Vs = Ks + 2 * T::kDqKeys * LD;   // stages 0, 1
+  float* xch = Vs + 2 * T::kDqKeys * LD;
+
+  const int n_blk = S / kBlock;
+  int i, lo, hi;
+  q_major_range<kCausal>(n_blk, window, i, lo, hi);
+  const int u_lo = lo * kSub, u_hi = hi * kSub + kSub - 1;  // streamed tiles
+  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int c0 = (warp / 4) * T::DW;                  // this warp's columns
+  const int qpos = i * kBlock + (warp % 4) * 16 + g;  // rows qpos, qpos + 8
+  const float scale2 = scale * kLog2e;
+  const float* Qw = Qs + (warp % 4) * 16 * LD + c0;
+  const float* dOw = dOs + (warp % 4) * 16 * LD + c0;
+  // The rows' statistics: lse in base 2, and delta.
+  const size_t rb = static_cast<size_t>(blockIdx.x) * S + qpos;
+  const float lse2[2] = {lse[rb] * kLog2e, lse[rb + 8] * kLog2e};
+  const float dl[2] = {delta[rb], delta[rb + 8]};
+
+  auto load_kv = [&](int u, int st) {
+    const size_t off = base + static_cast<size_t>(u) * T::kDqKeys * D;
+    load_rows<D, T::kDqKeys, T::kFwdThreads>(Ks + st * T::kDqKeys * LD, k + off, tid);
+    load_rows<D, T::kDqKeys, T::kFwdThreads>(Vs + st * T::kDqKeys * LD, v + off, tid);
+  };
+  const size_t qo = base + static_cast<size_t>(i) * kBlock * D;
+  load_rows<D, kBlock, T::kFwdThreads>(Qs, q + qo, tid);
+  load_rows<D, kBlock, T::kFwdThreads>(dOs, dout + qo, tid);
+  load_kv(u_lo, 0);
+  cp_async_commit();
+
+  float dq_acc[NO][4] = {};
+  float dq_sum[NO][4] = {};  // this pair of streamed tiles' dS K
+  for (int u = u_lo; u <= u_hi; ++u) {
+    const int st = (u - u_lo) & 1;
+    if (u < u_hi) {  // prefetch the next K/V tiles into the other stage
+      load_kv(u + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Ktile = Ks + st * T::kDqKeys * LD + c0;
+    const float* Vtile = Vs + st * T::kDqKeys * LD + c0;
+
+    // S = Q K^T (x[0, NK)) and dP = dO V^T (x[NK, 2 NK)) over this warp's
+    // columns.
+    float x[2 * NK][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < T::DW / 8; ++kk) {
+      SplitA a;
+      load_a(a, Qw + kk * 8, LD, g, t);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        SplitB b;
+        load_b_rows(b, Ktile + n * 8 * LD + kk * 8, LD, g, t);
+        mma_split(x[n], a, b);
+      }
+      load_a(a, dOw + kk * 8, LD, g, t);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        SplitB b;
+        load_b_rows(b, Vtile + n * 8 * LD + kk * 8, LD, g, t);
+        mma_split(x[NK + n], a, b);
+      }
+    }
+    if constexpr (T::kSplit > 1) add_partner<2 * NK>(x, xch, warp, lane);
+
+    // dS = P (dP - delta) * scale, P = exp(S * scale - lse), 0 where masked.
+    const bool masked = kCausal && needs_mask(i, u / kSub, window);
+    const int key0 = u * T::kDqKeys;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2f(fmaf(x[n][e], scale2, -lse2[r]));
+        if (masked && !visible(qpos + 8 * r, key0 + n * 8 + 2 * t + (e & 1), window)) p = 0.0f;
+        x[n][e] = p * (x[NK + n][e] - dl[r]) * scale;
+      }
+
+    // dQ += dS K over this warp's columns, keys of each 8 in acc_to_a's
+    // order: two streamed tiles' keys (32, as K1's tiles) summed on the
+    // tensor cores from zero, then added in fp32 (tf32_split.cuh).
+    SplitA dsa[NK];
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) acc_to_a(dsa[kk], x[kk]);
+    const bool add = ((u - u_lo) & 1) || u == u_hi;  // the pair's second tile, or the last
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        SplitB b;
+        load_b_permuted(b, Ktile + kk * 8 * LD + n * 8, LD, g, t);
+        mma_split(dq_sum[n], dsa[kk], b);
+      }
+      if (add) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dq_acc[n][e] += dq_sum[n][e];
+          dq_sum[n][e] = 0.0f;
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage (and the exchange) before reuse
+  }
+
+  float* row = dq + base + static_cast<size_t>(qpos) * D + c0 + 2 * t;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<float2*>(row + n * 8) = make_float2(dq_acc[n][0], dq_acc[n][1]);
+    *reinterpret_cast<float2*>(row + 8 * D + n * 8) = make_float2(dq_acc[n][2], dq_acc[n][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K3: dK and dV
 // ---------------------------------------------------------------------------
 
@@ -467,6 +618,14 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse, in
 }
 
 template <int D, bool C>
+int bwd_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+           const float* delta, float* dq, int bh, int s, int window, cudaStream_t st) {
+  using T = F32Tiles<D>;
+  return launch(flash_bwd_dq_f32_tc<D, C>, T::kSmemDq, T::kFwdThreads, bh, s, st, q, k, v, dout,
+                lse, delta, dq, s, window, softmax_scale(D));
+}
+
+template <int D, bool C>
 int bwd_dkv(const float* q, const float* k, const float* v, const float* dout, const float* lse,
             const float* delta, float* dk, float* dv, int bh, int s, int window,
             cudaStream_t st) {
@@ -507,6 +666,18 @@ int tpe_flash_fwd_f32_tc(const void* q, const void* k, const void* v, void* o, v
     return fwd<decltype(dc)::value, decltype(cc)::value>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), static_cast<float*>(lse), bh, s, window,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+int tpe_flash_bwd_dq_f32_tc(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, int bh, int s, int d,
+                            int window, int causal, void* stream) {
+  return dispatch(d, causal != 0, [&](auto dc, auto cc) {
+    return bwd_dq<decltype(dc)::value, decltype(cc)::value>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dq), bh, s, window,
         static_cast<cudaStream_t>(stream));
   });
 }

@@ -2,17 +2,25 @@
 // on the tensor cores at fp32 accuracy.
 //
 // An fp32 value x is carried as two TF32 values, hi = tf32(x) and
-// lo = tf32(x - hi), each rounded to nearest with ties away from zero (the
-// rounding of cvt.rna.tf32.f32, computed here on the bits). x - hi is exact,
-// and hi + lo equals x to about 2^-22 relative. A product is then three TF32
-// products accumulated in fp32, the small terms first:
+// lo = tf32(x - hi). A TF32 mma reads 19 bits of each 32-bit operand (sign,
+// exponent, 10 mantissa bits) and ignores the low 13, so neither half is
+// masked before the mma: hi is x plus half a TF32 ulp (0x1000 on the bits),
+// which the tensor cores then see rounded to nearest with ties away from
+// zero (the rounding of cvt.rna.tf32.f32; CUTLASS's round_half_ulp_truncate),
+// and lo is x - hi with hi's low bits cleared, which they see truncated
+// towards zero. x - hi is exact and |lo| is at most half of hi's ulp, so hi
+// + lo equals x to about 2^-21 relative; three integer and fp32 operations
+// a value. A product is then three TF32 products accumulated in fp32, the
+// small terms first:
 //
 //   a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b,
 //
 // dropping lo_a lo_b (about 2^-22 relative). Each TF32 product of two such
 // values is exact in fp32, so the error per element is about 1e-6 relative,
 // inside the fp32 bounds; one TF32 product alone (hi_a hi_b) is off by about
-// 5e-4 relative and fails them.
+// 5e-4 relative and fails them. Rounding lo to nearest as well (five
+// operations a value) gave the same errors on an H100 and ran 7-11 % slower
+// (kernel_ab.py --variant split_rna).
 //
 // The tensor cores do not round the sums they accumulate to nearest: bits
 // that fall below the accumulator's last place are cut, always towards
@@ -20,8 +28,8 @@
 // instead of cancelling: dK and dV summed over 2048 queries that way read
 // 2.3e-5 from fp32 on an H100, twice the fp32 bound. So the kernels sum the
 // sequence in fp32 registers with rounded additions, and the tensor cores
-// sum from zero only one streamed tile's products (32 keys, 16 queries) or
-// the D of one score.
+// sum from zero only 32 keys' products (K1's tile, two of K2's), one
+// streamed tile of K3's (16 queries) or the D of one score.
 //
 // Fragments of mma.m16n8k8 with TF32 operands (PTX ISA), lane = 4 g + t:
 // A (16x8) holds (row g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4);
@@ -34,18 +42,14 @@
 
 namespace {
 
-// x rounded to TF32 (10 explicit mantissa bits), ties away from zero.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// An A operand (four values) or a B operand (two) as TF32 halves.
+// An A operand (four values) or a B operand (two) as TF32 halves, each
+// carrying low bits that the mma ignores.
 template <int N>
 struct Split {
   uint32_t hi[N], lo[N];
   __device__ __forceinline__ void set(int e, float x) {
-    hi[e] = tf32_rna(x);
-    lo[e] = tf32_rna(x - __uint_as_float(hi[e]));
+    hi[e] = __float_as_uint(x) + 0x1000u;  // rounds to nearest once truncated
+    lo[e] = __float_as_uint(x - __uint_as_float(hi[e] & 0xffffe000u));
   }
 };
 using SplitA = Split<4>;

@@ -6,13 +6,13 @@ Kernels, each replacing one Pallas kernel of
 wgmma + warp specialisation, helpers shared in ``csrc/sm90.cuh``): K1 at head
 dims 64, 128 and 256 is ``csrc/flash_fwd_sm90.cu``; K2 and K3 at 64 and 128
 are ``csrc/flash_bwd_sm90.cu``; K2 at 256 is ``csrc/flash_bwd_dq_d256_sm90.cu``
-and K3 at 256 ``csrc/flash_bwd_dkv_d256_sm90.cu``. In fp32, K1 and K3 at
+and K3 at 256 ``csrc/flash_bwd_dkv_d256_sm90.cu``. In fp32, K1, K2 and K3 at
 every head dim are ``csrc/flash_f32_tc.cu``: ``mma.sync`` on the tensor cores
 in split TF32 (each product three TF32 products, ``csrc/tf32_split.cuh``), so
 that they keep fp32 accuracy. ``csrc/flash_attention.cu`` holds the C entries
-and the rest: ``mma.sync`` in bf16 for K1, K2 and K3 at head dims 16 and 32,
-and fp32 K2 (FMA) at every head dim. ``csrc/flash_common.cuh`` is the tile
-schedule that it and ``flash_f32_tc.cu`` share.
+and the rest: ``mma.sync`` in bf16 for K1, K2 and K3 at head dims 16 and 32.
+``csrc/flash_common.cuh`` is the tile schedule that it and
+``flash_f32_tc.cu`` share.
 
 - K1 ``flash_fwd``      ← ``_fwd_kernel``      (o, lse) from (q, k, v);
 - K2 ``flash_bwd_dq``   ← ``_bwd_dq_kernel``   dq from (q, k, v, dO, lse, Δ);

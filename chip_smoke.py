@@ -9,8 +9,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each causal and non-causal, head dims 16/32/64/128/256) from
    ``tpu_engine_torch/csrc`` with nvcc for sm_90a, one compiler per source,
    all at once; check that the Hopper kernels (``flash_fwd_sm90``: K1 in
-   bf16 at D 64, 128 and 256; ``flash_bwd_dq_sm90``, ``flash_bwd_dkv_sm90``:
-   K2 and K3 at D 64 and 128; ``flash_bwd_dq_d256_sm90``,
+   bf16 at every head dim; ``flash_bwd_dkv_sm90``: K3 at D 16, 32, 64 and
+   128; ``flash_bwd_dq_sm90``: K2 at D 64 and 128; ``flash_bwd_dq_d256_sm90``,
    ``flash_bwd_dkv_d256_sm90``: K2 and K3 at D 256) are built from wgmma and
    TMA loads (``HGMMA``, ``UTMALDG`` in their SASS), spill nothing, and keep
    ``setmaxnreg`` (no ptxas C7508 warning); that the fp32 K1, K2 and K3
@@ -23,8 +23,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    TF32 off, on sliding-window cases and at D 16, 32 and 64; at D 256
    in bf16 at gemma-2b's training shape (B·H 4·8, S 2048), causal and
    non-causal, and on window and fp32 cases; hold K1 alone, and K2 and K3 alone, on
-   the edges of the Hopper kernels' 128-row tiles (ragged S, window edges,
-   B·H 1 and 256) at D 64, 128 and 256, K2 and K3 also to bitwise-equal
+   the edges of the Hopper kernels' tiles (ragged S, window edges, B·H 1 and
+   256) at D 16, 32, 64, 128 and 256, K2 and K3 also to bitwise-equal
    results when run twice; show that an unbuilt head dim (80) raises; hold ``FlashAttentionLSE``'s backward under random (dO,
    dlse) to autograd through the plain forward; time each kernel beside its
    plain version, its bound and a library yardstick
@@ -33,10 +33,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    kernels also at the ring shard, and the D 256 kernels at gemma-2b's
    shape; hold and time the kernels the bf16 paths do not launch
    (``OFF_PATH``: fp32 K1-K3 causal at D 128 and 256 and non-causal at the
-   ring shard, bf16 at D 32 and 64), fp32 K2 and K3 also to bitwise-equal
+   ring shard, bf16 at D 16, 32 and 64), fp32 K2 and K3 also to bitwise-equal
    results when run twice, fp32 bounds at the split-TF32 rate and at the FMA
    rate, and the K2 + K3 pair beside the library's backward
-   (memory-efficient in fp32, flash in bf16);
+   (memory-efficient in fp32, flash in bf16); every bound is the longest of
+   the tensor-core operations, the exps (one per visible pair, PEAK_EXP2)
+   and the bytes;
 3. model: a small llama, gpt2-124m, and qwen3-4b and gemma-2b at full width
    and 2 layers, through the flash kernels against the plain attention
    path, in fp32 and in bf16 compute (gemma-2b's fp32 flash pass, forward
@@ -55,8 +57,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 7. train_fp32: ``train_ring``'s llama-1b ring in fp32 compute
    (``TrainConfig(precision="fp32")``, TF32 off): every attention call on
    the fp32 kernels, the split-TF32 K1 and K3 causal and non-causal, with
-   the launch counts checked exactly; train_tiny: qwen-tiny (D 32 heads) in
-   bf16, the bf16 D 32 kernels, launch counts checked exactly;
+   the launch counts checked exactly; train_tiny: qwen-tiny (D 32 heads)
+   and gpt-tiny (D 16 heads) in bf16, the bf16 D 32 and D 16 kernels, launch
+   counts checked exactly;
 8. train_gemma: gemma-2b at full width and depth (seq 2048 × 4, bf16
    compute, fp32 masters, AdamW, checkpointing, flash attention through the
    D 256 kernels, loss chunks of 256 over the 256000-token vocabulary),
@@ -120,6 +123,13 @@ PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 (tensor cores)
 # TF32, csrc/tf32_split.cuh): the least time any fp32 kernel could take.
 PEAK_SPLIT_TF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# The exp unit (MUFU): 16 exp2 results a clock per SM at compute capability
+# 9.0 (CUDA C Programming Guide, arithmetic instruction throughput), on 132
+# SMs at the 1.83 GHz behind PEAK_BF16_FLOPS (989e12 / (132 SMs x 4096 FLOP
+# a clock)): 3.87e12 exp2 a second. Each of K1, K2 and K3 takes one exp per
+# visible (q, k) pair, which bounds them below D 64, where the products per
+# pair are few.
+PEAK_EXP2 = 132 * 16 * 1.83e9
 
 # Tolerances: kernel against its plain version on the same inputs. Each
 # output is held elementwise (atol/rtol) and, since the elementwise bf16
@@ -235,10 +245,11 @@ def check_case(fc, bh, s, d, dtype, window, seed, causal=True) -> dict:
 
 
 def kernel_bounds(bh, s, d, window, elem_bytes, causal=True, peak=PEAK_BF16_FLOPS) -> dict:
-    """Least time on the card for each kernel's work at this shape: FLOPs
-    of the visible (q, k) pairs over ``peak`` (the bf16 tensor-core peak by
-    default; the fp32 kernels multiply on the FMA units), or bytes (each
-    input read once, each output written once) over HBM bandwidth."""
+    """Least time on the card for each kernel's work at this shape, the
+    largest of three: FLOPs of the visible (q, k) pairs over ``peak`` (the
+    bf16 tensor-core peak by default), one exp per visible pair over
+    PEAK_EXP2, or bytes (each input read once, each output written once)
+    over HBM bandwidth. ``bound_by`` names the one that binds."""
     if causal:
         pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     else:
@@ -251,11 +262,12 @@ def kernel_bounds(bh, s, d, window, elem_bytes, causal=True, peak=PEAK_BF16_FLOP
     out = {}
     for name, (products, tensors, rows) in work.items():
         flops = 2.0 * products * bh * pairs * d
+        exps = float(bh * pairs)
         nbytes = tensors * bh * s * d * elem_bytes + rows * bh * s * 4
-        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-        out[name] = {"flops": flops, "bytes": nbytes,
-                     "bound_ms": max(t_ops, t_bytes) * 1e3,
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        times = {"operations": flops / peak, "exp": exps / PEAK_EXP2, "bytes": nbytes / PEAK_BYTES}
+        by = max(times, key=times.get)
+        out[name] = {"flops": flops, "exps": exps, "bytes": nbytes,
+                     "bound_ms": times[by] * 1e3, "bound_by": by}
     return out
 
 
@@ -282,26 +294,29 @@ SOURCE_D256 = {
 GEMMA_SHAPE = (4, 8, 2048, 256)  # gemma-2b's attention in train_gemma: B, H, S, D
 # The kernels the bf16 training paths (train, train_ring, train_gemma) do not
 # launch: fp32 K1-K3 (TrainConfig(precision="fp32") and every fp32 check),
-# bf16 at D 32 (the tiny configs' heads) and bf16 at D 64 (gpt-125m's and
-# gpt2-124m's heads). (row suffix, B·H, D, dtype, causal, the paths whose
-# launches the row reads), timed at S 2048: causal at train's B·H for D 128
-# and 32, at train_gemma's for D 256 and at bench_torch.py's gpt-125m
-# micro-batch 16 (16 × 12 heads) for D 64, non-causal at the ring shard's.
+# bf16 at D 32 and 16 (the tiny configs' heads) and bf16 at D 64 (gpt-125m's
+# and gpt2-124m's heads). (row suffix, B·H, D, dtype, causal, the paths
+# whose launches the row reads), timed at S 2048: causal at train's B·H for
+# D 128, 32 and 16, at train_gemma's for D 256 and at bench_torch.py's
+# gpt-125m micro-batch 16 (16 × 12 heads) for D 64, non-causal at the ring
+# shard's.
 OFF_PATH = (("fp32_d128", 64, 128, "fp32", True, ("train_fp32",)),
             ("fp32_d256", 32, 256, "fp32", True, ("model_fp32_gemma",)),
             ("fp32_d128_full", 16, 128, "fp32", False, ("train_fp32",)),
             ("bf16_d32", 64, 32, "bf16", True, ("train_tiny",)),
+            ("bf16_d16", 64, 16, "bf16", True, ("train_tiny_d16",)),
             ("bf16_d64", 192, 64, "bf16", True, ("model_bf16_gpt2",)))
 # The source of each OFF_PATH kernel, by dtype: fp32 K1-K3 are the
-# split-TF32 kernels; bf16 at D 32 is flash_attention.cu's, and bf16 at D 64
-# the Hopper kernels of D 128 (``SOURCE``).
+# split-TF32 kernels; bf16 at D 16 and 32 is the Hopper K1 and K3 and
+# flash_attention.cu's K2, and bf16 at D 64 the Hopper kernels of D 128
+# (``SOURCE``).
 SOURCE_OFF_PATH = {
     ("fp32", "flash_fwd"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
     ("fp32", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
     ("fp32", "flash_bwd_dkv"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
-    ("bf16", "flash_fwd"): "tpu_engine_torch/csrc/flash_attention.cu",
+    ("bf16", "flash_fwd"): "tpu_engine_torch/csrc/flash_fwd_sm90.cu",
     ("bf16", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_attention.cu",
-    ("bf16", "flash_bwd_dkv"): "tpu_engine_torch/csrc/flash_attention.cu",
+    ("bf16", "flash_bwd_dkv"): "tpu_engine_torch/csrc/flash_bwd_sm90.cu",
 }
 # The split-TF32 kernels' symbol and its instantiations (K1, K2 and K3, head
 # dims 16-256, causal and not), and the SASS of a TF32 mma.sync m16n8k8:
@@ -309,9 +324,9 @@ SOURCE_OFF_PATH = {
 F32_TC_KERNELS = {"flash_fwd_f32_tc": 10, "flash_bwd_dq_f32_tc": 10, "flash_bwd_dkv_f32_tc": 10}
 F32_TC_HMMA = "HMMA.1688.F32.TF32"
 # The Hopper kernels' symbols and their instantiations (head dims x causal
-# and not): K1 at D 64, 128 and 256; K2 and K3 at 64 and 128; K2 and K3 at
-# 256.
-SM90_KERNELS = {"flash_fwd_sm90": 6, "flash_bwd_dq_sm90": 4, "flash_bwd_dkv_sm90": 4,
+# and not): K1 at D 16, 32, 64, 128 and 256; K2 at 64 and 128; K3 at 16,
+# 32, 64 and 128; K2 and K3 at 256.
+SM90_KERNELS = {"flash_fwd_sm90": 10, "flash_bwd_dq_sm90": 4, "flash_bwd_dkv_sm90": 8,
                 "flash_bwd_dq_d256_sm90": 2, "flash_bwd_dkv_d256_sm90": 2}
 RING = 4          # ranks of the ring in the ring and train_ring phases
 RING_SEQ = 8192   # sequence length of those phases (local shard 2048)
@@ -417,9 +432,9 @@ def check_lse_backward(fc) -> dict:
 def check_sm90_sass(fc) -> dict:
     """Each Hopper kernel's instantiations (``SM90_KERNELS``: head dims x
     causal and not) must be built from wgmma (``HGMMA``) and TMA loads
-    (``UTMALDG``): proof that bf16 K1, K2 and K3 at D 64, 128 and 256 run
-    the Hopper designs. Returns the count of each instruction per
-    instantiation."""
+    (``UTMALDG``): proof that bf16 K1 and K3 at every head dim and K2 at D
+    64, 128 and 256 run the Hopper designs. Returns the count of each
+    instruction per instantiation."""
     out = {}
     for symbol, want in SM90_KERNELS.items():
         found = fc.sass_op_counts(symbol, ("HGMMA", "UTMALDG"))
@@ -489,11 +504,15 @@ def check_f32_sass(fc) -> dict:
     return out
 
 
+EDGE_DIMS = (16, 32, 64, 128, 256)  # head dims of check_fwd_edges and check_bwd_edges
+
+
 def _edge_cases(dims=(64, 128)) -> list:
     """The edges of the Hopper kernels' tiles, bf16 at ``dims``: S 64, 192
     and 320, causal and not, which leave a ragged last 128-row tile (K1's Q
-    tiles; at D 64 and 128 also K1's 128-key tiles and K2's and K3's owned
-    tiles) and, at D 256, a ragged last 80-key tile of K1 at S 64 and 192;
+    tiles; at D 16 to 128 also K1's 128-key tiles, at D 64 and 128 K2's and
+    K3's owned tiles, at D 16 and 32 a ragged 192-key owned tile of K3) and,
+    at D 256, a ragged last 80-key tile of K1 at S 64 and 192;
     windows 37, 100, 128 and 200 at S 320 and 1024, which cut through the
     64-row tiles (K2's owned rows and K3's owned keys at D 256, the streamed
     tiles of K2 and K3), the 32-key halves of a streamed tile that K2's two
@@ -508,13 +527,13 @@ def _edge_cases(dims=(64, 128)) -> list:
 
 
 def check_fwd_edges(fc) -> dict:
-    """K1 alone against its plain version on ``_edge_cases`` at D 64, 128
-    and 256. The limits are those of ``check_case``. Returns max |err| of o
-    and lse per case."""
+    """K1 alone against its plain version on ``_edge_cases`` at D 16, 32,
+    64, 128 and 256. The limits are those of ``check_case``. Returns max
+    |err| of o and lse per case."""
     import torch
 
     out = {}
-    for bh, s, d, window, causal in _edge_cases((64, 128, 256)):
+    for bh, s, d, window, causal in _edge_cases(EDGE_DIMS):
         q, k, v, _ = _inputs(bh, s, d, torch.bfloat16, seed=6)
         o, lse = fc.flash_fwd(q, k, v, window, causal)
         torch.cuda.synchronize()
@@ -533,11 +552,12 @@ def check_bwd_edges(fc) -> dict:
     the plain forward's lse and Δ (the limits of ``check_case``); and each
     run twice on the same inputs must give bitwise-equal dQ, dK and dV (no
     atomics: every gradient row is written once). Returns max |err| of dq,
-    dk and dv per case. D 64, 128 and 256."""
+    dk and dv per case. D 16, 32, 64, 128 and 256 (K2 at D 16 and 32 is
+    flash_attention.cu's)."""
     import torch
 
     out = {}
-    for bh, s, d, window, causal in _edge_cases((64, 128, 256)):
+    for bh, s, d, window, causal in _edge_cases(EDGE_DIMS):
         q, k, v, do = _inputs(bh, s, d, torch.bfloat16, seed=7)
         po, plse = fc.flash_fwd_plain(q, k, v, window, causal)
         args = (q, k, v, do, plse, fc.flash_delta(po, do), window, causal)
@@ -1257,20 +1277,23 @@ def phase_train_fp32(res: dict, steps: int) -> None:
 
 
 def phase_train_tiny(res: dict, steps: int) -> None:
-    """qwen-tiny (2 layers, heads of 32) in bf16 at seq 256 × micro-batch 8,
-    flash attention: the bf16 D 32 kernels (flash_attention.cu's mma.sync),
-    K1 twice per layer (forward and the checkpoint's recompute), K2 and K3
-    once. A tiny model learns slowly at TRAIN_LR's rate, so this one trains
-    at 1e-3 to see its loss fall at every step."""
+    """qwen-tiny (2 layers, heads of 32; ``train_tiny``) and gpt-tiny (llama
+    arch, 2 layers, 4 heads of 16; ``train_tiny_d16``) in bf16 at seq 256 ×
+    micro-batch 8, flash attention: the bf16 D 32 and D 16 kernels (the
+    Hopper K1 and K3, flash_attention.cu's K2), K1 twice per layer (forward
+    and the checkpoint's recompute), K2 and K3 once. A tiny model learns
+    slowly at TRAIN_LR's rate, so these train at 1e-3 to see the loss fall
+    at every step."""
     from tpu_engine_torch.train import TrainConfig
 
-    cfg = TrainConfig(model_name="qwen-tiny", micro_batch_size=8, gradient_accumulation_steps=1,
-                      seq_len=256, precision="bf16", param_dtype="fp32",
-                      activation_checkpointing=True, attention_impl="auto",
-                      **dict(TRAIN_LR, learning_rate=1e-3))
     L = 2
-    _train(res, "train_tiny", cfg, steps, "flash",
-           {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+    for key, model in (("train_tiny", "qwen-tiny"), ("train_tiny_d16", "gpt-tiny")):
+        cfg = TrainConfig(model_name=model, micro_batch_size=8, gradient_accumulation_steps=1,
+                          seq_len=256, precision="bf16", param_dtype="fp32",
+                          activation_checkpointing=True, attention_impl="auto",
+                          **dict(TRAIN_LR, learning_rate=1e-3))
+        _train(res, key, cfg, steps, "flash",
+               {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
 
 
 def phase_ring(res: dict) -> None:

@@ -2,24 +2,29 @@
 checkouts of the port on one card, in turns, beside the library's attention
 on the same data.
 
-    python3 kernel_ab.py --base path/to/other/checkout [--rounds 2]
+    python3 kernel_ab.py --base path/to/other/checkout [--rounds 2] [--shapes causal_d32 ...]
     python3 kernel_ab.py --variant presplit_kv --dtype fp32
+    python3 kernel_ab.py --variant k3_serial k3_stages4 --shapes causal_d32 causal_d16
 
-With ``--variant NAME`` the base is this tree with ``VARIANTS[NAME]``, a
-text patch of one kernel source, built under ``chip_checkout/kernel_ab/``
-(git-ignored): a design measured against the one the tree keeps. With
+With ``--variant NAME [NAME ...]`` each base is this tree with
+``VARIANTS[NAME]``, a text patch of kernel sources, built under
+``chip_checkout/kernel_ab/`` (git-ignored), all builds at once: designs
+measured against the one the tree keeps. With
 ``--dtype fp32`` the inputs are fp32 (the split-TF32 K1, K2 and K3),
 the bounds are at the split-TF32 rate and the library's time is SDPA's
 forward only.
 
 Each checkout's ``tpu_engine_torch/ops/_flash_cuda.py`` is loaded as a module
 of its own, so each builds its own kernels from its own sources. Per round
-the order is base, this tree, this tree, base. Shapes: causal at B·H 64,
+the order is the bases, this tree twice, the bases in reverse. Shapes: causal at B·H 64,
 S 2048, D 128 (llama-1b's training step), non-causal and causal at the
-ring shard, B·H 16 (llama-1b at seq 8192 over a ring of 4), and causal and
-non-causal at B·H 4·8, S 2048, D 256 (gemma-2b's training step). K2 and K3
+ring shard, B·H 16 (llama-1b at seq 8192 over a ring of 4), causal and
+non-causal at B·H 4·8, S 2048, D 256 (gemma-2b's training step), and at
+B·H 64, S 2048 the small heads: D 32 causal and non-causal (qwen-tiny's)
+and D 16 causal (gpt-tiny's); ``--shapes`` takes a subset. K2 and K3
 of both trees take the same lse and Δ (this tree's K1 forward). Each
-kernel's bound (``chip_smoke.kernel_bounds``) is printed beside its times.
+kernel's bound (``chip_smoke.kernel_bounds``: operations, the exp unit or
+bytes, whichever is longest) is printed beside its times.
 Times are device times by CUDA events over 20 calls queued behind a spin,
 so host gaps do not count. The library's times (timed only, never called by the port)
 are ``scaled_dot_product_attention`` for K1 and
@@ -48,6 +53,9 @@ SHAPES = {  # name: (B·H, S, D, causal)
     "causal_bh16": (16, 2048, 128, True),
     "causal_d256": (32, 2048, 256, True),
     "full_d256": (32, 2048, 256, False),
+    "causal_d32": (64, 2048, 32, True),
+    "full_d32": (64, 2048, 32, False),
+    "causal_d16": (64, 2048, 16, True),
 }
 # The same non-causal work (B·H · S^2 fixed) cut into more, shorter heads:
 # q, k and v grow from 12.6 MB (fits L2) to 101 MB (does not).
@@ -55,9 +63,19 @@ SWEEP = {f"full_bh{bh}_s{s}": (bh, s, 128, False)
          for bh, s in ((4, 4096), (64, 1024), (256, 512))}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
-# Designs of the fp32 K1, K2 and K3 (csrc/flash_f32_tc.cu) measured against
-# the kept ones (K1: 32-key K/V tiles, each operand split into TF32 hi and lo
-# as its fragment is loaded, each tile's P V summed into one temporary per
+# Designs measured against the kept ones: (source under csrc/, [(text,
+# replacement)]); a patch may name its own source as (source, text,
+# replacement). The bf16 K1 and K3 at D 16 and 32 (flash_fwd_sm90.cu,
+# flash_bwd_sm90.cu; the kept: K1 with two consumer warpgroups taking
+# turns at the softmax, 128-key K/V tiles on a two-stage ring and four
+# partial chains of the row max and sum; K3 with three consumer warpgroups
+# (K and V in registers at D 16) and 64-query streamed tiles on a
+# three-stage ring, tile i's scores run under tile i - 1's dV and dK
+# products): k1_issue_turns, k1_three_wg, k1_no_turns, k1_stages3,
+# k1_keys192, k1_chains1, k1_keys64, k3_own_smem, k3_two_wg, k3_two_wg_regs,
+# k3_serial, k3_stream128, k3_stages4. The fp32 K1, K2 and K3
+# (csrc/flash_f32_tc.cu; the kept: K1 with 32-key K/V tiles, each operand
+# split into TF32 hi and lo as its fragment is loaded, each tile's P V summed into one temporary per
 # accumulator register; K2: 16-key K/V tiles, two tiles' dS K summed into
 # one temporary per accumulator register): (source under csrc/, [(text,
 # replacement)]).
@@ -67,7 +85,80 @@ _PV = "        mma_split(pv[n], a, b);"
 _RESCALE = ("#pragma unroll\n    for (int n = 0; n < NO; ++n)\n#pragma unroll\n"
             "      for (int e = 0; e < 4; ++e) "
             "acc[n][e] = fmaf(acc[n][e], corr[e >> 1], pv[n][e]);")
+# d[64 x 192] (+)= A[64 x 16] * B[16 x 192], both K-major in shared memory,
+# inserted before the m64n80 one.
+_SS80 = "// d[64 x 80] (+)= A[64 x 16] * B[16 x 80], both from shared memory, K-major."
+_SS192 = (
+    "__device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t a, uint64_t b, "
+    "int scale_d) {\n  asm volatile(\n"
+    "      \"{\\n.reg .pred p;\\nsetp.ne.b32 p, %98, 0;\\n\"\n"
+    "      \"wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+    + ", ".join(f"%{i}" for i in range(96)) + "}, \"\n"
+    "      \"%96, %97, p, 1, 1, 0, 0;\\n}\\n\"\n      : "
+    + ", ".join(f"TPE_ACC8(d, {8 * i})" for i in range(12))
+    + '\n      : "l"(a), "l"(b), "r"(scale_d));\n}\n')
 VARIANTS = {
+    # K1 at D 16/32 with one chain of fmax and of adds a row (D 64's).
+    "k1_chains1": ("flash_fwd_sm90.cu", [
+        ("  static constexpr int kChains = D < 64 ? 4 : 1;",
+         "  static constexpr int kChains = 1;")]),
+    # K1 at D 16/32 with 64-key K/V tiles (half the scores a tile).
+    "k1_keys64": ("flash_fwd_sm90.cu", [
+        ("  static constexpr int kBlockN = D > 128 ? 80 : 128;",
+         "  static constexpr int kBlockN = D > 128 ? 80 : D < 64 ? 64 : 128;")]),
+    # K1 at D 16/32 with three consumer warpgroups (192-row Q tiles).
+    "k1_three_wg": ("flash_fwd_sm90.cu", [
+        ("  static constexpr int kConsumers = 2;",
+         "  static constexpr int kConsumers = D < 64 ? 3 : 2;")]),
+    # K1 at D 16/32 with 192-key K/V tiles (S m64n192, a wgmma added to
+    # sm90.cuh).
+    "k1_keys192": ("flash_fwd_sm90.cu", [
+        ("  static constexpr int kBlockN = D > 128 ? 80 : 128;",
+         "  static constexpr int kBlockN = D > 128 ? 80 : D < 64 ? 192 : 128;"),
+        ("sm90.cuh", _SS80, _SS192 + "\n" + _SS80),
+    ]),
+    # K1 at D 16/32 with D 64's turns: at issuing the products, not at the
+    # softmax.
+    "k1_issue_turns": ("flash_fwd_sm90.cu", [
+        ("  static constexpr bool kSoftmaxTurns = D < 64;",
+         "  static constexpr bool kSoftmaxTurns = false;")]),
+    # K3 at D 16 with S^T and dP^T reading K and V from shared memory.
+    "k3_own_smem": ("flash_bwd_sm90.cu", [
+        ("  static constexpr bool kOwnInRegs = D == 16;",
+         "  static constexpr bool kOwnInRegs = false;")]),
+    # K1 at D 16/32 with no turns between the consumer warpgroups.
+    "k1_no_turns": ("flash_fwd_sm90.cu", [
+        ("  static constexpr bool kTurns = true;", "  static constexpr bool kTurns = D >= 64;")]),
+    # K1 at D 16/32 with a three-stage K/V ring.
+    "k1_stages3": ("flash_fwd_sm90.cu", [
+        ("  static constexpr int kStages = 2;  // depth of the K/V ring",
+         "  static constexpr int kStages = D < 64 ? 3 : 2;  // depth of the K/V ring")]),
+    # K3 at D 16/32 with two consumer warpgroups (128-key owned tiles).
+    "k3_two_wg": ("flash_bwd_sm90.cu", [
+        ("  static constexpr int kConsumers = D < 64 ? 3 : 2;",
+         "  static constexpr int kConsumers = 2;")]),
+    # The same with K and V in registers at D 32 too (240 registers).
+    "k3_two_wg_regs": ("flash_bwd_sm90.cu", [
+        ("  static constexpr int kConsumers = D < 64 ? 3 : 2;",
+         "  static constexpr int kConsumers = 2;"),
+        ("  static constexpr bool kOwnInRegs = D == 16;",
+         "  static constexpr bool kOwnInRegs = D < 64;")]),
+    # K3 at D 16/32 with D 64's loop: a tile's products, scores and dV/dK
+    # products in turn, on a two-stage ring.
+    "k3_serial": ("flash_bwd_sm90.cu", [
+        ("  static constexpr bool kPipelined = D < 64;",
+         "  static constexpr bool kPipelined = false;")]),
+    # K3 at D 16/32 with a four-stage streamed ring.
+    "k3_stages4": ("flash_bwd_sm90.cu", [
+        ("  static constexpr int kStages = kPipelined ? 3 : 2;  // depth of the streamed ring",
+         "  static constexpr int kStages = kPipelined ? 4 : 2;  // depth of the streamed ring")]),
+    # K3 at D 16/32 with 128-query streamed tiles (K and V from shared
+    # memory).
+    "k3_stream128": ("flash_bwd_sm90.cu", [
+        ("  static constexpr int kStream = 64;  // queries of a streamed tile",
+         "  static constexpr int kStream = D < 64 ? 128 : 64;"),
+        ("  static constexpr bool kOwnInRegs = D == 16;",
+         "  static constexpr bool kOwnInRegs = false;")]),
     # O += P V chained on the tensor cores across the whole sequence, with
     # no fp32 additions (the sums drift, see tf32_split.cuh).
     "k1_chained": ("flash_f32_tc.cu", [
@@ -203,13 +294,13 @@ def _variant_tree(name: str) -> Path:
     shutil.copytree(ROOT / "tpu_engine_torch", tree / "tpu_engine_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     source, patches = VARIANTS[name]
-    src = tree / "tpu_engine_torch" / "csrc" / source
-    text = src.read_text()
-    for old, new in patches:
+    for patch in patches:
+        src = tree / "tpu_engine_torch" / "csrc" / (patch[0] if len(patch) == 3 else source)
+        old, new = patch[-2:]
+        text = src.read_text()
         if text.count(old) != 1:
             raise AssertionError(f"{name}: {old!r} occurs {text.count(old)} times")
-        text = text.replace(old, new)
-    src.write_text(text)
+        src.write_text(text.replace(old, new))
     return tree
 
 
@@ -243,14 +334,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     which = ap.add_mutually_exclusive_group(required=True)
     which.add_argument("--base", type=Path, help="the other checkout's root")
-    which.add_argument("--variant", choices=sorted(VARIANTS),
-                       help="this tree with a design variant's patch as the base")
+    which.add_argument("--variant", nargs="+", choices=sorted(VARIANTS),
+                       help="this tree with a design variant's patch as a base, one per name")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
+    ap.add_argument("--shapes", nargs="+", choices=sorted(SHAPES), default=list(SHAPES),
+                    help="the shapes to time (default: all of SHAPES)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--sweep", action="store_true", help="also the shapes of SWEEP")
     args = ap.parse_args()
-    shapes = {**SHAPES, **(SWEEP if args.sweep else {})}
+    shapes = {**{k: SHAPES[k] for k in args.shapes}, **(SWEEP if args.sweep else {})}
     sys.path.insert(0, str(ROOT))
     import torch
     import torch.nn.functional as F
@@ -261,8 +354,15 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    base = args.base.resolve() if args.base else _variant_tree(args.variant)
-    trees = {"base": _load(base, "flash_base"), "this": _load(ROOT, "flash_this")}
+    bases = ({"base": args.base.resolve()} if args.base
+             else {name: _variant_tree(name) for name in args.variant})
+    # Build every tree at once: each build runs its compilers in parallel.
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(bases) + 1) as pool:
+        loaded = pool.map(lambda kv: (kv[0], _load(kv[1], f"flash_{kv[0]}")),
+                          [*bases.items(), ("this", ROOT)])
+        trees = dict(loaded)
     fp32 = args.dtype == "fp32"
     torch.backends.cuda.matmul.allow_tf32 = False
     data = {}
@@ -292,7 +392,7 @@ def main() -> int:
         bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
         return lambda: bwd(do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
 
-    bwd_keys = [key for key in shapes if key in SHAPES]  # the backward at the main shapes
+    bwd_keys = [key for key in shapes if key in SHAPES]  # the backward at the chosen shapes
     jobs = [(kn, key) for key in shapes for kn in args.kernels
             if kn == "flash_fwd" or key in bwd_keys]
     from chip_smoke import PEAK_BF16_FLOPS, PEAK_SPLIT_TF32_FLOPS, kernel_bounds
@@ -300,15 +400,15 @@ def main() -> int:
     peak = PEAK_SPLIT_TF32_FLOPS if fp32 else PEAK_BF16_FLOPS
     out = {"card": card, "dtype": args.dtype, "base": str(args.base or args.variant),
            "ms": {t: {f"{kn}/{key}": [] for kn, key in jobs} for t in trees},
-           "bound_ms": {f"{kn}/{key}": kernel_bounds(bh, s, d, 0, 4 if fp32 else 2, causal,
-                                                     peak)[kn]["bound_ms"]
-                        for kn, key in jobs for bh, s, d, causal in [shapes[key]]}}
+           "bound": {f"{kn}/{key}": kernel_bounds(bh, s, d, 0, 4 if fp32 else 2, causal,
+                                                  peak)[kn]
+                     for kn, key in jobs for bh, s, d, causal in [shapes[key]]}}
     # sdpa: the forward; flash_bwd: dq, dk and dv together (bf16 only: the
     # flash op takes no fp32).
     out["ms"]["library"] = {f"{op}/{key}": [] for op in ("sdpa", "flash_bwd") for key in shapes
                             if op == "sdpa" or (key in bwd_keys and not fp32)}
     for _ in range(args.rounds):
-        for tree in ("base", "this", "this", "base"):
+        for tree in (*bases, "this", "this", *reversed(bases)):
             for kn, key in jobs:
                 out["ms"][tree][f"{kn}/{key}"].append(_device_ms(call(trees[tree], kn, key)))
         for name in out["ms"]["library"]:
@@ -328,9 +428,10 @@ def main() -> int:
         print(f"host us per flash_fwd call: {json.dumps(out['host_us_per_call'])}", flush=True)
     for tree, rows in out["ms"].items():
         for key, times in rows.items():
-            bound = out["bound_ms"].get(key)
+            bound = out["bound"].get(key)
             print(f"{tree:8s} {key:34s} " + " ".join(f"{x:.4f}" for x in times)
-                  + (f"  (bound {bound:.4f})" if bound else ""), flush=True)
+                  + (f"  (bound {bound['bound_ms']:.4f} by {bound['bound_by']})" if bound else ""),
+                  flush=True)
     print(json.dumps(out))
     return 0
 

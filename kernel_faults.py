@@ -6,8 +6,8 @@ split-TF32 fp32 kernels) are set from these readings.
 
     python3 kernel_faults.py
 
-Each fault is a text patch of one kernel source that changes only the D 256
-instantiations, built in a copy of the package under
+Each fault is a text patch of one kernel source that changes only the
+instantiations of one head dim or dtype, built in a copy of the package under
 ``chip_checkout/kernel_faults/<fault>/`` (git-ignored) and loaded as a
 module of its own, as ``kernel_ab.py`` loads a second tree:
 
@@ -26,12 +26,20 @@ module of its own, as ``kernel_ab.py`` loads a second tree:
   dS·K (16 keys) out of dQ, for every owned Q block;
 - ``f32_dkv_drop_q_tile``: the fp32 K3 zeroes P^T of the last streamed Q
   tile (16 queries) that each owned key tile sees, so that tile's
-  contributions to dV and, through dS^T, to dK are lost.
+  contributions to dV and, through dS^T, to dK are lost;
+- ``k1_d32_drop_k_tile``: the bf16 K1 at D 32 (``flash_fwd_sm90.cu``)
+  leaves out the last 128-key tile of every Q tile that sees more than one,
+  from o and lse alike;
+- ``k3_d32_drop_q_tile``: the bf16 K3 at D 32 (``flash_bwd_sm90.cu``)
+  zeroes P^T and dS^T of the last streamed Q tile (64 queries) that each
+  owned key tile sees.
 
-The bf16 faults (and the sound tree) are read at gemma-2b's training shape
-(B·H 4·8, S 2048, D 256, bf16, causal), the fp32 ones (and the sound tree)
-at ``chip_smoke.OFF_PATH``'s causal fp32 shapes (S 2048: D 128 at B·H 64,
-D 256 at B·H 32), each on the same inputs for every tree, with
+The D 256 bf16 faults (and the sound tree) are read at gemma-2b's training
+shape (B·H 4·8, S 2048, D 256, bf16, causal), the D 32 ones (and the sound
+tree) at ``chip_smoke.OFF_PATH``'s bf16 D 32 shape (B·H 64, S 2048,
+causal), the fp32 ones (and the sound tree) at ``chip_smoke.OFF_PATH``'s
+causal fp32 shapes (S 2048: D 128 at B·H 64, D 256 at B·H 32), each on the
+same inputs for every tree, with
 ``chip_smoke.check_case``'s plain references (TF32 off): K1 against the
 plain forward, K2 and K3 on the plain forward's lse and Δ. Prints the
 card's name and power limit, one line per fault and shape with the relative
@@ -50,21 +58,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "chip_checkout" / "kernel_faults"
 # The shapes (B·H, S, D) each kind of fault is read at: gemma-2b's training
-# shape in bf16; chip_smoke.OFF_PATH's fp32 rows.
-SHAPES = {"bf16": ((32, 2048, 256),), "fp32": ((64, 2048, 128), (32, 2048, 256))}
+# shape in bf16 at D 256; chip_smoke.OFF_PATH's bf16 D 32 and fp32 rows.
+SHAPES = {"bf16": ((32, 2048, 256),), "bf16_d32": ((64, 2048, 32),),
+          "fp32": ((64, 2048, 128), (32, 2048, 256))}
 
-# (fault, [(source under csrc/, text in it, replacement)]): the bf16 ones
-# change the D 256 instantiations only (K1's register epilogue and the K2
-# and K3 files serve D 256 alone); the fp32 ones change flash_f32_tc.cu's
-# kernels, which serve fp32 alone.
+# (fault, [(source under csrc/, text in it, replacement)]): the D 256 bf16
+# ones change the D 256 instantiations only (K1's register epilogue and the
+# K2 and K3 files serve D 256 alone), the D 32 ones test D == 32; the fp32
+# ones change flash_f32_tc.cu's kernels, which serve fp32 alone.
+_K1_STEP = "        softmax_step<kCausal, T::kChains>(s, m, l, corr, masked(j), j, row0, t, S,"
 FAULTS = {
     "sound": [],
     "o_rows_097": [(
         "flash_fwd_sm90.cu",
         "store_row<D>(o + (static_cast<size_t>(bh) * S + row0 + 8 * h) * D, acc, h,\n"
-        "                         1.0f / l[h], t);",
+        "                         1.0f / row_l[h], t);",
         "store_row<D>(o + (static_cast<size_t>(bh) * S + row0 + 8 * h) * D, acc, h,\n"
-        "                         (row0 + 8 * h >= S / 2 ? 0.97f : 1.0f) / l[h], t);")],
+        "                         (D == 256 && row0 + 8 * h >= S / 2 ? 0.97f : 1.0f) / row_l[h],"
+        " t);")],
     "dq_rows_097": [(
         "flash_bwd_dq_d256_sm90.cu",
         "                       acc, h, 1.0f, t);",
@@ -86,6 +97,17 @@ FAULTS = {
         "        if (masked && !visible(q0 + qi, kpos + 8 * (e >> 1), window)) p = 0.0f;",
         "        if ((masked && !visible(q0 + qi, kpos + 8 * (e >> 1), window)) || u == u_hi)"
         " p = 0.0f;")],
+    "k1_d32_drop_k_tile": [(
+        "flash_fwd_sm90.cu", _K1_STEP,
+        "        if (D == 32 && j == hi)\n"
+        "          for (int x = 0; x < kBlockN / 2; ++x) s[x] = kNegInf;\n" + _K1_STEP)],
+    "k3_d32_drop_q_tile": [(
+        "flash_bwd_sm90.cu",
+        "            dp[4 * nn + e] = s[4 * nn + e] * fmaf(dp[4 * nn + e], scale, nd[e & 1]);",
+        "          {\n"
+        "            if (D == 32 && i == hi) s[4 * nn + e] = 0.0f;\n"
+        "            dp[4 * nn + e] = s[4 * nn + e] * fmaf(dp[4 * nn + e], scale, nd[e & 1]);\n"
+        "          }")],
 }
 
 
@@ -93,7 +115,9 @@ def _kind(fault: str) -> tuple[str, ...]:
     """The shapes' kinds a fault is read at: the sound tree at all."""
     if fault == "sound":
         return tuple(SHAPES)
-    return ("fp32",) if fault.startswith("f32_") else ("bf16",)
+    if fault.startswith("f32_"):
+        return ("fp32",)
+    return ("bf16_d32",) if "_d32_" in fault else ("bf16",)
 
 
 def _tree(fault: str) -> Path:
@@ -165,7 +189,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"card": card, "shapes": SHAPES, "bound_rel": cs.REL, "readings": {}}
     for kind, shapes in SHAPES.items():
-        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        dtype = torch.float32 if kind == "fp32" else torch.bfloat16
         for shape in shapes:
             q, k, v, do = cs._inputs(*shape, dtype, seed=0)
             label = f"{kind} bh{shape[0]} s{shape[1]} d{shape[2]}"

@@ -43,15 +43,15 @@ def test_forward_and_lse_match_pallas(S, D, W):
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("S,W,causal", [
     (192, 0, True), (192, 37, True), (192, 100, True), (192, 0, False),
     (320, 0, True), (320, 37, True), (320, 100, True), (320, 0, False),
 ])
 def test_forward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
     """The plain version the card holds the Hopper K1 to, at the edges of
-    its 128-row Q tiles and its key tiles (128 keys at D 64 and 128, 64 at
-    D 256): S 192 and 320 leave a ragged last Q tile (and, at D 64 and 128,
+    its 128-row Q tiles and its key tiles (128 keys at D 16 to 128, 80 at
+    D 256): S 192 and 320 leave a ragged last Q tile (and, at D 16 to 128,
     a ragged last key tile), and windows 37 and 100 cut through tiles.
     Against the Pallas forward (interpret mode, 64-row blocks) in fp32."""
     q, k, v = _qkv(13, (2, S, D), (2, S, D))
@@ -63,7 +63,7 @@ def test_forward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("S,W,causal", [
     (192, 0, True), (192, 37, True), (192, 100, True), (192, 0, False),
     (320, 0, True), (320, 37, True), (320, 100, True), (320, 0, False),
@@ -71,9 +71,11 @@ def test_forward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
 def test_backward_matches_pallas_at_hopper_tile_edges(S, W, causal, D):
     """The plain versions the card holds the Hopper K2 and K3 to, at the
     edges of their tiles: at D 64 and 128 128-row owned tiles (S 192 and
-    320 leave a ragged last one) and 64-row streamed tiles; at D 256 64-row
-    owned and streamed tiles, and the 32-key halves of a streamed tile that
-    K2's two warpgroups score. Windows 37 and 100 cut through both.
+    320 leave a ragged last one) and 64-row streamed tiles; at D 16 and 32
+    K3's 128-key owned tiles and 128-query streamed tiles (ragged at S 192
+    and 320 too); at D 256 64-row owned and streamed tiles, and the 32-key
+    halves of a streamed tile that K2's two warpgroups score. Windows 37
+    and 100 cut through both.
     ``flash_bwd`` under a random (dO, dlse) cotangent against the Pallas
     backward (``_flash_bwd`` in interpret mode, on the Pallas forward's
     residuals) in fp32."""
@@ -305,3 +307,25 @@ def test_unbuilt_head_dim_raises_on_the_card_not_flash_unsupported():
     q = _t(_qkv(12, (1, 64, 2, 80), (1, 64, 2, 80))[0])
     np.testing.assert_allclose(tfa.mha(q, q, q).numpy(),
                                tfa.mha(q, q, q, force_xla=True).numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d,bh,by", [(16, 64, "exp"), (32, 64, "exp"), (128, 64, "operations"),
+                                     (256, 32, "operations")])
+def test_kernel_bounds_count_the_exp_unit(d, bh, by):
+    """The card's bound of each kernel is the longest of its tensor-core
+    operations, its exps (one per visible pair at 16 a clock per SM) and its
+    bytes: the exps bind K1 and K2 below D 64 (causal S 2048 at B·H 64:
+    134.3e6 pairs, 0.0347 ms), the products at D 128 and 256."""
+    import chip_smoke as cs
+
+    s = 2048
+    pairs = bh * s * (s + 1) // 2
+    bounds = cs.kernel_bounds(bh, s, d, 0, 2)
+    for name in ("flash_fwd", "flash_bwd_dq"):
+        assert bounds[name]["exps"] == pairs
+        assert bounds[name]["bound_by"] == by
+    exp_ms = pairs / cs.PEAK_EXP2 * 1e3
+    assert all(b["bound_ms"] >= exp_ms for b in bounds.values())
+    if by == "exp":
+        assert bounds["flash_fwd"]["bound_ms"] == pytest.approx(exp_ms)
+        assert bh != 64 or exp_ms == pytest.approx(0.0347, abs=5e-5)

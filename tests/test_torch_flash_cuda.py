@@ -72,17 +72,18 @@ def test_kernels_match_plain(cuda, bh, s, d, dtype, window, causal):
         _assert_close(a, b, grad_tol, REL[dtype])
 
 
-# The Hopper kernels (bf16: K1, K2 and K3 at D 64, 128 and 256) at the edges
-# of their tiles: S 64, 192 and 320 (a ragged last 128-row tile), causal and
-# not; windows 37, 100, 128 and 200 at S 320 and 1024, through key tiles of
-# 64 and 128 (and, at D 256, through the 32-key halves K2's warpgroups
-# score); B·H 1 and 256.
-_EDGES = ([(4, s, d, 0, c) for d in (64, 128, 256) for s in (64, 192, 320)
-           for c in (True, False)]
-          + [(2, s, d, w, True) for d in (64, 128, 256) for s in (320, 1024)
+# The Hopper kernels (bf16: K1 at every head dim, K3 at D 16-128, K2 at D
+# 64 and 128, K2 and K3 at 256; K2 at D 16 and 32 is flash_attention.cu's)
+# at the edges of their tiles: S 64, 192 and 320 (a ragged last 128-row
+# tile, and at D 16 and 32 a ragged last 128-query streamed tile of K3),
+# causal and not; windows 37, 100, 128 and 200 at S 320 and 1024, through
+# key tiles of 64 and 128 (and, at D 256, through the 32-key halves K2's
+# warpgroups score); B·H 1 and 256.
+_DIMS = (16, 32, 64, 128, 256)
+_EDGES = ([(4, s, d, 0, c) for d in _DIMS for s in (64, 192, 320) for c in (True, False)]
+          + [(2, s, d, w, True) for d in _DIMS for s in (320, 1024)
              for w in (37, 100, 128, 200)]
-          + [(bh, 512, d, 0, c) for d in (64, 128, 256) for bh in (1, 256)
-             for c in (True, False)])
+          + [(bh, 512, d, 0, c) for d in _DIMS for bh in (1, 256) for c in (True, False)])
 
 
 @pytest.mark.parametrize("bh,s,d,window,causal", _EDGES)
@@ -96,7 +97,7 @@ def test_hopper_forward_at_tile_edges(cuda, bh, s, d, window, causal):
 
 def test_hopper_forward_is_built_from_wgmma_and_tma(cuda):
     found = fc.sass_op_counts("flash_fwd_sm90", ("HGMMA", "UTMALDG"))
-    assert len(found) == 6, found  # D 64, 128 and 256, causal and not
+    assert len(found) == 10, found  # D 16, 32, 64, 128 and 256, causal and not
     assert all(n["HGMMA"] and n["UTMALDG"] for n in found.values()), found
 
 
@@ -117,11 +118,12 @@ def test_hopper_backward_at_tile_edges(cuda, bh, s, d, window, causal):
         _assert_close(a, b, TOL[torch.bfloat16][1], REL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("d", [128, 32])
 @pytest.mark.parametrize("causal", [True, False])
-def test_hopper_backward_is_deterministic(cuda, causal):
+def test_hopper_backward_is_deterministic(cuda, causal, d):
     """No atomics on gradients: two runs on the same inputs give
     bitwise-equal dQ, dK and dV."""
-    args = _bwd_args(16, 1024, 128, 0, causal)
+    args = _bwd_args(16, 1024, d, 0, causal)
     first = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
     second = (fc.flash_bwd_dq(*args), *fc.flash_bwd_dkv(*args))
     for a, b in zip(first, second):
@@ -129,7 +131,8 @@ def test_hopper_backward_is_deterministic(cuda, causal):
 
 
 @pytest.mark.parametrize("symbol,count", [
-    ("flash_bwd_dq_sm90", 4), ("flash_bwd_dkv_sm90", 4),  # D 64 and 128, causal and not
+    ("flash_bwd_dq_sm90", 4),  # D 64 and 128, causal and not
+    ("flash_bwd_dkv_sm90", 8),  # D 16, 32, 64 and 128, causal and not
     ("flash_bwd_dq_d256_sm90", 2), ("flash_bwd_dkv_d256_sm90", 2),  # D 256, causal and not
 ])
 def test_hopper_backward_is_built_from_wgmma_and_tma(cuda, symbol, count):

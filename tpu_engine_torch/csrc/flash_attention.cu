@@ -31,37 +31,31 @@
 // flash_fwd_lse needs no kernel change: it enters through delta
 // (delta' = rowsum(dO o o) - dlse, _flash_bwd).
 //
-// Design, shared by the three. One 128-thread block (four warps) per
-// (bh, 64-row tile): a Q tile for K1 and K2, a K tile for K3. A loop inside
-// the block walks the tiles of the other side that the causal window lets it
-// see -- the TPU's sequential inner grid axis -- and never visits a tile
-// above the diagonal or outside the window; the visibility mask is evaluated
-// only on the diagonal and window-edge tiles. Blocks with the longest loops
-// are launched first. dQ and dK/dV are separate kernels with no atomics, so
-// gradients are deterministic, as on the TPU.
-//
-// bf16: each warp owns 16 rows of the block's tile and keeps its scores,
-// probabilities and fp32 accumulators in registers. The products run on
-// tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate), with
-// operands fed from shared memory by ldmatrix; an accumulator tile rounded
-// to bf16 is already the A operand of the next product, so P and dS never
-// touch shared memory. The tiles of the inner loop are double-buffered with
-// cp.async, so the next tile loads while this one is multiplied. Tensor
-// cores at this rate are limited by the shared-memory reads that feed
-// mma.sync (about one ldmatrix per two mma).
-//
-// Most bf16 calls are not these kernels. The C entries send them to
-// redesigns for Hopper with TMA, wgmma and warp specialisation:
-//   K1 at D 64, 128 and 256  -> flash_fwd_sm90.cu;
-//   K2 at D 64 and 128       -> flash_bwd_sm90.cu;
-//   K3 at D 64 and 128       -> flash_bwd_sm90.cu;
-//   K2 at D 256              -> flash_bwd_dq_d256_sm90.cu;
-//   K3 at D 256              -> flash_bwd_dkv_d256_sm90.cu.
+// Every bf16 call of K1 and K3, and bf16 K2 at D 64, 128 and 256, goes to a
+// redesign for Hopper with TMA, wgmma and warp specialisation:
+//   K1 at D 16, 32, 64, 128 and 256 -> flash_fwd_sm90.cu;
+//   K3 at D 16, 32, 64 and 128      -> flash_bwd_sm90.cu;
+//   K2 at D 64 and 128              -> flash_bwd_sm90.cu;
+//   K2 at D 256                     -> flash_bwd_dq_d256_sm90.cu;
+//   K3 at D 256                     -> flash_bwd_dkv_d256_sm90.cu.
 // Every fp32 call (K1, K2 and K3) goes to flash_f32_tc.cu, on the tensor
 // cores in split TF32 (each product three TF32 products, so that the fp32
 // bounds hold; a single TF32 product would not).
-// What is left here, with no fallback from those kernels to it: bf16 K1, K2
-// and K3 at D 16 and 32 (the tiny configs' heads).
+//
+// What is left here, with no fallback from those kernels to it: bf16 K2 at
+// D 16 and 32 (the tiny configs' heads), flash_bwd_dq_bf16. One 128-thread
+// block (four warps) per (bh, 64-row Q tile) walks the K tiles that its
+// causal window lets it see -- the TPU's sequential inner grid axis -- and
+// never visits a tile above the diagonal or outside the window; the
+// visibility mask is evaluated only on the diagonal and window-edge tiles.
+// Blocks with the longest loops are launched first. Each warp owns 16 rows
+// of the tile and keeps its scores, dS and the fp32 dQ accumulator in
+// registers. The products run on tensor cores through mma.sync m16n8k16
+// (bf16 in, fp32 accumulate), with operands fed from shared memory by
+// ldmatrix; an accumulator tile rounded to bf16 is already the A operand of
+// the next product, so dS never touches shared memory. The K/V tiles are
+// double-buffered with cp.async. Its bound is the exp unit (one exp per
+// visible pair, PEAK_EXP2 in chip_smoke.py), not the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,9 +66,9 @@
 
 #include "flash_common.cuh"
 
-// The Hopper kernels: K1 for bf16 at D 64, 128 and 256 (flash_fwd_sm90.cu),
-// K2 and K3 at D 64 and 128 (flash_bwd_sm90.cu), K2 and K3 at D 256
-// (flash_bwd_dq_d256_sm90.cu, flash_bwd_dkv_d256_sm90.cu).
+// The Hopper kernels: K1 for bf16 at every head dim (flash_fwd_sm90.cu), K3
+// at D 16, 32, 64 and 128 and K2 at D 64 and 128 (flash_bwd_sm90.cu), K2
+// and K3 at D 256 (flash_bwd_dq_d256_sm90.cu, flash_bwd_dkv_d256_sm90.cu).
 extern "C" int tpe_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, void* counters, int bh, int s, int d, int window,
                                   int causal, void* stream);
@@ -221,129 +215,20 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4], const float (&c)[
   }
 }
 
-// Write a warp's accumulator [16 x W] as bf16 into rows of LD elements:
-// dst points at the lane's row g; rows g and g + 8 are scaled by s0 and s1.
-template <int W, int LD = W>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[W / 8][4], float s0,
-                                           float s1, int lane) {
+// Write a warp's accumulator [16 x W] as bf16 into rows of W elements: dst
+// points at the lane's row g, and row g + 8 follows 8 rows on.
+template <int W>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[W / 8][4], int lane) {
   const int t = lane & 3;
 #pragma unroll
   for (int n = 0; n < W / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(dst + n * 8 + 2 * t) = pack_bf16(acc[n][0] * s0, acc[n][1] * s0);
-    *reinterpret_cast<uint32_t*>(dst + 8 * LD + n * 8 + 2 * t) =
-        pack_bf16(acc[n][2] * s1, acc[n][3] * s1);
+    *reinterpret_cast<uint32_t*>(dst + n * 8 + 2 * t) = pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(dst + 8 * W + n * 8 + 2 * t) = pack_bf16(acc[n][2], acc[n][3]);
   }
 }
 
 template <int D>
-struct SmemBf16 {
-  static constexpr size_t fwd = 5 * Tile<D>::BYTES;       // Q; K, V x 2 stages
-  static constexpr size_t bwd_dq = 6 * Tile<D>::BYTES;    // Q, dO; K, V x 2 stages
-  static constexpr size_t bwd_dkv = 6 * Tile<D>::BYTES    // K, V; Q, dO x 2 stages
-                                    + 2 * 2 * kBlock * sizeof(float);  // lse, delta x 2
-};
-
-// ---------------------------------------------------------------------------
-// K1 (bf16): forward
-// ---------------------------------------------------------------------------
-
-// Instantiated for D 16 and 32 (D 64, 128 and 256: flash_fwd_sm90.cu).
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-               int S, int window, float scale) {
-  using L = Tile<D>;
-  constexpr int NT = kBlock / 8, DT = D / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + L::SIZE;      // stages 0, 1
-  bf16* Vs = Ks + 2 * L::SIZE;  // stages 0, 1
-
-  const int n_blk = S / kBlock;
-  int i, lo, hi;
-  q_major_range<kCausal>(n_blk, window, i, lo, hi);
-  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane & 3;
-  const int qpos = i * kBlock + warp * 16 + (lane >> 2);  // rows qpos, qpos + 8
-  const float scale2 = scale * kLog2e;  // base-2 logits
-
-  load_tile_async<D>(Qs, q + base + static_cast<size_t>(i) * kBlock * D, tid);
-  load_tile_async<D>(Ks, k + base + static_cast<size_t>(lo) * kBlock * D, tid);
-  load_tile_async<D>(Vs, v + base + static_cast<size_t>(lo) * kBlock * D, tid);
-  cp_async_commit();
-
-  float acc[DT][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};  // l: this lane's share
-  for (int j = lo; j <= hi; ++j) {
-    const int st = (j - lo) & 1;
-    if (j < hi) {  // prefetch the next K/V tiles into the other stage
-      const size_t nxt = base + static_cast<size_t>(j + 1) * kBlock * D;
-      load_tile_async<D>(Ks + (st ^ 1) * L::SIZE, k + nxt, tid);
-      load_tile_async<D>(Vs + (st ^ 1) * L::SIZE, v + nxt, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const bool masked = kCausal && needs_mask(i, j, window);
-    const int key0 = j * kBlock;
-    float s[NT][4];
-    mma_abt<D, NT>(s, Qs + warp * 16 * L::LD, Ks + st * L::SIZE, L::LD, lane);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale2;
-        if (masked && !visible(qpos + 8 * (e >> 1), key0 + n * 8 + 2 * t + (e & 1), window))
-          x = kNegInf;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // the four lanes of a quad share a row
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(fmaxf(m[r], mx[r]), kM2Floor);
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m[e >> 1]);  // masked entries underflow to 0
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-    uint32_t pa[NT / 2][4];  // P rounds to bf16 for the P V product
-    to_a<NT>(pa, s);
-    mma_ab<NT / 2, DT>(acc, pa, Vs + st * L::SIZE, L::LD, lane);
-    __syncthreads();  // every warp is done with this stage before it refills
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
-  }
-  store_rows<D>(o + base + static_cast<size_t>(qpos) * D, acc, 1.0f / l[0], 1.0f / l[1], lane);
-  if (t == 0) {
-    float* row = lse + static_cast<size_t>(blockIdx.x) * S + qpos;
-    row[0] = m[0] * kLn2 + logf(l[0]);
-    row[8] = m[1] * kLn2 + logf(l[1]);
-  }
-}
+constexpr size_t kSmemDq = 6 * Tile<D>::BYTES;  // Q, dO; K, V x 2 stages
 
 // ---------------------------------------------------------------------------
 // K2 (bf16): dQ
@@ -416,104 +301,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_ab<NT / 2, DT>(acc, da, Kt, L::LD, lane);
     __syncthreads();
   }
-  store_rows<D>(dq + base + static_cast<size_t>(qpos) * D, acc, 1.0f, 1.0f, lane);
-}
-
-// ---------------------------------------------------------------------------
-// K3 (bf16): dK and dV
-// ---------------------------------------------------------------------------
-
-// Instantiated for D 16 and 32 (D 64 and 128: flash_bwd_sm90.cu; D 256:
-// flash_bwd_dkv_d256_sm90.cu).
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int window,
-                   float scale) {
-  using L = Tile<D>;
-  constexpr int NH = 4;  // n-tiles of a half Q tile: 32 queries at a time
-  constexpr int DT = D / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + L::SIZE;
-  bf16* Qs = Vs + L::SIZE;        // stages 0, 1
-  bf16* dOs = Qs + 2 * L::SIZE;   // stages 0, 1
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * L::SIZE);  // [2][64]
-  float* delta_s = lse_s + 2 * kBlock;                          // [2][64]
-
-  const int n_blk = S / kBlock;
-  const int j = blockIdx.y;  // low K tiles see the most Q tiles: launched first
-  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane & 3;
-  const int kpos = j * kBlock + warp * 16 + (lane >> 2);  // rows kpos, kpos + 8
-  int lo, hi;
-  k_major_range<kCausal>(j, n_blk, window, lo, hi);
-  const float scale2 = scale * kLog2e;
-
-  // Q, dO, lse and delta of Q tile i into stage st.
-  auto load_q_side = [&](int i, int st) {
-    const size_t off = base + static_cast<size_t>(i) * kBlock * D;
-    load_tile_async<D>(Qs + st * L::SIZE, q + off, tid);
-    load_tile_async<D>(dOs + st * L::SIZE, dout + off, tid);
-    const size_t rb = static_cast<size_t>(blockIdx.x) * S + i * kBlock;
-    if (tid < 16)
-      cp_async16(lse_s + st * kBlock + tid * 4, lse + rb + tid * 4);
-    else if (tid < 32)
-      cp_async16(delta_s + st * kBlock + (tid - 16) * 4, delta + rb + (tid - 16) * 4);
-  };
-
-  load_tile_async<D>(Ks, k + base + static_cast<size_t>(j) * kBlock * D, tid);
-  load_tile_async<D>(Vs, v + base + static_cast<size_t>(j) * kBlock * D, tid);
-  load_q_side(lo, 0);
-  cp_async_commit();
-
-  float dk_acc[DT][4] = {}, dv_acc[DT][4] = {};
-  for (int i = lo; i <= hi; ++i) {
-    const int st = (i - lo) & 1;
-    if (i < hi) {
-      load_q_side(i + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + st * L::SIZE;
-    const bf16* dOt = dOs + st * L::SIZE;
-    const float* ls = lse_s + st * kBlock;
-    const float* dls = delta_s + st * kBlock;
-    const bool masked = kCausal && needs_mask(i, j, window);
-
-#pragma unroll 1
-    for (int h = 0; h < 2; ++h) {  // not unrolled: keeps dK and dV in registers
-      // Transposed tiles, rows = this warp's keys, cols = queries: S^T = K Q^T
-      // and dP^T = V dO^T, so P^T and dS^T feed dV and dK untransposed.
-      float s[NH][4], dp[NH][4];
-      mma_abt<D, NH>(s, Ks + warp * 16 * L::LD, Qt + h * 32 * L::LD, L::LD, lane);
-      mma_abt<D, NH>(dp, Vs + warp * 16 * L::LD, dOt + h * 32 * L::LD, L::LD, lane);
-#pragma unroll
-      for (int n = 0; n < NH; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = h * 32 + n * 8 + 2 * t + (e & 1);  // row statistics belong to the query
-          float p = exp2f(fmaf(s[n][e], scale2, -ls[qi] * kLog2e));
-          if (masked && !visible(i * kBlock + qi, kpos + 8 * (e >> 1), window)) p = 0.0f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - dls[qi]) * scale;
-        }
-      uint32_t pa[NH / 2][4], da[NH / 2][4];
-      to_a<NH>(pa, s);
-      to_a<NH>(da, dp);
-      mma_ab<NH / 2, DT>(dv_acc, pa, dOt + h * 32 * L::LD, L::LD, lane);
-      mma_ab<NH / 2, DT>(dk_acc, da, Qt + h * 32 * L::LD, L::LD, lane);
-    }
-    __syncthreads();
-  }
-  const size_t out = base + static_cast<size_t>(kpos) * D;
-  store_rows<D>(dk + out, dk_acc, 1.0f, 1.0f, lane);
-  store_rows<D>(dv + out, dv_acc, 1.0f, 1.0f, lane);
+  store_rows<D>(dq + base + static_cast<size_t>(qpos) * D, acc, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -533,25 +321,17 @@ int launch(K kernel, size_t smem, int bh, int s, cudaStream_t st, Args... args) 
   return cudaGetLastError();
 }
 
-// The Hopper kernels take bf16 at D 64 and 128 (K1, K2, K3) and at D 256
-// (K1, and K2 and K3 in their own designs).
+// The Hopper kernels take bf16 K1 at every head dim, K3 at D 16, 32, 64
+// and 128 (and at D 256 in its own design), and K2 at D 64 and 128 (and at
+// D 256 in its own design); bf16 K2 at D 16 and 32 is flash_bwd_dq_bf16.
 template <int D>
-constexpr bool kSm90 = D == 64 || D == 128;
-template <int D>
-constexpr bool kSm90Fwd = kSm90<D> || D == 256;
+constexpr bool kSm90Dq = D == 64 || D == 128;
 
 template <int D, bool C>
 int fwd(bool is_bf16, const void* q, const void* k, const void* v, void* o, void* lse,
         void* counters, int bh, int s, int window, cudaStream_t st) {
-  if (is_bf16) {
-    if constexpr (kSm90Fwd<D>)  // the Hopper kernel, and no other (no fallback)
-      return tpe_flash_fwd_sm90(q, k, v, o, lse, counters, bh, s, D, window, C, st);
-    else
-      return launch(flash_fwd_bf16<D, C>, SmemBf16<D>::fwd, bh, s, st,
-                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
-                    s, window, softmax_scale(D));
-  }
+  if (is_bf16)  // the Hopper kernel, and no other (no fallback)
+    return tpe_flash_fwd_sm90(q, k, v, o, lse, counters, bh, s, D, window, C, st);
   // fp32: the split-TF32 tensor-core kernel, and no other (no fallback).
   return tpe_flash_fwd_f32_tc(q, k, v, o, lse, bh, s, D, window, C, st);
 }
@@ -564,11 +344,11 @@ int bwd_dq(bool is_bf16, const void* q, const void* k, const void* v, const void
     if constexpr (D == 256)  // the Hopper kernels, and no other (no fallback)
       return tpe_flash_bwd_dq_d256_sm90(q, k, v, dout, lse, delta, dq, counters, bh, s, window,
                                         C, st);
-    else if constexpr (kSm90<D>)
+    else if constexpr (kSm90Dq<D>)
       return tpe_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, counters, bh, s, D, window, C,
                                    st);
     else
-      return launch(flash_bwd_dq_bf16<D, C>, SmemBf16<D>::bwd_dq, bh, s, st,
+      return launch(flash_bwd_dq_bf16<D, C>, kSmemDq<D>, bh, s, st,
                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
                     static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -586,15 +366,9 @@ int bwd_dkv(bool is_bf16, const void* q, const void* k, const void* v, const voi
     if constexpr (D == 256)  // the Hopper kernels, and no other (no fallback)
       return tpe_flash_bwd_dkv_d256_sm90(q, k, v, dout, lse, delta, dk, dv, counters, bh, s,
                                          window, C, st);
-    else if constexpr (kSm90<D>)
+    else  // the Hopper kernel, and no other (no fallback)
       return tpe_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, counters, bh, s, D,
                                     window, C, st);
-    else
-      return launch(flash_bwd_dkv_bf16<D, C>, SmemBf16<D>::bwd_dkv, bh, s, st,
-                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                    static_cast<const float*>(lse), static_cast<const float*>(delta),
-                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, window, softmax_scale(D));
   }
   // fp32: the split-TF32 tensor-core kernel, and no other (no fallback).
   return tpe_flash_bwd_dkv_f32_tc(q, k, v, dout, lse, delta, dk, dv, bh, s, D, window, C, st);

@@ -1,9 +1,10 @@
-// K2 and K3 for Hopper (sm_90a): the bf16 flash-attention backward at head
-// dims 64 and 128, causal (optionally sliding-window) and non-causal, built
-// on TMA, wgmma and warp specialisation. tpe_flash_bwd_dq and
-// tpe_flash_bwd_dkv (flash_attention.cu) send every bf16 call at D 64 or 128
-// here and nowhere else; fp32 and the bf16 head dims 16 and 32 keep
-// flash_attention.cu's mma.sync kernels.
+// K2 and K3 for Hopper (sm_90a): the bf16 flash-attention backward, K2 at
+// head dims 64 and 128 and K3 at 16, 32, 64 and 128, causal (optionally
+// sliding-window) and non-causal, built on TMA, wgmma and warp
+// specialisation. tpe_flash_bwd_dq and tpe_flash_bwd_dkv
+// (flash_attention.cu) send every bf16 call at those head dims here and
+// nowhere else; bf16 K2 at D 16 and 32 keeps flash_attention.cu's mma.sync
+// kernel, and fp32 goes to flash_f32_tc.cu.
 //
 // They replace _bwd_dq_kernel and _bwd_dkv_kernel
 // (tpu_engine/ops/_flash_pallas.py:306 and :341, launched by _flash_bwd
@@ -38,9 +39,9 @@
 // - TMA: q, k, v, dO and the outputs are 3-D tensor maps [BH, S, D] with
 //   [rows][64 columns] boxes in the 128-byte swizzle; lse and delta are 2-D
 //   maps [BH, S] with 64-value boxes. S is a multiple of 64, so a streamed
-//   tile is never ragged; a ragged owned tile (S % 128 == 64) has its upper
-//   64 rows past S, zero-filled, and the warpgroup that owns them computes
-//   and stores nothing.
+//   tile is never ragged; a ragged owned tile (S % 128 == 64; K3 at D 16
+//   and 32, S % 192 != 0) has its upper 64 or 128 rows past S, zero-filled,
+//   and the warpgroups that own them compute and store nothing.
 // - wgmma, per streamed tile and consumer warpgroup: K2 issues
 //   S = Q K_j^T and dP = dO V_j^T (m64n64, both operands K-major in shared
 //   memory), builds dS in registers and issues dQ += dS K_j with dS as the
@@ -55,7 +56,24 @@
 //   window (it hands such a stage straight back to the producer).
 // - Epilogue: the fp32 accumulators in bf16, staged in shared memory and
 //   written by TMA stores that run on while the next owned tile starts.
-
+// - K3 at D 16 and 32 (DkvTiles<D>): the exp unit, not the tensor cores,
+//   bounds it (one exp per visible pair, chip_smoke.kernel_bounds; at D 32
+//   the products tie with it). Three consumer warpgroups (192 owned keys, a
+//   third warp on each SM sub-partition to hide latency; 160 registers
+//   each); each runs tile i's scores while tile i - 1's dV and dK products
+//   are in flight, with S^T, dP^T and those products in three commit
+//   groups so that P^T is taken as soon as S^T is done, on a three-stage
+//   ring; each column's lse log2e and delta scale are taken once a tile
+//   (one FFMA and one ex2.approx a score for P, one FFMA and one FMUL for
+//   dS), and the mask is a pass of its own that only masked tiles run; at
+//   D 16 the warpgroup's K and V rows are register A operands (ldmatrix,
+//   once an owned tile), at D 32 they would spill. Tiles are one box of
+//   [rows][D] in the 64- or 32-byte swizzle, and dK and dV are written from
+//   registers. Measured on an H100 against it (kernel_ab.py's VARIANTS): D
+//   64's serial loop, two consumer warpgroups, 128-query streamed tiles
+//   (they spill), a four-stage ring, K and V from shared memory at D 16:
+//   all slower or within noise. The first build, with the mask tested in
+//   the exp loop of every tile, ran causal no faster than non-causal.
 #include "sm90.cuh"
 
 namespace {
@@ -66,18 +84,15 @@ constexpr int kStages = 2;    // depth of the streamed ring
 constexpr int kThreads = 384;  // producer and two consumer warpgroups
 constexpr int kOwnBox = kOwn * 128;        // one [128 rows][64 columns] box
 constexpr int kStreamBox = kStream * 128;  // one [64 rows][64 columns] box
-constexpr int kRowBytes = kStream * 4;     // 64 fp32 values of lse or delta
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kOutBar = 1;  // named barriers 1 and 2: each warpgroup around its staging
 
 static_assert(kOwn == 2 * kStream, "a consumer warpgroup owns one streamed tile's rows");
 
-// Registers: 128 x producer + 256 x consumer = 384 x 168, the allocation at
-// launch. K3's consumers hold two D 128 accumulators (128 registers).
+// K2's registers: 128 x producer + 256 x consumer = 384 x 168, the
+// allocation at launch.
 constexpr int kDqProducerRegs = 40, kDqConsumerRegs = 232;
-constexpr int kDkvProducerRegs = 24, kDkvConsumerRegs = 240;
 static_assert(128 * kDqProducerRegs + 256 * kDqConsumerRegs == 384 * 168, "K2 registers");
-static_assert(128 * kDkvProducerRegs + 256 * kDkvConsumerRegs == 384 * 168, "K3 registers");
 
 // Shared memory of K2, in bytes from a 1024-byte-aligned base: Q and dO of
 // the owned tile, K and V of each stage, each warpgroup's dQ staging, then
@@ -95,22 +110,60 @@ struct DqSmem {
   static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 8 + 1024;
 };
 
+// K3's tiles per head dim, 64-query streamed tiles at every D. At D 64 and
+// 128 each warpgroup runs a tile's products, its scores and its dV and dK
+// products in turn, on a two-stage ring, and dK and dV leave through shared
+// memory and TMA stores. At D 16 and 32 the products are small and the exp
+// unit bounds the kernel (one exp per visible pair): there a warpgroup runs
+// tile i's scores while tile i - 1's dV and dK products are in flight
+// (kPipelined; it holds two stages at once, so the ring has three), and dK
+// and dV (16 or 32 columns) are written from registers.
+template <int D>
+struct DkvTiles {
+  using W = Swizzle<D>;
+  // Consumer warpgroups, 64 keys each: three at D 16 and 32, where a third
+  // warp on each SM sub-partition hides more of the exps' latency; two
+  // above, whose consumers hold two D 128 accumulators (128 registers).
+  static constexpr int kConsumers = D < 64 ? 3 : 2;
+  static constexpr int kOwnRows = 64 * kConsumers;  // keys a CTA owns
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
+                    kThreads * (65536 / kThreads / 8 * 8), "registers");
+  static constexpr int kStream = 64;  // queries of a streamed tile
+  static constexpr bool kPipelined = D < 64;
+  static constexpr int kStages = kPipelined ? 3 : 2;  // depth of the streamed ring
+  // At D 16 each consumer warpgroup holds its 64 keys of K and V in
+  // registers (ldmatrix, once an owned tile; 8 registers), S^T and dP^T
+  // take them as their register A operands, and the K/V buffer goes back to
+  // the producer as soon as they are loaded. At D 32 (16 registers) the
+  // three consumer warpgroups' 160 registers spill.
+  static constexpr bool kOwnInRegs = D == 16;
+  static constexpr bool kStagedOut = D >= 64;
+  static constexpr int kOwnBox = kOwnRows * W::kRowBytes;    // one [kOwnRows rows][cols] box
+  static constexpr int kStreamBox = kStream * W::kRowBytes;  // one [kStream rows][cols] box
+  static constexpr int kLseBytes = kStream * 4;              // kStream fp32 lse or delta values
+};
+
 // Shared memory of K3: K and V of the owned tile, Q and dO of each stage,
-// lse and delta of each stage, each warpgroup's dK and dV staging, then the
-// mbarriers (K/V full and empty; full and empty per stage) and the tile
-// slot.
+// lse and delta of each stage, each warpgroup's dK and dV staging (D 64 and
+// 128), then the mbarriers (K/V full and empty; full and empty per stage)
+// and the tile slot.
 template <int D>
 struct DkvSmem {
-  static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kOwnTile = kBoxes * kOwnBox;
-  static constexpr int kStreamTile = kBoxes * kStreamBox;
+  using T = DkvTiles<D>;
+  static constexpr int kBoxes = T::W::kBoxes;
+  static constexpr int kOwnTile = kBoxes * T::kOwnBox;
+  static constexpr int kStreamTile = kBoxes * T::kStreamBox;
   static constexpr int kV = kOwnTile;
   static constexpr int kRing = 2 * kOwnTile;  // stage st: Q, then dO
-  static constexpr int kRows = kRing + kStages * 2 * kStreamTile;  // stage st: lse, then delta
-  static constexpr int kOut = kRows + 1024;
-  static constexpr int kBars = kOut + 4 * kStreamTile;
-  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 8 + 1024;
-  static_assert(kStages * 2 * kRowBytes <= 1024, "lse and delta fit their region");
+  static constexpr int kRows = kRing + T::kStages * 2 * kStreamTile;  // stage st: lse, then delta
+  static constexpr int kRowRegion = (T::kStages * 2 * T::kLseBytes + 1023) / 1024 * 1024;
+  static constexpr int kOut = kRows + kRowRegion;
+  static constexpr int kBars = kOut + (T::kStagedOut ? 4 * kStreamTile : 0);
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * T::kStages) + 8 + 1024;
+  static_assert(kBytes <= 232448, "the opt-in shared-memory limit of a block");
 };
 
 // The owned tiles of a launch, numbered in chunks of heads whose streamed
@@ -120,12 +173,12 @@ struct DkvSmem {
 // most streamed tiles. unpack gives owned tile o of head bh and the CTA's
 // range [lo, hi] of streamed tiles: those either warpgroup sees
 // (_n_kv_blocks / _k_index, _n_q_blocks / _q_index in the Pallas kernels).
-template <bool kCausal, bool kQMajor>
+template <bool kCausal, bool kQMajor, int kStreamRows = kStream, int kOwnRows = kOwn>
 struct Schedule {
   int n_own, n_stream, bh_count, chunk, total, window;
   __device__ Schedule(int S, int BH, int heads, int w)
-      : n_own((S + kOwn - 1) / kOwn), n_stream(S / kStream), bh_count(BH), chunk(heads),
-        total(BH * n_own), window(w) {}
+      : n_own((S + kOwnRows - 1) / kOwnRows), n_stream((S + kStreamRows - 1) / kStreamRows),
+        bh_count(BH), chunk(heads), total(BH * n_own), window(w) {}
   __device__ void unpack(int u, int& o, int& bh, int& lo, int& hi) const {
     const int first_head = u / (chunk * n_own) * chunk;
     const int heads = min(chunk, bh_count - first_head);
@@ -135,12 +188,12 @@ struct Schedule {
     lo = 0;
     hi = n_stream - 1;
     if (kCausal && kQMajor) {  // K tiles from the window's start to the diagonal
-      hi = min(2 * o + 1, n_stream - 1);
-      const int first = o * kOwn - (window - 1);
-      lo = window != 0 && first > 0 ? first / kStream : 0;
+      hi = min((o * kOwnRows + kOwnRows - 1) / kStreamRows, n_stream - 1);
+      const int first = o * kOwnRows - (window - 1);
+      lo = window != 0 && first > 0 ? first / kStreamRows : 0;
     } else if (kCausal) {  // Q tiles from the diagonal to the window's end
-      lo = 2 * o;
-      if (window != 0) hi = min(hi, (o * kOwn + kOwn - 2 + window) / kStream);
+      lo = o * kOwnRows / kStreamRows;
+      if (window != 0) hi = min(hi, (o * kOwnRows + kOwnRows - 2 + window) / kStreamRows);
     }
   }
 };
@@ -350,7 +403,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
 // ---------------------------------------------------------------------------
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DkvTiles<D>::kThreads, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
@@ -358,29 +411,36 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap lse_map,
                    const __grid_constant__ CUtensorMap delta_map,
                    const __grid_constant__ CUtensorMap dk_map,
-                   const __grid_constant__ CUtensorMap dv_map, int* __restrict__ counters, int S,
-                   int BH, int heads_per_chunk, int window, float scale, float scale2) {
+                   const __grid_constant__ CUtensorMap dv_map, bf16* __restrict__ dk_out,
+                   bf16* __restrict__ dv_out, int* __restrict__ counters, int S, int BH,
+                   int heads_per_chunk, int window, float scale, float scale2) {
   using L = DkvSmem<D>;
+  using T = DkvTiles<D>;
+  using W = Swizzle<D>;
+  constexpr int kS = T::kStream, kSt = T::kStages, kOwnRows = T::kOwnRows;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = base, sV = base + L::kV;
   auto sQ = [&](int st) { return base + L::kRing + st * 2 * L::kStreamTile; };
   auto sDo = [&](int st) { return sQ(st) + L::kStreamTile; };
-  auto sLse = [&](int st) { return base + L::kRows + st * 2 * kRowBytes; };
-  auto sDelta = [&](int st) { return sLse(st) + kRowBytes; };
+  auto sLse = [&](int st) { return base + L::kRows + st * 2 * T::kLseBytes; };
+  auto sDelta = [&](int st) { return sLse(st) + T::kLseBytes; };
   const uint32_t full_kv = base + L::kBars, empty_kv = full_kv + 8;
   auto full = [&](int st) { return full_kv + 8 * (2 + st); };
-  auto empty = [&](int st) { return full_kv + 8 * (2 + kStages + st); };
-  const uint32_t slot = full_kv + 8 * (2 + 2 * kStages);
+  auto empty = [&](int st) { return full_kv + 8 * (2 + kSt + st); };
+  const uint32_t slot = full_kv + 8 * (2 + 2 * kSt);
   volatile int* tile_slot = reinterpret_cast<volatile int*>(smem_raw + (slot - smem_u32(smem_raw)));
-  const Schedule<kCausal, false> sched(S, BH, heads_per_chunk, window);
+  auto smem_f32 = [&](uint32_t a) {
+    return reinterpret_cast<const float*>(smem_raw + (a - smem_u32(smem_raw)));
+  };
+  const Schedule<kCausal, false, kS, kOwnRows> sched(S, BH, heads_per_chunk, window);
 
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
-    mbar_init(empty_kv, 8);
-    for (int st = 0; st < kStages; ++st) {
+    mbar_init(empty_kv, 4 * T::kConsumers);  // one arrival per consumer warp
+    for (int st = 0; st < kSt; ++st) {
       mbar_init(full(st), 1);
-      mbar_init(empty(st), 8);
+      mbar_init(empty(st), 4 * T::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -390,11 +450,11 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
     // ---------------- producer: one thread issues every load ----------------
     // Per owned tile: K and V, then Q, dO, lse and delta of each streamed
     // tile in order, on one full barrier per stage.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kDkvProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::kProducerRegs));
     if (threadIdx.x == 0) {
       int it = 0;
       for (int r = 0;; ++r) {
-        mbar_wait(empty_kv, (r & 1) ^ 1);  // both warpgroups are done with K and V
+        mbar_wait(empty_kv, (r & 1) ^ 1);  // every consumer warpgroup is done with K and V
         const int u = atomicAdd(&counters[0], 1);
         *tile_slot = u < sched.total ? u : -1;
         if (u >= sched.total) {
@@ -409,16 +469,16 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
         sched.unpack(u, j, bh, lo, hi);
         mbar_expect_tx(full_kv, 2 * L::kOwnTile);
         for (int b = 0; b < L::kBoxes; ++b) {
-          tma_load(sK + b * kOwnBox, &k_map, full_kv, b * kBoxCols, j * kOwn, bh);
-          tma_load(sV + b * kOwnBox, &v_map, full_kv, b * kBoxCols, j * kOwn, bh);
+          tma_load(sK + b * T::kOwnBox, &k_map, full_kv, b * W::kCols, j * kOwnRows, bh);
+          tma_load(sV + b * T::kOwnBox, &v_map, full_kv, b * W::kCols, j * kOwnRows, bh);
         }
         for (int n = it; n <= it + hi - lo; ++n) {
-          const int st = n % kStages, row = (lo + n - it) * kStream;
-          mbar_wait(empty(st), ((n / kStages) & 1) ^ 1);
-          mbar_expect_tx(full(st), 2 * L::kStreamTile + 2 * kRowBytes);
+          const int st = n % kSt, row = (lo + n - it) * kS;
+          mbar_wait(empty(st), ((n / kSt) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * L::kStreamTile + 2 * T::kLseBytes);
           for (int b = 0; b < L::kBoxes; ++b) {
-            tma_load(sQ(st) + b * kStreamBox, &q_map, full(st), b * kBoxCols, row, bh);
-            tma_load(sDo(st) + b * kStreamBox, &do_map, full(st), b * kBoxCols, row, bh);
+            tma_load(sQ(st) + b * T::kStreamBox, &q_map, full(st), b * W::kCols, row, bh);
+            tma_load(sDo(st) + b * T::kStreamBox, &do_map, full(st), b * W::kCols, row, bh);
           }
           tma_load_2d(sLse(st), &lse_map, full(st), row, bh);
           tma_load_2d(sDelta(st), &delta_map, full(st), row, bh);
@@ -428,16 +488,18 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // ---------------- consumers: 64 keys per warpgroup ----------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kDkvConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::kConsumerRegs));
     const int c = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128, lane = tid % 32, t = lane % 4;
     const int r_in = (tid / 32) * 16 + lane / 4;  // this thread's keys r_in and r_in + 8
-    const uint32_t sKc = sK + c * 64 * 128, sVc = sV + c * 64 * 128;
+    const uint32_t sKc = sK + c * 64 * W::kRowBytes, sVc = sV + c * 64 * W::kRowBytes;
     const uint32_t sOutK = base + L::kOut + c * 2 * L::kStreamTile;
     const uint32_t sOutV = sOutK + L::kStreamTile;
     auto release = [&](uint32_t bar) {
       if (lane == 0) mbar_arrive(bar);
     };
+    // This warpgroup's keys of K and V as register A fragments (kOwnInRegs).
+    uint32_t ka[T::kOwnInRegs ? D / 16 : 1][4], va[T::kOwnInRegs ? D / 16 : 1][4];
 
     int it = 0;
     for (int r = 0;; ++r) {
@@ -448,59 +510,107 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
       sched.unpack(u, j, bh, lo, hi);
       // This warpgroup's keys and the Q tiles that see them: from its own
       // diagonal to its own window's end; none for keys past S.
-      const int key0 = j * kOwn + c * 64;
+      const int key0 = j * kOwnRows + c * 64;
       int lo_c = lo, hi_c = hi;
       if (kCausal) {
-        lo_c = 2 * j + c;
-        if (window != 0) hi_c = min(hi, (key0 + 62 + window) / kStream);
+        lo_c = key0 / kS;
+        if (window != 0) hi_c = min(hi, (key0 + 62 + window) / kS);
       }
       if (key0 >= S) lo_c = hi + 1;
+      if constexpr (T::kOwnInRegs) {
+        load_a_frags<D>(ka, sKc, tid);
+        load_a_frags<D>(va, sVc, tid);
+        release(empty_kv);  // K and V are in registers: the next tile's may load
+      }
       float dk[D / 2], dv[D / 2];
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.0f;
-
-      for (int i = lo, n = it; i <= hi; ++i, ++n) {
-        const int st = n % kStages;
-        mbar_wait(full(st), (n / kStages) & 1);
-        if (i < lo_c || i > hi_c) {  // below this warpgroup's diagonal or past its window
-          release(empty(st));
-          if (i == hi) release(empty_kv);
-          continue;
-        }
-        // Transposed tiles, rows = this warpgroup's keys, columns = the
-        // queries of Q tile i: P^T and dS^T are then the A operands of dV
-        // and dK untransposed.
-        float s[32], dp[32];
-        fence_regs(dk);
-        fence_regs(dv);
-        wgmma_fence();
+      // Transposed tiles, rows = this warpgroup's keys, columns = the
+      // queries of Q tile i: P^T and dS^T are then the A operands of dV
+      // and dK untransposed.
+      float s[kS / 2], dp[kS / 2];
+      uint32_t pa[kS / 16][4], da[kS / 16][4];
+      auto stage = [&](int i) { return (it + i - lo) % kSt; };
+      auto phase = [&](int i) { return ((it + i - lo) / kSt) & 1; };
+      // S^T = K Q_i^T and dP^T = V dO_i^T; the caller commits.
+      auto issue_s = [&](int st) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t own = (kk / 4) * kOwnBox + (kk % 4) * 32;
-          const uint32_t str = (kk / 4) * kStreamBox + (kk % 4) * 32;
-          wgmma_ss(s, kmajor_desc(sKc + own), kmajor_desc(sQ(st) + str), kk > 0);
+          const uint64_t q = kmajor_desc<D>(sQ(st) + k16_offset<D>(kk, T::kStreamBox));
+          if constexpr (T::kOwnInRegs)
+            wgmma_rs_k(s, ka[kk], q, kk > 0);
+          else
+            wgmma_ss(s, kmajor_desc<D>(sKc + k16_offset<D>(kk, T::kOwnBox)), q, kk > 0);
         }
+      };
+      auto issue_dp = [&](int st) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t own = (kk / 4) * kOwnBox + (kk % 4) * 32;
-          const uint32_t str = (kk / 4) * kStreamBox + (kk % 4) * 32;
-          wgmma_ss(dp, kmajor_desc(sVc + own), kmajor_desc(sDo(st) + str), kk > 0);
+          const uint64_t o = kmajor_desc<D>(sDo(st) + k16_offset<D>(kk, T::kStreamBox));
+          if constexpr (T::kOwnInRegs)
+            wgmma_rs_k(dp, va[kk], o, kk > 0);
+          else
+            wgmma_ss(dp, kmajor_desc<D>(sVc + k16_offset<D>(kk, T::kOwnBox)), o, kk > 0);
         }
+      };
+      auto issue_dkv = [&](int st) {  // dV += P^T dO_i, dK += dS^T Q_i
+#pragma unroll
+        for (int kt = 0; kt < kS / 16; ++kt)
+          wgmma_rs(dv, pa[kt], mnmajor_desc<kS, D>(sDo(st) + kt * 16 * W::kRowBytes));
+#pragma unroll
+        for (int kt = 0; kt < kS / 16; ++kt)
+          wgmma_rs(dk, da[kt], mnmajor_desc<kS, D>(sQ(st) + kt * 16 * W::kRowBytes));
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
-        if (i == hi) release(empty_kv);  // the next tile's K and V may load
-        // lse and delta belong to the query, the column: this thread's
-        // columns are 8 nn + 2 t and 8 nn + 2 t + 1.
-        auto rows = [&](uint32_t a) {
-          return reinterpret_cast<const float*>(smem_raw + (a - smem_u32(smem_raw)));
-        };
-        const float *ls = rows(sLse(st)), *dls = rows(sDelta(st));
-        const bool masked =
-            kCausal && (i == 2 * j + c || (window != 0 && i * kStream + 63 - key0 >= window));
+      };
+      // The mask where a query of tile i precedes one of this warpgroup's
+      // keys (the diagonal) or lies a window or more past one.
+      auto masked = [&](int i) {
+        return kCausal &&
+               (i * kS < key0 + 63 || (window != 0 && i * kS + kS - 1 - key0 >= window));
+      };
+      // lse and delta belong to the query, the column: this thread's columns
+      // are 8 nn + 2 t and 8 nn + 2 t + 1.
+      // D 16 and 32: P^T in place over s, one FFMA and one exp2 a score
+      // against -lse log2e, taken once a column.
+      auto probs = [&](int st) {
+        const float* ls = smem_f32(sLse(st));
 #pragma unroll
-        for (int nn = 0; nn < 8; ++nn) {
+        for (int nn = 0; nn < kS / 8; ++nn) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * nn + 2 * t);
+          const float nl[2] = {-l2.x * kLog2e, -l2.y * kLog2e};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * nn + e] = fast_exp2(fmaf(s[4 * nn + e], scale2, nl[e & 1]));
+        }
+      };
+      // D 16 and 32: dS^T in place over dp, from -delta scale taken once a
+      // column; then the mask, a pass of its own that only masked tiles run.
+      auto grads = [&](int i, int st) {
+        const float* dls = smem_f32(sDelta(st));
+#pragma unroll
+        for (int nn = 0; nn < kS / 8; ++nn) {
+          const float2 d2 = *reinterpret_cast<const float2*>(dls + 8 * nn + 2 * t);
+          const float nd[2] = {-d2.x * scale, -d2.y * scale};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * nn + e] = s[4 * nn + e] * fmaf(dp[4 * nn + e], scale, nd[e & 1]);
+        }
+        if (masked(i)) {
+#pragma unroll
+          for (int nn = 0; nn < kS / 8; ++nn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!visible(i * kS + 8 * nn + 2 * t + (e & 1), key0 + r_in + 8 * (e >> 1), window))
+                s[4 * nn + e] = dp[4 * nn + e] = 0.0f;
+        }
+      };
+      // D 64 and 128: P^T and dS^T in place over s and dp, in one pass.
+      auto scores = [&](int i, int st) {
+        const float* ls = smem_f32(sLse(st));
+        const float* dls = smem_f32(sDelta(st));
+        const bool mask = masked(i);
+#pragma unroll
+        for (int nn = 0; nn < kS / 8; ++nn) {
           const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * nn + 2 * t);
           const float2 d2 = *reinterpret_cast<const float2*>(dls + 8 * nn + 2 * t);
 #pragma unroll
@@ -508,49 +618,149 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
             const int x = 4 * nn + e;
             const float lv = (e & 1) ? l2.y : l2.x, dlt = (e & 1) ? d2.y : d2.x;
             float p = fast_exp2(fmaf(s[x], scale2, -lv * kLog2e));
-            const int qpos = i * kStream + 8 * nn + 2 * t + (e & 1);
-            if (masked && !visible(qpos, key0 + r_in + 8 * (e >> 1), window)) p = 0.0f;
+            const int qpos = i * kS + 8 * nn + 2 * t + (e & 1);
+            if (mask && !visible(qpos, key0 + r_in + 8 * (e >> 1), window)) p = 0.0f;
             s[x] = p;
             dp[x] = p * (dp[x] - dlt) * scale;
           }
         }
-        uint32_t pa[4][4], da[4][4];
-        to_a(pa, s);
-        to_a(da, dp);
-        fence_regs(dk);
-        fence_regs(dv);
-        wgmma_fence();
-#pragma unroll
-        for (int kt = 0; kt < 4; ++kt)
-          wgmma_rs(dv, pa[kt], mnmajor_desc<kStream>(sDo(st) + kt * 16 * 128));
-#pragma unroll
-        for (int kt = 0; kt < 4; ++kt)
-          wgmma_rs(dk, da[kt], mnmajor_desc<kStream>(sQ(st) + kt * 16 * 128));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dk);
-        fence_regs(dv);
-        fence_regs(pa);
-        fence_regs(da);
-        release(empty(st));
+      };
+      // A tile below this warpgroup's diagonal or past its window: waited
+      // on, then handed straight back.
+      auto skip = [&](int i) {
+        mbar_wait(full(stage(i)), phase(i));
+        release(empty(stage(i)));
+        if (!T::kOwnInRegs && i == hi) release(empty_kv);
+      };
+
+      if constexpr (T::kPipelined) {
+        // Tile i's S^T and dP^T products are issued with tile i - 1's dV and
+        // dK products, in three commit groups: P^T is taken as soon as S^T is
+        // done, dS^T once dP^T is, both while the dV and dK products run.
+        // Tile i - 1's stage goes back once its dV and dK products are done.
+        for (int i = lo; i <= min(lo_c - 1, hi); ++i) skip(i);
+        if (lo_c <= hi_c) {
+          mbar_wait(full(stage(lo_c)), phase(lo_c));
+          fence_regs(dk);
+          fence_regs(dv);
+          wgmma_fence();
+          issue_s(stage(lo_c));
+          wgmma_commit();
+          issue_dp(stage(lo_c));
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
+          probs(stage(lo_c));
+          wgmma_wait<0>();
+          fence_regs(dp);
+          if (!T::kOwnInRegs && lo_c == hi) release(empty_kv);  // the next K and V may load
+          grads(lo_c, stage(lo_c));
+          to_a(pa, s);
+          to_a(da, dp);
+          for (int i = lo_c + 1; i <= hi_c; ++i) {
+            mbar_wait(full(stage(i)), phase(i));
+            fence_regs(dk);
+            fence_regs(dv);
+            fence_regs(pa);
+            fence_regs(da);
+            wgmma_fence();
+            issue_s(stage(i));
+            wgmma_commit();
+            issue_dp(stage(i));
+            wgmma_commit();
+            issue_dkv(stage(i - 1));
+            wgmma_wait<2>();  // tile i's S^T is done
+            fence_regs(s);
+            probs(stage(i));
+            wgmma_wait<1>();  // and its dP^T
+            fence_regs(dp);
+            if (!T::kOwnInRegs && i == hi) release(empty_kv);
+            grads(i, stage(i));
+            wgmma_wait<0>();  // tile i - 1's dV and dK are done
+            fence_regs(dk);
+            fence_regs(dv);
+            fence_regs(pa);
+            fence_regs(da);
+            release(empty(stage(i - 1)));
+            to_a(pa, s);
+            to_a(da, dp);
+          }
+          fence_regs(dk);
+          fence_regs(dv);
+          fence_regs(pa);
+          fence_regs(da);
+          wgmma_fence();
+          issue_dkv(stage(hi_c));
+          wgmma_wait<0>();
+          fence_regs(dk);
+          fence_regs(dv);
+          fence_regs(pa);
+          fence_regs(da);
+          release(empty(stage(hi_c)));
+        }
+        for (int i = max(lo_c, hi_c + 1); i <= hi; ++i) skip(i);
+      } else {
+        for (int i = lo; i <= hi; ++i) {
+          if (i < lo_c || i > hi_c) {  // below this warpgroup's diagonal or past its window
+            skip(i);
+            continue;
+          }
+          const int st = stage(i);
+          mbar_wait(full(st), phase(i));
+          fence_regs(dk);
+          fence_regs(dv);
+          wgmma_fence();
+          issue_s(st);
+          issue_dp(st);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s);
+          fence_regs(dp);
+          if (!T::kOwnInRegs && i == hi) release(empty_kv);  // the next K and V may load
+          scores(i, st);
+          to_a(pa, s);
+          to_a(da, dp);
+          fence_regs(dk);
+          fence_regs(dv);
+          wgmma_fence();
+          issue_dkv(st);
+          wgmma_wait<0>();
+          fence_regs(dk);
+          fence_regs(dv);
+          fence_regs(pa);
+          fence_regs(da);
+          release(empty(st));
+        }
       }
       it += hi - lo + 1;
 
       if (key0 < S) {
-        if (tid == 0) tma_store_wait_read();
-        warpgroup_sync(kOutBar + c);
-        stage_rows<D>(sOutK, dk, tid);
-        stage_rows<D>(sOutV, dv, tid);
-        fence_async_shared();
-        warpgroup_sync(kOutBar + c);
-        if (tid == 0)
-          for (int b = 0; b < L::kBoxes; ++b) {
-            tma_store(&dk_map, sOutK + b * kStreamBox, b * kBoxCols, key0, bh);
-            tma_store(&dv_map, sOutV + b * kStreamBox, b * kBoxCols, key0, bh);
+        if constexpr (T::kStagedOut) {
+          if (tid == 0) tma_store_wait_read();
+          warpgroup_sync(kOutBar + c);
+          stage_rows<D>(sOutK, dk, tid);
+          stage_rows<D>(sOutV, dv, tid);
+          fence_async_shared();
+          warpgroup_sync(kOutBar + c);
+          if (tid == 0)
+            for (int b = 0; b < L::kBoxes; ++b) {
+              tma_store(&dk_map, sOutK + b * T::kStreamBox, b * kBoxCols, key0, bh);
+              tma_store(&dv_map, sOutV + b * T::kStreamBox, b * kBoxCols, key0, bh);
+            }
+        } else {
+          // dK and dV from registers: this thread's bf16 pairs of keys
+          // key0 + r_in and + 8 (S is a multiple of 64: none past S).
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const size_t row = (static_cast<size_t>(bh) * S + key0 + r_in + 8 * h) * D;
+            store_row<D>(dk_out + row, dk, h, 1.0f, t);
+            store_row<D>(dv_out + row, dv, h, 1.0f, t);
           }
+        }
       }
     }
-    if (tid == 0) tma_store_wait_read();
+    if constexpr (T::kStagedOut)
+      if (tid == 0) tma_store_wait_read();
   }
 }
 
@@ -584,21 +794,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                cudaStream_t stream) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kErrNoEncoder;
-  CUtensorMap qm, km, vm, dom, lm, dlm, dkm, dvm;
-  if (!make_map(&km, fn, k, bh, s, D, kOwn) || !make_map(&vm, fn, v, bh, s, D, kOwn) ||
-      !make_map(&qm, fn, q, bh, s, D, kStream) || !make_map(&dom, fn, dout, bh, s, D, kStream) ||
-      !make_row_map(&lm, fn, lse, bh, s, kStream) ||
-      !make_row_map(&dlm, fn, delta, bh, s, kStream) ||
-      !make_map(&dkm, fn, dk, bh, s, D, kStream) || !make_map(&dvm, fn, dv, bh, s, D, kStream))
+  using T = DkvTiles<D>;
+  CUtensorMap qm, km, vm, dom, lm, dlm, dkm{}, dvm{};
+  if (!make_map(&km, fn, k, bh, s, D, T::kOwnRows) ||
+      !make_map(&vm, fn, v, bh, s, D, T::kOwnRows) ||
+      !make_map(&qm, fn, q, bh, s, D, T::kStream) ||
+      !make_map(&dom, fn, dout, bh, s, D, T::kStream) ||
+      !make_row_map(&lm, fn, lse, bh, s, T::kStream) ||
+      !make_row_map(&dlm, fn, delta, bh, s, T::kStream) ||
+      (T::kStagedOut && (!make_map(&dkm, fn, dk, bh, s, D, kStream) ||
+                         !make_map(&dvm, fn, dv, bh, s, D, kStream))))
     return kErrEncode;
   int ctas = 0;
   const cudaError_t e = persistent_grid(flash_bwd_dkv_sm90<D, kCausal>, DkvSmem<D>::kBytes,
-                                        bh * ((s + kOwn - 1) / kOwn), &ctas);
+                                        bh * ((s + T::kOwnRows - 1) / T::kOwnRows), &ctas);
   if (e != cudaSuccess) return e;
   const float scale = softmax_scale(D);
-  flash_bwd_dkv_sm90<D, kCausal><<<ctas, kThreads, DkvSmem<D>::kBytes, stream>>>(
-      qm, km, vm, dom, lm, dlm, dkm, dvm, counters, s, bh, heads_per_chunk(bh, s, D, 4), window,
-      scale, scale * kLog2e);
+  flash_bwd_dkv_sm90<D, kCausal><<<ctas, T::kThreads, DkvSmem<D>::kBytes, stream>>>(
+      qm, km, vm, dom, lm, dlm, dkm, dvm, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      counters, s, bh, heads_per_chunk(bh, s, D, 4), window, scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -632,6 +846,14 @@ extern "C" int tpe_flash_bwd_dkv_sm90(const void* q, const void* k, const void* 
                                       int window, int causal, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   int* ctr = static_cast<int*>(counters);
+  if (d == 16)
+    return causal
+               ? launch_dkv<16, true>(q, k, v, dout, lse, delta, dk, dv, ctr, bh, s, window, st)
+               : launch_dkv<16, false>(q, k, v, dout, lse, delta, dk, dv, ctr, bh, s, window, st);
+  if (d == 32)
+    return causal
+               ? launch_dkv<32, true>(q, k, v, dout, lse, delta, dk, dv, ctr, bh, s, window, st)
+               : launch_dkv<32, false>(q, k, v, dout, lse, delta, dk, dv, ctr, bh, s, window, st);
   if (d == 64)
     return causal
                ? launch_dkv<64, true>(q, k, v, dout, lse, delta, dk, dv, ctr, bh, s, window, st)

@@ -4,10 +4,12 @@
 // mbarriers and TMA copies, wgmma descriptors and products, register fences,
 // bf16 packing and row stores, and the host's tensor-map encoder.
 //
-// Every tile these kernels copy is a box of [rows][64 bf16 columns] with the
-// 128-byte swizzle (one 128-byte row per tile row), so a D 128 tile is two
-// boxes and a D 256 tile four; the swizzle repeats every 1024 bytes (8
-// rows), and the wgmma descriptors assume 1024-byte-aligned boxes.
+// At D 64 and up, every tile these kernels copy is a box of [rows][64 bf16
+// columns] with the 128-byte swizzle (one 128-byte row per tile row), so a
+// D 128 tile is two boxes and a D 256 tile four; the swizzle repeats every
+// 1024 bytes (8 rows), and the wgmma descriptors assume 1024-byte-aligned
+// boxes. At D 32 and 16 a tile is one box of [rows][D] in the 64- or
+// 32-byte swizzle (Swizzle<D>), which repeats every 512 or 256 bytes.
 
 #pragma once
 
@@ -23,6 +25,20 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBoxCols = 64;  // bf16 columns of a 128-byte swizzled row
+
+// The swizzle of a [rows][D] bf16 tile. A box row is 128 bytes (64 columns)
+// at D >= 64, else the whole row: 64 bytes at D 32, 32 at D 16. kMode is
+// the layout type of a wgmma descriptor (bits 62-63): 1 for the 128-byte
+// swizzle, 2 for 64, 3 for 32; an 8-row group of a box is 8 kRowBytes.
+template <int D>
+struct Swizzle {
+  static constexpr int kRowBytes = D >= 64 ? 128 : 2 * D;
+  static constexpr int kCols = kRowBytes / 2;  // bf16 columns of a box
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kK16 = kCols / 16;  // k16 slices of a box row
+  static constexpr uint64_t kMode = D >= 64 ? 1 : D == 32 ? 2 : 3;
+  static_assert(D == 16 || D == 32 || D % 64 == 0, "a head dim the swizzles tile");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -111,25 +127,36 @@ __device__ __forceinline__ void named_arrive(int id) {
 
 // --- wgmma -----------------------------------------------------------------
 
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, all in 16-byte units, and the swizzle's layout type (kMode).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t mode) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
 }
-// K-major operand (rows x D, D contiguous): 8-row groups 1024 bytes apart;
-// the leading offset is unused with this swizzle. A k16 slice inside a box
-// starts 32 bytes on.
+// K-major operand (rows x D, D contiguous): 8-row groups 8 box rows apart
+// (1024 bytes in the 128-byte swizzle); the leading offset is unused with a
+// swizzle. A k16 slice inside a box starts 32 bytes on (k16_offset).
+template <int D = 64>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
+  using W = Swizzle<D>;
+  return smem_desc(addr, 16, 8 * W::kRowBytes, W::kMode);
 }
-// MN-major operand (a [Rows][D] tile read as k = rows, n = D): 64-column
-// boxes Rows x 128 bytes apart, 8-row groups 1024 bytes apart. A k16 slice
-// (16 rows) starts 2048 bytes on.
-template <int Rows>
+// MN-major operand (a [Rows][D] tile read as k = rows, n = D): boxes Rows
+// box rows apart (at D 128 and 256 the 64-column boxes; one box below),
+// 8-row groups 8 box rows apart. A k16 slice (16 rows) starts 16 box rows on.
+template <int Rows, int D = 64>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, Rows * 128, 1024);
+  using W = Swizzle<D>;
+  return smem_desc(addr, Rows * W::kRowBytes, 8 * W::kRowBytes, W::kMode);
+}
+// Byte offset of k16 slice kk of a K-major [rows][D] tile whose boxes are
+// box_bytes apart.
+template <int D>
+__device__ __forceinline__ uint32_t k16_offset(int kk, uint32_t box_bytes) {
+  using W = Swizzle<D>;
+  return (kk / W::kK16) * box_bytes + (kk % W::kK16) * 32;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -229,8 +256,21 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t a, uint64_t
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d[64 x 32] (+)= A[64 x 16] * B[16 x 32]: A as bf16 register fragments, B
-// K-major in shared memory.
+// d[64 x N] (+)= A[64 x 16] * B[16 x N]: A as bf16 register fragments, B
+// K-major in shared memory. N = 64 and 32.
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8), TPE_ACC8(d, 16), TPE_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 __device__ __forceinline__ void wgmma_rs_k(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
                                            int scale_d) {
   asm volatile(
@@ -255,7 +295,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[40], uint64_t a, uint64_t b,
 }
 
 // d[64 x N] += A[64 x 16] * B[16 x N]: A as bf16 register fragments, B
-// MN-major in shared memory (transpose bit set). N = 128, 64 and 256.
+// MN-major in shared memory (transpose bit set). N = 128, 64, 32, 16 and 256.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -286,6 +326,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : TPE_ACC8(d, 0), TPE_ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : TPE_ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -303,6 +363,24 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// A warpgroup's 64 rows of a [rows][D] tile (D 16 or 32, one box in
+// Swizzle<D>'s swizzle, `rows64` the address of the first of them) as the
+// register A fragments of wgmma, slice kk in a[kk]: by ldmatrix, lane l
+// giving row 16 w + l % 8 + 8 ((l / 8) % 2) and 16-byte chunk 2 kk + l / 16,
+// whose place in the row the swizzle XORs with address bits 7 and up.
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], uint32_t rows64, int tid) {
+  using W = Swizzle<D>;
+  static_assert(W::kBoxes == 1, "one box a row");
+  const int lane = tid % 32, row = (tid / 32) * 16 + lane % 8 + 8 * ((lane / 8) % 2);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int chunk = 2 * kk + lane / 16;
+    const int swizzled = chunk ^ ((row * W::kRowBytes >> 7) & (W::kRowBytes / 16 - 1));
+    ldsm_x4(a[kk], rows64 + row * W::kRowBytes + swizzled * 16);
+  }
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -387,18 +465,24 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A [BH, S, D] bf16 tensor as a 3-D map of [1][rows][64] boxes, 128-byte
-// swizzle; out-of-bounds rows read as zeros and are not written.
+// A [BH, S, D] bf16 tensor as a 3-D map of [1][rows][cols] boxes: 64
+// columns in the 128-byte swizzle at D >= 64, else all D columns in the 64-
+// (D 32) or 32-byte (D 16) swizzle (Swizzle<D>); out-of-bounds rows read as
+// zeros and are not written.
 bool make_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int bh, int s, int d, int rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(bf16),
                                  static_cast<cuuint64_t>(s) * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(d < kBoxCols ? d : kBoxCols),
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = d >= kBoxCols ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : d == 32     ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A [BH, S] fp32 tensor (lse, delta) as a 2-D map of [1][cols] boxes, no

@@ -3,14 +3,15 @@ versions, the launch counters, the loader, and the autograd functions.
 
 Kernels, each replacing one Pallas kernel of
 ``tpu_engine/ops/_flash_pallas.py``. In bf16, the Hopper designs (TMA +
-wgmma + warp specialisation, helpers shared in ``csrc/sm90.cuh``): K1 at head
-dims 64, 128 and 256 is ``csrc/flash_fwd_sm90.cu``; K2 and K3 at 64 and 128
-are ``csrc/flash_bwd_sm90.cu``; K2 at 256 is ``csrc/flash_bwd_dq_d256_sm90.cu``
-and K3 at 256 ``csrc/flash_bwd_dkv_d256_sm90.cu``. In fp32, K1, K2 and K3 at
-every head dim are ``csrc/flash_f32_tc.cu``: ``mma.sync`` on the tensor cores
-in split TF32 (each product three TF32 products, ``csrc/tf32_split.cuh``), so
-that they keep fp32 accuracy. ``csrc/flash_attention.cu`` holds the C entries
-and the rest: ``mma.sync`` in bf16 for K1, K2 and K3 at head dims 16 and 32.
+wgmma + warp specialisation, helpers shared in ``csrc/sm90.cuh``): K1 at
+every head dim is ``csrc/flash_fwd_sm90.cu``; K3 at 16, 32, 64 and 128 and
+K2 at 64 and 128 are ``csrc/flash_bwd_sm90.cu``; K2 at 256 is
+``csrc/flash_bwd_dq_d256_sm90.cu`` and K3 at 256
+``csrc/flash_bwd_dkv_d256_sm90.cu``. In fp32, K1, K2 and K3 at every head
+dim are ``csrc/flash_f32_tc.cu``: ``mma.sync`` on the tensor cores in split
+TF32 (each product three TF32 products, ``csrc/tf32_split.cuh``), so that
+they keep fp32 accuracy. ``csrc/flash_attention.cu`` holds the C entries
+and the rest: ``mma.sync`` in bf16 for K2 at head dims 16 and 32.
 ``csrc/flash_common.cuh`` is the tile schedule that it and
 ``flash_f32_tc.cu`` share.
 

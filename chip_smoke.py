@@ -10,7 +10,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``tpu_engine_torch/csrc`` with nvcc for sm_90a, one compiler per source,
    all at once; check that the Hopper kernels (``flash_fwd_sm90``: K1 in
    bf16 at every head dim; ``flash_bwd_dkv_sm90``: K3 at D 16, 32, 64 and
-   128; ``flash_bwd_dq_sm90``: K2 at D 64 and 128; ``flash_bwd_dq_d256_sm90``,
+   128; ``flash_bwd_dq_sm90``: K2 at D 16, 32, 64 and 128; ``flash_bwd_dq_d256_sm90``,
    ``flash_bwd_dkv_d256_sm90``: K2 and K3 at D 256) are built from wgmma and
    TMA loads (``HGMMA``, ``UTMALDG`` in their SASS), spill nothing, and keep
    ``setmaxnreg`` (no ptxas C7508 warning); that the fp32 K1, K2 and K3
@@ -307,15 +307,14 @@ OFF_PATH = (("fp32_d128", 64, 128, "fp32", True, ("train_fp32",)),
             ("bf16_d16", 64, 16, "bf16", True, ("train_tiny_d16",)),
             ("bf16_d64", 192, 64, "bf16", True, ("model_bf16_gpt2",)))
 # The source of each OFF_PATH kernel, by dtype: fp32 K1-K3 are the
-# split-TF32 kernels; bf16 at D 16 and 32 is the Hopper K1 and K3 and
-# flash_attention.cu's K2, and bf16 at D 64 the Hopper kernels of D 128
-# (``SOURCE``).
+# split-TF32 kernels; bf16 at D 16 and 32 the Hopper K1, K2 and K3, and bf16
+# at D 64 the Hopper kernels of D 128 (``SOURCE``).
 SOURCE_OFF_PATH = {
     ("fp32", "flash_fwd"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
     ("fp32", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
     ("fp32", "flash_bwd_dkv"): "tpu_engine_torch/csrc/flash_f32_tc.cu",
     ("bf16", "flash_fwd"): "tpu_engine_torch/csrc/flash_fwd_sm90.cu",
-    ("bf16", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_attention.cu",
+    ("bf16", "flash_bwd_dq"): "tpu_engine_torch/csrc/flash_bwd_sm90.cu",
     ("bf16", "flash_bwd_dkv"): "tpu_engine_torch/csrc/flash_bwd_sm90.cu",
 }
 # The split-TF32 kernels' symbol and its instantiations (K1, K2 and K3, head
@@ -324,9 +323,9 @@ SOURCE_OFF_PATH = {
 F32_TC_KERNELS = {"flash_fwd_f32_tc": 10, "flash_bwd_dq_f32_tc": 10, "flash_bwd_dkv_f32_tc": 10}
 F32_TC_HMMA = "HMMA.1688.F32.TF32"
 # The Hopper kernels' symbols and their instantiations (head dims x causal
-# and not): K1 at D 16, 32, 64, 128 and 256; K2 at 64 and 128; K3 at 16,
-# 32, 64 and 128; K2 and K3 at 256.
-SM90_KERNELS = {"flash_fwd_sm90": 10, "flash_bwd_dq_sm90": 4, "flash_bwd_dkv_sm90": 8,
+# and not): K1 at D 16, 32, 64, 128 and 256; K2 and K3 at 16, 32, 64 and
+# 128; K2 and K3 at 256.
+SM90_KERNELS = {"flash_fwd_sm90": 10, "flash_bwd_dq_sm90": 8, "flash_bwd_dkv_sm90": 8,
                 "flash_bwd_dq_d256_sm90": 2, "flash_bwd_dkv_d256_sm90": 2}
 RING = 4          # ranks of the ring in the ring and train_ring phases
 RING_SEQ = 8192   # sequence length of those phases (local shard 2048)
@@ -432,8 +431,8 @@ def check_lse_backward(fc) -> dict:
 def check_sm90_sass(fc) -> dict:
     """Each Hopper kernel's instantiations (``SM90_KERNELS``: head dims x
     causal and not) must be built from wgmma (``HGMMA``) and TMA loads
-    (``UTMALDG``): proof that bf16 K1 and K3 at every head dim and K2 at D
-    64, 128 and 256 run the Hopper designs. Returns the count of each
+    (``UTMALDG``): proof that bf16 K1, K2 and K3 at every head dim run the
+    Hopper designs. Returns the count of each
     instruction per instantiation."""
     out = {}
     for symbol, want in SM90_KERNELS.items():
@@ -511,7 +510,8 @@ def _edge_cases(dims=(64, 128)) -> list:
     """The edges of the Hopper kernels' tiles, bf16 at ``dims``: S 64, 192
     and 320, causal and not, which leave a ragged last 128-row tile (K1's Q
     tiles; at D 16 to 128 also K1's 128-key tiles, at D 64 and 128 K2's and
-    K3's owned tiles, at D 16 and 32 a ragged 192-key owned tile of K3) and,
+    K3's owned tiles, at D 16 and 32 a ragged 192-row owned tile of K2 and
+    K3) and,
     at D 256, a ragged last 80-key tile of K1 at S 64 and 192;
     windows 37, 100, 128 and 200 at S 320 and 1024, which cut through the
     64-row tiles (K2's owned rows and K3's owned keys at D 256, the streamed
@@ -552,8 +552,7 @@ def check_bwd_edges(fc) -> dict:
     the plain forward's lse and Δ (the limits of ``check_case``); and each
     run twice on the same inputs must give bitwise-equal dQ, dK and dV (no
     atomics: every gradient row is written once). Returns max |err| of dq,
-    dk and dv per case. D 16, 32, 64, 128 and 256 (K2 at D 16 and 32 is
-    flash_attention.cu's)."""
+    dk and dv per case. D 16, 32, 64, 128 and 256."""
     import torch
 
     out = {}
@@ -1280,7 +1279,7 @@ def phase_train_tiny(res: dict, steps: int) -> None:
     """qwen-tiny (2 layers, heads of 32; ``train_tiny``) and gpt-tiny (llama
     arch, 2 layers, 4 heads of 16; ``train_tiny_d16``) in bf16 at seq 256 ×
     micro-batch 8, flash attention: the bf16 D 32 and D 16 kernels (the
-    Hopper K1 and K3, flash_attention.cu's K2), K1 twice per layer (forward
+    Hopper K1, K2 and K3), K1 twice per layer (forward
     and the checkpoint's recompute), K2 and K3 once. A tiny model learns
     slowly at TRAIN_LR's rate, so these train at 1e-3 to see the loss fall
     at every step."""

@@ -5,6 +5,7 @@ on the same data.
     python3 kernel_ab.py --base path/to/other/checkout [--rounds 2] [--shapes causal_d32 ...]
     python3 kernel_ab.py --variant presplit_kv --dtype fp32
     python3 kernel_ab.py --variant k3_serial k3_stages4 --shapes causal_d32 causal_d16
+    python3 kernel_ab.py --variant k2_serial k2_two_wg --kernels flash_bwd_dq --shapes causal_d32
 
 With ``--variant NAME [NAME ...]`` each base is this tree with
 ``VARIANTS[NAME]``, a text patch of kernel sources, built under
@@ -21,7 +22,8 @@ S 2048, D 128 (llama-1b's training step), non-causal and causal at the
 ring shard, B·H 16 (llama-1b at seq 8192 over a ring of 4), causal and
 non-causal at B·H 4·8, S 2048, D 256 (gemma-2b's training step), and at
 B·H 64, S 2048 the small heads: D 32 causal and non-causal (qwen-tiny's)
-and D 16 causal (gpt-tiny's); ``--shapes`` takes a subset. K2 and K3
+and D 16 causal (gpt-tiny's), and D 64 causal at B·H 16·12 (gpt-125m's
+micro-batch 16); ``--shapes`` takes a subset. K2 and K3
 of both trees take the same lse and Δ (this tree's K1 forward). Each
 kernel's bound (``chip_smoke.kernel_bounds``: operations, the exp unit or
 bytes, whichever is longest) is printed beside its times.
@@ -56,6 +58,7 @@ SHAPES = {  # name: (B·H, S, D, causal)
     "causal_d32": (64, 2048, 32, True),
     "full_d32": (64, 2048, 32, False),
     "causal_d16": (64, 2048, 16, True),
+    "causal_d64": (192, 2048, 64, True),
 }
 # The same non-causal work (B·H · S^2 fixed) cut into more, shorter heads:
 # q, k and v grow from 12.6 MB (fits L2) to 101 MB (does not).
@@ -73,7 +76,13 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # three-stage ring, tile i's scores run under tile i - 1's dV and dK
 # products): k1_issue_turns, k1_three_wg, k1_no_turns, k1_stages3,
 # k1_keys192, k1_chains1, k1_keys64, k3_own_smem, k3_two_wg, k3_two_wg_regs,
-# k3_serial, k3_stream128, k3_stages4. The fp32 K1, K2 and K3
+# k3_serial, k3_stream128, k3_stages4. The bf16 K2 at D 16 and 32
+# (flash_bwd_sm90.cu; the kept: three consumer warpgroups, Q and dO in
+# registers, 64-key K/V tiles on a four-stage ring, tile j's S and dP
+# products issued ahead of tile j - 1's dQ product): k2_two_wg, k2_four_wg,
+# k2_serial, k2_qdo_smem, k2_qdo_smem_d32, k2_stages2, k2_stages3,
+# k2_stages6, k2_stages8, k2_lse_global, k2_turns, k2_fma_exp.
+# The fp32 K1, K2 and K3
 # (csrc/flash_f32_tc.cu; the kept: K1 with 32-key K/V tiles, each operand
 # split into TF32 hi and lo as its fragment is loaded, each tile's P V summed into one temporary per
 # accumulator register; K2: 16-key K/V tiles, two tiles' dS K summed into
@@ -97,6 +106,33 @@ _SS192 = (
     "      \"%96, %97, p, 1, 1, 0, 0;\\n}\\n\"\n      : "
     + ", ".join(f"TPE_ACC8(d, {8 * i})" for i in range(12))
     + '\n      : "l"(a), "l"(b), "r"(scale_d));\n}\n')
+# DqTiles<D>'s lines that the K2 variants patch.
+_K2_WG = ("  static constexpr int kConsumers = D < 64 ? 3 : 2;\n"
+          "  static constexpr int kOwnRows = 64 * kConsumers;  // Q rows a CTA owns")
+_K2_PIPE = ("  static constexpr bool kPipelined = D < 64;\n"
+            "  static constexpr int kStages = kPipelined ? 4 : 2;  // depth of the K/V ring")
+_K2_REGS = ("  // back to the producer as soon as they are loaded.\n"
+            "  static constexpr bool kOwnInRegs = D < 64;")
+# K2's exps of one tile, P in place over s.
+_K2_EXP = "            s[x] = fast_exp2(fmaf(s[x], scale2, nl[(x >> 1) & 1]));"
+_K2_PROBS = ("        auto probs = [&]() {\n#pragma unroll\n"
+             "          for (int x = 0; x < kStream / 2; ++x)\n" + _K2_EXP + "\n        };")
+_K2_SKIP = "          mbar_wait(full(stage(j)), phase(j));\n          release(empty(stage(j)));"
+_K2_LOOP = "    int it = 0;\n    for (int r = 0;; ++r) {\n      mbar_wait(full_q, r & 1);"
+_K2_END = ("    if constexpr (T::kStagedOut)\n"
+           "      if (tid == 0) tma_store_wait_read();  // shared memory outlives the last store's reads")
+# 2^x on the FMA pipe: x = j + f, j = round(x) in t's low bits (t = x + 1.5
+# 2^23), 2^f by a cubic (relative error 1.0e-4 on |f| <= 1/2), j added to
+# the exponent bits.
+_FMA_EXP2 = """__device__ __forceinline__ float fma_exp2(float x) {
+  x = fmaxf(x, -125.0f);
+  const float t = x + 12582912.0f;
+  const float f = x - (t - 12582912.0f);
+  const float p = fmaf(fmaf(fmaf(0.05500893f, f, 0.242211f), f, 0.69328296f), f, 1.0f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+
+"""
 VARIANTS = {
     # K1 at D 16/32 with one chain of fmax and of adds a row (D 64's).
     "k1_chains1": ("flash_fwd_sm90.cu", [
@@ -159,6 +195,50 @@ VARIANTS = {
          "  static constexpr int kStream = D < 64 ? 128 : 64;"),
         ("  static constexpr bool kOwnInRegs = D == 16;",
          "  static constexpr bool kOwnInRegs = false;")]),
+    # K2 at D 16/32 with two consumer warpgroups (128-row owned tiles).
+    "k2_two_wg": ("flash_bwd_sm90.cu", [(_K2_WG, _K2_WG.replace("D < 64 ? 3 : 2", "2"))]),
+    # K2 at D 16/32 with four consumer warpgroups (256-row owned tiles, 112
+    # registers each).
+    "k2_four_wg": ("flash_bwd_sm90.cu", [
+        (_K2_WG, _K2_WG.replace("D < 64 ? 3 : 2", "D < 64 ? 4 : 2"))]),
+    # K2 at D 16/32 with D 64's loop: a tile's S and dP products, its dS and
+    # its dQ product in turn, on a two-stage ring, Q and dO from shared
+    # memory.
+    "k2_serial": ("flash_bwd_sm90.cu", [
+        (_K2_PIPE, _K2_PIPE.replace("kPipelined = D < 64;", "kPipelined = false;")),
+        (_K2_REGS, _K2_REGS.replace("D < 64", "false"))]),
+    # K2 at D 16, and at D 32, with S and dP reading Q and dO from shared
+    # memory.
+    "k2_qdo_smem": ("flash_bwd_sm90.cu", [(_K2_REGS, _K2_REGS.replace("D < 64", "D == 32"))]),
+    "k2_qdo_smem_d32": ("flash_bwd_sm90.cu", [
+        (_K2_REGS, _K2_REGS.replace("D < 64", "D == 16"))]),
+    # K2 at D 16/32 with each consumer reading its rows' lse and delta from
+    # global memory at the start of an owned tile (D 64's way).
+    "k2_lse_global": ("flash_bwd_sm90.cu", [
+        ("  static constexpr bool kRowsInSmem = kPipelined;",
+         "  static constexpr bool kRowsInSmem = false;")]),
+    # K2 at D 16/32 with the consumer warpgroups taking turns at the exps of
+    # each streamed tile (named barriers 1-3 in a ring, as K1's turns; a
+    # warpgroup that skips a tile passes its turn on).
+    "k2_turns": ("flash_bwd_sm90.cu", [
+        (_K2_PROBS, _K2_PROBS.replace("{\n#pragma", "{\n          named_sync(1 + c);\n#pragma")
+         .replace("\n        };", "\n          named_arrive(1 + (c + 1) % T::kConsumers);\n        };")),
+        (_K2_SKIP, _K2_SKIP.replace(
+            "phase(j));", "phase(j));\n          named_sync(1 + c);\n"
+            "          named_arrive(1 + (c + 1) % T::kConsumers);")),
+        (_K2_LOOP,
+         "    if (T::kPipelined && c == T::kConsumers - 1) named_arrive(1);\n" + _K2_LOOP),
+        (_K2_END, "    if (T::kPipelined && c == 0) named_sync(1);\n" + _K2_END)]),
+    # K2 at D 16/32 with a quarter of the exps (8 of a thread's 32 a tile)
+    # on the FMA pipe.
+    "k2_fma_exp": ("flash_bwd_sm90.cu", [
+        ("// K2: dQ\n", "// K2: dQ\n" + _FMA_EXP2),
+        (_K2_EXP, "          {\n            const float a = fmaf(s[x], scale2, nl[(x >> 1) & 1]);\n"
+                  "            s[x] = (x & 7) >= 6 ? fma_exp2(a) : fast_exp2(a);\n          }")]),
+    # K2 at D 16/32 with a K/V ring of two, three, six or eight stages.
+    **{f"k2_stages{n}": ("flash_bwd_sm90.cu",
+                         [(_K2_PIPE, _K2_PIPE.replace("? 4 : 2", f"? {n} : 2"))])
+       for n in (2, 3, 6, 8)},
     # O += P V chained on the tensor cores across the whole sequence, with
     # no fp32 additions (the sums drift, see tf32_split.cuh).
     "k1_chained": ("flash_f32_tc.cu", [

@@ -32,7 +32,11 @@ module of its own, as ``kernel_ab.py`` loads a second tree:
   from o and lse alike;
 - ``k3_d32_drop_q_tile``: the bf16 K3 at D 32 (``flash_bwd_sm90.cu``)
   zeroes P^T and dS^T of the last streamed Q tile (64 queries) that each
-  owned key tile sees.
+  owned key tile sees;
+- ``k2_d32_drop_k_tile``: the bf16 K2 at D 32 (``flash_bwd_sm90.cu``)
+  zeroes dS of the last key tile (64 keys) that each consumer warpgroup's
+  64 Q rows see (causal: their diagonal tile), so that tile's dS·K is lost
+  from dQ.
 
 The D 256 bf16 faults (and the sound tree) are read at gemma-2b's training
 shape (B·H 4·8, S 2048, D 256, bf16, causal), the D 32 ones (and the sound
@@ -108,6 +112,10 @@ FAULTS = {
         "            if (D == 32 && i == hi) s[4 * nn + e] = 0.0f;\n"
         "            dp[4 * nn + e] = s[4 * nn + e] * fmaf(dp[4 * nn + e], scale, nd[e & 1]);\n"
         "          }")],
+    "k2_d32_drop_k_tile": [(
+        "flash_bwd_sm90.cu",
+        "            dp[x] = s[x] * fmaf(dp[x], scale, nd[(x >> 1) & 1]);",
+        "            dp[x] = D == 32 && j == hi_c ? 0.0f : s[x] * fmaf(dp[x], scale, nd[(x >> 1) & 1]);")],
 }
 
 

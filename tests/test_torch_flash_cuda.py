@@ -72,10 +72,10 @@ def test_kernels_match_plain(cuda, bh, s, d, dtype, window, causal):
         _assert_close(a, b, grad_tol, REL[dtype])
 
 
-# The Hopper kernels (bf16: K1 at every head dim, K3 at D 16-128, K2 at D
-# 64 and 128, K2 and K3 at 256; K2 at D 16 and 32 is flash_attention.cu's)
-# at the edges of their tiles: S 64, 192 and 320 (a ragged last 128-row
-# tile, and at D 16 and 32 a ragged last 128-query streamed tile of K3),
+# The Hopper kernels (bf16: K1 at every head dim, K2 and K3 at D 16-128,
+# K2 and K3 at 256) at the edges of their tiles: S 64, 192 and 320 (a
+# ragged last 128-row tile, and at D 16 and 32 a ragged last 192-row owned
+# tile of K2 and K3),
 # causal and not; windows 37, 100, 128 and 200 at S 320 and 1024, through
 # key tiles of 64 and 128 (and, at D 256, through the 32-key halves K2's
 # warpgroups score); B·H 1 and 256.
@@ -118,7 +118,7 @@ def test_hopper_backward_at_tile_edges(cuda, bh, s, d, window, causal):
         _assert_close(a, b, TOL[torch.bfloat16][1], REL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("d", [128, 32])
+@pytest.mark.parametrize("d", [128, 32, 16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_hopper_backward_is_deterministic(cuda, causal, d):
     """No atomics on gradients: two runs on the same inputs give
@@ -131,7 +131,7 @@ def test_hopper_backward_is_deterministic(cuda, causal, d):
 
 
 @pytest.mark.parametrize("symbol,count", [
-    ("flash_bwd_dq_sm90", 4),  # D 64 and 128, causal and not
+    ("flash_bwd_dq_sm90", 8),  # D 16, 32, 64 and 128, causal and not
     ("flash_bwd_dkv_sm90", 8),  # D 16, 32, 64 and 128, causal and not
     ("flash_bwd_dq_d256_sm90", 2), ("flash_bwd_dkv_d256_sm90", 2),  # D 256, causal and not
 ])

@@ -1,8 +1,8 @@
 // K3 for Hopper (sm_90a) at head dim 256: the bf16 flash-attention dK and
 // dV, causal (optionally sliding-window) and non-causal, built on TMA, wgmma
 // and warp specialisation. tpe_flash_bwd_dkv (flash_attention.cu) sends every
-// bf16 call at D 256 here and nowhere else; D 64 and 128 go to
-// flash_bwd_sm90.cu, fp32 to flash_attention.cu. Helpers are in sm90.cuh.
+// bf16 call at D 256 here and nowhere else; D 16 to 128 go to
+// flash_bwd_sm90.cu, fp32 to flash_f32_tc.cu. Helpers are in sm90.cuh.
 //
 // It replaces _bwd_dkv_kernel (tpu_engine/ops/_flash_pallas.py:341, launched
 // by _flash_bwd through pl.pallas_call). For each (bh, key j, query i), with

@@ -1,10 +1,9 @@
-// K2 and K3 for Hopper (sm_90a): the bf16 flash-attention backward, K2 at
-// head dims 64 and 128 and K3 at 16, 32, 64 and 128, causal (optionally
-// sliding-window) and non-causal, built on TMA, wgmma and warp
-// specialisation. tpe_flash_bwd_dq and tpe_flash_bwd_dkv
-// (flash_attention.cu) send every bf16 call at those head dims here and
-// nowhere else; bf16 K2 at D 16 and 32 keeps flash_attention.cu's mma.sync
-// kernel, and fp32 goes to flash_f32_tc.cu.
+// K2 and K3 for Hopper (sm_90a): the bf16 flash-attention backward at head
+// dims 16, 32, 64 and 128, causal (optionally sliding-window) and
+// non-causal, built on TMA, wgmma and warp specialisation.
+// tpe_flash_bwd_dq and tpe_flash_bwd_dkv (flash_attention.cu) send every
+// bf16 call at those head dims here and nowhere else; D 256 has its own
+// files, and fp32 goes to flash_f32_tc.cu.
 //
 // They replace _bwd_dq_kernel and _bwd_dkv_kernel
 // (tpu_engine/ops/_flash_pallas.py:306 and :341, launched by _flash_bwd
@@ -39,8 +38,8 @@
 // - TMA: q, k, v, dO and the outputs are 3-D tensor maps [BH, S, D] with
 //   [rows][64 columns] boxes in the 128-byte swizzle; lse and delta are 2-D
 //   maps [BH, S] with 64-value boxes. S is a multiple of 64, so a streamed
-//   tile is never ragged; a ragged owned tile (S % 128 == 64; K3 at D 16
-//   and 32, S % 192 != 0) has its upper 64 or 128 rows past S, zero-filled,
+//   tile is never ragged; a ragged owned tile (S % 128 == 64; K2 and K3 at D
+//   16 and 32, S % 192 != 0) has its upper 64 or 128 rows past S, zero-filled,
 //   and the warpgroups that own them compute and store nothing.
 // - wgmma, per streamed tile and consumer warpgroup: K2 issues
 //   S = Q K_j^T and dP = dO V_j^T (m64n64, both operands K-major in shared
@@ -74,40 +73,92 @@
 //   (they spill), a four-stage ring, K and V from shared memory at D 16:
 //   all slower or within noise. The first build, with the mask tested in
 //   the exp loop of every tile, ran causal no faster than non-causal.
+// - K2 at D 16 and 32 (DqTiles<D>): the exp unit bounds it too (the three
+//   products come to 0.026 ms at D 32 against 0.035 of exps at S 2048, B·H
+//   64). Three consumer warpgroups own 64 Q rows each (192 a CTA, 512
+//   threads, 160 registers each); 64-key K/V tiles stream through a
+//   four-stage ring; each warpgroup issues tile j's S and dP products
+//   ahead of tile j - 1's dQ += dS K product, in three commit groups, and
+//   takes P as soon as S is done and dS once dP is, while dQ's product
+//   runs. The producer loads the owned rows' lse and delta by TMA with Q
+//   and dO; each thread takes its rows' lse log2e and -delta scale once an
+//   owned tile (one FFMA and one ex2.approx a score for P, one FFMA and one
+//   FMUL for dS); the mask is a pass of its own that only masked tiles
+//   run; the warpgroup's Q and dO rows are register A operands (ldmatrix,
+//   once an owned tile); dQ is written from registers. Measured on an H100
+//   against it (kernel_ab.py's VARIANTS): D 64's serial loop, two or four
+//   consumer warpgroups (four spill), Q and dO from shared memory, a ring
+//   of two, three, six or eight stages, lse and delta read from global
+//   memory, turns at the exps, a quarter of the exps on the FMA pipe: all
+//   slower or within noise.
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kOwn = 128;     // rows a CTA owns: Q rows (K2) or keys (K3)
-constexpr int kStream = 64;   // rows of a streamed tile: keys (K2) or queries (K3)
-constexpr int kStages = 2;    // depth of the streamed ring
-constexpr int kThreads = 384;  // producer and two consumer warpgroups
-constexpr int kOwnBox = kOwn * 128;        // one [128 rows][64 columns] box
-constexpr int kStreamBox = kStream * 128;  // one [64 rows][64 columns] box
+constexpr int kStream = 64;  // rows of a streamed tile: keys (K2) or queries (K3)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kOutBar = 1;  // named barriers 1 and 2: each warpgroup around its staging
 
-static_assert(kOwn == 2 * kStream, "a consumer warpgroup owns one streamed tile's rows");
-
-// K2's registers: 128 x producer + 256 x consumer = 384 x 168, the
-// allocation at launch.
-constexpr int kDqProducerRegs = 40, kDqConsumerRegs = 232;
-static_assert(128 * kDqProducerRegs + 256 * kDqConsumerRegs == 384 * 168, "K2 registers");
+// K2's tiles per head dim, 64-key streamed tiles at every D. At D 64 and
+// 128 two consumer warpgroups own 64 Q rows each and run a tile's S and dP
+// products, its dS and its dQ product in turn, on a two-stage ring, and dQ
+// leaves through shared memory and TMA stores. At D 16 and 32 the products
+// are small and the exp unit bounds the kernel: three consumer warpgroups
+// run tile j's scores while tile j - 1's dQ product is in flight
+// (kPipelined; a warpgroup holds two stages at once, and a ring of four
+// lets the warpgroups drift apart by a tile or two), and dQ (16 or 32
+// columns) is written from registers.
+template <int D>
+struct DqTiles {
+  using W = Swizzle<D>;
+  static constexpr int kConsumers = D < 64 ? 3 : 2;
+  static constexpr int kOwnRows = 64 * kConsumers;  // Q rows a CTA owns
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  // 128 x producer + 128 kConsumers x consumer within the allocation at
+  // launch (384 x 168 at D 64 and 128; 512 x 128 at D 16 and 32).
+  static constexpr int kProducerRegs = D < 64 ? 24 : 40;
+  static constexpr int kConsumerRegs =
+      D < 64 ? (kThreads * (65536 / kThreads / 8 * 8) - 128 * kProducerRegs) /
+                   (128 * kConsumers) / 8 * 8
+             : 232;
+  static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
+                    kThreads * (65536 / kThreads / 8 * 8), "registers");
+  static constexpr bool kPipelined = D < 64;
+  static constexpr int kStages = kPipelined ? 4 : 2;  // depth of the K/V ring
+  // At D 16 and 32 each consumer warpgroup holds its 64 rows of Q and dO
+  // in registers (ldmatrix, once an owned tile; 8 or 16 registers), S and
+  // dP take them as their register A operands, and the Q/dO buffer goes
+  // back to the producer as soon as they are loaded.
+  static constexpr bool kOwnInRegs = D < 64;
+  // At D 16 and 32 the producer loads the owned rows' lse and delta by TMA
+  // with Q and dO, so that no consumer waits on a global load at the start
+  // of an owned tile; at D 64 and 128 the consumers read them.
+  static constexpr bool kRowsInSmem = kPipelined;
+  static constexpr bool kStagedOut = D >= 64;
+  static constexpr int kOwnBox = kOwnRows * W::kRowBytes;    // one [kOwnRows rows][cols] box
+  static constexpr int kStreamBox = kStream * W::kRowBytes;  // one [64 rows][cols] box
+  static constexpr int kLseBytes = kOwnRows * 4;             // kOwnRows fp32 lse or delta values
+  static_assert(kPipelined || !kOwnInRegs, "the serial loop reads Q and dO from shared memory");
+};
 
 // Shared memory of K2, in bytes from a 1024-byte-aligned base: Q and dO of
-// the owned tile, K and V of each stage, each warpgroup's dQ staging, then
-// the mbarriers (Q full and empty; full and empty per stage) and the tile
-// slot.
+// the owned tile, K and V of each stage, each warpgroup's dQ staging (D 64
+// and 128), the owned rows' lse and delta (D 16 and 32), then the mbarriers
+// (Q full and empty; full and empty per stage) and the tile slot.
 template <int D>
 struct DqSmem {
-  static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kOwnTile = kBoxes * kOwnBox;
-  static constexpr int kStreamTile = kBoxes * kStreamBox;
+  using T = DqTiles<D>;
+  static constexpr int kBoxes = T::W::kBoxes;
+  static constexpr int kOwnTile = kBoxes * T::kOwnBox;
+  static constexpr int kStreamTile = kBoxes * T::kStreamBox;
   static constexpr int kDo = kOwnTile;
   static constexpr int kRing = 2 * kOwnTile;  // stage st: K, then V
-  static constexpr int kOut = kRing + kStages * 2 * kStreamTile;
-  static constexpr int kBars = kOut + 2 * kStreamTile;
-  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 8 + 1024;
+  static constexpr int kOut = kRing + T::kStages * 2 * kStreamTile;
+  static constexpr int kRows = kOut + (T::kStagedOut ? 2 * kStreamTile : 0);  // lse, then delta
+  static constexpr int kRowRegion = (2 * T::kLseBytes + 1023) / 1024 * 1024;
+  static constexpr int kBars = kRows + (T::kRowsInSmem ? kRowRegion : 0);
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * T::kStages) + 8 + 1024;
+  static_assert(kBytes <= 232448, "the opt-in shared-memory limit of a block");
 };
 
 // K3's tiles per head dim, 64-query streamed tiles at every D. At D 64 and
@@ -173,7 +224,7 @@ struct DkvSmem {
 // most streamed tiles. unpack gives owned tile o of head bh and the CTA's
 // range [lo, hi] of streamed tiles: those either warpgroup sees
 // (_n_kv_blocks / _k_index, _n_q_blocks / _q_index in the Pallas kernels).
-template <bool kCausal, bool kQMajor, int kStreamRows = kStream, int kOwnRows = kOwn>
+template <bool kCausal, bool kQMajor, int kStreamRows, int kOwnRows>
 struct Schedule {
   int n_own, n_stream, bh_count, chunk, total, window;
   __device__ Schedule(int S, int BH, int heads, int w)
@@ -207,15 +258,20 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int window) {
 // ---------------------------------------------------------------------------
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
                   const __grid_constant__ CUtensorMap do_map,
                   const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
                   const float* __restrict__ delta, int* __restrict__ counters, int S, int BH,
-                  int heads_per_chunk, int window, float scale, float scale2) {
+                  int heads_per_chunk, int window, float scale, float scale2,
+                  bf16* __restrict__ dq_out, const __grid_constant__ CUtensorMap lse_map,
+                  const __grid_constant__ CUtensorMap delta_map) {
   using L = DqSmem<D>;
+  using T = DqTiles<D>;
+  using W = Swizzle<D>;
+  constexpr int kSt = T::kStages, kOwnRows = T::kOwnRows;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base, sDo = base + L::kDo;
@@ -223,19 +279,19 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
   auto sV = [&](int st) { return sK(st) + L::kStreamTile; };
   const uint32_t full_q = base + L::kBars, empty_q = full_q + 8;
   auto full = [&](int st) { return full_q + 8 * (2 + st); };
-  auto empty = [&](int st) { return full_q + 8 * (2 + kStages + st); };
+  auto empty = [&](int st) { return full_q + 8 * (2 + kSt + st); };
   // The producer passes each tile's number (-1: none left) to the consumers
   // in this slot, written before the arrival on full_q that reports it.
-  const uint32_t slot = full_q + 8 * (2 + 2 * kStages);
+  const uint32_t slot = full_q + 8 * (2 + 2 * kSt);
   volatile int* tile_slot = reinterpret_cast<volatile int*>(smem_raw + (slot - smem_u32(smem_raw)));
-  const Schedule<kCausal, true> sched(S, BH, heads_per_chunk, window);
+  const Schedule<kCausal, true, kStream, kOwnRows> sched(S, BH, heads_per_chunk, window);
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
-    mbar_init(empty_q, 8);  // one arrival per consumer warp
-    for (int st = 0; st < kStages; ++st) {
+    mbar_init(empty_q, 4 * T::kConsumers);  // one arrival per consumer warp
+    for (int st = 0; st < kSt; ++st) {
       mbar_init(full(st), 1);
-      mbar_init(empty(st), 8);
+      mbar_init(empty(st), 4 * T::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -246,11 +302,11 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
     // Per owned tile: Q and dO, then K and V of each streamed tile in order.
     // The ring's position `it` runs on across the CTA's tiles, so the next
     // tile's first K and V load while the consumers finish this one.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kDqProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::kProducerRegs));
     if (threadIdx.x == 0) {
       int it = 0;
       for (int r = 0;; ++r) {
-        mbar_wait(empty_q, (r & 1) ^ 1);  // both warpgroups are done with Q and dO
+        mbar_wait(empty_q, (r & 1) ^ 1);  // every consumer warpgroup is done with Q and dO
         const int u = atomicAdd(&counters[0], 1);
         *tile_slot = u < sched.total ? u : -1;
         if (u >= sched.total) {
@@ -264,18 +320,22 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
         }
         int i, bh, lo, hi;
         sched.unpack(u, i, bh, lo, hi);
-        mbar_expect_tx(full_q, 2 * L::kOwnTile);
+        mbar_expect_tx(full_q, 2 * L::kOwnTile + (T::kRowsInSmem ? 2 * T::kLseBytes : 0));
         for (int b = 0; b < L::kBoxes; ++b) {
-          tma_load(sQ + b * kOwnBox, &q_map, full_q, b * kBoxCols, i * kOwn, bh);
-          tma_load(sDo + b * kOwnBox, &do_map, full_q, b * kBoxCols, i * kOwn, bh);
+          tma_load(sQ + b * T::kOwnBox, &q_map, full_q, b * W::kCols, i * kOwnRows, bh);
+          tma_load(sDo + b * T::kOwnBox, &do_map, full_q, b * W::kCols, i * kOwnRows, bh);
+        }
+        if constexpr (T::kRowsInSmem) {
+          tma_load_2d(base + L::kRows, &lse_map, full_q, i * kOwnRows, bh);
+          tma_load_2d(base + L::kRows + T::kLseBytes, &delta_map, full_q, i * kOwnRows, bh);
         }
         for (int n = it; n <= it + hi - lo; ++n) {
-          const int st = n % kStages, row = (lo + n - it) * kStream;
-          mbar_wait(empty(st), ((n / kStages) & 1) ^ 1);  // the first round passes
+          const int st = n % kSt, row = (lo + n - it) * kStream;
+          mbar_wait(empty(st), ((n / kSt) & 1) ^ 1);  // the first round passes
           mbar_expect_tx(full(st), 2 * L::kStreamTile);
           for (int b = 0; b < L::kBoxes; ++b) {
-            tma_load(sK(st) + b * kStreamBox, &k_map, full(st), b * kBoxCols, row, bh);
-            tma_load(sV(st) + b * kStreamBox, &v_map, full(st), b * kBoxCols, row, bh);
+            tma_load(sK(st) + b * T::kStreamBox, &k_map, full(st), b * W::kCols, row, bh);
+            tma_load(sV(st) + b * T::kStreamBox, &v_map, full(st), b * W::kCols, row, bh);
           }
         }
         it += hi - lo + 1;
@@ -283,15 +343,17 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // ---------------- consumers: 64 Q rows per warpgroup ----------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kDqConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::kConsumerRegs));
     const int c = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128, lane = tid % 32, t = lane % 4;
     const int r_in = (tid / 32) * 16 + lane / 4;  // this thread's rows r_in and r_in + 8
-    const uint32_t sQc = sQ + c * 64 * 128, sDoc = sDo + c * 64 * 128;
+    const uint32_t sQc = sQ + c * 64 * W::kRowBytes, sDoc = sDo + c * 64 * W::kRowBytes;
     const uint32_t sOut = base + L::kOut + c * L::kStreamTile;  // [boxes][64 rows][128 B]
     auto release = [&](uint32_t bar) {
       if (lane == 0) mbar_arrive(bar);  // this warp is done with the buffer
     };
+    // This warpgroup's rows of Q and dO as register A fragments (kOwnInRegs).
+    uint32_t qa[T::kOwnInRegs ? D / 16 : 1][4], oa[T::kOwnInRegs ? D / 16 : 1][4];
 
     int it = 0;
     for (int r = 0;; ++r) {
@@ -302,10 +364,10 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
       sched.unpack(u, i, bh, lo, hi);
       // This warpgroup's rows and the K tiles they see: up to its own
       // diagonal, from its own window start; none for rows past S.
-      const int row0 = i * kOwn + c * 64;
+      const int row0 = i * kOwnRows + c * 64;
       int lo_c = lo, hi_c = hi;
       if (kCausal) {
-        hi_c = min(hi, 2 * i + c);
+        hi_c = min(hi, T::kConsumers * i + c);
         const int first = row0 - (window - 1);
         if (window != 0 && first > 0) lo_c = first / kStream;
       }
@@ -314,87 +376,235 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
       if (row0 < S) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const size_t row = static_cast<size_t>(bh) * S + row0 + r_in + 8 * h;
-          lse2[h] = lse[row] * kLog2e;
-          dl[h] = delta[row];
+          if constexpr (T::kRowsInSmem) {
+            const float* rows = reinterpret_cast<const float*>(
+                smem_raw + (base + L::kRows - smem_u32(smem_raw)));
+            lse2[h] = rows[c * 64 + r_in + 8 * h] * kLog2e;
+            dl[h] = rows[kOwnRows + c * 64 + r_in + 8 * h];
+          } else {
+            const size_t row = static_cast<size_t>(bh) * S + row0 + r_in + 8 * h;
+            lse2[h] = lse[row] * kLog2e;
+            dl[h] = delta[row];
+          }
         }
       }
       float acc[D / 2];
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) acc[x] = 0.0f;
 
-      for (int j = lo, n = it; j <= hi; ++j, ++n) {
-        const int st = n % kStages;
-        mbar_wait(full(st), (n / kStages) & 1);
-        if (j < lo_c || j > hi_c) {  // above this warpgroup's diagonal or outside its window
-          release(empty(st));
-          if (j == hi) release(empty_q);
-          continue;
+      if constexpr (T::kPipelined) {
+        // Tile j's S and dP products are issued ahead of tile j - 1's dQ
+        // product, in three commit groups: P is taken as soon as S is done,
+        // dS once dP is, both while dQ's product runs. Tile j - 1's stage
+        // goes back once its dQ product is done.
+        const float nl[2] = {-lse2[0], -lse2[1]};
+        const float nd[2] = {-dl[0] * scale, -dl[1] * scale};
+        if constexpr (T::kOwnInRegs) {
+          load_a_frags<D>(qa, sQc, tid);
+          load_a_frags<D>(oa, sDoc, tid);
+          release(empty_q);  // Q, dO, lse and delta are in registers: the next tile's may load
         }
-        float s[32], dp[32];
-        fence_regs(acc);
-        wgmma_fence();
+        float s[kStream / 2], dp[kStream / 2];
+        uint32_t da[kStream / 16][4];
+        auto stage = [&](int j) { return (it + j - lo) % kSt; };
+        auto phase = [&](int j) { return ((it + j - lo) / kSt) & 1; };
+        // S = Q K_j^T and dP = dO V_j^T; the caller commits.
+        auto issue_s = [&](int st) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t own = (kk / 4) * kOwnBox + (kk % 4) * 32;
-          const uint32_t str = (kk / 4) * kStreamBox + (kk % 4) * 32;
-          wgmma_ss(s, kmajor_desc(sQc + own), kmajor_desc(sK(st) + str), kk > 0);
-        }
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t own = (kk / 4) * kOwnBox + (kk % 4) * 32;
-          const uint32_t str = (kk / 4) * kStreamBox + (kk % 4) * 32;
-          wgmma_ss(dp, kmajor_desc(sDoc + own), kmajor_desc(sV(st) + str), kk > 0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
-        if (j == hi) release(empty_q);  // the next tile's Q and dO may load
-        // dS = P (dP - delta) scale in place over s; the mask only on the
-        // diagonal tile and the tiles that cross the window's edge.
-        const bool masked =
-            kCausal && (j == 2 * i + c || (window != 0 && row0 + 63 - j * kStream >= window));
-#pragma unroll
-        for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int x = 4 * nn + e, h = e >> 1;
-            float p = fast_exp2(fmaf(s[x], scale2, -lse2[h]));
-            if (masked &&
-                !visible(row0 + r_in + 8 * h, j * kStream + 8 * nn + 2 * t + (e & 1), window))
-              p = 0.0f;
-            s[x] = p * (dp[x] - dl[h]) * scale;
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint64_t kd = kmajor_desc<D>(sK(st) + k16_offset<D>(kk, T::kStreamBox));
+            if constexpr (T::kOwnInRegs)
+              wgmma_rs_k(s, qa[kk], kd, kk > 0);
+            else
+              wgmma_ss(s, kmajor_desc<D>(sQc + k16_offset<D>(kk, T::kOwnBox)), kd, kk > 0);
           }
-        uint32_t da[4][4];
-        to_a(da, s);
-        fence_regs(acc);
-        wgmma_fence();
+        };
+        auto issue_dp = [&](int st) {
 #pragma unroll
-        for (int kt = 0; kt < 4; ++kt)
-          wgmma_rs(acc, da[kt], mnmajor_desc<kStream>(sK(st) + kt * 16 * 128));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc);
-        fence_regs(da);
-        release(empty(st));
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint64_t vd = kmajor_desc<D>(sV(st) + k16_offset<D>(kk, T::kStreamBox));
+            if constexpr (T::kOwnInRegs)
+              wgmma_rs_k(dp, oa[kk], vd, kk > 0);
+            else
+              wgmma_ss(dp, kmajor_desc<D>(sDoc + k16_offset<D>(kk, T::kOwnBox)), vd, kk > 0);
+          }
+        };
+        auto issue_dq = [&](int st) {  // dQ += dS K_j, K_j MN-major
+#pragma unroll
+          for (int kt = 0; kt < kStream / 16; ++kt)
+            wgmma_rs(acc, da[kt], mnmajor_desc<kStream, D>(sK(st) + kt * 16 * W::kRowBytes));
+          wgmma_commit();
+        };
+        // The mask where a key of tile j follows one of this warpgroup's
+        // rows (the diagonal) or lies a window or more before one.
+        auto masked = [&](int j) {
+          return kCausal &&
+                 (j * kStream == row0 || (window != 0 && row0 + 63 - j * kStream >= window));
+        };
+        // P in place over s: one FFMA and one exp2 a score against -lse log2e.
+        auto probs = [&]() {
+#pragma unroll
+          for (int x = 0; x < kStream / 2; ++x)
+            s[x] = fast_exp2(fmaf(s[x], scale2, nl[(x >> 1) & 1]));
+        };
+        // dS in place over dp, from -delta scale; then the mask, a pass of
+        // its own that only masked tiles run.
+        auto grads = [&](int j) {
+#pragma unroll
+          for (int x = 0; x < kStream / 2; ++x)
+            dp[x] = s[x] * fmaf(dp[x], scale, nd[(x >> 1) & 1]);
+          if (masked(j)) {
+#pragma unroll
+            for (int nn = 0; nn < kStream / 8; ++nn)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (!visible(row0 + r_in + 8 * (e >> 1), j * kStream + 8 * nn + 2 * t + (e & 1),
+                             window))
+                  dp[4 * nn + e] = 0.0f;
+          }
+        };
+        // A tile above this warpgroup's diagonal or before its window:
+        // waited on, then handed straight back.
+        auto skip = [&](int j) {
+          mbar_wait(full(stage(j)), phase(j));
+          release(empty(stage(j)));
+          if (!T::kOwnInRegs && j == hi) release(empty_q);
+        };
+
+        for (int j = lo; j <= min(lo_c - 1, hi); ++j) skip(j);
+        if (lo_c <= hi_c) {
+          mbar_wait(full(stage(lo_c)), phase(lo_c));
+          fence_regs(acc);
+          wgmma_fence();
+          issue_s(stage(lo_c));
+          wgmma_commit();
+          issue_dp(stage(lo_c));
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
+          probs();
+          wgmma_wait<0>();
+          fence_regs(dp);
+          if (!T::kOwnInRegs && lo_c == hi) release(empty_q);  // the next Q and dO may load
+          grads(lo_c);
+          to_a(da, dp);
+          for (int j = lo_c + 1; j <= hi_c; ++j) {
+            mbar_wait(full(stage(j)), phase(j));
+            fence_regs(acc);
+            fence_regs(da);
+            wgmma_fence();
+            issue_s(stage(j));
+            wgmma_commit();
+            issue_dp(stage(j));
+            wgmma_commit();
+            issue_dq(stage(j - 1));
+            wgmma_wait<2>();  // tile j's S is done
+            fence_regs(s);
+            probs();
+            wgmma_wait<1>();  // and its dP
+            fence_regs(dp);
+            if (!T::kOwnInRegs && j == hi) release(empty_q);
+            grads(j);
+            wgmma_wait<0>();  // tile j - 1's dQ product is done
+            fence_regs(acc);
+            fence_regs(da);
+            release(empty(stage(j - 1)));
+            to_a(da, dp);
+          }
+          fence_regs(acc);
+          fence_regs(da);
+          wgmma_fence();
+          issue_dq(stage(hi_c));
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(da);
+          release(empty(stage(hi_c)));
+        }
+        for (int j = max(lo_c, hi_c + 1); j <= hi; ++j) skip(j);
+      } else {
+        for (int j = lo, n = it; j <= hi; ++j, ++n) {
+          const int st = n % kSt;
+          mbar_wait(full(st), (n / kSt) & 1);
+          if (j < lo_c || j > hi_c) {  // above this warpgroup's diagonal or outside its window
+            release(empty(st));
+            if (j == hi) release(empty_q);
+            continue;
+          }
+          float s[32], dp[32];
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t own = (kk / 4) * T::kOwnBox + (kk % 4) * 32;
+            const uint32_t str = (kk / 4) * T::kStreamBox + (kk % 4) * 32;
+            wgmma_ss(s, kmajor_desc<D>(sQc + own), kmajor_desc<D>(sK(st) + str), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t own = (kk / 4) * T::kOwnBox + (kk % 4) * 32;
+            const uint32_t str = (kk / 4) * T::kStreamBox + (kk % 4) * 32;
+            wgmma_ss(dp, kmajor_desc<D>(sDoc + own), kmajor_desc<D>(sV(st) + str), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s);
+          fence_regs(dp);
+          if (j == hi) release(empty_q);  // the next tile's Q and dO may load
+          // dS = P (dP - delta) scale in place over s; the mask only on the
+          // diagonal tile and the tiles that cross the window's edge.
+          const bool masked = kCausal && (j == T::kConsumers * i + c ||
+                                          (window != 0 && row0 + 63 - j * kStream >= window));
+#pragma unroll
+          for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int x = 4 * nn + e, h = e >> 1;
+              float p = fast_exp2(fmaf(s[x], scale2, -lse2[h]));
+              if (masked &&
+                  !visible(row0 + r_in + 8 * h, j * kStream + 8 * nn + 2 * t + (e & 1), window))
+                p = 0.0f;
+              s[x] = p * (dp[x] - dl[h]) * scale;
+            }
+          uint32_t da[4][4];
+          to_a(da, s);
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kt = 0; kt < 4; ++kt)
+            wgmma_rs(acc, da[kt], mnmajor_desc<kStream, D>(sK(st) + kt * 16 * W::kRowBytes));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(da);
+          release(empty(st));
+        }
       }
       it += hi - lo + 1;
 
-      // dQ through shared memory and one TMA store per box; the store runs
-      // on while the next tile starts.
       if (row0 < S) {
-        if (tid == 0) tma_store_wait_read();  // the previous tile's store is out
-        warpgroup_sync(kOutBar + c);
-        stage_rows<D>(sOut, acc, tid);
-        fence_async_shared();
-        warpgroup_sync(kOutBar + c);
-        if (tid == 0)
-          for (int b = 0; b < L::kBoxes; ++b)
-            tma_store(&dq_map, sOut + b * kStreamBox, b * kBoxCols, row0, bh);
+        if constexpr (T::kStagedOut) {
+          // dQ through shared memory and one TMA store per box; the store
+          // runs on while the next tile starts.
+          if (tid == 0) tma_store_wait_read();  // the previous tile's store is out
+          warpgroup_sync(kOutBar + c);
+          stage_rows<D>(sOut, acc, tid);
+          fence_async_shared();
+          warpgroup_sync(kOutBar + c);
+          if (tid == 0)
+            for (int b = 0; b < L::kBoxes; ++b)
+              tma_store(&dq_map, sOut + b * T::kStreamBox, b * kBoxCols, row0, bh);
+        } else {
+          // dQ from registers: this thread's bf16 pairs of rows row0 + r_in
+          // and + 8 (S is a multiple of 64: none past S).
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            store_row<D>(dq_out + (static_cast<size_t>(bh) * S + row0 + r_in + 8 * h) * D, acc,
+                         h, 1.0f, t);
+        }
       }
     }
-    if (tid == 0) tma_store_wait_read();  // shared memory outlives the last store's reads
+    if constexpr (T::kStagedOut)
+      if (tid == 0) tma_store_wait_read();  // shared memory outlives the last store's reads
   }
 }
 
@@ -772,19 +982,24 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
               cudaStream_t stream) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kErrNoEncoder;
-  CUtensorMap qm, km, vm, dom, dqm;
-  if (!make_map(&qm, fn, q, bh, s, D, kOwn) || !make_map(&dom, fn, dout, bh, s, D, kOwn) ||
+  using T = DqTiles<D>;
+  CUtensorMap qm, km, vm, dom, dqm{}, lm{}, dlm{};
+  if (!make_map(&qm, fn, q, bh, s, D, T::kOwnRows) ||
+      !make_map(&dom, fn, dout, bh, s, D, T::kOwnRows) ||
       !make_map(&km, fn, k, bh, s, D, kStream) || !make_map(&vm, fn, v, bh, s, D, kStream) ||
-      !make_map(&dqm, fn, dq, bh, s, D, kStream))
+      (T::kStagedOut && !make_map(&dqm, fn, dq, bh, s, D, kStream)) ||
+      (T::kRowsInSmem && (!make_row_map(&lm, fn, lse, bh, s, T::kOwnRows) ||
+                          !make_row_map(&dlm, fn, delta, bh, s, T::kOwnRows))))
     return kErrEncode;
   int ctas = 0;
   const cudaError_t e = persistent_grid(flash_bwd_dq_sm90<D, kCausal>, DqSmem<D>::kBytes,
-                                        bh * ((s + kOwn - 1) / kOwn), &ctas);
+                                        bh * ((s + T::kOwnRows - 1) / T::kOwnRows), &ctas);
   if (e != cudaSuccess) return e;
   const float scale = softmax_scale(D);
-  flash_bwd_dq_sm90<D, kCausal><<<ctas, kThreads, DqSmem<D>::kBytes, stream>>>(
+  flash_bwd_dq_sm90<D, kCausal><<<ctas, T::kThreads, DqSmem<D>::kBytes, stream>>>(
       qm, km, vm, dom, dqm, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      counters, s, bh, heads_per_chunk(bh, s, D, 4), window, scale, scale * kLog2e);
+      counters, s, bh, heads_per_chunk(bh, s, D, 4), window, scale, scale * kLog2e,
+      static_cast<bf16*>(dq), lm, dlm);
   return cudaGetLastError();
 }
 
@@ -822,8 +1037,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 // lse, delta [bh, s] fp32, 16-byte aligned; s a multiple of 64. counters:
 // two ints per kernel, zero before the first launch and left zero by every
 // launch that completes; launches that share them must be ordered (one
-// stream). d is 64 or 128; the caller (flash_attention.cu) has checked the
-// shape. Each returns the cudaError_t of the launch, or a negative code for
+// stream). d is 16, 32, 64 or 128; the caller (flash_attention.cu) has
+// checked the shape. Each returns the cudaError_t of the launch, or a negative code for
 // a tensor-map failure.
 extern "C" int tpe_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
@@ -831,6 +1046,12 @@ extern "C" int tpe_flash_bwd_dq_sm90(const void* q, const void* k, const void* v
                                      int causal, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   int* ctr = static_cast<int*>(counters);
+  if (d == 16)
+    return causal ? launch_dq<16, true>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st)
+                  : launch_dq<16, false>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st);
+  if (d == 32)
+    return causal ? launch_dq<32, true>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st)
+                  : launch_dq<32, false>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st);
   if (d == 64)
     return causal ? launch_dq<64, true>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st)
                   : launch_dq<64, false>(q, k, v, dout, lse, delta, dq, ctr, bh, s, window, st);

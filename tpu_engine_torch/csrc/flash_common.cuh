@@ -1,5 +1,4 @@
-// The tile schedule and the cp.async copies shared by the mma.sync flash
-// kernels: flash_attention.cu (bf16 K1-K3 at D 16 and 32) and
+// The tile schedule and the cp.async copies of the mma.sync flash kernels:
 // flash_f32_tc.cu (fp32 K1-K3 in split TF32).
 //
 // The schedule works on 64-row blocks of the sequence: a Q-major kernel (K1,

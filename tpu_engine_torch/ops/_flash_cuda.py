@@ -4,16 +4,14 @@ versions, the launch counters, the loader, and the autograd functions.
 Kernels, each replacing one Pallas kernel of
 ``tpu_engine/ops/_flash_pallas.py``. In bf16, the Hopper designs (TMA +
 wgmma + warp specialisation, helpers shared in ``csrc/sm90.cuh``): K1 at
-every head dim is ``csrc/flash_fwd_sm90.cu``; K3 at 16, 32, 64 and 128 and
-K2 at 64 and 128 are ``csrc/flash_bwd_sm90.cu``; K2 at 256 is
+every head dim is ``csrc/flash_fwd_sm90.cu``; K2 and K3 at 16, 32, 64 and
+128 are ``csrc/flash_bwd_sm90.cu``; K2 at 256 is
 ``csrc/flash_bwd_dq_d256_sm90.cu`` and K3 at 256
 ``csrc/flash_bwd_dkv_d256_sm90.cu``. In fp32, K1, K2 and K3 at every head
 dim are ``csrc/flash_f32_tc.cu``: ``mma.sync`` on the tensor cores in split
 TF32 (each product three TF32 products, ``csrc/tf32_split.cuh``), so that
-they keep fp32 accuracy. ``csrc/flash_attention.cu`` holds the C entries
-and the rest: ``mma.sync`` in bf16 for K2 at head dims 16 and 32.
-``csrc/flash_common.cuh`` is the tile schedule that it and
-``flash_f32_tc.cu`` share.
+they keep fp32 accuracy; ``csrc/flash_common.cuh`` is its tile schedule.
+``csrc/flash_attention.cu`` holds the C entries, which dispatch to them.
 
 - K1 ``flash_fwd``      ← ``_fwd_kernel``      (o, lse) from (q, k, v);
 - K2 ``flash_bwd_dq``   ← ``_bwd_dq_kernel``   dq from (q, k, v, dO, lse, Δ);
@@ -52,8 +50,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
                  "flash_bwd_dq_d256_sm90.cu", "flash_bwd_dkv_d256_sm90.cu", "flash_f32_tc.cu"))
-# Included by the sources: sm90.cuh by the Hopper ones, flash_common.cuh by
-# flash_attention.cu and flash_f32_tc.cu, tf32_split.cuh by flash_f32_tc.cu.
+# Included by the sources: sm90.cuh by the Hopper ones, flash_common.cuh and
+# tf32_split.cuh by flash_f32_tc.cu.
 HEADERS = tuple(_PKG / "csrc" / name for name in
                 ("sm90.cuh", "flash_common.cuh", "tf32_split.cuh"))
 BUILD_DIR = _PKG / "_build"
@@ -247,8 +245,8 @@ def _stream() -> int:
 
 _counters: dict[tuple[int, int], torch.Tensor] = {}
 # Each Hopper kernel's two tile counters: their offset in a device's block.
-# K2's pair serves its D 64/128 and D 256 kernels alike: launches on one
-# stream run in order, and each leaves the pair at zero.
+# K2's pair serves its D 16-128 and D 256 kernels alike (K3's likewise):
+# launches on one stream run in order, and each leaves the pair at zero.
 _COUNTER_SLOTS = {"flash_fwd": 0, "flash_bwd_dq": 2, "flash_bwd_dkv": 4}
 
 

@@ -91,13 +91,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    beside the plain batcher's;
 13. hf_bridge: llama-1b's bf16 weights through ``to_hf_llama`` and
    ``from_hf_llama`` on the card, bitwise equal, and forward's logits on a
-   512-token prompt bitwise equal before and after.
+   512-token prompt bitwise equal before and after;
+14. train_moe: moe-8x7b (Mixtral-8x7B) at full width and 2 layers, seq 2048
+   x 2, dense dispatch, bf16 compute, fp32 masters, AdamW, checkpointing,
+   flash (the bf16 D 128 kernels): the loss falls, the aux loss is finite
+   and positive at every step, K1/K2/K3 exactly 4/2/2 a step; then dense
+   against ragged dispatch where nothing drops (capacity factor 4), in
+   fp32 and bf16 compute, and one ragged step;
+15. serve_moe: moe-8x7b at full width and depth in weight-only int8, built
+   on the card a layer at a time, served by the ``ContinuousBatcher`` (8
+   slots of 2048 lanes, bf16 pool, 16 greedy requests, prompts 128-512, 64
+   tokens each): the streams teacher-forced through forward with ragged
+   dispatch and flash attention, the median gap within SERVE_MOE_TAU, and
+   a shorter run in fp32 compute held by SERVE_MOE_FP32; K1 launched once a
+   layer per teacher forward; weight bytes, peak memory, TTFT, decode
+   tokens/s, one dispatch timed and profiled.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
-of per-kernel results (``launches`` per training step, summed over ``train``
-and ``train_ring`` for the bf16 D 128 kernels, from ``train_gemma`` for the
-bf16 D 256 ones, and over each ``OFF_PATH`` row's paths for the others;
-``launches_by_path`` per step of each; every row must have launched), and
+of per-kernel results (``launches`` per training step, summed over
+``train``, ``train_ring`` and ``train_moe`` for the bf16 D 128 kernels, K1's
+adding its launches per teacher forward of ``serve_moe``, from
+``train_gemma`` for the bf16 D 256 ones, and over each ``OFF_PATH`` row's
+paths for the others; ``launches_by_path`` per step of each; every row must
+have launched), and
 as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
@@ -398,6 +414,46 @@ SPEC_CFG = dict(SERVE_CFG, prefix_cache_tokens=0, spec_gamma=4)
 # lane) and 1.146 (the draft one step short). The bound lies midway between
 # the sound reading and the nearer fault's.
 SPEC_ACCEPT_MIN = 4.2
+
+# train_moe: Mixtral-8x7B (moe-8x7b) at full width with 2 of its 32 layers,
+# seq 2048 x micro-batch 2, dense dispatch. Then dense against ragged
+# dispatch at MOE_NO_DROP_CF, where each expert's capacity is the whole
+# sequence and no token drops, so both compute one function: in fp32
+# compute (TF32 off) the logits and every gradient are held to
+# MODEL_REL["fp32"] (on an H100, NVIDIA H100 80GB HBM3 at 700 W: 4.5e-6 and
+# at most 5.9e-6, no token rerouted). In bf16 the two round the combine
+# differently (dense sums a token's two expert outputs in fp32, ragged adds
+# them in bf16, as JAX's two paths do), which moves the second layer's
+# router inputs and flips the experts of the tokens at a near-tie (30 of
+# 4096 there): routing is discontinuous, a flipped token's logits move by
+# tens of percent, and every gradient moves with them (4.6e-2 to 5.4e-2).
+# So in bf16 only the logits of the tokens routed alike in every layer are
+# held, to MODEL_REL["bf16"], the bound between two sound bf16 paths of a
+# model (read 8.2e-3); the rerouted tokens and the gradients are reported.
+MOE_TRAIN_LAYERS = 2
+MOE_NO_DROP_CF = 4.0
+# serve_moe: moe-8x7b at full width and depth in weight-only int8 (built on
+# the card, _moe_int8_tree), SERVE_CFG's pool without a prefix cache, 16
+# greedy requests (prompts 128-512, 64 tokens each). Each stream is
+# teacher-forced through forward with ragged dispatch (exact top-k, as
+# decode) and flash attention, giving each generated position's gap.
+# Routing makes 32 random layers chaotic in bf16: decode and forward round
+# differently, experts flip at near-ties from the second layer on, a
+# flipped token's later layers flip more, and attention spreads it (on an
+# H100, 157 of 319 tokens rerouted in layer 32). So the largest gap of a
+# sound bf16 run (7.6) reaches the faults' (8.0-10.0); its median does not.
+# The bf16 run is held by the median of its gaps to SERVE_MOE_TAU, and
+# SERVE_MOE_FP32 holds a shorter run in fp32 compute (TF32 off), where the
+# two paths agree to ~1e-6 and experts rarely flip: the share of its
+# positions within a gap of 0.1. Readings on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W; serve_faults.py --moe): bf16 median 1.35 sound, 4.23 with the
+# top-k gates not renormalised, 4.69 with the first expert alone, 5.07 with
+# an expert kernel's scale left out; fp32 share 1.000 sound, 0.000 for each
+# fault. Each bound lies midway between the sound reading and the nearer
+# fault's.
+SERVE_MOE_CFG = dict(SERVE_CFG, prefix_cache_tokens=0)
+SERVE_MOE_TAU = 2.8
+SERVE_MOE_FP32 = dict(requests=8, tokens=16, gap=0.1, share=0.5)
 
 
 def check_lse_backward(fc) -> dict:
@@ -780,7 +836,9 @@ def phase_kernels(res: dict) -> None:
          "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
          "library_ms": library.get(name),
          "shape": [B * H if name in REPLACES else RB, S, D],
-         "counter": name, "paths": ["train", "train_ring"]}
+         "counter": name,
+         "paths": ["train", "train_ring", "train_moe"] + (["serve_moe"] if name == "flash_fwd"
+                                                          else [])}
         for name in t
     ] + _d256_rows(fc, res, main256, main256_full) + _off_path_rows(fc, res)
     res["attention_fwd_bwd"] = {"kernels_ms": ours_both, "library_ms": sdpa_both,
@@ -1048,18 +1106,19 @@ def phase_head(res: dict) -> None:
           flush=True)
 
 
-def _run_steps(cfg, steps: int, want_impl: str, before=None):
-    """Build ``cfg``'s program on the card and take ``steps`` steps on one
-    synthetic batch, repeated, with every launch counter set to 0 just
-    before. ``before(prog, state, batch)``, if given, runs on the initial
-    state first. Returns (program, state, batch, losses, gradient norms,
-    step seconds, launches, what ``before`` returned)."""
+def _run_steps(cfg, steps: int, want_impl: str, before=None, model_cfg=None):
+    """Build ``cfg``'s program on the card (``model_cfg`` in place of its
+    model name's, if given) and take ``steps`` steps on one synthetic
+    batch, repeated, with every launch counter set to 0 just before.
+    ``before(prog, state, batch)``, if given, runs on the initial state
+    first. Returns (program, state, batch, losses, gradient norms, step
+    seconds, launches, what ``before`` returned)."""
     import torch
 
     from tpu_engine_torch.ops import _flash_cuda as fc
     from tpu_engine_torch.train import build_train_program
 
-    prog = build_train_program(cfg, device="cuda")
+    prog = build_train_program(cfg, model_cfg=model_cfg, device="cuda")
     if prog.model_config.attention_impl != want_impl:
         raise AssertionError(f"attention resolved to {prog.model_config.attention_impl!r}, "
                              f"want {want_impl!r}")
@@ -1082,7 +1141,7 @@ def _run_steps(cfg, steps: int, want_impl: str, before=None):
 
 
 def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
-           first_loss_ref=None) -> None:
+           first_loss_ref=None, model_cfg=None) -> None:
     """Train ``cfg`` for ``steps`` steps (:func:`_run_steps`) and check the
     losses and the launch counts read just after. ``want`` is the launch
     count per microbatch of each kernel; a kernel missing from it must not
@@ -1094,7 +1153,7 @@ def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
     from tpu_engine_torch.models import transformer as tfm
 
     prog, state, batch, losses, norms, times, counts, ref = _run_steps(
-        cfg, steps, want_impl, first_loss_ref)
+        cfg, steps, want_impl, first_loss_ref, model_cfg)
 
     micro = steps * cfg.gradient_accumulation_steps
     want = {name: want.get(name, 0) * micro for name in counts}
@@ -1102,7 +1161,8 @@ def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
     step_s = min(times[1:]) if len(times) > 1 else times[0]
     flops_tok = tfm.train_flops_per_token(prog.model_config, cfg.seq_len)
     out = res[key] = {
-        "model": cfg.model_name, "micro_batch": cfg.micro_batch_size, "seq_len": cfg.seq_len,
+        "model": prog.model_config.name, "n_layers": prog.model_config.n_layers,
+        "micro_batch": cfg.micro_batch_size, "seq_len": cfg.seq_len,
         "sequence": cfg.sequence, "steps": steps,
         "accum": cfg.gradient_accumulation_steps, "losses": losses, "grad_norms": norms,
         "step_ms_each": [t * 1e3 for t in times],
@@ -1407,15 +1467,26 @@ def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def _stream_gap(params, cfg, prompt: list, stream: list) -> float:
-    """Teacher-forced through the port's forward: the largest gap between a
-    position's largest logit and the logit of the token the stream chose."""
+def _stream_gaps(params, cfg, prompt: list, stream: list, dtype=None, pad_to: int = 1):
+    """Teacher-forced through the port's forward in ``dtype`` (bf16 by
+    default): each generated position's gap between its largest logit and
+    the logit of the token the stream chose. ``pad_to`` pads the forward's
+    input at its end to a multiple (the flash kernels take multiples of 64),
+    which changes no earlier position under causal attention."""
     import torch
 
     toks = torch.tensor([list(prompt) + list(stream)], device="cuda")
-    logits = _forward_logits(params, cfg, toks[:, :-1], torch.bfloat16)[0, len(prompt) - 1:]
+    seq = toks[:, :-1]
+    seq = torch.cat([seq, seq.new_zeros((1, -seq.shape[1] % pad_to))], dim=1)
+    logits = _forward_logits(params, cfg, seq, dtype or torch.bfloat16)[
+        0, len(prompt) - 1:toks.shape[1] - 1]
     chosen = logits.gather(1, toks[0, len(prompt):, None])[:, 0]
-    return float((logits.max(dim=-1).values - chosen).max())
+    return logits.max(dim=-1).values - chosen
+
+
+def _stream_gap(params, cfg, prompt: list, stream: list, **kw) -> float:
+    """The largest of :func:`_stream_gaps`."""
+    return float(_stream_gaps(params, cfg, prompt, stream, **kw).max())
 
 
 def _generate_and_hold(params, cfg, B: int, P: int, N: int):
@@ -1941,6 +2012,382 @@ def phase_hf_bridge(res: dict, state: dict) -> None:
         raise AssertionError(f"hf_bridge: round trip not exact {res['hf_bridge']}")
 
 
+def _route_recorder(routes: list, k: int):
+    """A stand-in for ``transformer._router_probs`` that also appends each
+    call's top-``k`` expert sets (sorted ids, [tokens, k]) to ``routes``."""
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    real = tfm._router_probs
+
+    def record(h, lp):
+        probs = real(h, lp)
+        top = torch.topk(probs.detach().reshape(-1, probs.shape[-1]), k, dim=-1).indices
+        routes.append(top.sort(dim=-1).values)
+        return probs
+
+    return record
+
+
+def _moe_dense_vs_ragged(cfg, mcfg) -> dict:
+    """The training loss's forward and backward at MOE_NO_DROP_CF from the
+    seed-0 weights and batch, by dense and by ragged dispatch, in fp32
+    (TF32 off) and in bf16 compute: loss, logits, every gradient, and the
+    tokens whose top-k experts differ between the two in some layer."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+    from tpu_engine_torch.train import accumulate_grads, build_train_program
+
+    mcfg = mcfg.with_(capacity_factor=MOE_NO_DROP_CF)
+    if mcfg.expert_capacity(cfg.seq_len) < cfg.seq_len:
+        raise AssertionError("MOE_NO_DROP_CF leaves a capacity below the sequence")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for precision in ("fp32", "bf16"):
+        params, runs = None, {}
+        for impl in ("dense", "ragged"):
+            prog = build_train_program(replace(cfg, precision=precision, moe_impl=impl),
+                                       model_cfg=mcfg, device="cuda")
+            if params is None:
+                params = tfm.init_params(prog.model_config,
+                                         torch.Generator(device="cuda").manual_seed(0), "cuda")
+                batch = prog.synthetic_batch(seed=0)
+            routes: list = []
+            real, tfm._router_probs = tfm._router_probs, _route_recorder(routes, mcfg.top_k)
+            try:
+                loss = float(accumulate_grads(prog.loss_fn, params, batch))
+                with torch.no_grad():
+                    logits = tfm.forward(params, batch[0], prog.model_config,
+                                         compute_dtype=prog.config.compute_dtype())
+            finally:
+                tfm._router_probs = real
+            runs[impl] = {"loss": loss, "logits": logits, "routes": routes[-mcfg.n_layers:],
+                          "grads": {k: p.grad for k, p in params.items()}}
+            for p in params.values():
+                p.grad = None
+        d, r = runs["dense"], runs["ragged"]
+        differ = torch.stack([(a != b).any(dim=-1) for a, b in zip(d["routes"], r["routes"])])
+        alike = ~differ.any(dim=0)
+        V = d["logits"].shape[-1]
+        out[precision] = {
+            "loss": {"dense": d["loss"], "ragged": r["loss"]},
+            "logits_rel_err": _rel_err(r["logits"], d["logits"]),
+            "logits_rel_err_routed_alike": _rel_err(r["logits"].reshape(-1, V)[alike],
+                                                    d["logits"].reshape(-1, V)[alike]),
+            "tokens_rerouted_by_layer": differ.sum(dim=1).tolist(),
+            "grad_rel_err": {k: _rel_err(g, d["grads"][k]) for k, g in r["grads"].items()},
+        }
+        del params, runs, d, r
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_ragged_step(cfg, mcfg) -> dict:
+    """One training step with ragged dispatch from the seed-0 weights and
+    batch (a fresh program), launches counted from 0 around it."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_engine_torch.ops import _flash_cuda as fc
+    from tpu_engine_torch.train import build_train_program
+
+    prog = build_train_program(replace(cfg, moe_impl="ragged"), model_cfg=mcfg, device="cuda")
+    state = prog.init()
+    batch = prog.synthetic_batch(seed=0)
+    torch.cuda.synchronize()
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    state, m = prog.step(state, batch)
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    out = {"loss": loss, "grad_norm": norm, "step_ms": (time.perf_counter() - t0) * 1e3,
+           "launches": dict(fc.launches)}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_moe(res: dict, steps: int) -> None:
+    """moe-8x7b (Mixtral-8x7B) at full width (d_model 4096, 32 query heads
+    of 128, 8 kv heads, 8 experts of d_ff 14336, top 2, vocab 32000) and
+    MOE_TRAIN_LAYERS layers, seq 2048 x micro-batch 2, bf16 compute, fp32
+    masters, AdamW, checkpointing, flash attention (the bf16 D 128
+    kernels), dense dispatch: the loss falls at every step, the aux loss of
+    every step is finite and positive, and per step K1 runs 4 times (forward
+    and the checkpoint's recompute), K2 and K3 twice. Then dense against
+    ragged dispatch where nothing drops (:func:`_moe_dense_vs_ragged`,
+    bounds at MOE_NO_DROP_CF) and one ragged step, whose loss must lie
+    within FIRST_LOSS_REL of dense's bf16 loss on the same weights and
+    batch, with the same launches."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+    from tpu_engine_torch.train import TrainConfig, build_train_program
+
+    L = MOE_TRAIN_LAYERS
+    mcfg = tfm.MODEL_CONFIGS["moe-8x7b"].with_(n_layers=L)
+    cfg = TrainConfig(model_name="moe-8x7b", micro_batch_size=2, gradient_accumulation_steps=1,
+                      seq_len=2048, precision="bf16", param_dtype="fp32",
+                      activation_checkpointing=True, attention_impl="auto", moe_impl="dense",
+                      **TRAIN_LR)
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+
+    def plain_loss(prog, state, batch) -> float:
+        # At d_model 4096 the initial logits spread by 0.02·sqrt(4096): the
+        # first loss lies near ln(vocab) + 0.82, past the plain check, so it
+        # is held to the plain attention path's loss, aux included.
+        plain = build_train_program(replace(cfg, attention_impl="xla"), model_cfg=mcfg,
+                                    device="cuda")
+        with torch.no_grad():
+            loss = float(plain.loss_fn(state["params"], batch[0]))
+        auxes.clear()  # the steps' aux losses are recorded from here on
+        return loss
+
+    auxes: list = []
+    real = tfm.forward_hidden_and_aux
+
+    def record_aux(*args, **kwargs):
+        hidden, aux = real(*args, **kwargs)
+        auxes.append(aux.detach())
+        return hidden, aux
+
+    tfm.forward_hidden_and_aux = record_aux
+    try:
+        _train(res, "train_moe", cfg, steps, "flash", want, first_loss_ref=plain_loss,
+               model_cfg=mcfg)
+    finally:
+        tfm.forward_hidden_and_aux = real
+    out = res["train_moe"]
+    out["aux"] = [float(a) for a in auxes[:steps]]
+    print(f"train_moe: aux losses {[round(a, 5) for a in out['aux']]}", flush=True)
+    del auxes
+    torch.cuda.empty_cache()
+    fails = []
+    if not all(math.isfinite(a) and a > 0 for a in out["aux"]):
+        fails.append(f"aux losses {out['aux']} not finite and positive")
+
+    cmp = out["dense_vs_ragged"] = _moe_dense_vs_ragged(cfg, mcfg)
+    for precision, c in cmp.items():
+        worst = max(c["grad_rel_err"], key=c["grad_rel_err"].get)
+        print(f"train_moe: dense vs ragged at capacity factor {MOE_NO_DROP_CF} ({precision}): "
+              f"loss {c['loss']['dense']:.6f} / {c['loss']['ragged']:.6f}, logits relative "
+              f"{c['logits_rel_err']:.3e} (tokens routed alike "
+              f"{c['logits_rel_err_routed_alike']:.3e}), tokens rerouted by layer "
+              f"{c['tokens_rerouted_by_layer']}, largest gradient error {worst} "
+              f"{c['grad_rel_err'][worst]:.3e}; "
+              + " ".join(f"{k}={e:.2e}" for k, e in c["grad_rel_err"].items()), flush=True)
+    f32, b16 = cmp["fp32"], cmp["bf16"]
+    if not (max(f32["grad_rel_err"].values()) <= MODEL_REL["fp32"]
+            and f32["logits_rel_err"] <= MODEL_REL["fp32"]):
+        fails.append(f"fp32 dense vs ragged: logits {f32['logits_rel_err']:.3e}, gradients "
+                     f"{max(f32['grad_rel_err'].values()):.3e} > {MODEL_REL['fp32']}")
+    if not b16["logits_rel_err_routed_alike"] <= MODEL_REL["bf16"]:
+        fails.append(f"bf16 dense vs ragged, tokens routed alike: logits "
+                     f"{b16['logits_rel_err_routed_alike']:.3e} > {MODEL_REL['bf16']}")
+
+    step = out["ragged_step"] = _moe_ragged_step(cfg, mcfg)
+    ref = b16["loss"]["dense"]
+    print(f"train_moe: one ragged step: loss {step['loss']:.5f} (dense at capacity factor "
+          f"{MOE_NO_DROP_CF}: {ref:.5f}), {step['step_ms']:.1f} ms, launches {step['launches']}",
+          flush=True)
+    if not abs(step["loss"] - ref) <= FIRST_LOSS_REL * ref:
+        fails.append(f"ragged step loss {step['loss']} vs dense {ref}")
+    if {k: v for k, v in step["launches"].items() if v} != want:
+        fails.append(f"ragged step launches {step['launches']} != {want}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def _moe_int8_tree(cfg, seed: int = 0) -> dict:
+    """``cfg``'s (moe-8x7b's) weight-only int8 serving tree, built on the
+    card one layer at a time: seeded random fp32 weights at JAX's init
+    scales (normal 0.02; o and the down experts 0.02/sqrt(2L); norm scales
+    1), each kernel quantized as it is drawn (``quantize_weight``), the
+    embedding in bf16 and the router in fp32. Neither the fp32 tree (187
+    GB) nor the bf16 one (93 GB) fits the card."""
+    import torch
+
+    from tpu_engine_torch.models.convert import param_keys
+    from tpu_engine_torch.quant import QuantWeight, quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    L, D, V, F_, E = cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.d_ff, cfg.n_experts
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    std, res_std = 0.02, 0.02 / (2 * L) ** 0.5
+
+    def draw(shape, s):
+        return torch.empty(shape, device="cuda").normal_(0.0, s, generator=gen)
+
+    def int8(shape, s) -> QuantWeight:
+        q = torch.empty((L, *shape), dtype=torch.int8, device="cuda")
+        scale = torch.empty((L, *shape[:-2], 1, shape[-1]), device="cuda")
+        for i in range(L):
+            w = quantize_weight(draw(shape, s))
+            q[i], scale[i] = w.q, w.scale
+        return QuantWeight(q, scale)
+
+    kernels = {"q": ((D, H * HD), std), "k": ((D, KV * HD), std), "v": ((D, KV * HD), std),
+               "o": ((H * HD, D), res_std), "gate": ((E, D, F_), std), "up": ((E, D, F_), std),
+               "down": ((E, F_, D), res_std)}
+    tree: dict = {}
+    for key in param_keys(cfg):
+        name = key.split(".")[1]
+        if key == "embed.embedding":
+            tree[key] = draw((V, D), std).to(torch.bfloat16)
+        elif key == "lm_head.kernel":
+            tree[key] = quantize_weight(draw((D, V), std))
+        elif key == "final_norm.scale":
+            tree[key] = torch.ones(D, device="cuda")
+        elif key.endswith("norm.scale"):
+            tree[key] = torch.ones((L, D), device="cuda")
+        elif key == "layers.router.kernel":
+            tree[key] = draw((L, D, E), std)
+        else:
+            tree[key] = int8(*kernels[name])
+    return tree
+
+
+def _serve_moe_plan(cfg) -> list:
+    """16 greedy requests from seed 0: prompts of 128-512 tokens, 64 new
+    tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [(rng.integers(1, cfg.vocab_size, int(n)).tolist(), 64, 0.0)
+            for n in rng.integers(128, 513, 16)]
+
+
+def _streams(params, cfg, plan: list, **batcher) -> tuple[list, dict]:
+    """Every request of ``plan`` served to its end by a batcher of
+    SERVE_CFG updated by ``batcher``, driven by ``step`` on this thread;
+    the token streams and the batcher's stats."""
+    from tpu_engine_torch import serving as tsrv
+
+    srv = tsrv.ContinuousBatcher(params, cfg, **{**SERVE_CFG, **batcher})
+    ids = [srv.submit(p, max_new_tokens=m, temperature=t) for p, m, t in plan]
+    while any(srv.result(r)["status"] not in ("done", "failed") for r in ids):
+        srv.step()
+    results = [srv.result(r) for r in ids]
+    if any(r["status"] != "done" for r in results):
+        raise AssertionError(f"statuses {[r['status'] for r in results]}")
+    return [r["tokens"] for r in results], srv.stats()
+
+
+def _moe_gaps(params, cfg, plan: list, tokens: list, dtype) -> dict:
+    """Every generated position's teacher-forced gap (:func:`_stream_gaps`)
+    through forward of ``params`` with ragged dispatch and flash attention
+    in ``dtype``; their median, 90th and 99th percentiles, largest, and the
+    share within SERVE_MOE_FP32's gap."""
+    import torch
+
+    teacher = cfg.with_(moe_impl="ragged", attention_impl="flash")
+    gaps = torch.cat([_stream_gaps(params, teacher, p, t, dtype=dtype, pad_to=64)
+                      for (p, _, _), t in zip(plan, tokens)]).float()
+    q = torch.quantile(gaps, torch.tensor([0.5, 0.9, 0.99], device=gaps.device)).tolist()
+    return {"median": q[0], "p90": q[1], "p99": q[2], "max": float(gaps.max()),
+            "share_within": float((gaps <= SERVE_MOE_FP32["gap"]).float().mean()),
+            "positions": gaps.numel()}
+
+
+def _moe_fp32_check(params, cfg, plan: list) -> dict:
+    """SERVE_MOE_FP32's run: its first requests with fewer tokens, one
+    token a dispatch, served and teacher-forced in fp32 with TF32 off."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    short = [(p, SERVE_MOE_FP32["tokens"], t) for p, _, t in plan[:SERVE_MOE_FP32["requests"]]]
+    tokens, _ = _streams(params, cfg, short, **dict(SERVE_MOE_CFG, chunk_steps=1,
+                                                    compute_dtype=torch.float32))
+    return _moe_gaps(params, cfg, short, tokens, torch.float32)
+
+
+def phase_serve_moe(res: dict) -> None:
+    """moe-8x7b at full width and depth (32 layers, 8 experts, top 2) in
+    weight-only int8 on one card (:func:`_moe_int8_tree`), served by the
+    ContinuousBatcher (SERVE_MOE_CFG: 8 slots of 2048 lanes, bf16 pool, 8
+    tokens a dispatch, on a ``serve_forever`` thread) for 16 greedy
+    requests (:func:`_serve_moe_plan`). Decode runs every expert and
+    combines with the renormalised top-k gates (JAX's MoE decode). Checks:
+    every request done, no slot left busy, pool and parameters on the card;
+    the median of the streams' teacher-forced gaps (forward of the same
+    int8 tree, ragged dispatch, flash attention) within SERVE_MOE_TAU; K1
+    launched once per layer per teacher forward, the counters set to 0
+    before the batcher starts and read after the last teacher forward; and
+    SERVE_MOE_FP32's run in fp32 compute (:func:`_moe_fp32_check`)."""
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+    from tpu_engine_torch.ops import _flash_cuda as fc
+    from tpu_engine_torch.quant import dequantize_weight, quantized_param_bytes
+
+    cfg = tfm.MODEL_CONFIGS["moe-8x7b"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = _moe_int8_tree(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nbytes = quantized_param_bytes(params)
+    # The one-pass dequantisation against JAX's two steps (fp32 product,
+    # then one rounding), on layer 0's gate experts.
+    w = params["layers.gate.kernel"][0]
+    dequant_exact = torch.equal(dequantize_weight(w, torch.bfloat16),
+                                (w.q.float() * w.scale).to(torch.bfloat16))
+    plan = _serve_moe_plan(cfg)
+    fc.reset_launches()
+    run = _serve_run(params, cfg, plan, "moe_int8", **SERVE_MOE_CFG)
+    gaps = _moe_gaps(params, cfg, plan, run["tokens"], torch.bfloat16)
+    counts = dict(fc.launches)
+    want = {name: (cfg.n_layers * len(plan) if name == "flash_fwd" else 0) for name in counts}
+    fp32 = _moe_fp32_check(params, cfg, plan)
+    run.pop("first_logits")
+    run["hits"] = {str(k): v for k, v in run["hits"].items()}
+    out = res["serve_moe"] = {
+        "config": SERVE_MOE_CFG, "run": run, "quantized_param_bytes": nbytes,
+        "tree_build_s": build_s, "dequant_exact": dequant_exact, "gaps_bf16": gaps,
+        "gaps_fp32": fp32, "tau": SERVE_MOE_TAU,
+        "fp32_bound": SERVE_MOE_FP32, "launches": counts, "launches_expected": want,
+        "steps": len(plan), "accum": 1, "card": res.get("card")}
+    print(f"serve_moe: int8 tree {nbytes / 2**30:.2f} GiB (quantized_param_bytes {nbytes}), "
+          f"built in {build_s:.1f} s, dequantisation exact {dequant_exact}; peak "
+          f"{run['peak_mem_gib']:.2f} GiB; decode "
+          f"{run['decode_tokens_per_s']:.1f} tokens/s ({run['dispatch_ms']:.1f} ms a dispatch of "
+          f"{SERVE_MOE_CFG['chunk_steps']} tokens a slot, {run['dispatch_profile']['launches']} "
+          f"launches, busy {run['device_busy_share']:.3f}); TTFT p50 "
+          f"{run['ttft_ms_p50']:.1f} ms, p99 {run['ttft_ms_p99']:.1f} ms; teacher-forced gaps, "
+          f"bf16: median {gaps['median']:.4f} (tau {SERVE_MOE_TAU}), p90 {gaps['p90']:.4f}, p99 "
+          f"{gaps['p99']:.4f}, max {gaps['max']:.4f}; fp32 ({fp32['positions']} positions): "
+          f"{fp32['share_within']:.4f} within {SERVE_MOE_FP32['gap']} (bound "
+          f"{SERVE_MOE_FP32['share']}), max {fp32['max']:.4f}; launches {counts}", flush=True)
+    fails = []
+    if not dequant_exact:
+        fails.append("dequantize_weight differs from (q.float() * scale).to(bf16)")
+    if run["statuses"] != ["done"] * len(plan):
+        fails.append(f"statuses {run['statuses']}")
+    if _slots_left_busy(run):
+        fails.append(f"slots left busy {run['slot_state']}")
+    if not run["on_card"]:
+        fails.append("pool or parameters not on the card")
+    if not gaps["median"] <= SERVE_MOE_TAU:
+        fails.append(f"median teacher-forced gap {gaps['median']:.4f} > {SERVE_MOE_TAU}")
+    if not fp32["share_within"] >= SERVE_MOE_FP32["share"]:
+        fails.append(f"fp32: {fp32['share_within']:.4f} of positions within "
+                     f"{SERVE_MOE_FP32['gap']} < {SERVE_MOE_FP32['share']}")
+    if counts != want:
+        fails.append(f"launch counts {counts} != expected {want}")
+    del params, run, w
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
 def _time_optimizer(prog, state, key: str) -> float:
     """Device time of the AdamW update alone over the llama-1b masters (CUDA
     events), on zero gradients at lr 0: the same tensors and passes as in a
@@ -2054,6 +2501,7 @@ def main() -> int:
         run("train_fp32", phase_train_fp32, res, args.steps)
         run("train_tiny", phase_train_tiny, res, args.steps)
         run("train_gemma", phase_train_gemma, res, args.steps)
+        run("train_moe", phase_train_moe, res, args.steps)
         serving: dict = {}
         run("generate", phase_generate, res, serving)
         run("serve", phase_serve, res, serving)
@@ -2061,9 +2509,11 @@ def main() -> int:
         run("hf_bridge", phase_hf_bridge, res, serving)
         serving.clear()
         run("generate_gemma", phase_generate_gemma, res)
+        run("serve_moe", phase_serve_moe, res)
     # Launches per training step on the paths, each counted from 0 around its
     # own run of steps x accumulation microbatches: the bf16 D 128 kernels'
-    # on train and train_ring, the bf16 D 256 kernels' on train_gemma, each
+    # on train, train_ring and train_moe (K1's also per teacher forward of
+    # serve_moe), the bf16 D 256 kernels' on train_gemma, each
     # OFF_PATH row's on its own paths. A row that names paths must have
     # launched on them; non-causal bf16 D 256 (ring attention's past hops at
     # gemma's head dim) runs on no path and names none.

@@ -3,7 +3,8 @@ serving checks of ``chip_smoke.py`` measure for each, beside the sound code
 in the same run. ``SERVE_TAU``, ``INT8_SHARE`` and ``SPEC_ACCEPT_MIN``
 there are set from these readings.
 
-    python3 serve_faults.py
+    python3 serve_faults.py          # llama-1b: streams, int8 pool, speculative
+    python3 serve_faults.py --moe    # moe-8x7b in weight-only int8 (serve_moe)
 
 llama-1b at full width and depth (seed-0 weights cast once to bf16) serves
 the ``serve`` phase's 16 requests (``chip_smoke._serve_plan``, the same
@@ -45,6 +46,27 @@ the rounds off the accepted frontier (``chip_smoke.spec_frontier``, held to
 - ``spec_draft_gamma_steps``: the draft runs ``gamma`` steps, not
   ``gamma + 1``, so the last proposal's K/V never reaches its pool.
 
+MoE faults (``--moe``), on ``chip_smoke.py``'s ``serve_moe`` batcher:
+moe-8x7b at full width and depth in weight-only int8
+(``chip_smoke._moe_int8_tree``, ``SERVE_MOE_CFG``) serving
+``chip_smoke._serve_moe_plan``'s 16 greedy requests; read as the
+teacher-forced gaps through forward with ragged dispatch and flash
+attention (``chip_smoke._moe_gaps``): their median in bf16 (held to
+``SERVE_MOE_TAU``), and the share of positions within ``SERVE_MOE_FP32``'s
+gap of its shorter run in fp32 compute (``chip_smoke._moe_fp32_check``):
+
+- ``moe_sound``;
+- ``moe_top1``: MoE decode combines only the first expert, with its gate;
+- ``moe_no_renorm``: MoE decode's top-k gates are not renormalised;
+- ``int8_scale_dropped``: decode reads expert 0's down kernel without its
+  scale (codes as values), in every layer.
+
+Beside them, why the largest gap cannot be the check: decode against
+forward (ragged dispatch) on one 320-token stream (a 256-token prefill,
+then one-token steps, ``chip_smoke._cached_logits``), in bf16 and in fp32
+compute: the tokens whose top-k experts differ between the two, per
+layer, and the logits' relative error.
+
 Each fault is a patch of one function of the package for its own run; no
 file changes. Prints the card's name and power limit, one line per reading
 and one JSON line, also written to ``chiprun_out/serve_faults.json``.
@@ -59,23 +81,6 @@ from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
-
-
-def _streams(params, cfg, plan: list, **batcher) -> tuple[list, dict]:
-    """Every request of ``plan`` served to its end by a batcher of
-    ``chip_smoke.SERVE_CFG`` updated by ``batcher``; the token streams and
-    the batcher's stats."""
-    import chip_smoke as cs
-    from tpu_engine_torch import serving as tsrv
-
-    srv = tsrv.ContinuousBatcher(params, cfg, **{**cs.SERVE_CFG, **batcher})
-    ids = [srv.submit(p, max_new_tokens=m, temperature=t) for p, m, t in plan]
-    while any(srv.result(r)["status"] not in ("done", "failed") for r in ids):
-        srv.step()
-    results = [srv.result(r) for r in ids]
-    if any(r["status"] != "done" for r in results):
-        raise AssertionError(f"statuses {[r['status'] for r in results]}")
-    return [r["tokens"] for r in results], srv.stats()
 
 
 def _second_best(real):
@@ -128,7 +133,134 @@ def _stored_scale(real, f):
     return quantize
 
 
+def _moe_decode(gates):
+    """A stand-in for ``generate._moe_mlp_decode`` that combines every
+    expert's output with ``gates(probs, k)`` [B, T, E] in place of the
+    renormalised top-k gates."""
+    def moe(h, lp, cfg):
+        import torch
+        import torch.nn.functional as F
+
+        from tpu_engine_torch.models.transformer import _expert_kernel, _router_probs
+
+        B, T, D = h.shape
+        probs = _router_probs(h, lp)
+        x = h.reshape(B * T, D)
+        gate_w, up_w, down_w = (_expert_kernel(lp, n, h.dtype) for n in ("gate", "up", "down"))
+        expert_out = torch.matmul(F.silu(x @ gate_w) * (x @ up_w), down_w)   # [E, BT, D]
+        w = gates(probs, cfg.top_k).to(h.dtype).reshape(B * T, 1, -1)
+        return torch.bmm(w, expert_out.transpose(0, 1)).reshape(B, T, D)
+
+    return lambda real: moe
+
+
+def _top1(probs, k):
+    top = probs.max(dim=-1, keepdim=True)
+    return probs.new_zeros(probs.shape).scatter_(-1, top.indices, top.values)
+
+
+def _topk_raw(probs, k):
+    top = probs.topk(k, dim=-1)
+    return probs.new_zeros(probs.shape).scatter_(-1, top.indices, top.values)
+
+
+def _scale_dropped(real):
+    def kernel(lp, name, dtype):
+        w = real(lp, name, dtype)
+        if name == "down":
+            w[0] = lp["down.kernel"].q[0].to(dtype)
+        return w
+
+    return kernel
+
+
+def _reroutes(params, cfg, dtype) -> dict:
+    """Decode against forward on one 320-token stream of ``params``: the
+    tokens rerouted per layer and the logits' relative error."""
+    import torch
+
+    import chip_smoke as cs
+    from tpu_engine_torch import generate as tgen
+    from tpu_engine_torch.models import transformer as tfm
+
+    toks = torch.randint(1, cfg.vocab_size, (1, 320), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(3))
+    probs: dict = {"decode": [], "forward": []}
+    path = ["decode"]
+    real = tfm._router_probs
+
+    def record(h, lp):
+        p = real(h, lp)
+        probs[path[0]].append(p.detach().reshape(-1, p.shape[-1]))
+        return p
+
+    with mock.patch.object(tgen, "_router_probs", record), \
+            mock.patch.object(tfm, "_router_probs", record), torch.inference_mode():
+        cached = cs._cached_logits(params, cfg, toks, 256, dtype)
+        path[0] = "forward"
+        fwd = cs._forward_logits(params, cfg.with_(moe_impl="ragged"), toks[:, :-1], dtype)
+    L = cfg.n_layers
+    # decode: the prefill's L records, then L for each one-token step
+    steps = probs["decode"]
+    dec = [torch.cat(steps[layer::L]) for layer in range(L)]
+
+    def top(p):
+        return p.topk(cfg.top_k, dim=-1).indices.sort(dim=-1).values
+
+    rerouted = [int((top(a) != top(b)).any(dim=-1).sum())
+                for a, b in zip(dec, probs["forward"])]
+    return {"rerouted_by_layer": rerouted, "logits_rel_err": cs._rel_err(cached, fwd),
+            "tokens": toks.shape[1] - 1}
+
+
+def main_moe(card: str) -> dict:
+    """The MoE readings (``--moe``)."""
+    import chip_smoke as cs
+    from tpu_engine_torch import generate as tgen
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+
+    import torch
+
+    cfg = MODEL_CONFIGS["moe-8x7b"]
+    params = cs._moe_int8_tree(cfg)
+    plan = cs._serve_moe_plan(cfg)
+    out: dict = {"card": card, "tau": cs.SERVE_MOE_TAU, "fp32_bound": cs.SERVE_MOE_FP32,
+                 "stream_gap": {}, "reroutes": {}}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        r = out["reroutes"][name] = _reroutes(params, cfg, dtype)
+        print(f"moe reroutes ({name}): decode against forward on {r['tokens']} tokens, "
+              f"logits relative {r['logits_rel_err']:.3e}, tokens rerouted by layer "
+              f"{r['rerouted_by_layer']}", flush=True)
+    faults = {
+        "moe_sound": None,
+        "moe_top1": (tgen, "_moe_mlp_decode", _moe_decode(_top1)),
+        "moe_no_renorm": (tgen, "_moe_mlp_decode", _moe_decode(_topk_raw)),
+        "int8_scale_dropped": (tgen, "_expert_kernel", _scale_dropped),
+    }
+    sound = None
+    for name, patch in faults.items():
+        with _patched(patch):
+            tokens, _ = cs._streams(params, cfg, plan, **cs.SERVE_MOE_CFG)
+            fp32 = cs._moe_fp32_check(params, cfg, plan)
+        sound = sound or tokens
+        row = out["stream_gap"][name] = {
+            "bf16": cs._moe_gaps(params, cfg, plan, tokens, torch.bfloat16), "fp32": fp32,
+            "tokens_equal_to_sound": sum(a == b for t, u in zip(tokens, sound)
+                                         for a, b in zip(t, u))}
+        b = row["bf16"]
+        print(f"moe {name}: bf16 gaps median {b['median']:.4f} (tau {cs.SERVE_MOE_TAU}), p90 "
+              f"{b['p90']:.4f}, p99 {b['p99']:.4f}, max {b['max']:.4f}, "
+              f"{b['share_within']:.4f} within {cs.SERVE_MOE_FP32['gap']}; fp32 "
+              f"{fp32['share_within']:.4f} within {cs.SERVE_MOE_FP32['gap']} (bound "
+              f"{cs.SERVE_MOE_FP32['share']}), median {fp32['median']:.4f}, max "
+              f"{fp32['max']:.4f}; {row['tokens_equal_to_sound']} of "
+              f"{sum(len(t) for t in tokens)} bf16 tokens equal to the sound run's", flush=True)
+    return out
+
+
 def main() -> int:
+    moe = "--moe" in sys.argv[1:]
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -141,6 +273,12 @@ def main() -> int:
 
     card = cs._card_line()
     print(card, flush=True)
+    if moe:
+        out = main_moe(card)
+        print(json.dumps(out), flush=True)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "serve_faults_moe.json").write_text(json.dumps(out, indent=1))
+        return 0
     state: dict = {}
     cfg, params = cs._llama_1b(state)
     plan = cs._serve_plan(cfg)
@@ -158,7 +296,7 @@ def main() -> int:
     sound_tokens = None
     for name, (kv_quant, patch) in stream_faults.items():
         with _patched(patch):
-            tokens, _ = _streams(params, cfg, plan, kv_quant=kv_quant)
+            tokens, _ = cs._streams(params, cfg, plan, kv_quant=kv_quant)
         sound_tokens = sound_tokens or tokens
         gaps = [cs._stream_gap(params, cfg, plan[i][0], tokens[i]) for i in greedy]
         out["stream_gap"][name] = {"max": max(gaps), "per_request": gaps,
@@ -180,8 +318,8 @@ def main() -> int:
     for name, patch in spec_faults.items():
         for dkey, (dparams, dcfg) in drafts.items():
             with _patched(patch):
-                tokens, stats = _streams(params, cfg, spec_plan, draft_params=dparams,
-                                         draft_cfg=dcfg, **cs.SPEC_CFG)
+                tokens, stats = cs._streams(params, cfg, spec_plan, draft_params=dparams,
+                                            draft_cfg=dcfg, **cs.SPEC_CFG)
                 frontier = cs.spec_frontier(params, cfg, dparams, dcfg,
                                             [p for p, _, _ in spec_plan[:8]])
             spec_sound.setdefault(dkey, tokens)

@@ -48,9 +48,10 @@ def test_params_round_trip_exactly():
 
 
 def test_params_from_jax_rejects_unported_archs_and_bad_trees():
-    """MoE raises; a tree missing a leaf of its arch raises ``ValueError``
-    naming it; gemma's tree (no ``lm_head``: the head is tied), which raised
-    before gemma was ported, now round-trips exactly."""
+    """An arch with experts outside ``MODEL_CONFIGS`` (qwen) raises; a tree
+    missing a leaf of its arch raises ``ValueError`` naming it; gemma's tree
+    (no ``lm_head``: the head is tied) and moe-tiny's (router and stacked
+    experts), which raised before they were ported, now round-trip exactly."""
     gemma = jtfm.MODEL_CONFIGS["gemma-tiny"]
     tree = jax.tree.map(np.asarray, jtfm.init_params(jax.random.PRNGKey(0), gemma))
     back = convert.params_to_numpy(
@@ -59,10 +60,17 @@ def test_params_from_jax_rejects_unported_archs_and_bad_trees():
                                 jax.tree_util.tree_leaves_with_path(back), strict=True):
         assert pa == pb
         np.testing.assert_array_equal(a, b)
-    moe = jtfm.MODEL_CONFIGS["moe-tiny"]
+    moe = jax.tree.map(np.asarray, jtfm.init_params(jax.random.PRNGKey(0),
+                                                    jtfm.MODEL_CONFIGS["moe-tiny"]))
+    back = convert.params_to_numpy(
+        convert.params_from_jax(moe, tcfg.MODEL_CONFIGS["moe-tiny"], device="cpu"))
+    for (pa, a), (pb, b) in zip(jax.tree_util.tree_leaves_with_path(moe),
+                                jax.tree_util.tree_leaves_with_path(back), strict=True):
+        assert pa == pb
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError):
-        convert.params_from_jax(jax.tree.map(np.asarray, jtfm.init_params(
-            jax.random.PRNGKey(0), moe)), tcfg.MODEL_CONFIGS["moe-tiny"], device="cpu")
+        convert.params_from_jax(moe, tcfg.MODEL_CONFIGS["moe-tiny"].with_(arch="qwen"),
+                                device="cpu")
     with pytest.raises(ValueError, match="lm_head"):
         convert.params_from_jax(tree, tcfg.MODEL_CONFIGS["qwen-tiny"], device="cpu")
     llama = jax.tree.map(np.asarray, jtfm.init_params(jax.random.PRNGKey(0),

@@ -213,8 +213,9 @@ def test_sampling_reproducible_for_a_generator_seed(llama):
 
 def test_guards(llama, gqa_window):
     """A ring chunk larger than the ring allows, speculative batch > 1 and
-    gamma < 1 raise ValueError, as in JAX; MoE raises NotImplementedError,
-    and qwen (which raised before it was ported) decodes."""
+    gamma < 1 raise ValueError, as in JAX; quantised training raises
+    NotImplementedError; qwen and MoE (which raised before they were
+    ported) decode, MoE as forward with ragged dispatch (exact top-k)."""
     _, cfg, _, tp = llama
     _, wcfg, _, wtp = gqa_window
     toks = torch.from_numpy(_tokens(2, 8))
@@ -225,10 +226,16 @@ def test_guards(llama, gqa_window):
         tgen.speculative_generate(tp, tp, toks, cfg, cfg, 4, device="cpu", **T32)
     with pytest.raises(ValueError, match="gamma"):
         tgen.speculative_generate(tp, tp, toks[:1], cfg, cfg, 4, gamma=0, device="cpu", **T32)
-    moe = tcfg.MODEL_CONFIGS["moe-tiny"]
-    cache = tgen.init_cache(moe, 2, 8, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError):
-        tgen.forward_with_cache(tp, toks, cache, moe, **T32)
+        tgen.forward_with_cache(tp, toks, tgen.init_cache(cfg, 2, 8, dtype=torch.float32,
+                                                          device="cpu"),
+                                cfg.with_(quant_training="int8"), **T32)
+    moe = tcfg.MODEL_CONFIGS["moe-tiny"]
+    mp = ttfm.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
+    cache = tgen.init_cache(moe, 2, 8, dtype=torch.float32, device="cpu")
+    logits, cache = tgen.forward_with_cache(mp, toks, cache, moe, **T32)
+    ragged = ttfm.forward(mp, toks, moe.with_(moe_impl="ragged"), **T32)
+    np.testing.assert_allclose(logits.numpy(), ragged.detach().numpy(), **TOL)
     qwen = tcfg.MODEL_CONFIGS["qwen-tiny"]
     qp = ttfm.init_params(qwen, torch.Generator().manual_seed(0), device="cpu")
     cache = tgen.init_cache(qwen, 2, 8, dtype=torch.float32, device="cpu")

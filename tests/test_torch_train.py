@@ -43,11 +43,14 @@ def test_train_config_rejects_unsupported_values():
     with pytest.raises(ValueError, match="loss_chunk_size"):
         ttrain.TrainConfig(seq_len=32, loss_chunk_size=5)
     with pytest.raises(NotImplementedError):
-        ttrain.build_train_program(ttrain.TrainConfig(model_name="moe-tiny"), device="cpu")
-    # gpt2, qwen and gemma are ported (tests/test_torch_archs.py).
-    for name in ("gpt2-tiny", "qwen-tiny", "gemma-tiny"):
+        ttrain.build_train_program(ttrain.TrainConfig(model_name="moe-tiny"), device="cpu",
+                                   model_cfg=tcfg.MODEL_CONFIGS["moe-tiny"].with_(
+                                       quant_training="int8"))
+    # gpt2, qwen, gemma and MoE are ported (tests/test_torch_archs.py,
+    # tests/test_torch_moe.py).
+    for name in ("gpt2-tiny", "qwen-tiny", "gemma-tiny", "moe-tiny"):
         prog = ttrain.build_train_program(ttrain.TrainConfig(model_name=name), device="cpu")
-        assert prog.model_config.arch == name.split("-")[0]
+        assert prog.model_config.arch == ("llama" if name == "moe-tiny" else name.split("-")[0])
 
 
 def test_auto_attention_resolves_to_plain_on_cpu():

@@ -76,14 +76,13 @@ def test_gradients_reach_fp32_masters_through_the_cast():
 
 @pytest.mark.parametrize("name", ["gpt2-tiny", "gemma-tiny", "qwen-tiny", "moe-tiny"])
 def test_unported_archs_raise(name):
-    """MoE still raises. gpt2, gemma and qwen, which raised before they were
-    ported, now build JAX's parameter tree and run its fp32 forward
-    (the fuller parity tests are tests/test_torch_archs.py)."""
+    """Quantised training still raises. gpt2, gemma, qwen and MoE, which
+    raised before they were ported, now build JAX's parameter tree and run
+    its fp32 forward (the fuller parity tests are tests/test_torch_archs.py
+    and tests/test_torch_moe.py)."""
     cfg = tcfg.MODEL_CONFIGS[name]
-    if cfg.is_moe:
-        with pytest.raises(NotImplementedError):
-            ttfm.init_params(cfg, torch.Generator(), device="cpu")
-        return
+    with pytest.raises(NotImplementedError):
+        ttfm.init_params(cfg.with_(quant_training="int8"), torch.Generator(), device="cpu")
     jc, tree, params, tokens = _setup(name, S=32)
     ref = jtfm.forward(tree, jnp.asarray(tokens), jc, compute_dtype=jnp.float32)
     out = ttfm.forward(params, torch.tensor(tokens, dtype=torch.long), cfg,

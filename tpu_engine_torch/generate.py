@@ -1,5 +1,6 @@
-"""Autoregressive generation with a KV cache (port of ``tpu_engine/generate.py``,
-the dense llama, gpt2, qwen and gemma archs).
+"""Autoregressive generation with a KV cache (port of ``tpu_engine/generate.py``:
+the dense llama, gpt2, qwen and gemma archs, MoE, and int8 weight-only
+quantized trees).
 
 One cached forward serves prefill (T = prompt length) and decode (T = 1):
 each block writes its new keys and values into the cache, then attends
@@ -24,7 +25,10 @@ first:
   through a view, where JAX repeats the cache. Buffers are written in place
   (JAX donates them) and ``length`` is a host integer.
 
-MoE decode raises ``NotImplementedError``, as the port's transformer does.
+MoE decode is JAX's: every expert runs on the new positions and the
+outputs combine with the renormalised top-k gates, exact top-k with no
+capacity (:func:`_moe_mlp_decode`). Projections and expert kernels may be
+int8 (:class:`~tpu_engine_torch.quant.QuantWeight`).
 """
 
 from __future__ import annotations
@@ -34,14 +38,17 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 
 from tpu_engine_torch.models.config import ModelConfig
 from tpu_engine_torch.models.transformer import (
     _dense_mlp,
+    _expert_kernel,
     _layer_proj,
     _norm,
     _qkv,
     _require_ported,
+    _router_probs,
     cast_layer_stack,
     embed_tokens,
     f32_out,
@@ -140,6 +147,26 @@ def _hidden_lanes(key_pos: torch.Tensor, positions: torch.Tensor, window: int) -
     return ~visible
 
 
+def _moe_mlp_decode(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Exact top-k MoE for decode (JAX ``_moe_mlp_decode``): h [B, T, D] →
+    [B, T, D]. Every expert's MLP runs on the T new positions (a handful of
+    products at decode sizes, every shape static); the outputs combine with
+    the top-k gates renormalised to sum to 1 (floor 1e-9). int8 expert
+    kernels are dequantized to the compute dtype first, as in JAX."""
+    B, T, D = h.shape
+    K = cfg.top_k
+    probs = _router_probs(h, lp)                                  # [B, T, E] fp32
+    x = h.reshape(B * T, D)
+    gate_w, up_w, down_w = (_expert_kernel(lp, n, h.dtype) for n in ("gate", "up", "down"))
+    act = F.silu(torch.matmul(x, gate_w)) * torch.matmul(x, up_w)  # [E, BT, F]
+    expert_out = torch.matmul(act, down_w)                        # [E, BT, D]
+    top_vals, top_idx = torch.topk(probs, K, dim=-1)
+    top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    weights = torch.zeros_like(probs).scatter_(-1, top_idx, top_vals).to(h.dtype)
+    out = torch.bmm(weights.reshape(B * T, 1, -1), expert_out.transpose(0, 1))
+    return out.reshape(B, T, D)
+
+
 def _decode_block(x, lp, k_cache, v_cache, write, hidden, positions, cfg: ModelConfig,
                   k_scale_c=None, v_scale_c=None) -> torch.Tensor:
     """One transformer block attending against the cache: the arch's norms,
@@ -180,7 +207,7 @@ def _decode_block(x, lp, k_cache, v_cache, write, hidden, positions, cfg: ModelC
     attn = attn.view(B, KV, G, T, HD).permute(0, 3, 1, 2, 4).reshape(B, T, H * HD)
     x = x + _layer_proj(attn, lp, "o")
     h = _norm(x, lp["mlp_norm.scale"], lp.get("mlp_norm.bias"), cfg)
-    return x + _dense_mlp(h, lp, cfg)
+    return x + (_moe_mlp_decode(h, lp, cfg) if cfg.is_moe else _dense_mlp(h, lp, cfg))
 
 
 def _run_layers(params, x, cache, write, hidden, positions, cfg: ModelConfig,

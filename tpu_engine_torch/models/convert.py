@@ -20,7 +20,7 @@ flat dict and back, in host numpy:
 - gemma ties the head to the embedding (no ``lm_head.kernel``); qwen3 adds
   per-head ``q_norm``/``k_norm`` scales; mistral is llama with a window;
 - configs or tensors the model cannot represent (biases, RoPE scaling, a
-  decoupled llama head dim, gemma-2 features, qwen2, MoE export) raise
+  decoupled llama head dim, gemma-2 features, qwen2, MoE either way) raise
   ``ValueError`` rather than converting to a silently different model.
 
 ``transformers`` is needed only by :func:`hf_config_from` and
@@ -67,15 +67,22 @@ GPT2_KEYS = (
 # tied to the token embedding.
 QWEN_KEYS = LLAMA_KEYS + ("layers.q_norm.scale", "layers.k_norm.scale")
 GEMMA_KEYS = tuple(k for k in LLAMA_KEYS if k != "lm_head.kernel")
+# MoE (llama with experts): the router [L, D, E] beside the stacked expert
+# kernels, gate/up [L, E, D, F] and down [L, E, F, D].
+MOE_KEYS = LLAMA_KEYS[:7] + ("layers.router.kernel",) + LLAMA_KEYS[7:]
 _ARCH_KEYS = {"llama": LLAMA_KEYS, "gpt2": GPT2_KEYS, "qwen": QWEN_KEYS, "gemma": GEMMA_KEYS}
 
 
 def param_keys(cfg) -> tuple[str, ...]:
-    """The flat parameter names of ``cfg``'s dense arch; MoE is not ported."""
+    """The flat parameter names of ``cfg``'s arch: the dense llama, gpt2,
+    qwen and gemma archs, and llama with experts (``MODEL_CONFIGS``' MoE
+    family). Another arch with experts is not ported."""
+    if cfg.is_moe and cfg.arch == "llama":
+        return MOE_KEYS
     if cfg.is_moe or cfg.arch not in _ARCH_KEYS:
         raise NotImplementedError(
             f"{cfg.name}: arch={cfg.arch!r} with n_experts={cfg.n_experts} is not ported "
-            "(the dense llama, gpt2, qwen and gemma archs are)")
+            "(the dense llama, gpt2, qwen and gemma archs and llama with experts are)")
     return _ARCH_KEYS[cfg.arch]
 
 
@@ -99,10 +106,15 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
 
 
 def params_from_jax(tree: dict, cfg, device="cuda",
-                    dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+                    dtype: torch.dtype = torch.float32) -> dict[str, Any]:
     """The JAX stacked pytree (numpy or JAX leaves) → the port's flat dict of
     leaf tensors on ``device`` that require grad. The tree must hold exactly
-    the leaves of ``cfg``'s arch (:func:`param_keys`)."""
+    the leaves of ``cfg``'s arch (:func:`param_keys`). A quantized site (a
+    JAX ``QuantWeight``, anything with ``q`` and ``scale``) becomes the
+    port's :class:`~tpu_engine_torch.quant.QuantWeight`, int8 codes and
+    fp32 scales as they are."""
+    from tpu_engine_torch.quant import QuantWeight
+
     keys = param_keys(cfg)
     flat = _flatten(tree)
     if set(flat) != set(keys):
@@ -110,10 +122,15 @@ def params_from_jax(tree: dict, cfg, device="cuda",
             f"unexpected parameter tree: missing {sorted(set(keys) - set(flat))}, "
             f"extra {sorted(set(flat) - set(keys))}"
         )
-    return {
-        k: torch.tensor(_np(flat[k]), dtype=dtype, device=device).requires_grad_(True)
-        for k in keys
-    }
+
+    def leaf(x):
+        if hasattr(x, "q") and hasattr(x, "scale"):
+            return QuantWeight(
+                q=torch.tensor(np.asarray(x.q, dtype=np.int8), device=device),
+                scale=torch.tensor(np.asarray(x.scale, dtype=np.float32), device=device))
+        return torch.tensor(_np(x), dtype=dtype, device=device).requires_grad_(True)
+
+    return {k: leaf(flat[k]) for k in keys}
 
 
 def params_to_numpy(params: dict[str, torch.Tensor]) -> dict:
@@ -384,6 +401,12 @@ class _Reader:
                 f"drop (unsupported {what}?): {sorted(leftover)[:8]}")
 
 
+def _refuse_moe(cfg: ModelConfig) -> None:
+    """The HF bridge maps dense llama-layout models only."""
+    if cfg.is_moe:
+        raise ValueError("MoE models have no LlamaForCausalLM representation")
+
+
 def _as_params(flat: dict[str, torch.Tensor], cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """The flat dict in :func:`param_keys` order, leaves requiring grad."""
     return {k: flat[k].requires_grad_(True) for k in param_keys(cfg)}
@@ -398,6 +421,7 @@ def from_hf_llama(state_dict: Mapping[str, Any], cfg: ModelConfig,
     look like a llama checkpoint, and ``ValueError`` if it holds tensors the
     arch would drop (attention/MLP biases, an untied gemma head). Each leaf
     is cast to ``dtype`` as it is read."""
+    _refuse_moe(cfg)
     param_keys(cfg)
     r = _Reader(state_dict, cfg.n_layers, dtype, device)
     layer = _LLAMA_LAYER + (_QWEN_LAYER if cfg.arch == "qwen" else ())
@@ -468,6 +492,7 @@ def to_hf_llama(params: dict[str, torch.Tensor], cfg: ModelConfig) -> dict[str, 
     """The port's flat parameters → the HF llama state-dict layout (float32
     numpy; wrap in torch tensors for ``load_state_dict``). gemma has no
     ``lm_head.weight``; qwen adds its qk-norm scales."""
+    _refuse_moe(cfg)
     host = {k: _np(t) for k, t in params.items()}
     sd = {"model.embed_tokens.weight": host["embed.embedding"],
           "model.norm.weight": host["final_norm.scale"]}

@@ -1,6 +1,6 @@
 """Decoder-only transformer in PyTorch (port of
-``tpu_engine/models/transformer.py``, the dense llama, gpt2, qwen and gemma
-archs).
+``tpu_engine/models/transformer.py``: the dense llama, gpt2, qwen and gemma
+archs, and llama with a Mixture-of-Experts MLP).
 
 Parameters are the flat dict of :mod:`tpu_engine_torch.models.convert`:
 the JAX leaves, shapes and ``[in, out]`` kernel layout, with every per-layer
@@ -25,8 +25,16 @@ this process; ``tpu_engine_torch/parallel/ring_attention.py``). Where JAX
 threads the mesh down to ``_attention``, the port threads the ring size, and
 ``"ring"`` without one raises ``ValueError`` as JAX does without a mesh.
 
-MoE, LoRA, quantized weights and Ulysses attention are not ported yet and
-raise ``NotImplementedError``.
+MoE (``cfg.n_experts > 0``) routes each token to its top-k experts, by
+dense dispatch (``moe_impl="dense"``: a per-expert capacity, tokens over it
+dropped, all dispatch and combine as products) or ragged dispatch
+(``"ragged"``: tokens sorted by expert, one product per expert's rows, no
+capacity); both return the Switch load-balancing aux loss. A projection or
+expert kernel may be an int8 :class:`~tpu_engine_torch.quant.QuantWeight`
+(weight-only quantized serving).
+
+LoRA, quantised training and Ulysses attention are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,15 +49,16 @@ from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig  # noqa: F
 from tpu_engine_torch.models.convert import param_keys
 from tpu_engine_torch.ops import flash_attention
 from tpu_engine_torch.parallel.ring_attention import ring_mha
+from tpu_engine_torch.quant import QuantWeight, dequantize_weight, mul_round
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet: MoE and quantised training."""
-    if cfg.is_moe or cfg.quant_training != "none":
+    """Refuse what the port does not run yet: quantised training (JAX's
+    ragged-MoE-with-int8 refusal included), and an arch/MoE pair outside
+    ``MODEL_CONFIGS``' families (:func:`param_keys`)."""
+    if cfg.quant_training != "none":
         raise NotImplementedError(
-            f"{cfg.name}: n_experts={cfg.n_experts}, quant_training={cfg.quant_training!r} "
-            "is not ported (the dense llama, gpt2, qwen and gemma archs are)"
-        )
+            f"{cfg.name}: quant_training={cfg.quant_training!r} is not ported")
     param_keys(cfg)
 
 
@@ -61,7 +70,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     """Random parameters of ``cfg``'s arch with JAX's tree and init scales:
-    normal(0.02), the residual-out projections (o, down, proj) at
+    normal(0.02) (MoE's router and gate/up experts too), the residual-out
+    projections (o, down, proj; MoE's down experts) at
     0.02/sqrt(2L), gpt2's position table at 0.01, biases 0, norm scales 1
     (gemma's, stored as offsets from 1, 0). ``generator`` must live on
     ``device``. The numbers differ from JAX's for the same seed; parity
@@ -83,6 +93,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 
     ones, zeros = const(1.0), const(0.0)
     scale = zeros if cfg.arch == "gemma" else ones
+    E = cfg.n_experts
+    experts = (E,) if cfg.is_moe else ()  # MoE stacks [L, E, ...] expert kernels
     shapes = {
         "embed.embedding": lambda: norm((V, D), std),
         "pos_embed.embedding": lambda: norm((cfg.max_seq_len, D), 0.01),
@@ -100,9 +112,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         "layers.k_norm.scale": lambda: ones((L, HD)),
         "layers.mlp_norm.scale": lambda: scale((L, D)),
         "layers.mlp_norm.bias": lambda: zeros((L, D)),
-        "layers.gate.kernel": lambda: norm((L, D, F_), std),
-        "layers.up.kernel": lambda: norm((L, D, F_), std),
-        "layers.down.kernel": lambda: norm((L, F_, D), res_std),
+        "layers.router.kernel": lambda: norm((L, D, E), std),
+        "layers.gate.kernel": lambda: norm((L, *experts, D, F_), std),
+        "layers.up.kernel": lambda: norm((L, *experts, D, F_), std),
+        "layers.down.kernel": lambda: norm((L, *experts, F_, D), res_std),
         "layers.fc.kernel": lambda: norm((L, D, F_), std),
         "layers.fc.bias": lambda: zeros((L, F_)),
         "layers.proj.kernel": lambda: norm((L, F_, D), res_std),
@@ -230,10 +243,17 @@ def _attention(q, k, v, impl: str, window: int = 0, sequence: Optional[int] = No
                                window=window)
 
 
-def _proj(h: torch.Tensor, kernel: torch.Tensor,
-          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``h @ W (+ b)``: h [B, S, in], kernel [in, out] → [B, S, out]."""
-    out = torch.matmul(h, kernel)
+def _proj(h: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``h @ W (+ b)``: h [B, S, in], kernel [in, out] → [B, S, out].
+
+    An int8 :class:`QuantWeight` kernel multiplies its codes cast to h's
+    dtype (exact: |code| <= 127), then applies the per-output-channel scale
+    to the product in fp32 with one rounding, as JAX does (rounding the
+    scale to bf16 first would add a second error)."""
+    if isinstance(kernel, QuantWeight):
+        out = mul_round(torch.matmul(h, kernel.q.to(h.dtype)), kernel.scale, h.dtype)
+    else:
+        out = torch.matmul(h, kernel)
     return out if bias is None else out + bias.to(out.dtype)
 
 
@@ -273,9 +293,110 @@ def _qkv(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
     return q, k, v
 
 
-def _block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
-           positions: torch.Tensor, sequence: Optional[int] = None) -> torch.Tensor:
-    """One transformer block. x: [B, S, D] → [B, S, D]."""
+def _expert_kernel(lp: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """The stacked [E, ...] expert kernel ``name`` in ``dtype``; an int8
+    one dequantized (fp32 product, one rounding), as JAX's MoE paths do."""
+    w = lp[f"{name}.kernel"]
+    return dequantize_weight(w, dtype) if isinstance(w, QuantWeight) else w
+
+
+def _router_probs(h: torch.Tensor, lp: dict) -> torch.Tensor:
+    """Router softmax over the experts, fp32: h [..., D] → [..., E]. The
+    router product takes compute-dtype operands and an fp32 result."""
+    return torch.softmax(_matmul_f32_out(h, lp["router.kernel"]), dim=-1)
+
+
+def _switch_aux(probs: torch.Tensor, first: torch.Tensor, E: int) -> torch.Tensor:
+    """Switch load-balancing loss (eq. 4): E · Σ_e f_e · p_e, with f the
+    share of tokens whose first choice is e (no gradient) and p the mean
+    router probability. probs [..., E], first [...] expert ids."""
+    f = F.one_hot(first.reshape(-1), E).float().mean(dim=0)
+    p = probs.reshape(-1, E).mean(dim=0)
+    return E * torch.sum(f * p)
+
+
+def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig):
+    """Top-k MoE by dense dispatch (JAX ``_moe_mlp``): h [B, S, D] →
+    (out [B, S, D], aux).
+
+    Each expert takes at most ``expert_capacity(S)`` tokens of a sequence.
+    Choices are placed one rank at a time, so every first choice claims
+    capacity before any second choice; within a rank a token's position in
+    its expert's buffer is the count of earlier tokens of its row that
+    chose that expert (a cumsum over S in fp32). Tokens past capacity drop;
+    the kept gates are renormalised to sum to 1 (floor 1e-9). Dispatch and
+    combine are products with the [B, S, E, C] masks, in the compute dtype."""
+    B, S, D = h.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = cfg.expert_capacity(S)
+    probs = _router_probs(h, lp)  # [B, S, E] fp32
+    remaining = probs
+    count = torch.zeros((B, E), dtype=torch.float32, device=h.device)
+    combine = torch.zeros((B, S, E, C), dtype=h.dtype, device=h.device)
+    slots = torch.arange(C, device=h.device)
+    for _ in range(K):
+        idx = torch.argmax(remaining, dim=-1)                # first maximum, as jnp.argmax
+        mask = F.one_hot(idx, E).float()                     # [B, S, E]
+        gate = torch.sum(probs * mask, dim=-1)               # [B, S]
+        pos = torch.cumsum(mask, dim=1) - 1 + count[:, None, :]
+        pos_tok = torch.sum(pos * mask, dim=-1)              # [B, S]
+        keep = (pos_tok < C) & (gate > 0)
+        count = count + mask.sum(dim=1)
+        # One-hot of the buffer position; a position past C has none.
+        onehot_pos = (pos_tok.long()[..., None] == slots).float()  # [B, S, C]
+        contrib = ((gate * keep)[:, :, None, None] * mask[:, :, :, None]
+                   * onehot_pos[:, :, None, :])
+        combine = combine + contrib.to(h.dtype)
+        remaining = remaining * (1.0 - mask)
+    denom = torch.sum(combine, dim=(2, 3), keepdim=True)
+    combine = combine / denom.clamp_min(1e-9)
+    dispatch = (combine > 0).to(h.dtype)
+    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, h).reshape(E, B * C, D)
+    gate_w, up_w, down_w = (_expert_kernel(lp, n, h.dtype) for n in ("gate", "up", "down"))
+    act = F.silu(torch.bmm(expert_in, gate_w)) * torch.bmm(expert_in, up_w)
+    expert_out = torch.bmm(act, down_w).reshape(E, B, C, D)
+    out = torch.einsum("bsec,ebcd->bsd", combine, expert_out)
+    return out, _switch_aux(probs, torch.argmax(probs, dim=-1), E)
+
+
+def _moe_mlp_ragged(h: torch.Tensor, lp: dict, cfg: ModelConfig):
+    """Top-k MoE by ragged dispatch (JAX ``_moe_mlp_ragged``): h [B, S, D]
+    → (out [B, S, D], aux). No capacity, so no token drops. The B·S·k
+    (token, expert) pairs are sorted by expert (a stable sort); each
+    expert's contiguous rows take one product with its kernels (one host
+    read of the group sizes per call); the outputs, weighted by the
+    renormalised top-k gates, are added back to their tokens
+    (``index_add``). Routing indices carry no gradient."""
+    B, S, D = h.shape
+    E, K = cfg.n_experts, cfg.top_k
+    x = h.reshape(B * S, D)
+    probs = _router_probs(x, lp)                              # [BS, E] fp32
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)      # [BS, K]
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    flat_expert = expert_idx.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    tok_sorted = order // K                                   # pair → token
+    xs = x.index_select(0, tok_sorted)
+    sizes = torch.bincount(flat_expert, minlength=E).tolist()
+    # unbind: its backward stacks the E per-expert gradients in one op.
+    per_expert = {n: lp[f"{n}.kernel"].unbind(0) for n in ("gate", "up", "down")}
+    ys = []
+    for e, rows in enumerate(torch.split(xs, sizes)):
+        if not sizes[e]:
+            continue
+        ke = {n: (dequantize_weight(k[e], h.dtype) if isinstance(k[e], QuantWeight) else k[e])
+              for n, k in per_expert.items()}
+        ys.append(torch.matmul(F.silu(rows @ ke["gate"]) * (rows @ ke["up"]), ke["down"]))
+    y = torch.cat(ys)                                         # [BS·K, D]
+    weights = gate_vals.reshape(-1)[order].to(h.dtype)
+    out = torch.zeros_like(x).index_add(0, tok_sorted, y * weights[:, None])
+    return out.reshape(B, S, D), _switch_aux(probs, expert_idx[:, 0], E)
+
+
+def _block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
+           positions: torch.Tensor, sequence: Optional[int] = None):
+    """One transformer block. x: [B, S, D] → (x, the MoE aux loss, or None
+    for a dense MLP)."""
     B, S, _ = x.shape
     q, k, v = _qkv(_norm(x, lp["attn_norm.scale"], lp.get("attn_norm.bias"), cfg), lp, cfg,
                    positions)
@@ -283,7 +404,13 @@ def _block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
                       sequence=sequence)
     x = x + _layer_proj(attn.reshape(B, S, -1), lp, "o")
     h = _norm(x, lp["mlp_norm.scale"], lp.get("mlp_norm.bias"), cfg)
-    return x + _dense_mlp(h, lp, cfg)
+    if cfg.is_moe:
+        if cfg.moe_impl not in ("dense", "ragged"):
+            raise ValueError(f"moe_impl={cfg.moe_impl!r} unknown; use 'dense' or 'ragged'")
+        moe = _moe_mlp_ragged if cfg.moe_impl == "ragged" else _moe_mlp
+        out, aux = moe(h, lp, cfg)
+        return x + out, aux
+    return x + _dense_mlp(h, lp, cfg), None
 
 
 def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -372,22 +499,24 @@ def unembed(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) 
     """Final norm + LM head: [..., S, D] → logits [..., S, V] fp32. gpt2
     and gemma tie the head to the token embedding: its transposed view, so
     the table's fp32 gradient sums the gather's scatter and the head's
-    product."""
+    product. An int8 head's scale multiplies the fp32 logits."""
     bias = params.get("final_norm.bias")
     x = _norm(x, params["final_norm.scale"].to(x.dtype),
               None if bias is None else bias.to(x.dtype), cfg)
     head = (params["embed.embedding"].t() if cfg.arch in ("gpt2", "gemma")
             else params["lm_head.kernel"])
+    if isinstance(head, QuantWeight):  # int8 head: scale the fp32 logits
+        return _matmul_f32_out(x, head.q.to(x.dtype)) * head.scale
     return _matmul_f32_out(x, head.to(x.dtype))
 
 
-def cast_layer_stack(params: dict[str, torch.Tensor],
-                     compute_dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
+def cast_layer_stack(params: dict, compute_dtype=torch.bfloat16) -> dict:
     """The stacked per-layer params (``layers.*``, without the prefix) cast
     to the compute dtype, once per call. Gradients flow back through the
-    cast onto the fp32 masters."""
-    return {k[len("layers."):]: p.to(compute_dtype) for k, p in params.items()
-            if k.startswith("layers.")}
+    cast onto the fp32 masters. A :class:`QuantWeight` passes uncast: its
+    codes cast at the product, and its fp32 scales must not round."""
+    return {k[len("layers."):]: p if isinstance(p, QuantWeight) else p.to(compute_dtype)
+            for k, p in params.items() if k.startswith("layers.")}
 
 
 def inference_params(params: dict[str, torch.Tensor], compute_dtype=torch.bfloat16,
@@ -399,8 +528,9 @@ def inference_params(params: dict[str, torch.Tensor], compute_dtype=torch.bfloat
     pass over every weight per decode step. A cast is deterministic, so
     casting once gives the same numbers: ``cast_layer_stack`` and
     ``unembed`` then cast nothing, and the embedding rows equal the cast
-    master rows."""
-    return {k: p.detach().to(device=device, dtype=compute_dtype) for k, p in params.items()}
+    master rows. A :class:`QuantWeight` is only moved."""
+    return {k: p.to(device) if isinstance(p, QuantWeight)
+            else p.detach().to(device=device, dtype=compute_dtype) for k, p in params.items()}
 
 
 def forward_hidden_and_aux(
@@ -413,7 +543,8 @@ def forward_hidden_and_aux(
     sequence: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decoder stack only: tokens [B, S] → (hidden [B, S, D] in the compute
-    dtype, before the final norm; the mean MoE aux loss, 0 for dense).
+    dtype, before the final norm; the MoE aux loss averaged over layers, 0
+    for dense).
     ``sequence`` is the ring size of ``attention_impl="ring"``, which
     raises ``ValueError`` without it."""
     _require_ported(cfg)
@@ -431,13 +562,17 @@ def forward_hidden_and_aux(
     stack = cast_layer_stack(params, compute_dtype)
     # One unbind per leaf: its backward stacks the L per-layer gradients in a
     # single op, where per-layer indexing would scatter into L full copies.
-    layers = {k: torch.unbind(t, 0) for k, t in stack.items()}
+    layers = {k: t.unbind(0) for k, t in stack.items()}
+    auxes = []
     for i in range(cfg.n_layers):
         lp = {k: t[i] for k, t in layers.items()}
         if remat:
-            x = checkpoint(_block, x, lp, cfg, positions, sequence, use_reentrant=False)
+            x, aux = checkpoint(_block, x, lp, cfg, positions, sequence, use_reentrant=False)
         else:
-            x = _block(x, lp, cfg, positions, sequence)
+            x, aux = _block(x, lp, cfg, positions, sequence)
+        auxes.append(aux)
+    if cfg.is_moe:
+        return x, torch.stack(auxes).mean()
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

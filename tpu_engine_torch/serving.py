@@ -1,5 +1,6 @@
 """Continuous-batching generation server on one GPU (port of
-``tpu_engine/serving.py``, the dense llama, gpt2, qwen and gemma archs).
+``tpu_engine/serving.py``: the dense llama, gpt2, qwen and gemma archs,
+MoE, and int8 weight-only quantized trees, for the target and the draft).
 
 A fixed pool of decode slots that requests join and leave independently: a
 finishing request frees its slot for the next queued prompt while the

@@ -1,6 +1,7 @@
 """Single-GPU training program: schedule, AdamW, loss and the train step
 (port of the single-device path of ``tpu_engine/train.py``, and of its
-sequence-parallel path with the ring's ranks in one process).
+sequence-parallel path with the ring's ranks in one process). MoE models
+train with the router's aux loss in the objective.
 
 The JAX step is one jitted function over a pytree state; here the state is a
 dict of tensors and the step runs eagerly. The optimizer updates the fp32
@@ -53,6 +54,10 @@ class TrainConfig:
     z_loss_coef: float = 0.0
     attention_impl: str = "auto"     # auto | xla | flash | ring | ulysses
     sequence: int = 1                # ring size; > 1 selects ring attention
+    # MoE dispatch override (MoE models only): None = the model's own
+    # (dense); "dense" = capacity-factor dense dispatch; "ragged" = sorted
+    # per-expert products, no token dropped.
+    moe_impl: Optional[str] = None
     seed: int = 0
 
     def __post_init__(self):
@@ -78,6 +83,8 @@ class TrainConfig:
             (self.z_loss_coef >= 0, "z_loss_coef must be >= 0"),
             (self.attention_impl in ("auto", "xla", "flash", "ring", "ulysses"),
              f"attention_impl={self.attention_impl!r}: auto, xla, flash, ring or ulysses"),
+            (self.moe_impl in (None, "dense", "ragged"),
+             f"moe_impl={self.moe_impl!r}: None, dense or ragged"),
             (self.sequence >= 1 and self.seq_len % self.sequence == 0,
              f"sequence={self.sequence} must be >= 1 and divide seq_len={self.seq_len}"),
             (self.loss_chunk_size is None
@@ -287,14 +294,17 @@ def chunked_lm_loss(params, hidden, tokens, model_cfg: ModelConfig, chunk: int,
 def accumulate_grads(loss_fn, params: dict[str, torch.Tensor], batch: torch.Tensor):
     """Gradient accumulation over ``batch`` [accum, B, S]: each microbatch's
     raw sums are divided by the batch-wide valid-target count, so the summed
-    loss and gradients are the global mean. Gradients accumulate in the
-    masters' ``.grad`` (fp32). Returns the summed loss (0-d tensor)."""
+    loss and gradients are the global mean, and its MoE aux term is weighted
+    1/accum, so the summed aux is the mean over microbatches. Gradients
+    accumulate in the masters' ``.grad`` (fp32). Returns the summed loss
+    (0-d tensor)."""
     denom = torch.clamp(torch.sum((batch[:, :, 1:] >= 0).float()), min=1.0)
     for p in params.values():
         p.grad = None
     total = torch.zeros((), dtype=torch.float32, device=batch.device)
     for tokens in batch:
-        loss = loss_fn(params, tokens, include_aux=True, denom=denom)
+        loss = loss_fn(params, tokens, include_aux=True, denom=denom,
+                       aux_weight=1.0 / batch.shape[0])
         loss.backward()
         total = total + loss.detach()
     return total
@@ -346,12 +356,15 @@ class TrainProgram:
             "lr_scale": 1.0,
         }
 
-    def loss_fn(self, params, raw_tokens, include_aux: bool = True, denom=None):
+    def loss_fn(self, params, raw_tokens, include_aux: bool = True, denom=None,
+                aux_weight: float = 1.0):
         """Masked LM loss of one microbatch: its own valid-target mean, or
-        raw sums over ``denom`` when summing over microbatches."""
+        raw sums over ``denom`` when summing over microbatches. With
+        ``include_aux`` (training; the held-out loss has none) it adds the
+        z-loss and, for MoE, ``aux_weight · router_aux_coef · aux``."""
         cfg = self.config
         tokens, loss_tokens = decode_masked_tokens(raw_tokens)
-        hidden, _ = tfm.forward_hidden_and_aux(
+        hidden, aux = tfm.forward_hidden_and_aux(
             params, tokens, self.model_config, compute_dtype=cfg.compute_dtype(),
             remat=cfg.activation_checkpointing, sequence=cfg.sequence,
         )
@@ -366,6 +379,8 @@ class TrainProgram:
         z_coef = cfg.z_loss_coef if include_aux else 0.0
         if z_coef:
             loss = loss + z_coef * z_sum / d
+        if self.model_config.is_moe and include_aux:
+            loss = loss + aux_weight * self.model_config.router_aux_coef * aux
         return loss
 
     def step(self, state: dict, batch: torch.Tensor) -> tuple[dict, dict]:
@@ -405,6 +420,14 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
         if cfg.model_name not in MODEL_CONFIGS:
             raise ValueError(f"unknown model {cfg.model_name!r}; known: {sorted(MODEL_CONFIGS)}")
         model_cfg = MODEL_CONFIGS[cfg.model_name]
+    if cfg.moe_impl is not None:
+        if not model_cfg.is_moe:
+            # Checked before the no-op case: 'dense' on a dense model is as
+            # wrong as 'ragged'.
+            raise ValueError(f"moe_impl={cfg.moe_impl!r} set on the dense model "
+                             f"{model_cfg.name!r} (no experts to dispatch)")
+        if model_cfg.moe_impl != cfg.moe_impl:
+            model_cfg = model_cfg.with_(moe_impl=cfg.moe_impl)
     tfm._require_ported(model_cfg)
     if cfg.sequence > 1:
         impl = "ulysses" if cfg.attention_impl == "ulysses" else "ring"

@@ -105,11 +105,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    dispatch and flash attention, the median gap within SERVE_MOE_TAU, and
    a shorter run in fp32 compute held by SERVE_MOE_FP32; K1 launched once a
    layer per teacher forward; weight bytes, peak memory, TTFT, decode
-   tokens/s, one dispatch timed and profiled.
+   tokens/s, one dispatch timed and profiled;
+16. train_int8: ``train``'s llama-1b with the attention and MLP products
+   in int8 (``quant_training="int8"``, ``torch._int_mm``): launch counts
+   exact (``_int_mm`` 4 times per targeted product a microbatch, no bf16
+   GEMM left on a targeted projection), held against the bf16 path (logits,
+   first loss, each group's gradient cosine), the backward's stochastic
+   rounding held unbiased, every einsum spec at sizes the card's int8 GEMM
+   refuses unpadded; then one step of ``train_moe``'s moe-8x7b with the
+   expert products in int8 too;
+17. train_lora: llama-7b at full width and depth, frozen fp32 base, LoRA
+   rank 16 on q/k/v/o, seq 2048 x 2: step 0's loss bitwise the base
+   forward's, the loss falls, the base unchanged, adapter-sized optimizer
+   state, ``merged_params``' logits against the adapter forward's;
+18. train_opt: ``train``'s llama-1b with Adafactor, then Lion: the loss
+   falls, optimizer-state bytes against AdamW's, the update timed alone;
+19. remat: ``train``'s llama-1b for 3 steps under each remat policy:
+   losses and gradient norms bitwise nothing_saveable's, exact launch
+   counts, step time, peak memory and the bytes a forward keeps.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results (``launches`` per training step, summed over
-``train``, ``train_ring`` and ``train_moe`` for the bf16 D 128 kernels, K1's
+``D128_PATHS`` for the bf16 D 128 kernels, K1's
 adding its launches per teacher forward of ``serve_moe``, from
 ``train_gemma`` for the bf16 D 256 ones, and over each ``OFF_PATH`` row's
 paths for the others; ``launches_by_path`` per step of each; every row must
@@ -837,8 +854,7 @@ def phase_kernels(res: dict) -> None:
          "library_ms": library.get(name),
          "shape": [B * H if name in REPLACES else RB, S, D],
          "counter": name,
-         "paths": ["train", "train_ring", "train_moe"] + (["serve_moe"] if name == "flash_fwd"
-                                                          else [])}
+         "paths": list(D128_PATHS) + (["serve_moe"] if name == "flash_fwd" else [])}
         for name in t
     ] + _d256_rows(fc, res, main256, main256_full) + _off_path_rows(fc, res)
     res["attention_fwd_bwd"] = {"kernels_ms": ours_both, "library_ms": sdpa_both,
@@ -860,6 +876,12 @@ def phase_kernels(res: dict) -> None:
     for key, row in bwd_pair.items():
         print(f"time K2+K3 {key} {row['shape']}: kernels {row['kernels_ms']:.4f} ms, "
               f"library {row['library_ms']}", flush=True)
+
+
+# The training paths of the bf16 D 128 kernels (K1 also serve_moe's teacher
+# forwards); remat's launches are nothing_saveable's.
+D128_PATHS = ("train", "train_ring", "train_moe", "train_int8", "train_lora",
+              "train_adafactor", "train_lion", "remat")
 
 
 def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
@@ -1112,9 +1134,11 @@ def _run_steps(cfg, steps: int, want_impl: str, before=None, model_cfg=None):
     batch, repeated, with every launch counter set to 0 just before.
     ``before(prog, state, batch)``, if given, runs on the initial state
     first. Returns (program, state, batch, losses, gradient norms, step
-    seconds, launches, what ``before`` returned)."""
+    seconds, launches (the flash kernels' and ``torch._int_mm``'s), what
+    ``before`` returned)."""
     import torch
 
+    from tpu_engine_torch import quant_train as qt
     from tpu_engine_torch.ops import _flash_cuda as fc
     from tpu_engine_torch.train import build_train_program
 
@@ -1129,6 +1153,7 @@ def _run_steps(cfg, steps: int, want_impl: str, before=None, model_cfg=None):
     torch.cuda.reset_peak_memory_stats()
 
     fc.reset_launches()
+    qt.reset_launches()
     losses, norms, times = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1137,17 +1162,20 @@ def _run_steps(cfg, steps: int, want_impl: str, before=None, model_cfg=None):
         norms.append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return prog, state, batch, losses, norms, times, dict(fc.launches), first
+    return (prog, state, batch, losses, norms, times, {**fc.launches, **qt.launches},
+            first)
 
 
 def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
-           first_loss_ref=None, model_cfg=None) -> None:
+           first_loss_ref=None, model_cfg=None, exact_first: bool = False):
     """Train ``cfg`` for ``steps`` steps (:func:`_run_steps`) and check the
     losses and the launch counts read just after. ``want`` is the launch
-    count per microbatch of each kernel; a kernel missing from it must not
-    launch at all. The first loss must lie near ln(vocab) or, with
-    ``first_loss_ref(prog, state, batch)`` (the loss of the initial state
-    by another path), within FIRST_LOSS_REL of what that returns."""
+    count per microbatch of each kernel (and of ``int_mm``); a kernel
+    missing from it must not launch at all. The first loss must lie near
+    ln(vocab) or, with ``first_loss_ref(prog, state, batch)`` (the loss of
+    the initial state by another path), within FIRST_LOSS_REL of what that
+    returns (``exact_first``: equal to it). Returns (program, state,
+    batch)."""
     import torch
 
     from tpu_engine_torch.models import transformer as tfm
@@ -1170,6 +1198,7 @@ def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
         "mfu": tokens / step_s * flops_tok / PEAK_BF16_FLOPS,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": counts, "launches_expected": want,
+        "opt_state_bytes": prog.tx.state_bytes(state["opt_state"]),
     }
     print(f"{key}: losses {[round(x, 4) for x in losses]}", flush=True)
     print(f"{key}: step {step_s * 1e3:.1f} ms (min of steps 2..{steps}), "
@@ -1185,26 +1214,36 @@ def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
               f"(relative {abs(losses[0] - ref) / ref:.2e}, bound {FIRST_LOSS_REL})", flush=True)
         if not abs(losses[0] - ref) <= FIRST_LOSS_REL * ref:
             raise AssertionError(f"first loss {losses[0]} vs the plain path's {ref}")
+        if exact_first and losses[0] != ref:
+            raise AssertionError(f"first loss {losses[0]!r} is not bitwise {ref!r}")
     if not all(b < a for a, b in zip(losses[1:], losses[2:])):
         raise AssertionError(f"loss did not fall at every step on a repeated batch: {losses}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     out["profile"] = _profile(lambda: prog.step(state, batch), key)
     out["optimizer_ms"] = _time_optimizer(prog, state, key)
+    return prog, state, batch
 
 
 def phase_train(res: dict, steps: int) -> None:
     """llama-1b, seq 2048, micro-batch 4, flash attention: per microbatch K1
     runs twice per layer (forward and the checkpoint's recompute), K2 and
     K3 once."""
+    L = 16
+    _train(res, "train", _llama_1b_cfg(), steps, "flash",
+           {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+
+
+def _llama_1b_cfg(**kw):
+    """``train``'s configuration (llama-1b, seq 2048 × micro-batch 4, bf16
+    compute, fp32 masters, AdamW, checkpointing, flash), with ``kw``."""
     from tpu_engine_torch.train import TrainConfig
 
-    cfg = TrainConfig(model_name="llama-1b", micro_batch_size=4, gradient_accumulation_steps=1,
-                      seq_len=2048, precision="bf16", param_dtype="fp32",
-                      activation_checkpointing=True, attention_impl="auto", **TRAIN_LR)
-    L = 16
-    _train(res, "train", cfg, steps, "flash",
-           {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+    return TrainConfig(**{**dict(model_name="llama-1b", micro_batch_size=4,
+                                 gradient_accumulation_steps=1, seq_len=2048,
+                                 precision="bf16", param_dtype="fp32",
+                                 activation_checkpointing=True, attention_impl="auto",
+                                 **TRAIN_LR), **kw})
 
 
 def phase_train_gemma(res: dict, steps: int) -> None:
@@ -2086,27 +2125,30 @@ def _moe_dense_vs_ragged(cfg, mcfg) -> dict:
     return out
 
 
-def _moe_ragged_step(cfg, mcfg) -> dict:
-    """One training step with ragged dispatch from the seed-0 weights and
-    batch (a fresh program), launches counted from 0 around it."""
-    from dataclasses import replace
-
+def _one_step(cfg, mcfg) -> dict:
+    """One training step of ``cfg`` on ``mcfg`` from the seed-0 weights and
+    batch (a fresh program), launches (the flash kernels' and
+    ``torch._int_mm``'s) counted from 0 around it."""
     import torch
 
+    from tpu_engine_torch import quant_train as qt
     from tpu_engine_torch.ops import _flash_cuda as fc
     from tpu_engine_torch.train import build_train_program
 
-    prog = build_train_program(replace(cfg, moe_impl="ragged"), model_cfg=mcfg, device="cuda")
+    prog = build_train_program(cfg, model_cfg=mcfg, device="cuda")
     state = prog.init()
     batch = prog.synthetic_batch(seed=0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fc.reset_launches()
+    qt.reset_launches()
     t0 = time.perf_counter()
     state, m = prog.step(state, batch)
     loss, norm = float(m["loss"]), float(m["grad_norm"])
     torch.cuda.synchronize()
     out = {"loss": loss, "grad_norm": norm, "step_ms": (time.perf_counter() - t0) * 1e3,
-           "launches": dict(fc.launches)}
+           "launches": {**fc.launches, **qt.launches},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     del state
     torch.cuda.empty_cache()
     return out
@@ -2192,7 +2234,7 @@ def phase_train_moe(res: dict, steps: int) -> None:
         fails.append(f"bf16 dense vs ragged, tokens routed alike: logits "
                      f"{b16['logits_rel_err_routed_alike']:.3e} > {MODEL_REL['bf16']}")
 
-    step = out["ragged_step"] = _moe_ragged_step(cfg, mcfg)
+    step = out["ragged_step"] = _one_step(replace(cfg, moe_impl="ragged"), mcfg)
     ref = b16["loss"]["dense"]
     print(f"train_moe: one ragged step: loss {step['loss']:.5f} (dense at capacity factor "
           f"{MOE_NO_DROP_CF}: {ref:.5f}), {step['step_ms']:.1f} ms, launches {step['launches']}",
@@ -2388,10 +2430,469 @@ def phase_serve_moe(res: dict) -> None:
         raise AssertionError("; ".join(fails))
 
 
+# Quantised training, LoRA, the other optimizers and the remat policies
+# (train_int8, train_lora, train_opt, remat). Every bound below is set from
+# train_faults.py, which plants a fault in each and reads the same checks
+# beside the sound code; the readings are written beside each bound.
+#
+# train_int8: train's llama-1b with the attention and MLP products in int8.
+# The int8 path is held against the bf16 path on the same initial weights
+# and batch: the logits by relative norm error (INT8_LOGITS_REL), the first
+# loss (INT8_LOSS_REL, relative) and each targeted group's weight gradients
+# by cosine (INT8_GRAD_COS). INT8_BIAS_RATIO holds the backward's rounding
+# unbiased: over INT8_BIAS_DRAWS backward products of one projection (fp32
+# operands, one element of each moved per draw, so the data-derived salts
+# change), the error of the mean against the mean exact product, over the
+# mean single-draw error, is about 1/sqrt(draws) when the draws' errors are
+# zero-mean and independent, and about 1 when they are not. Readings on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W; train_faults.py), sound / per-tensor
+# scales / the scales' outer product dropped: logits 0.122 / 0.310 / 1.23,
+# first loss 1.5e-5 / 1.7e-4 / 1.7e-4 (random weights put every loss near
+# ln(vocab) + 0.4), gradient cosines attn 0.984 / 0.912 / NaN and mlp 0.982
+# / 0.889 / 0.004; the ratio 0.250 sound, 1.000 with the backward rounding
+# to nearest. Each bound lies midway between the sound reading and the
+# nearer fault's.
+INT8_TARGETS = ("attn", "mlp")
+INT8_LOGITS_REL = 0.21
+INT8_LOSS_REL = 9e-5
+INT8_GRAD_COS = 0.95
+INT8_BIAS_DRAWS = 16
+INT8_BIAS_RATIO = 0.62
+# Every spec of the int8 product at sizes the card's int8 GEMM refuses
+# unpadded (M <= 16 or K, N not multiples of 8; the MoE contraction b·c
+# 26): the card's forward against the CPU's (the same codes, int32 sums
+# and fp32 scaling), its gradients against fp32 products by cosine.
+INT8_ODD_SPECS = (("bsi,io->bso", (3, 37, 100), (100, 52)),
+                  ("bsi,io->bso", (1, 5, 60), (60, 7)),
+                  ("ebcd,edf->ebcf", (3, 2, 13, 100), (3, 100, 52)),
+                  ("ebcf,efd->ebcd", (3, 2, 13, 52), (3, 52, 100)))
+# train_lora: llama-7b at full width and depth, its fp32 base frozen, LoRA
+# rank 16 on q/k/v/o at alpha 32 (scale 2, so a dropped scale shows), seq
+# 2048 x micro-batch 2, bf16 compute. At 1e-3 the loss on the repeated
+# batch rose again at the fourth step; 1e-4 keeps it falling. After the
+# steps, merged_params' bf16 logits are held to the adapter forward's by
+# relative norm error, LORA_MERGED_REL: the merged kernels round W + 2·A@B
+# to bf16 once where the adapter path adds 2·(h@A)@B to a bf16 product, and
+# 32 layers amplify the difference, so MODEL_REL["bf16"] (2e-2, set on a
+# 2-layer llama) is missed by sound code. Readings on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W; train_faults.py, 5 steps): sound 0.066, the LoRA scale
+# left out of the projections 0.751; the bound lies midway.
+LORA = dict(lora_rank=16, lora_alpha=32.0, lora_targets=("q", "k", "v", "o"))
+LORA_LR = dict(learning_rate=1e-4, warmup_steps=1, lr_schedule="constant")
+LORA_MERGED_REL = 0.4
+# remat: train's llama-1b for REMAT_STEPS steps under each policy. Losses
+# and gradient norms must equal nothing_saveable's bitwise. What a policy
+# keeps is read as the device memory a microbatch's forward leaves
+# allocated: a named policy must keep at least REMAT_TAG_SHARE of the bytes
+# of its tagged tensors (bf16, every layer) more than nothing_saveable.
+REMAT_STEPS = 3
+REMAT_RUN = ("nothing_saveable", "everything_saveable", "dots_saveable",
+             "dots_with_no_batch_dims_saveable", "save_qkv_attn_out", "save_attn_out")
+REMAT_TAG_SHARE = 0.5
+
+
+def int8_readings(cfg, device="cuda") -> dict:
+    """``cfg`` (int8) against the same configuration in bf16 on the seed's
+    initial weights and synthetic batch: logits of the first microbatch by
+    relative norm error, the first loss, and each targeted group's weight
+    gradients by cosine."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+    from tpu_engine_torch.train import accumulate_grads, build_train_program
+
+    progs = {"bf16": build_train_program(replace(cfg, quant_training="none"), device=device),
+             "int8": build_train_program(cfg, device=device)}
+    mcfg = progs["bf16"].model_config
+    params = tfm.init_params(mcfg, torch.Generator(device=device).manual_seed(cfg.seed), device)
+    batch = progs["bf16"].synthetic_batch(seed=0)
+    logits = {}
+    with torch.no_grad():
+        for name, prog in progs.items():
+            hidden, _ = tfm.forward_hidden_and_aux(params, batch[0], prog.model_config,
+                                                   compute_dtype=cfg.compute_dtype())
+            logits[name] = tfm.unembed(params, hidden, prog.model_config)
+    out = {"logits_rel_err": _rel_err(logits["int8"], logits["bf16"])}
+    del logits
+    loss, grads = {}, {}
+    for name, prog in progs.items():
+        loss[name] = float(accumulate_grads(prog.loss_fn, params, batch))
+        grads[name] = {k: p.grad for k, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    out["loss"] = loss
+    out["loss_rel_err"] = abs(loss["int8"] - loss["bf16"]) / loss["bf16"]
+    groups = {"attn": ("q", "k", "v", "o"), "mlp": ("gate", "up", "down")}
+    out["grad_cos"] = {}
+    for group in cfg.quant_train_targets:
+        a, b = (torch.cat([grads[n][f"layers.{t}.kernel"].flatten() for t in groups[group]])
+                for n in ("int8", "bf16"))
+        out["grad_cos"][group] = float(a @ b / (a.norm() * b.norm()))
+    return out
+
+
+def int8_bias_reading(draws: int = INT8_BIAS_DRAWS, shape=(4, 2048, 2048),
+                      device="cuda") -> dict:
+    """The backward's rounding bias at train's o projection (h [4, 2048,
+    2048] @ W [2048, 2048], fp32 operands so no output rounding adds a bias
+    of its own): dlhs of ``draws`` backward products, h, W and the cotangent
+    each moved in one element per draw, against g @ Wᵀ in fp32 (TF32
+    off)."""
+    import torch
+
+    from tpu_engine_torch import quant_train as qt
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    h = torch.randn(shape, generator=gen, device=device)
+    w = torch.randn(shape[-1], shape[-1], generator=gen, device=device) * 0.02
+    g = torch.randn(shape, generator=gen, device=device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        mean_got = torch.zeros_like(g)
+        mean_want = torch.zeros_like(g)
+        single = []
+        for i in range(draws):
+            hi, wi, gi = h.clone(), w.clone(), g.clone()
+            for t in (hi, wi, gi):
+                t.view(-1)[0] += (i + 1) * 1e-3
+            hi.requires_grad_(True)
+            (got,) = torch.autograd.grad(qt.int8_einsum("bsi,io->bso", hi, wi), (hi,), gi)
+            want = torch.matmul(gi, wi.t())
+            single.append(_rel_err(got, want))
+            mean_got += got / draws
+            mean_want += want / draws
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err_single = sum(single) / draws
+    err_mean = _rel_err(mean_got, mean_want)
+    return {"draws": draws, "single_rel_err": err_single, "mean_rel_err": err_mean,
+            "ratio": err_mean / err_single}
+
+
+def int8_odd_shapes() -> dict:
+    """INT8_ODD_SPECS on the card against the CPU."""
+    import torch
+
+    from tpu_engine_torch import quant_train as qt
+
+    out = {}
+    gen = torch.Generator().manual_seed(11)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for spec, ls, rs in INT8_ODD_SPECS:
+            lhs, rhs = torch.randn(ls, generator=gen), torch.randn(rs, generator=gen)
+            want = qt.int8_einsum(spec, lhs, rhs)
+            lc = lhs.cuda().requires_grad_(True)
+            rc = rhs.cuda().requires_grad_(True)
+            got = qt.int8_einsum(spec, lc, rc)
+            fwd = _rel_err(got.detach().cpu(), want)
+            got.square().sum().backward()
+            la, ra = lhs.cuda().requires_grad_(True), rhs.cuda().requires_grad_(True)
+            torch.einsum(spec, la, ra).square().sum().backward()
+            cos = [float((a.grad.flatten() @ b.grad.flatten())
+                         / (a.grad.norm() * b.grad.norm())) for a, b in ((lc, la), (rc, ra))]
+            key = f"{spec} {list(ls)} {list(rs)}"
+            out[key] = {"forward_rel_err": fwd, "grad_cos": cos}
+            if not (fwd <= 1e-6 and min(cos) > 0.999):
+                raise AssertionError(f"int8 product {key}: forward {fwd:.3e} against the "
+                                     f"CPU's (bound 1e-6), gradient cosines {cos} (> 0.999)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def phase_train_int8(res: dict, steps: int) -> None:
+    """llama-1b as ``train`` with ``quant_training="int8"`` on the attention
+    and MLP products: per microbatch ``torch._int_mm`` runs 4 times per
+    targeted product (forward, the checkpoint's recompute, the two backward
+    products: 4 x 7 x 16) and no targeted projection takes a bf16 GEMM; K1
+    twice per layer, K2 and K3 once. Held against the bf16 path
+    (:func:`int8_readings`), the backward's rounding held unbiased
+    (:func:`int8_bias_reading`), every spec at odd sizes
+    (:func:`int8_odd_shapes`); then one step of moe-8x7b at 2 layers (as
+    ``train_moe``) with the expert products in int8 too, at their real
+    capacities."""
+    from dataclasses import replace
+    from unittest import mock
+
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    L = 16
+    cfg = _llama_1b_cfg(quant_training="int8", quant_train_targets=INT8_TARGETS)
+    real, plain_calls = tfm._proj, []
+
+    def counting(h, kernel, bias=None, lora_ab=None, lora_scale=1.0, dot=None):
+        if dot is None:  # a float kernel's bf16 GEMM
+            plain_calls.append(tuple(kernel.shape))
+        return real(h, kernel, bias, lora_ab, lora_scale, dot)
+
+    with mock.patch.object(tfm, "_proj", counting):
+        _train(res, "train_int8", cfg, steps, "flash",
+               {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "int_mm": 4 * 7 * L})
+    out = res["train_int8"]
+    out["plain_proj_calls"] = len(plain_calls)
+    base = res.get("train", {})
+    print(f"train_int8: step {out['step_ms']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{out['mfu']:.4f}, peak {out['peak_mem_gib']:.2f} GiB; train (bf16): step "
+          f"{base.get('step_ms', float('nan')):.1f} ms, MFU {base.get('mfu', float('nan')):.4f}, "
+          f"peak {base.get('peak_mem_gib', float('nan')):.2f} GiB", flush=True)
+    fails = []
+    if plain_calls:
+        fails.append(f"{len(plain_calls)} targeted projections took a bf16 GEMM")
+    torch.cuda.empty_cache()
+    r = out["vs_bf16"] = int8_readings(cfg)
+    torch.cuda.empty_cache()
+    print(f"train_int8: against bf16: logits {r['logits_rel_err']:.3e} (bound "
+          f"{INT8_LOGITS_REL}), first loss {r['loss']['int8']:.5f} / {r['loss']['bf16']:.5f} "
+          f"({r['loss_rel_err']:.2e}, bound {INT8_LOSS_REL}), gradient cosines "
+          f"{r['grad_cos']} (bound {INT8_GRAD_COS})", flush=True)
+    if not r["logits_rel_err"] <= INT8_LOGITS_REL:
+        fails.append(f"int8 logits {r['logits_rel_err']:.3e} > {INT8_LOGITS_REL}")
+    if not r["loss_rel_err"] <= INT8_LOSS_REL:
+        fails.append(f"int8 first loss {r['loss_rel_err']:.3e} > {INT8_LOSS_REL}")
+    if not all(c >= INT8_GRAD_COS for c in r["grad_cos"].values()):  # NaN fails
+        fails.append(f"int8 gradient cosines {r['grad_cos']} < {INT8_GRAD_COS}")
+    b = out["bwd_bias"] = int8_bias_reading()
+    print(f"train_int8: backward rounding over {b['draws']} draws: single {b['single_rel_err']:.3e}, "
+          f"mean {b['mean_rel_err']:.3e}, ratio {b['ratio']:.3f} (bound {INT8_BIAS_RATIO})",
+          flush=True)
+    if not b["ratio"] <= INT8_BIAS_RATIO:
+        fails.append(f"backward rounding ratio {b['ratio']:.3f} > {INT8_BIAS_RATIO}")
+    out["odd_shapes"] = int8_odd_shapes()
+    print(f"train_int8: odd shapes {json.dumps(out['odd_shapes'])}", flush=True)
+
+    mcfg = tfm.MODEL_CONFIGS["moe-8x7b"].with_(n_layers=MOE_TRAIN_LAYERS)
+    mc = replace(cfg, model_name="moe-8x7b", micro_batch_size=2, moe_impl="dense",
+                 quant_train_targets=("attn", "mlp", "moe"))
+    torch.cuda.empty_cache()
+    step = out["moe_step"] = _one_step(mc, mcfg)
+    Lm, E = MOE_TRAIN_LAYERS, mcfg.n_experts
+    want = {"flash_fwd": 2 * Lm, "flash_bwd_dq": Lm, "flash_bwd_dkv": Lm,
+            "int_mm": 4 * (4 + 3 * E) * Lm}
+    # Held to the bf16 first loss like the ragged step (FIRST_LOSS_REL).
+    ref = res.get("train_moe", {}).get("losses", [None])[0]
+    print(f"train_int8: moe-8x7b ({Lm} layers, capacity {mcfg.expert_capacity(2048)}) one int8 "
+          f"step: loss {step['loss']:.5f} (bf16 train_moe's first: {ref}), {step['step_ms']:.1f} ms, "
+          f"peak {step['peak_mem_gib']:.2f} GiB, launches {step['launches']}", flush=True)
+    if {k: v for k, v in step["launches"].items() if v} != want:
+        fails.append(f"moe int8 step launches {step['launches']} != {want}")
+    if not math.isfinite(step["loss"]) or (
+            ref is not None and not abs(step["loss"] - ref) <= FIRST_LOSS_REL * ref):
+        fails.append(f"moe int8 step loss {step['loss']} vs bf16 {ref}")
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def _checksum(params: dict) -> list:
+    """(Σ x, Σ |x|) over every tensor, in float64."""
+    import torch
+
+    return [float(sum(t.sum(dtype=torch.float64) for t in params.values())),
+            float(sum(t.abs().sum(dtype=torch.float64) for t in params.values()))]
+
+
+def lora_merged_rel(prog, adapters, tokens) -> float:
+    """``merged_params``' logits against the adapter forward's (both bf16,
+    flash) on ``tokens``, by relative norm error."""
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    cfg, dtype = prog.model_config, prog.config.compute_dtype()
+    with torch.no_grad():
+        hidden, _ = tfm.forward_hidden_and_aux(prog.base_params, tokens, cfg, compute_dtype=dtype,
+                                               lora=adapters,
+                                               lora_scale=prog.config.lora_scale())
+        want = tfm.unembed(prog.base_params, hidden, cfg)
+        del hidden
+        merged = prog.merged_params(adapters)
+        got = tfm.forward(merged, tokens, cfg, compute_dtype=dtype)
+        del merged
+    rel = _rel_err(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    return rel
+
+
+def lora_config():
+    from tpu_engine_torch.train import TrainConfig
+
+    return TrainConfig(model_name="llama-7b", micro_batch_size=2, gradient_accumulation_steps=1,
+                       seq_len=2048, precision="bf16", param_dtype="fp32",
+                       activation_checkpointing=True, attention_impl="auto", **LORA, **LORA_LR)
+
+
+def phase_train_lora(res: dict, steps: int) -> None:
+    """llama-7b at full width and depth (32 layers, d_model 4096, 32 heads of
+    128) with a frozen fp32 base from seed 0 and LoRA adapters (``LORA``),
+    seq 2048 x micro-batch 2, bf16 compute, checkpointing, flash: step 0's
+    loss equals the base forward's bitwise (B = 0), the loss falls, the
+    base's checksum does not move, the optimizer state is adapter-sized,
+    and ``merged_params``' logits agree with the adapter forward's within
+    LORA_MERGED_REL. K1 twice per layer a microbatch, K2 and K3 once."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_engine_torch import lora as lora_mod
+    from tpu_engine_torch.train import build_train_program
+
+    cfg = lora_config()
+    L = 32
+    checks: dict = {}
+
+    def base_loss(prog, state, batch) -> float:
+        checks["base_sum"] = _checksum(prog.base_params)
+        plain = build_train_program(replace(cfg, lora_rank=None), device="cuda")
+        return float(plain.eval_step({"params": prog.base_params}, batch))
+
+    prog, state, batch = _train(res, "train_lora", cfg, steps, "flash",
+                                {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L},
+                                first_loss_ref=base_loss, exact_first=True)
+    out = res["train_lora"]
+    n = lora_mod.lora_param_count(prog.model_config, cfg.lora_rank, cfg.lora_targets)
+    out["adapter_params"] = n
+    out["base_bytes"] = sum(t.numel() * t.element_size() for t in prog.base_params.values())
+    out["base_checksum"] = [checks["base_sum"], _checksum(prog.base_params)]
+    out["merged_logits_rel_err"] = lora_merged_rel(prog, state["params"], batch[0])
+    print(f"train_lora: {n} adapter parameters, optimizer state {out['opt_state_bytes']} B, "
+          f"base {out['base_bytes'] / 2**30:.2f} GiB, checksum {out['base_checksum'][0]} -> "
+          f"{out['base_checksum'][1]}; merged against adapter logits "
+          f"{out['merged_logits_rel_err']:.3e} (bound {LORA_MERGED_REL})", flush=True)
+    fails = []
+    if out["base_checksum"][0] != out["base_checksum"][1]:
+        fails.append("the frozen base moved")
+    if out["opt_state_bytes"] != 2 * 4 * n:
+        fails.append(f"optimizer state {out['opt_state_bytes']} B is not two fp32 adapter moments")
+    if not out["merged_logits_rel_err"] <= LORA_MERGED_REL:
+        fails.append(f"merged logits {out['merged_logits_rel_err']:.3e} > {LORA_MERGED_REL}")
+    del prog, state, batch
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def phase_train_opt(res: dict, steps: int) -> None:
+    """``train``'s llama-1b with Adafactor, then Lion: the loss falls, K1-K3
+    launch as in ``train``; optimizer-state bytes against AdamW's, the
+    update's device time alone."""
+    import torch
+
+    L = 16
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    for opt in ("adafactor", "lion"):
+        _train(res, f"train_{opt}", _llama_1b_cfg(optimizer=opt), steps, "flash", want)
+        torch.cuda.empty_cache()
+    adamw = res.get("train", {}).get("opt_state_bytes")
+    out = res["train_opt"] = {
+        opt: {"opt_state_bytes": res[f"train_{opt}"]["opt_state_bytes"],
+              "optimizer_ms": res[f"train_{opt}"]["optimizer_ms"],
+              "step_ms": res[f"train_{opt}"]["step_ms"]}
+        for opt in ("adafactor", "lion")}
+    out["adamw"] = {k: res.get("train", {}).get(k) for k in ("opt_state_bytes", "optimizer_ms",
+                                                             "step_ms")}
+    print("train_opt: " + "; ".join(
+        f"{o}: state {v['opt_state_bytes']} B, update {v['optimizer_ms']} ms, step "
+        f"{v['step_ms']} ms" for o, v in out.items()), flush=True)
+    n = res["train_adafactor"]["opt_state_bytes"]
+    if adamw is not None and not (n < 0.1 * adamw / 2 and
+                                  res["train_lion"]["opt_state_bytes"] * 2 == adamw):
+        raise AssertionError(f"optimizer state: adafactor {n}, lion "
+                             f"{res['train_lion']['opt_state_bytes']}, adamw {adamw}")
+
+
+def remat_kept_bytes(prog, state, batch) -> int:
+    """Device bytes one microbatch's forward leaves allocated for its
+    backward (the loss and its graph alive)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss = prog.loss_fn(state["params"], batch[0])
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    del loss
+    return kept
+
+
+def remat_tagged_bytes(policy: str) -> int:
+    """Bytes of the tensors a named policy keeps, bf16, every layer of
+    ``train``'s llama-1b: attn_out, and q, k, v for save_qkv_attn_out."""
+    from tpu_engine_torch.models import transformer as tfm
+
+    c = tfm.MODEL_CONFIGS["llama-1b"]
+    per_token = c.n_heads * c.head_dim
+    if policy == "save_qkv_attn_out":
+        per_token += c.n_heads * c.head_dim + 2 * c.n_kv_heads * c.head_dim
+    return c.n_layers * 4 * 2048 * per_token * 2
+
+
+def phase_remat(res: dict, steps: int = REMAT_STEPS) -> None:
+    """``train``'s llama-1b under each of REMAT_RUN for ``steps`` steps:
+    step time, peak memory and the bytes a forward keeps; losses and
+    gradient norms bitwise nothing_saveable's; K1 once per layer a
+    microbatch under everything_saveable (nothing recomputed), twice under
+    the others (the dots policies never see the flash kernels, and the
+    named ones recompute the attention's own residuals), K2 and K3 once;
+    the kept bytes ordered, and each named policy keeping at least
+    REMAT_TAG_SHARE of its tagged bytes more than nothing_saveable."""
+    import torch
+
+    L = 16
+    out = res["remat"] = {"steps": steps, "accum": 1, "policies": {}}
+    fails = []
+    for policy in REMAT_RUN:
+        cfg = _llama_1b_cfg(remat_policy=policy)
+        prog, state, batch, losses, norms, times, counts, kept = _run_steps(
+            cfg, steps, "flash", before=remat_kept_bytes)
+        k1 = L if policy == "everything_saveable" else 2 * L
+        want = {n: 0 for n in counts}
+        want.update({"flash_fwd": k1 * steps, "flash_bwd_dq": L * steps,
+                     "flash_bwd_dkv": L * steps})
+        r = out["policies"][policy] = {
+            "losses": losses, "grad_norms": norms, "step_ms": min(times[1:]) * 1e3,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "kept_gib": kept / 2**30, "launches": counts}
+        print(f"remat {policy}: step {r['step_ms']:.1f} ms, peak {r['peak_mem_gib']:.2f} GiB, "
+              f"forward keeps {r['kept_gib']:.3f} GiB, losses {losses}", flush=True)
+        if counts != want:
+            fails.append(f"{policy}: launches {counts} != {want}")
+        del prog, state, batch
+        torch.cuda.empty_cache()
+    out["launches"] = out["policies"]["nothing_saveable"]["launches"]
+    ref = out["policies"]["nothing_saveable"]
+    for policy, r in out["policies"].items():
+        if (r["losses"], r["grad_norms"]) != (ref["losses"], ref["grad_norms"]):
+            fails.append(f"{policy}: losses {r['losses']} / gradient norms {r['grad_norms']} "
+                         f"are not nothing_saveable's {ref['losses']} / {ref['grad_norms']}")
+    kept = [out["policies"][p]["kept_gib"] for p in (
+        "everything_saveable", "dots_saveable", "dots_with_no_batch_dims_saveable",
+        "save_qkv_attn_out", "save_attn_out", "nothing_saveable")]
+    if kept != sorted(kept, reverse=True):
+        fails.append(f"kept bytes out of order: {kept}")
+    for policy in ("save_qkv_attn_out", "save_attn_out"):
+        extra = (out["policies"][policy]["kept_gib"] - ref["kept_gib"]) * 2**30
+        need = REMAT_TAG_SHARE * remat_tagged_bytes(policy)
+        out["policies"][policy]["extra_over_tagged"] = extra / remat_tagged_bytes(policy)
+        if not extra >= need:
+            fails.append(f"{policy} keeps {extra / 2**30:.3f} GiB over nothing_saveable, "
+                         f"under {need / 2**30:.3f}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
 def _time_optimizer(prog, state, key: str) -> float:
-    """Device time of the AdamW update alone over the llama-1b masters (CUDA
-    events), on zero gradients at lr 0: the same tensors and passes as in a
-    step, leaving the weights unchanged."""
+    """Device time of the program's optimizer update alone over its
+    trainable parameters (CUDA events), on zero gradients at lr 0: the same
+    tensors and passes as in a step, leaving the weights unchanged."""
     import torch
 
     params = state["params"]
@@ -2502,6 +3003,10 @@ def main() -> int:
         run("train_tiny", phase_train_tiny, res, args.steps)
         run("train_gemma", phase_train_gemma, res, args.steps)
         run("train_moe", phase_train_moe, res, args.steps)
+        run("train_int8", phase_train_int8, res, args.steps)
+        run("train_lora", phase_train_lora, res, args.steps)
+        run("train_opt", phase_train_opt, res, args.steps)
+        run("remat", phase_remat, res)
         serving: dict = {}
         run("generate", phase_generate, res, serving)
         run("serve", phase_serve, res, serving)
@@ -2512,8 +3017,8 @@ def main() -> int:
         run("serve_moe", phase_serve_moe, res)
     # Launches per training step on the paths, each counted from 0 around its
     # own run of steps x accumulation microbatches: the bf16 D 128 kernels'
-    # on train, train_ring and train_moe (K1's also per teacher forward of
-    # serve_moe), the bf16 D 256 kernels' on train_gemma, each
+    # on D128_PATHS (K1's also per teacher forward of serve_moe), the bf16
+    # D 256 kernels' on train_gemma, each
     # OFF_PATH row's on its own paths. A row that names paths must have
     # launched on them; non-causal bf16 D 256 (ring attention's past hops at
     # gemma's head dim) runs on no path and names none.

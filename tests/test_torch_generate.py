@@ -213,8 +213,9 @@ def test_sampling_reproducible_for_a_generator_seed(llama):
 
 def test_guards(llama, gqa_window):
     """A ring chunk larger than the ring allows, speculative batch > 1 and
-    gamma < 1 raise ValueError, as in JAX; quantised training raises
-    NotImplementedError; qwen and MoE (which raised before they were
+    gamma < 1 raise ValueError, as in JAX; a config with int8 quantised
+    training decodes as JAX's does (its MLP through the int8 product, its
+    projections plain); qwen and MoE (which raised before they were
     ported) decode, MoE as forward with ragged dispatch (exact top-k)."""
     _, cfg, _, tp = llama
     _, wcfg, _, wtp = gqa_window
@@ -226,10 +227,13 @@ def test_guards(llama, gqa_window):
         tgen.speculative_generate(tp, tp, toks, cfg, cfg, 4, device="cpu", **T32)
     with pytest.raises(ValueError, match="gamma"):
         tgen.speculative_generate(tp, tp, toks[:1], cfg, cfg, 4, gamma=0, device="cpu", **T32)
-    with pytest.raises(NotImplementedError):
-        tgen.forward_with_cache(tp, toks, tgen.init_cache(cfg, 2, 8, dtype=torch.float32,
-                                                          device="cpu"),
-                                cfg.with_(quant_training="int8"), **T32)
+    jcfg = llama[0].with_(quant_training="int8")
+    want, _ = jgen.forward_with_cache(llama[2], jnp.asarray(toks.numpy()),
+                                      jgen.init_cache(jcfg, 2, 8, dtype=jnp.float32), jcfg, **F32)
+    got, _ = tgen.forward_with_cache(tp, toks, tgen.init_cache(cfg, 2, 8, dtype=torch.float32,
+                                                               device="cpu"),
+                                     cfg.with_(quant_training="int8"), **T32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     moe = tcfg.MODEL_CONFIGS["moe-tiny"]
     mp = ttfm.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
     cache = tgen.init_cache(moe, 2, 8, dtype=torch.float32, device="cpu")

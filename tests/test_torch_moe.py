@@ -219,8 +219,8 @@ def test_ragged_equals_dense_when_nothing_drops(moe, monkeypatch):
 def test_moe_impl_errors_as_jax():
     """JAX's errors: an unknown moe_impl (ValueError at the forward), a
     moe_impl override on a dense model (ValueError at build). Ragged MoE
-    with int8 training is JAX's ValueError; the port refuses int8 training
-    outright (NotImplementedError)."""
+    with int8 training of the "moe" group is JAX's ValueError, at the
+    forward and at build."""
     jc, cfg = jtfm.MODEL_CONFIGS[NAME], tcfg.MODEL_CONFIGS[NAME]
     toks = _tokens(1, 8)
     with pytest.raises(ValueError, match="moe_impl"):
@@ -242,11 +242,11 @@ def test_moe_impl_errors_as_jax():
     with pytest.raises(ValueError, match="ragged"):
         jtfm.forward(jtfm.init_params(jax.random.PRNGKey(0), jc), jnp.asarray(toks),
                      jc.with_(moe_impl="ragged", quant_training="int8"), **F32)
-    with pytest.raises(NotImplementedError, match="quant_training"):
+    with pytest.raises(ValueError, match="ragged"):
         ttfm.forward(params, torch.from_numpy(toks).long(), int8, **T32)
-    with pytest.raises(NotImplementedError, match="quant_training"):
-        ttrain.build_train_program(ttrain.TrainConfig(model_name=NAME), model_cfg=int8,
-                                   device="cpu")
+    with pytest.raises(ValueError, match="ragged"):
+        ttrain.build_train_program(ttrain.TrainConfig(model_name=NAME, quant_training="int8"),
+                                   model_cfg=cfg.with_(moe_impl="ragged"), device="cpu")
 
 
 # -- gradients and training ------------------------------------------------------

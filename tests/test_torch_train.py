@@ -42,10 +42,18 @@ def test_train_config_rejects_unsupported_values():
         ttrain.TrainConfig(seq_len=2048, sequence=3)
     with pytest.raises(ValueError, match="loss_chunk_size"):
         ttrain.TrainConfig(seq_len=32, loss_chunk_size=5)
-    with pytest.raises(NotImplementedError):
-        ttrain.build_train_program(ttrain.TrainConfig(model_name="moe-tiny"), device="cpu",
+    # Quantised training is ported (tests/test_torch_quant_train.py); the
+    # config's quant fields resolve onto the model config as in JAX, and
+    # ragged MoE with the "moe" target raises JAX's ValueError at build.
+    with pytest.raises(ValueError, match="ragged MoE"):
+        ttrain.build_train_program(ttrain.TrainConfig(model_name="moe-tiny",
+                                                      quant_training="int8"), device="cpu",
                                    model_cfg=tcfg.MODEL_CONFIGS["moe-tiny"].with_(
-                                       quant_training="int8"))
+                                       moe_impl="ragged"))
+    prog = ttrain.build_train_program(ttrain.TrainConfig(model_name="moe-tiny"), device="cpu",
+                                      model_cfg=tcfg.MODEL_CONFIGS["moe-tiny"].with_(
+                                          quant_training="int8"))
+    assert prog.model_config.quant_training == "none"
     # gpt2, qwen, gemma and MoE are ported (tests/test_torch_archs.py,
     # tests/test_torch_moe.py).
     for name in ("gpt2-tiny", "qwen-tiny", "gemma-tiny", "moe-tiny"):

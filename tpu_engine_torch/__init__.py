@@ -25,7 +25,13 @@ Slice 6 adds the gpt2, qwen and gemma archs to every entry point above, and
 the flash kernels at gemma's head dim of 256; slice 7 redesigns the forward
 and dK/dV kernels at that head dim for Hopper.
 
+Slice 15 adds to training:
+
+- ``tpu_engine_torch.quant_train`` — int8 quantised training;
+- ``tpu_engine_torch.lora`` — LoRA adapters on a frozen base;
+- Adafactor and Lion beside AdamW, and the remat policies.
+
 Imports here stay light: submodules are imported by the caller.
 """
 
-__all__ = ["generate", "models", "ops", "serving", "train"]
+__all__ = ["generate", "lora", "models", "ops", "quant", "quant_train", "serving", "train"]

@@ -133,6 +133,17 @@ def params_from_jax(tree: dict, cfg, device="cuda",
     return {k: leaf(flat[k]) for k in keys}
 
 
+def lora_from_jax(tree: dict, device="cuda",
+                  dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+    """JAX's LoRA adapter tree (``{"layers": {t: {"A", "B"}}}``, numpy or
+    JAX leaves) → the port's flat adapter dict (``layers.<t>.A``,
+    ``layers.<t>.B``, ``tpu_engine_torch/lora.py``) on ``device``, requiring
+    grad."""
+    return {f"layers.{t}.{name}": torch.tensor(_np(ab[name]), dtype=dtype,
+                                               device=device).requires_grad_(True)
+            for t, ab in tree["layers"].items() for name in ("A", "B")}
+
+
 def params_to_numpy(params: dict[str, torch.Tensor]) -> dict:
     """The port's flat parameters → the JAX-shaped nested dict of float32
     numpy arrays (for comparing updated weights across packages)."""

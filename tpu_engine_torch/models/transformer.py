@@ -15,9 +15,16 @@ to the token embedding; qwen is llama with a per-head RMSNorm of q and k
 before RoPE; gemma stores norm scales as offsets from 1, scales the
 embedding by sqrt(d_model), uses GeGLU and ties the head.
 
-Activation checkpointing (JAX ``jax.checkpoint`` with ``nothing_saveable``
-around each scanned block) is ``torch.utils.checkpoint`` around each block:
-only the block's input is kept, and the block is recomputed in backward.
+Activation checkpointing (JAX ``jax.checkpoint`` around each scanned
+block, under a ``remat_policy``) is ``torch.utils.checkpoint`` around each
+block. ``nothing_saveable`` keeps only the block's input and recomputes the
+block in backward; ``everything_saveable`` keeps everything (no
+checkpoint); the ``dots_*`` policies keep the products' outputs through a
+selective-checkpoint policy over the aten ops (``mm``/``addmm``/``_int_mm``
+have no batch dims, ``bmm`` has), which, like JAX's policies with a Pallas
+call, never sees the flash kernels; the named policies split the block at
+the tensors JAX tags (q, k, v after RoPE, ``attn_out``) and checkpoint each
+piece, so what crosses a cut is what is kept.
 
 Attention is ``"flash"`` (the CUDA kernels), ``"xla"`` (plain PyTorch) or
 ``"ring"`` (sequence-parallel ring attention over ``sequence`` ranks, all in
@@ -33,32 +40,37 @@ capacity); both return the Switch load-balancing aux loss. A projection or
 expert kernel may be an int8 :class:`~tpu_engine_torch.quant.QuantWeight`
 (weight-only quantized serving).
 
-LoRA, quantised training and Ulysses attention are not ported yet and raise
-``NotImplementedError``.
+Quantised training (``quant_training="int8"``) routes the targeted products
+through :func:`tpu_engine_torch.quant_train.int8_einsum` (:func:`_train_dot`).
+LoRA adapters (``tpu_engine_torch/lora.py``) add ``scale·(h@A)@B`` inside
+each adapted projection. Ulysses attention and the ``offload_dots`` policy
+are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig  # noqa: F401
 from tpu_engine_torch.models.convert import param_keys
 from tpu_engine_torch.ops import flash_attention
 from tpu_engine_torch.parallel.ring_attention import ring_mha
 from tpu_engine_torch.quant import QuantWeight, dequantize_weight, mul_round
+from tpu_engine_torch.quant_train import RAGGED_MOE_REFUSAL, int8_einsum
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet: quantised training (JAX's
-    ragged-MoE-with-int8 refusal included), and an arch/MoE pair outside
-    ``MODEL_CONFIGS``' families (:func:`param_keys`)."""
-    if cfg.quant_training != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: quant_training={cfg.quant_training!r} is not ported")
+    """Refuse an arch/MoE pair outside ``MODEL_CONFIGS``' families
+    (:func:`param_keys`)."""
     param_keys(cfg)
 
 
@@ -243,47 +255,81 @@ def _attention(q, k, v, impl: str, window: int = 0, sequence: Optional[int] = No
                                window=window)
 
 
-def _proj(h: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _train_dot(cfg: ModelConfig, group: str):
+    """The quantised-dot hook of one product group ("attn", "mlp", "moe"):
+    :func:`~tpu_engine_torch.quant_train.int8_einsum` when
+    ``cfg.quant_training == "int8"`` and ``group`` is targeted, else None
+    (the call site's plain product)."""
+    if cfg.quant_training == "int8" and group in cfg.quant_train_targets:
+        return int8_einsum
+    return None
+
+
+def _proj(h: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None, lora_ab=None,
+          lora_scale: float = 1.0, dot=None) -> torch.Tensor:
     """``h @ W (+ b)``: h [B, S, in], kernel [in, out] → [B, S, out].
 
     An int8 :class:`QuantWeight` kernel multiplies its codes cast to h's
     dtype (exact: |code| <= 127), then applies the per-output-channel scale
     to the product in fp32 with one rounding, as JAX does (rounding the
-    scale to bf16 first would add a second error)."""
+    scale to bf16 first would add a second error). ``dot`` (quantised
+    training, :func:`_train_dot`) takes the main product of a float kernel.
+    ``lora_ab`` = (A [in, r], B [r, out]) adds ``lora_scale·(h@A)@B``, the
+    activation-side form: only rank-sized intermediates, never a full ΔW;
+    it bypasses ``dot``, as in JAX."""
     if isinstance(kernel, QuantWeight):
         out = mul_round(torch.matmul(h, kernel.q.to(h.dtype)), kernel.scale, h.dtype)
+    elif dot is not None:
+        out = dot("bsi,io->bso", h, kernel)
     else:
         out = torch.matmul(h, kernel)
-    return out if bias is None else out + bias.to(out.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    if lora_ab is not None:
+        a, b = lora_ab
+        out = out + lora_scale * torch.matmul(torch.matmul(h, a), b)
+    return out
 
 
-def _layer_proj(h: torch.Tensor, lp: dict[str, torch.Tensor], name: str) -> torch.Tensor:
+def _layer_proj(h: torch.Tensor, lp: dict[str, torch.Tensor], name: str, dot=None,
+                lora_scale: float = 1.0) -> torch.Tensor:
     """The layer's projection ``name`` with its bias, where the arch has one
-    (gpt2)."""
-    return _proj(h, lp[f"{name}.kernel"], lp.get(f"{name}.bias"))
+    (gpt2), and its LoRA adapter, where ``lp`` holds one (``name.A``,
+    ``name.B``)."""
+    a = lp.get(f"{name}.A")
+    return _proj(h, lp[f"{name}.kernel"], lp.get(f"{name}.bias"),
+                 None if a is None else (a, lp[f"{name}.B"]), lora_scale, dot)
 
 
-def _dense_mlp(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+def _dense_mlp(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
+               lora_scale: float = 1.0) -> torch.Tensor:
     """The MLP of the training and the decode block: SwiGLU (llama, qwen),
-    biased GELU-tanh fc/proj (gpt2), GeGLU (gemma). h [B, S, D], normed."""
+    biased GELU-tanh fc/proj (gpt2), GeGLU (gemma). h [B, S, D], normed.
+    The "mlp" group of quantised training, in both blocks, as in JAX."""
+    dot = _train_dot(cfg, "mlp")
+
+    def proj(x, name):
+        return _layer_proj(x, lp, name, dot, lora_scale)
+
     if cfg.arch == "gpt2":
-        return _layer_proj(F.gelu(_layer_proj(h, lp, "fc"), approximate="tanh"), lp, "proj")
-    gate = _proj(h, lp["gate.kernel"])
-    up = _proj(h, lp["up.kernel"])
+        return proj(F.gelu(proj(h, "fc"), approximate="tanh"), "proj")
+    gate = proj(h, "gate")
+    up = proj(h, "up")
     act = F.gelu(gate, approximate="tanh") if cfg.arch == "gemma" else F.silu(gate)
-    return _proj(act * up, lp["down.kernel"])
+    return proj(act * up, "down")
 
 
 def _qkv(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
-         positions: torch.Tensor):
+         positions: torch.Tensor, dot=None, lora_scale: float = 1.0):
     """q [B, S, H, HD], k and v [B, S, KV, HD] of the normed input h: qwen's
     per-head RMSNorm of q and k, then RoPE (not gpt2, whose positions are
-    added at embedding). Shared with the decode block."""
+    added at embedding). Shared with the decode block, which passes no
+    ``dot``: JAX's decode projections skip the "attn" hook."""
     B, S, _ = h.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _layer_proj(h, lp, "q").reshape(B, S, H, HD)
-    k = _layer_proj(h, lp, "k").reshape(B, S, KV, HD)
-    v = _layer_proj(h, lp, "v").reshape(B, S, KV, HD)
+    q = _layer_proj(h, lp, "q", dot, lora_scale).reshape(B, S, H, HD)
+    k = _layer_proj(h, lp, "k", dot, lora_scale).reshape(B, S, KV, HD)
+    v = _layer_proj(h, lp, "v", dot, lora_scale).reshape(B, S, KV, HD)
     if cfg.arch == "qwen":
         q = _rms_norm(q, lp["q_norm.scale"], cfg.norm_eps)
         k = _rms_norm(k, lp["k_norm.scale"], cfg.norm_eps)
@@ -351,10 +397,17 @@ def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig):
     denom = torch.sum(combine, dim=(2, 3), keepdim=True)
     combine = combine / denom.clamp_min(1e-9)
     dispatch = (combine > 0).to(h.dtype)
-    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, h).reshape(E, B * C, D)
+    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, h)
     gate_w, up_w, down_w = (_expert_kernel(lp, n, h.dtype) for n in ("gate", "up", "down"))
-    act = F.silu(torch.bmm(expert_in, gate_w)) * torch.bmm(expert_in, up_w)
-    expert_out = torch.bmm(act, down_w).reshape(E, B, C, D)
+    dot = _train_dot(cfg, "moe")
+    if dot is not None:  # the expert products only; routing stays in full precision
+        act = F.silu(dot("ebcd,edf->ebcf", expert_in, gate_w)) * dot(
+            "ebcd,edf->ebcf", expert_in, up_w)
+        expert_out = dot("ebcf,efd->ebcd", act, down_w)
+    else:
+        expert_in = expert_in.reshape(E, B * C, D)
+        act = F.silu(torch.bmm(expert_in, gate_w)) * torch.bmm(expert_in, up_w)
+        expert_out = torch.bmm(act, down_w).reshape(E, B, C, D)
     out = torch.einsum("bsec,ebcd->bsd", combine, expert_out)
     return out, _switch_aux(probs, torch.argmax(probs, dim=-1), E)
 
@@ -367,6 +420,8 @@ def _moe_mlp_ragged(h: torch.Tensor, lp: dict, cfg: ModelConfig):
     read of the group sizes per call); the outputs, weighted by the
     renormalised top-k gates, are added back to their tokens
     (``index_add``). Routing indices carry no gradient."""
+    if cfg.quant_training == "int8" and "moe" in cfg.quant_train_targets:
+        raise ValueError(RAGGED_MOE_REFUSAL)
     B, S, D = h.shape
     E, K = cfg.n_experts, cfg.top_k
     x = h.reshape(B * S, D)
@@ -393,16 +448,32 @@ def _moe_mlp_ragged(h: torch.Tensor, lp: dict, cfg: ModelConfig):
     return out.reshape(B, S, D), _switch_aux(probs, expert_idx[:, 0], E)
 
 
-def _block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
-           positions: torch.Tensor, sequence: Optional[int] = None):
-    """One transformer block. x: [B, S, D] → (x, the MoE aux loss, or None
-    for a dense MLP)."""
-    B, S, _ = x.shape
-    q, k, v = _qkv(_norm(x, lp["attn_norm.scale"], lp.get("attn_norm.bias"), cfg), lp, cfg,
-                   positions)
+def _block_qkv(x: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
+               lora_scale: float = 1.0):
+    """The block's q, k, v (after RoPE): JAX's tags "q", "k", "v"."""
+    h = _norm(x, lp["attn_norm.scale"], lp.get("attn_norm.bias"), cfg)
+    return _qkv(h, lp, cfg, positions, _train_dot(cfg, "attn"), lora_scale)
+
+
+def _block_attn(q, k, v, cfg: ModelConfig, sequence: Optional[int] = None) -> torch.Tensor:
+    """Attention over the block's q, k, v → [B, S, H·HD]: JAX's tag
+    "attn_out"."""
+    B, S = q.shape[:2]
     attn = _attention(q, k, v, cfg.attention_impl, window=cfg.sliding_window,
                       sequence=sequence)
-    x = x + _layer_proj(attn.reshape(B, S, -1), lp, "o")
+    return attn.reshape(B, S, -1)
+
+
+def _block_attn_out(x, lp: dict, cfg: ModelConfig, positions, sequence=None,
+                    lora_scale: float = 1.0) -> torch.Tensor:
+    return _block_attn(*_block_qkv(x, lp, cfg, positions, lora_scale), cfg, sequence)
+
+
+def _block_tail(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig,
+                lora_scale: float = 1.0):
+    """The output projection, residual and MLP over the block's input x and
+    its attention output → (x, the MoE aux loss, or None for a dense MLP)."""
+    x = x + _layer_proj(attn, lp, "o", _train_dot(cfg, "attn"), lora_scale)
     h = _norm(x, lp["mlp_norm.scale"], lp.get("mlp_norm.bias"), cfg)
     if cfg.is_moe:
         if cfg.moe_impl not in ("dense", "ragged"):
@@ -410,7 +481,79 @@ def _block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
         moe = _moe_mlp_ragged if cfg.moe_impl == "ragged" else _moe_mlp
         out, aux = moe(h, lp, cfg)
         return x + out, aux
-    return x + _dense_mlp(h, lp, cfg), None
+    return x + _dense_mlp(h, lp, cfg, lora_scale), None
+
+
+def _block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
+           positions: torch.Tensor, sequence: Optional[int] = None,
+           lora_scale: float = 1.0):
+    """One transformer block. x: [B, S, D] → (x, the MoE aux loss, or None
+    for a dense MLP). ``lp`` may hold LoRA adapters (``q.A``, ``q.B``, ...),
+    scaled by ``lora_scale``."""
+    attn = _block_attn_out(x, lp, cfg, positions, sequence, lora_scale)
+    return _block_tail(x, attn, lp, cfg, lora_scale)
+
+
+# JAX's remat policies (``tpu_engine/models/transformer.py``
+# ``_REMAT_POLICIES``); "offload_dots" raises.
+REMAT_POLICIES = ("nothing_saveable", "dots_saveable", "dots_with_no_batch_dims_saveable",
+                  "everything_saveable", "save_attn_out", "save_qkv_attn_out",
+                  "offload_dots")
+# The aten products a dots policy keeps: XLA's dot_general without batch
+# dims lowers to these (a projection [B, S, in] @ [in, out] is one mm) ...
+_DOTS_NO_BATCH = frozenset({"mm", "addmm", "_int_mm"})
+# ... and with batch dims (attention's plain path, the MoE expert products).
+_DOTS_BATCH = frozenset({"bmm", "baddbmm"})
+
+
+def resolve_remat_policy(name: str) -> str:
+    """Strict policy lookup: a typo raises rather than training with
+    another memory profile."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {name!r}; valid: {sorted(REMAT_POLICIES)}"
+        )
+    return name
+
+
+def _dots_policy(ops: frozenset):
+    def policy(ctx, func, *args, **kwargs):
+        if func.overloadpacket.__name__ in ops:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _remat_block(policy: str, x, lp: dict, cfg: ModelConfig, positions, sequence,
+                 lora_scale: float):
+    """:func:`_block` under the remat ``policy`` (:data:`REMAT_POLICIES`)."""
+    if policy == "everything_saveable":
+        return _block(x, lp, cfg, positions, sequence, lora_scale)
+    if policy == "nothing_saveable":
+        return checkpoint(_block, x, lp, cfg, positions, sequence, lora_scale,
+                          use_reentrant=False)
+    if policy in ("dots_saveable", "dots_with_no_batch_dims_saveable"):
+        ops = _DOTS_NO_BATCH | (_DOTS_BATCH if policy == "dots_saveable" else frozenset())
+        return checkpoint(_block, x, lp, cfg, positions, sequence, lora_scale,
+                          use_reentrant=False,
+                          context_fn=partial(create_selective_checkpoint_contexts,
+                                             _dots_policy(ops)))
+    if policy == "offload_dots":
+        raise NotImplementedError(
+            "remat_policy='offload_dots' is not ported (activation offload to "
+            "host memory; queued in ROADMAP.md)")
+    # The named policies: each piece of the block split at the tags is
+    # checkpointed, so the tagged tensors (inputs of the next piece) are
+    # kept and the rest is recomputed; the attention's own residuals (o,
+    # lse) are not tagged and are recomputed, as in JAX.
+    if policy == "save_qkv_attn_out":
+        q, k, v = checkpoint(_block_qkv, x, lp, cfg, positions, lora_scale,
+                             use_reentrant=False)
+        attn = checkpoint(_block_attn, q, k, v, cfg, sequence, use_reentrant=False)
+    else:
+        attn = checkpoint(_block_attn_out, x, lp, cfg, positions, sequence, lora_scale,
+                          use_reentrant=False)
+    return checkpoint(_block_tail, x, attn, lp, cfg, lora_scale, use_reentrant=False)
 
 
 def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -541,13 +684,21 @@ def forward_hidden_and_aux(
     remat: bool = False,
     positions: Optional[torch.Tensor] = None,
     sequence: Optional[int] = None,
+    remat_policy: str = "nothing_saveable",
+    lora: Optional[dict[str, torch.Tensor]] = None,
+    lora_scale: float = 1.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decoder stack only: tokens [B, S] → (hidden [B, S, D] in the compute
     dtype, before the final norm; the MoE aux loss averaged over layers, 0
     for dense).
     ``sequence`` is the ring size of ``attention_impl="ring"``, which
-    raises ``ValueError`` without it."""
+    raises ``ValueError`` without it. ``remat`` checkpoints each block
+    under ``remat_policy``. ``lora``: the flat adapter dict of
+    ``tpu_engine_torch/lora.py`` (``layers.<t>.A`` [L, in, r],
+    ``layers.<t>.B`` [L, r, out]), cast to the compute dtype with the
+    stack and applied inside each adapted projection."""
     _require_ported(cfg)
+    policy = resolve_remat_policy(remat_policy) if remat else None
     B, S = tokens.shape
     if cfg.arch == "gpt2" and S > cfg.max_seq_len:
         # Learned position table: a gather past its end would fail or, on
@@ -560,6 +711,8 @@ def forward_hidden_and_aux(
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_tokens(params, tokens, compute_dtype, positions=positions, cfg=cfg)
     stack = cast_layer_stack(params, compute_dtype)
+    if lora is not None:
+        stack.update(cast_layer_stack(lora, compute_dtype))
     # One unbind per leaf: its backward stacks the L per-layer gradients in a
     # single op, where per-layer indexing would scatter into L full copies.
     layers = {k: t.unbind(0) for k, t in stack.items()}
@@ -567,9 +720,9 @@ def forward_hidden_and_aux(
     for i in range(cfg.n_layers):
         lp = {k: t[i] for k, t in layers.items()}
         if remat:
-            x, aux = checkpoint(_block, x, lp, cfg, positions, sequence, use_reentrant=False)
+            x, aux = _remat_block(policy, x, lp, cfg, positions, sequence, lora_scale)
         else:
-            x, aux = _block(x, lp, cfg, positions, sequence)
+            x, aux = _block(x, lp, cfg, positions, sequence, lora_scale)
         auxes.append(aux)
     if cfg.is_moe:
         return x, torch.stack(auxes).mean()
@@ -577,20 +730,24 @@ def forward_hidden_and_aux(
 
 
 def forward_and_aux(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-                    remat: bool = False, positions=None, sequence: Optional[int] = None):
+                    remat: bool = False, positions=None, sequence: Optional[int] = None,
+                    remat_policy: str = "nothing_saveable"):
     """tokens [B, S] → (logits [B, S, V] fp32, aux loss scalar).
     ``sequence``: the ring size, needed only for ``attention_impl="ring"``
     (JAX's ``mesh``)."""
     x, aux = forward_hidden_and_aux(params, tokens, cfg, compute_dtype=compute_dtype,
-                                    remat=remat, positions=positions, sequence=sequence)
+                                    remat=remat, positions=positions, sequence=sequence,
+                                    remat_policy=remat_policy)
     return unembed(params, x, cfg), aux
 
 
 def forward(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-            remat: bool = False, positions=None, sequence: Optional[int] = None) -> torch.Tensor:
+            remat: bool = False, positions=None, sequence: Optional[int] = None,
+            remat_policy: str = "nothing_saveable") -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V] fp32."""
     logits, _ = forward_and_aux(params, tokens, cfg, compute_dtype=compute_dtype,
-                                remat=remat, positions=positions, sequence=sequence)
+                                remat=remat, positions=positions, sequence=sequence,
+                                remat_policy=remat_policy)
     return logits
 
 
@@ -598,4 +755,5 @@ __all__ = [
     "ModelConfig", "MODEL_CONFIGS", "init_params", "param_count",
     "active_param_count", "train_flops_per_token", "embed_tokens", "unembed",
     "cast_layer_stack", "inference_params", "forward_hidden_and_aux", "forward_and_aux", "forward",
+    "REMAT_POLICIES", "resolve_remat_policy",
 ]

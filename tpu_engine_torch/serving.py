@@ -66,6 +66,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from tpu_engine_torch.counter_hash import _M32, _mix32, _mul32, _uniform
 from tpu_engine_torch.generate import (
     KVCache,
     _hidden_lanes,
@@ -182,23 +183,6 @@ def decode_step(params: dict[str, torch.Tensor], tokens: torch.Tensor, cache: Sl
     return unembed(params, x, cfg)[:, 0], cache
 
 
-# Counter-based noise for in-dispatch sampling: a 32-bit integer hash
-# (lowbias32) in int64 arithmetic. Products are split in 16-bit halves so no
-# intermediate exceeds 2**49; the same code runs on Python ints and tensors.
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c: int):
-    """(x * c) mod 2**32 for x in [0, 2**32)."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x):
-    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
-    x = _mul32(x ^ (x >> 15), 0x846CA68B)
-    return x ^ (x >> 16)
-
-
 def _gumbel_noise(seed: int, req_ids: torch.Tensor, counts: torch.Tensor,
                   vocab: int) -> torch.Tensor:
     """Standard Gumbel noise [B, V], a pure function of (seed, request id,
@@ -206,13 +190,6 @@ def _gumbel_noise(seed: int, req_ids: torch.Tensor, counts: torch.Tensor,
     row = _mix32(_mix32(req_ids ^ _mix32(seed & _M32)) ^ counts)
     col = _mul32(torch.arange(vocab, device=req_ids.device), 0x9E3779B9)
     return -torch.log(-torch.log(_uniform(_mix32(row[:, None] ^ col[None, :]))))
-
-
-def _uniform(h: torch.Tensor) -> torch.Tensor:
-    """A 32-bit hash → fp32 u in (0, 1), from its top 23 bits: (k + 0.5) /
-    2**23 is exact in fp32 for every k < 2**23, so u never rounds to 0 or
-    1 (with 24 bits the top value rounds to 1.0 and its noise is +inf)."""
-    return ((h >> 9).float() + 0.5) * (1.0 / (1 << 23))
 
 
 def _pick_tokens(logits: torch.Tensor, temps: torch.Tensor, req_ids: torch.Tensor,

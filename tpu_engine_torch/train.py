@@ -1,7 +1,10 @@
-"""Single-GPU training program: schedule, AdamW, loss and the train step
-(port of the single-device path of ``tpu_engine/train.py``, and of its
-sequence-parallel path with the ring's ranks in one process). MoE models
-train with the router's aux loss in the objective.
+"""Single-GPU training program: schedule, optimizers (AdamW, Adafactor,
+Lion), loss and the train step (port of the single-device path of
+``tpu_engine/train.py``, and of its sequence-parallel path with the ring's
+ranks in one process). MoE models train with the router's aux loss in the
+objective; ``quant_training="int8"`` runs the targeted products in int8
+(``tpu_engine_torch/quant_train.py``); ``lora_rank`` trains LoRA adapters on
+a frozen base (``tpu_engine_torch/lora.py``).
 
 The JAX step is one jitted function over a pytree state; here the state is a
 dict of tensors and the step runs eagerly. The optimizer updates the fp32
@@ -14,15 +17,27 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional, Union
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tpu_engine_torch import lora as lora_mod
+from tpu_engine_torch import quant_train
 from tpu_engine_torch.models import transformer as tfm
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+class _DefaultFloat(float):
+    """A field's default value, told apart from the same value set
+    explicitly (JAX reads ``model_fields_set``): Adafactor takes ``beta2``
+    as its decay exponent only when it was set."""
+
+
+_DEFAULT_BETA2 = _DefaultFloat(0.95)
 
 
 @dataclass
@@ -46,10 +61,12 @@ class TrainConfig:
     total_steps: int = 10_000
     weight_decay: float = 0.1
     beta1: float = 0.9
-    beta2: float = 0.95
+    beta2: float = _DEFAULT_BETA2
     grad_clip_norm: float = 1.0
+    optimizer: str = "adamw"         # adamw | adafactor | lion
     decay_all_params: bool = False
     activation_checkpointing: bool = True
+    remat_policy: str = "nothing_saveable"  # tfm.REMAT_POLICIES
     loss_chunk_size: Optional[int] = None
     z_loss_coef: float = 0.0
     attention_impl: str = "auto"     # auto | xla | flash | ring | ulysses
@@ -58,6 +75,13 @@ class TrainConfig:
     # (dense); "dense" = capacity-factor dense dispatch; "ragged" = sorted
     # per-expert products, no token dropped.
     moe_impl: Optional[str] = None
+    # int8 quantised training of the targeted product groups.
+    quant_training: str = "none"     # none | int8
+    quant_train_targets: tuple[str, ...] = ("attn", "mlp", "moe")
+    # LoRA: adapters of rank lora_rank on lora_targets; the base is frozen.
+    lora_rank: Optional[int] = None
+    lora_alpha: float = 16.0
+    lora_targets: tuple[str, ...] = ("q", "k", "v", "o")
     seed: int = 0
 
     def __post_init__(self):
@@ -90,10 +114,35 @@ class TrainConfig:
             (self.loss_chunk_size is None
              or (self.loss_chunk_size >= 1 and self.seq_len % self.loss_chunk_size == 0),
              f"loss_chunk_size={self.loss_chunk_size} must divide seq_len={self.seq_len}"),
+            (self.optimizer in ("adamw", "adafactor", "lion"),
+             f"optimizer={self.optimizer!r}: adamw, adafactor or lion"),
+            (self.quant_training in ("none", "int8"),
+             f"quant_training={self.quant_training!r}: none or int8"),
+            (self.lora_rank is None or self.lora_rank >= 1, "lora_rank must be >= 1"),
+            (self.lora_alpha > 0, "lora_alpha must be > 0"),
         ]
         for ok, msg in checks:
             if not ok:
                 raise ValueError(msg)
+        self.quant_train_targets = tuple(self.quant_train_targets)
+        self.lora_targets = tuple(self.lora_targets)
+        quant_train.check_targets(self.quant_train_targets, self.quant_training,
+                                  self.lora_rank, self.moe_impl)
+        if self.optimizer == "adafactor" and self.moment_dtype is not None:
+            raise ValueError(
+                "moment_dtype is not supported with optimizer='adafactor' "
+                "(factored statistics have no dtype knob)"
+            )
+        tfm.resolve_remat_policy(self.remat_policy)
+
+    @property
+    def beta2_is_set(self) -> bool:
+        """Whether ``beta2`` was given (JAX: ``"beta2" in
+        cfg.model_fields_set``)."""
+        return not isinstance(self.beta2, _DefaultFloat)
+
+    def lora_scale(self) -> float:
+        return self.lora_alpha / self.lora_rank if self.lora_rank is not None else 1.0
 
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.precision]
@@ -144,36 +193,26 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
 
 
 def kernel_decay_mask(params: dict[str, torch.Tensor]) -> dict[str, bool]:
-    """Weight decay applies to matmul kernels only (path ends in ``kernel``),
-    not to biases, norm scales or embedding and position tables (a tied
-    head is its embedding, so it does not decay either). (JAX's mask also
-    decays LoRA factors, which the port does not have yet.)"""
-    return {k: k.rsplit(".", 1)[-1] == "kernel" for k in params}
+    """Weight decay applies to matmul kernels and LoRA factors (path ends in
+    ``kernel``, ``A`` or ``B``), not to biases, norm scales or embedding and
+    position tables (a tied head is its embedding, so it does not decay
+    either)."""
+    return {k: k.rsplit(".", 1)[-1] in ("kernel", "A", "B") for k in params}
 
 
 @dataclass
-class AdamW:
-    """optax ``chain(clip_by_global_norm, scale_by_adam(eps=1e-8, mu_dtype),
-    add_decayed_weights(mask))`` followed by ``p - lr·u``, written on tensors.
+class _Chain:
+    """optax ``chain(clip_by_global_norm, <scaler>,
+    add_decayed_weights(mask))`` followed by ``p - lr·u``, written on
+    tensors; a subclass is the scaler (:meth:`scale`, which may update its
+    state in place and returns the update u of one leaf).
 
     Clipping scales only when the norm exceeds the max (optax's rule, which
-    is not ``clip_grad_norm_``'s). With a bf16 ``mu_dtype`` the update uses
-    the fp32 first moment and only the stored moment rounds, as in optax."""
+    is not ``clip_grad_norm_``'s)."""
 
-    b1: float
-    b2: float
     weight_decay: float
     grad_clip_norm: float
-    mu_dtype: Optional[torch.dtype]
     decay_all_params: bool
-    eps: float = 1e-8
-
-    def init(self, params: dict[str, torch.Tensor]) -> dict:
-        return {
-            "count": 0,
-            "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for k, p in params.items()},
-            "nu": {k: torch.zeros_like(p) for k, p in params.items()},
-        }
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
@@ -187,22 +226,136 @@ class AdamW:
         factor = torch.where(g_norm < self.grad_clip_norm, torch.ones_like(g_norm),
                              self.grad_clip_norm / g_norm)
         torch._foreach_mul_(g_list, factor)
+        count = state["count"]
         state["count"] += 1
-        bc1 = 1 - self.b1 ** state["count"]
-        bc2 = 1 - self.b2 ** state["count"]
         decay = kernel_decay_mask(params)
         for k, g in zip(keys, g_list):
-            p, mu, nu = params[k], state["mu"][k], state["nu"][k]
-            mu32 = mu.float() if mu.dtype != torch.float32 else mu
-            mu32.mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
-            u = (mu32 / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
+            p = params[k]
+            u = self.scale(k, g, p, state, count)
             if self.weight_decay and (self.decay_all_params or decay[k]):
                 u.add_(p, alpha=self.weight_decay)
             p.add_(u, alpha=-lr)
-            if mu32 is not mu:
-                mu.copy_(mu32)
         return g_norm
+
+    def state_bytes(self, state: dict) -> int:
+        """Bytes of the optimizer's tensors (moments, factored statistics)."""
+        return sum(t.numel() * t.element_size() for name, tree in state.items()
+                   if name != "count" for t in tree.values())
+
+
+@dataclass
+class AdamW(_Chain):
+    """``scale_by_adam(b1, b2, eps=1e-8, mu_dtype)``. With a bf16
+    ``mu_dtype`` the update uses the fp32 first moment and only the stored
+    moment rounds, as in optax."""
+
+    b1: float = 0.9
+    b2: float = 0.95
+    mu_dtype: Optional[torch.dtype] = None
+    eps: float = 1e-8
+
+    def init(self, params: dict[str, torch.Tensor]) -> dict:
+        return {
+            "count": 0,
+            "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for k, p in params.items()},
+            "nu": {k: torch.zeros_like(p) for k, p in params.items()},
+        }
+
+    def scale(self, k, g, p, state, count):
+        mu, nu = state["mu"][k], state["nu"][k]
+        bc1 = 1 - self.b1 ** (count + 1)
+        bc2 = 1 - self.b2 ** (count + 1)
+        mu32 = mu.float() if mu.dtype != torch.float32 else mu
+        mu32.mul_(self.b1).add_(g, alpha=1 - self.b1)
+        nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+        u = (mu32 / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
+        if mu32 is not mu:
+            mu.copy_(mu32)
+        return u
+
+
+def factored_dims(shape, min_dim_size_to_factor: int = 128) -> Optional[tuple[int, int]]:
+    """optax ``_factored_dims``: (second-largest dim, largest dim) when the
+    second-largest is at least ``min_dim_size_to_factor``, else None. On a
+    stacked [L, in, out] kernel these are ``in`` and ``out``, never ``L``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+@dataclass
+class Adafactor(_Chain):
+    """optax ``scale_by_factored_rms(decay_rate)`` with optax's other
+    defaults (``min_dim_size_to_factor`` 128, ``epsilon`` 1e-30,
+    ``step_offset`` 0): second moments factored into row and column means
+    over a leaf's two largest dims where both reach 128, whole otherwise;
+    decay ``1 - (t + 1) ** -decay_rate`` at count t."""
+
+    decay_rate: float = 0.8
+    epsilon: float = 1e-30
+
+    def init(self, params: dict[str, torch.Tensor]) -> dict:
+        v_row, v_col, v = {}, {}, {}
+        for k, p in params.items():
+            dims = factored_dims(p.shape)
+            if dims is None:
+                v[k] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                v_row[k] = torch.zeros_like(p.select(d0, 0))
+                v_col[k] = torch.zeros_like(p.select(d1, 0))
+        return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
+
+    def scale(self, k, g, p, state, count):
+        # optax computes the decay in fp32: 1 - float32(t + 1) ** -rate.
+        beta = np.float32(1.0) - np.float32(count + 1) ** np.float32(-self.decay_rate)
+        beta, rest = float(beta), float(np.float32(1.0) - beta)
+        grad_sqr = g * g + self.epsilon
+        dims = factored_dims(p.shape)
+        if dims is None:
+            v = state["v"][k]
+            v.mul_(beta).add_(grad_sqr, alpha=rest)
+            return g * v.rsqrt()
+        d1, d0 = dims
+        v_row, v_col = state["v_row"][k], state["v_col"][k]
+        v_row.mul_(beta).add_(grad_sqr.mean(dim=d0), alpha=rest)
+        v_col.mul_(beta).add_(grad_sqr.mean(dim=d1), alpha=rest)
+        reduced_d1 = d1 - 1 if d1 > d0 else d1
+        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+        return g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+
+
+@dataclass
+class Lion(_Chain):
+    """optax ``scale_by_lion(b1, b2, mu_dtype)``: the update is
+    sign((1 - b1)·g + b1·μ), then μ ← b2·μ + (1 - b2)·g (one moment)."""
+
+    b1: float = 0.9
+    b2: float = 0.99
+    mu_dtype: Optional[torch.dtype] = None
+
+    def init(self, params: dict[str, torch.Tensor]) -> dict:
+        return {"count": 0,
+                "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                       for k, p in params.items()}}
+
+    def scale(self, k, g, p, state, count):
+        mu = state["mu"][k]
+
+        def decayed(b):
+            # optax's b·μ is in μ's dtype, b rounded to it (a bf16 product
+            # for a bf16 moment), before the fp32 sum.
+            return (mu * torch.tensor(b, dtype=mu.dtype, device=mu.device)).float()
+
+        u = torch.sign(g * (1 - self.b1) + decayed(self.b1))
+        mu.copy_(g * (1 - self.b2) + decayed(self.b2))
+        return u
+
+
+Optimizer = Union[AdamW, Adafactor, Lion]
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -211,13 +364,20 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def make_optimizer(cfg: TrainConfig) -> tuple[AdamW, Callable[[int], float]]:
-    """AdamW and the schedule. The learning rate is applied by the step:
-    ``lr = schedule(step) · lr_scale``, as in the JAX train step."""
+def make_optimizer(cfg: TrainConfig) -> tuple[Optimizer, Callable[[int], float]]:
+    """The configured optimizer and the schedule. The learning rate is
+    applied by the step: ``lr = schedule(step) · lr_scale``, as in the JAX
+    train step. Adafactor's decay exponent is ``beta2`` only where it was
+    set, else 0.8, as in JAX."""
     mu_dtype = _DTYPES[cfg.moment_dtype] if cfg.moment_dtype is not None else None
-    tx = AdamW(b1=cfg.beta1, b2=cfg.beta2, weight_decay=cfg.weight_decay,
-               grad_clip_norm=cfg.grad_clip_norm, mu_dtype=mu_dtype,
-               decay_all_params=cfg.decay_all_params)
+    chain = dict(weight_decay=cfg.weight_decay, grad_clip_norm=cfg.grad_clip_norm,
+                 decay_all_params=cfg.decay_all_params)
+    if cfg.optimizer == "adafactor":
+        tx = Adafactor(decay_rate=float(cfg.beta2) if cfg.beta2_is_set else 0.8, **chain)
+    elif cfg.optimizer == "lion":
+        tx = Lion(b1=cfg.beta1, b2=float(cfg.beta2), mu_dtype=mu_dtype, **chain)
+    else:
+        tx = AdamW(b1=cfg.beta1, b2=float(cfg.beta2), mu_dtype=mu_dtype, **chain)
     return tx, make_schedule(cfg)
 
 
@@ -322,13 +482,19 @@ class TrainProgram:
     ``init()`` makes the state (params, optimizer state, step, lr_scale);
     ``step(state, batch)`` runs one optimizer step over
     ``gradient_accumulation_steps`` microbatches, ``batch`` being
-    [accum, micro_batch, seq_len] int64 on the program's device."""
+    [accum, micro_batch, seq_len] int64 on the program's device.
+
+    With LoRA (``config.lora_rank``) ``base_params`` holds the frozen base
+    (master dtype, no gradient) and ``state["params"]`` the adapters alone,
+    so gradients and optimizer state are rank-sized; ``merged_params``
+    folds them into the base for ``generate`` and the batcher."""
 
     config: TrainConfig
     model_config: ModelConfig
     device: torch.device
-    tx: AdamW = field(repr=False)
+    tx: Optimizer = field(repr=False)
     schedule: Callable[[int], float] = field(repr=False)
+    base_params: Optional[dict[str, torch.Tensor]] = field(default=None, repr=False)
 
     def global_batch_shape(self) -> tuple[int, int, int]:
         c = self.config
@@ -343,12 +509,18 @@ class TrainProgram:
 
     def init(self, params: Optional[dict[str, torch.Tensor]] = None,
              generator: Optional[torch.Generator] = None) -> dict:
-        """Fresh state from ``params`` (e.g. ``params_from_jax``) or a random
-        init drawn from ``generator`` (default: seeded by ``config.seed``)."""
+        """Fresh state from ``params`` (e.g. ``params_from_jax``; with LoRA
+        the adapters, e.g. ``lora_from_jax``) or a random init drawn from
+        ``generator`` (default: seeded by ``config.seed``)."""
         if params is None:
+            cfg = self.config
             if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
-            params = tfm.init_params(self.model_config, generator, self.device)
+                generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+            if self.base_params is not None:
+                params = lora_mod.init_lora_params(generator, self.model_config, cfg.lora_rank,
+                                                   cfg.lora_targets, self.device)
+            else:
+                params = tfm.init_params(self.model_config, generator, self.device)
         return {
             "params": params,
             "opt_state": self.tx.init(params),
@@ -363,10 +535,14 @@ class TrainProgram:
         ``include_aux`` (training; the held-out loss has none) it adds the
         z-loss and, for MoE, ``aux_weight · router_aux_coef · aux``."""
         cfg = self.config
+        lora = None
+        if self.base_params is not None:  # the trainable params are the adapters
+            params, lora = self.base_params, params
         tokens, loss_tokens = decode_masked_tokens(raw_tokens)
         hidden, aux = tfm.forward_hidden_and_aux(
             params, tokens, self.model_config, compute_dtype=cfg.compute_dtype(),
             remat=cfg.activation_checkpointing, sequence=cfg.sequence,
+            remat_policy=cfg.remat_policy, lora=lora, lora_scale=cfg.lora_scale(),
         )
         if cfg.loss_chunk_size:
             ll_sum, z_sum, n_valid = _chunked_ce_sums(
@@ -398,6 +574,17 @@ class TrainProgram:
                        "learning_rate": lr, "step": state["step"]}
 
     @torch.no_grad()
+    def merged_params(self, adapters: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """LoRA only: the base with ``adapters`` (``state["params"]``)
+        merged (``lora.merge_lora``), every leaf in the compute dtype, for
+        ``generate`` and the ``ContinuousBatcher``."""
+        if self.base_params is None:
+            raise ValueError("merged_params needs a LoRA program (lora_rank set)")
+        cfg = self.config
+        merged = lora_mod.merge_lora(self.base_params, adapters, cfg.lora_alpha, cfg.lora_rank)
+        return {k: v.to(cfg.compute_dtype()) for k, v in merged.items()}
+
+    @torch.no_grad()
     def eval_step(self, state: dict, batch: torch.Tensor) -> torch.Tensor:
         """Held-out loss over one [accum, B, S] batch: pure cross-entropy."""
         denom = torch.clamp(torch.sum((batch[:, :, 1:] >= 0).float()), min=1.0)
@@ -409,12 +596,19 @@ class TrainProgram:
 
 
 def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = None,
-                        device="cuda") -> TrainProgram:
+                        device="cuda",
+                        base_params: Optional[dict[str, Any]] = None) -> TrainProgram:
     """The program for ``cfg`` on ``device``. Attention resolves as in JAX
     (``tpu_engine/train.py``): ``sequence > 1`` is ring attention (Ulysses
     when asked for, which is not ported and raises); otherwise ``"auto"`` is
     the flash kernels on a CUDA device and the plain path on the CPU, and an
-    explicit choice is honoured."""
+    explicit choice is honoured. ``quant_training`` and its targets resolve
+    onto the model config, as in JAX.
+
+    ``base_params`` applies to LoRA only (``cfg.lora_rank``): the frozen base
+    to adapt (e.g. ``params_from_jax`` or ``from_hf_llama``), taken in the
+    master dtype without gradients; default ``init_params`` from
+    ``cfg.seed``."""
     device = torch.device(device)
     if model_cfg is None:
         if cfg.model_name not in MODEL_CONFIGS:
@@ -428,6 +622,23 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
                              f"{model_cfg.name!r} (no experts to dispatch)")
         if model_cfg.moe_impl != cfg.moe_impl:
             model_cfg = model_cfg.with_(moe_impl=cfg.moe_impl)
+    if (model_cfg.quant_training != cfg.quant_training
+            or model_cfg.quant_train_targets != cfg.quant_train_targets):
+        model_cfg = model_cfg.with_(quant_training=cfg.quant_training,
+                                    quant_train_targets=cfg.quant_train_targets)
+    if (model_cfg.quant_training == "int8" and model_cfg.is_moe
+            and model_cfg.moe_impl == "ragged" and "moe" in model_cfg.quant_train_targets):
+        # The config check sees moe_impl=None when the model carries ragged.
+        raise ValueError(quant_train.RAGGED_MOE_REFUSAL)
+    if cfg.remat_policy == "offload_dots":
+        if device.type != "cuda":
+            raise ValueError(
+                "remat_policy='offload_dots' requires TPU (the CPU SPMD "
+                "partitioner cannot compile the policy's host-placement "
+                "annotations)"
+            )
+        raise NotImplementedError(
+            "remat_policy='offload_dots' is not ported to CUDA (queued in ROADMAP.md)")
     tfm._require_ported(model_cfg)
     if cfg.sequence > 1:
         impl = "ulysses" if cfg.attention_impl == "ulysses" else "ring"
@@ -448,6 +659,15 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
             f"attention_impl={impl!r} (a windowed model has no use for "
             "full-sequence context parallelism); set sequence=1 or sliding_window=0"
         )
+    if cfg.lora_rank is not None:
+        lora_mod.validate_targets(model_cfg, cfg.lora_targets)
+        if base_params is None:
+            gen = torch.Generator(device=device).manual_seed(cfg.seed)
+            base_params = tfm.init_params(model_cfg, gen, device)
+        base_params = {k: v.detach().to(device=device, dtype=torch.float32)
+                       for k, v in base_params.items()}
+    else:
+        base_params = None
     tx, schedule = make_optimizer(cfg)
     return TrainProgram(config=cfg, model_config=model_cfg, device=device, tx=tx,
-                        schedule=schedule)
+                        schedule=schedule, base_params=base_params)

@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --steps 3  # fewer training steps (at least 3)
+    python3 chip_smoke.py --steps 5  # more training steps (3, the least, by default)
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
@@ -122,7 +122,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    falls, optimizer-state bytes against AdamW's, the update timed alone;
 19. remat: ``train``'s llama-1b for 3 steps under each remat policy:
    losses and gradient norms bitwise nothing_saveable's, exact launch
-   counts, step time, peak memory and the bytes a forward keeps.
+   counts, step time, peak memory and the bytes a forward keeps;
+   ``offload_dots`` (the products' outputs in pinned host blocks of their
+   exact size) with every initial gradient bitwise nothing_saveable's and
+   fewer device bytes kept than dots_saveable's; the blocks unpinned after;
+20. train_offload: ``train``'s llama-1b for 3 steps in memory, with the
+   optimizer state, the masters or both in pinned host memory (losses and
+   parameters bitwise the in-memory run's), with bf16 masters, and with the
+   disk tier, serial (a spill under a temporary directory; the overlapped
+   walk, ``disk_update_overlap``, is read by train_faults.py); step time,
+   peak device and pinned bytes, bytes over the bus, its rate and the
+   device-busy share of each;
+21. train_7b: llama-7b at full width and depth, full gradients, seq 2048
+   x 1, 3 steps in each configuration that fits the host (fp32 masters with
+   the optimizer state on the host, or its first moments in bf16; both on
+   the host; bf16 masters and bf16 first moments in memory), after the
+   host's memory and each configuration's reckoned bytes;
+22. train_window: ``train`` with ``sliding_window=1024``: every K1-K3
+   launch windowed, the first loss held to the plain windowed path's.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results (``launches`` per training step, summed over
@@ -881,7 +898,8 @@ def phase_kernels(res: dict) -> None:
 # The training paths of the bf16 D 128 kernels (K1 also serve_moe's teacher
 # forwards); remat's launches are nothing_saveable's.
 D128_PATHS = ("train", "train_ring", "train_moe", "train_int8", "train_lora",
-              "train_adafactor", "train_lion", "remat")
+              "train_adafactor", "train_lion", "remat", "train_offload", "train_7b",
+              "train_window")
 
 
 def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
@@ -1134,8 +1152,9 @@ def _run_steps(cfg, steps: int, want_impl: str, before=None, model_cfg=None):
     batch, repeated, with every launch counter set to 0 just before.
     ``before(prog, state, batch)``, if given, runs on the initial state
     first. Returns (program, state, batch, losses, gradient norms, step
-    seconds, launches (the flash kernels' and ``torch._int_mm``'s), what
-    ``before`` returned)."""
+    seconds, launches (the flash kernels', their windowed ones as
+    ``<kernel>_window``, and ``torch._int_mm``'s), what ``before``
+    returned)."""
     import torch
 
     from tpu_engine_torch import quant_train as qt
@@ -1162,20 +1181,22 @@ def _run_steps(cfg, steps: int, want_impl: str, before=None, model_cfg=None):
         norms.append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return (prog, state, batch, losses, norms, times, {**fc.launches, **qt.launches},
-            first)
+    windowed = {f"{name}_window": n for name, n in fc.windowed.items()}
+    return (prog, state, batch, losses, norms, times,
+            {**fc.launches, **windowed, **qt.launches}, first)
 
 
 def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
-           first_loss_ref=None, model_cfg=None, exact_first: bool = False):
+           first_loss_ref=None, model_cfg=None, exact_first: bool = False,
+           first_rel: float = FIRST_LOSS_REL):
     """Train ``cfg`` for ``steps`` steps (:func:`_run_steps`) and check the
     losses and the launch counts read just after. ``want`` is the launch
     count per microbatch of each kernel (and of ``int_mm``); a kernel
     missing from it must not launch at all. The first loss must lie near
     ln(vocab) or, with ``first_loss_ref(prog, state, batch)`` (the loss of
     the initial state by another path), within FIRST_LOSS_REL of what that
-    returns (``exact_first``: equal to it). Returns (program, state,
-    batch)."""
+    returns (``exact_first``: equal to it; ``first_rel`` sets the bound).
+    Returns (program, state, batch)."""
     import torch
 
     from tpu_engine_torch.models import transformer as tfm
@@ -1198,7 +1219,7 @@ def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
         "mfu": tokens / step_s * flops_tok / PEAK_BF16_FLOPS,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": counts, "launches_expected": want,
-        "opt_state_bytes": prog.tx.state_bytes(state["opt_state"]),
+        "opt_state_bytes": prog.tx.state_bytes(state["opt_state"]) if "opt_state" in state else 0,
     }
     print(f"{key}: losses {[round(x, 4) for x in losses]}", flush=True)
     print(f"{key}: step {step_s * 1e3:.1f} ms (min of steps 2..{steps}), "
@@ -1211,8 +1232,8 @@ def _train(res: dict, key: str, cfg, steps: int, want_impl: str, want: dict,
     if ref is not None:
         out["first_loss_ref"] = ref
         print(f"{key}: first loss {losses[0]:.5f}, by the plain attention path {ref:.5f} "
-              f"(relative {abs(losses[0] - ref) / ref:.2e}, bound {FIRST_LOSS_REL})", flush=True)
-        if not abs(losses[0] - ref) <= FIRST_LOSS_REL * ref:
+              f"(relative {abs(losses[0] - ref) / ref:.2e}, bound {first_rel})", flush=True)
+        if not abs(losses[0] - ref) <= first_rel * ref:
             raise AssertionError(f"first loss {losses[0]} vs the plain path's {ref}")
         if exact_first and losses[0] != ref:
             raise AssertionError(f"first loss {losses[0]!r} is not bitwise {ref!r}")
@@ -1287,8 +1308,7 @@ def _initial_grads(cfg, want_impl: str) -> dict:
     if prog.model_config.attention_impl != want_impl:
         raise AssertionError(f"attention resolved to {prog.model_config.attention_impl!r}")
     params = prog.init()["params"]
-    accumulate_grads(prog.loss_fn, params, prog.synthetic_batch(seed=0))
-    return {k: p.grad for k, p in params.items()}
+    return accumulate_grads(prog.loss_fn, params, prog.synthetic_batch(seed=0))[1]
 
 
 def phase_train_ring(res: dict, steps: int) -> None:
@@ -2098,16 +2118,15 @@ def _moe_dense_vs_ragged(cfg, mcfg) -> dict:
             routes: list = []
             real, tfm._router_probs = tfm._router_probs, _route_recorder(routes, mcfg.top_k)
             try:
-                loss = float(accumulate_grads(prog.loss_fn, params, batch))
+                loss, grads = accumulate_grads(prog.loss_fn, params, batch)
+                loss = float(loss)
                 with torch.no_grad():
                     logits = tfm.forward(params, batch[0], prog.model_config,
                                          compute_dtype=prog.config.compute_dtype())
             finally:
                 tfm._router_probs = real
             runs[impl] = {"loss": loss, "logits": logits, "routes": routes[-mcfg.n_layers:],
-                          "grads": {k: p.grad for k, p in params.items()}}
-            for p in params.values():
-                p.grad = None
+                          "grads": grads}
         d, r = runs["dense"], runs["ragged"]
         differ = torch.stack([(a != b).any(dim=-1) for a, b in zip(d["routes"], r["routes"])])
         alike = ~differ.any(dim=0)
@@ -2485,10 +2504,16 @@ LORA_MERGED_REL = 0.4
 # keeps is read as the device memory a microbatch's forward leaves
 # allocated: a named policy must keep at least REMAT_TAG_SHARE of the bytes
 # of its tagged tensors (bf16, every layer) more than nothing_saveable.
+# offload_dots keeps the dots policies' products in pinned host memory: its
+# every initial gradient must equal nothing_saveable's bitwise, and the
+# device bytes a forward keeps must stay under REMAT_DOTS_KEPT_GIB
+# (dots_saveable's 8.452 GiB on this path, PERF.md §5).
 REMAT_STEPS = 3
 REMAT_RUN = ("nothing_saveable", "everything_saveable", "dots_saveable",
-             "dots_with_no_batch_dims_saveable", "save_qkv_attn_out", "save_attn_out")
+             "dots_with_no_batch_dims_saveable", "save_qkv_attn_out", "save_attn_out",
+             "offload_dots")
 REMAT_TAG_SHARE = 0.5
+REMAT_DOTS_KEPT_GIB = 8.452
 
 
 def int8_readings(cfg, device="cuda") -> dict:
@@ -2518,10 +2543,8 @@ def int8_readings(cfg, device="cuda") -> dict:
     del logits
     loss, grads = {}, {}
     for name, prog in progs.items():
-        loss[name] = float(accumulate_grads(prog.loss_fn, params, batch))
-        grads[name] = {k: p.grad for k, p in params.items()}
-    for p in params.values():
-        p.grad = None
+        summed, grads[name] = accumulate_grads(prog.loss_fn, params, batch)
+        loss[name] = float(summed)
     out["loss"] = loss
     out["loss_rel_err"] = abs(loss["int8"] - loss["bf16"]) / loss["bf16"]
     groups = {"attn": ("q", "k", "v", "o"), "mlp": ("gate", "up", "down")}
@@ -2812,15 +2835,47 @@ def phase_train_opt(res: dict, steps: int) -> None:
 def remat_kept_bytes(prog, state, batch) -> int:
     """Device bytes one microbatch's forward leaves allocated for its
     backward (the loss and its graph alive)."""
+    return remat_kept(prog, state, batch)["device"]
+
+
+def remat_kept(prog, state, batch) -> dict:
+    """Bytes one microbatch's forward leaves for its backward (the loss and
+    its graph alive): allocated on the device, and, under offload_dots, the
+    host copies of its products (the stash's blocks in use) and the bytes
+    its blocks page-lock (``cudaHostRegister``, each block its tensor's
+    size)."""
     import torch
 
+    from tpu_engine_torch.offload import host_stash
+
+    stash = host_stash(prog.device)
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+    before, host_before = torch.cuda.memory_allocated(), stash.in_use
     loss = prog.loss_fn(state["params"], batch[0])
     torch.cuda.synchronize()
-    kept = torch.cuda.memory_allocated() - before
+    torch.empty(1, device="cuda")  # frees the blocks whose side-stream copies have ended
+    kept = {"device": torch.cuda.memory_allocated() - before,
+            "host": stash.in_use - host_before, "pinned": stash.nbytes}
     del loss
     return kept
+
+
+def caching_pinned_bytes(nbytes: int):
+    """The bytes torch's caching host allocator page-locks for one pinned
+    tensor of ``nbytes`` (its ``allocated_bytes``, the rounded block), or
+    None where this torch has no ``host_memory_stats``. The port does not
+    use that allocator (``offload.HostArena``); this reads what it would
+    cost."""
+    import torch
+
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return None
+    before = stats().get("allocated_bytes.current", 0)
+    t = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    got = stats().get("allocated_bytes.current", 0) - before
+    del t
+    return got
 
 
 def remat_tagged_bytes(policy: str) -> int:
@@ -2846,13 +2901,15 @@ def phase_remat(res: dict, steps: int = REMAT_STEPS) -> None:
     REMAT_TAG_SHARE of its tagged bytes more than nothing_saveable."""
     import torch
 
+    from tpu_engine_torch.offload import host_stash
+
     L = 16
     out = res["remat"] = {"steps": steps, "accum": 1, "policies": {}}
     fails = []
     for policy in REMAT_RUN:
         cfg = _llama_1b_cfg(remat_policy=policy)
         prog, state, batch, losses, norms, times, counts, kept = _run_steps(
-            cfg, steps, "flash", before=remat_kept_bytes)
+            cfg, steps, "flash", before=remat_kept)
         k1 = L if policy == "everything_saveable" else 2 * L
         want = {n: 0 for n in counts}
         want.update({"flash_fwd": k1 * steps, "flash_bwd_dq": L * steps,
@@ -2860,9 +2917,11 @@ def phase_remat(res: dict, steps: int = REMAT_STEPS) -> None:
         r = out["policies"][policy] = {
             "losses": losses, "grad_norms": norms, "step_ms": min(times[1:]) * 1e3,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "kept_gib": kept / 2**30, "launches": counts}
+            "kept_gib": kept["device"] / 2**30, "kept_host_gib": kept["host"] / 2**30,
+            "pinned_gib": kept["pinned"] / 2**30, "launches": counts}
         print(f"remat {policy}: step {r['step_ms']:.1f} ms, peak {r['peak_mem_gib']:.2f} GiB, "
-              f"forward keeps {r['kept_gib']:.3f} GiB, losses {losses}", flush=True)
+              f"forward keeps {r['kept_gib']:.3f} GiB (host {r['kept_host_gib']:.3f}, pinned "
+              f"{r['pinned_gib']:.3f}), losses {losses}", flush=True)
         if counts != want:
             fails.append(f"{policy}: launches {counts} != {want}")
         del prog, state, batch
@@ -2878,6 +2937,41 @@ def phase_remat(res: dict, steps: int = REMAT_STEPS) -> None:
         "save_qkv_attn_out", "save_attn_out", "nothing_saveable")]
     if kept != sorted(kept, reverse=True):
         fails.append(f"kept bytes out of order: {kept}")
+    od = out["policies"]["offload_dots"]
+    if not od["kept_gib"] < REMAT_DOTS_KEPT_GIB:
+        fails.append(f"offload_dots keeps {od['kept_gib']:.3f} GiB on the device, not under "
+                     f"{REMAT_DOTS_KEPT_GIB}")
+    dots = out["policies"]["dots_with_no_batch_dims_saveable"]["kept_gib"] - ref["kept_gib"]
+    od["host_over_dots"] = od["kept_host_gib"] / dots
+    if not od["kept_host_gib"] >= REMAT_TAG_SHARE * dots:
+        fails.append(f"offload_dots keeps {od['kept_host_gib']:.3f} GiB on the host, under "
+                     f"{REMAT_TAG_SHARE} of the dots' {dots:.3f}")
+    want = _initial_grads(_llama_1b_cfg(remat_policy="nothing_saveable"), "flash")
+    got = _initial_grads(_llama_1b_cfg(remat_policy="offload_dots"), "flash")
+    od["grads_bitwise"] = [k for k in want if not torch.equal(want[k], got[k])]
+    del want, got
+    _free()  # drops what the graphs left in the stash
+    stash = host_stash("cuda")
+    od["pinned_after_gib"] = stash.nbytes / 2**30
+    stash.release()
+    od["pinned_released_gib"] = stash.nbytes / 2**30
+    print(f"remat offload_dots: every initial gradient bitwise nothing_saveable's: "
+          f"{not od['grads_bitwise']}; host copies {od['kept_host_gib']:.3f} GiB, "
+          f"{od['host_over_dots']:.3f} of the dots policies' extra; pinned "
+          f"{od['pinned_gib']:.3f} GiB at the forward, {od['pinned_after_gib']:.3f} after the "
+          f"phase, {od['pinned_released_gib']:.3f} once released", flush=True)
+    if od["grads_bitwise"]:
+        fails.append(f"offload_dots gradients differ from nothing_saveable's: {od['grads_bitwise']}")
+    if stash.nbytes or stash.in_use:
+        fails.append(f"offload_dots' stash holds {stash.nbytes} pinned bytes, {stash.in_use} "
+                     "in use, after its release")
+    # One MLP product of this path (bf16 [4, 2048, 5504]) through torch's
+    # caching host allocator: the block it would pin.
+    asked = 4 * 2048 * 5504 * 2
+    od["caching_allocator"] = {"asked": asked, "pinned": caching_pinned_bytes(asked)}
+    print(f"remat: torch's caching host allocator pins {od['caching_allocator']['pinned']} "
+          f"bytes for a tensor of {asked}", flush=True)
+    torch.cuda.empty_cache()
     for policy in ("save_qkv_attn_out", "save_attn_out"):
         extra = (out["policies"][policy]["kept_gib"] - ref["kept_gib"]) * 2**30
         need = REMAT_TAG_SHARE * remat_tagged_bytes(policy)
@@ -2889,15 +2983,307 @@ def phase_remat(res: dict, steps: int = REMAT_STEPS) -> None:
         raise AssertionError("; ".join(fails))
 
 
+# Where the training state lives (train_offload, train_7b): llama-1b as in
+# train for OFFLOAD_STEPS steps in each placement; the host placements must
+# give the in-memory run's losses and final parameters bitwise (the same
+# arithmetic, moved). The disk tier's host AdamW (numpy) rounds otherwise:
+# its losses are held to the in-memory run's by DISK_LOSS_REL, set from the
+# sound and planted readings of train_faults.py.
+OFFLOAD_STEPS = 3
+OFFLOAD_PLACEMENTS = (
+    ("memory", {}),
+    ("optimizer_host", dict(optimizer_offload="host")),
+    ("param_host", dict(param_offload="host")),
+    ("both_host", dict(optimizer_offload="host", param_offload="host")),
+    ("bf16_masters", dict(param_dtype="bf16")),
+    ("disk", dict(optimizer_offload="disk")),
+)
+HOST_PLACEMENTS = ("optimizer_host", "param_host", "both_host")
+DISK_LOSS_REL = 2e-4
+# train_7b: llama-7b at full width and depth, seq 2048 x 1. A configuration
+# runs only where its pinned bytes are at most PINNED_SHARE of the host's
+# MemTotal: (a) fp32 masters, optimizer state on the host, else (a')
+# the same with bf16 first moments; (b) masters too on the host, where it
+# fits; (c) bf16 masters in memory with moment_dtype="bf16" (bf16 mu, fp32
+# nu, as optax holds them; with both moments fp32, as optax holds them
+# without moment_dtype, 12 bytes a parameter exceed the card).
+PINNED_SHARE = 0.6
+SEVEN_B = dict(model_name="llama-7b", micro_batch_size=1, gradient_accumulation_steps=1,
+               seq_len=2048, precision="bf16", activation_checkpointing=True,
+               attention_impl="auto", **TRAIN_LR)
+# train_window: train's llama-1b with sliding_window=WINDOW (the windowed
+# K1-K3 at D 128); its first loss held to the plain windowed path's.
+WINDOW = 1024
+
+
+def _placement(key: str, cfg, steps: int, want: dict):
+    """``cfg``'s program for ``steps`` steps (:func:`_run_steps`): losses,
+    step time (min of steps 2..), peak device memory, the page-locked host
+    bytes behind the state, launch counts held to ``want`` per microbatch.
+    The disk tier's last step is the profiled one (:func:`_transfers`; its
+    steps take seconds): it runs ``steps - 1`` here. Returns (program,
+    state, batch, readings)."""
+    import torch
+
+    from tpu_engine_torch.offload import pinned_bytes
+
+    if cfg.optimizer_offload == "disk":
+        steps -= 1
+    prog, state, batch, losses, norms, times, counts, _ = _run_steps(cfg, steps, "flash")
+    expect = {n: want.get(n, 0) * steps * cfg.gradient_accumulation_steps for n in counts}
+    trees = [state["params"]] + [t for n, t in state.get("opt_state", {}).items() if n != "count"]
+    r = {"losses": losses, "grad_norms": norms, "step_ms_each": [t * 1e3 for t in times],
+         "step_ms": min(times[1:]) * 1e3, "steps": steps,
+         "accum": cfg.gradient_accumulation_steps,
+         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+         "pinned_gib": pinned_bytes(*trees) / 2**30, "launches": counts}
+    if prog.disk is not None:
+        r["spill_gib"] = prog.disk.store.spill_bytes() / 2**30
+        r["walk_s"] = prog.disk.walk_s
+    print(f"{key}: losses {losses}, step {r['step_ms']:.1f} ms, peak {r['peak_mem_gib']:.2f} GiB, "
+          f"pinned {r['pinned_gib']:.2f} GiB" + (f", spill {r['spill_gib']:.2f} GiB, walk "
+                                                  f"{r['walk_s']} s" if prog.disk else ""),
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{key}: non-finite loss {losses}")
+    if counts != expect:
+        raise AssertionError(f"{key}: launch counts {counts} != expected {expect}")
+    return prog, state, batch, r
+
+
+def _transfers(prog, state, batch, key: str, r: dict):
+    """One more step under the profiler: the bytes the placement moved each
+    way, the copies' device time and rate, the device-busy share. Returns
+    the step's (state, metrics)."""
+    before = prog.transfer_bytes()
+    out = []
+    prof = _profile(lambda: out.append(prog.step(state, batch)), key)
+    after = prog.transfer_bytes()
+    moved = {d: after[d] - before[d] for d in after}
+    r["bytes_per_step"] = moved
+    r["memcpy_ms"] = prof["memcpy_ms"]
+    r["gb_per_s"] = {d: moved[d] / prof["memcpy_ms"][d] / 1e6 if prof["memcpy_ms"][d] else None
+                     for d in moved}
+    r["busy_share"] = None if prof["idle_share"] is None else 1 - prof["idle_share"]
+    r["profile"] = prof
+    print(f"{key}: a step moves {moved['h2d'] / 1e9:.3f} GB to the device at "
+          f"{r['gb_per_s']['h2d']} GB/s, {moved['d2h'] / 1e9:.3f} GB back at "
+          f"{r['gb_per_s']['d2h']} GB/s; device busy {r['busy_share']}", flush=True)
+    return out[0]
+
+
+def _free() -> None:
+    """Collect what the caller dropped (host arenas unpin as they go) and
+    return the device's cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_offload(res: dict, steps: int = OFFLOAD_STEPS) -> None:
+    """``train``'s llama-1b in each of OFFLOAD_PLACEMENTS: the host
+    placements' losses and parameters bitwise the in-memory run's; bf16
+    masters' and the disk tier's first loss bitwise its (the same bf16
+    weights) and their losses falling, the disk tier's within DISK_LOSS_REL
+    of it, its spill under a temporary directory (free space checked first,
+    removed after). Per placement: step time, peak device memory, pinned
+    host bytes, bytes over the bus and their rate, device-busy share, and
+    the update alone (the disk tier's walk seconds)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpu_engine_torch.models import transformer as tfm
+
+    L = 16
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    out = res["train_offload"] = {"steps": steps, "accum": 1, "placements": {}}
+    n = tfm.param_count(tfm.MODEL_CONFIGS["llama-1b"])
+    root = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    fails, ref = [], {}
+    try:
+        free = shutil.disk_usage(root).free
+        out["spill_need_bytes"], out["spill_free_bytes"] = 12 * n, free
+        print(f"train_offload: the disk tier's spill needs {12 * n} bytes; {free} free", flush=True)
+        if free < 12 * n * 1.1:
+            raise AssertionError(f"the disk tier needs {12 * n} bytes of disk, {free} free")
+        for name, extra in OFFLOAD_PLACEMENTS:
+            if extra.get("optimizer_offload") == "disk":
+                extra = {**extra, "optimizer_spill_dir": os.path.join(root, name)}
+            key = f"train_offload {name}"
+            prog, state, batch, r = _placement(key, _llama_1b_cfg(**extra), steps, want)
+            out["placements"][name] = r
+            if prog.disk is not None:  # its last step is the profiled one
+                state, m = _transfers(prog, state, batch, key, r)
+                r["losses"].append(float(m["loss"]))
+                r["walk_s"] = prog.disk.walk_s
+            losses = r["losses"]
+            if name == "memory":  # the reference, kept on the host: off the later peaks
+                ref = {"losses": losses,
+                       "params": {k: p.detach().cpu() for k, p in state["params"].items()}}
+                out["launches"] = r["launches"]
+            elif name in HOST_PLACEMENTS:
+                diff = [k for k, p in state["params"].items()
+                        if not torch.equal(p.cpu(), ref["params"][k])]
+                r["bitwise"] = losses == ref["losses"] and not diff
+                if not r["bitwise"]:
+                    fails.append(f"{name}: losses {losses} vs {ref['losses']}, params differ "
+                                 f"at {diff}")
+            else:
+                r["loss_rel"] = max(abs(a - b) / b for a, b in zip(losses, ref["losses"]))
+                if not losses[2] < losses[1]:
+                    fails.append(f"{name}: the loss did not fall: {losses}")
+                if losses[0] != ref["losses"][0]:  # the same bf16 weights at step 0
+                    fails.append(f"{name}: first loss {losses[0]!r} is not {ref['losses'][0]!r}")
+                if name == "disk" and not r["loss_rel"] <= DISK_LOSS_REL:
+                    fails.append(f"disk: losses {losses} vs {ref['losses']}: relative "
+                                 f"{r['loss_rel']:.3e} > {DISK_LOSS_REL}")
+                print(f"{key}: losses against the in-memory run's, relative "
+                      f"{r['loss_rel']:.3e}", flush=True)
+            if prog.disk is None:
+                r["optimizer_ms"] = _time_optimizer(prog, state, key)
+                _transfers(prog, state, batch, key, r)
+            spill = prog.config.optimizer_spill_dir
+            del prog, state, batch
+            _free()
+            if spill:
+                shutil.rmtree(spill, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        ref.clear()
+        _free()
+    out["losses"] = {k: v["losses"] for k, v in out["placements"].items()}
+    print("train_offload: " + json.dumps({k: {f: v.get(f) for f in (
+        "step_ms", "peak_mem_gib", "pinned_gib", "gb_per_s", "busy_share")}
+        for k, v in out["placements"].items()}, default=str), flush=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def _meminfo() -> dict:
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            if k in ("MemTotal", "MemAvailable"):
+                out[k] = int(v.split()[0]) * 1024
+    return out
+
+
+def seven_b_plan(n: int, mem_total: int) -> dict:
+    """Each train_7b configuration's reckoned bytes from the parameter count
+    n (device: masters, gradients (fp32 for fp32 masters; one microbatch's
+    bf16 gradient is its own fp32 sum), the bf16 stack the loss casts from
+    fp32 masters, moments on the device; activations apart) and whether it
+    runs (PINNED_SHARE)."""
+    plans = {
+        "a": (dict(optimizer_offload="host"), 4 * n + 4 * n + 2 * n, 8 * n),
+        "a_prime": (dict(optimizer_offload="host", moment_dtype="bf16"), 10 * n, 6 * n),
+        "b": (dict(optimizer_offload="host", param_offload="host"), 4 * n, 12 * n),
+        "c": (dict(param_dtype="bf16", moment_dtype="bf16"), 2 * n + 2 * n + 2 * n + 4 * n, 0),
+    }
+    fits = {k: pinned <= PINNED_SHARE * mem_total for k, (_, _, pinned) in plans.items()}
+    run = {"a": fits["a"], "a_prime": not fits["a"], "b": fits["b"], "c": True}
+    return {k: {"extra": extra, "device_bytes": dev, "pinned_bytes": pinned, "runs": run[k]}
+            for k, (extra, dev, pinned) in plans.items()}
+
+
+def phase_train_7b(res: dict, steps: int = OFFLOAD_STEPS) -> None:
+    """llama-7b at full width and depth (32 layers, d_model 4096), seq 2048
+    x 1, full gradients: the host's memory and each configuration's
+    reckoned bytes first (the in-memory fp32 program, 16 bytes a parameter,
+    is not run: it exceeds the card), then each configuration that
+    seven_b_plan runs for ``steps`` steps: losses finite and falling from
+    step 1 to step 2, K1 twice and K2/K3 once a layer a microbatch, step 0's
+    loss of (b) bitwise (a)'s where both run; step time, peak and pinned
+    bytes, the bus's rate and the device-busy share."""
+    from tpu_engine_torch.models import transformer as tfm
+    from tpu_engine_torch.train import TrainConfig
+
+    mem = _meminfo()
+    n = tfm.param_count(tfm.MODEL_CONFIGS["llama-7b"])
+    plan = seven_b_plan(n, mem["MemTotal"])
+    out = res["train_7b"] = {"steps": steps, "accum": 1, "meminfo": mem, "params": n,
+                             "in_memory_fp32_bytes": 16 * n, "plan": plan, "runs": {}}
+    print(f"train_7b: host MemTotal {mem['MemTotal'] / 2**30:.2f} GiB, MemAvailable "
+          f"{mem['MemAvailable'] / 2**30:.2f} GiB; {n} parameters; in memory with fp32 masters "
+          f"{16 * n / 1e9:.1f} GB (not run: over the card's 80 GB)", flush=True)
+    for k, p in plan.items():
+        print(f"train_7b ({k}) {p['extra']}: reckoned device {p['device_bytes'] / 2**30:.1f} GiB "
+              f"+ activations, pinned {p['pinned_bytes'] / 2**30:.1f} GiB "
+              f"({'runs' if p['runs'] else 'not run: pinned over ' + str(PINNED_SHARE) + ' of MemTotal'})",
+              flush=True)
+    L = 32
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    fails = []
+    for k, p in plan.items():
+        if not p["runs"]:
+            continue
+        key = f"train_7b ({k})"
+        try:
+            prog, state, batch, r = _placement(key, TrainConfig(**SEVEN_B, **p["extra"]), steps,
+                                               want)
+        except Exception as e:  # each configuration runs; any failure fails the phase
+            traceback.print_exc()
+            fails.append(f"{k}: {e}")
+            _free()
+            continue
+        out["runs"][k] = r
+        out.setdefault("launches", r["launches"])
+        if not r["losses"][2] < r["losses"][1]:
+            fails.append(f"{k}: the loss did not fall from step 1 to step 2: {r['losses']}")
+        r["optimizer_ms"] = _time_optimizer(prog, state, key)
+        _transfers(prog, state, batch, key, r)
+        del prog, state, batch
+        _free()
+    runs = out["runs"]
+    if "a" in runs and "b" in runs and runs["a"]["losses"][0] != runs["b"]["losses"][0]:
+        fails.append(f"step 0: (a) {runs['a']['losses'][0]!r} != (b) {runs['b']['losses'][0]!r}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def phase_train_window(res: dict, steps: int = OFFLOAD_STEPS) -> None:
+    """``train``'s llama-1b with ``sliding_window=WINDOW`` (the config's
+    override): K1 twice and K2/K3 once a layer a microbatch, every one of
+    them windowed, and the first loss held to the plain windowed path's on
+    the same weights and batch within MODEL_REL["bf16"]."""
+    from dataclasses import replace
+
+    from tpu_engine_torch.train import build_train_program
+
+    cfg = _llama_1b_cfg(sliding_window=WINDOW)
+
+    def plain_loss(prog, state, batch) -> float:
+        if prog.model_config.sliding_window != WINDOW:
+            raise AssertionError(f"the window resolved to {prog.model_config.sliding_window}")
+        plain = build_train_program(replace(cfg, attention_impl="xla"), device="cuda")
+        return float(plain.eval_step(state, batch))
+
+    L = 16
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    want.update({f"{k}_window": v for k, v in want.items()})
+    _train(res, "train_window", cfg, steps, "flash", want, first_loss_ref=plain_loss,
+           first_rel=MODEL_REL["bf16"])
+    _free()
+
+
 def _time_optimizer(prog, state, key: str) -> float:
     """Device time of the program's optimizer update alone over its
     trainable parameters (CUDA events), on zero gradients at lr 0: the same
-    tensors and passes as in a step, leaving the weights unchanged."""
+    tensors, passes and copies (its walk) as in a step, leaving the weights
+    unchanged."""
     import torch
 
     params = state["params"]
-    grads = {k: torch.zeros_like(p) for k, p in params.items()}
-    ms = _time_ms(lambda: prog.tx.update(params, grads, state["opt_state"], 0.0),
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32 if prog.host else p.dtype,
+                            device=prog.device) for k, p in params.items()}
+    ms = _time_ms(lambda: prog.tx.update(params, grads, state["opt_state"], 0.0, prog.walk),
                   iters=3, warmup=1)
     print(f"{key}: optimizer update {ms:.2f} ms", flush=True)
     return ms
@@ -2907,7 +3293,9 @@ def _profile(run, key: str) -> dict:
     """Wall and device time of one call of ``run``, the device's by kernel
     family, from torch.profiler (CUPTI). Families: the port's flash
     kernels, matrix products (cuBLAS/CUTLASS), and everything else
-    (elementwise, norms, reductions, copies)."""
+    (elementwise, norms, reductions, copies on the card). Copies between
+    host and card (``memcpy_ms`` each way) are apart: they run on the copy
+    engines beside the kernels, outside the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2920,9 +3308,14 @@ def _profile(run, key: str) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     fam = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    memcpy = {"h2d": 0.0, "d2h": 0.0}
     for e in kernels:
         name = e.key.lower()
         ms = e.self_device_time_total / 1e3
+        way = "h2d" if "memcpy htod" in name else "d2h" if "memcpy dtoh" in name else None
+        if way:  # copies between host and card run beside the kernels
+            memcpy[way] += ms
+            continue
         if "flash_fwd_" in name or "flash_bwd_d" in name:
             fam["flash"] += ms
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma", "matmul")):
@@ -2934,7 +3327,7 @@ def _profile(run, key: str) -> dict:
     out = {
         "wall_ms": wall_ms, "device_ms": busy, "launches": sum(e.count for e in kernels),
         "idle_share": (1 - busy / wall_ms) if busy else None,
-        "families_ms": fam,
+        "families_ms": fam, "memcpy_ms": memcpy,
         "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count}
                 for e in top],
     }
@@ -2948,7 +3341,7 @@ def _profile(run, key: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=5,
+    ap.add_argument("--steps", type=int, default=3,
                     help="training steps of each training phase (at least 3)")
     args = ap.parse_args()
     if args.steps < 3:
@@ -3007,6 +3400,9 @@ def main() -> int:
         run("train_lora", phase_train_lora, res, args.steps)
         run("train_opt", phase_train_opt, res, args.steps)
         run("remat", phase_remat, res)
+        run("train_offload", phase_train_offload, res)
+        run("train_7b", phase_train_7b, res)
+        run("train_window", phase_train_window, res)
         serving: dict = {}
         run("generate", phase_generate, res, serving)
         run("serve", phase_serve, res, serving)

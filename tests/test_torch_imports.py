@@ -32,7 +32,8 @@ def test_port_modules_import_neither_jax_nor_tpu_engine():
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
     assert bad == "[]", bad
-    wanted = {"quant_train", "lora", "train", "serving", "generate", "quant"}
+    wanted = {"quant_train", "lora", "train", "serving", "generate", "quant", "offload",
+              "disk_offload"}
     have = {m.name.rsplit(".", 1)[-1] for m in pkgutil.walk_packages(
         [str(ROOT / "tpu_engine_torch")])}
     assert wanted <= have and int(count) >= len(have)

@@ -21,6 +21,7 @@ from tpu_engine import train as jtrain  # noqa: E402
 from tpu_engine.mesh_runtime import MeshConfig, MeshRuntime  # noqa: E402
 from tpu_engine.models import transformer as jtfm  # noqa: E402
 from tpu_engine.sharding import TPUTrainConfig  # noqa: E402
+from tpu_engine_torch import offload  # noqa: E402
 from tpu_engine_torch import train as ttrain  # noqa: E402
 from tpu_engine_torch.models import config as tcfg  # noqa: E402
 from tpu_engine_torch.models import convert  # noqa: E402
@@ -51,11 +52,13 @@ def _port_grads(tree, tokens, policy, impl):
 
 
 @pytest.mark.parametrize("impl", ["xla", "flash"])
-@pytest.mark.parametrize("policy", POLICIES[:-1])
+@pytest.mark.parametrize("policy", POLICIES[:-1] + ["offload_dots"])
 def test_policy_grads_equal_nothing_saveables(weights, policy, impl):
     """Every policy recomputes or keeps the same values: the gradients
     equal ``nothing_saveable``'s bitwise (on the plain attention path and
-    through the flash wrapper's plain versions)."""
+    through the flash wrapper's plain versions). ``offload_dots`` runs here
+    with plain host copies (the training program refuses it on the CPU, as
+    JAX does)."""
     tree, tokens = weights
     want = _port_grads(tree, tokens, "nothing_saveable", impl)
     got = _port_grads(tree, tokens, policy, impl)
@@ -117,8 +120,8 @@ def test_bytes_kept_follow_the_policies(weights):
 
 def test_unknown_and_offload_policies_raise():
     """A typo raises JAX's ValueError (config and forward); ``offload_dots``
-    raises JAX's ValueError on the CPU and ``NotImplementedError`` for a
-    CUDA device, where it is not ported."""
+    raises JAX's ValueError on the CPU and builds for a CUDA device, where
+    it is ported (its card test: tests/test_torch_offload_cuda.py)."""
     with pytest.raises(ValueError, match="unknown remat_policy 'dots'"):
         ttrain.TrainConfig(remat_policy="dots")
     with pytest.raises(ValueError) as want:
@@ -136,8 +139,51 @@ def test_unknown_and_offload_policies_raise():
     with pytest.raises(ValueError) as got:
         ttrain.build_train_program(ttrain.TrainConfig(**kw), device="cpu")
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="offload_dots"):
-        ttrain.build_train_program(ttrain.TrainConfig(**kw), device="cuda")
+    prog = ttrain.build_train_program(ttrain.TrainConfig(**kw), device="cuda")
+    assert prog.config.remat_policy == "offload_dots"
+
+
+def test_offload_dots_keeps_the_products_on_the_host(weights):
+    """``offload_dots``' forward keeps a host copy of each product without
+    batch dims (seven a layer of gpt-tiny, a llama block: q, k, v, o, gate,
+    up, down) in the device's stash, the recompute takes them back instead
+    of running the products, the gradients are ``nothing_saveable``'s, and
+    the stash's blocks are free again once the graph is gone."""
+    tree, tokens = weights
+    stores = []
+    real = ttfm._offload_dots_contexts
+
+    def spy():
+        fwd, rec = real()
+        stores.append(fwd.store)
+        return fwd, rec
+
+    cfg = tcfg.MODEL_CONFIGS[NAME]
+    params = convert.params_from_jax(tree, cfg, device="cpu")
+    toks = torch.tensor(tokens, dtype=torch.long)
+    stash = offload.host_stash("cpu")
+    before = stash.in_use
+    ttfm._offload_dots_contexts = spy
+    try:
+        logits = ttfm.forward(params, toks, cfg, compute_dtype=torch.float32, remat=True,
+                              remat_policy="offload_dots")
+        kept = [len(s) for s in stores]
+        held = stash.in_use - before
+        ttrain.lm_loss(logits, toks).backward()
+    finally:
+        ttfm._offload_dots_contexts = real
+    assert kept == [7] * cfg.n_layers  # q, k, v, o, gate, up, down
+    # fp32 outputs: q, k, v; o and down (d_model each); gate and up (d_ff each).
+    hd = cfg.head_dim
+    per_layer = 4 * toks.numel() * (hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
+                                    + 2 * cfg.d_model + 2 * cfg.d_ff)
+    assert held == cfg.n_layers * per_layer, (held, per_layer)
+    assert all(len(s) <= 1 for s in stores)  # taken back (the last may stay unneeded)
+    del logits
+    stores.clear()
+    assert stash.in_use == before
+    want = _port_grads(tree, tokens, "nothing_saveable", "xla")
+    assert all(torch.equal(params[k].grad, g) for k, g in want.items())
 
 
 @pytest.mark.parametrize("policy", ["dots_with_no_batch_dims_saveable", "save_attn_out"])

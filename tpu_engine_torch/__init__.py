@@ -31,7 +31,16 @@ Slice 15 adds to training:
 - ``tpu_engine_torch.lora`` — LoRA adapters on a frozen base;
 - Adafactor and Lion beside AdamW, and the remat policies.
 
+Where the training state lives:
+
+- ``tpu_engine_torch.offload`` — ``optimizer_offload`` and
+  ``param_offload`` in host memory, streamed through the device;
+- ``tpu_engine_torch.disk_offload`` — the disk tier;
+- bf16 masters, the ``sliding_window`` override and the ``offload_dots``
+  remat policy.
+
 Imports here stay light: submodules are imported by the caller.
 """
 
-__all__ = ["generate", "lora", "models", "ops", "quant", "quant_train", "serving", "train"]
+__all__ = ["disk_offload", "generate", "lora", "models", "offload", "ops", "quant",
+           "quant_train", "serving", "train"]

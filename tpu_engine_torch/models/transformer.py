@@ -43,23 +43,30 @@ expert kernel may be an int8 :class:`~tpu_engine_torch.quant.QuantWeight`
 Quantised training (``quant_training="int8"``) routes the targeted products
 through :func:`tpu_engine_torch.quant_train.int8_einsum` (:func:`_train_dot`).
 LoRA adapters (``tpu_engine_torch/lora.py``) add ``scale·(h@A)@B`` inside
-each adapted projection. Ulysses attention and the ``offload_dots`` policy
-are not ported and raise ``NotImplementedError``.
+each adapted projection. ``offload_dots`` keeps the products' outputs in
+host memory instead of on the device. With host-resident masters
+(``param_offload``) each block reads its layer through a ``layer_stream``
+(:class:`tpu_engine_torch.offload.HostParams`) inside its checkpoint, so
+the recompute streams the layer again. Ulysses attention is not ported
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import collections
 from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
 
+from tpu_engine_torch import offload
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig  # noqa: F401
 from tpu_engine_torch.models.convert import param_keys
 from tpu_engine_torch.ops import flash_attention
@@ -448,9 +455,16 @@ def _moe_mlp_ragged(h: torch.Tensor, lp: dict, cfg: ModelConfig):
     return out.reshape(B, S, D), _switch_aux(probs, expert_idx[:, 0], E)
 
 
+def _layer_params(lp):
+    """A block's layer params: the dict itself, or a layer stream's layer
+    (a callable, called inside the checkpointed piece that reads it)."""
+    return lp() if callable(lp) else lp
+
+
 def _block_qkv(x: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
                lora_scale: float = 1.0):
     """The block's q, k, v (after RoPE): JAX's tags "q", "k", "v"."""
+    lp = _layer_params(lp)
     h = _norm(x, lp["attn_norm.scale"], lp.get("attn_norm.bias"), cfg)
     return _qkv(h, lp, cfg, positions, _train_dot(cfg, "attn"), lora_scale)
 
@@ -473,6 +487,7 @@ def _block_tail(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig,
                 lora_scale: float = 1.0):
     """The output projection, residual and MLP over the block's input x and
     its attention output → (x, the MoE aux loss, or None for a dense MLP)."""
+    lp = _layer_params(lp)
     x = x + _layer_proj(attn, lp, "o", _train_dot(cfg, "attn"), lora_scale)
     h = _norm(x, lp["mlp_norm.scale"], lp.get("mlp_norm.bias"), cfg)
     if cfg.is_moe:
@@ -489,13 +504,14 @@ def _block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
            lora_scale: float = 1.0):
     """One transformer block. x: [B, S, D] → (x, the MoE aux loss, or None
     for a dense MLP). ``lp`` may hold LoRA adapters (``q.A``, ``q.B``, ...),
-    scaled by ``lora_scale``."""
+    scaled by ``lora_scale``, or be a layer stream's callable."""
+    lp = _layer_params(lp)
     attn = _block_attn_out(x, lp, cfg, positions, sequence, lora_scale)
     return _block_tail(x, attn, lp, cfg, lora_scale)
 
 
 # JAX's remat policies (``tpu_engine/models/transformer.py``
-# ``_REMAT_POLICIES``); "offload_dots" raises.
+# ``_REMAT_POLICIES``).
 REMAT_POLICIES = ("nothing_saveable", "dots_saveable", "dots_with_no_batch_dims_saveable",
                   "everything_saveable", "save_attn_out", "save_qkv_attn_out",
                   "offload_dots")
@@ -524,9 +540,53 @@ def _dots_policy(ops: frozenset):
     return policy
 
 
+class _DotsToHost(TorchDispatchMode):
+    """The forward half of ``offload_dots``: each product without batch dims
+    (:data:`_DOTS_NO_BATCH`) runs, and its output joins ``store`` in the
+    device's :func:`~tpu_engine_torch.offload.host_stash`."""
+
+    def __init__(self, store: collections.deque):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket.__name__ in _DOTS_NO_BATCH:
+            self.store.append(offload.host_stash(out.device).put(out))
+        return out
+
+
+class _DotsFromHost(TorchDispatchMode):
+    """The recompute half: each such product returns its stored output,
+    taken back to the device, in place of running; every other op runs."""
+
+    def __init__(self, store: collections.deque):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ in _DOTS_NO_BATCH:
+            return offload.host_stash(args[0].device).get(self.store.popleft())
+        return func(*args, **(kwargs or {}))
+
+
+def _offload_dots_contexts():
+    store: collections.deque = collections.deque()
+    return _DotsToHost(store), _DotsFromHost(store)
+
+
 def _remat_block(policy: str, x, lp: dict, cfg: ModelConfig, positions, sequence,
                  lora_scale: float):
-    """:func:`_block` under the remat ``policy`` (:data:`REMAT_POLICIES`)."""
+    """:func:`_block` under the remat ``policy`` (:data:`REMAT_POLICIES`).
+
+    ``offload_dots`` is JAX's ``offload_dot_with_no_batch_dims("device",
+    "pinned_host")``: the selective checkpoint of
+    ``dots_with_no_batch_dims_saveable`` with its cache in host memory (a
+    pair of dispatch modes, as the selective checkpoint's own; a product's
+    output is no saved tensor of the product, so a saved-tensor hook could
+    not single it out). Like JAX's policies it never sees the flash
+    kernels. The training program refuses it on the CPU, as JAX does; the
+    forward takes it there with plain host copies."""
     if policy == "everything_saveable":
         return _block(x, lp, cfg, positions, sequence, lora_scale)
     if policy == "nothing_saveable":
@@ -539,9 +599,8 @@ def _remat_block(policy: str, x, lp: dict, cfg: ModelConfig, positions, sequence
                           context_fn=partial(create_selective_checkpoint_contexts,
                                              _dots_policy(ops)))
     if policy == "offload_dots":
-        raise NotImplementedError(
-            "remat_policy='offload_dots' is not ported (activation offload to "
-            "host memory; queued in ROADMAP.md)")
+        return checkpoint(_block, x, lp, cfg, positions, sequence, lora_scale,
+                          use_reentrant=False, context_fn=_offload_dots_contexts)
     # The named policies: each piece of the block split at the tags is
     # checkpointed, so the tagged tensors (inputs of the next piece) are
     # kept and the rest is recomputed; the attention's own residuals (o,
@@ -562,23 +621,30 @@ def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """tokens [..., S] int → activations [..., S, D] in the compute dtype.
 
-    The rows are gathered from the master table and then cast, which gives
+    The rows of an fp32 master table are gathered and then cast, which gives
     the same values as JAX's cast-then-gather while its backward scatters
-    into fp32 rather than into a compute-dtype copy of the whole table.
+    into fp32 rather than into a compute-dtype copy of the whole table. A
+    table below fp32 (bf16 masters) is cast first, as in JAX, so that its
+    gradient is summed in the compute dtype and rounded to the table's
+    once.
     gpt2 adds the learned position rows at ``positions`` (default 0..S-1;
     decode passes its offsets); gemma multiplies by sqrt(d_model) rounded to
     the compute dtype first, as JAX's ``jnp.asarray(..., compute_dtype)``
     does. A serving row that runs past the table (its outputs discarded)
     reads the table's last row: JAX's gather fills NaN there, and on CUDA an
     out-of-range index is a device-side assert."""
-    x = F.embedding(tokens, params["embed.embedding"]).to(compute_dtype)
+    def table(name):
+        t = params[name]
+        return t if t.dtype == torch.float32 else t.to(compute_dtype)
+
+    x = F.embedding(tokens, table("embed.embedding")).to(compute_dtype)
     if cfg.arch == "gemma":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype, device=x.device)
     if "pos_embed.embedding" in params:
         if positions is None:
             positions = torch.arange(tokens.shape[-1], device=tokens.device)
-        table = params["pos_embed.embedding"]
-        x = x + F.embedding(positions.clamp(max=table.shape[0] - 1), table).to(compute_dtype)
+        pos = table("pos_embed.embedding")
+        x = x + F.embedding(positions.clamp(max=pos.shape[0] - 1), pos).to(compute_dtype)
     return x
 
 
@@ -687,6 +753,7 @@ def forward_hidden_and_aux(
     remat_policy: str = "nothing_saveable",
     lora: Optional[dict[str, torch.Tensor]] = None,
     lora_scale: float = 1.0,
+    layer_stream=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decoder stack only: tokens [B, S] → (hidden [B, S, D] in the compute
     dtype, before the final norm; the MoE aux loss averaged over layers, 0
@@ -696,7 +763,11 @@ def forward_hidden_and_aux(
     under ``remat_policy``. ``lora``: the flat adapter dict of
     ``tpu_engine_torch/lora.py`` (``layers.<t>.A`` [L, in, r],
     ``layers.<t>.B`` [L, r, out]), cast to the compute dtype with the
-    stack and applied inside each adapted projection."""
+    stack and applied inside each adapted projection. ``layer_stream``
+    (JAX's hook of the same name; :class:`tpu_engine_torch.offload.HostParams`)
+    gives layer i's params by ``layer_stream.layer(i)``, called inside the
+    block's checkpoint: the stack is then never cast whole, and ``params``
+    needs only the non-layer leaves on the device."""
     _require_ported(cfg)
     policy = resolve_remat_policy(remat_policy) if remat else None
     B, S = tokens.shape
@@ -710,15 +781,20 @@ def forward_hidden_and_aux(
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_tokens(params, tokens, compute_dtype, positions=positions, cfg=cfg)
-    stack = cast_layer_stack(params, compute_dtype)
-    if lora is not None:
-        stack.update(cast_layer_stack(lora, compute_dtype))
-    # One unbind per leaf: its backward stacks the L per-layer gradients in a
-    # single op, where per-layer indexing would scatter into L full copies.
-    layers = {k: t.unbind(0) for k, t in stack.items()}
+    if layer_stream is None:
+        stack = cast_layer_stack(params, compute_dtype)
+        if lora is not None:
+            stack.update(cast_layer_stack(lora, compute_dtype))
+        # One unbind per leaf: its backward stacks the L per-layer gradients
+        # in a single op, where per-layer indexing would scatter into L full
+        # copies.
+        layers = {k: t.unbind(0) for k, t in stack.items()}
     auxes = []
     for i in range(cfg.n_layers):
-        lp = {k: t[i] for k, t in layers.items()}
+        if layer_stream is None:
+            lp = {k: t[i] for k, t in layers.items()}
+        else:
+            lp = partial(layer_stream.layer, i)
         if remat:
             x, aux = _remat_block(policy, x, lp, cfg, positions, sequence, lora_scale)
         else:

@@ -70,11 +70,20 @@ BLOCK = 64  # the kernels' Q/K tile rows; S must be a multiple
 # CPU path does not count.
 launches = {f"{name}{suffix}": 0 for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
             for suffix in ("", "_full")}
+# Of the causal launches, those with a sliding window (window > 0).
+windowed = {name: 0 for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, windowed):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(name: str, causal: bool, window: int) -> None:
+    launches[_counter(name, causal)] += 1
+    if window:
+        windowed[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +379,7 @@ def flash_fwd(q, k, v, window: int = 0, causal: bool = True):
         int(q.dtype == torch.bfloat16), stream,
     )
     _check("flash_fwd", err)
-    launches[_counter("flash_fwd", causal)] += 1
+    _count("flash_fwd", causal, window)
     return o, lse
 
 
@@ -390,7 +399,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0, causal: bool = True):
         BH, S, D, window, int(causal), int(q.dtype == torch.bfloat16), stream,
     )
     _check("flash_bwd_dq", err)
-    launches[_counter("flash_bwd_dq", causal)] += 1
+    _count("flash_bwd_dq", causal, window)
     return dq
 
 
@@ -411,7 +420,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, causal: bool = True)
         int(q.dtype == torch.bfloat16), stream,
     )
     _check("flash_bwd_dkv", err)
-    launches[_counter("flash_bwd_dkv", causal)] += 1
+    _count("flash_bwd_dkv", causal, window)
     return dk, dv
 
 

@@ -7,28 +7,41 @@ objective; ``quant_training="int8"`` runs the targeted products in int8
 a frozen base (``tpu_engine_torch/lora.py``).
 
 The JAX step is one jitted function over a pytree state; here the state is a
-dict of tensors and the step runs eagerly. The optimizer updates the fp32
-master weights in place (saving the second copy JAX's functional update
-makes), and gradients accumulate in the masters' ``.grad`` across the
-microbatches of a step.
+dict of tensors and the step runs eagerly. The optimizer updates the master
+weights in place (saving the second copy JAX's functional update makes),
+and gradients sum in fp32 across the microbatches of a step, as JAX's do
+(``offload.GradSums``).
+
+Where the state lives (JAX's ``OffloadDevice``): ``optimizer_offload=
+"host"`` keeps the optimizer's tensors and ``param_offload="host"`` the
+masters in host memory, streamed through the device
+(``tpu_engine_torch/offload.py``); ``optimizer_offload="disk"`` keeps
+masters and moments in memory-mapped spill files updated by a host AdamW
+(``tpu_engine_torch/disk_offload.py``), the device holding compute-dtype
+params only.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional, Union
+from functools import partial
+from typing import Any, Callable, ClassVar, Optional, Union
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tpu_engine_torch import disk_offload as dsk
 from tpu_engine_torch import lora as lora_mod
 from tpu_engine_torch import quant_train
+from tpu_engine_torch.offload import GradSums, HostArena, HostParams, UpdateWalk
 from tpu_engine_torch.models import transformer as tfm
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+_PLACES = ("none", "host", "disk")
 
 
 class _DefaultFloat(float):
@@ -45,7 +58,9 @@ class TrainConfig:
     """The single-device fields of ``TPUTrainConfig`` (``tpu_engine/sharding.py``),
     with its defaults, and ``sequence``, the counterpart of
     ``MeshConfig.sequence``: the ring size of sequence-parallel attention.
-    Values the port does not support raise."""
+    Values the port does not support raise; the combinations JAX refuses
+    raise JAX's messages. The refusals that need a mesh (pipelines,
+    several processes) wait for multi-GPU."""
 
     model_name: str = "gpt-125m"
     micro_batch_size: int = 1
@@ -53,7 +68,7 @@ class TrainConfig:
     seq_len: int = 2048
     precision: str = "bf16"          # compute dtype
     param_dtype: str = "fp32"        # master weights
-    moment_dtype: Optional[str] = None  # Adam mu dtype (None = master dtype)
+    moment_dtype: Optional[str] = None  # Adam mu dtype (None = fp32, as optax holds it)
     lr_schedule: str = "cosine"      # cosine | linear | constant | rsqrt
     learning_rate: float = 3e-4
     min_lr: float = 3e-5
@@ -82,11 +97,21 @@ class TrainConfig:
     lora_rank: Optional[int] = None
     lora_alpha: float = 16.0
     lora_targets: tuple[str, ...] = ("q", "k", "v", "o")
+    # Where the state lives (JAX's OffloadDevice): "none" | "host" | "disk".
+    optimizer_offload: str = "none"
+    param_offload: str = "none"      # "disk" refused, as in JAX
+    # The disk tier's spill directory, and its delayed parameter update
+    # (the device computes step N+1 while the host applies step N).
+    optimizer_spill_dir: Optional[str] = None
+    disk_update_overlap: bool = False
+    # None = the model's own window; 0 = full causal; N = window N.
+    sliding_window: Optional[int] = None
     seed: int = 0
 
     def __post_init__(self):
         # Enum-valued fields of the JAX config arrive as str subclasses.
-        for name in ("precision", "param_dtype", "moment_dtype"):
+        for name in ("precision", "param_dtype", "moment_dtype", "optimizer_offload",
+                     "param_offload"):
             val = getattr(self, name)
             if val is not None:
                 setattr(self, name, getattr(val, "value", val))
@@ -95,7 +120,7 @@ class TrainConfig:
             (self.gradient_accumulation_steps >= 1, "gradient_accumulation_steps must be >= 1"),
             (self.seq_len >= 2, "seq_len must be >= 2"),
             (self.precision in _DTYPES, f"precision={self.precision!r}: bf16 or fp32"),
-            (self.param_dtype == "fp32", f"param_dtype={self.param_dtype!r}: only fp32 is ported"),
+            (self.param_dtype in _DTYPES, f"param_dtype={self.param_dtype!r}: bf16 or fp32"),
             (self.moment_dtype in (None, "bf16", "fp32"),
              f"moment_dtype={self.moment_dtype!r}: None, bf16 or fp32"),
             (self.lr_schedule in ("cosine", "linear", "constant", "rsqrt"),
@@ -120,6 +145,11 @@ class TrainConfig:
              f"quant_training={self.quant_training!r}: none or int8"),
             (self.lora_rank is None or self.lora_rank >= 1, "lora_rank must be >= 1"),
             (self.lora_alpha > 0, "lora_alpha must be > 0"),
+            (self.optimizer_offload in _PLACES and self.param_offload in _PLACES,
+             f"optimizer_offload={self.optimizer_offload!r} / param_offload="
+             f"{self.param_offload!r}: none, host or disk"),
+            (self.sliding_window is None or self.sliding_window >= 0,
+             f"sliding_window={self.sliding_window} must be None or >= 0"),
         ]
         for ok, msg in checks:
             if not ok:
@@ -134,6 +164,36 @@ class TrainConfig:
                 "(factored statistics have no dtype knob)"
             )
         tfm.resolve_remat_policy(self.remat_policy)
+        self._check_disk_offload()
+
+    def _check_disk_offload(self) -> None:
+        """JAX's ``_validate_disk_offload``: the combinations the disk tier
+        (a host AdamW over memmap slabs) cannot run, with its messages."""
+        if self.optimizer_offload != "disk":
+            if self.optimizer_spill_dir is not None:
+                raise ValueError("optimizer_spill_dir only applies with optimizer_offload='disk'")
+            if self.disk_update_overlap:
+                raise ValueError("disk_update_overlap only applies with optimizer_offload='disk'")
+            if self.param_offload == "disk":
+                raise ValueError(
+                    "param_offload='disk' is not supported: params are read every forward "
+                    "pass — spill optimizer state instead (optimizer_offload='disk')")
+            return
+        if self.optimizer_spill_dir is None:
+            raise ValueError(
+                "optimizer_offload='disk' requires optimizer_spill_dir (the reference's nvme_path)")
+        if self.optimizer != "adamw":
+            raise ValueError("optimizer_offload='disk' supports optimizer='adamw' only "
+                             "(the host update implements the AdamW chain)")
+        if self.moment_dtype is not None:
+            raise ValueError("moment_dtype targets device/host memory; disk-tier moments "
+                             "live in fp32 spill files — drop moment_dtype")
+        if self.param_offload != "none":
+            raise ValueError("optimizer_offload='disk' with param_offload is not supported "
+                             "(the disk tier already keeps only compute-dtype params on device)")
+        if self.lora_rank is not None:
+            raise ValueError("optimizer_offload='disk' with LoRA is pointless (adapter state "
+                             "is rank-sized) and unsupported")
 
     @property
     def beta2_is_set(self) -> bool:
@@ -146,6 +206,9 @@ class TrainConfig:
 
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.precision]
+
+    def master_dtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -205,36 +268,60 @@ class _Chain:
     """optax ``chain(clip_by_global_norm, <scaler>,
     add_decayed_weights(mask))`` followed by ``p - lr·u``, written on
     tensors; a subclass is the scaler (:meth:`scale`, which may update its
-    state in place and returns the update u of one leaf).
+    state in place and returns the update u of one unit).
 
     Clipping scales only when the norm exceeds the max (optax's rule, which
-    is not ``clip_grad_norm_``'s)."""
+    is not ``clip_grad_norm_``'s).
+
+    The update runs over units of the leaves (``offload.update_units``: an
+    elementwise scaler cuts a large leaf into runs of whole rows), in place
+    or streamed through the device by a walk (``offload.UpdateWalk``); the
+    arithmetic is the same either way. A master below fp32 (bf16) follows
+    optax's dtype order: the fp32 gradient, clipped in fp32; the optimizer's
+    tensors in fp32 as optax holds them from the first update on (a
+    ``mu_dtype`` apart); the decay term wd·p in p's dtype; p + (-lr·u)
+    summed in fp32 and rounded once."""
 
     weight_decay: float
     grad_clip_norm: float
     decay_all_params: bool
+    elementwise: ClassVar[bool] = True
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
-               state: dict, lr: float) -> torch.Tensor:
+               state: dict, lr: float, walk: Optional[UpdateWalk] = None) -> torch.Tensor:
         """Apply one update in place to ``params`` and ``state``; ``grads``
         must already hold the raw (unclipped) gradients, and are clipped in
-        place. Returns the global norm of the raw gradients."""
+        place (fp32 ones; another dtype's in an fp32 copy at its unit).
+        ``walk`` moves host-resident masters or optimizer tensors through
+        the device (default: all in place). Returns the global norm of the
+        raw gradients."""
         keys = list(params)
         g_list = [grads[k] for k in keys]
         g_norm = global_norm(g_list)
         factor = torch.where(g_norm < self.grad_clip_norm, torch.ones_like(g_norm),
                              self.grad_clip_norm / g_norm)
-        torch._foreach_mul_(g_list, factor)
+        f32 = [g for g in g_list if g.dtype == torch.float32]
+        if f32:
+            torch._foreach_mul_(f32, factor)
         count = state["count"]
         state["count"] += 1
         decay = kernel_decay_mask(params)
-        for k, g in zip(keys, g_list):
-            p = params[k]
-            u = self.scale(k, g, p, state, count)
+        walk = walk or UpdateWalk(g_norm.device)
+        for k, p, g, st in walk.walk(params, grads, state, self.elementwise):
+            if g.dtype != torch.float32:
+                g = g.float().mul_(factor)
+            u = self.scale(g, p, st, count)
+            low = p.dtype != torch.float32
             if self.weight_decay and (self.decay_all_params or decay[k]):
-                u.add_(p, alpha=self.weight_decay)
-            p.add_(u, alpha=-lr)
+                if low:
+                    u.add_(p * torch.tensor(self.weight_decay, dtype=p.dtype, device=p.device))
+                else:
+                    u.add_(p, alpha=self.weight_decay)
+            if low:
+                p.copy_(u.mul_(-lr).add_(p))
+            else:
+                p.add_(u, alpha=-lr)
         return g_norm
 
     def state_bytes(self, state: dict) -> int:
@@ -243,11 +330,19 @@ class _Chain:
                    if name != "count" for t in tree.values())
 
 
+def _update_fp32(t: torch.Tensor) -> torch.Tensor:
+    """An optimizer tensor as it updates: itself in fp32, else an fp32 copy
+    (the stored tensor then takes the result with one rounding)."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
 @dataclass
 class AdamW(_Chain):
-    """``scale_by_adam(b1, b2, eps=1e-8, mu_dtype)``. With a bf16
-    ``mu_dtype`` the update uses the fp32 first moment and only the stored
-    moment rounds, as in optax."""
+    """``scale_by_adam(b1, b2, eps=1e-8, mu_dtype)``. The moments are fp32
+    whatever the masters' dtype: optax's update of bf16 zeros by an fp32
+    gradient is fp32, and it casts only mu, only to a given ``mu_dtype``.
+    A bf16 mu updates in fp32 and only its stored copy rounds, as optax
+    casts it."""
 
     b1: float = 0.9
     b2: float = 0.95
@@ -257,20 +352,22 @@ class AdamW(_Chain):
     def init(self, params: dict[str, torch.Tensor]) -> dict:
         return {
             "count": 0,
-            "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for k, p in params.items()},
-            "nu": {k: torch.zeros_like(p) for k, p in params.items()},
+            "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype or torch.float32)
+                   for k, p in params.items()},
+            "nu": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
         }
 
-    def scale(self, k, g, p, state, count):
-        mu, nu = state["mu"][k], state["nu"][k]
+    def scale(self, g, p, st, count):
+        mu, nu = st["mu"], st["nu"]
         bc1 = 1 - self.b1 ** (count + 1)
         bc2 = 1 - self.b2 ** (count + 1)
-        mu32 = mu.float() if mu.dtype != torch.float32 else mu
+        mu32, nu32 = _update_fp32(mu), _update_fp32(nu)
         mu32.mul_(self.b1).add_(g, alpha=1 - self.b1)
-        nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
-        u = (mu32 / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
-        if mu32 is not mu:
-            mu.copy_(mu32)
+        nu32.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+        u = (mu32 / bc1).div_((nu32 / bc2).sqrt_().add_(self.eps))
+        for stored, new in ((mu, mu32), (nu, nu32)):
+            if new is not stored:
+                stored.copy_(new)
         return u
 
 
@@ -292,35 +389,40 @@ class Adafactor(_Chain):
     defaults (``min_dim_size_to_factor`` 128, ``epsilon`` 1e-30,
     ``step_offset`` 0): second moments factored into row and column means
     over a leaf's two largest dims where both reach 128, whole otherwise;
-    decay ``1 - (t + 1) ** -decay_rate`` at count t."""
+    decay ``1 - (t + 1) ** -decay_rate`` at count t. The statistics are
+    fp32 whatever the masters' dtype (optax's promote to fp32 at the first
+    update). Its units are whole leaves (the factored means reduce over
+    them)."""
 
     decay_rate: float = 0.8
     epsilon: float = 1e-30
+    elementwise: ClassVar[bool] = False
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
         v_row, v_col, v = {}, {}, {}
+        f32 = torch.float32
         for k, p in params.items():
             dims = factored_dims(p.shape)
             if dims is None:
-                v[k] = torch.zeros_like(p)
+                v[k] = torch.zeros_like(p, dtype=f32)
             else:
                 d1, d0 = dims
-                v_row[k] = torch.zeros_like(p.select(d0, 0))
-                v_col[k] = torch.zeros_like(p.select(d1, 0))
+                v_row[k] = torch.zeros_like(p.select(d0, 0), dtype=f32)
+                v_col[k] = torch.zeros_like(p.select(d1, 0), dtype=f32)
         return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
 
-    def scale(self, k, g, p, state, count):
+    def scale(self, g, p, st, count):
         # optax computes the decay in fp32: 1 - float32(t + 1) ** -rate.
         beta = np.float32(1.0) - np.float32(count + 1) ** np.float32(-self.decay_rate)
         beta, rest = float(beta), float(np.float32(1.0) - beta)
         grad_sqr = g * g + self.epsilon
         dims = factored_dims(p.shape)
         if dims is None:
-            v = state["v"][k]
+            v = st["v"]
             v.mul_(beta).add_(grad_sqr, alpha=rest)
             return g * v.rsqrt()
         d1, d0 = dims
-        v_row, v_col = state["v_row"][k], state["v_col"][k]
+        v_row, v_col = st["v_row"], st["v_col"]
         v_row.mul_(beta).add_(grad_sqr.mean(dim=d0), alpha=rest)
         v_col.mul_(beta).add_(grad_sqr.mean(dim=d1), alpha=rest)
         reduced_d1 = d1 - 1 if d1 > d0 else d1
@@ -331,7 +433,8 @@ class Adafactor(_Chain):
 @dataclass
 class Lion(_Chain):
     """optax ``scale_by_lion(b1, b2, mu_dtype)``: the update is
-    sign((1 - b1)·g + b1·μ), then μ ← b2·μ + (1 - b2)·g (one moment)."""
+    sign((1 - b1)·g + b1·μ), then μ ← b2·μ + (1 - b2)·g (one moment, fp32
+    unless ``mu_dtype`` is given, as in optax whatever the masters' dtype)."""
 
     b1: float = 0.9
     b2: float = 0.99
@@ -339,15 +442,14 @@ class Lion(_Chain):
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
         return {"count": 0,
-                "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype or torch.float32)
                        for k, p in params.items()}}
 
-    def scale(self, k, g, p, state, count):
-        mu = state["mu"][k]
-
+    def scale(self, g, p, st, count):
+        mu = st["mu"]
+        # optax's b·μ is in μ's dtype, b rounded to it: a bf16 product for a
+        # bf16 mu_dtype, fp32 otherwise, before the fp32 sum.
         def decayed(b):
-            # optax's b·μ is in μ's dtype, b rounded to it (a bf16 product
-            # for a bf16 moment), before the fp32 sum.
             return (mu * torch.tensor(b, dtype=mu.dtype, device=mu.device)).float()
 
         u = torch.sign(g * (1 - self.b1) + decayed(self.b1))
@@ -359,8 +461,14 @@ Optimizer = Union[AdamW, Adafactor, Lion]
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ‖t‖²) over a list of tensors, as a 0-d fp32 tensor."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
+    """sqrt(Σ‖t‖²) over a list of tensors, as a 0-d fp32 tensor. Tensors
+    below fp32 are reduced in fp32 without an fp32 copy of each (a 7B
+    model's bf16 gradients would need 25 GiB of copies)."""
+    f32 = [t for t in tensors if t.dtype == torch.float32]
+    low = [t for t in tensors if t.dtype != torch.float32]
+    norms = list(torch._foreach_norm(f32)) if f32 else []
+    if low:
+        norms += torch._foreach_norm(low, 2, dtype=torch.float32)
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -451,23 +559,41 @@ def chunked_lm_loss(params, hidden, tokens, model_cfg: ModelConfig, chunk: int,
     return loss
 
 
-def accumulate_grads(loss_fn, params: dict[str, torch.Tensor], batch: torch.Tensor):
+def _take_grad(sums: GradSums, key: str, p: torch.Tensor) -> None:
+    sums.take(key, p.grad)
+    p.grad = None
+
+
+def accumulate_grads(loss_fn, params: dict[str, torch.Tensor], batch: torch.Tensor,
+                     sums: Optional[GradSums] = None):
     """Gradient accumulation over ``batch`` [accum, B, S]: each microbatch's
     raw sums are divided by the batch-wide valid-target count, so the summed
     loss and gradients are the global mean, and its MoE aux term is weighted
-    1/accum, so the summed aux is the mean over microbatches. Gradients
-    accumulate in the masters' ``.grad`` (fp32). Returns the summed loss
-    (0-d tensor)."""
+    1/accum, so the summed aux is the mean over microbatches. Gradients sum
+    in fp32 on the device, as JAX's do (:class:`~tpu_engine_torch.offload.
+    GradSums`): each leaf's ``.grad`` is taken as autograd finishes it and
+    then cleared, so a step holds one gradient a leaf, and masters streamed
+    from the host add theirs to ``sums`` themselves. Returns (the summed
+    loss, 0-d; the summed gradients), JAX's pair."""
     denom = torch.clamp(torch.sum((batch[:, :, 1:] >= 0).float()), min=1.0)
-    for p in params.values():
+    sums = sums if sums is not None else GradSums(batch.device)
+    sums.begin(params)
+    hooks = []
+    for k, p in params.items():
         p.grad = None
+        if p.requires_grad:
+            hooks.append(p.register_post_accumulate_grad_hook(partial(_take_grad, sums, k)))
     total = torch.zeros((), dtype=torch.float32, device=batch.device)
-    for tokens in batch:
-        loss = loss_fn(params, tokens, include_aux=True, denom=denom,
-                       aux_weight=1.0 / batch.shape[0])
-        loss.backward()
-        total = total + loss.detach()
-    return total
+    try:
+        for tokens in batch:
+            loss = loss_fn(params, tokens, include_aux=True, denom=denom,
+                           aux_weight=1.0 / batch.shape[0])
+            loss.backward()
+            total = total + loss.detach()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total, sums.finish()
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +613,17 @@ class TrainProgram:
     With LoRA (``config.lora_rank``) ``base_params`` holds the frozen base
     (master dtype, no gradient) and ``state["params"]`` the adapters alone,
     so gradients and optimizer state are rank-sized; ``merged_params``
-    folds them into the base for ``generate`` and the batcher."""
+    folds them into the base for ``generate`` and the batcher.
+
+    The placements: ``optimizer_offload="host"`` puts ``state["opt_state"]``'s
+    tensors, ``param_offload="host"`` ``state["params"]`` in host memory
+    (pinned on a CUDA device), the update streaming them through the
+    device (``walk``); with ``param_offload`` the streamed layers' gradients
+    sum on the device (``host.sums``). ``optimizer_offload="disk"`` (``disk``)
+    keeps the masters and moments in spill files: the state holds the
+    params in the compute dtype and no ``opt_state``, and with
+    ``disk_update_overlap`` the returned params lag the host walk by one
+    step until :meth:`flush`."""
 
     config: TrainConfig
     model_config: ModelConfig
@@ -495,6 +631,9 @@ class TrainProgram:
     tx: Optimizer = field(repr=False)
     schedule: Callable[[int], float] = field(repr=False)
     base_params: Optional[dict[str, torch.Tensor]] = field(default=None, repr=False)
+    walk: Optional[UpdateWalk] = field(default=None, repr=False)
+    host: Optional[HostParams] = field(default=None, repr=False)
+    disk: Optional["_DiskTier"] = field(default=None, repr=False)
 
     def global_batch_shape(self) -> tuple[int, int, int]:
         c = self.config
@@ -510,39 +649,58 @@ class TrainProgram:
     def init(self, params: Optional[dict[str, torch.Tensor]] = None,
              generator: Optional[torch.Generator] = None) -> dict:
         """Fresh state from ``params`` (e.g. ``params_from_jax``; with LoRA
-        the adapters, e.g. ``lora_from_jax``) or a random init drawn from
-        ``generator`` (default: seeded by ``config.seed``)."""
+        the adapters, e.g. ``lora_from_jax``; taken in the master dtype) or
+        a random init drawn from ``generator`` (default: seeded by
+        ``config.seed``) on the device. The disk tier re-attaches to a
+        matching clean spill instead, whose masters are the truth."""
+        cfg = self.config
+        if self.disk is not None and self.disk.attach():
+            return self.disk.state(self.disk.params_from_masters())
         if params is None:
-            cfg = self.config
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
             if self.base_params is not None:
                 params = lora_mod.init_lora_params(generator, self.model_config, cfg.lora_rank,
                                                    cfg.lora_targets, self.device)
             else:
-                params = tfm.init_params(self.model_config, generator, self.device)
-        return {
-            "params": params,
-            "opt_state": self.tx.init(params),
-            "step": 0,
-            "lr_scale": 1.0,
-        }
+                params = tfm.init_params(self.model_config, generator, self.device,
+                                         dtype=cfg.master_dtype())
+        elif self.base_params is None:
+            params = {k: v.detach().to(device=self.device, dtype=cfg.master_dtype())
+                      .requires_grad_(True) for k, v in params.items()}
+        if self.disk is not None:
+            return self.disk.state(self.disk.seed(params))
+        pin = self.device.type == "cuda"
+        opt_state = self.tx.init({k: torch.empty_like(p, device="meta") for k, p in params.items()}
+                                 if cfg.optimizer_offload == "host" else params)
+        if cfg.optimizer_offload == "host":
+            opt_state = {name: tree if name == "count" else HostArena(tree, pin).tensors
+                         for name, tree in opt_state.items()}
+        if self.host is not None:
+            params = HostArena(params, pin).tensors
+        return {"params": params, "opt_state": opt_state, "step": 0, "lr_scale": 1.0}
 
     def loss_fn(self, params, raw_tokens, include_aux: bool = True, denom=None,
                 aux_weight: float = 1.0):
         """Masked LM loss of one microbatch: its own valid-target mean, or
         raw sums over ``denom`` when summing over microbatches. With
         ``include_aux`` (training; the held-out loss has none) it adds the
-        z-loss and, for MoE, ``aux_weight · router_aux_coef · aux``."""
+        z-loss and, for MoE, ``aux_weight · router_aux_coef · aux``. Host
+        masters stream in: the non-layer leaves once here, each layer in
+        its block (JAX's ``_device_view`` and ``layer_stream``)."""
         cfg = self.config
         lora = None
         if self.base_params is not None:  # the trainable params are the adapters
             params, lora = self.base_params, params
+        layer_stream = None
+        if self.host is not None:
+            params, layer_stream = self.host.bind(params), self.host
         tokens, loss_tokens = decode_masked_tokens(raw_tokens)
         hidden, aux = tfm.forward_hidden_and_aux(
             params, tokens, self.model_config, compute_dtype=cfg.compute_dtype(),
             remat=cfg.activation_checkpointing, sequence=cfg.sequence,
             remat_policy=cfg.remat_policy, lora=lora, lora_scale=cfg.lora_scale(),
+            layer_stream=layer_stream,
         )
         if cfg.loss_chunk_size:
             ll_sum, z_sum, n_valid = _chunked_ce_sums(
@@ -562,16 +720,28 @@ class TrainProgram:
     def step(self, state: dict, batch: torch.Tensor) -> tuple[dict, dict]:
         """One optimizer step. Metrics are device tensors (no host sync)
         except ``learning_rate`` and ``step``, which the host knows."""
+        if self.disk is not None:
+            return self.disk.step(state, batch)
         params = state["params"]
-        loss = accumulate_grads(self.loss_fn, params, batch)
-        grads = {k: p.grad for k, p in params.items()}
+        loss, grads = accumulate_grads(self.loss_fn, params, batch,
+                                       self.host.sums if self.host is not None else None)
         lr = self.schedule(state["step"]) * state["lr_scale"]
-        grad_norm = self.tx.update(params, grads, state["opt_state"], lr)
-        for p in params.values():
-            p.grad = None
+        grad_norm = self.tx.update(params, grads, state["opt_state"], lr, self.walk)
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": grad_norm,
                        "learning_rate": lr, "step": state["step"]}
+
+    def flush(self, state: dict) -> dict:
+        """The state with every update its step counts applied: the disk
+        tier's in-flight walk joined under ``disk_update_overlap``; the
+        state itself otherwise."""
+        return self.disk.flush(state) if self.disk is not None else state
+
+    def transfer_bytes(self) -> dict[str, int]:
+        """Bytes copied host→device and device→host by the placements
+        since the program was built."""
+        parts = [x.bytes for x in (self.walk, self.host, self.disk) if x is not None]
+        return {d: sum(b[d] for b in parts) for d in ("h2d", "d2h")}
 
     @torch.no_grad()
     def merged_params(self, adapters: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -595,6 +765,182 @@ class TrainProgram:
         return total
 
 
+class _DiskTier:
+    """The disk tier of one program (port of the single-process half of
+    ``_assemble_disk_tier``, ``tpu_engine/train.py``): the device computes
+    and clips fp32 gradients on compute-dtype params; a host AdamW
+    (:class:`~tpu_engine_torch.disk_offload.DiskAdamW`) updates fp32 masters
+    and moments in memmap slabs under ``optimizer_spill_dir`` and uploads
+    each new master in the compute dtype.
+
+    The spill persists its applied-step count. When the incoming state's
+    step does not continue it (a rollback, a restored checkpoint, a fresh
+    run on an old spill), the masters reseed from the state's params with
+    the moments zeroed and the bias-correction counter reset, keeping each
+    master that still rounds to the incoming value (``reseed_masters``'s
+    ``cast_dtype``). With ``disk_update_overlap`` the walk of step N runs
+    on a thread while the device computes step N+1 (JAX's one-step-stale
+    delayed parameter update)."""
+
+    def __init__(self, prog: TrainProgram):
+        cfg = prog.config
+        self.prog = prog
+        self.device = prog.device
+        self.compute_dtype = cfg.compute_dtype()
+        self.store = dsk.DiskAdamW(cfg.optimizer_spill_dir, b1=cfg.beta1, b2=float(cfg.beta2),
+                                   eps=1e-8, weight_decay=cfg.weight_decay)
+        self.store.consensus_checks = 0  # discontinuity checks run (JAX's counter)
+        shapes = tfm.init_params(prog.model_config, None, device="meta")
+        self.shapes = {k: tuple(p.shape) for k, p in shapes.items()}
+        decay = kernel_decay_mask(shapes)
+        self.mask = {k: cfg.decay_all_params or decay[k] for k in shapes}
+        self.pending: Optional[dsk.WalkInFlight] = None
+        self.verified: Optional[int] = None  # the last step applied or checked
+        cuda = self.device.type == "cuda"
+        self.fetch_stream = torch.cuda.Stream(self.device) if cuda else None
+        self.upload_stream = torch.cuda.Stream(self.device) if cuda else None
+        self.bytes = {"h2d": 0, "d2h": 0}
+        self.walk_s: Optional[float] = None  # the last serial walk's host seconds
+
+    def attach(self) -> bool:
+        """Whether a matching clean spill is (or could be) attached."""
+        self.verified = None
+        return bool(self.store.slabs) or self.store.try_attach(self.shapes, self.mask)
+
+    def state(self, params: dict) -> dict:
+        return {"params": params, "step": 0, "lr_scale": 1.0}
+
+    @staticmethod
+    def _fetcher(params: dict):
+        return lambda k: params[k].detach().to("cpu", torch.float32).numpy()
+
+    def seed(self, masters: dict) -> dict:
+        """A fresh spill from ``masters``; returns the compute-dtype params."""
+        self.store.initialize(self._fetcher(masters), self.mask, shapes=self.shapes,
+                              force_fresh=True)
+        return {k: p.detach().to(self.compute_dtype).requires_grad_(True)
+                for k, p in masters.items()}
+
+    def _uploader(self) -> dsk.Uploader:
+        return dsk.Uploader(self.device, self.compute_dtype, self.upload_stream)
+
+    def _params(self, leaves: dict) -> dict:
+        return {k: leaves[k].requires_grad_(True) for k in self.shapes}
+
+    def params_from_masters(self) -> dict:
+        up = self._uploader()
+        try:
+            for key, slab in self.store.slabs.items():
+                up.emit(key, slab.master)
+        finally:
+            up.close()
+        return self._params(up.result())
+
+    def _grads(self, state: dict, batch: torch.Tensor):
+        """fp32 gradients summed over the microbatches and clipped (JAX's
+        ``grad_step``: scale min(1, clip / max(norm, 1e-12))), and the
+        metrics."""
+        prog = self.prog
+        loss, grads = accumulate_grads(prog.loss_fn, state["params"], batch)
+        grads = {k: g.float() for k, g in grads.items()}
+        g_list = list(grads.values())
+        norm = global_norm(g_list)
+        clip = prog.config.grad_clip_norm
+        torch._foreach_mul_(g_list, torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0))
+        lr = prog.schedule(state["step"]) * state["lr_scale"]
+        return grads, {"loss": loss, "grad_norm": norm, "learning_rate": lr,
+                       "step": state["step"] + 1}
+
+    def _grad_fetchers(self, grads: dict) -> dict:
+        """Leaf → a call that copies its gradient to the host, on a side
+        stream once the gradients are done (the walk's prefetch thread
+        calls these one leaf ahead)."""
+        if self.fetch_stream is None:
+            return dict(grads)
+        ready = torch.cuda.current_stream(self.device).record_event()
+        side = self.fetch_stream
+
+        def fetch(g):
+            with torch.cuda.stream(side):
+                side.wait_event(ready)
+                return g.to("cpu").numpy()
+
+        return {k: (lambda g=g: fetch(g)) for k, g in grads.items()}
+
+    def _count(self, grads: dict) -> None:
+        n = sum(g.numel() for g in grads.values())
+        self.bytes["d2h"] += 4 * n
+        self.bytes["h2d"] += n * torch.tensor([], dtype=self.compute_dtype).element_size()
+
+    def _ensure_store(self, params: dict) -> None:
+        if not self.attach():
+            self.store.initialize(self._fetcher(params), self.mask, shapes=self.shapes,
+                                  force_fresh=True)
+        self.verified = None
+
+    def _check_discontinuity(self, state: dict, t: int) -> None:
+        if self.verified == t - 1:
+            return
+        self.store.consensus_checks += 1
+        if self.store.step_on_disk is not None and self.store.step_on_disk != t - 1:
+            self.store.reseed_masters(self._fetcher(state["params"]), step=t - 1,
+                                      cast_dtype=self.compute_dtype)
+        self.verified = t - 1
+
+    def step(self, state: dict, batch: torch.Tensor) -> tuple[dict, dict]:
+        if self.prog.config.disk_update_overlap:
+            return self._step_overlap(state, batch)
+        grads, metrics = self._grads(state, batch)
+        t = state["step"] + 1
+        if not self.store.slabs:
+            self._ensure_store(state["params"])
+        self._check_discontinuity(state, t)
+        up = self._uploader()
+        t0 = time.perf_counter()
+        try:
+            self.store.update(self._grad_fetchers(grads), metrics["learning_rate"], t, up.emit)
+        finally:
+            up.close()  # never leak the worker on an update failure
+        self.walk_s = time.perf_counter() - t0
+        self._count(grads)
+        params = self._params(up.result())
+        self.verified = t
+        return {"params": params, "step": t, "lr_scale": state["lr_scale"]}, metrics
+
+    def _step_overlap(self, state: dict, batch: torch.Tensor) -> tuple[dict, dict]:
+        """This step's gradients on the current (one walk stale) params,
+        then the previous step's walk joined, then this step's walk started
+        on a thread: the returned params lag by exactly the walk in
+        flight."""
+        grads, metrics = self._grads(state, batch)
+        t = state["step"] + 1
+        if not self.store.slabs:
+            self._ensure_store(state["params"])
+        prev, self.pending = self.pending, None
+        leaves = None
+        if prev is not None:
+            if prev.step == state["step"]:
+                leaves = prev.join()
+            else:  # the state does not continue the walk: abandon it
+                prev.discard()
+        self._check_discontinuity(state, t)
+        self.pending = dsk.WalkInFlight(self.store, self._grad_fetchers(grads),
+                                        metrics["learning_rate"], t, self._uploader())
+        self._count(grads)
+        self.verified = t
+        params = state["params"] if leaves is None else self._params(leaves)
+        return {"params": params, "step": t, "lr_scale": state["lr_scale"]}, metrics
+
+    def flush(self, state: dict) -> dict:
+        walk, self.pending = self.pending, None
+        if walk is None:
+            return state
+        if walk.step != state["step"]:
+            walk.discard()
+            return state
+        return {**state, "params": self._params(walk.join())}
+
+
 def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = None,
                         device="cuda",
                         base_params: Optional[dict[str, Any]] = None) -> TrainProgram:
@@ -602,8 +948,9 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
     (``tpu_engine/train.py``): ``sequence > 1`` is ring attention (Ulysses
     when asked for, which is not ported and raises); otherwise ``"auto"`` is
     the flash kernels on a CUDA device and the plain path on the CPU, and an
-    explicit choice is honoured. ``quant_training`` and its targets resolve
-    onto the model config, as in JAX.
+    explicit choice is honoured; ``cfg.sliding_window`` then overrides the
+    model's window. ``quant_training`` and its targets resolve onto the
+    model config, as in JAX.
 
     ``base_params`` applies to LoRA only (``cfg.lora_rank``): the frozen base
     to adapt (e.g. ``params_from_jax`` or ``from_hf_llama``), taken in the
@@ -630,15 +977,12 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
             and model_cfg.moe_impl == "ragged" and "moe" in model_cfg.quant_train_targets):
         # The config check sees moe_impl=None when the model carries ragged.
         raise ValueError(quant_train.RAGGED_MOE_REFUSAL)
-    if cfg.remat_policy == "offload_dots":
-        if device.type != "cuda":
-            raise ValueError(
-                "remat_policy='offload_dots' requires TPU (the CPU SPMD "
-                "partitioner cannot compile the policy's host-placement "
-                "annotations)"
-            )
-        raise NotImplementedError(
-            "remat_policy='offload_dots' is not ported to CUDA (queued in ROADMAP.md)")
+    if cfg.remat_policy == "offload_dots" and device.type != "cuda":
+        raise ValueError(
+            "remat_policy='offload_dots' requires TPU (the CPU SPMD "
+            "partitioner cannot compile the policy's host-placement "
+            "annotations)"
+        )
     tfm._require_ported(model_cfg)
     if cfg.sequence > 1:
         impl = "ulysses" if cfg.attention_impl == "ulysses" else "ring"
@@ -651,6 +995,8 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
             "attention_impl='ulysses' is not ported (queued with multi-GPU)")
     if model_cfg.attention_impl != impl:
         model_cfg = model_cfg.with_(attention_impl=impl)
+    if cfg.sliding_window is not None and model_cfg.sliding_window != cfg.sliding_window:
+        model_cfg = model_cfg.with_(sliding_window=cfg.sliding_window)
     # Reject window × sequence parallelism at build time, as JAX does,
     # rather than at the first step deep inside _attention.
     if model_cfg.sliding_window and impl == "ring":
@@ -661,13 +1007,26 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
         )
     if cfg.lora_rank is not None:
         lora_mod.validate_targets(model_cfg, cfg.lora_targets)
+        if cfg.param_offload == "host":
+            raise ValueError(
+                "param_offload is not supported with LoRA (the trainable "
+                "adapters are rank-sized; offloading them saves nothing and the "
+                "frozen base is better streamed via its own placement)"
+            )
         if base_params is None:
             gen = torch.Generator(device=device).manual_seed(cfg.seed)
             base_params = tfm.init_params(model_cfg, gen, device)
-        base_params = {k: v.detach().to(device=device, dtype=torch.float32)
+        base_params = {k: v.detach().to(device=device, dtype=cfg.master_dtype())
                        for k, v in base_params.items()}
     else:
         base_params = None
     tx, schedule = make_optimizer(cfg)
-    return TrainProgram(config=cfg, model_config=model_cfg, device=device, tx=tx,
-                        schedule=schedule, base_params=base_params)
+    prog = TrainProgram(config=cfg, model_config=model_cfg, device=device, tx=tx,
+                        schedule=schedule, base_params=base_params,
+                        walk=UpdateWalk(device, host_params=cfg.param_offload == "host",
+                                        host_state=cfg.optimizer_offload == "host"))
+    if cfg.param_offload == "host":
+        prog.host = HostParams(device, cfg.compute_dtype())
+    if cfg.optimizer_offload == "disk":
+        prog.disk = _DiskTier(prog)
+    return prog

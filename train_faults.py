@@ -1,9 +1,10 @@
-"""Plant faults in the port's quantised training, LoRA and remat paths on one
-card and read what the checks of ``chip_smoke.py``'s ``train_int8``,
-``train_lora`` and ``remat`` phases measure for each, beside the sound code
-in the same run. ``INT8_LOGITS_REL``, ``INT8_LOSS_REL``, ``INT8_GRAD_COS``,
-``INT8_BIAS_RATIO``, ``LORA_MERGED_REL`` and ``REMAT_TAG_SHARE`` there are
-set from these readings.
+"""Plant faults in the port's quantised training, LoRA, remat and offload
+paths on one card and read what the checks of ``chip_smoke.py``'s
+``train_int8``, ``train_lora``, ``remat`` and ``train_offload`` phases
+measure for each, beside the sound code in the same run.
+``INT8_LOGITS_REL``, ``INT8_LOSS_REL``, ``INT8_GRAD_COS``,
+``INT8_BIAS_RATIO``, ``LORA_MERGED_REL``, ``REMAT_TAG_SHARE`` and
+``DISK_LOSS_REL`` there are set from these readings.
 
     python3 train_faults.py
 
@@ -27,7 +28,18 @@ Each fault patches one function for the length of its reading:
 - remat (``chip_smoke.remat_kept_bytes``: the bytes a forward keeps, over
   nothing_saveable's, as a share of the policy's tagged bytes):
   ``remat_sound``; ``remat_named_saves_nothing``: the named policies
-  checkpoint the whole block (``transformer._remat_block``).
+  checkpoint the whole block (``transformer._remat_block``);
+- where the state lives (``train_offload``'s llama-1b for
+  ``OFFLOAD_STEPS`` steps against the in-memory run: the largest relative
+  gap of the losses, the leaves whose final weights differ, their largest
+  gap): ``host_sound`` (the optimizer state on the host);
+  ``host_moments_dropped``: the walk leaves one leaf's moments on the
+  device, never copied back (``offload.UpdateWalk._store``);
+  ``disk_sound``; ``disk_bias_off_by_one``: the host AdamW corrects its
+  moments' bias one step ahead (``disk_offload.DiskAdamW.update``), which
+  sets ``DISK_LOSS_REL``; and ``disk_overlap`` (sound, with
+  ``disk_update_overlap``), whose step times beside ``disk_sound``'s say
+  whether the overlap hides the host walk.
 
 The readings are printed and written to ``chiprun_out/train_faults.json``.
 """
@@ -90,6 +102,83 @@ def _named_saves_nothing(real):
     return block
 
 
+# The leaf whose moments the host-offload fault leaves on the device.
+DROPPED_LEAF = "layers.gate.kernel"
+
+
+def _moments_dropped(real):
+    def store(self, key, src, dev):
+        if key == DROPPED_LEAF:
+            dev = {n: t for n, t in dev.items() if n == "p"}
+        return real(self, key, src, dev)
+
+    return store
+
+
+def _bias_off_by_one(real):
+    def update(self, grads, lr, step, emit):
+        self.moment_steps += 1
+        try:
+            real(self, grads, lr, step, emit)
+        finally:
+            self.moment_steps -= 1
+
+    return update
+
+
+def _offload_run(cs, extra: dict) -> tuple[list, dict, list]:
+    """``train_offload``'s llama-1b in one placement for OFFLOAD_STEPS
+    steps: (losses, the final weights on the device, step seconds)."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="train_faults_spill_") as spill:
+        if extra.get("optimizer_offload") == "disk":
+            extra = {**extra, "optimizer_spill_dir": spill}
+        prog, state, _, losses, _, times, *_ = cs._run_steps(cs._llama_1b_cfg(**extra),
+                                                             cs.OFFLOAD_STEPS, "flash")
+        state = prog.flush(state)
+        if prog.disk is not None:  # its masters: the device holds them rounded to bf16
+            params = {k: torch.from_numpy(w).cuda() for k, w in prog.disk.store.masters().items()}
+        else:
+            params = {k: p.detach().to("cuda", copy=True) for k, p in state["params"].items()}
+        del prog, state
+    torch.cuda.empty_cache()
+    return losses, params, times
+
+
+def _offload_reading(ref: tuple, got: tuple) -> dict:
+    (rl, rp, _), (gl, gp, times) = ref, got
+    diff = [k for k in rp if not gp[k].float().equal(rp[k].float())]
+    return {"losses": gl, "step_s": times,
+            "loss_rel": max(abs(a - b) / b for a, b in zip(gl, rl)),
+            "leaves_differ": diff,
+            "max_abs": max((float((gp[k].float() - rp[k].float()).abs().max()) for k in diff),
+                           default=0.0)}
+
+
+def offload_readings(cs, out: dict) -> None:
+    """The placements' readings (module docstring) into ``out``."""
+    from tpu_engine_torch import disk_offload as dsk
+    from tpu_engine_torch import offload
+
+    ref = _offload_run(cs, {})
+    for name, extra, patch in (
+            ("host_sound", {"optimizer_offload": "host"}, None),
+            ("host_moments_dropped", {"optimizer_offload": "host"},
+             (offload.UpdateWalk, "_store", _moments_dropped)),
+            ("disk_sound", {"optimizer_offload": "disk"}, None),
+            ("disk_bias_off_by_one", {"optimizer_offload": "disk"},
+             (dsk.DiskAdamW, "update", _bias_off_by_one)),
+            ("disk_overlap", {"optimizer_offload": "disk", "disk_update_overlap": True}, None)):
+        with _patched(patch):
+            r = out[name] = _offload_reading(ref, _offload_run(cs, extra))
+        print(f"{name}: losses {r['losses']}, relative gap {r['loss_rel']:.4e} "
+              f"(DISK_LOSS_REL {cs.DISK_LOSS_REL}), {len(r['leaves_differ'])} leaves differ, "
+              f"largest gap {r['max_abs']:.4e}, step seconds {r['step_s']}", flush=True)
+
+
 def _lora_run(cs, steps: int) -> float:
     """``train_lora``'s program for ``steps`` steps on its synthetic batch,
     then the merged tree's logits against the adapter forward's."""
@@ -146,7 +235,8 @@ def main() -> int:
     out: dict = {"card": card, "bounds": {
         "int8_logits_rel": cs.INT8_LOGITS_REL, "int8_loss_rel": cs.INT8_LOSS_REL,
         "int8_grad_cos": cs.INT8_GRAD_COS, "int8_bias_ratio": cs.INT8_BIAS_RATIO,
-        "lora_merged_rel": cs.LORA_MERGED_REL, "remat_tag_share": cs.REMAT_TAG_SHARE}}
+        "lora_merged_rel": cs.LORA_MERGED_REL, "remat_tag_share": cs.REMAT_TAG_SHARE,
+        "disk_loss_rel": cs.DISK_LOSS_REL}}
     int8_cfg = cs._llama_1b_cfg(quant_training="int8", quant_train_targets=cs.INT8_TARGETS)
     for name, patch in {"int8_sound": None,
                         "int8_scale_dropped": (qt, "_scales_outer", _scales_dropped),
@@ -175,6 +265,7 @@ def main() -> int:
             out[name] = _remat_extra(cs)
         print(f"{name}: kept over nothing_saveable, as a share of the tagged bytes: "
               f"{out[name]}", flush=True)
+    offload_readings(cs, out)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "train_faults.json").write_text(json.dumps(out, indent=1))
     print(json.dumps(out), flush=True)

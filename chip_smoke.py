@@ -3,6 +3,9 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --steps 5  # more training steps (3, the least, by default)
 
+(``--mesh-worker JOB RANK`` runs one rank of ``train_mesh``; the phase
+starts those processes itself.)
+
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. build: compile the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV,
@@ -139,7 +142,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the host; bf16 masters and bf16 first moments in memory), after the
    host's memory and each configuration's reckoned bytes;
 22. train_window: ``train`` with ``sliding_window=1024``: every K1-K3
-   launch windowed, the first loss held to the plain windowed path's.
+   launch windowed, the first loss held to the plain windowed path's;
+23. train_mesh: llama-1b at full width and depth on a mesh through NCCL, 3
+   steps a run: at world 1 in this process, the mesh program at stage 3
+   bitwise the no-mesh program (seq 2048 × 4), and at seq 8192 × 1; then
+   two ranks, a process each on the one card (``--mesh-worker``; each its
+   own ``NCCL_HOSTID``): fsdp=2 at stage 3 (seq 2048 × 2 a rank), a ring
+   and Ulysses over sequence=2 (seq 8192 × 1), each held to the world-1
+   run at the same global batch by MESH_LOSS_REL (train_faults.py), launch
+   counts exact per rank; step time, peak memory and the bytes each
+   collective moved a step, per rank.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results (``launches`` per training step, summed over
@@ -158,6 +170,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -899,7 +912,7 @@ def phase_kernels(res: dict) -> None:
 # forwards); remat's launches are nothing_saveable's.
 D128_PATHS = ("train", "train_ring", "train_moe", "train_int8", "train_lora",
               "train_adafactor", "train_lion", "remat", "train_offload", "train_7b",
-              "train_window")
+              "train_window", "train_mesh")
 
 
 def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
@@ -3273,6 +3286,263 @@ def phase_train_window(res: dict, steps: int = OFFLOAD_STEPS) -> None:
     _free()
 
 
+# train_mesh: llama-1b at full width and depth on a mesh of ranks, a
+# process each, joined through NCCL on the one card (two ranks need
+# distinct NCCL_HOSTID values: NCCL refuses two ranks on one bus id of one
+# host). World 1 holds the mesh program (stage 3, collectives of one rank)
+# to the no-mesh one bitwise; the two-rank runs are held to the world-1 run
+# at the same global batch by MESH_LOSS_REL (train_faults.py, set from its
+# planted-fault readings).
+MESH_L = 16
+MESH_SEQ = 8192
+MESH_RUNS = {
+    # name: (ranks, mesh (None: no mesh), TrainConfig fields, the world-1
+    # run it is held to, per-rank launches a microbatch)
+    "nomesh": (1, None, dict(micro_batch_size=4, seq_len=2048), None, "flash"),
+    "w1_2048": (1, {}, dict(micro_batch_size=4, seq_len=2048), "nomesh", "flash"),
+    "w1_8192": (1, {}, dict(micro_batch_size=1, seq_len=MESH_SEQ), None, "flash"),
+    "fsdp2": (2, dict(fsdp=2), dict(micro_batch_size=2, seq_len=2048), "w1_2048", "flash"),
+    "ring2": (2, dict(sequence=2), dict(micro_batch_size=1, seq_len=MESH_SEQ), "w1_8192",
+              "ring"),
+    "ulysses2": (2, dict(sequence=2), dict(micro_batch_size=1, seq_len=MESH_SEQ,
+                                           attention_impl="ulysses"), "w1_8192", "ulysses"),
+}
+MESH_TIMEOUT_S = 300
+# NCCL's socket transport between the ranks (the only one NCCL takes
+# between "hosts"): 8 threads of 2 sockets and 16 MB buffers moved a 256 MB
+# all-reduce in 159 ms against the defaults' 205 (nccl_probe.py --tune on
+# an NVIDIA H100 80GB HBM3 at 700 W).
+MESH_NCCL_ENV = {"NCCL_SOCKET_NTHREADS": "8", "NCCL_NSOCKS_PERTHREAD": "2",
+                 "NCCL_BUFFSIZE": str(16 << 20)}
+
+
+def _mesh_want(name: str, rank: int) -> dict:
+    """Launches a step of ``name``'s rank ``rank``: K1 twice a layer (the
+    forward and the checkpoint's recompute), K2 and K3 once; the ring's
+    rank 1 also runs its past hop unmasked (the ``_full`` kernels)."""
+    causal = {"flash_fwd": 2 * MESH_L, "flash_bwd_dq": MESH_L, "flash_bwd_dkv": MESH_L}
+    if name == "ring2" and rank == 1:
+        return {**causal, **{f"{k}_full": v for k, v in causal.items()}}
+    return causal
+
+
+def _mesh_cfg(name: str):
+    from tpu_engine_torch.mesh_runtime import MeshConfig
+    from tpu_engine_torch.train import TrainConfig
+
+    _, mesh, kw, _, _ = MESH_RUNS[name]
+    return TrainConfig(**{**dict(model_name="llama-1b", gradient_accumulation_steps=1,
+                                 precision="bf16", param_dtype="fp32",
+                                 activation_checkpointing=True, attention_impl="auto",
+                                 sharding_stage=3, mesh=MeshConfig(**(mesh or {})),
+                                 **TRAIN_LR), **kw})
+
+
+def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
+    """Take ``steps`` steps of each of ``runs`` (names of MESH_RUNS) on one
+    synthetic batch, in this process's group on cuda:0, every launch and
+    collective counter set to 0 just before and read just after. ``fault``
+    names a planted fault of train_faults.py, patched around each run."""
+    import contextlib
+
+    import torch
+
+    from tpu_engine_torch.mesh_runtime import MeshRuntime
+    from tpu_engine_torch.ops import _flash_cuda as fc
+    from tpu_engine_torch.parallel import collectives
+    from tpu_engine_torch.train import build_train_program
+
+    def patch():
+        if not fault:
+            return contextlib.nullcontext()
+        import train_faults
+
+        return train_faults._patched(train_faults.mesh_fault(fault))
+
+    device = torch.device("cuda", 0)
+    out, runtimes = {}, {}  # one runtime a mesh shape, shared by its runs
+    for name in runs:
+        t_setup = time.perf_counter()
+        cfg = _mesh_cfg(name)
+        with patch():
+            runtime = None
+            if MESH_RUNS[name][1] is not None:
+                key = json.dumps(MESH_RUNS[name][1], sort_keys=True)
+                if key not in runtimes:
+                    runtimes[key] = MeshRuntime(cfg.mesh, device=device)
+                runtime = runtimes[key]
+            prog = build_train_program(cfg, device=device, runtime=runtime)
+            state = prog.init()
+            batch = prog.synthetic_batch(seed=0)
+            torch.cuda.synchronize()
+            t_setup = time.perf_counter() - t_setup
+            torch.cuda.reset_peak_memory_stats()
+            fc.reset_launches()
+            collectives.reset_moved()
+            losses, norms, times = [], [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, m = prog.step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        out[name] = {
+            "losses": losses, "grad_norms": norms, "step_ms_each": [t * 1e3 for t in times],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": dict(fc.launches),
+            "moved_bytes_per_step": {k: v // steps for k, v in collectives.moved.items()},
+            "impl": prog.model_config.attention_impl, "setup_s": t_setup,
+            "mesh": runtime.axis_sizes if runtime is not None else None}
+        del prog, state, batch
+        _free()
+    return out
+
+
+def mesh_worker(job_path: str, rank: int) -> None:
+    """One rank of ``train_mesh`` (``chip_smoke.py --mesh-worker JOB RANK``):
+    joins the job's process group on cuda:0 through NCCL, takes its runs
+    (:func:`_mesh_runs`) and writes ``JOB.rank<R>.json``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tpu_engine_torch.mesh_runtime import initialize_distributed
+    from tpu_engine_torch.ops import _flash_cuda as fc
+
+    job = json.loads(Path(job_path).read_text())
+    fc._load()
+    initialize_distributed(f"127.0.0.1:{job['port']}", job["world"], rank, device="cuda:0")
+    out = {"rank": rank, "joined_s": time.time() - job["t0"]}
+    out["runs"] = _mesh_runs(job["runs"], job["steps"], job.get("fault"))
+    Path(f"{job_path}.rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def mesh_world1(runs: list, steps: int) -> dict:
+    """``runs`` at world 1 in this process (warm: no start-up, no second
+    CUDA context): a one-rank NCCL group joined for them and left after."""
+    import torch.distributed as dist
+
+    from tpu_engine_torch.mesh_runtime import initialize_distributed
+
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda:0")
+    try:
+        return _mesh_runs(runs, steps)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None) -> list:
+    """Run ``runs`` on ``world`` rank processes (:func:`mesh_worker`) and
+    return each rank's results. Every process is stopped on return; a rank
+    that fails, or a job that outlives MESH_TIMEOUT_S, raises."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    job_path = out_dir / f"mesh_{tag}.json"
+    job_path.write_text(json.dumps({"runs": runs, "world": world, "steps": steps,
+                                    "port": _free_port(), "fault": fault, "t0": time.time()}))
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, NCCL_HOSTID=f"mesh-rank-{r}", **MESH_NCCL_ENV)
+        log = open(out_dir / f"mesh_{tag}.rank{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                        "--mesh-worker", str(job_path), str(r)],
+                                       stdout=log, stderr=subprocess.STDOUT, env=env), log))
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            tail = (out_dir / f"mesh_{tag}.rank{r}.log").read_text()[-3000:]
+            raise AssertionError(f"mesh rank {r} of {tag} exited {p.returncode}:\n{tail}")
+    return [json.loads(Path(f"{job_path}.rank{r}.json").read_text()) for r in range(world)]
+
+
+def mesh_rel(got: dict, ref: dict) -> float:
+    """The largest relative gap between two runs' losses and gradient
+    norms, step by step."""
+    pairs = list(zip(got["losses"], ref["losses"])) + list(zip(got["grad_norms"],
+                                                                ref["grad_norms"]))
+    return max(abs(a - b) / abs(b) for a, b in pairs)
+
+
+def phase_train_mesh(res: dict, steps: int) -> None:
+    """llama-1b (d_model 2048, 16 layers, 16 heads of 128), bf16 compute,
+    fp32 masters, AdamW, checkpointing, flash kernels, ``steps`` steps each,
+    a rank a process through NCCL on cuda:0: at world 1 the no-mesh program
+    and the mesh program at stage 3 (seq 2048 × 4; the losses must be
+    bitwise equal), and the mesh program at seq 8192 × 1, in this process;
+    on two ranks, a process each
+    (fsdp=2) at stage 3, seq 2048 × 2 a rank; a ring over sequence=2 and
+    Ulysses over sequence=2, seq 8192 × 1. Each two-rank run is held to the
+    world-1 run at the same global batch within MESH_LOSS_REL (losses and
+    gradient norms of every step), its launches checked exactly per rank,
+    and its step time, peak memory and the bytes each collective moved a
+    step reported per rank."""
+    from train_faults import MESH_LOSS_REL
+
+    out = res["train_mesh"] = {"steps": steps, "accum": 1, "runs": {}, "launches": {}}
+    one = [{"runs": mesh_world1(["nomesh", "w1_2048", "w1_8192"], steps)}]
+    two = mesh_launch(["fsdp2", "ring2", "ulysses2"], 2, steps, "w2")
+    fails = []
+    for ranks in (one, two):
+        for name in ranks[0]["runs"]:
+            world, _, _, ref, impl = MESH_RUNS[name]
+            runs = [r["runs"][name] for r in ranks]
+            out["runs"][name] = runs
+            for rank, run in enumerate(runs):
+                if run["impl"] != impl:
+                    fails.append(f"{name}: attention resolved to {run['impl']!r}")
+                want = {k: v * steps for k, v in _mesh_want(name, rank).items()}
+                got = {k: v for k, v in run["launches"].items() if v}
+                if got != want:
+                    fails.append(f"{name} rank {rank}: launches {got} != {want}")
+                if name != "nomesh":
+                    for k, v in run["launches"].items():
+                        out["launches"][k] = out["launches"].get(k, 0) + v
+                if not all(math.isfinite(x) for x in run["losses"]) or not all(
+                        b < a for a, b in zip(run["losses"][1:], run["losses"][2:])):
+                    fails.append(f"{name} rank {rank}: losses {run['losses']}")
+                step = min(run["step_ms_each"][1:] or run["step_ms_each"])
+                moved = {k: v for k, v in run["moved_bytes_per_step"].items() if v}
+                print(f"train_mesh {name} rank {rank}: losses "
+                      f"{[round(x, 5) for x in run['losses']]}, step {step:.1f} ms, peak "
+                      f"{run['peak_mem_gib']:.2f} GiB, bytes moved a step {moved} ({_card_line()})",
+                      flush=True)
+                if ref is None:
+                    continue
+                ref_run = out["runs"][ref][0]
+                rel = mesh_rel(run, ref_run)
+                run["rel_to_" + ref] = rel
+                bitwise = run["losses"] == ref_run["losses"]
+                run["bitwise_to_" + ref] = bitwise
+                print(f"train_mesh {name} rank {rank} against {ref}: losses bitwise {bitwise}, "
+                      f"largest relative gap {rel:.3e} (MESH_LOSS_REL {MESH_LOSS_REL})",
+                      flush=True)
+                if world == 1 and not bitwise:
+                    fails.append(f"{name}: losses {run['losses']} not bitwise {ref}'s "
+                                 f"{ref_run['losses']}")
+                if not rel <= MESH_LOSS_REL:
+                    fails.append(f"{name} rank {rank}: relative gap {rel:.3e} to {ref}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
 def _time_optimizer(prog, state, key: str) -> float:
     """Device time of the program's optimizer update alone over its
     trainable parameters (CUDA events), on zero gradients at lr 0: the same
@@ -3343,7 +3613,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3,
                     help="training steps of each training phase (at least 3)")
+    ap.add_argument("--mesh-worker", nargs=2, metavar=("JOB", "RANK"),
+                    help="run one rank of train_mesh (the phase starts these itself)")
     args = ap.parse_args()
+    if args.mesh_worker:
+        mesh_worker(args.mesh_worker[0], int(args.mesh_worker[1]))
+        return 0
     if args.steps < 3:
         ap.error("--steps must be at least 3: step 0 has a learning rate of 0")
 
@@ -3403,6 +3678,7 @@ def main() -> int:
         run("train_offload", phase_train_offload, res)
         run("train_7b", phase_train_7b, res)
         run("train_window", phase_train_window, res)
+        run("train_mesh", phase_train_mesh, res, args.steps)
         serving: dict = {}
         run("generate", phase_generate, res, serving)
         run("serve", phase_serve, res, serving)

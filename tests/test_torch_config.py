@@ -48,7 +48,8 @@ def test_params_round_trip_exactly():
 
 
 def test_params_from_jax_rejects_unported_archs_and_bad_trees():
-    """An arch with experts outside ``MODEL_CONFIGS`` (qwen) raises; a tree
+    """An arch with experts the port refuses (gpt2, as JAX's block would
+    look for a router in its dense tree) raises; a tree
     missing a leaf of its arch raises ``ValueError`` naming it; gemma's tree
     (no ``lm_head``: the head is tied) and moe-tiny's (router and stacked
     experts), which raised before they were ported, now round-trip exactly."""
@@ -69,7 +70,7 @@ def test_params_from_jax_rejects_unported_archs_and_bad_trees():
         assert pa == pb
         np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError):
-        convert.params_from_jax(moe, tcfg.MODEL_CONFIGS["moe-tiny"].with_(arch="qwen"),
+        convert.params_from_jax(moe, tcfg.MODEL_CONFIGS["moe-tiny"].with_(arch="gpt2"),
                                 device="cpu")
     with pytest.raises(ValueError, match="lm_head"):
         convert.params_from_jax(tree, tcfg.MODEL_CONFIGS["qwen-tiny"], device="cpu")

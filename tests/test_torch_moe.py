@@ -119,11 +119,18 @@ def test_init_params_match_jax_tree_and_scales():
 
 
 def test_arch_moe_pairs_outside_the_configs_raise():
-    """Only llama has experts in MODEL_CONFIGS; another arch with experts
-    keeps raising, and the HF bridge refuses MoE as JAX does."""
-    for arch in ("gpt2", "qwen", "gemma"):
-        with pytest.raises(NotImplementedError):
-            convert.param_keys(tcfg.MODEL_CONFIGS[NAME].with_(arch=arch))
+    """gpt2 with experts keeps raising (JAX builds dense gpt2 parameters for
+    it, and its block then looks for a router); qwen and gemma with experts
+    have JAX's trees; the HF bridge refuses MoE as JAX does."""
+    with pytest.raises(NotImplementedError):
+        convert.param_keys(tcfg.MODEL_CONFIGS[NAME].with_(arch="gpt2"))
+    for arch in ("qwen", "gemma"):
+        jc = jtfm.MODEL_CONFIGS[f"{arch}-tiny"].with_(n_experts=4, top_k=2)
+        jtree = jax.eval_shape(lambda k, c=jc: jtfm.init_params(k, c), jax.random.PRNGKey(0))
+        cfg = tcfg.MODEL_CONFIGS[f"{arch}-tiny"].with_(n_experts=4, top_k=2)
+        assert set(convert.param_keys(cfg)) == set(convert._flatten(jtree))
+        with pytest.raises(ValueError, match="MoE"):
+            convert.hf_config_from(cfg)
     with pytest.raises(ValueError, match="MoE"):
         convert.hf_config_from(tcfg.MODEL_CONFIGS[NAME])
     with pytest.raises(ValueError, match="MoE"):
@@ -400,3 +407,4 @@ def test_batcher_plan_token_identical_to_jax(moe):
     want = _drive(jsrv.ContinuousBatcher(jtree, jc, draft_params=jax.tree.map(jnp.asarray, draft),
                                          draft_cfg=jc, **F32, **spec), plan)
     assert got == want
+

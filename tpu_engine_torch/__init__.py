@@ -39,8 +39,20 @@ Where the training state lives:
 - bf16 masters, the ``sliding_window`` override and the ``offload_dots``
   remat policy.
 
+Then qwen and gemma with experts, and the first multi-GPU pieces:
+
+- ``tpu_engine_torch.mesh_runtime`` — ``MeshConfig``,
+  ``initialize_distributed``, ``build_mesh`` and ``MeshRuntime`` (the
+  process groups of the mesh's axes);
+- ``tpu_engine_torch.sharding`` — the ZeRO stages' specs;
+- ``tpu_engine_torch.parallel.zero`` — the train step on a mesh
+  (``TrainConfig(mesh=..., sharding_stage=...)``), ZeRO 0–3 over ``data``
+  and ``fsdp``;
+- ring attention across ranks (``parallel.ring_attention.ring_mha_group``)
+  and Ulysses (``parallel.ulysses_attention``) over ``sequence``.
+
 Imports here stay light: submodules are imported by the caller.
 """
 
-__all__ = ["disk_offload", "generate", "lora", "models", "offload", "ops", "quant",
-           "quant_train", "serving", "train"]
+__all__ = ["disk_offload", "generate", "lora", "mesh_runtime", "models", "offload", "ops",
+           "parallel", "quant", "quant_train", "serving", "sharding", "train"]

@@ -68,22 +68,26 @@ GPT2_KEYS = (
 QWEN_KEYS = LLAMA_KEYS + ("layers.q_norm.scale", "layers.k_norm.scale")
 GEMMA_KEYS = tuple(k for k in LLAMA_KEYS if k != "lm_head.kernel")
 # MoE (llama with experts): the router [L, D, E] beside the stacked expert
-# kernels, gate/up [L, E, D, F] and down [L, E, F, D].
+# kernels, gate/up [L, E, D, F] and down [L, E, F, D]; qwen and gemma take
+# them the same way (qwen's q/k norms beside, gemma's head still tied).
 MOE_KEYS = LLAMA_KEYS[:7] + ("layers.router.kernel",) + LLAMA_KEYS[7:]
+QWEN_MOE_KEYS = MOE_KEYS + QWEN_KEYS[len(LLAMA_KEYS):]
+GEMMA_MOE_KEYS = tuple(k for k in MOE_KEYS if k != "lm_head.kernel")
 _ARCH_KEYS = {"llama": LLAMA_KEYS, "gpt2": GPT2_KEYS, "qwen": QWEN_KEYS, "gemma": GEMMA_KEYS}
+_MOE_ARCH_KEYS = {"llama": MOE_KEYS, "qwen": QWEN_MOE_KEYS, "gemma": GEMMA_MOE_KEYS}
 
 
 def param_keys(cfg) -> tuple[str, ...]:
-    """The flat parameter names of ``cfg``'s arch: the dense llama, gpt2,
-    qwen and gemma archs, and llama with experts (``MODEL_CONFIGS``' MoE
-    family). Another arch with experts is not ported."""
-    if cfg.is_moe and cfg.arch == "llama":
-        return MOE_KEYS
-    if cfg.is_moe or cfg.arch not in _ARCH_KEYS:
+    """The flat parameter names of ``cfg``'s arch: llama, gpt2, qwen and
+    gemma, and llama, qwen and gemma with experts. gpt2 with experts is
+    refused: JAX builds dense gpt2 parameters for it, and its block then
+    looks for a router."""
+    keys = _MOE_ARCH_KEYS if cfg.is_moe else _ARCH_KEYS
+    if cfg.arch not in keys:
         raise NotImplementedError(
             f"{cfg.name}: arch={cfg.arch!r} with n_experts={cfg.n_experts} is not ported "
-            "(the dense llama, gpt2, qwen and gemma archs and llama with experts are)")
-    return _ARCH_KEYS[cfg.arch]
+            "(llama, gpt2, qwen and gemma, and llama, qwen and gemma with experts, are)")
+    return keys[cfg.arch]
 
 
 def _np(x: Any) -> np.ndarray:

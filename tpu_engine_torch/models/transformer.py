@@ -47,8 +47,10 @@ each adapted projection. ``offload_dots`` keeps the products' outputs in
 host memory instead of on the device. With host-resident masters
 (``param_offload``) each block reads its layer through a ``layer_stream``
 (:class:`tpu_engine_torch.offload.HostParams`) inside its checkpoint, so
-the recompute streams the layer again. Ulysses attention is not ported
-and raises ``NotImplementedError``.
+the recompute streams the layer again (the mesh program's stage 3 gathers
+its shards the same way). On a mesh (``tpu_engine_torch/mesh_runtime.py``)
+ring and Ulysses attention run across the ranks of its ``sequence`` axis;
+in one process Ulysses raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,10 +69,13 @@ from torch.utils.checkpoint import (
 )
 
 from tpu_engine_torch import offload
+from tpu_engine_torch.mesh_runtime import TOKEN_AXES
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig  # noqa: F401
 from tpu_engine_torch.models.convert import param_keys
 from tpu_engine_torch.ops import flash_attention
-from tpu_engine_torch.parallel.ring_attention import ring_mha
+from tpu_engine_torch.parallel.collectives import all_reduce_, all_reduce_sum
+from tpu_engine_torch.parallel.ring_attention import ring_mha, ring_mha_group
+from tpu_engine_torch.parallel.ulysses_attention import ulysses_mha_group
 from tpu_engine_torch.quant import QuantWeight, dequantize_weight, mul_round
 from tpu_engine_torch.quant_train import RAGGED_MOE_REFUSAL, int8_einsum
 
@@ -232,11 +237,17 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _attention(q, k, v, impl: str, window: int = 0, sequence: Optional[int] = None):
+def _attention(q, k, v, impl: str, window: int = 0, sequence: Optional[int] = None,
+               mesh=None):
     """Causal attention dispatch:
 
-    - ``"ring"``: ring attention over ``sequence`` ranks (required: JAX's
-      ring requires a mesh);
+    - ``"ring"`` / ``"ulysses"`` with a ``mesh``
+      (:class:`~tpu_engine_torch.mesh_runtime.MeshRuntime`) whose
+      ``sequence`` axis has ranks: this rank's shard of ring attention
+      (``ring_mha_group``) or Ulysses attention (``ulysses_mha_group``)
+      over that axis;
+    - ``"ring"`` without one: ring attention over ``sequence`` ranks in
+      this process (required: JAX's ring requires a mesh);
     - ``"flash"``: the CUDA kernels (their plain versions on CPU tensors);
     - ``"xla"``: plain PyTorch.
 
@@ -249,12 +260,16 @@ def _attention(q, k, v, impl: str, window: int = 0, sequence: Optional[int] = No
                 "use 'flash' or 'xla' (a windowed model has no use for "
                 "full-sequence context parallelism)"
             )
+        if mesh is not None and mesh.axis_sizes["sequence"] > 1:
+            across = ring_mha_group if impl == "ring" else ulysses_mha_group
+            return across(q, k, v, mesh.group("sequence"), causal=True)
         if sequence is None:
             raise ValueError(f"attention_impl={impl!r} requires a mesh "
                              "(in the port, its ring size: sequence=N)")
         if impl == "ulysses":
             raise NotImplementedError(
-                "attention_impl='ulysses' is not ported (queued with multi-GPU)")
+                "attention_impl='ulysses' runs across ranks only (a mesh with "
+                "sequence > 1): one process has no all-to-all")
         return ring_mha(q, k, v, sequence=sequence, causal=True)
     if impl not in ("flash", "xla"):
         raise NotImplementedError(f"attention_impl={impl!r} is not ported")
@@ -359,16 +374,26 @@ def _router_probs(h: torch.Tensor, lp: dict) -> torch.Tensor:
     return torch.softmax(_matmul_f32_out(h, lp["router.kernel"]), dim=-1)
 
 
-def _switch_aux(probs: torch.Tensor, first: torch.Tensor, E: int) -> torch.Tensor:
+def _switch_aux(probs: torch.Tensor, first: torch.Tensor, E: int, mesh=None) -> torch.Tensor:
     """Switch load-balancing loss (eq. 4): E · Σ_e f_e · p_e, with f the
     share of tokens whose first choice is e (no gradient) and p the mean
-    router probability. probs [..., E], first [...] expert ids."""
-    f = F.one_hot(first.reshape(-1), E).float().mean(dim=0)
-    p = probs.reshape(-1, E).mean(dim=0)
+    router probability. probs [..., E], first [...] expert ids. On a
+    ``mesh`` the means run over the whole microbatch, as in JAX: the
+    per-expert sums are all-reduced over the ranks that hold its tokens
+    before the product (the probabilities' sum differentiably, so each rank
+    gets the gradient of its own tokens)."""
+    group = mesh.group(TOKEN_AXES) if mesh is not None else None
+    if group is None:
+        f = F.one_hot(first.reshape(-1), E).float().mean(dim=0)
+        p = probs.reshape(-1, E).mean(dim=0)
+        return E * torch.sum(f * p)
+    n = first.numel() * mesh.size(TOKEN_AXES)
+    f = all_reduce_(F.one_hot(first.reshape(-1), E).float().sum(dim=0), group) / n
+    p = all_reduce_sum(probs.reshape(-1, E).sum(dim=0), group) / n
     return E * torch.sum(f * p)
 
 
-def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig):
+def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
     """Top-k MoE by dense dispatch (JAX ``_moe_mlp``): h [B, S, D] →
     (out [B, S, D], aux).
 
@@ -378,7 +403,9 @@ def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig):
     its expert's buffer is the count of earlier tokens of its row that
     chose that expert (a cumsum over S in fp32). Tokens past capacity drop;
     the kept gates are renormalised to sum to 1 (floor 1e-9). Dispatch and
-    combine are products with the [B, S, E, C] masks, in the compute dtype."""
+    combine are products with the [B, S, E, C] masks, in the compute dtype.
+    ``mesh``: the aux loss's means run over the mesh's microbatch
+    (:func:`_switch_aux`)."""
     B, S, D = h.shape
     E, K = cfg.n_experts, cfg.top_k
     C = cfg.expert_capacity(S)
@@ -416,10 +443,10 @@ def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig):
         act = F.silu(torch.bmm(expert_in, gate_w)) * torch.bmm(expert_in, up_w)
         expert_out = torch.bmm(act, down_w).reshape(E, B, C, D)
     out = torch.einsum("bsec,ebcd->bsd", combine, expert_out)
-    return out, _switch_aux(probs, torch.argmax(probs, dim=-1), E)
+    return out, _switch_aux(probs, torch.argmax(probs, dim=-1), E, mesh)
 
 
-def _moe_mlp_ragged(h: torch.Tensor, lp: dict, cfg: ModelConfig):
+def _moe_mlp_ragged(h: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
     """Top-k MoE by ragged dispatch (JAX ``_moe_mlp_ragged``): h [B, S, D]
     → (out [B, S, D], aux). No capacity, so no token drops. The B·S·k
     (token, expert) pairs are sorted by expert (a stable sort); each
@@ -452,7 +479,7 @@ def _moe_mlp_ragged(h: torch.Tensor, lp: dict, cfg: ModelConfig):
     y = torch.cat(ys)                                         # [BS·K, D]
     weights = gate_vals.reshape(-1)[order].to(h.dtype)
     out = torch.zeros_like(x).index_add(0, tok_sorted, y * weights[:, None])
-    return out.reshape(B, S, D), _switch_aux(probs, expert_idx[:, 0], E)
+    return out.reshape(B, S, D), _switch_aux(probs, expert_idx[:, 0], E, mesh)
 
 
 def _layer_params(lp):
@@ -469,22 +496,23 @@ def _block_qkv(x: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Ten
     return _qkv(h, lp, cfg, positions, _train_dot(cfg, "attn"), lora_scale)
 
 
-def _block_attn(q, k, v, cfg: ModelConfig, sequence: Optional[int] = None) -> torch.Tensor:
+def _block_attn(q, k, v, cfg: ModelConfig, sequence: Optional[int] = None,
+                mesh=None) -> torch.Tensor:
     """Attention over the block's q, k, v → [B, S, H·HD]: JAX's tag
     "attn_out"."""
     B, S = q.shape[:2]
     attn = _attention(q, k, v, cfg.attention_impl, window=cfg.sliding_window,
-                      sequence=sequence)
+                      sequence=sequence, mesh=mesh)
     return attn.reshape(B, S, -1)
 
 
 def _block_attn_out(x, lp: dict, cfg: ModelConfig, positions, sequence=None,
-                    lora_scale: float = 1.0) -> torch.Tensor:
-    return _block_attn(*_block_qkv(x, lp, cfg, positions, lora_scale), cfg, sequence)
+                    lora_scale: float = 1.0, mesh=None) -> torch.Tensor:
+    return _block_attn(*_block_qkv(x, lp, cfg, positions, lora_scale), cfg, sequence, mesh)
 
 
 def _block_tail(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig,
-                lora_scale: float = 1.0):
+                lora_scale: float = 1.0, mesh=None):
     """The output projection, residual and MLP over the block's input x and
     its attention output → (x, the MoE aux loss, or None for a dense MLP)."""
     lp = _layer_params(lp)
@@ -494,20 +522,22 @@ def _block_tail(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig,
         if cfg.moe_impl not in ("dense", "ragged"):
             raise ValueError(f"moe_impl={cfg.moe_impl!r} unknown; use 'dense' or 'ragged'")
         moe = _moe_mlp_ragged if cfg.moe_impl == "ragged" else _moe_mlp
-        out, aux = moe(h, lp, cfg)
+        out, aux = moe(h, lp, cfg, mesh)
         return x + out, aux
     return x + _dense_mlp(h, lp, cfg, lora_scale), None
 
 
 def _block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
            positions: torch.Tensor, sequence: Optional[int] = None,
-           lora_scale: float = 1.0):
+           lora_scale: float = 1.0, mesh=None):
     """One transformer block. x: [B, S, D] → (x, the MoE aux loss, or None
     for a dense MLP). ``lp`` may hold LoRA adapters (``q.A``, ``q.B``, ...),
-    scaled by ``lora_scale``, or be a layer stream's callable."""
+    scaled by ``lora_scale``, or be a layer stream's callable. ``mesh``
+    (a :class:`~tpu_engine_torch.mesh_runtime.MeshRuntime`) reaches the
+    attention across ranks and the MoE aux loss."""
     lp = _layer_params(lp)
-    attn = _block_attn_out(x, lp, cfg, positions, sequence, lora_scale)
-    return _block_tail(x, attn, lp, cfg, lora_scale)
+    attn = _block_attn_out(x, lp, cfg, positions, sequence, lora_scale, mesh)
+    return _block_tail(x, attn, lp, cfg, lora_scale, mesh)
 
 
 # JAX's remat policies (``tpu_engine/models/transformer.py``
@@ -576,7 +606,7 @@ def _offload_dots_contexts():
 
 
 def _remat_block(policy: str, x, lp: dict, cfg: ModelConfig, positions, sequence,
-                 lora_scale: float):
+                 lora_scale: float, mesh=None):
     """:func:`_block` under the remat ``policy`` (:data:`REMAT_POLICIES`).
 
     ``offload_dots`` is JAX's ``offload_dot_with_no_batch_dims("device",
@@ -588,18 +618,18 @@ def _remat_block(policy: str, x, lp: dict, cfg: ModelConfig, positions, sequence
     kernels. The training program refuses it on the CPU, as JAX does; the
     forward takes it there with plain host copies."""
     if policy == "everything_saveable":
-        return _block(x, lp, cfg, positions, sequence, lora_scale)
+        return _block(x, lp, cfg, positions, sequence, lora_scale, mesh)
     if policy == "nothing_saveable":
-        return checkpoint(_block, x, lp, cfg, positions, sequence, lora_scale,
+        return checkpoint(_block, x, lp, cfg, positions, sequence, lora_scale, mesh,
                           use_reentrant=False)
     if policy in ("dots_saveable", "dots_with_no_batch_dims_saveable"):
         ops = _DOTS_NO_BATCH | (_DOTS_BATCH if policy == "dots_saveable" else frozenset())
-        return checkpoint(_block, x, lp, cfg, positions, sequence, lora_scale,
+        return checkpoint(_block, x, lp, cfg, positions, sequence, lora_scale, mesh,
                           use_reentrant=False,
                           context_fn=partial(create_selective_checkpoint_contexts,
                                              _dots_policy(ops)))
     if policy == "offload_dots":
-        return checkpoint(_block, x, lp, cfg, positions, sequence, lora_scale,
+        return checkpoint(_block, x, lp, cfg, positions, sequence, lora_scale, mesh,
                           use_reentrant=False, context_fn=_offload_dots_contexts)
     # The named policies: each piece of the block split at the tags is
     # checkpointed, so the tagged tensors (inputs of the next piece) are
@@ -608,11 +638,11 @@ def _remat_block(policy: str, x, lp: dict, cfg: ModelConfig, positions, sequence
     if policy == "save_qkv_attn_out":
         q, k, v = checkpoint(_block_qkv, x, lp, cfg, positions, lora_scale,
                              use_reentrant=False)
-        attn = checkpoint(_block_attn, q, k, v, cfg, sequence, use_reentrant=False)
+        attn = checkpoint(_block_attn, q, k, v, cfg, sequence, mesh, use_reentrant=False)
     else:
-        attn = checkpoint(_block_attn_out, x, lp, cfg, positions, sequence, lora_scale,
+        attn = checkpoint(_block_attn_out, x, lp, cfg, positions, sequence, lora_scale, mesh,
                           use_reentrant=False)
-    return checkpoint(_block_tail, x, attn, lp, cfg, lora_scale, use_reentrant=False)
+    return checkpoint(_block_tail, x, attn, lp, cfg, lora_scale, mesh, use_reentrant=False)
 
 
 def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -754,6 +784,7 @@ def forward_hidden_and_aux(
     lora: Optional[dict[str, torch.Tensor]] = None,
     lora_scale: float = 1.0,
     layer_stream=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decoder stack only: tokens [B, S] → (hidden [B, S, D] in the compute
     dtype, before the final norm; the MoE aux loss averaged over layers, 0
@@ -767,7 +798,11 @@ def forward_hidden_and_aux(
     (JAX's hook of the same name; :class:`tpu_engine_torch.offload.HostParams`)
     gives layer i's params by ``layer_stream.layer(i)``, called inside the
     block's checkpoint: the stack is then never cast whole, and ``params``
-    needs only the non-layer leaves on the device."""
+    needs only the non-layer leaves on the device. ``mesh``
+    (:class:`~tpu_engine_torch.mesh_runtime.MeshRuntime`, JAX's ``mesh``):
+    ``tokens`` and ``positions`` are this rank's block of the sequence,
+    attention runs across the ``sequence`` axis and the MoE aux loss's
+    means over the mesh's microbatch."""
     _require_ported(cfg)
     policy = resolve_remat_policy(remat_policy) if remat else None
     B, S = tokens.shape
@@ -796,9 +831,9 @@ def forward_hidden_and_aux(
         else:
             lp = partial(layer_stream.layer, i)
         if remat:
-            x, aux = _remat_block(policy, x, lp, cfg, positions, sequence, lora_scale)
+            x, aux = _remat_block(policy, x, lp, cfg, positions, sequence, lora_scale, mesh)
         else:
-            x, aux = _block(x, lp, cfg, positions, sequence, lora_scale)
+            x, aux = _block(x, lp, cfg, positions, sequence, lora_scale, mesh)
         auxes.append(aux)
     if cfg.is_moe:
         return x, torch.stack(auxes).mean()

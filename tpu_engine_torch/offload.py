@@ -315,19 +315,20 @@ class _StreamIn(torch.autograd.Function):
 
 
 class _Layer(Mapping):
-    """Layer ``index`` of the stacked host leaves, keyed as
-    ``cast_layer_stack`` keys them; each leaf is copied to the device and
-    cast on first access."""
+    """Layer ``index`` of a layer stream's stacked leaves, keyed as
+    ``cast_layer_stack`` keys them; each leaf is fetched on first access
+    (``stream.fetch``: :class:`HostParams` copies it to the device and
+    casts it; the mesh program's stage-3 stream gathers its shards)."""
 
-    def __init__(self, host: "HostParams", index: int):
-        self._host, self._index, self._got = host, index, {}
+    def __init__(self, stream, index: int):
+        self._host, self._index, self._got = stream, index, {}
 
     def __getitem__(self, name):
         if name not in self._got:
-            h = self._host
-            src = h.params[f"layers.{name}"]  # KeyError for a leaf the arch lacks
-            self._got[name] = _StreamIn.apply(h.anchor, src[self._index], h.compute_dtype, h,
-                                              f"layers.{name}", self._index)
+            key = f"layers.{name}"
+            if key not in self._host.params:
+                raise KeyError(name)  # a leaf the arch lacks
+            self._got[name] = self._host.fetch(key, self._index)
         return self._got[name]
 
     def __iter__(self):
@@ -360,6 +361,11 @@ class HostParams:
         return {k: (p if k.startswith("layers.")
                     else _StreamIn.apply(self.anchor, p, None, self, k, None))
                 for k, p in params.items()}
+
+    def fetch(self, key: str, index: int) -> torch.Tensor:
+        """Layer ``index`` of the host leaf ``key`` on the device, cast."""
+        return _StreamIn.apply(self.anchor, self.params[key][index], self.compute_dtype, self,
+                               key, index)
 
     def layer(self, index: int) -> _Layer:
         return _Layer(self, index)

@@ -11,9 +11,10 @@ are the JAX bodies with the rotation made a parameter: ``rotate(hop, k, v)``
 returns the K/V block a rank holds at hop ``hop + 1`` given the one it holds
 at hop ``hop``, the counterpart of ``lax.ppermute`` to the next rank. Rank r
 at hop i holds block (r − i) mod ring. :func:`ring_mha` runs every rank in
-one process on one device with :func:`in_process_rotation`; a rotation
-across GPUs (NCCL send/recv) is multi-GPU work and leaves the bodies as
-they are.
+one process on one device with :func:`in_process_rotation`;
+:func:`ring_mha_group` runs this rank's body in a process group of ranks
+(the mesh's ``sequence`` axis) with :func:`distributed_rotation`, whose
+hops are NCCL (or ``gloo``) sends and receives; the bodies are the same.
 
 Layout convention matches ``tpu_engine_torch.ops``: q [B, S, H, D], k/v
 [B, S, KV, D] (GQA allowed: KV heads < Q heads).
@@ -24,9 +25,11 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from tpu_engine_torch.ops import _flash_cuda
 from tpu_engine_torch.ops._flash_cuda import flash_fwd_lse
+from tpu_engine_torch.parallel import collectives
 
 _NEG_INF = -1e30
 
@@ -47,6 +50,82 @@ def in_process_rotation(k_shards: Sequence[torch.Tensor], v_shards: Sequence[tor
         return k_shards[src], v_shards[src]
 
     return rotate
+
+
+def _send_recv(a: torch.Tensor, b: torch.Tensor, to: int, frm: int, group):
+    """Send a and b to global rank ``to`` and receive their likes from
+    ``frm``, all four posted at once."""
+    a, b = a.contiguous(), b.contiguous()
+    ra, rb = torch.empty_like(a), torch.empty_like(b)
+    ops = [dist.P2POp(dist.isend, a, to, group), dist.P2POp(dist.irecv, ra, frm, group),
+           dist.P2POp(dist.isend, b, to, group), dist.P2POp(dist.irecv, rb, frm, group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    collectives.count("send", a)
+    collectives.count("send", b)
+    return ra, rb
+
+
+class _Hop(torch.autograd.Function):
+    """One hop of the ring: the K/V block goes to the next rank and the
+    previous rank's arrives; the backward sends the arrived block's
+    cotangents back to the previous rank and takes this rank's from the
+    next."""
+
+    @staticmethod
+    def forward(ctx, k, v, group, nxt: int, prv: int):
+        ctx.group, ctx.nxt, ctx.prv = group, nxt, prv
+        return _send_recv(k, v, nxt, prv, group)
+
+    @staticmethod
+    def backward(ctx, dk, dv):
+        dk, dv = _send_recv(dk, dv, ctx.prv, ctx.nxt, ctx.group)
+        return dk, dv, None, None, None
+
+
+class _Tie(torch.autograd.Function):
+    """``out`` unchanged, with every block the ring delivered as an input
+    of zero cotangent: each rank's backward then runs every hop's backward,
+    where a block skipped under causality would otherwise leave its hop out
+    of the graph and its neighbour waiting on a send that never comes."""
+
+    @staticmethod
+    def forward(ctx, out, *blocks):
+        ctx.likes = [(b.shape, b.dtype, b.device) for b in blocks]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=dev) for s, d, dev in ctx.likes))
+
+
+class _DistributedRotation:
+    def __init__(self, group):
+        self.group = group
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        self.nxt = dist.get_global_rank(group, (r + 1) % n)
+        self.prv = dist.get_global_rank(group, (r - 1) % n)
+        self.delivered: list[torch.Tensor] = []
+
+    def __call__(self, hop: int, k_blk: torch.Tensor, v_blk: torch.Tensor):
+        k_nxt, v_nxt = _Hop.apply(k_blk, v_blk, self.group, self.nxt, self.prv)
+        self.delivered += [k_nxt, v_nxt]
+        return k_nxt, v_nxt
+
+    def tie(self, out: torch.Tensor) -> torch.Tensor:
+        blocks = [b for b in self.delivered if b.requires_grad]
+        return _Tie.apply(out, *blocks) if blocks and out.requires_grad else out
+
+
+def distributed_rotation(group) -> Rotation:
+    """The :data:`Rotation` of this rank in ``group`` (the ranks of the
+    ring, in ring order): each hop sends the rank's K/V block to the next
+    rank and receives the previous rank's with ``batch_isend_irecv``, an
+    autograd function whose backward sends the K/V cotangents the other
+    way. Every rank makes every hop, whether or not it then skips the
+    block. The rotation keeps what it delivered; pass the ring's output
+    through its ``tie`` (as :func:`ring_mha_group` does)."""
+    return _DistributedRotation(group)
 
 
 def _ring_flash_local(q, k, v, rank: int, ring: int, rotate: Rotation,
@@ -170,8 +249,8 @@ def ring_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sequence: int,
     This is the one-process layout: S is split into ``sequence`` shards on
     q's device, each rank's body runs in turn with
     :func:`in_process_rotation`, and the results are concatenated. Autograd
-    flows through the shards back into q, k and v. The rotation across GPUs
-    is multi-GPU work (ROADMAP queue 1, item 8)."""
+    flows through the shards back into q, k and v. :func:`ring_mha_group`
+    is the same ring with a rank a process (:func:`distributed_rotation`)."""
     S = q.shape[1]
     if sequence < 1 or S % sequence:
         raise ValueError(f"seq_len={S} must split into sequence={sequence} equal shards")
@@ -184,3 +263,15 @@ def ring_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sequence: int,
         for r in range(sequence)
     ]
     return torch.cat(outs, dim=1)
+
+
+def ring_mha_group(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group,
+                   causal: bool = True) -> torch.Tensor:
+    """Ring attention with this rank's shard: q [B, S/ring, H, D] and k/v
+    [B, S/ring, KV, D] of the rank's place in ``group`` (the ring, in
+    order); returns its output shard. The body is :func:`ring_mha`'s, its
+    hops :func:`distributed_rotation`'s."""
+    rotate = distributed_rotation(group)
+    out = _ring_attention_local(q, k, v, dist.get_rank(group), dist.get_world_size(group),
+                                rotate, causal)
+    return rotate.tie(out)

@@ -1,0 +1,171 @@
+"""ZeRO stages as placements on the mesh (port of the pure half of
+``tpu_engine/sharding.py``).
+
+====== ============================ ============================ ==========================
+stage  params                       gradients                    optimizer state
+====== ============================ ============================ ==========================
+0      replicated                   all-reduced (replicated)     replicated
+1      replicated                   all-reduced (replicated)     sharded over ``fsdp``
+2      replicated                   reduce-scattered to shards   sharded over ``fsdp``
+3      sharded over ``fsdp``        reduce-scattered to shards   sharded over ``fsdp``
+====== ============================ ============================ ==========================
+
+Every leaf carries logical axis names (:func:`logical_axes`, JAX's tree
+flattened to the port's dotted keys); :func:`logical_to_mesh_axes` maps
+them to mesh axes for a stage. The port has no ``PartitionSpec``: a spec
+is a tuple of mesh-axis names (or None), trailing Nones trimmed, the
+entries of JAX's ``PartitionSpec``. The train program on a mesh
+(``tpu_engine_torch/parallel/zero.py``) reads the dim where ``fsdp``
+lands and shards that dim.
+"""
+
+from __future__ import annotations
+
+from enum import IntEnum
+from typing import Optional, Sequence
+
+
+class ShardingStage(IntEnum):
+    """JAX's ``ShardingStage``: the ZeRO stage."""
+
+    DISABLED = 0
+    OPTIMIZER_STATE = 1
+    GRADIENT_PARTITIONING = 2
+    FULL_PARTITIONING = 3
+
+
+# Tensor-parallel placement: which logical axes ride the "model" mesh axis,
+# "expert" first (a spec may not reuse a mesh axis).
+_TP_AXES = {"expert": "model", "vocab": "model", "heads": "model",
+            "kv_heads": "model", "mlp": "model"}
+
+# FSDP placement: which logical axes ride the "fsdp" mesh axis (params at
+# stage 3; gradients at stage >= 2; optimizer state at stage >= 1).
+_FSDP_AXES = {"embed": "fsdp"}
+
+# Pipeline placement: the stacked-layer dimension over the "pipe" axis.
+_PIPE_AXES = {"layers": "pipe"}
+
+Spec = tuple[Optional[str], ...]
+
+
+def logical_to_mesh_axes(logical: Sequence[Optional[str]], *, shard_fsdp: bool,
+                         shard_tp: bool = True) -> Spec:
+    """Map a tuple of logical axis names to a spec (JAX's function, with a
+    tuple for its ``PartitionSpec``). Each mesh axis is used at most once;
+    among tensor-parallel candidates the earlier in ``_TP_AXES`` wins."""
+    priority = {name: i for i, name in enumerate(_TP_AXES)}
+    tp_winner: Optional[str] = None
+    if shard_tp:
+        candidates = [ax for ax in logical if ax in _TP_AXES]
+        if candidates:
+            tp_winner = min(candidates, key=lambda a: priority[a])
+    out: list[Optional[str]] = []
+    used: set[str] = set()
+    for ax in logical:
+        mesh_ax: Optional[str] = None
+        if ax is not None:
+            if ax in _PIPE_AXES and _PIPE_AXES[ax] not in used:
+                mesh_ax = _PIPE_AXES[ax]
+            elif ax == tp_winner and _TP_AXES[ax] not in used:
+                mesh_ax = _TP_AXES[ax]
+            elif shard_fsdp and ax in _FSDP_AXES and _FSDP_AXES[ax] not in used:
+                mesh_ax = _FSDP_AXES[ax]
+        if mesh_ax is not None:
+            used.add(mesh_ax)
+        out.append(mesh_ax)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _specs(logical: dict[str, tuple], shard_fsdp: bool) -> dict[str, Spec]:
+    return {k: logical_to_mesh_axes(lg, shard_fsdp=shard_fsdp) for k, lg in logical.items()}
+
+
+def param_pspecs(logical: dict[str, tuple], stage: int) -> dict[str, Spec]:
+    """Specs of the parameters under ``stage``: fsdp-sharded at stage 3."""
+    return _specs(logical, stage >= ShardingStage.FULL_PARTITIONING)
+
+
+def grad_pspecs(logical: dict[str, tuple], stage: int) -> dict[str, Spec]:
+    """Specs of the gradients: reduce-scattered to fsdp shards at stage >= 2."""
+    return _specs(logical, stage >= ShardingStage.GRADIENT_PARTITIONING)
+
+
+def opt_state_pspecs(logical: dict[str, tuple], stage: int) -> dict[str, Spec]:
+    """Specs of the optimizer-state leaves shaped like params: sharded at
+    stage >= 1."""
+    return _specs(logical, stage >= ShardingStage.OPTIMIZER_STATE)
+
+
+def logical_axes(cfg) -> dict[str, tuple]:
+    """The logical axes of each parameter of ``cfg`` (JAX's
+    ``tpu_engine.models.transformer.logical_axes``), keyed as the port's
+    flat parameter dict."""
+    if cfg.arch == "gpt2":
+        return {
+            "embed.embedding": ("vocab", "embed"),
+            "pos_embed.embedding": (None, "embed"),
+            "layers.attn_norm.scale": ("layers", "embed"),
+            "layers.attn_norm.bias": ("layers", "embed"),
+            "layers.q.kernel": ("layers", "embed", "heads"),
+            "layers.q.bias": ("layers", "heads"),
+            "layers.k.kernel": ("layers", "embed", "heads"),
+            "layers.k.bias": ("layers", "heads"),
+            "layers.v.kernel": ("layers", "embed", "heads"),
+            "layers.v.bias": ("layers", "heads"),
+            "layers.o.kernel": ("layers", "heads", "embed"),
+            "layers.o.bias": ("layers", "embed"),
+            "layers.mlp_norm.scale": ("layers", "embed"),
+            "layers.mlp_norm.bias": ("layers", "embed"),
+            "layers.fc.kernel": ("layers", "embed", "mlp"),
+            "layers.fc.bias": ("layers", "mlp"),
+            "layers.proj.kernel": ("layers", "mlp", "embed"),
+            "layers.proj.bias": ("layers", "embed"),
+            "final_norm.scale": ("embed",),
+            "final_norm.bias": ("embed",),
+        }
+    out = {
+        "embed.embedding": ("vocab", "embed"),
+        "layers.attn_norm.scale": ("layers", "embed"),
+        "layers.q.kernel": ("layers", "embed", "heads"),
+        "layers.k.kernel": ("layers", "embed", "kv_heads"),
+        "layers.v.kernel": ("layers", "embed", "kv_heads"),
+        "layers.o.kernel": ("layers", "heads", "embed"),
+        "layers.mlp_norm.scale": ("layers", "embed"),
+    }
+    if cfg.arch == "qwen":
+        out["layers.q_norm.scale"] = ("layers", None)
+        out["layers.k_norm.scale"] = ("layers", None)
+    if cfg.is_moe:
+        out["layers.router.kernel"] = ("layers", "embed", None)
+        out["layers.gate.kernel"] = ("layers", "expert", "embed", "mlp")
+        out["layers.up.kernel"] = ("layers", "expert", "embed", "mlp")
+        out["layers.down.kernel"] = ("layers", "expert", "mlp", "embed")
+    else:
+        out["layers.gate.kernel"] = ("layers", "embed", "mlp")
+        out["layers.up.kernel"] = ("layers", "embed", "mlp")
+        out["layers.down.kernel"] = ("layers", "mlp", "embed")
+    out["final_norm.scale"] = ("embed",)
+    if cfg.arch != "gemma":  # gemma ties the head to the embedding
+        out["lm_head.kernel"] = ("embed", "vocab")
+    return out
+
+
+def lora_logical_axes(model_logical: dict[str, tuple],
+                      targets: Sequence[str]) -> dict[str, tuple]:
+    """The adapters' axes (JAX's ``lora_logical_axes``): A takes its
+    target's (layers, in), B its (layers, out); the rank axis is never
+    sharded."""
+    out = {}
+    for t in targets:
+        lyr, in_ax, out_ax = model_logical[f"layers.{t}.kernel"]
+        out[f"layers.{t}.A"] = (lyr, in_ax, None)
+        out[f"layers.{t}.B"] = (lyr, None, out_ax)
+    return out
+
+
+def fsdp_dim(spec: Spec) -> Optional[int]:
+    """The dim of a spec that ``fsdp`` shards, or None."""
+    return spec.index("fsdp") if "fsdp" in spec else None

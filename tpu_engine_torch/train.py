@@ -19,6 +19,12 @@ masters in host memory, streamed through the device
 masters and moments in memory-mapped spill files updated by a host AdamW
 (``tpu_engine_torch/disk_offload.py``), the device holding compute-dtype
 params only.
+
+On a mesh (``cfg.mesh``, ``cfg.sharding_stage``; a process group joined by
+``mesh_runtime.initialize_distributed``) the step is JAX's GSPMD program's
+with explicit collectives (``tpu_engine_torch/parallel/zero.py``): ZeRO
+stages 0–3 over ``data`` and ``fsdp``, and ring or Ulysses attention over
+``sequence``.
 """
 
 from __future__ import annotations
@@ -31,14 +37,18 @@ from typing import Any, Callable, ClassVar, Optional, Union
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from tpu_engine_torch import disk_offload as dsk
 from tpu_engine_torch import lora as lora_mod
-from tpu_engine_torch import quant_train
+from tpu_engine_torch import quant_train, sharding
+from tpu_engine_torch.mesh_runtime import TOKEN_AXES, MeshConfig, MeshRuntime
 from tpu_engine_torch.offload import GradSums, HostArena, HostParams, UpdateWalk
 from tpu_engine_torch.models import transformer as tfm
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig
+from tpu_engine_torch.parallel import zero
+from tpu_engine_torch.parallel.collectives import all_reduce_
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 _PLACES = ("none", "host", "disk")
@@ -55,12 +65,17 @@ _DEFAULT_BETA2 = _DefaultFloat(0.95)
 
 @dataclass
 class TrainConfig:
-    """The single-device fields of ``TPUTrainConfig`` (``tpu_engine/sharding.py``),
-    with its defaults, and ``sequence``, the counterpart of
-    ``MeshConfig.sequence``: the ring size of sequence-parallel attention.
-    Values the port does not support raise; the combinations JAX refuses
-    raise JAX's messages. The refusals that need a mesh (pipelines,
-    several processes) wait for multi-GPU."""
+    """The fields of ``TPUTrainConfig`` (``tpu_engine/sharding.py``) with its
+    defaults: the single-device ones, the mesh (``mesh``,
+    ``sharding_stage``, ``grad_allreduce_dtype``), and ``sequence``, the
+    ring size of sequence-parallel attention with every rank in this
+    process (``mesh.sequence`` is the ring across ranks; setting both
+    raises). Values the port does not support raise; the combinations JAX
+    refuses raise JAX's messages. Still refused on a mesh, with
+    ``NotImplementedError``: ``model > 1`` and ``pipe > 1``,
+    ``grad_allreduce_dtype`` other than fp32, and (on more than one rank)
+    host and disk placements, int8 training, Adafactor with its state
+    split over ``fsdp`` and dense-dispatch MoE over ``sequence``."""
 
     model_name: str = "gpt-125m"
     micro_batch_size: int = 1
@@ -107,11 +122,15 @@ class TrainConfig:
     # None = the model's own window; 0 = full causal; N = window N.
     sliding_window: Optional[int] = None
     seed: int = 0
+    # The mesh (JAX's TPUTrainConfig fields): ZeRO stage 0-3 and the axes.
+    sharding_stage: int = 3
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    grad_allreduce_dtype: Optional[str] = None  # None | "fp32"
 
     def __post_init__(self):
         # Enum-valued fields of the JAX config arrive as str subclasses.
         for name in ("precision", "param_dtype", "moment_dtype", "optimizer_offload",
-                     "param_offload"):
+                     "param_offload", "grad_allreduce_dtype"):
             val = getattr(self, name)
             if val is not None:
                 setattr(self, name, getattr(val, "value", val))
@@ -150,6 +169,11 @@ class TrainConfig:
              f"{self.param_offload!r}: none, host or disk"),
             (self.sliding_window is None or self.sliding_window >= 0,
              f"sliding_window={self.sliding_window} must be None or >= 0"),
+            (int(self.sharding_stage) in (0, 1, 2, 3),
+             f"sharding_stage={self.sharding_stage!r}: 0, 1, 2 or 3"),
+            (self.sequence == 1 or self.mesh.sequence == 1,
+             f"sequence={self.sequence} (a ring in this process) and mesh.sequence="
+             f"{self.mesh.sequence} (a ring across ranks): set one"),
         ]
         for ok, msg in checks:
             if not ok:
@@ -165,6 +189,15 @@ class TrainConfig:
             )
         tfm.resolve_remat_policy(self.remat_policy)
         self._check_disk_offload()
+        self.sharding_stage = int(self.sharding_stage)
+        if self.grad_allreduce_dtype not in (None, "fp32"):
+            if self.grad_allreduce_dtype != self.precision:
+                raise ValueError(
+                    f"grad_allreduce_dtype={self.grad_allreduce_dtype!r} must "
+                    f"be 'fp32' or match precision={self.precision!r}")
+            raise NotImplementedError(
+                f"grad_allreduce_dtype={self.grad_allreduce_dtype!r} is not ported "
+                "(ROADMAP Queue 1, item 2: comm.py, then comm_compress.py)")
 
     def _check_disk_offload(self) -> None:
         """JAX's ``_validate_disk_offload``: the combinations the disk tier
@@ -289,16 +322,18 @@ class _Chain:
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
-               state: dict, lr: float, walk: Optional[UpdateWalk] = None) -> torch.Tensor:
+               state: dict, lr: float, walk: Optional[UpdateWalk] = None,
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one update in place to ``params`` and ``state``; ``grads``
         must already hold the raw (unclipped) gradients, and are clipped in
         place (fp32 ones; another dtype's in an fp32 copy at its unit).
         ``walk`` moves host-resident masters or optimizer tensors through
-        the device (default: all in place). Returns the global norm of the
-        raw gradients."""
+        the device (default: all in place). ``norm``: the global norm where
+        ``grads`` hold a rank's shards of it (the mesh program's). Returns
+        the global norm of the raw gradients."""
         keys = list(params)
         g_list = [grads[k] for k in keys]
-        g_norm = global_norm(g_list)
+        g_norm = global_norm(g_list) if norm is None else norm
         factor = torch.where(g_norm < self.grad_clip_norm, torch.ones_like(g_norm),
                              self.grad_clip_norm / g_norm)
         f32 = [g for g in g_list if g.dtype == torch.float32]
@@ -494,15 +529,21 @@ def make_optimizer(cfg: TrainConfig) -> tuple[Optimizer, Callable[[int], float]]
 # ---------------------------------------------------------------------------
 
 
-def _ce_sums(logits: torch.Tensor, tokens: torch.Tensor):
-    """Raw next-token CE sums (Σ log-likelihood, Σ logZ², valid count);
-    targets < 0 are excluded."""
-    targets = tokens[:, 1:]
+def _ce_target_sums(logits: torch.Tensor, targets: torch.Tensor):
+    """Raw CE sums (Σ log-likelihood, Σ logZ², valid count) of ``logits``
+    [B, S, V] against ``targets`` [B, S] at the same positions; targets < 0
+    are excluded."""
     valid = (targets >= 0).float()
-    logits = logits[:, :-1, :].float()
+    logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets.clamp(min=0)[..., None].long()).squeeze(-1) - logz
     return torch.sum(ll * valid), torch.sum(logz * logz * valid), torch.sum(valid)
+
+
+def _ce_sums(logits: torch.Tensor, tokens: torch.Tensor):
+    """Raw next-token CE sums (Σ log-likelihood, Σ logZ², valid count);
+    targets < 0 are excluded."""
+    return _ce_target_sums(logits[:, :-1, :], tokens[:, 1:])
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, z_loss_coef: float = 0.0):
@@ -531,13 +572,21 @@ def _chunk_sums(params, hc, tc, model_cfg):
     return torch.sum(ll * mask), torch.sum(logz * logz * mask), torch.sum(mask)
 
 
-def _chunked_ce_sums(params, hidden, tokens, model_cfg: ModelConfig, chunk: int):
+def _next_targets(tokens: torch.Tensor) -> torch.Tensor:
+    """Each position's next token (-1, no target, at the last)."""
+    B = tokens.shape[0]
+    return torch.cat([tokens[:, 1:], torch.full((B, 1), -1, dtype=tokens.dtype,
+                                                 device=tokens.device)], dim=1)
+
+
+def _chunked_ce_sums(params, hidden, tokens, model_cfg: ModelConfig, chunk: int,
+                     targets: Optional[torch.Tensor] = None):
     """The sums of :func:`_ce_sums`, ``chunk`` positions at a time; each
     chunk is checkpointed so its fp32 logits are recomputed in backward
-    rather than kept."""
+    rather than kept. ``targets``: each position's target, given (a
+    rank's block of the sequence) rather than read from ``tokens``."""
     B, S, _ = hidden.shape
-    tgt = torch.cat([tokens[:, 1:], torch.full((B, 1), -1, dtype=tokens.dtype,
-                                               device=tokens.device)], dim=1)
+    tgt = _next_targets(tokens) if targets is None else targets
     zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
     ll_total, z_total, n_total = zero, zero, zero
     for c in range(0, S, chunk):
@@ -565,17 +614,19 @@ def _take_grad(sums: GradSums, key: str, p: torch.Tensor) -> None:
 
 
 def accumulate_grads(loss_fn, params: dict[str, torch.Tensor], batch: torch.Tensor,
-                     sums: Optional[GradSums] = None):
+                     sums: Optional[GradSums] = None, denom: Optional[torch.Tensor] = None):
     """Gradient accumulation over ``batch`` [accum, B, S]: each microbatch's
     raw sums are divided by the batch-wide valid-target count, so the summed
-    loss and gradients are the global mean, and its MoE aux term is weighted
-    1/accum, so the summed aux is the mean over microbatches. Gradients sum
-    in fp32 on the device, as JAX's do (:class:`~tpu_engine_torch.offload.
+    loss and gradients are the global mean (``denom``: that count, given
+    where the batch is a rank's share of the step's), and its MoE aux term
+    is weighted 1/accum, so the summed aux is the mean over microbatches.
+    Gradients sum in fp32 on the device, as JAX's do (:class:`~tpu_engine_torch.offload.
     GradSums`): each leaf's ``.grad`` is taken as autograd finishes it and
     then cleared, so a step holds one gradient a leaf, and masters streamed
     from the host add theirs to ``sums`` themselves. Returns (the summed
     loss, 0-d; the summed gradients), JAX's pair."""
-    denom = torch.clamp(torch.sum((batch[:, :, 1:] >= 0).float()), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum((batch[:, :, 1:] >= 0).float()), min=1.0)
     sums = sums if sums is not None else GradSums(batch.device)
     sums.begin(params)
     hooks = []
@@ -623,7 +674,15 @@ class TrainProgram:
     keeps the masters and moments in spill files: the state holds the
     params in the compute dtype and no ``opt_state``, and with
     ``disk_update_overlap`` the returned params lag the host walk by one
-    step until :meth:`flush`."""
+    step until :meth:`flush`.
+
+    On a mesh (``runtime``, a :class:`~tpu_engine_torch.mesh_runtime.MeshRuntime`)
+    ``step`` and ``eval_step`` take the global batch [accum, micro_batch ·
+    data · fsdp, seq_len], JAX's, and each rank computes its block of it;
+    ``state["params"]`` and the optimizer state hold this rank's shards as
+    ``zero`` (:class:`~tpu_engine_torch.parallel.zero.ZeroLayout`) places
+    them, ``stream`` gathering stage 3's layer by layer; :meth:`whole_params`
+    gathers them whole."""
 
     config: TrainConfig
     model_config: ModelConfig
@@ -634,10 +693,14 @@ class TrainProgram:
     walk: Optional[UpdateWalk] = field(default=None, repr=False)
     host: Optional[HostParams] = field(default=None, repr=False)
     disk: Optional["_DiskTier"] = field(default=None, repr=False)
+    runtime: Optional[MeshRuntime] = field(default=None, repr=False)
+    zero: Optional[zero.ZeroLayout] = field(default=None, repr=False)
+    stream: Optional[zero.ShardedParams] = field(default=None, repr=False)
 
     def global_batch_shape(self) -> tuple[int, int, int]:
         c = self.config
-        return (c.gradient_accumulation_steps, c.micro_batch_size, c.seq_len)
+        dp = self.runtime.data_parallel_size() if self.runtime is not None else 1
+        return (c.gradient_accumulation_steps, c.micro_batch_size * dp, c.seq_len)
 
     def synthetic_batch(self, seed: int = 0) -> torch.Tensor:
         """Deterministic random tokens (its numbers differ from the JAX
@@ -670,6 +733,10 @@ class TrainProgram:
                       .requires_grad_(True) for k, v in params.items()}
         if self.disk is not None:
             return self.disk.state(self.disk.seed(params))
+        if self.zero is not None:
+            params = self.zero.place(params)
+            return {"params": params, "opt_state": self.tx.init(self.zero.state_like(params)),
+                    "step": 0, "lr_scale": 1.0}
         pin = self.device.type == "cuda"
         opt_state = self.tx.init({k: torch.empty_like(p, device="meta") for k, p in params.items()}
                                  if cfg.optimizer_offload == "host" else params)
@@ -687,7 +754,12 @@ class TrainProgram:
         ``include_aux`` (training; the held-out loss has none) it adds the
         z-loss and, for MoE, ``aux_weight · router_aux_coef · aux``. Host
         masters stream in: the non-layer leaves once here, each layer in
-        its block (JAX's ``_device_view`` and ``layer_stream``)."""
+        its block (JAX's ``_device_view`` and ``layer_stream``). On a mesh
+        ``raw_tokens`` are this rank's rows: it computes its block of their
+        positions, with their next tokens as targets, and stage 3's shards
+        are gathered (each layer in its block); the MoE aux term, the same
+        on every rank, is weighted 1/ranks, so the ranks' losses sum to
+        JAX's."""
         cfg = self.config
         lora = None
         if self.base_params is not None:  # the trainable params are the adapters
@@ -695,16 +767,31 @@ class TrainProgram:
         layer_stream = None
         if self.host is not None:
             params, layer_stream = self.host.bind(params), self.host
+        if self.stream is not None:
+            if lora is not None:
+                lora = self.stream.bind(lora, layers=False)
+            else:
+                params, layer_stream = self.stream.bind(params), self.stream
         tokens, loss_tokens = decode_masked_tokens(raw_tokens)
+        positions = targets = None
+        block = zero.sequence_block(self.runtime, tokens.shape[1]) if self.runtime else None
+        if block is not None:
+            s0, n = block
+            targets = _next_targets(loss_tokens)[:, s0:s0 + n]
+            tokens = tokens[:, s0:s0 + n]
+            positions = torch.arange(s0, s0 + n, device=tokens.device).expand(tokens.shape)
         hidden, aux = tfm.forward_hidden_and_aux(
             params, tokens, self.model_config, compute_dtype=cfg.compute_dtype(),
-            remat=cfg.activation_checkpointing, sequence=cfg.sequence,
+            remat=cfg.activation_checkpointing, positions=positions, sequence=cfg.sequence,
             remat_policy=cfg.remat_policy, lora=lora, lora_scale=cfg.lora_scale(),
-            layer_stream=layer_stream,
+            layer_stream=layer_stream, mesh=self.runtime,
         )
         if cfg.loss_chunk_size:
             ll_sum, z_sum, n_valid = _chunked_ce_sums(
-                params, hidden, loss_tokens, self.model_config, cfg.loss_chunk_size)
+                params, hidden, loss_tokens, self.model_config, cfg.loss_chunk_size, targets)
+        elif targets is not None:
+            ll_sum, z_sum, n_valid = _ce_target_sums(
+                tfm.unembed(params, hidden, self.model_config), targets)
         else:
             ll_sum, z_sum, n_valid = _ce_sums(
                 tfm.unembed(params, hidden, self.model_config), loss_tokens)
@@ -714,14 +801,55 @@ class TrainProgram:
         if z_coef:
             loss = loss + z_coef * z_sum / d
         if self.model_config.is_moe and include_aux:
-            loss = loss + aux_weight * self.model_config.router_aux_coef * aux
+            ranks = self.runtime.size(TOKEN_AXES) if self.runtime is not None else 1
+            loss = loss + aux_weight * self.model_config.router_aux_coef / ranks * aux
         return loss
+
+    def _rows_and_denom(self, batch: torch.Tensor):
+        """A mesh step's share: this rank's rows of the global ``batch``,
+        and the step's valid-target count summed over every rank."""
+        rows = zero.local_rows(batch, self.runtime, self.config.micro_batch_size)
+        targets = rows[:, :, 1:]
+        block = zero.sequence_block(self.runtime, rows.shape[2])
+        if block is not None:
+            targets = targets[..., block[0]:block[0] + block[1]]
+        count = all_reduce_(torch.sum((targets >= 0).float()), self.zero.tokens)
+        return rows, torch.clamp(count, min=1.0)
+
+    def _mesh_step(self, state: dict, batch: torch.Tensor) -> tuple[dict, dict]:
+        """The step on a mesh: this rank's share of the loss and gradients;
+        the gradients reduced over the ranks (stage 3's in its backward),
+        the global norm, the update of this rank's shards, and at stages
+        1 and 2 the parameters gathered whole again."""
+        z, params = self.zero, state["params"]
+        rows, denom = self._rows_and_denom(batch)
+        # Recompute every collective a checkpointed block ran: stopping
+        # early after its last saved tensor could leave one out on one rank.
+        with set_checkpoint_early_stop(False):
+            loss, grads = accumulate_grads(self.loss_fn, params, rows,
+                                           self.stream.sums if self.stream else None, denom)
+        grads = z.reduce_grads(grads)
+        norm = z.grad_norm(grads, global_norm)
+        lr = self.schedule(state["step"]) * state["lr_scale"]
+        p_upd, g_upd = z.update_views(params, grads)
+        self.tx.update(p_upd, g_upd, state["opt_state"], lr, self.walk, norm=norm)
+        z.gather_updated(params)
+        state["step"] += 1
+        return state, {"loss": all_reduce_(loss, z.tokens), "grad_norm": norm,
+                       "learning_rate": lr, "step": state["step"]}
+
+    def whole_params(self, state: dict) -> dict[str, torch.Tensor]:
+        """``state["params"]`` with every leaf whole (stage 3's shards
+        gathered; the leaves themselves otherwise)."""
+        return self.zero.whole(state["params"]) if self.zero is not None else state["params"]
 
     def step(self, state: dict, batch: torch.Tensor) -> tuple[dict, dict]:
         """One optimizer step. Metrics are device tensors (no host sync)
         except ``learning_rate`` and ``step``, which the host knows."""
         if self.disk is not None:
             return self.disk.step(state, batch)
+        if self.runtime is not None:
+            return self._mesh_step(state, batch)
         params = state["params"]
         loss, grads = accumulate_grads(self.loss_fn, params, batch,
                                        self.host.sums if self.host is not None else None)
@@ -751,18 +879,23 @@ class TrainProgram:
         if self.base_params is None:
             raise ValueError("merged_params needs a LoRA program (lora_rank set)")
         cfg = self.config
+        if self.zero is not None:
+            adapters = self.zero.whole(adapters)
         merged = lora_mod.merge_lora(self.base_params, adapters, cfg.lora_alpha, cfg.lora_rank)
         return {k: v.to(cfg.compute_dtype()) for k, v in merged.items()}
 
     @torch.no_grad()
     def eval_step(self, state: dict, batch: torch.Tensor) -> torch.Tensor:
         """Held-out loss over one [accum, B, S] batch: pure cross-entropy."""
-        denom = torch.clamp(torch.sum((batch[:, :, 1:] >= 0).float()), min=1.0)
+        if self.runtime is not None:
+            batch, denom = self._rows_and_denom(batch)
+        else:
+            denom = torch.clamp(torch.sum((batch[:, :, 1:] >= 0).float()), min=1.0)
         total = torch.zeros((), dtype=torch.float32, device=batch.device)
         for tokens in batch:
             total = total + self.loss_fn(state["params"], tokens, include_aux=False,
                                          denom=denom)
-        return total
+        return all_reduce_(total, self.zero.tokens) if self.runtime is not None else total
 
 
 class _DiskTier:
@@ -941,13 +1074,76 @@ class _DiskTier:
         return {**state, "params": self._params(walk.join())}
 
 
+def _mesh_refusals(cfg: TrainConfig, model_cfg: ModelConfig) -> None:
+    """JAX's ``ValueError``s for the mesh axes the port does not run, then
+    the port's ``NotImplementedError`` for each, naming its ROADMAP item."""
+    mesh = cfg.mesh
+    if mesh.model > 1:
+        if model_cfg.is_moe and model_cfg.moe_impl == "ragged":
+            raise ValueError(
+                "moe_impl='ragged' does not support expert parallelism "
+                "(ragged_dot cannot shard over the expert dim); use "
+                "moe_impl='dense' on meshes with a model axis")
+        raise NotImplementedError(
+            f"mesh.model={mesh.model}: tensor and expert parallelism are not ported "
+            "(ROADMAP Queue 1, item 2.1)")
+    if mesh.pipe > 1:
+        if model_cfg.n_layers % mesh.pipe != 0:
+            raise ValueError(f"model n_layers={model_cfg.n_layers} must be divisible by the "
+                             f"pipe axis size {mesh.pipe}")
+        if cfg.lora_rank is not None:
+            raise ValueError("LoRA is not supported with pipeline parallelism")
+        if cfg.param_offload == "host":
+            raise ValueError(
+                "param_offload is not supported with pipeline parallelism "
+                "(pipeline stages re-enter their layer block per microbatch; "
+                "host-streaming weights per stage visit would thrash PCIe)")
+        if cfg.optimizer_offload == "disk":
+            raise ValueError(
+                "optimizer_offload='disk' with pipeline parallelism is not "
+                "supported (the host update walks the flat gradient tree)")
+        raise NotImplementedError(
+            f"mesh.pipe={mesh.pipe}: pipeline parallelism is not ported "
+            "(ROADMAP Queue 1, item 2.3)")
+
+
+def _runtime_for(cfg: TrainConfig, device: torch.device,
+                 runtime: Optional[MeshRuntime]) -> Optional[MeshRuntime]:
+    """The mesh the program runs on: ``runtime`` if given, else one built
+    from ``cfg.mesh`` where this process is one rank of several, else none
+    (``cfg.mesh`` must then resolve to one rank). One rank keeps the
+    one-device paths of the placements and int8 training; more than one
+    refuses them."""
+    if runtime is None and dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        runtime = MeshRuntime(cfg.mesh, device=device)
+    if runtime is None:
+        cfg.mesh.resolved_shape(1)
+        return None
+    if runtime.device.type != device.type:
+        raise ValueError(f"the mesh runs on {runtime.device}, the program on {device}")
+    single_paths = [name for name, on in (
+        ("optimizer_offload", cfg.optimizer_offload != "none"),
+        ("param_offload", cfg.param_offload != "none"),
+        ("quant_training", cfg.quant_training != "none")) if on]
+    if not single_paths:
+        return runtime
+    if runtime.n_devices == 1:
+        return None
+    raise NotImplementedError(
+        f"{', '.join(single_paths)} on a mesh of {runtime.n_devices} ranks is not ported "
+        "(ROADMAP Queue 1, item 2: host and disk placements and int8 training across ranks)")
+
+
 def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = None,
                         device="cuda",
-                        base_params: Optional[dict[str, Any]] = None) -> TrainProgram:
+                        base_params: Optional[dict[str, Any]] = None,
+                        runtime: Optional[MeshRuntime] = None) -> TrainProgram:
     """The program for ``cfg`` on ``device``. Attention resolves as in JAX
-    (``tpu_engine/train.py``): ``sequence > 1`` is ring attention (Ulysses
-    when asked for, which is not ported and raises); otherwise ``"auto"`` is
-    the flash kernels on a CUDA device and the plain path on the CPU, and an
+    (``tpu_engine/train.py``): a ``sequence`` axis (the mesh's, or
+    ``cfg.sequence``'s ring in this process) is ring attention, or Ulysses
+    when asked for (across ranks only); otherwise ``"auto"`` is the flash
+    kernels on a CUDA device and the plain path on the CPU, and an
     explicit choice is honoured; ``cfg.sliding_window`` then overrides the
     model's window. ``quant_training`` and its targets resolve onto the
     model config, as in JAX.
@@ -955,7 +1151,13 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
     ``base_params`` applies to LoRA only (``cfg.lora_rank``): the frozen base
     to adapt (e.g. ``params_from_jax`` or ``from_hf_llama``), taken in the
     master dtype without gradients; default ``init_params`` from
-    ``cfg.seed``."""
+    ``cfg.seed``.
+
+    ``runtime``: the :class:`~tpu_engine_torch.mesh_runtime.MeshRuntime` to
+    run on (a mesh of one rank included); by default one is built from
+    ``cfg.mesh`` when this process is one rank of several
+    (``initialize_distributed``). The frozen LoRA base stays whole on every
+    rank."""
     device = torch.device(device)
     if model_cfg is None:
         if cfg.model_name not in MODEL_CONFIGS:
@@ -984,22 +1186,32 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
             "annotations)"
         )
     tfm._require_ported(model_cfg)
-    if cfg.sequence > 1:
+    _mesh_refusals(cfg, model_cfg)
+    runtime = _runtime_for(cfg, device, runtime)
+    seq_size = runtime.axis_sizes["sequence"] if runtime is not None else 1
+    if seq_size > 1 or cfg.sequence > 1:
         impl = "ulysses" if cfg.attention_impl == "ulysses" else "ring"
     elif cfg.attention_impl == "auto":
         impl = "flash" if device.type == "cuda" else "xla"
     else:
         impl = cfg.attention_impl
     if impl == "ulysses":
-        raise NotImplementedError(
-            "attention_impl='ulysses' is not ported (queued with multi-GPU)")
+        if seq_size == 1:
+            raise NotImplementedError(
+                "attention_impl='ulysses' runs across ranks only (a mesh with "
+                "sequence > 1): one process has no all-to-all")
+        if model_cfg.n_heads % seq_size != 0:
+            raise ValueError(
+                f"attention_impl='ulysses' needs the per-device head count "
+                f"({model_cfg.n_heads} heads / model axis 1 = {model_cfg.n_heads}) "
+                f"divisible by the sequence axis size {seq_size}")
     if model_cfg.attention_impl != impl:
         model_cfg = model_cfg.with_(attention_impl=impl)
     if cfg.sliding_window is not None and model_cfg.sliding_window != cfg.sliding_window:
         model_cfg = model_cfg.with_(sliding_window=cfg.sliding_window)
     # Reject window × sequence parallelism at build time, as JAX does,
     # rather than at the first step deep inside _attention.
-    if model_cfg.sliding_window and impl == "ring":
+    if model_cfg.sliding_window and impl in ("ring", "ulysses"):
         raise ValueError(
             f"sliding_window={model_cfg.sliding_window} is not supported with "
             f"attention_impl={impl!r} (a windowed model has no use for "
@@ -1025,8 +1237,44 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
                         schedule=schedule, base_params=base_params,
                         walk=UpdateWalk(device, host_params=cfg.param_offload == "host",
                                         host_state=cfg.optimizer_offload == "host"))
+    if runtime is not None:
+        _bind_mesh(prog, runtime)
     if cfg.param_offload == "host":
         prog.host = HostParams(device, cfg.compute_dtype())
     if cfg.optimizer_offload == "disk":
         prog.disk = _DiskTier(prog)
     return prog
+
+
+def _bind_mesh(prog: TrainProgram, runtime: MeshRuntime) -> None:
+    """Put ``prog`` on ``runtime``'s mesh: its ZeRO layout of the trainable
+    tree (the adapters under LoRA, as JAX's ``train_logical``) and, at
+    stage 3, its layer stream; refuses what the mesh step does not run."""
+    cfg, mc = prog.config, prog.model_config
+    n_seq, n_fsdp = runtime.axis_sizes["sequence"], runtime.axis_sizes["fsdp"]
+    if mc.is_moe and mc.moe_impl == "dense" and n_seq > 1:
+        raise NotImplementedError(
+            "dense-dispatch MoE over a sequence axis is not ported: its expert capacity "
+            "counts along a row's whole sequence (ROADMAP Queue 1, item 2); use "
+            "moe_impl='ragged'")
+    if cfg.optimizer == "adafactor" and cfg.sharding_stage >= 1 and n_fsdp > 1:
+        raise NotImplementedError(
+            "optimizer='adafactor' with its state split over fsdp is not ported: its "
+            "factored moments reduce over the dims fsdp splits (ROADMAP Queue 1, item 2); "
+            "use sharding_stage=0 or fsdp=1")
+    if cfg.seq_len % n_seq:
+        raise ValueError(f"mesh.sequence={n_seq} must divide seq_len={cfg.seq_len}")
+    if cfg.loss_chunk_size and (cfg.seq_len // n_seq) % cfg.loss_chunk_size:
+        raise ValueError(f"loss_chunk_size={cfg.loss_chunk_size} must divide a rank's "
+                         f"{cfg.seq_len // n_seq} positions (seq_len / sequence)")
+    logical = sharding.logical_axes(mc)
+    shapes = {k: tuple(p.shape)
+              for k, p in tfm.init_params(mc, None, device="meta").items()}
+    if cfg.lora_rank is not None:
+        logical = sharding.lora_logical_axes(logical, cfg.lora_targets)
+        shapes = {k: tuple(p.shape) for k, p in lora_mod.init_lora_params(
+            None, mc, cfg.lora_rank, cfg.lora_targets, device="meta").items()}
+    prog.runtime = runtime
+    prog.zero = zero.ZeroLayout(runtime, cfg.sharding_stage, logical, shapes)
+    if prog.zero.params_split:
+        prog.stream = zero.ShardedParams(prog.zero, prog.device, cfg.compute_dtype())

@@ -41,7 +41,21 @@ Each fault patches one function for the length of its reading:
   ``disk_update_overlap``), whose step times beside ``disk_sound``'s say
   whether the overlap hides the host walk.
 
-The readings are printed and written to ``chiprun_out/train_faults.json``.
+- the mesh (``chip_smoke.py``'s ``train_mesh``: llama-1b on two ranks, a
+  process each, through NCCL on the one card, against the world-1 run at
+  the same global batch; the largest relative gap of the losses and
+  gradient norms, :func:`chip_smoke.mesh_rel`): ``mesh_sound`` (fsdp=2 at
+  stage 3, and the ring over sequence=2); ``mesh_fsdp_skip_reduce_scatter``:
+  one leaf's gradient left out of the fsdp reduce-scatter, each rank
+  keeping its own share of its own rows' gradient
+  (``parallel.zero.ZeroLayout.reduce_leaf``); ``mesh_ring_cotangents_dropped``:
+  the ring's hops send no K/V cotangents back (``ring_attention._Hop.backward``
+  returns zeros), which sets ``MESH_LOSS_REL``. (A ring of two ranks
+  turns the same way both ways round, so a ring rotated the wrong way is
+  no fault there.)
+
+``python3 train_faults.py --mesh`` reads the mesh alone. The readings are
+printed and written to ``chiprun_out/train_faults.json``.
 """
 
 from __future__ import annotations
@@ -124,6 +138,63 @@ def _bias_off_by_one(real):
             self.moment_steps -= 1
 
     return update
+
+
+# The bound of train_mesh's two-rank runs against the world-1 run (losses
+# and gradient norms, largest relative gap): set between the sound reading
+# and the planted faults' (see the mesh readings below and CHANGES.md).
+MESH_LOSS_REL = 2e-3
+# The leaf the fsdp fault leaves out of the reduce-scatter.
+MESH_DROPPED_LEAF = "layers.gate.kernel"
+
+
+def _skip_reduce_scatter(real):
+    def reduce_leaf(self, key, g, dim_offset=0, owned=True):
+        d = self.dims[key]
+        if key != MESH_DROPPED_LEAF or d is None or not self.grads_split:
+            return real(self, key, g, dim_offset, owned)
+        n = g.shape[d + dim_offset] // self.n_fsdp
+        return g.narrow(d + dim_offset, self.i_fsdp * n, n)
+
+    return reduce_leaf
+
+
+def _cotangents_dropped(real):
+    def backward(ctx, dk, dv):  # no send, no receive: on every rank alike
+        return dk.new_zeros(dk.shape), dv.new_zeros(dv.shape), None, None, None
+
+    return backward
+
+
+def mesh_fault(name: str):
+    """The patch of the planted mesh fault ``name`` (for :func:`_patched`)."""
+    from tpu_engine_torch.parallel import ring_attention, zero
+
+    return {"fsdp_skip_reduce_scatter": (zero.ZeroLayout, "reduce_leaf", _skip_reduce_scatter),
+            "ring_cotangents_dropped": (ring_attention._Hop, "backward",
+                                        _cotangents_dropped)}[name]
+
+
+def mesh_readings(cs, out: dict, steps: int = 3) -> None:
+    """The mesh's readings (module docstring) into ``out``: each two-rank
+    run's largest relative gap to its world-1 run, per rank."""
+    w1 = cs.mesh_world1(["w1_2048", "w1_8192"], steps)
+    for name, runs, fault in (
+            ("mesh_sound", ["fsdp2", "ring2"], None),
+            ("mesh_fsdp_skip_reduce_scatter", ["fsdp2"], "fsdp_skip_reduce_scatter"),
+            ("mesh_ring_cotangents_dropped", ["ring2"], "ring_cotangents_dropped")):
+        ranks = cs.mesh_launch(runs, 2, steps, f"faults_{name}", fault)
+        for run in runs:
+            ref = w1[cs.MESH_RUNS[run][3]]
+            r = out[f"{name}:{run}"] = {
+                "rel": [cs.mesh_rel(rk["runs"][run], ref) for rk in ranks],
+                "losses": [rk["runs"][run]["losses"] for rk in ranks],
+                "grad_norms": [rk["runs"][run]["grad_norms"] for rk in ranks],
+                "ref_losses": ref["losses"], "ref_grad_norms": ref["grad_norms"]}
+            print(f"{name} {run}: largest relative gap to the world-1 run, per rank, "
+                  f"{[f'{x:.4e}' for x in r['rel']]} (MESH_LOSS_REL {MESH_LOSS_REL}); "
+                  f"losses {r['losses']}, grad norms {r['grad_norms']}; world 1 "
+                  f"{r['ref_losses']}, {r['ref_grad_norms']}", flush=True)
 
 
 def _offload_run(cs, extra: dict) -> tuple[list, dict, list]:
@@ -231,6 +302,11 @@ def main() -> int:
     print(card, flush=True)
     fc.build()
     fc._load()
+    if sys.argv[1:] == ["--mesh"]:
+        out = {"card": card, "bounds": {"mesh_loss_rel": MESH_LOSS_REL}}
+        mesh_readings(cs, out)
+        _write(out)
+        return 0
     steps = 5
     out: dict = {"card": card, "bounds": {
         "int8_logits_rel": cs.INT8_LOGITS_REL, "int8_loss_rel": cs.INT8_LOSS_REL,
@@ -266,10 +342,16 @@ def main() -> int:
         print(f"{name}: kept over nothing_saveable, as a share of the tagged bytes: "
               f"{out[name]}", flush=True)
     offload_readings(cs, out)
+    out["bounds"]["mesh_loss_rel"] = MESH_LOSS_REL
+    mesh_readings(cs, out)
+    _write(out)
+    return 0
+
+
+def _write(out: dict) -> None:
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "train_faults.json").write_text(json.dumps(out, indent=1))
     print(json.dumps(out), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -129,10 +129,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``offload_dots`` (the products' outputs in pinned host blocks of their
    exact size) with every initial gradient bitwise nothing_saveable's and
    fewer device bytes kept than dots_saveable's; the blocks unpinned after;
-20. train_offload: ``train``'s llama-1b for 3 steps in memory, with the
-   optimizer state, the masters or both in pinned host memory (losses and
-   parameters bitwise the in-memory run's), with bf16 masters, and with the
-   disk tier, serial (a spill under a temporary directory; the overlapped
+20. train_offload: ``train``'s llama-1b at 8 of its 16 layers for 3 steps
+   in memory, with the optimizer state, the masters or both in pinned host
+   memory (losses and parameters bitwise the in-memory run's), with bf16
+   masters, and with the disk tier, serial (a spill under a temporary directory; the overlapped
    walk, ``disk_update_overlap``, is read by train_faults.py); step time,
    peak device and pinned bytes, bytes over the bus, its rate and the
    device-busy share of each;
@@ -145,13 +145,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launch windowed, the first loss held to the plain windowed path's;
 23. train_mesh: llama-1b at full width and depth on a mesh through NCCL, 3
    steps a run: at world 1 in this process, the mesh program at stage 3
-   bitwise the no-mesh program (seq 2048 × 4), and at seq 8192 × 1; then
-   two ranks, a process each on the one card (``--mesh-worker``; each its
-   own ``NCCL_HOSTID``): fsdp=2 at stage 3 (seq 2048 × 2 a rank), a ring
-   and Ulysses over sequence=2 (seq 8192 × 1), each held to the world-1
-   run at the same global batch by MESH_LOSS_REL (train_faults.py), launch
-   counts exact per rank; step time, peak memory and the bytes each
-   collective moved a step, per rank.
+   bitwise the no-mesh program (seq 2048 × 4), and at seq 8192 × 1 (8 of
+   the 16 layers); then two ranks, a process each on the one card
+   (``--mesh-worker``; each its own ``NCCL_HOSTID``): fsdp=2 at stage 3
+   (seq 2048 × 2 a rank), a ring and Ulysses over sequence=2 (seq 8192 ×
+   1, 8 layers), tensor parallelism at model=2 (``tp2``: 8 heads, 2752 MLP columns, 16000 vocabulary rows a
+   rank, seq 2048 × 4), and ``train_moe``'s moe-8x7b at model=2 (``ep2``:
+   4 experts a rank, seq 2048 × 2, held to its own world-1 run
+   ``w1_moe``), each held to the world-1 run at the same global batch by
+   MESH_LOSS_REL (ep2: MESH_EP_LOSS_REL; train_faults.py), the ranks'
+   losses and norms equal, launch counts exact per rank; step time, peak
+   memory and the bytes each collective moved a step, per rank;
+24. serve_mesh: the ContinuousBatcher at llama-1b's width and 4 layers on
+   model=2 (two ranks, ``--mesh-worker`` processes, rank 0 submitting
+   ``serve``'s 16 requests), with the bf16 and the int8 pool: every request
+   done, the ranks' streams equal, greedy streams teacher-forced through the one-rank forward within
+   SERVE_TAU, prefix hits, the ranks' teacher-forced decode logits against
+   the one-rank pool's within SERVE_TP_REL (serve_faults.py); TTFT, decode
+   tokens/s and peak memory per rank.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results (``launches`` per training step, summed over
@@ -1703,7 +1714,7 @@ def _serve_plan(cfg) -> list:
     return plan
 
 
-def _serve_run(params, cfg, plan: list, key: str, **batcher) -> dict:
+def _serve_run(params, cfg, plan: list, key: str, mesh=None, **batcher) -> dict:
     """Serve ``plan`` with a ContinuousBatcher (SERVE_CFG, updated by
     ``batcher``) driven by ``serve_forever`` on a thread, as the router runs
     it. All requests are submitted before the thread starts: the first 8
@@ -1712,7 +1723,11 @@ def _serve_run(params, cfg, plan: list, key: str, **batcher) -> dict:
     prefix-cache hits, TTFT, throughput, the thread's device and stream,
     memory, and a timed and a profiled decode dispatch at 8 active slots: a
     ``decode_chunk``, or with a draft one ``speculative_round`` (its tokens
-    counted at the run's mean acceptance)."""
+    counted at the run's mean acceptance). On a ``mesh`` (a rank of
+    ``serve_mesh``) rank 0 submits and the other rank's thread serves until
+    rank 0 stops; every rank times the dispatch (its collectives pair up)
+    and none profiles it; the batcher's params (the rank's blocks) come
+    back under ``"params"``."""
     import threading
 
     import numpy as np
@@ -1723,7 +1738,8 @@ def _serve_run(params, cfg, plan: list, key: str, **batcher) -> dict:
     main_dev, main_stream = torch.cuda.current_device(), torch.cuda.current_stream()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    srv = tsrv.ContinuousBatcher(params, cfg, **{**SERVE_CFG, **batcher})
+    srv = tsrv.ContinuousBatcher(params, cfg, mesh=mesh, **{**SERVE_CFG, **batcher})
+    lead = mesh is None or mesh.coords["model"] == 0
     first, hit_len, thread = {}, {}, {}
     real_first, real_step = srv._first_token, srv.step
 
@@ -1744,12 +1760,17 @@ def _serve_run(params, cfg, plan: list, key: str, **batcher) -> dict:
     srv._first_token, srv.step = first_token, step
     if srv._prefix_cache is not None:
         real_lookup, srv._prefix_cache.lookup = srv._prefix_cache.lookup, lookup
-    ids = [srv.submit(p, max_new_tokens=m, temperature=t) for p, m, t in plan]
+    ids = ([srv.submit(p, max_new_tokens=m, temperature=t) for p, m, t in plan] if lead
+           else list(range(len(plan))))
     stop = threading.Event()
     worker = threading.Thread(target=srv.serve_forever, args=(stop,), daemon=True)
     t0 = time.perf_counter()
     worker.start()
-    results = [srv.wait(r, timeout=600) for r in ids]
+    if lead:
+        results = [srv.wait(r, timeout=600) for r in ids]
+    else:  # serves until rank 0 stops
+        worker.join(timeout=SERVE_MESH_TIMEOUT_S)
+        results = [srv.result(r) for r in ids]
     wall = time.perf_counter() - t0
     stats = srv.stats()
     stop.set()
@@ -1772,7 +1793,7 @@ def _serve_run(params, cfg, plan: list, key: str, **batcher) -> dict:
     if dpool is None:
         per_dispatch = srv.chunk_steps
         args = (srv.params, z, pool, ones, torch.zeros(B, device="cuda"), z, z, 0, cfg,
-                srv.chunk_steps)
+                srv.chunk_steps, srv._compute_dtype, mesh)
         decode = tsrv.decode_chunk
     else:
         per_dispatch = stats["spec_tokens_accepted"] / stats["spec_rounds"]
@@ -1789,12 +1810,13 @@ def _serve_run(params, cfg, plan: list, key: str, **batcher) -> dict:
 
     dispatch()
     times = []
-    for _ in range(5):
+    for _ in range(5 if mesh is None else 2):  # a mesh's dispatch waits on the wire
         t1 = time.perf_counter()
         dispatch()
         times.append((time.perf_counter() - t1) * 1e3)
-    prof = _profile(dispatch, f"serve {key} decode dispatch")
-    ttft = [r["ttft_ms"] for r in results]
+    prof = (_profile(dispatch, f"serve {key} decode dispatch") if mesh is None
+            else {"device_ms": float("nan"), "wall_ms": float("nan")})
+    ttft = [r.get("ttft_ms", float("nan")) for r in results]
     tokens = [r["tokens"] for r in results]
     n_tok = sum(len(t) for t in tokens)
     out = {
@@ -1814,6 +1836,8 @@ def _serve_run(params, cfg, plan: list, key: str, **batcher) -> dict:
         "first_logits": first, "tokens_per_dispatch_per_slot": per_dispatch,
         "spec": {k: v for k, v in stats.items() if k.startswith("spec_")},
     }
+    if mesh is not None:
+        out["params"] = srv.params
     prefix = {k: v for k, v in (out["prefix_cache"] or {}).items() if k != "entry_hits"}
     print(f"serve {key}: {len(ids)} requests, {n_tok} tokens in {wall:.2f} s "
           f"({out['tokens_per_s']:.1f} tokens/s), TTFT p50 {out['ttft_ms_p50']:.1f} ms, "
@@ -1828,27 +1852,30 @@ def _serve_run(params, cfg, plan: list, key: str, **batcher) -> dict:
     return out
 
 
-def _pool_logits(params, cfg, prompts: list, teacher, kv_quant: bool, dtype):
+def _pool_logits(params, cfg, prompts: list, teacher, kv_quant: bool, dtype, mesh=None):
     """Logits of a slot pool (8 rows, SERVE_CFG's size, compute ``dtype``)
     fed each prompt by prefill and then ``teacher`` [8, K] one token per
-    step: [K, 8, V]."""
+    step: [K, 8, V]. ``mesh``: ``params`` are the rank's blocks, the pool
+    its kv heads; the logits come back whole."""
     import torch
 
     from tpu_engine_torch import generate as tgen
     from tpu_engine_torch import serving as tsrv
 
     pool = tsrv.init_slot_cache(cfg, len(prompts), SERVE_CFG["max_len"], dtype,
-                                prefill_chunk=SERVE_CFG["prefill_chunk"], kv_quant=kv_quant)
+                                prefill_chunk=SERVE_CFG["prefill_chunk"], kv_quant=kv_quant,
+                                mesh=mesh)
     with torch.inference_mode():
         for slot, prompt in enumerate(prompts):
-            c1 = tgen.init_cache(cfg, 1, len(prompt), dtype, kv_quant=kv_quant)
+            c1 = tgen.init_cache(cfg, 1, len(prompt), dtype, kv_quant=kv_quant, mesh=mesh)
             _, c1 = tgen.forward_with_cache(params, torch.tensor([prompt], device="cuda"), c1,
-                                            cfg, dtype, want_logits=False)
+                                            cfg, dtype, want_logits=False, mesh=mesh)
             tsrv._insert_prefill(pool, c1, slot, len(prompt))
         active = torch.ones(len(prompts), dtype=torch.bool, device="cuda")
         out = []
         for t in range(teacher.shape[1]):
-            logits, pool = tsrv.decode_step(params, teacher[:, t], pool, active, cfg, dtype)
+            logits, pool = tsrv.decode_step(params, teacher[:, t], pool, active, cfg, dtype,
+                                            mesh)
             out.append(logits)
     return torch.stack(out)
 
@@ -3003,6 +3030,10 @@ def phase_remat(res: dict, steps: int = REMAT_STEPS) -> None:
 # its losses are held to the in-memory run's by DISK_LOSS_REL, set from the
 # sound and planted readings of train_faults.py.
 OFFLOAD_STEPS = 3
+# train_offload trains llama-1b at full width and 8 of its 16 layers: the
+# disk tier's host walk (about 45 s a step at 16 layers) and the run's time
+# limit (PERF.md, PR 18).
+OFFLOAD_L = 8
 OFFLOAD_PLACEMENTS = (
     ("memory", {}),
     ("optimizer_host", dict(optimizer_offload="host")),
@@ -3029,8 +3060,16 @@ SEVEN_B = dict(model_name="llama-7b", micro_batch_size=1, gradient_accumulation_
 WINDOW = 1024
 
 
-def _placement(key: str, cfg, steps: int, want: dict):
-    """``cfg``'s program for ``steps`` steps (:func:`_run_steps`): losses,
+def _offload_model():
+    """``train_offload``'s model: llama-1b at OFFLOAD_L layers."""
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+
+    return MODEL_CONFIGS["llama-1b"].with_(n_layers=OFFLOAD_L)
+
+
+def _placement(key: str, cfg, steps: int, want: dict, model_cfg=None):
+    """``cfg``'s program (``model_cfg`` in place of its model name's, if
+    given) for ``steps`` steps (:func:`_run_steps`): losses,
     step time (min of steps 2..), peak device memory, the page-locked host
     bytes behind the state, launch counts held to ``want`` per microbatch.
     The disk tier's last step is the profiled one (:func:`_transfers`; its
@@ -3042,7 +3081,8 @@ def _placement(key: str, cfg, steps: int, want: dict):
 
     if cfg.optimizer_offload == "disk":
         steps -= 1
-    prog, state, batch, losses, norms, times, counts, _ = _run_steps(cfg, steps, "flash")
+    prog, state, batch, losses, norms, times, counts, _ = _run_steps(cfg, steps, "flash",
+                                                                     model_cfg=model_cfg)
     expect = {n: want.get(n, 0) * steps * cfg.gradient_accumulation_steps for n in counts}
     trees = [state["params"]] + [t for n, t in state.get("opt_state", {}).items() if n != "count"]
     r = {"losses": losses, "grad_norms": norms, "step_ms_each": [t * 1e3 for t in times],
@@ -3097,7 +3137,7 @@ def _free() -> None:
 
 
 def phase_train_offload(res: dict, steps: int = OFFLOAD_STEPS) -> None:
-    """``train``'s llama-1b in each of OFFLOAD_PLACEMENTS: the host
+    """``train``'s llama-1b at OFFLOAD_L layers in each of OFFLOAD_PLACEMENTS: the host
     placements' losses and parameters bitwise the in-memory run's; bf16
     masters' and the disk tier's first loss bitwise its (the same bf16
     weights) and their losses falling, the disk tier's within DISK_LOSS_REL
@@ -3113,10 +3153,10 @@ def phase_train_offload(res: dict, steps: int = OFFLOAD_STEPS) -> None:
 
     from tpu_engine_torch.models import transformer as tfm
 
-    L = 16
+    L = OFFLOAD_L
     want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
-    out = res["train_offload"] = {"steps": steps, "accum": 1, "placements": {}}
-    n = tfm.param_count(tfm.MODEL_CONFIGS["llama-1b"])
+    out = res["train_offload"] = {"steps": steps, "accum": 1, "layers": L, "placements": {}}
+    n = tfm.param_count(_offload_model())
     root = tempfile.mkdtemp(prefix="chip_smoke_spill_")
     fails, ref = [], {}
     try:
@@ -3129,7 +3169,8 @@ def phase_train_offload(res: dict, steps: int = OFFLOAD_STEPS) -> None:
             if extra.get("optimizer_offload") == "disk":
                 extra = {**extra, "optimizer_spill_dir": os.path.join(root, name)}
             key = f"train_offload {name}"
-            prog, state, batch, r = _placement(key, _llama_1b_cfg(**extra), steps, want)
+            prog, state, batch, r = _placement(key, _llama_1b_cfg(**extra), steps, want,
+                                               _offload_model())
             out["placements"][name] = r
             if prog.disk is not None:  # its last step is the profiled one
                 state, m = _transfers(prog, state, batch, key, r)
@@ -3294,7 +3335,11 @@ def phase_train_window(res: dict, steps: int = OFFLOAD_STEPS) -> None:
 # at the same global batch by MESH_LOSS_REL (train_faults.py, set from its
 # planted-fault readings).
 MESH_L = 16
+# The two-rank ring and Ulysses runs and their world-1 run take 8 of the 16
+# layers: the run's time limit (PERF.md, PR 18).
+MESH_SEQ_L = 8
 MESH_SEQ = 8192
+MESH_MOE = dict(model_name="moe-8x7b", moe_impl="dense")  # at MOE_TRAIN_LAYERS layers
 MESH_RUNS = {
     # name: (ranks, mesh (None: no mesh), TrainConfig fields, the world-1
     # run it is held to, per-rank launches a microbatch)
@@ -3306,8 +3351,16 @@ MESH_RUNS = {
               "ring"),
     "ulysses2": (2, dict(sequence=2), dict(micro_batch_size=1, seq_len=MESH_SEQ,
                                            attention_impl="ulysses"), "w1_8192", "ulysses"),
+    # Tensor parallelism: each rank 8 heads, 2752 MLP columns, 16000
+    # vocabulary rows.
+    "tp2": (2, dict(model=2), dict(micro_batch_size=4, seq_len=2048), "w1_2048", "flash"),
+    # Expert parallelism: train_moe's moe-8x7b, 4 experts a rank.
+    "w1_moe": (1, {}, dict(MESH_MOE, micro_batch_size=2, seq_len=2048), None, "flash"),
+    "ep2": (2, dict(model=2), dict(MESH_MOE, micro_batch_size=2, seq_len=2048), "w1_moe",
+            "flash"),
 }
 MESH_TIMEOUT_S = 300
+SERVE_MESH_TIMEOUT_S = 600
 # NCCL's socket transport between the ranks (the only one NCCL takes
 # between "hosts"): 8 threads of 2 sockets and 16 MB buffers moved a 256 MB
 # all-reduce in 159 ms against the defaults' 205 (nccl_probe.py --tune on
@@ -3316,26 +3369,38 @@ MESH_NCCL_ENV = {"NCCL_SOCKET_NTHREADS": "8", "NCCL_NSOCKS_PERTHREAD": "2",
                  "NCCL_BUFFSIZE": str(16 << 20)}
 
 
+def _mesh_layers(name: str) -> int:
+    if MESH_RUNS[name][2].get("model_name") == "moe-8x7b":
+        return MOE_TRAIN_LAYERS
+    return MESH_SEQ_L if MESH_RUNS[name][2]["seq_len"] == MESH_SEQ else MESH_L
+
+
 def _mesh_want(name: str, rank: int) -> dict:
     """Launches a step of ``name``'s rank ``rank``: K1 twice a layer (the
-    forward and the checkpoint's recompute), K2 and K3 once; the ring's
-    rank 1 also runs its past hop unmasked (the ``_full`` kernels)."""
-    causal = {"flash_fwd": 2 * MESH_L, "flash_bwd_dq": MESH_L, "flash_bwd_dkv": MESH_L}
+    forward and the checkpoint's recompute), K2 and K3 once (on the rank's
+    heads under ``model``); the ring's rank 1 also runs its past hop
+    unmasked (the ``_full`` kernels)."""
+    L = _mesh_layers(name)
+    causal = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
     if name == "ring2" and rank == 1:
         return {**causal, **{f"{k}_full": v for k, v in causal.items()}}
     return causal
 
 
 def _mesh_cfg(name: str):
+    """(the TrainConfig of ``name``, its model config: llama-1b, or
+    moe-8x7b at MOE_TRAIN_LAYERS layers)."""
     from tpu_engine_torch.mesh_runtime import MeshConfig
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
     from tpu_engine_torch.train import TrainConfig
 
     _, mesh, kw, _, _ = MESH_RUNS[name]
-    return TrainConfig(**{**dict(model_name="llama-1b", gradient_accumulation_steps=1,
-                                 precision="bf16", param_dtype="fp32",
-                                 activation_checkpointing=True, attention_impl="auto",
-                                 sharding_stage=3, mesh=MeshConfig(**(mesh or {})),
-                                 **TRAIN_LR), **kw})
+    cfg = TrainConfig(**{**dict(model_name="llama-1b", gradient_accumulation_steps=1,
+                                precision="bf16", param_dtype="fp32",
+                                activation_checkpointing=True, attention_impl="auto",
+                                sharding_stage=3, mesh=MeshConfig(**(mesh or {})),
+                                **TRAIN_LR), **kw})
+    return cfg, MODEL_CONFIGS[cfg.model_name].with_(n_layers=_mesh_layers(name))
 
 
 def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
@@ -3363,7 +3428,7 @@ def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
     out, runtimes = {}, {}  # one runtime a mesh shape, shared by its runs
     for name in runs:
         t_setup = time.perf_counter()
-        cfg = _mesh_cfg(name)
+        cfg, model_cfg = _mesh_cfg(name)
         with patch():
             runtime = None
             if MESH_RUNS[name][1] is not None:
@@ -3371,7 +3436,7 @@ def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
                 if key not in runtimes:
                     runtimes[key] = MeshRuntime(cfg.mesh, device=device)
                 runtime = runtimes[key]
-            prog = build_train_program(cfg, device=device, runtime=runtime)
+            prog = build_train_program(cfg, model_cfg, device=device, runtime=runtime)
             state = prog.init()
             batch = prog.synthetic_batch(seed=0)
             torch.cuda.synchronize()
@@ -3400,9 +3465,10 @@ def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
 
 
 def mesh_worker(job_path: str, rank: int) -> None:
-    """One rank of ``train_mesh`` (``chip_smoke.py --mesh-worker JOB RANK``):
-    joins the job's process group on cuda:0 through NCCL, takes its runs
-    (:func:`_mesh_runs`) and writes ``JOB.rank<R>.json``."""
+    """One rank of ``train_mesh`` or ``serve_mesh`` (``chip_smoke.py
+    --mesh-worker JOB RANK``): joins the job's process group on cuda:0
+    through NCCL, takes its runs (:func:`_mesh_runs`) or serves
+    (:func:`_mesh_serve`) and writes ``JOB.rank<R>.json``."""
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT))
@@ -3410,10 +3476,14 @@ def mesh_worker(job_path: str, rank: int) -> None:
     from tpu_engine_torch.ops import _flash_cuda as fc
 
     job = json.loads(Path(job_path).read_text())
-    fc._load()
+    if not job.get("serve"):  # serving launches no kernel of the port
+        fc._load()
     initialize_distributed(f"127.0.0.1:{job['port']}", job["world"], rank, device="cuda:0")
     out = {"rank": rank, "joined_s": time.time() - job["t0"]}
-    out["runs"] = _mesh_runs(job["runs"], job["steps"], job.get("fault"))
+    if job.get("serve"):
+        out["serve"] = _mesh_serve(job["serve"], rank, job.get("fault"))
+    else:
+        out["runs"] = _mesh_runs(job["runs"], job["steps"], job.get("fault"))
     Path(f"{job_path}.rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
 
@@ -3440,15 +3510,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None) -> list:
-    """Run ``runs`` on ``world`` rank processes (:func:`mesh_worker`) and
-    return each rank's results. Every process is stopped on return; a rank
-    that fails, or a job that outlives MESH_TIMEOUT_S, raises."""
+def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None,
+                serve=None) -> list:
+    """Run ``runs`` (or with ``serve``, :func:`_mesh_serve` in that mode) on
+    ``world`` rank processes (:func:`mesh_worker`) and return each rank's
+    results. Every process is stopped on return; a rank that fails, or a
+    job that outlives MESH_TIMEOUT_S (SERVE_MESH_TIMEOUT_S serving), raises."""
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     job_path = out_dir / f"mesh_{tag}.json"
     job_path.write_text(json.dumps({"runs": runs, "world": world, "steps": steps,
-                                    "port": _free_port(), "fault": fault, "t0": time.time()}))
+                                    "port": _free_port(), "fault": fault, "t0": time.time(),
+                                    "serve": serve}))
     procs = []
     for r in range(world):
         env = dict(os.environ, NCCL_HOSTID=f"mesh-rank-{r}", **MESH_NCCL_ENV)
@@ -3456,7 +3529,7 @@ def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None) -> lis
         procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                                         "--mesh-worker", str(job_path), str(r)],
                                        stdout=log, stderr=subprocess.STDOUT, env=env), log))
-    deadline = time.monotonic() + MESH_TIMEOUT_S
+    deadline = time.monotonic() + (SERVE_MESH_TIMEOUT_S if serve else MESH_TIMEOUT_S)
     try:
         for p, _ in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1))
@@ -3486,25 +3559,32 @@ def phase_train_mesh(res: dict, steps: int) -> None:
     fp32 masters, AdamW, checkpointing, flash kernels, ``steps`` steps each,
     a rank a process through NCCL on cuda:0: at world 1 the no-mesh program
     and the mesh program at stage 3 (seq 2048 × 4; the losses must be
-    bitwise equal), and the mesh program at seq 8192 × 1, in this process;
-    on two ranks, a process each
-    (fsdp=2) at stage 3, seq 2048 × 2 a rank; a ring over sequence=2 and
-    Ulysses over sequence=2, seq 8192 × 1. Each two-rank run is held to the
-    world-1 run at the same global batch within MESH_LOSS_REL (losses and
-    gradient norms of every step), its launches checked exactly per rank,
-    and its step time, peak memory and the bytes each collective moved a
-    step reported per rank."""
-    from train_faults import MESH_LOSS_REL
+    bitwise equal), and the mesh program at seq 8192 × 1 (8 layers), in
+    this process; on two ranks, a process each (fsdp=2) at stage 3, seq
+    2048 × 2 a rank; a ring over sequence=2 and Ulysses over sequence=2,
+    seq 8192 × 1 at 8 layers; tensor parallelism at model=2, seq 2048 × 4
+    (``tp2``); moe-8x7b at MOE_TRAIN_LAYERS layers on model=2,
+    seq 2048 × 2 (``ep2``, held to ``w1_moe``, the same at world 1). Each
+    two-rank run is held to the world-1 run at the same global batch within
+    MESH_LOSS_REL (ep2: MESH_EP_LOSS_REL; losses and gradient norms of every
+    step), its ranks must report the same losses and norms, its launches
+    are checked exactly per rank, and its step time, peak memory and the
+    bytes each collective moved a step are reported per rank."""
+    from train_faults import MESH_EP_LOSS_REL, MESH_LOSS_REL
 
     out = res["train_mesh"] = {"steps": steps, "accum": 1, "runs": {}, "launches": {}}
-    one = [{"runs": mesh_world1(["nomesh", "w1_2048", "w1_8192"], steps)}]
-    two = mesh_launch(["fsdp2", "ring2", "ulysses2"], 2, steps, "w2")
+    one = [{"runs": mesh_world1(["nomesh", "w1_2048", "w1_8192", "w1_moe"], steps)}]
+    two = mesh_launch(["fsdp2", "ring2", "ulysses2", "tp2", "ep2"], 2, steps, "w2")
     fails = []
     for ranks in (one, two):
         for name in ranks[0]["runs"]:
             world, _, _, ref, impl = MESH_RUNS[name]
             runs = [r["runs"][name] for r in ranks]
             out["runs"][name] = runs
+            bound = MESH_EP_LOSS_REL if name == "ep2" else MESH_LOSS_REL
+            if any((r["losses"], r["grad_norms"]) != (runs[0]["losses"], runs[0]["grad_norms"])
+                   for r in runs):
+                fails.append(f"{name}: the ranks' losses or gradient norms differ")
             for rank, run in enumerate(runs):
                 if run["impl"] != impl:
                     fails.append(f"{name}: attention resolved to {run['impl']!r}")
@@ -3532,13 +3612,161 @@ def phase_train_mesh(res: dict, steps: int) -> None:
                 bitwise = run["losses"] == ref_run["losses"]
                 run["bitwise_to_" + ref] = bitwise
                 print(f"train_mesh {name} rank {rank} against {ref}: losses bitwise {bitwise}, "
-                      f"largest relative gap {rel:.3e} (MESH_LOSS_REL {MESH_LOSS_REL})",
-                      flush=True)
+                      f"largest relative gap {rel:.3e} (bound {bound})", flush=True)
                 if world == 1 and not bitwise:
                     fails.append(f"{name}: losses {run['losses']} not bitwise {ref}'s "
                                  f"{ref_run['losses']}")
-                if not rel <= MESH_LOSS_REL:
+                if not rel <= bound:
                     fails.append(f"{name} rank {rank}: relative gap {rel:.3e} to {ref}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+SERVE_MESH_POOLS = (("bf16", False), ("int8", True))
+# serve_mesh serves llama-1b at full width and 4 of its 16 layers: a decode
+# step's 2 all-reduces a layer wait about 4.5 ms each on the wire between
+# two ranks of one card (nccl_probe.py --latency), and the run's time limit
+# holds the phase to about a minute and a half (PERF.md, PR 18).
+SERVE_MESH_L = 4
+SERVE_MESH_TEACHER = (8, 16)  # rows and tokens of the teacher-forced decode
+
+
+def _serve_mesh_model(state: dict):
+    """llama-1b at SERVE_MESH_L layers: :func:`_llama_1b`'s weights, its
+    first layers (views)."""
+    cfg, params = _llama_1b(state)
+    return cfg.with_(n_layers=SERVE_MESH_L), {
+        k: v[:SERVE_MESH_L] if k.startswith("layers.") else v for k, v in params.items()}
+
+
+def _mesh_teacher(cfg):
+    """The teacher-forced decode of ``serve_mesh``: ``serve``'s first 8
+    prompts and 16 tokens from seed 1 fed one a step ([8, 16])."""
+    import numpy as np
+    import torch
+
+    rows, n = SERVE_MESH_TEACHER
+    prompts = [p for p, _, _ in _serve_plan(cfg)[:rows]]
+    toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (rows, n))
+    return prompts, torch.tensor(toks, device="cuda")
+
+
+def _mesh_serve(mode: str, rank: int, fault=None) -> dict:
+    """One rank of ``serve_mesh`` on model=2 (cuda:0, NCCL): llama-1b's
+    seed-0 bf16 weights at SERVE_MESH_L layers made whole and the batcher
+    keeping the rank's blocks. ``mode`` "serve": ``serve``'s 16 requests with each pool of
+    SERVE_MESH_POOLS (:func:`_serve_run`; rank 0 submits), then the
+    teacher-forced decode; "teacher": the teacher-forced decode alone.
+    Rank 0 saves the decode's logits (whole, [16, 8, V]) to
+    ``chiprun_out/serve_mesh_logits.pt``. ``fault`` names a planted fault
+    of serve_faults.py, patched throughout."""
+    import contextlib
+
+    import torch
+
+    from tpu_engine_torch import serving as tsrv
+    from tpu_engine_torch.mesh_runtime import MeshConfig, MeshRuntime
+
+    patch = contextlib.nullcontext()
+    if fault:
+        import serve_faults
+
+        patch = serve_faults._patched(serve_faults.mesh_fault(fault))
+    rt = MeshRuntime(MeshConfig(model=2), device=torch.device("cuda", 0))
+    cfg, params = _serve_mesh_model({})
+    out = {"runs": {}}
+    with patch:
+        if mode == "serve":
+            for key, kv_quant in SERVE_MESH_POOLS:
+                r = _serve_run(params, cfg, _serve_plan(cfg), f"mesh {key} rank {rank}",
+                               mesh=rt, kv_quant=kv_quant)
+                r.pop("first_logits")
+                r["hits"] = {str(k): v for k, v in r["hits"].items()}
+                block = r.pop("params")
+                out["runs"][key] = r
+        else:
+            block = tsrv.ContinuousBatcher(params, cfg, mesh=rt, **SERVE_CFG).params
+        del params
+        _free()
+        prompts, teacher = _mesh_teacher(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        logits = _pool_logits(block, cfg, prompts, teacher, False, torch.bfloat16, mesh=rt)
+    out["teacher_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        torch.save(logits.cpu(), ROOT / "chiprun_out" / "serve_mesh_logits.pt")
+    out["logits_checksum"] = float(logits.double().sum())
+    return out
+
+
+def serve_mesh_rel(cfg, params, ranks: list) -> float:
+    """The relative norm error of the ranks' teacher-forced decode logits
+    (saved by rank 0) against the one-rank pool's on the same tokens
+    (``params``: the whole bf16 weights in this process). The file is
+    removed after."""
+    import torch
+
+    path = ROOT / "chiprun_out" / "serve_mesh_logits.pt"
+    mesh_logits = torch.load(path).cuda()
+    path.unlink()
+    prompts, teacher = _mesh_teacher(cfg)
+    one = _pool_logits(params, cfg, prompts, teacher, False, torch.bfloat16)
+    return _rel_err(mesh_logits, one)
+
+
+def phase_serve_mesh(res: dict, state: dict) -> None:
+    """The batcher on model=2 at llama-1b's width and SERVE_MESH_L layers
+    (``mesh=``; two ranks, a process each on the one card through NCCL,
+    each with 8 heads, 2752 MLP columns, 16000 vocabulary rows and 8 kv
+    heads of the pool): ``serve``'s
+    plan (SERVE_CFG: 8 slots, 16 requests, four sampled, a shared prefix)
+    with the bf16 pool and the int8 pool, rank 0 submitting. Checks: every
+    request done on both ranks and no slot left busy; the two ranks'
+    streams equal; the greedy streams teacher-forced through the one-rank
+    forward within SERVE_TAU; prefix hits; the ranks' teacher-forced decode
+    logits against the one-rank pool's within SERVE_TP_REL (serve_faults.py,
+    set from a planted fault). Reports TTFT p50/p99 (rank 0), decode
+    tokens/s and peak memory per rank."""
+    from serve_faults import SERVE_TP_REL
+
+    cfg, params = _serve_mesh_model(state)
+    ranks = mesh_launch([], 2, 0, "serve", serve="serve")
+    plan = _serve_plan(cfg)
+    rel = serve_mesh_rel(cfg, params, ranks)
+    fails, gaps = [], {}
+    out = res["serve_mesh"] = {"config": SERVE_CFG, "layers": SERVE_MESH_L, "teacher_rel": rel,
+                               "serve_tp_rel": SERVE_TP_REL, "card": res.get("card"),
+                               "ranks": [r["serve"] for r in ranks]}
+    for key, _ in SERVE_MESH_POOLS:
+        runs = [r["serve"]["runs"][key] for r in ranks]
+        for rank, run in enumerate(runs):
+            if run["statuses"] != ["done"] * len(plan):
+                fails.append(f"{key} rank {rank}: statuses {run['statuses']}")
+            if _slots_left_busy(run):
+                fails.append(f"{key} rank {rank}: slots left busy {run['slot_state']}")
+            if not run["on_card"]:
+                fails.append(f"{key} rank {rank}: pool or parameters not on the card")
+            print(f"serve_mesh {key} rank {rank}: decode dispatch {run['dispatch_ms']:.2f} ms "
+                  f"({run['decode_tokens_per_s']:.1f} tokens/s), peak "
+                  f"{run['peak_mem_gib']:.2f} GiB, KV pool {run['kv_bytes'] / 2**30:.3f} GiB "
+                  f"({_card_line()})", flush=True)
+        if runs[1]["tokens"] != runs[0]["tokens"]:
+            fails.append(f"{key}: rank 1's streams differ from rank 0's")
+        if not any(runs[0]["hits"].values()):
+            fails.append(f"{key}: no prefix-cache hit")
+        gaps[key] = max(_stream_gap(params, cfg, p, toks)
+                        for (p, _, t), toks in zip(plan, runs[0]["tokens"]) if t == 0.0)
+        if not gaps[key] <= SERVE_TAU:
+            fails.append(f"{key}: largest teacher-forced gap {gaps[key]:.3e} > {SERVE_TAU}")
+        print(f"serve_mesh {key}: TTFT p50 {runs[0]['ttft_ms_p50']:.1f} ms, p99 "
+              f"{runs[0]['ttft_ms_p99']:.1f} ms, {runs[0]['tokens_per_s']:.1f} tokens/s "
+              f"end to end; ranks' streams equal {runs[1]['tokens'] == runs[0]['tokens']}; "
+              f"greedy streams teacher-forced through the one-rank forward, largest gap "
+              f"{gaps[key]:.3e} (SERVE_TAU {SERVE_TAU})", flush=True)
+    out["greedy_max_gap"] = gaps
+    print(f"serve_mesh: teacher-forced decode logits on model=2 against one rank, relative "
+          f"{rel:.3e} (SERVE_TP_REL {SERVE_TP_REL})", flush=True)
+    if not rel <= SERVE_TP_REL:
+        fails.append(f"teacher-forced logits relative {rel:.3e} > {SERVE_TP_REL}")
     if fails:
         raise AssertionError("; ".join(fails))
 
@@ -3684,6 +3912,7 @@ def main() -> int:
         run("serve", phase_serve, res, serving)
         run("serve_spec", phase_serve_spec, res, serving)
         run("hf_bridge", phase_hf_bridge, res, serving)
+        run("serve_mesh", phase_serve_mesh, res, serving)
         serving.clear()
         run("generate_gemma", phase_generate_gemma, res)
         run("serve_moe", phase_serve_moe, res)

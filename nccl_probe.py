@@ -2,8 +2,13 @@
 two processes on cuda:0 and check an all-reduce, a reduce-scatter, an
 all-to-all and a send/recv, then time a 256 MB all-reduce.
 
-    python3 nccl_probe.py          # distinct NCCL_HOSTID values, then none
-    python3 nccl_probe.py --tune   # distinct values, three socket settings
+    python3 nccl_probe.py            # distinct NCCL_HOSTID values, then none
+    python3 nccl_probe.py --tune     # distinct values, three socket settings
+    python3 nccl_probe.py --latency  # a decode step's all-reduce, four settings
+
+``--latency`` times the all-reduce a decode step of llama-1b at model=2
+makes twice a layer (bf16 [8, 2048], 32 KB), alone and each after a
+[8, 2048] x [2048, 1024] product, 200 times, under each socket setting.
 
 NCCL refuses two ranks with one host hash on one bus id ("Duplicate GPU
 detected"); a distinct ``NCCL_HOSTID`` per rank makes them two hosts to
@@ -53,13 +58,37 @@ def worker(rank: int, port: int) -> None:
     dist.destroy_process_group()
 
 
-def variant(name: str, hostids, port: int, extra=None) -> None:
+def latency_worker(rank: int, port: int) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    x = torch.ones((8, 2048), dtype=torch.bfloat16, device="cuda")
+    w = torch.ones((2048, 1024), dtype=torch.bfloat16, device="cuda")
+    out = {"rank": rank}
+    for name, product in (("alone", False), ("after_product", True)):
+        for n in (20, 200):  # the first 20 warm up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                if product:
+                    x[:, :1024] = x @ w * 0
+                dist.all_reduce(x)
+            torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    print("RESULT " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def variant(name: str, hostids, port: int, extra=None, role: str = "--worker") -> None:
     procs = []
     for r in range(2):
         env = dict(os.environ, NCCL_DEBUG="WARN", **(extra or {}))
         if hostids:
             env["NCCL_HOSTID"] = hostids[r]
-        procs.append(subprocess.Popen([sys.executable, __file__, "--worker", str(r), str(port)],
+        procs.append(subprocess.Popen([sys.executable, __file__, role, str(r), str(port)],
                                       env=env, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
     outs = []
@@ -80,9 +109,22 @@ def main() -> None:
     if sys.argv[1:2] == ["--worker"]:
         worker(int(sys.argv[2]), int(sys.argv[3]))
         return
+    if sys.argv[1:2] == ["--latency-worker"]:
+        latency_worker(int(sys.argv[2]), int(sys.argv[3]))
+        return
     subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     ids = ["probe-rank-0", "probe-rank-1"]
-    if sys.argv[1:] == ["--tune"]:
+    if sys.argv[1:] == ["--latency"]:
+        for i, (name, extra) in enumerate((
+                ("default sockets", {}),
+                ("8 threads x 2 sockets, 16 MB buffers (MESH_NCCL_ENV)",
+                 {"NCCL_SOCKET_NTHREADS": "8", "NCCL_NSOCKS_PERTHREAD": "2",
+                  "NCCL_BUFFSIZE": str(16 << 20)}),
+                ("1 thread x 1 socket", {"NCCL_SOCKET_NTHREADS": "1",
+                                         "NCCL_NSOCKS_PERTHREAD": "1"}),
+                ("default sockets, LL protocol", {"NCCL_PROTO": "LL"}))):
+            variant(name, ids, 29531 + i, extra, role="--latency-worker")
+    elif sys.argv[1:] == ["--tune"]:
         variant("default sockets", ids, 29521)
         variant("4 threads x 4 sockets", ids, 29522,
                 {"NCCL_SOCKET_NTHREADS": "4", "NCCL_NSOCKS_PERTHREAD": "4"})

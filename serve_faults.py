@@ -5,6 +5,7 @@ there are set from these readings.
 
     python3 serve_faults.py          # llama-1b: streams, int8 pool, speculative
     python3 serve_faults.py --moe    # moe-8x7b in weight-only int8 (serve_moe)
+    python3 serve_faults.py --mesh   # llama-1b on model=2 (serve_mesh)
 
 llama-1b at full width and depth (seed-0 weights cast once to bf16) serves
 the ``serve`` phase's 16 requests (``chip_smoke._serve_plan``, the same
@@ -67,6 +68,19 @@ then one-token steps, ``chip_smoke._cached_logits``), in bf16 and in fp32
 compute: the tokens whose top-k experts differ between the two, per
 layer, and the logits' relative error.
 
+Mesh faults (``--mesh``), on ``chip_smoke.py``'s ``serve_mesh``: llama-1b
+at ``SERVE_MESH_L`` layers on model=2, two ranks a process each on the one
+card; read as the relative
+norm error of the ranks' teacher-forced decode logits (``serve``'s first 8
+prompts, 16 tokens from seed 1, ``chip_smoke._mesh_teacher``) against the
+one-rank pool's on the same tokens (``chip_smoke.serve_mesh_rel``; held to
+``SERVE_TP_REL``):
+
+- ``mesh_sound``;
+- ``mesh_down_g_dropped``: decode leaves the down projection's partial
+  sums unsummed over ``model`` (``transformer._row_proj``), each rank
+  adding its own half of the MLP.
+
 Each fault is a patch of one function of the package for its own run; no
 file changes. Prints the card's name and power limit, one line per reading
 and one JSON line, also written to ``chiprun_out/serve_faults.json``.
@@ -117,6 +131,47 @@ def _draft_gamma_steps(real):
     return propose
 
 
+# serve_mesh's bound on the teacher-forced decode logits on model=2 against
+# one rank (relative norm error): set between the sound reading and the
+# planted fault's (``--mesh``): 1.286e-2 and 1.091 at SERVE_MESH_L (4)
+# layers, 1.834e-2 and 1.165 at 8, 2.517e-2 and 1.188 at 16; see CHANGES.md.
+SERVE_TP_REL = 0.1
+
+
+def _down_g_dropped(real):
+    def row_proj(h, lp, name, dot=None, lora_scale=1.0, tp=None):
+        if name != "down" or tp is None:
+            return real(h, lp, name, dot, lora_scale, tp)
+        from tpu_engine_torch.models.transformer import _proj
+
+        return _proj(h, lp["down.kernel"], None, None, lora_scale, dot)
+
+    return row_proj
+
+
+def mesh_fault(name: str):
+    """The patch of the planted serving mesh fault ``name`` (for
+    :func:`_patched`)."""
+    from tpu_engine_torch.models import transformer as tfm
+
+    return {"down_g_dropped": (tfm, "_row_proj", _down_g_dropped)}[name]
+
+
+def main_mesh(card: str) -> dict:
+    """The mesh readings (module docstring): each a two-rank job of
+    ``chip_smoke._mesh_serve`` in its "teacher" mode."""
+    import chip_smoke as cs
+
+    cfg, params = cs._serve_mesh_model({})
+    out = {"card": card, "serve_tp_rel": SERVE_TP_REL, "layers": cs.SERVE_MESH_L}
+    for name, fault in (("mesh_sound", None), ("mesh_down_g_dropped", "down_g_dropped")):
+        ranks = cs.mesh_launch([], 2, 0, f"faults_{name}", fault, serve="teacher")
+        out[name] = cs.serve_mesh_rel(cfg, params, ranks)
+        print(f"{name}: teacher-forced decode logits on model=2 against one rank, relative "
+              f"{out[name]:.4e} (SERVE_TP_REL {SERVE_TP_REL})", flush=True)
+    return out
+
+
 def _patched(patch):
     """A context with ``patch`` = (module, name, wrap) applied, or none."""
     if patch is None:
@@ -137,7 +192,7 @@ def _moe_decode(gates):
     """A stand-in for ``generate._moe_mlp_decode`` that combines every
     expert's output with ``gates(probs, k)`` [B, T, E] in place of the
     renormalised top-k gates."""
-    def moe(h, lp, cfg):
+    def moe(h, lp, cfg, tp=None):
         import torch
         import torch.nn.functional as F
 
@@ -278,6 +333,12 @@ def main() -> int:
         print(json.dumps(out), flush=True)
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "serve_faults_moe.json").write_text(json.dumps(out, indent=1))
+        return 0
+    if "--mesh" in sys.argv[1:]:
+        out = main_mesh(card)
+        print(json.dumps(out), flush=True)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "serve_faults_mesh.json").write_text(json.dumps(out, indent=1))
         return 0
     state: dict = {}
     cfg, params = cs._llama_1b(state)

@@ -125,9 +125,9 @@ def test_mesh_refusals():
     with pytest.raises(ValueError, match="expert parallelism"):
         ttrain.build_train_program(ttrain.TrainConfig(mesh=tmr.MeshConfig(model=2), **_KW),
                                    model_cfg=moe.with_(moe_impl="ragged"), device="cpu")
-    with pytest.raises(NotImplementedError, match="model"):
-        ttrain.build_train_program(ttrain.TrainConfig(mesh=tmr.MeshConfig(model=2), **_KW),
-                                   device="cpu")
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        ttrain.build_train_program(ttrain.TrainConfig(mesh=tmr.MeshConfig(model=2),
+                                                      lora_rank=4, **_KW), device="cpu")
     with pytest.raises(ValueError, match="divisible by the pipe"):
         ttrain.build_train_program(ttrain.TrainConfig(mesh=tmr.MeshConfig(pipe=4), **_KW),
                                    device="cpu")

@@ -4,6 +4,7 @@ against ``tpu_engine.serving`` and the port's own ``generate``, on the CPU
 in fp32, with the weights moved by ``params_from_jax``."""
 
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -328,7 +329,8 @@ def test_slot_at_capacity_mid_chunk_matches_jax(llama):
 
 def test_capacity_and_guards(llama, gqa_window):
     """JAX's ValueError guards, and NotImplementedError for what is not
-    ported: mesh and the disaggregated-serving plane. Speculative serving
+    ported: a mesh with data=2 (the batcher runs on ranks of ``model``
+    alone) and the disaggregated-serving plane. Speculative serving
     is ported: a draft builds on llama, and a windowed model is refused
     with JAX's ``draft_ring_window``."""
     _, cfg, _, tp = llama
@@ -339,8 +341,9 @@ def test_capacity_and_guards(llama, gqa_window):
         srv.submit([], max_new_tokens=1)
     with pytest.raises(ValueError, match="sliding-window"):
         _port(gqa_window, max_slots=1, max_len=128, prefill_chunk=16, prefix_cache_tokens=64)
-    with pytest.raises(NotImplementedError):
-        _port(llama, mesh=object())
+    with pytest.raises(NotImplementedError, match="data"):
+        _port(llama, mesh=SimpleNamespace(axis_sizes=dict(data=2, fsdp=1, pipe=1, sequence=1,
+                                                          model=1)))
     assert _port(llama, draft_params=tp, draft_cfg=cfg).stats()["speculative"] is True
     _, wcfg, _, wtp = gqa_window
     with pytest.raises(tsrv.SpecGeometryError, match="sliding-window") as info:

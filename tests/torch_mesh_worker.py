@@ -1,5 +1,6 @@
 """One rank of the port's mesh tests (``tests/test_torch_mesh.py``,
-``tests/test_torch_mesh_train.py``), run as its own process on the CPU with
+``tests/test_torch_mesh_train.py``, ``tests/test_torch_tp_train.py``,
+``tests/test_torch_tp_serving.py``), run as its own process on the CPU with
 ``gloo``, and the parent's launcher (:func:`spawn`).
 
 ``python tests/torch_mesh_worker.py JOB RANK WORLD`` reads the job (JSON:
@@ -66,20 +67,55 @@ def spawn(job: dict, world: int, tmp_path, timeout: float = TIMEOUT_S, during=No
 _RUNTIMES: dict = {}  # one per mesh shape: its groups are made once
 
 
+def _runtime(mesh: dict):
+    from tpu_engine_torch.mesh_runtime import MeshConfig, MeshRuntime
+
+    key = json.dumps(mesh, sort_keys=True)
+    if key not in _RUNTIMES:
+        _RUNTIMES[key] = MeshRuntime(MeshConfig(**mesh), device="cpu")
+    return _RUNTIMES[key]
+
+
+def _whole_grads(prog, state, batch) -> dict:
+    """The step's gradients of ``batch`` at ``state``'s weights, reduced
+    over the ranks as the step reduces them and gathered whole (over
+    ``fsdp`` where they are split, then over ``model``)."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from tpu_engine_torch.parallel.collectives import gather_dim
+    from tpu_engine_torch.train import accumulate_grads
+
+    z = prog.zero
+    rows, denom = prog._rows_and_denom(batch)
+    with set_checkpoint_early_stop(False):
+        _, grads = accumulate_grads(prog.loss_fn, state["params"], rows,
+                                    prog.stream.sums if prog.stream else None, denom)
+    out = {}
+    for k, g in z.reduce_grads(grads).items():
+        if z.grads_split and z.dims[k] is not None:
+            g = gather_dim(g, z.dims[k], z.fsdp)
+        if z.mdims[k] is not None:
+            g = gather_dim(g, z.mdims[k], z.model)
+        out[f"grad:{k}"] = g.numpy()
+    return out
+
+
 def _train(case: dict, rank: int) -> dict:
     import torch
 
-    from tpu_engine_torch.mesh_runtime import MeshConfig, MeshRuntime
+    from tpu_engine_torch.mesh_runtime import MeshConfig
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
     from tpu_engine_torch.train import TrainConfig, build_train_program
 
     cfg = TrainConfig(mesh=MeshConfig(**case["mesh"]), **case["cfg"])
-    key = json.dumps(case["mesh"], sort_keys=True)
-    if key not in _RUNTIMES:
-        _RUNTIMES[key] = MeshRuntime(cfg.mesh, device="cpu")
+    model_cfg = None
+    if case.get("model_cfg"):  # a config of the catalog with fields changed
+        model_cfg = MODEL_CONFIGS[cfg.model_name].with_(**case["model_cfg"])
     base = None
     if case.get("base"):  # LoRA: the frozen base; "init" holds the adapters
         base = {k: torch.tensor(v) for k, v in np.load(case["base"]).items()}
-    prog = build_train_program(cfg, device="cpu", base_params=base, runtime=_RUNTIMES[key])
+    prog = build_train_program(cfg, model_cfg, device="cpu", base_params=base,
+                               runtime=_runtime(case["mesh"]))
     init = np.load(case["init"])
     state = prog.init(params={k: torch.tensor(init[k]).requires_grad_(True)
                               for k in init.files})
@@ -89,6 +125,10 @@ def _train(case: dict, rank: int) -> dict:
 
     out = {"param_bytes": nbytes(state["params"]),
            "opt_bytes": sum(nbytes(t) for n, t in state["opt_state"].items() if n != "count")}
+    out.update({f"numel:{k}": p.numel() for k, p in state["params"].items()})
+    if case.get("grads"):
+        out.update(_whole_grads(prog, state, torch.tensor(np.load(case["batches"])[0],
+                                                          dtype=torch.long)))
     losses, norms = [], []
     for b in np.load(case["batches"]):
         state, m = prog.step(state, torch.tensor(b, dtype=torch.long))
@@ -107,11 +147,10 @@ def _attention(case: dict, rank: int) -> dict:
     its gradients under a given output cotangent."""
     import torch
 
-    from tpu_engine_torch.mesh_runtime import MeshConfig, MeshRuntime
     from tpu_engine_torch.parallel.ring_attention import ring_mha_group
     from tpu_engine_torch.parallel.ulysses_attention import ulysses_mha_group
 
-    rt = MeshRuntime(MeshConfig(**case["mesh"]), device="cpu")
+    rt = _runtime(case["mesh"])
     n, s = rt.axis_sizes["sequence"], rt.coords["sequence"]
     data = np.load(case["inputs"])
     S = data["q"].shape[1]
@@ -122,6 +161,71 @@ def _attention(case: dict, rank: int) -> dict:
     (o * torch.tensor(data["do"][:, blk])).sum().backward()
     return {"o": o.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
             "dv": v.grad.numpy()}
+
+
+def _serve(case: dict, rank: int) -> dict:
+    """A ``ContinuousBatcher`` on the mesh from the whole weights of
+    ``init``, driven as ``tests/test_torch_serving.py``'s ``_drive``: rank 0
+    submits ``plan``'s requests (``[at_step, prompt, max_new_tokens,
+    temperature]``) before the step of that index and steps until every
+    one is done, then shuts the others down; the others step until then.
+    Returns every rank's streams, the first-token logits of each request
+    and the prefix cache's hits."""
+    import torch
+
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+    from tpu_engine_torch.serving import ContinuousBatcher
+
+    from tpu_engine_torch.serving import SpecGeometryError
+
+    rt = _runtime(case["mesh"])
+    cfg = MODEL_CONFIGS[case["model"]]
+    params = {k: torch.tensor(v) for k, v in np.load(case["init"]).items()}
+    if case.get("refusals"):  # a draft on the mesh, and a mesh with data=2
+        out = {}
+        try:
+            ContinuousBatcher(params, cfg, compute_dtype=torch.float32, device="cpu", mesh=rt,
+                              draft_params=params, draft_cfg=cfg)
+        except SpecGeometryError as e:
+            out["draft_kind"] = e.kind
+        try:
+            ContinuousBatcher(params, cfg, compute_dtype=torch.float32, device="cpu",
+                              mesh=_runtime({"data": 2}))
+        except NotImplementedError as e:
+            out["data2"] = str(e)
+        return out
+    srv = ContinuousBatcher(params, cfg, compute_dtype=torch.float32, device="cpu", mesh=rt,
+                            **case["batcher"])
+    first = {}
+    real = srv._first_token
+
+    def record(logits, req):
+        first[req.id] = logits.numpy().copy()
+        return real(logits, req)
+
+    srv._first_token = record
+    plan = case["plan"]
+    if rt.coords["model"] == 0:
+        ids = [None] * len(plan)
+        for n in range(200):
+            for i, (at, prompt, m, t) in enumerate(plan):
+                if at == n:
+                    ids[i] = srv.submit(prompt, max_new_tokens=m, temperature=t)
+            if all(r is not None and srv.result(r)["status"] == "done" for r in ids):
+                break
+            srv.step()
+        srv.shutdown()
+    else:
+        while not srv._closed:
+            srv.step()
+    out = {"hits": srv.stats().get("prefix_cache", {}).get("hits", 0),
+           "kv_heads": srv._cache.k.shape[2]}
+    for i in range(len(plan)):
+        res = srv.result(i)
+        out[f"tokens:{i}"] = np.array(res["tokens"])
+        out[f"status_done:{i}"] = res["status"] == "done"
+        out[f"first:{i}"] = first[i]
+    return out
 
 
 def _rendezvous(case: dict, rank: int) -> dict:
@@ -157,7 +261,8 @@ def main(job_path: str, rank: int, world: int) -> None:
         assert initialize_distributed(device="cpu")
     else:
         assert initialize_distributed(f"file://{job['store']}", world, rank, device="cpu")
-    run = {"train": _train, "attention": _attention, "rendezvous": _rendezvous}
+    run = {"train": _train, "attention": _attention, "rendezvous": _rendezvous,
+           "serve": _serve}
     for case in job["cases"]:
         out = run[case["kind"]](case, rank)
         np.savez(os.path.join(job["out"], f"{case['name']}.rank{rank}.npz"), **out)

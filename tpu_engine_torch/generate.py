@@ -29,6 +29,15 @@ MoE decode is JAX's: every expert runs on the new positions and the
 outputs combine with the renormalised top-k gates, exact top-k with no
 capacity (:func:`_moe_mlp_decode`). Projections and expert kernels may be
 int8 (:class:`~tpu_engine_torch.quant.QuantWeight`).
+
+On a ``mesh`` (:class:`~tpu_engine_torch.mesh_runtime.MeshRuntime`) whose
+``model`` axis has ranks, the params are the rank's blocks
+(:func:`~tpu_engine_torch.parallel.tensor_parallel.model_block`) and
+decode runs on its heads: the cache holds its kv heads (every kv head
+where ``n_kv_heads`` does not divide by ``model``, as JAX's pool), o, down
+and the experts' combine are summed by ``g``, and the logits are gathered
+whole over ``model`` before any choice, so every rank picks the same
+token.
 """
 
 from __future__ import annotations
@@ -44,17 +53,18 @@ from tpu_engine_torch.models.config import ModelConfig
 from tpu_engine_torch.models.transformer import (
     _dense_mlp,
     _expert_kernel,
-    _layer_proj,
     _norm,
     _qkv,
     _require_ported,
     _router_probs,
+    _row_proj,
     cast_layer_stack,
     embed_tokens,
     f32_out,
     inference_params,
     unembed,
 )
+from tpu_engine_torch.parallel.tensor_parallel import gather_vocab, model_axis, reduce_from
 
 _NEG_INF = -1e30
 
@@ -102,14 +112,22 @@ def ring_lanes(cfg: ModelConfig, max_len: int, chunk: Optional[int] = None) -> i
     return min(max_len, cfg.sliding_window + chunk - 1)
 
 
+def cache_kv_heads(cfg: ModelConfig, mesh=None) -> int:
+    """The kv heads a rank's cache holds: its block where they split over
+    the mesh's ``model`` axis, else all of them."""
+    tp = model_axis(mesh, cfg)
+    return cfg.n_kv_heads if tp is None or not tp.kv_split else tp.kv_count
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                max_chunk: Optional[int] = None, kv_quant: bool = False,
-               device="cuda") -> KVCache:
+               device="cuda", mesh=None) -> KVCache:
     """Allocate a cache able to hold ``max_len`` positions, or, for a
     sliding-window model, a ring of ``window + max_chunk - 1`` lanes.
-    ``kv_quant=True`` stores int8 codes with per-(lane, kv-head) scales."""
+    ``kv_quant=True`` stores int8 codes with per-(lane, kv-head) scales.
+    ``mesh``: the rank's kv heads (:func:`cache_kv_heads`)."""
     lanes = ring_lanes(cfg, max_len, max_chunk)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, lanes, cfg.head_dim)
+    shape = (cfg.n_layers, batch, cache_kv_heads(cfg, mesh), lanes, cfg.head_dim)
     store = torch.int8 if kv_quant else dtype
 
     def zeros(shp, dt):
@@ -147,12 +165,13 @@ def _hidden_lanes(key_pos: torch.Tensor, positions: torch.Tensor, window: int) -
     return ~visible
 
 
-def _moe_mlp_decode(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp_decode(h: torch.Tensor, lp: dict, cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Exact top-k MoE for decode (JAX ``_moe_mlp_decode``): h [B, T, D] →
     [B, T, D]. Every expert's MLP runs on the T new positions (a handful of
     products at decode sizes, every shape static); the outputs combine with
     the top-k gates renormalised to sum to 1 (floor 1e-9). int8 expert
-    kernels are dequantized to the compute dtype first, as in JAX."""
+    kernels are dequantized to the compute dtype first, as in JAX. ``tp``:
+    the rank's experts, their combine summed by ``g``."""
     B, T, D = h.shape
     K = cfg.top_k
     probs = _router_probs(h, lp)                                  # [B, T, E] fp32
@@ -163,12 +182,15 @@ def _moe_mlp_decode(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor
     top_vals, top_idx = torch.topk(probs, K, dim=-1)
     top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     weights = torch.zeros_like(probs).scatter_(-1, top_idx, top_vals).to(h.dtype)
+    if tp is not None:
+        n = cfg.n_experts // tp.size
+        weights = weights[..., tp.index * n:(tp.index + 1) * n]
     out = torch.bmm(weights.reshape(B * T, 1, -1), expert_out.transpose(0, 1))
-    return out.reshape(B, T, D)
+    return reduce_from(out.reshape(B, T, D), tp)
 
 
 def _decode_block(x, lp, k_cache, v_cache, write, hidden, positions, cfg: ModelConfig,
-                  k_scale_c=None, v_scale_c=None) -> torch.Tensor:
+                  k_scale_c=None, v_scale_c=None, tp=None) -> torch.Tensor:
     """One transformer block attending against the cache: the arch's norms,
     projections (gpt2's biases), qwen's qk-norm, RoPE (not gpt2) and MLP,
     as in the training block.
@@ -177,12 +199,14 @@ def _decode_block(x, lp, k_cache, v_cache, write, hidden, positions, cfg: ModelC
     ``write(cache_arr, rows [B, KV, T, X])``; ``hidden`` [B|1, T, M] from
     :func:`_hidden_lanes`. ``k_scale_c``/``v_scale_c`` [B, KV, M, 1] are
     present for int8 caches: new rows are quantised before the write and
-    the cache reads dequantise in the compute dtype."""
+    the cache reads dequantise in the compute dtype. ``tp``: the rank's
+    heads; a whole cache (kv heads that do not split) is read at the kv
+    head of the rank's query heads."""
     B, T, _ = x.shape
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = H // KV
     q, k, v = _qkv(_norm(x, lp["attn_norm.scale"], lp.get("attn_norm.bias"), cfg), lp, cfg,
-                   positions)
+                   positions, tp=tp, kv_local=False)
+    HD = cfg.head_dim
+    H = q.shape[2]
     k, v = k.transpose(1, 2), v.transpose(1, 2)
 
     if k_scale_c is not None:
@@ -196,8 +220,11 @@ def _decode_block(x, lp, k_cache, v_cache, write, hidden, positions, cfg: ModelC
         write(k_cache, k)
         write(v_cache, v)
         kc, vc = k_cache, v_cache
+    if tp is not None and not tp.kv_split:
+        kc, vc = (c.narrow(1, tp.kv_first, tp.kv_count) for c in (kc, vc))
 
-    M = kc.shape[2]
+    KV, M = kc.shape[1], kc.shape[2]
+    G = H // KV
     # Query head h = kv·G + g reads kv head kv (jnp.repeat's order).
     qg = q.reshape(B, T, KV, G, HD).permute(0, 2, 3, 1, 4).reshape(B * KV, G * T, HD)
     scores = f32_out(torch.bmm, qg, kc.reshape(B * KV, M, HD).transpose(1, 2)) * (1.0 / HD ** 0.5)
@@ -205,33 +232,39 @@ def _decode_block(x, lp, k_cache, v_cache, write, hidden, positions, cfg: ModelC
     probs = torch.softmax(scores, dim=-1).to(x.dtype).view(B * KV, G * T, M)
     attn = torch.bmm(probs, vc.reshape(B * KV, M, HD))
     attn = attn.view(B, KV, G, T, HD).permute(0, 3, 1, 2, 4).reshape(B, T, H * HD)
-    x = x + _layer_proj(attn, lp, "o")
+    x = x + _row_proj(attn, lp, "o", tp=tp)
     h = _norm(x, lp["mlp_norm.scale"], lp.get("mlp_norm.bias"), cfg)
-    return x + (_moe_mlp_decode(h, lp, cfg) if cfg.is_moe else _dense_mlp(h, lp, cfg))
+    return x + (_moe_mlp_decode(h, lp, cfg, tp) if cfg.is_moe else
+                _dense_mlp(h, lp, cfg, tp=tp))
 
 
 def _run_layers(params, x, cache, write, hidden, positions, cfg: ModelConfig,
-               compute_dtype) -> torch.Tensor:
+               compute_dtype, mesh=None) -> torch.Tensor:
     """Every block of the stack over x against ``cache`` (a :class:`KVCache`
     or the serving pool: any object with k/v and optional scales stacked
     [L, ...]). Returns the last block's output."""
     stack = cast_layer_stack(params, compute_dtype)
+    tp = model_axis(mesh, cfg)
     for i in range(cfg.n_layers):
         lp = {name: t[i] for name, t in stack.items()}
-        scales = (cache.k_scale[i], cache.v_scale[i]) if cache.k_scale is not None else ()
+        scales = (cache.k_scale[i], cache.v_scale[i]) if cache.k_scale is not None else (None,) * 2
         x = _decode_block(x, lp, cache.k[i], cache.v[i], write, hidden, positions, cfg,
-                          *scales)
+                          *scales, tp)
     return x
 
 
 @torch.inference_mode()
 def forward_with_cache(params: dict[str, torch.Tensor], tokens: torch.Tensor,
                        cache: KVCache, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-                       want_logits: bool = True) -> tuple[Optional[torch.Tensor], KVCache]:
+                       want_logits: bool = True, mesh=None,
+                       row: Optional[int] = None) -> tuple[Optional[torch.Tensor], KVCache]:
     """Run ``tokens`` [B, T] through the stack against (and into) ``cache``.
 
     Returns (logits [B, T, V] fp32, or None with ``want_logits=False``; the
     cache with ``length`` advanced by T, its buffers updated in place).
+    ``row``: the logits of that one position only, [B, 1, V]. ``mesh``: the
+    params and the cache are the rank's blocks (module docstring); the
+    logits come back whole on every rank.
 
     Non-ring caches: the caller keeps ``cache.length + T <= cache.max_len``
     (past it, the write's start clamps as ``lax.dynamic_update_slice``'s
@@ -269,9 +302,13 @@ def forward_with_cache(params: dict[str, torch.Tensor], tokens: torch.Tensor,
             arr[:, :, start:start + T] = rows
 
     hidden = _hidden_lanes(cache.pos, positions, cfg.sliding_window)
-    x = embed_tokens(params, tokens, compute_dtype, positions=positions, cfg=cfg)
-    x = _run_layers(params, x, cache, write, hidden, positions, cfg, compute_dtype)
-    logits = unembed(params, x, cfg) if want_logits else None
+    x = embed_tokens(params, tokens, compute_dtype, positions=positions, cfg=cfg, mesh=mesh)
+    x = _run_layers(params, x, cache, write, hidden, positions, cfg, compute_dtype, mesh)
+    logits = None
+    if want_logits:
+        if row is not None:
+            x = x[:, row:row + 1]
+        logits = gather_vocab(unembed(params, x, cfg, mesh), model_axis(mesh, cfg))
     return logits, dataclasses.replace(cache, length=cache.length + T)
 
 

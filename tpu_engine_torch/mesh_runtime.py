@@ -10,7 +10,10 @@ The mesh has JAX's five axes, outer to inner:
 - ``pipe``: pipeline stages (not ported: ``pipe > 1`` raises);
 - ``sequence``: sequence parallelism (ring or Ulysses attention across
   ranks, ``tpu_engine_torch/parallel``);
-- ``model``: tensor parallelism (not ported: ``model > 1`` raises).
+- ``model``: tensor and expert parallelism (whole heads, MLP columns,
+  experts and vocabulary blocks a rank,
+  ``tpu_engine_torch/parallel/tensor_parallel.py``); its ranks hold the
+  same tokens, so ``TOKEN_AXES`` leaves it out.
 
 A rank is one process with one device. :func:`initialize_distributed`
 joins the process group (NCCL for a CUDA device, ``gloo`` only when the
@@ -223,7 +226,8 @@ class MeshRuntime:
         self._groups: dict[tuple[str, ...], Any] = {}
         # Every rank makes the same groups in the same order (new_group is
         # collective over the world).
-        for axes in (TOKEN_AXES, ("data", "sequence")):
+        for axes in (TOKEN_AXES, ("data", "sequence"), (*TOKEN_AXES, "model"),
+                     ("data", "sequence", "model")):
             self._make(axes)
 
     @property

@@ -50,7 +50,14 @@ host memory instead of on the device. With host-resident masters
 the recompute streams the layer again (the mesh program's stage 3 gathers
 its shards the same way). On a mesh (``tpu_engine_torch/mesh_runtime.py``)
 ring and Ulysses attention run across the ranks of its ``sequence`` axis;
-in one process Ulysses raises ``NotImplementedError``.
+in one process Ulysses raises ``NotImplementedError``. Over its ``model``
+axis (``tpu_engine_torch/parallel/tensor_parallel.py``) the params are the
+rank's blocks: q, k, v and the gate/up (gpt2's fc) columns are
+column-parallel behind ``f``, o and down (proj) row-parallel and summed by
+``g`` (gpt2's o and proj biases added once, after the sum), attention runs
+on the rank's heads, the MoE runs the rank's experts on every token and
+sums their combine by ``g``, and the embedding and head are
+vocabulary-parallel.
 """
 
 from __future__ import annotations
@@ -74,6 +81,13 @@ from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig  # noqa: F
 from tpu_engine_torch.models.convert import param_keys
 from tpu_engine_torch.ops import flash_attention
 from tpu_engine_torch.parallel.collectives import all_reduce_, all_reduce_sum
+from tpu_engine_torch.parallel.tensor_parallel import (
+    copy_to,
+    model_axis,
+    reduce_from,
+    replicated_share,
+    vocab_embed,
+)
 from tpu_engine_torch.parallel.ring_attention import ring_mha, ring_mha_group
 from tpu_engine_torch.parallel.ulysses_attention import ulysses_mha_group
 from tpu_engine_torch.quant import QuantWeight, dequantize_weight, mul_round
@@ -323,35 +337,64 @@ def _layer_proj(h: torch.Tensor, lp: dict[str, torch.Tensor], name: str, dot=Non
                  None if a is None else (a, lp[f"{name}.B"]), lora_scale, dot)
 
 
+def _row_proj(h: torch.Tensor, lp: dict[str, torch.Tensor], name: str, dot=None,
+              lora_scale: float = 1.0, tp=None) -> torch.Tensor:
+    """A row-parallel projection (o, down, proj): each ``model`` rank's
+    product over its rows, summed by ``g``, then the bias added once."""
+    if tp is None:
+        return _layer_proj(h, lp, name, dot, lora_scale)
+    out = reduce_from(_proj(h, lp[f"{name}.kernel"], None, None, lora_scale, dot), tp)
+    bias = lp.get(f"{name}.bias")
+    return out if bias is None else out + bias.to(out.dtype)
+
+
 def _dense_mlp(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
-               lora_scale: float = 1.0) -> torch.Tensor:
+               lora_scale: float = 1.0, tp=None) -> torch.Tensor:
     """The MLP of the training and the decode block: SwiGLU (llama, qwen),
     biased GELU-tanh fc/proj (gpt2), GeGLU (gemma). h [B, S, D], normed.
-    The "mlp" group of quantised training, in both blocks, as in JAX."""
+    The "mlp" group of quantised training, in both blocks, as in JAX.
+    ``tp``: the rank's columns of gate/up (fc) behind ``f``, its rows of
+    down (proj) summed by ``g``."""
     dot = _train_dot(cfg, "mlp")
+    h = copy_to(h, tp)
 
     def proj(x, name):
         return _layer_proj(x, lp, name, dot, lora_scale)
 
     if cfg.arch == "gpt2":
-        return proj(F.gelu(proj(h, "fc"), approximate="tanh"), "proj")
+        return _row_proj(F.gelu(proj(h, "fc"), approximate="tanh"), lp, "proj", dot,
+                         lora_scale, tp)
     gate = proj(h, "gate")
     up = proj(h, "up")
     act = F.gelu(gate, approximate="tanh") if cfg.arch == "gemma" else F.silu(gate)
-    return proj(act * up, "down")
+    return _row_proj(act * up, lp, "down", dot, lora_scale, tp)
 
 
 def _qkv(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
-         positions: torch.Tensor, dot=None, lora_scale: float = 1.0):
+         positions: torch.Tensor, dot=None, lora_scale: float = 1.0, tp=None,
+         kv_local: bool = True):
     """q [B, S, H, HD], k and v [B, S, KV, HD] of the normed input h: qwen's
     per-head RMSNorm of q and k, then RoPE (not gpt2, whose positions are
     added at embedding). Shared with the decode block, which passes no
-    ``dot``: JAX's decode projections skip the "attn" hook."""
+    ``dot``: JAX's decode projections skip the "attn" hook. ``tp``: the
+    rank's heads (H/model; its kv heads, behind ``f``); where K and V stay
+    whole, ``kv_local`` computes only the kv head the rank reads, else
+    every kv head (the decode block's whole cache)."""
     B, S, _ = h.shape
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _layer_proj(h, lp, "q", dot, lora_scale).reshape(B, S, H, HD)
-    k = _layer_proj(h, lp, "k", dot, lora_scale).reshape(B, S, KV, HD)
-    v = _layer_proj(h, lp, "v", dot, lora_scale).reshape(B, S, KV, HD)
+    HD = cfg.head_dim
+    h = copy_to(h, tp)
+
+    def kv(name):
+        if tp is None or tp.kv_split or not kv_local:
+            return _layer_proj(h, lp, name, dot, lora_scale)
+        cols = (tp.kv_first * HD, tp.kv_count * HD)
+        bias = lp.get(f"{name}.bias")
+        return _proj(h, lp[f"{name}.kernel"].narrow(-1, *cols),
+                     None if bias is None else bias.narrow(-1, *cols), dot=dot)
+
+    q = _layer_proj(h, lp, "q", dot, lora_scale).reshape(B, S, -1, HD)
+    k = kv("k").reshape(B, S, -1, HD)
+    v = kv("v").reshape(B, S, -1, HD)
     if cfg.arch == "qwen":
         q = _rms_norm(q, lp["q_norm.scale"], cfg.norm_eps)
         k = _rms_norm(k, lp["k_norm.scale"], cfg.norm_eps)
@@ -405,10 +448,17 @@ def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
     the kept gates are renormalised to sum to 1 (floor 1e-9). Dispatch and
     combine are products with the [B, S, E, C] masks, in the compute dtype.
     ``mesh``: the aux loss's means run over the mesh's microbatch
-    (:func:`_switch_aux`)."""
+    (:func:`_switch_aux`). Over its ``model`` axis (expert parallelism)
+    every rank routes every token alike and runs its ``E/model`` experts on
+    its slice of the dispatch; the partial combine is summed by ``g``. The
+    router's gradient is then a part on each rank (summed over ``model``
+    by the program), so the aux loss, whole on every rank, enters it at
+    ``1/model`` (:func:`replicated_share`)."""
     B, S, D = h.shape
     E, K = cfg.n_experts, cfg.top_k
     C = cfg.expert_capacity(S)
+    tp = model_axis(mesh, cfg)
+    h = copy_to(h, tp)
     probs = _router_probs(h, lp)  # [B, S, E] fp32
     remaining = probs
     count = torch.zeros((B, E), dtype=torch.float32, device=h.device)
@@ -430,6 +480,9 @@ def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
         remaining = remaining * (1.0 - mask)
     denom = torch.sum(combine, dim=(2, 3), keepdim=True)
     combine = combine / denom.clamp_min(1e-9)
+    if tp is not None:  # this rank's experts
+        n = E // tp.size
+        combine = combine[:, :, tp.index * n:(tp.index + 1) * n]
     dispatch = (combine > 0).to(h.dtype)
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, h)
     gate_w, up_w, down_w = (_expert_kernel(lp, n, h.dtype) for n in ("gate", "up", "down"))
@@ -439,11 +492,12 @@ def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
             "ebcd,edf->ebcf", expert_in, up_w)
         expert_out = dot("ebcf,efd->ebcd", act, down_w)
     else:
-        expert_in = expert_in.reshape(E, B * C, D)
+        expert_in = expert_in.reshape(-1, B * C, D)
         act = F.silu(torch.bmm(expert_in, gate_w)) * torch.bmm(expert_in, up_w)
-        expert_out = torch.bmm(act, down_w).reshape(E, B, C, D)
-    out = torch.einsum("bsec,ebcd->bsd", combine, expert_out)
-    return out, _switch_aux(probs, torch.argmax(probs, dim=-1), E, mesh)
+        expert_out = torch.bmm(act, down_w).reshape(-1, B, C, D)
+    out = reduce_from(torch.einsum("bsec,ebcd->bsd", combine, expert_out), tp)
+    aux = _switch_aux(probs, torch.argmax(probs, dim=-1), E, mesh)
+    return out, replicated_share(aux, tp)
 
 
 def _moe_mlp_ragged(h: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
@@ -489,11 +543,12 @@ def _layer_params(lp):
 
 
 def _block_qkv(x: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
-               lora_scale: float = 1.0):
+               lora_scale: float = 1.0, mesh=None):
     """The block's q, k, v (after RoPE): JAX's tags "q", "k", "v"."""
     lp = _layer_params(lp)
     h = _norm(x, lp["attn_norm.scale"], lp.get("attn_norm.bias"), cfg)
-    return _qkv(h, lp, cfg, positions, _train_dot(cfg, "attn"), lora_scale)
+    return _qkv(h, lp, cfg, positions, _train_dot(cfg, "attn"), lora_scale,
+                model_axis(mesh, cfg))
 
 
 def _block_attn(q, k, v, cfg: ModelConfig, sequence: Optional[int] = None,
@@ -508,7 +563,8 @@ def _block_attn(q, k, v, cfg: ModelConfig, sequence: Optional[int] = None,
 
 def _block_attn_out(x, lp: dict, cfg: ModelConfig, positions, sequence=None,
                     lora_scale: float = 1.0, mesh=None) -> torch.Tensor:
-    return _block_attn(*_block_qkv(x, lp, cfg, positions, lora_scale), cfg, sequence, mesh)
+    return _block_attn(*_block_qkv(x, lp, cfg, positions, lora_scale, mesh), cfg, sequence,
+                       mesh)
 
 
 def _block_tail(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig,
@@ -516,7 +572,8 @@ def _block_tail(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig,
     """The output projection, residual and MLP over the block's input x and
     its attention output → (x, the MoE aux loss, or None for a dense MLP)."""
     lp = _layer_params(lp)
-    x = x + _layer_proj(attn, lp, "o", _train_dot(cfg, "attn"), lora_scale)
+    tp = model_axis(mesh, cfg)
+    x = x + _row_proj(attn, lp, "o", _train_dot(cfg, "attn"), lora_scale, tp)
     h = _norm(x, lp["mlp_norm.scale"], lp.get("mlp_norm.bias"), cfg)
     if cfg.is_moe:
         if cfg.moe_impl not in ("dense", "ragged"):
@@ -524,7 +581,7 @@ def _block_tail(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig,
         moe = _moe_mlp_ragged if cfg.moe_impl == "ragged" else _moe_mlp
         out, aux = moe(h, lp, cfg, mesh)
         return x + out, aux
-    return x + _dense_mlp(h, lp, cfg, lora_scale), None
+    return x + _dense_mlp(h, lp, cfg, lora_scale, tp), None
 
 
 def _block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
@@ -636,7 +693,7 @@ def _remat_block(policy: str, x, lp: dict, cfg: ModelConfig, positions, sequence
     # kept and the rest is recomputed; the attention's own residuals (o,
     # lse) are not tagged and are recomputed, as in JAX.
     if policy == "save_qkv_attn_out":
-        q, k, v = checkpoint(_block_qkv, x, lp, cfg, positions, lora_scale,
+        q, k, v = checkpoint(_block_qkv, x, lp, cfg, positions, lora_scale, mesh,
                              use_reentrant=False)
         attn = checkpoint(_block_attn, q, k, v, cfg, sequence, mesh, use_reentrant=False)
     else:
@@ -648,7 +705,7 @@ def _remat_block(policy: str, x, lp: dict, cfg: ModelConfig, positions, sequence
 def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
                  compute_dtype=torch.bfloat16,
                  positions: Optional[torch.Tensor] = None, *,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """tokens [..., S] int → activations [..., S, D] in the compute dtype.
 
     The rows of an fp32 master table are gathered and then cast, which gives
@@ -662,12 +719,18 @@ def embed_tokens(params: dict[str, torch.Tensor], tokens: torch.Tensor,
     the compute dtype first, as JAX's ``jnp.asarray(..., compute_dtype)``
     does. A serving row that runs past the table (its outputs discarded)
     reads the table's last row: JAX's gather fills NaN there, and on CUDA an
-    out-of-range index is a device-side assert."""
+    out-of-range index is a device-side assert. On a ``mesh`` whose
+    ``model`` axis splits the vocabulary the table is the rank's block
+    (:func:`~tpu_engine_torch.parallel.tensor_parallel.vocab_embed`)."""
     def table(name):
         t = params[name]
         return t if t.dtype == torch.float32 else t.to(compute_dtype)
 
-    x = F.embedding(tokens, table("embed.embedding")).to(compute_dtype)
+    tp = model_axis(mesh, cfg)
+    if tp is not None and tp.vocab_split:
+        x = vocab_embed(table("embed.embedding"), tokens, compute_dtype, tp)
+    else:
+        x = F.embedding(tokens, table("embed.embedding")).to(compute_dtype)
     if cfg.arch == "gemma":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype, device=x.device)
     if "pos_embed.embedding" in params:
@@ -734,14 +797,20 @@ def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def unembed(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+            mesh=None) -> torch.Tensor:
     """Final norm + LM head: [..., S, D] → logits [..., S, V] fp32. gpt2
     and gemma tie the head to the token embedding: its transposed view, so
     the table's fp32 gradient sums the gather's scatter and the head's
-    product. An int8 head's scale multiplies the fp32 logits."""
+    product. An int8 head's scale multiplies the fp32 logits. On a ``mesh``
+    whose ``model`` axis splits the vocabulary the head is column-parallel
+    behind ``f``: the logits are the rank's block [..., S, V/model]."""
     bias = params.get("final_norm.bias")
     x = _norm(x, params["final_norm.scale"].to(x.dtype),
               None if bias is None else bias.to(x.dtype), cfg)
+    tp = model_axis(mesh, cfg)
+    if tp is not None and tp.vocab_split:
+        x = copy_to(x, tp)
     head = (params["embed.embedding"].t() if cfg.arch in ("gpt2", "gemma")
             else params["lm_head.kernel"])
     if isinstance(head, QuantWeight):  # int8 head: scale the fp32 logits
@@ -815,7 +884,7 @@ def forward_hidden_and_aux(
         )
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = embed_tokens(params, tokens, compute_dtype, positions=positions, cfg=cfg)
+    x = embed_tokens(params, tokens, compute_dtype, positions=positions, cfg=cfg, mesh=mesh)
     if layer_stream is None:
         stack = cast_layer_stack(params, compute_dtype)
         if lora is not None:

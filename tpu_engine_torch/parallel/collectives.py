@@ -73,10 +73,11 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
-def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place; returns ``t``."""
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum ``t`` (or reduce it by ``op``) over ``group`` in place; returns
+    ``t``."""
     if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(t, op=op, group=group)
         count("all_reduce", t, 2 * (_size(group) - 1) / _size(group))
     return t
 

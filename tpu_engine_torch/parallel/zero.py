@@ -9,13 +9,20 @@ The port keeps plain local tensors and calls the collectives itself
 - a rank takes ``micro_batch_size`` rows of each microbatch, the block of
   its (``data``, ``fsdp``) index, and ``seq_len / sequence`` positions of
   them, the block of its ``sequence`` index (JAX's ``P(None, BATCH_AXES,
-  "sequence")``);
-- a shard holds the elements JAX's spec gives the rank: a slice along the
-  dim where :func:`~tpu_engine_torch.sharding.logical_to_mesh_axes` puts
-  ``fsdp``, the ``fsdp`` index's block of it; gathers join along that dim;
+  "sequence")``); the ranks of ``model`` take the same tokens;
+- a leaf is first cut to the rank's ``model`` block
+  (:func:`~tpu_engine_torch.sharding.model_split`: whole heads, columns,
+  experts or vocabulary rows; the leaf itself where ``model`` leaves it
+  whole); a shard holds the elements JAX's spec gives the rank of that
+  block: a slice along the dim where
+  :func:`~tpu_engine_torch.sharding.logical_to_mesh_axes` puts ``fsdp``,
+  the ``fsdp`` index's block of it; gathers join along that dim;
 - gradients are summed over every rank that holds a part of the step's
   tokens (``data``, ``fsdp``, ``sequence``): all-reduced, or at stage >= 2
-  reduce-scattered over ``fsdp`` and all-reduced over the rest;
+  reduce-scattered over ``fsdp`` and all-reduced over the rest; a leaf
+  ``model`` leaves whole whose gradient a rank gets in part
+  (:func:`~tpu_engine_torch.sharding.model_partial`) is summed over
+  ``model`` too;
 - at stage >= 1 a rank updates its shards with its shards of the optimizer
   state; at stages 1 and 2 it then all-gathers the parameters;
 - at stage 3 (:class:`ShardedParams`) each layer's shards are all-gathered
@@ -37,6 +44,7 @@ from tpu_engine_torch.parallel.collectives import (
     gather_dim,
     reduce_scatter_dim,
 )
+from tpu_engine_torch.parallel.tensor_parallel import model_block
 
 class ZeroLayout:
     """Where each leaf of the trainable tree lives on this rank under a
@@ -45,17 +53,25 @@ class ZeroLayout:
     split."""
 
     def __init__(self, runtime, stage: int, logical: dict[str, tuple],
-                 shapes: dict[str, tuple]):
+                 shapes: dict[str, tuple], model_cfg=None):
         self.stage = int(stage)
         sizes = runtime.axis_sizes
         self.n_fsdp, self.i_fsdp = sizes["fsdp"], runtime.coords["fsdp"]
+        self.n_model, self.i_model = sizes["model"], runtime.coords["model"]
         self.fsdp = runtime.group("fsdp")
+        self.model = runtime.group("model")
         self.tokens = runtime.group(TOKEN_AXES)
         self.rest = runtime.group(("data", "sequence"))
+        # The same over ``model`` too, for the leaves of partial gradients.
+        self.tokens_model = runtime.group((*TOKEN_AXES, "model"))
+        self.rest_model = runtime.group(("data", "sequence", "model"))
+        self.model_cfg = model_cfg
+        self.mdims = sharding.model_split(model_cfg, logical, self.n_model)
+        self.partial = sharding.model_partial(model_cfg, logical, self.n_model)
         specs = sharding.opt_state_pspecs(logical, sharding.ShardingStage.OPTIMIZER_STATE)
         self.dims = {k: (sharding.fsdp_dim(specs[k]) if self.n_fsdp > 1 else None)
                      for k in logical}
-        for k, d in self.dims.items():
+        for k, d in self.dims.items():  # fsdp and model never split one dim
             if d is not None and shapes[k][d] % self.n_fsdp:
                 raise ValueError(f"{k}: dim {d} of size {shapes[k][d]} does not split "
                                  f"over fsdp={self.n_fsdp}")
@@ -66,7 +82,7 @@ class ZeroLayout:
     # -- shards ---------------------------------------------------------------
 
     def shard(self, key: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the whole leaf ``t`` (a view)."""
+        """This rank's ``fsdp`` block of the ``model`` block ``t`` (a view)."""
         d = self.dims[key]
         if d is None:
             return t
@@ -75,11 +91,16 @@ class ZeroLayout:
 
     def place(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """The trainable tree as this rank holds it, from whole leaves: its
-        shards at stage 3 (no gradient: the stream's gathers carry it), the
-        leaves otherwise."""
+        shards of its ``model`` blocks at stage 3 (no gradient: the stream's
+        gathers carry it), its ``model`` blocks otherwise (the leaves
+        themselves where ``model`` leaves them whole)."""
+        blocks = (params if self.model is None else
+                  model_block(params, self.model_cfg, self.n_model, self.i_model))
         if not self.params_split:
-            return params
-        return {k: self.shard(k, p).detach().clone() for k, p in params.items()}
+            return {k: p if blocks[k] is p else
+                    blocks[k].detach().clone().requires_grad_(p.requires_grad)
+                    for k, p in params.items()}
+        return {k: self.shard(k, b).detach().clone() for k, b in blocks.items()}
 
     def state_like(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """The leaves the optimizer state is shaped like: shards at stage >= 1."""
@@ -88,10 +109,14 @@ class ZeroLayout:
         return {k: self.shard(k, p) for k, p in params.items()}
 
     def whole(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        """Whole leaves from what this rank holds (gathers at stage 3)."""
-        if not self.params_split:
+        """Whole leaves from what this rank holds (gathers over ``fsdp`` at
+        stage 3, then over ``model``)."""
+        if self.params_split:
+            params = {k: gather_dim(p.detach(), d, self.fsdp) if (d := self.dims[k]) is not None
+                      else p for k, p in params.items()}
+        if self.model is None:
             return params
-        return {k: gather_dim(p.detach(), d, self.fsdp) if (d := self.dims[k]) is not None
+        return {k: gather_dim(p.detach(), d, self.model) if (d := self.mdims[k]) is not None
                 else p for k, p in params.items()}
 
     # -- gradients and the update ------------------------------------------------
@@ -100,19 +125,23 @@ class ZeroLayout:
                     owned: bool = True) -> torch.Tensor:
         """A leaf's local gradient summed over the step's ranks: this rank's
         shard of the sum where the gradients are split, the whole sum
-        otherwise. ``dim_offset`` -1 for one layer of a stacked leaf; a
+        otherwise; a leaf of :attr:`partial` gradients is summed over
+        ``model`` too. ``dim_offset`` -1 for one layer of a stacked leaf; a
         gradient not ``owned`` is not summed in place."""
         d = self.dims[key]
+        part = key in self.partial
+        tokens = self.tokens_model if part else self.tokens
+        rest = self.rest_model if part else self.rest
         if d is None or not self.grads_split:
-            if self.tokens is not None and not owned:
+            if tokens is not None and not owned:
                 g = g.clone()
-            return all_reduce_(g, self.tokens)
+            return all_reduce_(g, tokens)
         g = reduce_scatter_dim(g, d + dim_offset, self.fsdp)
-        if self.rest is None:
+        if rest is None:
             return g
         if self.fsdp is None and not owned:
             g = g.clone()
-        return all_reduce_(g.contiguous(), self.rest)
+        return all_reduce_(g.contiguous(), rest)
 
     def reduce_grads(self, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """The step's summed local gradients (stages 0–2) reduced over the
@@ -123,8 +152,11 @@ class ZeroLayout:
 
     def grad_norm(self, grads: dict[str, torch.Tensor], norm) -> torch.Tensor:
         """The global norm of the reduced gradients: each rank's own shards'
-        squares summed over ``fsdp``, each replicated leaf counted once.
+        squares summed over ``fsdp`` and its ``model`` blocks' over
+        ``model``, each leaf held whole on those ranks counted once.
         ``norm`` is the one-rank norm of a list (``train.global_norm``)."""
+        if self.model is not None:
+            return self._grad_norm_model(grads, norm)
         split = [g for k, g in grads.items() if self.dims[k] is not None]
         if not self.grads_split or not split:  # every rank holds the whole of each
             return norm(list(grads.values()))
@@ -134,6 +166,23 @@ class ZeroLayout:
         if whole:
             sq = sq + norm(whole).square()
         return sq.sqrt()
+
+    def _grad_norm_model(self, grads: dict[str, torch.Tensor], norm) -> torch.Tensor:
+        """:meth:`grad_norm` with ``model`` ranks: the squares of the leaves
+        split over both axes, over ``fsdp`` alone, over ``model`` alone and
+        over neither, each summed over its axes."""
+        parts: dict[tuple, list] = {}
+        for k, g in grads.items():
+            key = (self.grads_split and self.dims[k] is not None, self.mdims[k] is not None)
+            parts.setdefault(key, []).append(g)
+        zero = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+
+        def sq(key):
+            return norm(parts[key]).square() if key in parts else zero
+
+        by_fsdp = all_reduce_(torch.stack([sq((True, True)), sq((True, False))]), self.fsdp)
+        by_model = all_reduce_(torch.stack([by_fsdp[0], sq((False, True))]), self.model)
+        return (by_model.sum() + by_fsdp[1] + sq((False, False))).sqrt()
 
     def update_views(self, params: dict, grads: dict) -> tuple[dict, dict]:
         """(params, gradients) as the optimizer updates them: this rank's

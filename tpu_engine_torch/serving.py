@@ -45,8 +45,19 @@ Deliberate differences from JAX:
 - **Layout and updates** as in :mod:`tpu_engine_torch.generate`: the pool
   is head-major and updated in place.
 
-Not ported yet; each raises ``NotImplementedError`` when asked for:
-``mesh=`` (multi-GPU) and the disaggregated-serving plane (``hold_kv``,
+On a mesh (``mesh=``, a :class:`~tpu_engine_torch.mesh_runtime.MeshRuntime`
+whose ranks all lie on ``model``, as the serving fleet's): each rank is a
+process that holds its ``model`` blocks of the weights and its kv heads of
+the pool (``tpu_engine_torch/generate.py``). ``submit`` is called on rank 0;
+each ``step`` first broadcasts rank 0's new admissions over ``model``, so
+every rank runs the same plan, and every rank draws the same tokens from
+the logits gathered whole. Results are read on rank 0 (every rank holds
+the same). Rank 0's :meth:`ContinuousBatcher.shutdown` (or its
+``serve_forever`` stopping) ends the other ranks' ``serve_forever``.
+
+Not ported yet; each raises ``NotImplementedError`` when asked for: a
+mesh with ``data``, ``fsdp``, ``pipe`` or ``sequence`` above 1, a weight-only
+int8 tree on a mesh, and the disaggregated-serving plane (``hold_kv``,
 ``submit_prefilled``, ``request_handoff``, ``release_held``,
 ``take_handoff``, ``wait_handoff``, ``export_prefix``, ``install_prefix``),
 after JAX's own guards (a speculative server refuses ``hold_kv`` and
@@ -65,6 +76,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_engine_torch.counter_hash import _M32, _mix32, _mul32, _uniform
 from tpu_engine_torch.generate import (
@@ -82,6 +94,8 @@ from tpu_engine_torch.models.transformer import (
     inference_params,
     unembed,
 )
+from tpu_engine_torch.parallel.tensor_parallel import gather_vocab, model_axis, model_block
+from tpu_engine_torch.quant import QuantWeight
 
 _DISAGG = "the disaggregated-serving handoff plane is not ported"
 
@@ -115,12 +129,14 @@ class SlotCache:
 
 def init_slot_cache(cfg: ModelConfig, slots: int, max_len: int, dtype=torch.bfloat16,
                     prefill_chunk: Optional[int] = None, kv_quant: bool = False,
-                    device="cuda") -> SlotCache:
+                    device="cuda", mesh=None) -> SlotCache:
     """Allocate the serving pool: ``max_len`` lanes per slot, or for a
-    sliding-window model a per-row ring of ``window + prefill_chunk - 1``."""
+    sliding-window model a per-row ring of ``window + prefill_chunk - 1``.
+    ``mesh``: the rank's kv heads (``generate.cache_kv_heads``)."""
     lanes = ring_lanes(cfg, max_len, prefill_chunk)
     ring = lanes < max_len
-    one = init_cache(cfg, slots, lanes, dtype=dtype, kv_quant=kv_quant, device=device)
+    one = init_cache(cfg, slots, lanes, dtype=dtype, kv_quant=kv_quant, device=device,
+                     mesh=mesh)
     return SlotCache(
         k=one.k, v=one.v, lengths=torch.zeros((slots,), dtype=torch.int64, device=device),
         pos=torch.full((slots, lanes), -1, dtype=torch.int64, device=device) if ring else None,
@@ -157,13 +173,14 @@ def _pool_writer(start: torch.Tensor, T: int, S: int):
 @torch.inference_mode()
 def decode_step(params: dict[str, torch.Tensor], tokens: torch.Tensor, cache: SlotCache,
                 active: torch.Tensor, cfg: ModelConfig,
-                compute_dtype=torch.bfloat16) -> tuple[torch.Tensor, SlotCache]:
+                compute_dtype=torch.bfloat16, mesh=None) -> tuple[torch.Tensor, SlotCache]:
     """One token for every slot: tokens [B] (each slot's last token),
     active [B] bool. Returns (logits [B, V] fp32, the pool, updated in
     place). Inactive rows still compute, but their lengths do not advance
     and their writes land in lanes the mask never shows (a ring row's
     ``pos`` is not updated). A row that finished inside a chunk can run past
-    the last lane (:func:`_pool_writer`)."""
+    the last lane (:func:`_pool_writer`). ``mesh``: the rank's blocks, the
+    logits gathered whole."""
     B = tokens.shape[0]
     S = cache.n_lanes
     rows = torch.arange(B, device=tokens.device)
@@ -177,10 +194,11 @@ def decode_step(params: dict[str, torch.Tensor], tokens: torch.Tensor, cache: Sl
         key_pos = torch.arange(S, device=tokens.device)
     write = _pool_writer(lane, 1, S)
     hidden = _hidden_lanes(key_pos, positions, cfg.sliding_window)
-    x = embed_tokens(params, tokens[:, None], compute_dtype, positions=positions, cfg=cfg)
-    x = _run_layers(params, x, cache, write, hidden, positions, cfg, compute_dtype)
+    x = embed_tokens(params, tokens[:, None], compute_dtype, positions=positions, cfg=cfg,
+                     mesh=mesh)
+    x = _run_layers(params, x, cache, write, hidden, positions, cfg, compute_dtype, mesh)
     cache.lengths += active
-    return unembed(params, x, cfg)[:, 0], cache
+    return gather_vocab(unembed(params, x, cfg, mesh)[:, 0], model_axis(mesh, cfg)), cache
 
 
 def _gumbel_noise(seed: int, req_ids: torch.Tensor, counts: torch.Tensor,
@@ -207,14 +225,14 @@ def _pick_tokens(logits: torch.Tensor, temps: torch.Tensor, req_ids: torch.Tenso
 def decode_chunk(params: dict[str, torch.Tensor], tokens: torch.Tensor, cache: SlotCache,
                  active: torch.Tensor, temps: torch.Tensor, req_ids: torch.Tensor,
                  counts: torch.Tensor, seed: int, cfg: ModelConfig, n_steps: int,
-                 compute_dtype=torch.bfloat16) -> tuple[torch.Tensor, SlotCache]:
+                 compute_dtype=torch.bfloat16, mesh=None) -> tuple[torch.Tensor, SlotCache]:
     """``n_steps`` tokens per active slot, each step's choice fed back on
     the device, greedy and sampled alike. Returns (tokens [B, n_steps], the
     pool). The host trims each request's overshoot past eos or its budget:
     its slot is reset, so the overshoot lanes are masked and overwritten."""
     toks, cnts, out = tokens, counts, []
     for _ in range(n_steps):
-        logits, cache = decode_step(params, toks, cache, active, cfg, compute_dtype)
+        logits, cache = decode_step(params, toks, cache, active, cfg, compute_dtype, mesh)
         nxt = _pick_tokens(logits, temps, req_ids, cnts, seed)
         toks = torch.where(active, nxt, toks)
         cnts = cnts + active
@@ -470,7 +488,9 @@ class ContinuousBatcher:
     slot ``chunk_steps`` tokens in one dispatch, greedy or sampled. Streams
     are reproducible for a given ``seed``. The arguments are JAX's, plus
     ``device`` (the card unless the caller passes ``"cpu"``); the
-    parameters are moved there and cast to ``compute_dtype`` once."""
+    parameters are moved there and cast to ``compute_dtype`` once. With
+    ``mesh`` the parameters are whole and each rank keeps its ``model``
+    blocks (module docstring)."""
 
     def __init__(
         self,
@@ -493,8 +513,26 @@ class ContinuousBatcher:
         prefix_cache_tokens: int = 0,
         device="cuda",
     ):
+        self._mesh, self._tp, self._lead = mesh, None, True
         if mesh is not None:
-            raise NotImplementedError("mesh-sharded serving is not ported (multi-GPU)")
+            sizes = mesh.axis_sizes
+            others = {a: sizes[a] for a in ("data", "fsdp", "pipe", "sequence") if sizes[a] > 1}
+            if others:
+                raise NotImplementedError(
+                    f"serving on a mesh with {others} is not ported: the batcher runs on a "
+                    "mesh whose ranks all lie on model (ROADMAP Queue 1, item 4: the serving "
+                    "fleet)")
+            if any(isinstance(p, QuantWeight) for p in params.values()):
+                raise NotImplementedError(
+                    "a weight-only int8 tree on a mesh is not ported (ROADMAP Queue 1, "
+                    "item 2.2: quant.py shardings)")
+            self._tp = model_axis(mesh, cfg)
+            self._lead = mesh.coords["model"] == 0
+            if self._tp is not None:
+                params = model_block(params, cfg, self._tp.size, self._tp.index)
+        self._group = None if self._tp is None else self._tp.group
+        self._unsent: list[Request] = []  # rank 0's submissions not yet broadcast
+        self._closed = False
         self.cfg = cfg
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
@@ -517,7 +555,7 @@ class ContinuousBatcher:
                         if self.device.type == "cuda" else None)
         self._cache = init_slot_cache(cfg, self.max_slots, self.max_len, compute_dtype,
                                       prefill_chunk=self.prefill_chunk,
-                                      kv_quant=self.kv_quant, device=self.device)
+                                      kv_quant=self.kv_quant, device=self.device, mesh=mesh)
 
         # Speculative decoding: the draft's pool has the target pool's
         # slots and lanes, in the compute dtype.
@@ -540,7 +578,11 @@ class ContinuousBatcher:
                     "speculative serving does not support sliding-window "
                     "models (the verify chain's rewind assumes flat lanes)",
                     target_window=cfg.sliding_window, draft_window=draft_cfg.sliding_window)
-            # JAX's draft_mesh_sharded check comes here; mesh= raises above.
+            if mesh is not None:
+                raise SpecGeometryError(
+                    "draft_mesh_sharded",
+                    "speculative serving does not run mesh-sharded yet; drop draft_params "
+                    "or mesh")
             if self.spec_gamma < 1:
                 raise SpecGeometryError(
                     "spec_gamma_invalid", f"spec_gamma must be >= 1, got {spec_gamma}",
@@ -570,6 +612,9 @@ class ContinuousBatcher:
                 f"(max_seq_len={cfg.max_seq_len}) of gpt2-family model")
         _require_ported(cfg)
         self.params = inference_params(params, compute_dtype, self.device)
+        if self._tp is not None:  # a block owns its bytes: the whole leaf it came from can go
+            self.params = {k: v.clone() if v.untyped_storage().nbytes() > v.nbytes else v
+                           for k, v in self.params.items()}
 
         self._slots: list[Optional[Request]] = [None] * self.max_slots
         self._last_tokens = np.zeros((self.max_slots,), np.int64)
@@ -616,6 +661,9 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds the server's max_len {self.max_len}")
+        if not self._lead:
+            raise ValueError("on a mesh, submit on rank 0 of model: each step broadcasts its "
+                             "admissions to the other ranks")
         req = Request(id=next(self._ids), prompt=[int(t) for t in prompt],
                       max_new_tokens=int(max_new_tokens), temperature=float(temperature))
         with self._lock:
@@ -625,7 +673,9 @@ class ContinuousBatcher:
             if self.last_error is not None:
                 raise RuntimeError(f"serving loop failed: {self.last_error}")
             self._requests[req.id] = req
-            self._queue.append(req)
+            # On a mesh a request joins the queue at the next step's
+            # broadcast, on every rank at once.
+            (self._unsent if self._group is not None else self._queue).append(req)
         return req.id
 
     def submit_prefilled(self, handoff: Any, max_new_tokens: int = 64,
@@ -726,7 +776,7 @@ class ContinuousBatcher:
                 "tokens_per_sec_recent": round(recent_tokens / window, 2),
                 "tokens_per_sec_lifetime": round(self._tokens_out / dt, 2),
                 "chunk_steps": self.chunk_steps,
-                "sharded": False,
+                "sharded": self._mesh is not None,
                 "speculative": self._draft_params is not None,
                 "kv_quant": self.kv_quant,
                 "held_slots": 0,
@@ -761,12 +811,12 @@ class ContinuousBatcher:
             # Lane-aligned with the pool: both write position p at p % S.
             c1 = init_cache(self.cfg, 1, self.max_len, dtype=self._compute_dtype,
                             max_chunk=self.prefill_chunk, kv_quant=self.kv_quant,
-                            device=self.device)
+                            device=self.device, mesh=self._mesh)
         else:
             # Sized to a prefill_chunk multiple so cache shapes stay few.
             M = max(min(-(-pad // self.prefill_chunk) * self.prefill_chunk, self.max_len), pad)
             c1 = init_cache(self.cfg, 1, M, dtype=self._compute_dtype,
-                            kv_quant=self.kv_quant, device=self.device)
+                            kv_quant=self.kv_quant, device=self.device, mesh=self._mesh)
         dc1 = None
         if self._draft_params is not None:
             dc1 = init_cache(self._draft_cfg, 1, c1.max_len, dtype=self._compute_dtype,
@@ -794,7 +844,7 @@ class ContinuousBatcher:
         # token); only meaningful in its own chunk.
         row = min(max(P_len - 1 - t0, 0), t1 - t0 - 1)
         last_row, st.c1 = _prefill_forward(self.params, chunk, st.c1, row, cfg=self.cfg,
-                                           compute_dtype=self._compute_dtype)
+                                           compute_dtype=self._compute_dtype, mesh=self._mesh)
         if st.dc1 is not None:  # speculative: the draft ingests the prompt, no logits
             _, st.dc1 = forward_with_cache(self._draft_params, chunk, st.dc1, self._draft_cfg,
                                            compute_dtype=self._compute_dtype, want_logits=False)
@@ -828,7 +878,10 @@ class ContinuousBatcher:
         Prefill, the decode dispatch and the token copy to the host run
         without it, so ``submit``/``result``/``stats`` never wait on device
         work. The engine thread is the only mutator of the pool and the
-        slot arrays."""
+        slot arrays. On a mesh it first takes rank 0's new requests
+        (:meth:`_sync`); a step after rank 0's shutdown does nothing."""
+        if self._group is not None and (self._closed or not self._sync()):
+            return 0
         admitted: list[tuple[int, Request]] = []
         with self._lock:
             for slot in range(self.max_slots):
@@ -906,7 +959,7 @@ class ContinuousBatcher:
         toks, self._cache = decode_chunk(
             self.params, dev(self._last_tokens), self._cache, dev(active), dev(temps),
             dev(req_ids), dev(counts), self.seed, self.cfg, self.chunk_steps,
-            self._compute_dtype)
+            self._compute_dtype, self._mesh)
         toks_host = toks.cpu().numpy()  # [B, n]: one copy per dispatch
         with self._lock:
             emitted = 0
@@ -920,6 +973,33 @@ class ContinuousBatcher:
                         break  # overshoot dropped; the slot is reset
             self._note_tokens(emitted)
         return produced + emitted
+
+    def _sync(self, stop: bool = False) -> bool:
+        """Rank 0's requests submitted since the last step, broadcast over
+        ``model`` and queued on every rank in the same order (and rank 0's
+        ``stop``). Returns False once rank 0 has stopped."""
+        new: list[Request] = []
+        if self._lead:
+            with self._lock:
+                new, self._unsent = self._unsent, []
+        box = [(stop, [(r.id, r.prompt, r.max_new_tokens, r.temperature) for r in new])]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self._group, 0),
+                                   group=self._group, device=self.device)
+        stop, sent = box[0]
+        with self._lock:
+            if not self._lead:
+                new = [Request(id=i, prompt=list(p), max_new_tokens=n, temperature=t)
+                       for i, p, n, t in sent]
+                self._requests.update((r.id, r) for r in new)
+            self._queue.extend(new)
+        self._closed = bool(stop)
+        return not self._closed
+
+    def shutdown(self) -> None:
+        """On a mesh, rank 0 tells the other ranks to stop (their
+        ``serve_forever`` returns); elsewhere nothing."""
+        if self._group is not None and self._lead and not self._closed:
+            self._sync(stop=True)
 
     def _note_tokens(self, n: int) -> None:
         """Caller holds the lock."""
@@ -967,12 +1047,14 @@ class ContinuousBatcher:
         step failure marks every in-flight and queued request ``failed``
         with the error recorded, and later ``submit`` calls are rejected. A
         clean stop drains the same way ("server stopped"), so blocked
-        waiters return."""
+        waiters return. On a mesh, ``stop`` is read on rank 0, which tells
+        the other ranks at its last step; they return then."""
+        follower = self._group is not None and not self._lead
         try:
             if self._stream is not None:
                 torch.cuda.set_device(self.device)
                 torch.cuda.set_stream(self._stream)
-            while not stop.is_set():
+            while not (self._closed if follower else stop.is_set()):
                 try:
                     produced = self.step()
                 except Exception as e:  # noqa: BLE001 — serving boundary
@@ -980,10 +1062,11 @@ class ContinuousBatcher:
                     return
                 # Sleep only when idle: a step that advanced a prefill chunk
                 # or left admissions waiting loops at once.
-                if produced == 0 and not self._prefilling and not self._queue:
+                if produced == 0 and not self._prefilling and not self._queue and not follower:
                     time.sleep(idle_sleep)
         finally:
             if self.last_error is None:
+                self.shutdown()
                 self._drain("server stopped")
 
     def _drain(self, msg: str) -> None:
@@ -1002,11 +1085,13 @@ class ContinuousBatcher:
 
 
 def _prefill_forward(params, toks, cache: KVCache, row_idx: int, *, cfg: ModelConfig,
-                     compute_dtype) -> tuple[torch.Tensor, KVCache]:
+                     compute_dtype, mesh=None) -> tuple[torch.Tensor, KVCache]:
     """One prefill chunk through the cached forward; returns the logits row
-    [V] that seeds the first token, and the cache."""
-    logits, cache = forward_with_cache(params, toks, cache, cfg, compute_dtype=compute_dtype)
-    return logits[0, row_idx], cache
+    [V] that seeds the first token (the only row the head computes), and
+    the cache."""
+    logits, cache = forward_with_cache(params, toks, cache, cfg, compute_dtype=compute_dtype,
+                                       mesh=mesh, row=row_idx)
+    return logits[0, 0], cache
 
 
 def _insert_prefill(cache: SlotCache, c1: KVCache, slot: int, true_len: int) -> SlotCache:

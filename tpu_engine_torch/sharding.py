@@ -17,6 +17,26 @@ is a tuple of mesh-axis names (or None), trailing Nones trimmed, the
 entries of JAX's ``PartitionSpec``. The train program on a mesh
 (``tpu_engine_torch/parallel/zero.py``) reads the dim where ``fsdp``
 lands and shards that dim.
+
+Where ``model`` falls (:func:`model_split`): JAX's GSPMD may split a dim
+anywhere; the port computes with whole heads, whole experts and whole
+vocabulary blocks, under one rule:
+
+- ``n_heads``, ``d_ff`` (dense MLP) and ``n_experts`` (MoE) must divide
+  by ``model``, else ``NotImplementedError``; heads split by whole heads;
+- ``n_kv_heads`` divisible by ``model``: K and V split with their heads.
+  ``model`` divisible by ``n_kv_heads``: K and V stay whole on every rank
+  and each rank reads the one kv head its query heads read (``jnp.repeat``'s
+  order, :func:`local_kv_heads`). Neither: ``NotImplementedError``;
+- a vocabulary that does not divide by ``model`` (gpt2's 50257): the table
+  and the head stay whole on every rank (no padding), and the rank computes
+  every logit.
+
+A leaf ``model`` leaves whole may get only part of its gradient on a rank
+(:func:`model_partial`): qwen's q/k norm scales and whole K/V kernels
+(used on the rank's heads alone) and the MoE router (each rank's combine
+covers its own experts). Those gradients are summed over ``model``; every
+other whole leaf gets the whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -169,3 +189,70 @@ def lora_logical_axes(model_logical: dict[str, tuple],
 def fsdp_dim(spec: Spec) -> Optional[int]:
     """The dim of a spec that ``fsdp`` shards, or None."""
     return spec.index("fsdp") if "fsdp" in spec else None
+
+
+def model_dim(spec: Spec) -> Optional[int]:
+    """The dim of a spec that ``model`` shards, or None."""
+    return spec.index("model") if "model" in spec else None
+
+
+MODEL_ITEM = "ROADMAP Queue 1, item 2.1"
+
+
+def kv_heads(cfg) -> int:
+    return cfg.n_heads if cfg.arch == "gpt2" else cfg.n_kv_heads  # gpt2's k, v are full width
+
+
+def check_model_axis(cfg, n_model: int) -> None:
+    """Refuse a model whose heads, MLP or experts do not split over
+    ``n_model`` ranks by the module's rule."""
+    if n_model == 1:
+        return
+    kv = kv_heads(cfg)
+    bad = [f"{name}={n}" for name, n, on in (
+        ("n_heads", cfg.n_heads, True), ("d_ff", cfg.d_ff, not cfg.is_moe),
+        ("n_experts", cfg.n_experts, cfg.is_moe)) if on and n % n_model]
+    if kv % n_model and n_model % kv:
+        bad.append(f"n_kv_heads={kv} (neither divides the other)")
+    if bad:
+        raise NotImplementedError(
+            f"model {cfg.name!r} does not split over model={n_model}: {', '.join(bad)} "
+            f"({MODEL_ITEM}: whole heads, MLP columns and experts per rank)")
+
+
+def model_split(cfg, logical: dict[str, tuple], n_model: int) -> dict[str, Optional[int]]:
+    """The dim of each leaf that ``model`` splits over ``n_model`` ranks, or
+    None for a leaf whole on every rank (the module's rule)."""
+    if n_model == 1:
+        return {k: None for k in logical}
+    check_model_axis(cfg, n_model)
+    whole = {"kv_heads": kv_heads(cfg) % n_model != 0,
+             "vocab": cfg.vocab_size % n_model != 0}
+    out = {}
+    for k, lg in logical.items():
+        d = model_dim(logical_to_mesh_axes(lg, shard_fsdp=False))
+        out[k] = None if d is None or whole.get(lg[d], False) else d
+    return out
+
+
+def model_partial(cfg, logical: dict[str, tuple], n_model: int) -> frozenset:
+    """The leaves ``model`` leaves whole whose gradient a rank gets only in
+    part (summed over ``model``)."""
+    if n_model == 1:
+        return frozenset()
+    split = model_split(cfg, logical, n_model)
+    keys = {"layers.q_norm.scale", "layers.k_norm.scale", "layers.router.kernel",
+            "layers.k.kernel", "layers.v.kernel", "layers.k.bias", "layers.v.bias"}
+    return frozenset(k for k in keys if k in logical and split[k] is None)
+
+
+def local_kv_heads(cfg, n_model: int, index: int) -> tuple[int, int]:
+    """(first, count) of the kv heads that rank ``index`` of ``n_model``
+    reads: its own block where the kv heads split, else the one kv head of
+    its query heads' group."""
+    kv = kv_heads(cfg)
+    if kv % n_model == 0:
+        per = kv // n_model
+        return index * per, per
+    group = cfg.n_heads // kv
+    return index * (cfg.n_heads // n_model) // group, 1

@@ -23,8 +23,11 @@ params only.
 On a mesh (``cfg.mesh``, ``cfg.sharding_stage``; a process group joined by
 ``mesh_runtime.initialize_distributed``) the step is JAX's GSPMD program's
 with explicit collectives (``tpu_engine_torch/parallel/zero.py``): ZeRO
-stages 0–3 over ``data`` and ``fsdp``, and ring or Ulysses attention over
-``sequence``.
+stages 0–3 over ``data`` and ``fsdp``, ring or Ulysses attention over
+``sequence``, and tensor and expert parallelism over ``model``
+(``tpu_engine_torch/parallel/tensor_parallel.py``: each rank holds its
+heads, MLP columns, experts and vocabulary block; the loss's reductions
+run over the vocabulary blocks).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from tpu_engine_torch.models import transformer as tfm
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig
 from tpu_engine_torch.parallel import zero
 from tpu_engine_torch.parallel.collectives import all_reduce_
+from tpu_engine_torch.parallel.tensor_parallel import model_axis, vocab_ce_sums
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 _PLACES = ("none", "host", "disk")
@@ -72,10 +76,13 @@ class TrainConfig:
     process (``mesh.sequence`` is the ring across ranks; setting both
     raises). Values the port does not support raise; the combinations JAX
     refuses raise JAX's messages. Still refused on a mesh, with
-    ``NotImplementedError``: ``model > 1`` and ``pipe > 1``,
-    ``grad_allreduce_dtype`` other than fp32, and (on more than one rank)
-    host and disk placements, int8 training, Adafactor with its state
-    split over ``fsdp`` and dense-dispatch MoE over ``sequence``."""
+    ``NotImplementedError``: ``pipe > 1``, ``grad_allreduce_dtype`` other
+    than fp32, (on more than one rank) host and disk placements, int8
+    training, Adafactor with its state split over ``fsdp`` and
+    dense-dispatch MoE over ``sequence``, and (on more than one ``model``
+    rank) LoRA, Adafactor with a factored moment over a ``model``-split
+    leaf, and a model whose heads, MLP or experts do not split
+    (``tpu_engine_torch/sharding.py``)."""
 
     model_name: str = "gpt-125m"
     micro_batch_size: int = 1
@@ -529,10 +536,14 @@ def make_optimizer(cfg: TrainConfig) -> tuple[Optimizer, Callable[[int], float]]
 # ---------------------------------------------------------------------------
 
 
-def _ce_target_sums(logits: torch.Tensor, targets: torch.Tensor):
+def _ce_target_sums(logits: torch.Tensor, targets: torch.Tensor, tp=None):
     """Raw CE sums (Σ log-likelihood, Σ logZ², valid count) of ``logits``
     [B, S, V] against ``targets`` [B, S] at the same positions; targets < 0
-    are excluded."""
+    are excluded. ``tp``
+    (:class:`~tpu_engine_torch.parallel.tensor_parallel.ModelAxis`): the
+    logits are this rank's vocabulary block (:func:`vocab_ce_sums`)."""
+    if tp is not None and tp.vocab_split:
+        return vocab_ce_sums(logits, targets, tp)
     valid = (targets >= 0).float()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
@@ -540,10 +551,10 @@ def _ce_target_sums(logits: torch.Tensor, targets: torch.Tensor):
     return torch.sum(ll * valid), torch.sum(logz * logz * valid), torch.sum(valid)
 
 
-def _ce_sums(logits: torch.Tensor, tokens: torch.Tensor):
+def _ce_sums(logits: torch.Tensor, tokens: torch.Tensor, tp=None):
     """Raw next-token CE sums (Σ log-likelihood, Σ logZ², valid count);
     targets < 0 are excluded."""
-    return _ce_target_sums(logits[:, :-1, :], tokens[:, 1:])
+    return _ce_target_sums(logits[:, :-1, :], tokens[:, 1:], tp)
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, z_loss_coef: float = 0.0):
@@ -564,8 +575,11 @@ def decode_masked_tokens(raw: torch.Tensor):
     return clean, torch.where(masked, torch.full_like(raw, -1), raw)
 
 
-def _chunk_sums(params, hc, tc, model_cfg):
-    logits = tfm.unembed(params, hc, model_cfg)
+def _chunk_sums(params, hc, tc, model_cfg, mesh=None):
+    logits = tfm.unembed(params, hc, model_cfg, mesh)
+    tp = model_axis(mesh, model_cfg)
+    if tp is not None and tp.vocab_split:
+        return vocab_ce_sums(logits, tc, tp)
     logz = torch.logsumexp(logits, dim=-1)
     mask = (tc >= 0).float()
     ll = torch.gather(logits, -1, tc.clamp(min=0)[..., None].long()).squeeze(-1) - logz
@@ -580,18 +594,20 @@ def _next_targets(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _chunked_ce_sums(params, hidden, tokens, model_cfg: ModelConfig, chunk: int,
-                     targets: Optional[torch.Tensor] = None):
+                     targets: Optional[torch.Tensor] = None, mesh=None):
     """The sums of :func:`_ce_sums`, ``chunk`` positions at a time; each
     chunk is checkpointed so its fp32 logits are recomputed in backward
     rather than kept. ``targets``: each position's target, given (a
-    rank's block of the sequence) rather than read from ``tokens``."""
+    rank's block of the sequence) rather than read from ``tokens``.
+    ``mesh``: the head and the sums over its ``model`` axis's vocabulary
+    blocks."""
     B, S, _ = hidden.shape
     tgt = _next_targets(tokens) if targets is None else targets
     zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
     ll_total, z_total, n_total = zero, zero, zero
     for c in range(0, S, chunk):
         ll, zz, n = checkpoint(_chunk_sums, params, hidden[:, c:c + chunk],
-                               tgt[:, c:c + chunk], model_cfg, use_reentrant=False)
+                               tgt[:, c:c + chunk], model_cfg, mesh, use_reentrant=False)
         ll_total, z_total, n_total = ll_total + ll, z_total + zz, n_total + n
     return ll_total, z_total, n_total
 
@@ -786,15 +802,17 @@ class TrainProgram:
             remat_policy=cfg.remat_policy, lora=lora, lora_scale=cfg.lora_scale(),
             layer_stream=layer_stream, mesh=self.runtime,
         )
+        mesh, tp = self.runtime, model_axis(self.runtime, self.model_config)
         if cfg.loss_chunk_size:
             ll_sum, z_sum, n_valid = _chunked_ce_sums(
-                params, hidden, loss_tokens, self.model_config, cfg.loss_chunk_size, targets)
+                params, hidden, loss_tokens, self.model_config, cfg.loss_chunk_size, targets,
+                mesh)
         elif targets is not None:
             ll_sum, z_sum, n_valid = _ce_target_sums(
-                tfm.unembed(params, hidden, self.model_config), targets)
+                tfm.unembed(params, hidden, self.model_config, mesh), targets, tp)
         else:
             ll_sum, z_sum, n_valid = _ce_sums(
-                tfm.unembed(params, hidden, self.model_config), loss_tokens)
+                tfm.unembed(params, hidden, self.model_config, mesh), loss_tokens, tp)
         d = torch.clamp(n_valid, min=1.0) if denom is None else denom
         loss = -ll_sum / d
         z_coef = cfg.z_loss_coef if include_aux else 0.0
@@ -1084,9 +1102,27 @@ def _mesh_refusals(cfg: TrainConfig, model_cfg: ModelConfig) -> None:
                 "moe_impl='ragged' does not support expert parallelism "
                 "(ragged_dot cannot shard over the expert dim); use "
                 "moe_impl='dense' on meshes with a model axis")
-        raise NotImplementedError(
-            f"mesh.model={mesh.model}: tensor and expert parallelism are not ported "
-            "(ROADMAP Queue 1, item 2.1)")
+        if cfg.lora_rank is not None:
+            raise NotImplementedError(
+                f"LoRA on mesh.model={mesh.model} is not ported: the adapters of a "
+                "model-split projection split with it (ROADMAP Queue 1, item 2.1: LoRA "
+                "and Adafactor over model)")
+        sharding.check_model_axis(model_cfg, mesh.model)
+        if cfg.optimizer == "adafactor":
+            shapes = {k: tuple(p.shape) for k, p in
+                      tfm.init_params(model_cfg, None, device="meta").items()}
+            dims = sharding.model_split(model_cfg, sharding.logical_axes(model_cfg), mesh.model)
+            for k, d in dims.items():
+                if d is None:
+                    continue
+                local = shapes[k][:d] + (shapes[k][d] // mesh.model,) + shapes[k][d + 1:]
+                whole = factored_dims(shapes[k])
+                if whole != factored_dims(local) or (whole is not None and d in whole):
+                    raise NotImplementedError(
+                        f"optimizer='adafactor' on mesh.model={mesh.model} is not ported "
+                        f"where a factored moment reduces over a model-split dim ({k}: "
+                        f"dim {d}) (ROADMAP Queue 1, item 2.1: LoRA and Adafactor over "
+                        "model)")
     if mesh.pipe > 1:
         if model_cfg.n_layers % mesh.pipe != 0:
             raise ValueError(f"model n_layers={model_cfg.n_layers} must be divisible by the "
@@ -1200,10 +1236,12 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
             raise NotImplementedError(
                 "attention_impl='ulysses' runs across ranks only (a mesh with "
                 "sequence > 1): one process has no all-to-all")
-        if model_cfg.n_heads % seq_size != 0:
+        n_model = runtime.axis_sizes["model"]
+        local_heads = model_cfg.n_heads // n_model
+        if local_heads % seq_size != 0:
             raise ValueError(
                 f"attention_impl='ulysses' needs the per-device head count "
-                f"({model_cfg.n_heads} heads / model axis 1 = {model_cfg.n_heads}) "
+                f"({model_cfg.n_heads} heads / model axis {n_model} = {local_heads}) "
                 f"divisible by the sequence axis size {seq_size}")
     if model_cfg.attention_impl != impl:
         model_cfg = model_cfg.with_(attention_impl=impl)
@@ -1275,6 +1313,6 @@ def _bind_mesh(prog: TrainProgram, runtime: MeshRuntime) -> None:
         shapes = {k: tuple(p.shape) for k, p in lora_mod.init_lora_params(
             None, mc, cfg.lora_rank, cfg.lora_targets, device="meta").items()}
     prog.runtime = runtime
-    prog.zero = zero.ZeroLayout(runtime, cfg.sharding_stage, logical, shapes)
+    prog.zero = zero.ZeroLayout(runtime, cfg.sharding_stage, logical, shapes, mc)
     if prog.zero.params_split:
         prog.stream = zero.ShardedParams(prog.zero, prog.device, cfg.compute_dtype())

@@ -29,7 +29,8 @@ Each fault patches one function for the length of its reading:
   nothing_saveable's, as a share of the policy's tagged bytes):
   ``remat_sound``; ``remat_named_saves_nothing``: the named policies
   checkpoint the whole block (``transformer._remat_block``);
-- where the state lives (``train_offload``'s llama-1b for
+- where the state lives (``train_offload``'s llama-1b, at
+  ``chip_smoke.OFFLOAD_L`` layers, for
   ``OFFLOAD_STEPS`` steps against the in-memory run: the largest relative
   gap of the losses, the leaves whose final weights differ, their largest
   gap): ``host_sound`` (the optimizer state on the host);
@@ -52,9 +53,16 @@ Each fault patches one function for the length of its reading:
   the ring's hops send no K/V cotangents back (``ring_attention._Hop.backward``
   returns zeros), which sets ``MESH_LOSS_REL``. (A ring of two ranks
   turns the same way both ways round, so a ring rotated the wrong way is
-  no fault there.)
+  no fault there.) On ``model`` (``tp2``: llama-1b at model=2; ``ep2``:
+  moe-8x7b at 2 layers, 4 experts a rank): ``mesh_sound`` reads them too;
+  ``mesh_tp_o_g_skipped``: rank 1 keeps its O projection's partial sums
+  in place of their sum (``transformer._row_proj``; the all-reduce still
+  runs, so the ranks' collectives pair); ``mesh_ep_router_sum_dropped``: the
+  router's gradient, a part on each rank, is not summed over ``model``
+  (``parallel.zero.ZeroLayout.reduce_leaf``).
 
-``python3 train_faults.py --mesh`` reads the mesh alone. The readings are
+``python3 train_faults.py --mesh`` reads the mesh alone, ``--offload`` the
+placements alone (llama-1b at ``chip_smoke.OFFLOAD_L`` layers). The readings are
 printed and written to ``chiprun_out/train_faults.json``.
 """
 
@@ -144,6 +152,10 @@ def _bias_off_by_one(real):
 # and gradient norms, largest relative gap): set between the sound reading
 # and the planted faults' (see the mesh readings below and CHANGES.md).
 MESH_LOSS_REL = 2e-3
+# ep2's own bound (moe-8x7b at model=2 against its world-1 run): its sound
+# reading, 2.157e-3, lies past MESH_LOSS_REL; the router's gradient left
+# unsummed over model reads 1.103e-2 (see CHANGES.md).
+MESH_EP_LOSS_REL = 5e-3
 # The leaf the fsdp fault leaves out of the reduce-scatter.
 MESH_DROPPED_LEAF = "layers.gate.kernel"
 
@@ -166,23 +178,59 @@ def _cotangents_dropped(real):
     return backward
 
 
+def _o_g_skipped(real):
+    def row_proj(h, lp, name, dot=None, lora_scale=1.0, tp=None):
+        summed = real(h, lp, name, dot, lora_scale, tp)  # every rank's collective still runs
+        if name != "o" or tp is None or tp.index != 1:
+            return summed
+        from tpu_engine_torch.models.transformer import _proj
+
+        out = _proj(h, lp["o.kernel"], None, None, lora_scale, dot)  # rank 1 keeps its part
+        bias = lp.get("o.bias")
+        return out if bias is None else out + bias.to(out.dtype)
+
+    return row_proj
+
+
+MESH_ROUTER = "layers.router.kernel"
+
+
+def _router_sum_dropped(real):
+    def reduce_leaf(self, key, g, dim_offset=0, owned=True):
+        if key != MESH_ROUTER or key not in self.partial:
+            return real(self, key, g, dim_offset, owned)
+        partial, self.partial = self.partial, self.partial - {key}
+        try:
+            return real(self, key, g, dim_offset, owned)
+        finally:
+            self.partial = partial
+
+    return reduce_leaf
+
+
 def mesh_fault(name: str):
     """The patch of the planted mesh fault ``name`` (for :func:`_patched`)."""
+    from tpu_engine_torch.models import transformer
     from tpu_engine_torch.parallel import ring_attention, zero
 
     return {"fsdp_skip_reduce_scatter": (zero.ZeroLayout, "reduce_leaf", _skip_reduce_scatter),
             "ring_cotangents_dropped": (ring_attention._Hop, "backward",
-                                        _cotangents_dropped)}[name]
+                                        _cotangents_dropped),
+            "tp_o_g_skipped": (transformer, "_row_proj", _o_g_skipped),
+            "ep_router_sum_dropped": (zero.ZeroLayout, "reduce_leaf",
+                                      _router_sum_dropped)}[name]
 
 
 def mesh_readings(cs, out: dict, steps: int = 3) -> None:
     """The mesh's readings (module docstring) into ``out``: each two-rank
     run's largest relative gap to its world-1 run, per rank."""
-    w1 = cs.mesh_world1(["w1_2048", "w1_8192"], steps)
+    w1 = cs.mesh_world1(["w1_2048", "w1_8192", "w1_moe"], steps)
     for name, runs, fault in (
-            ("mesh_sound", ["fsdp2", "ring2"], None),
+            ("mesh_sound", ["fsdp2", "ring2", "tp2", "ep2"], None),
             ("mesh_fsdp_skip_reduce_scatter", ["fsdp2"], "fsdp_skip_reduce_scatter"),
-            ("mesh_ring_cotangents_dropped", ["ring2"], "ring_cotangents_dropped")):
+            ("mesh_ring_cotangents_dropped", ["ring2"], "ring_cotangents_dropped"),
+            ("mesh_tp_o_g_skipped", ["tp2"], "tp_o_g_skipped"),
+            ("mesh_ep_router_sum_dropped", ["ep2"], "ep_router_sum_dropped")):
         ranks = cs.mesh_launch(runs, 2, steps, f"faults_{name}", fault)
         for run in runs:
             ref = w1[cs.MESH_RUNS[run][3]]
@@ -191,15 +239,17 @@ def mesh_readings(cs, out: dict, steps: int = 3) -> None:
                 "losses": [rk["runs"][run]["losses"] for rk in ranks],
                 "grad_norms": [rk["runs"][run]["grad_norms"] for rk in ranks],
                 "ref_losses": ref["losses"], "ref_grad_norms": ref["grad_norms"]}
+            bound = MESH_EP_LOSS_REL if run == "ep2" else MESH_LOSS_REL
             print(f"{name} {run}: largest relative gap to the world-1 run, per rank, "
-                  f"{[f'{x:.4e}' for x in r['rel']]} (MESH_LOSS_REL {MESH_LOSS_REL}); "
+                  f"{[f'{x:.4e}' for x in r['rel']]} (bound {bound}); "
                   f"losses {r['losses']}, grad norms {r['grad_norms']}; world 1 "
                   f"{r['ref_losses']}, {r['ref_grad_norms']}", flush=True)
 
 
 def _offload_run(cs, extra: dict) -> tuple[list, dict, list]:
-    """``train_offload``'s llama-1b in one placement for OFFLOAD_STEPS
-    steps: (losses, the final weights on the device, step seconds)."""
+    """``train_offload``'s llama-1b (OFFLOAD_L layers) in one placement for
+    OFFLOAD_STEPS steps: (losses, the final weights on the device, step
+    seconds)."""
     import tempfile
 
     import torch
@@ -207,8 +257,8 @@ def _offload_run(cs, extra: dict) -> tuple[list, dict, list]:
     with tempfile.TemporaryDirectory(prefix="train_faults_spill_") as spill:
         if extra.get("optimizer_offload") == "disk":
             extra = {**extra, "optimizer_spill_dir": spill}
-        prog, state, _, losses, _, times, *_ = cs._run_steps(cs._llama_1b_cfg(**extra),
-                                                             cs.OFFLOAD_STEPS, "flash")
+        prog, state, _, losses, _, times, *_ = cs._run_steps(
+            cs._llama_1b_cfg(**extra), cs.OFFLOAD_STEPS, "flash", model_cfg=cs._offload_model())
         state = prog.flush(state)
         if prog.disk is not None:  # its masters: the device holds them rounded to bf16
             params = {k: torch.from_numpy(w).cuda() for k, w in prog.disk.store.masters().items()}
@@ -303,8 +353,14 @@ def main() -> int:
     fc.build()
     fc._load()
     if sys.argv[1:] == ["--mesh"]:
-        out = {"card": card, "bounds": {"mesh_loss_rel": MESH_LOSS_REL}}
+        out = {"card": card, "bounds": {"mesh_loss_rel": MESH_LOSS_REL,
+                                        "mesh_ep_loss_rel": MESH_EP_LOSS_REL}}
         mesh_readings(cs, out)
+        _write(out)
+        return 0
+    if sys.argv[1:] == ["--offload"]:
+        out = {"card": card, "bounds": {"disk_loss_rel": cs.DISK_LOSS_REL}}
+        offload_readings(cs, out)
         _write(out)
         return 0
     steps = 5
@@ -342,7 +398,7 @@ def main() -> int:
         print(f"{name}: kept over nothing_saveable, as a share of the tagged bytes: "
               f"{out[name]}", flush=True)
     offload_readings(cs, out)
-    out["bounds"]["mesh_loss_rel"] = MESH_LOSS_REL
+    out["bounds"].update(mesh_loss_rel=MESH_LOSS_REL, mesh_ep_loss_rel=MESH_EP_LOSS_REL)
     mesh_readings(cs, out)
     _write(out)
     return 0

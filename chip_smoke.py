@@ -3,8 +3,8 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --steps 5  # more training steps (3, the least, by default)
 
-(``--mesh-worker JOB RANK`` runs one rank of ``train_mesh``; the phase
-starts those processes itself.)
+(``--mesh-worker JOB RANK`` runs one rank of ``train_mesh``, ``train_pipe``
+or ``serve_mesh``; the phase starts those processes itself.)
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
@@ -129,7 +129,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``offload_dots`` (the products' outputs in pinned host blocks of their
    exact size) with every initial gradient bitwise nothing_saveable's and
    fewer device bytes kept than dots_saveable's; the blocks unpinned after;
-20. train_offload: ``train``'s llama-1b at 8 of its 16 layers for 3 steps
+20. train_offload: ``train``'s llama-1b at 2 of its 16 layers for 3 steps
    in memory, with the optimizer state, the masters or both in pinned host
    memory (losses and parameters bitwise the in-memory run's), with bf16
    masters, and with the disk tier, serial (a spill under a temporary directory; the overlapped
@@ -152,17 +152,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    1, 8 layers), tensor parallelism at model=2 (``tp2``: 8 heads, 2752 MLP columns, 16000 vocabulary rows a
    rank, seq 2048 × 4), and ``train_moe``'s moe-8x7b at model=2 (``ep2``:
    4 experts a rank, seq 2048 × 2, held to its own world-1 run
-   ``w1_moe``), each held to the world-1 run at the same global batch by
-   MESH_LOSS_REL (ep2: MESH_EP_LOSS_REL; train_faults.py), the ranks'
-   losses and norms equal, launch counts exact per rank; step time, peak
-   memory and the bytes each collective moved a step, per rank;
-24. serve_mesh: the ContinuousBatcher at llama-1b's width and 4 layers on
+   ``w1_moe``), LoRA on q/k/v/o and the MLP at model=2 (``lora_tp2``, 8
+   layers, held to ``w1_lora``) and Adafactor at model=2 (``adafactor_tp2``,
+   4 layers, held to ``w1_ada``), each held to the world-1 run at the same
+   global batch by MESH_LOSS_REL (ep2: MESH_EP_LOSS_REL; train_faults.py),
+   the ranks' losses and norms equal, launch counts exact per rank; step
+   time, peak memory and the bytes each collective moved a step, per rank;
+24. train_pipe: llama-1b at full width and depth on pipe=2 (8 layers a
+   rank, two ``--mesh-worker`` processes), seq 2048 × 1 × 4 microbatches,
+   3 steps under each of gpipe, 1f1b and zb, held to the world-1 program
+   at the same global batch by MESH_LOSS_REL, the ranks' losses and norms
+   equal, K1-K3 launches exact per rank and schedule; step time, peak
+   memory and bytes sent a step per rank, beside JAX's F-units of the
+   schedule;
+25. serve_mesh: the ContinuousBatcher at llama-1b's width and 2 layers on
    model=2 (two ranks, ``--mesh-worker`` processes, rank 0 submitting
-   ``serve``'s 16 requests), with the bf16 and the int8 pool: every request
-   done, the ranks' streams equal, greedy streams teacher-forced through the one-rank forward within
-   SERVE_TAU, prefix hits, the ranks' teacher-forced decode logits against
-   the one-rank pool's within SERVE_TP_REL (serve_faults.py); TTFT, decode
-   tokens/s and peak memory per rank.
+   ``serve``'s 16 requests), with the bf16 and the int8 pool, and with the
+   weights' int8 tree and the bf16 pool: every request done, the ranks'
+   streams equal, greedy streams teacher-forced through the one-rank forward
+   of the same tree within SERVE_TAU, prefix hits, each tree's
+   teacher-forced decode logits on the ranks against the one-rank pool's
+   within SERVE_TP_REL (serve_faults.py); TTFT, decode tokens/s and peak
+   memory per rank.
 
 Output: the card's name and power limit, the phases' numbers, one JSON line
 of per-kernel results (``launches`` per training step, summed over
@@ -923,7 +934,7 @@ def phase_kernels(res: dict) -> None:
 # forwards); remat's launches are nothing_saveable's.
 D128_PATHS = ("train", "train_ring", "train_moe", "train_int8", "train_lora",
               "train_adafactor", "train_lion", "remat", "train_offload", "train_7b",
-              "train_window", "train_mesh")
+              "train_window", "train_mesh", "train_pipe")
 
 
 def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
@@ -3030,10 +3041,11 @@ def phase_remat(res: dict, steps: int = REMAT_STEPS) -> None:
 # its losses are held to the in-memory run's by DISK_LOSS_REL, set from the
 # sound and planted readings of train_faults.py.
 OFFLOAD_STEPS = 3
-# train_offload trains llama-1b at full width and 8 of its 16 layers: the
+# train_offload trains llama-1b at full width and 2 of its 16 layers: the
 # disk tier's host walk (about 45 s a step at 16 layers) and the run's time
-# limit (PERF.md, PR 18).
-OFFLOAD_L = 8
+# limit, which the card's machines meet 23 % apart from call to call
+# (PERF.md §4: cut to 8 layers, then to 2 when train_pipe came).
+OFFLOAD_L = 2
 OFFLOAD_PLACEMENTS = (
     ("memory", {}),
     ("optimizer_host", dict(optimizer_offload="host")),
@@ -3340,6 +3352,11 @@ MESH_L = 16
 MESH_SEQ_L = 8
 MESH_SEQ = 8192
 MESH_MOE = dict(model_name="moe-8x7b", moe_impl="dense")  # at MOE_TRAIN_LAYERS layers
+MESH_LORA = dict(lora_rank=16, lora_alpha=32.0, lora_targets=("q", "k", "v", "o", "gate",
+                                                              "up", "down"),
+                 learning_rate=1e-4)
+PIPE_M = 4  # microbatches of train_pipe: M > P, so "auto" resolves to zb
+PIPE_SCHEDULES = ("gpipe", "1f1b", "zb")
 MESH_RUNS = {
     # name: (ranks, mesh (None: no mesh), TrainConfig fields, the world-1
     # run it is held to, per-rank launches a microbatch)
@@ -3358,7 +3375,27 @@ MESH_RUNS = {
     "w1_moe": (1, {}, dict(MESH_MOE, micro_batch_size=2, seq_len=2048), None, "flash"),
     "ep2": (2, dict(model=2), dict(MESH_MOE, micro_batch_size=2, seq_len=2048), "w1_moe",
             "flash"),
+    # LoRA over model (the adapters of q, k, v, o and the MLP split with their
+    # projections) and Adafactor over model (factored moments reduced over
+    # the split dims), each held to its world-1 run (MESH_LAYERS layers).
+    "w1_lora": (1, {}, dict(MESH_LORA, micro_batch_size=4, seq_len=2048), None, "flash"),
+    "lora_tp2": (2, dict(model=2), dict(MESH_LORA, micro_batch_size=4, seq_len=2048), "w1_lora",
+                 "flash"),
+    "w1_ada": (1, {}, dict(optimizer="adafactor", micro_batch_size=4, seq_len=2048), None,
+               "flash"),
+    "adafactor_tp2": (2, dict(model=2), dict(optimizer="adafactor", micro_batch_size=4,
+                                             seq_len=2048), "w1_ada", "flash"),
+    # Pipelines (train_pipe): llama-1b's 16 layers over pipe=2, 8 a rank,
+    # seq 2048 × 1 × PIPE_M microbatches, under each schedule.
+    "w1_pipe": (1, {}, dict(micro_batch_size=1, seq_len=2048,
+                            gradient_accumulation_steps=PIPE_M), None, "flash"),
+    **{f"pipe_{s}": (2, dict(pipe=2), dict(micro_batch_size=1, seq_len=2048,
+                                           gradient_accumulation_steps=PIPE_M,
+                                           pipeline_schedule=s), "w1_pipe", "flash")
+       for s in PIPE_SCHEDULES},
 }
+# Layers of the runs not at MESH_L (the run's time limit, PERF.md §4).
+MESH_LAYERS = {"w1_lora": 8, "lora_tp2": 8, "w1_ada": 4, "adafactor_tp2": 4}
 MESH_TIMEOUT_S = 300
 SERVE_MESH_TIMEOUT_S = 600
 # NCCL's socket transport between the ranks (the only one NCCL takes
@@ -3372,16 +3409,48 @@ MESH_NCCL_ENV = {"NCCL_SOCKET_NTHREADS": "8", "NCCL_NSOCKS_PERTHREAD": "2",
 def _mesh_layers(name: str) -> int:
     if MESH_RUNS[name][2].get("model_name") == "moe-8x7b":
         return MOE_TRAIN_LAYERS
+    if name in MESH_LAYERS:
+        return MESH_LAYERS[name]
     return MESH_SEQ_L if MESH_RUNS[name][2]["seq_len"] == MESH_SEQ else MESH_L
+
+
+def pipe_want(schedule: str, n_stages: int, micro: int, stage: int, layers: int) -> dict:
+    """Launches a step of a pipeline stage of ``layers`` layers, from the
+    schedule's tick table: GPipe's forward runs K1 once a layer and its
+    backward the checkpoint's recompute (K1) and K2, K3; the recomputing
+    schedules' forward runs K1 once a layer (none on the last stage, which
+    computes at its backward's tick), and each backward (combined, or its
+    B or W half) the stage's forward again, the recompute and K2, K3."""
+    from tpu_engine_torch.parallel import pipeline, pipeline_1f1b, pipeline_zb
+
+    table = {"gpipe": pipeline.gpipe_table, "1f1b": pipeline_1f1b.f1b_table,
+             "zb": pipeline_zb.zb_table}[schedule](n_stages, micro)
+    k1 = k23 = 0
+    for row in table:
+        for op, _ in row[stage]:
+            if op == "F":
+                k1 += 1 if schedule == "gpipe" or stage < n_stages - 1 else 0
+            else:
+                k1 += 1 if schedule == "gpipe" else 2
+                k23 += 1
+    return {"flash_fwd": k1 * layers, "flash_bwd_dq": k23 * layers,
+            "flash_bwd_dkv": k23 * layers}
 
 
 def _mesh_want(name: str, rank: int) -> dict:
     """Launches a step of ``name``'s rank ``rank``: K1 twice a layer (the
     forward and the checkpoint's recompute), K2 and K3 once (on the rank's
     heads under ``model``); the ring's rank 1 also runs its past hop
-    unmasked (the ``_full`` kernels)."""
+    unmasked (the ``_full`` kernels); a pipeline stage's by
+    :func:`pipe_want`."""
     L = _mesh_layers(name)
-    causal = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    kw = MESH_RUNS[name][2]
+    if MESH_RUNS[name][1] and MESH_RUNS[name][1].get("pipe", 1) > 1:
+        P = MESH_RUNS[name][1]["pipe"]
+        return pipe_want(kw["pipeline_schedule"], P, kw["gradient_accumulation_steps"], rank,
+                         L // P)
+    M = kw.get("gradient_accumulation_steps", 1)
+    causal = {"flash_fwd": 2 * L * M, "flash_bwd_dq": L * M, "flash_bwd_dkv": L * M}
     if name == "ring2" and rank == 1:
         return {**causal, **{f"{k}_full": v for k, v in causal.items()}}
     return causal
@@ -3458,7 +3527,8 @@ def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
             "launches": dict(fc.launches),
             "moved_bytes_per_step": {k: v // steps for k, v in collectives.moved.items()},
             "impl": prog.model_config.attention_impl, "setup_s": t_setup,
-            "mesh": runtime.axis_sizes if runtime is not None else None}
+            "mesh": runtime.axis_sizes if runtime is not None else None,
+            "schedule": prog.pipeline_schedule}
         del prog, state, batch
         _free()
     return out
@@ -3573,9 +3643,25 @@ def phase_train_mesh(res: dict, steps: int) -> None:
     from train_faults import MESH_EP_LOSS_REL, MESH_LOSS_REL
 
     out = res["train_mesh"] = {"steps": steps, "accum": 1, "runs": {}, "launches": {}}
-    one = [{"runs": mesh_world1(["nomesh", "w1_2048", "w1_8192", "w1_moe"], steps)}]
-    two = mesh_launch(["fsdp2", "ring2", "ulysses2", "tp2", "ep2"], 2, steps, "w2")
+    one = [{"runs": mesh_world1(["nomesh", "w1_2048", "w1_8192", "w1_moe", "w1_lora",
+                                 "w1_ada"], steps)}]
+    two = mesh_launch(["fsdp2", "ring2", "ulysses2", "tp2", "ep2", "lora_tp2",
+                       "adafactor_tp2"], 2, steps, "w2")
+    fails = mesh_checks(out, (one, two), steps)
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def mesh_checks(out: dict, groups, steps: int) -> list:
+    """The checks of each mesh run of ``groups`` (each a list of the
+    ranks' results): the ranks' losses and norms equal, attention as
+    resolved, launches exact per rank, the loss falling, and the gap to
+    the world-1 run within its bound; prints each run's numbers and
+    records them in ``out``. Returns the failures."""
+    from train_faults import MESH_EP_LOSS_REL, MESH_LOSS_REL
+
     fails = []
+    one, two = groups
     for ranks in (one, two):
         for name in ranks[0]["runs"]:
             world, _, _, ref, impl = MESH_RUNS[name]
@@ -3618,16 +3704,60 @@ def phase_train_mesh(res: dict, steps: int) -> None:
                                  f"{ref_run['losses']}")
                 if not rel <= bound:
                     fails.append(f"{name} rank {rank}: relative gap {rel:.3e} to {ref}")
+    return fails
+
+
+def phase_train_pipe(res: dict, steps: int) -> None:
+    """llama-1b at full width and depth (d_model 2048, 16 layers, 16 heads
+    of 128, d_ff 5504, vocab 32000), bf16 compute, fp32 masters, AdamW,
+    checkpointing, flash, on pipe=2 (8 layers a rank): two rank processes
+    on cuda:0 through NCCL, each with its own NCCL_HOSTID, seq 2048 × 1 ×
+    PIPE_M microbatches a step, ``steps`` steps under each of gpipe, 1f1b
+    and zb, each held to the world-1 program at the same global batch
+    (``w1_pipe``, in this process) within MESH_LOSS_REL on losses and
+    gradient norms; both ranks must report equal losses and norms, and each
+    rank's K1-K3 launches must be exactly :func:`pipe_want`'s. Per rank and
+    schedule: step time, peak memory, the bytes sent a step (boundary
+    activations and their cotangents) and the other collectives' bytes, and
+    JAX's ``schedule_account`` F-units of the schedule. On one shared card
+    the other rank's work fills a stage's bubble, so these step times do
+    not measure bubbles."""
+    from tpu_engine_torch.parallel.pipeline_zb import schedule_account
+
+    out = res["train_pipe"] = {"steps": steps, "accum": PIPE_M, "runs": {}, "launches": {},
+                               "card": _card_line()}
+    one = [{"runs": mesh_world1(["w1_pipe"], steps)}]
+    two = mesh_launch([f"pipe_{s}" for s in PIPE_SCHEDULES], 2, steps, "pipe")
+    fails = mesh_checks(out, (one, two), steps)
+    for s in PIPE_SCHEDULES:
+        acc = schedule_account(s, 2, PIPE_M)
+        out.setdefault("account", {})[s] = acc
+        for rank, run in enumerate(out["runs"].get(f"pipe_{s}", [])):
+            if run["schedule"] != s:
+                fails.append(f"pipe_{s} rank {rank}: ran {run['schedule']}")
+            print(f"train_pipe {s} rank {rank}: step "
+                  f"{min(run['step_ms_each'][1:] or run['step_ms_each']):.1f} ms, peak "
+                  f"{run['peak_mem_gib']:.2f} GiB, sent a step "
+                  f"{run['moved_bytes_per_step'].get('send', 0)} B, launches "
+                  f"{ {k: v // steps for k, v in run['launches'].items() if v} } a step, "
+                  f"JAX's F-units {acc['lane_cost']} (useful {acc['useful_cost']}, bubble "
+                  f"{acc['bubble_fraction']:.3f}) ({_card_line()}; the two ranks share the "
+                  "card: a bubble is filled by the other rank's work)", flush=True)
     if fails:
         raise AssertionError("; ".join(fails))
 
 
-SERVE_MESH_POOLS = (("bf16", False), ("int8", True))
-# serve_mesh serves llama-1b at full width and 4 of its 16 layers: a decode
+# serve_mesh's runs: (name, the weights' tree, the int8 pool): bf16 weights
+# with the bf16 and the int8 pool, and a weight-only int8 tree (its sites
+# split as JAX's quantize_pspecs) with the bf16 pool.
+SERVE_MESH_RUNS = (("bf16", "bf16", False), ("int8", "bf16", True),
+                   ("int8_weights", "int8", False))
+# serve_mesh serves llama-1b at full width and 2 of its 16 layers: a decode
 # step's 2 all-reduces a layer wait about 4.5 ms each on the wire between
 # two ranks of one card (nccl_probe.py --latency), and the run's time limit
-# holds the phase to about a minute and a half (PERF.md, PR 18).
-SERVE_MESH_L = 4
+# holds the phase to about a minute (PERF.md §4: cut to 4 layers, then to 2
+# when its third run, the int8 tree, came).
+SERVE_MESH_L = 2
 SERVE_MESH_TEACHER = (8, 16)  # rows and tokens of the teacher-forced decode
 
 
@@ -3653,19 +3783,21 @@ def _mesh_teacher(cfg):
 
 def _mesh_serve(mode: str, rank: int, fault=None) -> dict:
     """One rank of ``serve_mesh`` on model=2 (cuda:0, NCCL): llama-1b's
-    seed-0 bf16 weights at SERVE_MESH_L layers made whole and the batcher
-    keeping the rank's blocks. ``mode`` "serve": ``serve``'s 16 requests with each pool of
-    SERVE_MESH_POOLS (:func:`_serve_run`; rank 0 submits), then the
-    teacher-forced decode; "teacher": the teacher-forced decode alone.
-    Rank 0 saves the decode's logits (whole, [16, 8, V]) to
-    ``chiprun_out/serve_mesh_logits.pt``. ``fault`` names a planted fault
-    of serve_faults.py, patched throughout."""
+    seed-0 bf16 weights at SERVE_MESH_L layers (and their weight-only int8
+    tree) made whole and the batcher keeping the rank's blocks. ``mode``
+    "serve": ``serve``'s 16 requests in each run of SERVE_MESH_RUNS
+    (:func:`_serve_run`; rank 0 submits), then the teacher-forced decode
+    of both trees; "teacher": the teacher-forced decodes alone. Rank 0
+    saves each tree's decode logits (whole, [16, 8, V]) to
+    ``chiprun_out/serve_mesh_logits_<tree>.pt``. ``fault`` names a planted
+    fault of serve_faults.py, patched throughout."""
     import contextlib
 
     import torch
 
     from tpu_engine_torch import serving as tsrv
     from tpu_engine_torch.mesh_runtime import MeshConfig, MeshRuntime
+    from tpu_engine_torch.quant import quantize_params
 
     patch = contextlib.nullcontext()
     if fault:
@@ -3674,41 +3806,51 @@ def _mesh_serve(mode: str, rank: int, fault=None) -> dict:
         patch = serve_faults._patched(serve_faults.mesh_fault(fault))
     rt = MeshRuntime(MeshConfig(model=2), device=torch.device("cuda", 0))
     cfg, params = _serve_mesh_model({})
-    out = {"runs": {}}
+    qparams = quantize_params(params)  # the whole int8 tree: the batcher cuts it
+    out, blocks = {"runs": {}}, {}
     with patch:
         if mode == "serve":
-            for key, kv_quant in SERVE_MESH_POOLS:
-                r = _serve_run(params, cfg, _serve_plan(cfg), f"mesh {key} rank {rank}",
-                               mesh=rt, kv_quant=kv_quant)
+            for key, tree, kv_quant in SERVE_MESH_RUNS:
+                r = _serve_run(qparams if tree == "int8" else params, cfg, _serve_plan(cfg),
+                               f"mesh {key} rank {rank}", mesh=rt, kv_quant=kv_quant)
                 r.pop("first_logits")
                 r["hits"] = {str(k): v for k, v in r["hits"].items()}
-                block = r.pop("params")
+                blocks[tree] = r.pop("params")
                 out["runs"][key] = r
         else:
-            block = tsrv.ContinuousBatcher(params, cfg, mesh=rt, **SERVE_CFG).params
-        del params
+            blocks = {tree: tsrv.ContinuousBatcher(qparams if tree == "int8" else params, cfg,
+                                                   mesh=rt, **SERVE_CFG).params
+                      for tree in ("bf16", "int8")}
+        del params, qparams
         _free()
         prompts, teacher = _mesh_teacher(cfg)
         torch.cuda.reset_peak_memory_stats()
-        logits = _pool_logits(block, cfg, prompts, teacher, False, torch.bfloat16, mesh=rt)
+        logits = {tree: _pool_logits(block, cfg, prompts, teacher, False, torch.bfloat16,
+                                     mesh=rt) for tree, block in sorted(blocks.items())}
     out["teacher_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    if rank == 0:
-        torch.save(logits.cpu(), ROOT / "chiprun_out" / "serve_mesh_logits.pt")
-    out["logits_checksum"] = float(logits.double().sum())
+    for tree, lg in logits.items():
+        if rank == 0:
+            torch.save(lg.cpu(), ROOT / "chiprun_out" / f"serve_mesh_logits_{tree}.pt")
+        out[f"logits_checksum_{tree}"] = float(lg.double().sum())
     return out
 
 
-def serve_mesh_rel(cfg, params, ranks: list) -> float:
+def serve_mesh_rel(cfg, params, ranks: list, tree: str = "bf16") -> float:
     """The relative norm error of the ranks' teacher-forced decode logits
-    (saved by rank 0) against the one-rank pool's on the same tokens
-    (``params``: the whole bf16 weights in this process). The file is
+    of the ``tree`` weights ("bf16", or "int8": weight-only int8; saved by
+    rank 0) against the one-rank pool's on the same tokens (``params``: the
+    whole bf16 weights in this process, quantized for "int8"). The file is
     removed after."""
     import torch
 
-    path = ROOT / "chiprun_out" / "serve_mesh_logits.pt"
+    from tpu_engine_torch.quant import quantize_params
+
+    path = ROOT / "chiprun_out" / f"serve_mesh_logits_{tree}.pt"
     mesh_logits = torch.load(path).cuda()
     path.unlink()
     prompts, teacher = _mesh_teacher(cfg)
+    if tree == "int8":
+        params = quantize_params(params)
     one = _pool_logits(params, cfg, prompts, teacher, False, torch.bfloat16)
     return _rel_err(mesh_logits, one)
 
@@ -3719,24 +3861,30 @@ def phase_serve_mesh(res: dict, state: dict) -> None:
     each with 8 heads, 2752 MLP columns, 16000 vocabulary rows and 8 kv
     heads of the pool): ``serve``'s
     plan (SERVE_CFG: 8 slots, 16 requests, four sampled, a shared prefix)
-    with the bf16 pool and the int8 pool, rank 0 submitting. Checks: every
-    request done on both ranks and no slot left busy; the two ranks'
-    streams equal; the greedy streams teacher-forced through the one-rank
-    forward within SERVE_TAU; prefix hits; the ranks' teacher-forced decode
-    logits against the one-rank pool's within SERVE_TP_REL (serve_faults.py,
-    set from a planted fault). Reports TTFT p50/p99 (rank 0), decode
-    tokens/s and peak memory per rank."""
+    with the bf16 pool and the int8 pool, and with the weights' int8 tree
+    (``quantize_params``, cut by the batcher as JAX's quantize_pspecs
+    splits it) and the bf16 pool, rank 0 submitting. Checks: every request
+    done on both ranks and no slot left busy; the two ranks' streams
+    equal; the greedy streams teacher-forced through the one-rank forward
+    of the same tree within SERVE_TAU; prefix hits; each tree's
+    teacher-forced decode logits on the ranks against the one-rank pool's
+    within SERVE_TP_REL (serve_faults.py, set from planted faults).
+    Reports TTFT p50/p99 (rank 0), decode tokens/s and peak memory per
+    rank."""
     from serve_faults import SERVE_TP_REL
+
+    from tpu_engine_torch.quant import quantize_params
 
     cfg, params = _serve_mesh_model(state)
     ranks = mesh_launch([], 2, 0, "serve", serve="serve")
     plan = _serve_plan(cfg)
-    rel = serve_mesh_rel(cfg, params, ranks)
+    rel = {tree: serve_mesh_rel(cfg, params, ranks, tree) for tree in ("bf16", "int8")}
+    trees = {"bf16": params, "int8": quantize_params(params)}
     fails, gaps = [], {}
     out = res["serve_mesh"] = {"config": SERVE_CFG, "layers": SERVE_MESH_L, "teacher_rel": rel,
                                "serve_tp_rel": SERVE_TP_REL, "card": res.get("card"),
                                "ranks": [r["serve"] for r in ranks]}
-    for key, _ in SERVE_MESH_POOLS:
+    for key, tree, _ in SERVE_MESH_RUNS:
         runs = [r["serve"]["runs"][key] for r in ranks]
         for rank, run in enumerate(runs):
             if run["statuses"] != ["done"] * len(plan):
@@ -3753,7 +3901,7 @@ def phase_serve_mesh(res: dict, state: dict) -> None:
             fails.append(f"{key}: rank 1's streams differ from rank 0's")
         if not any(runs[0]["hits"].values()):
             fails.append(f"{key}: no prefix-cache hit")
-        gaps[key] = max(_stream_gap(params, cfg, p, toks)
+        gaps[key] = max(_stream_gap(trees[tree], cfg, p, toks)
                         for (p, _, t), toks in zip(plan, runs[0]["tokens"]) if t == 0.0)
         if not gaps[key] <= SERVE_TAU:
             fails.append(f"{key}: largest teacher-forced gap {gaps[key]:.3e} > {SERVE_TAU}")
@@ -3763,10 +3911,12 @@ def phase_serve_mesh(res: dict, state: dict) -> None:
               f"greedy streams teacher-forced through the one-rank forward, largest gap "
               f"{gaps[key]:.3e} (SERVE_TAU {SERVE_TAU})", flush=True)
     out["greedy_max_gap"] = gaps
-    print(f"serve_mesh: teacher-forced decode logits on model=2 against one rank, relative "
-          f"{rel:.3e} (SERVE_TP_REL {SERVE_TP_REL})", flush=True)
-    if not rel <= SERVE_TP_REL:
-        fails.append(f"teacher-forced logits relative {rel:.3e} > {SERVE_TP_REL}")
+    for tree, r in rel.items():
+        print(f"serve_mesh: teacher-forced decode logits of the {tree} weights on model=2 "
+              f"against one rank, relative {r:.3e} (SERVE_TP_REL {SERVE_TP_REL})", flush=True)
+        if not r <= SERVE_TP_REL:
+            fails.append(f"{tree} weights: teacher-forced logits relative {r:.3e} > "
+                         f"{SERVE_TP_REL}")
     if fails:
         raise AssertionError("; ".join(fails))
 
@@ -3907,6 +4057,7 @@ def main() -> int:
         run("train_7b", phase_train_7b, res)
         run("train_window", phase_train_window, res)
         run("train_mesh", phase_train_mesh, res, args.steps)
+        run("train_pipe", phase_train_pipe, res, args.steps)
         serving: dict = {}
         run("generate", phase_generate, res, serving)
         run("serve", phase_serve, res, serving)

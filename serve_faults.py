@@ -79,7 +79,14 @@ one-rank pool's on the same tokens (``chip_smoke.serve_mesh_rel``; held to
 - ``mesh_sound``;
 - ``mesh_down_g_dropped``: decode leaves the down projection's partial
   sums unsummed over ``model`` (``transformer._row_proj``), each rank
-  adding its own half of the MLP.
+  adding its own half of the MLP;
+- ``mesh_int8_scale_twice``: a row-split int8 site (o, down) applies its
+  scale on both sides of the sum over ``model`` (each rank's partial
+  product, as the package does, and the sum again).
+
+Each mesh fault is read on the bf16 weights and on their weight-only int8
+tree (``quant.quantize_params``; the batcher cuts it as JAX's
+``quantize_pspecs`` splits it).
 
 Each fault is a patch of one function of the package for its own run; no
 file changes. Prints the card's name and power limit, one line per reading
@@ -133,8 +140,11 @@ def _draft_gamma_steps(real):
 
 # serve_mesh's bound on the teacher-forced decode logits on model=2 against
 # one rank (relative norm error): set between the sound reading and the
-# planted fault's (``--mesh``): 1.286e-2 and 1.091 at SERVE_MESH_L (4)
-# layers, 1.834e-2 and 1.165 at 8, 2.517e-2 and 1.188 at 16; see CHANGES.md.
+# planted faults' (``--mesh``): 1.286e-2 and 1.091 at 4 layers (the down
+# projection's sum dropped), 1.834e-2 and 1.165 at 8, 2.517e-2 and 1.188 at
+# 16; the int8 tree at 4 layers 1.502e-2 and 1.321 (a row-split scale on
+# both sides of the sum); at 2 layers (SERVE_MESH_L now) 8.838e-3
+# and 0.947, the int8 tree 1.053e-2 and 1.325.
 SERVE_TP_REL = 0.1
 
 
@@ -149,26 +159,48 @@ def _down_g_dropped(real):
     return row_proj
 
 
+def _int8_scale_twice(real):
+    def row_proj(h, lp, name, dot=None, lora_scale=1.0, tp=None):
+        out = real(h, lp, name, dot, lora_scale, tp)
+        from tpu_engine_torch.quant import QuantWeight, mul_round
+
+        w = lp[f"{name}.kernel"]
+        if tp is None or not isinstance(w, QuantWeight):
+            return out
+        bias = lp.get(f"{name}.bias")
+        if bias is not None:
+            out = out - bias.to(out.dtype)
+        out = mul_round(out, w.scale, out.dtype)  # the scale again, after the sum
+        return out if bias is None else out + bias.to(out.dtype)
+
+    return row_proj
+
+
 def mesh_fault(name: str):
     """The patch of the planted serving mesh fault ``name`` (for
     :func:`_patched`)."""
     from tpu_engine_torch.models import transformer as tfm
 
-    return {"down_g_dropped": (tfm, "_row_proj", _down_g_dropped)}[name]
+    return {"down_g_dropped": (tfm, "_row_proj", _down_g_dropped),
+            "int8_scale_twice": (tfm, "_row_proj", _int8_scale_twice)}[name]
 
 
 def main_mesh(card: str) -> dict:
     """The mesh readings (module docstring): each a two-rank job of
-    ``chip_smoke._mesh_serve`` in its "teacher" mode."""
+    ``chip_smoke._mesh_serve`` in its "teacher" mode, read on the bf16
+    weights and on their weight-only int8 tree."""
     import chip_smoke as cs
 
     cfg, params = cs._serve_mesh_model({})
     out = {"card": card, "serve_tp_rel": SERVE_TP_REL, "layers": cs.SERVE_MESH_L}
-    for name, fault in (("mesh_sound", None), ("mesh_down_g_dropped", "down_g_dropped")):
+    for name, fault in (("mesh_sound", None), ("mesh_down_g_dropped", "down_g_dropped"),
+                        ("mesh_int8_scale_twice", "int8_scale_twice")):
         ranks = cs.mesh_launch([], 2, 0, f"faults_{name}", fault, serve="teacher")
-        out[name] = cs.serve_mesh_rel(cfg, params, ranks)
-        print(f"{name}: teacher-forced decode logits on model=2 against one rank, relative "
-              f"{out[name]:.4e} (SERVE_TP_REL {SERVE_TP_REL})", flush=True)
+        for tree in ("bf16", "int8"):
+            r = out[f"{name}:{tree}"] = cs.serve_mesh_rel(cfg, params, ranks, tree)
+            print(f"{name}: teacher-forced decode logits of the {tree} weights on model=2 "
+                  f"against one rank, relative {r:.4e} (SERVE_TP_REL {SERVE_TP_REL})",
+                  flush=True)
     return out
 
 

@@ -120,19 +120,18 @@ _KW = dict(model_name="gpt-tiny", micro_batch_size=1, seq_len=32)
 def test_mesh_refusals():
     """JAX's ValueErrors first, then NotImplementedError for the axes and
     combinations the port does not run; a mesh of more ranks than the
-    process has raises JAX's shape error."""
+    process has raises JAX's shape error (LoRA on ``model`` and ``pipe``
+    meshes pass the refusals since they run)."""
     moe = tcfg.MODEL_CONFIGS["moe-tiny"]
     with pytest.raises(ValueError, match="expert parallelism"):
         ttrain.build_train_program(ttrain.TrainConfig(mesh=tmr.MeshConfig(model=2), **_KW),
                                    model_cfg=moe.with_(moe_impl="ragged"), device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        ttrain.build_train_program(ttrain.TrainConfig(mesh=tmr.MeshConfig(model=2),
-                                                      lora_rank=4, **_KW), device="cpu")
+    for mesh, kw in ((dict(model=2), dict(lora_rank=4)), (dict(pipe=2), {})):
+        want = _error(lambda: jmr.MeshConfig(**mesh).resolved_shape(1))
+        assert _error(lambda: ttrain.build_train_program(
+            ttrain.TrainConfig(mesh=tmr.MeshConfig(**mesh), **kw, **_KW), device="cpu")) == want
     with pytest.raises(ValueError, match="divisible by the pipe"):
         ttrain.build_train_program(ttrain.TrainConfig(mesh=tmr.MeshConfig(pipe=4), **_KW),
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="pipe"):
-        ttrain.build_train_program(ttrain.TrainConfig(mesh=tmr.MeshConfig(pipe=2), **_KW),
                                    device="cpu")
     with pytest.raises(NotImplementedError, match="grad_allreduce_dtype"):
         ttrain.TrainConfig(grad_allreduce_dtype="bf16", **_KW)

@@ -1,7 +1,9 @@
 """One rank of the port's mesh tests (``tests/test_torch_mesh.py``,
 ``tests/test_torch_mesh_train.py``, ``tests/test_torch_tp_train.py``,
-``tests/test_torch_tp_serving.py``), run as its own process on the CPU with
-``gloo``, and the parent's launcher (:func:`spawn`).
+``tests/test_torch_tp_serving.py``, ``tests/test_torch_pipeline.py``,
+``tests/test_torch_tp_lora.py``, ``tests/test_torch_tp_int8_serving.py``),
+run as its own process on the CPU with ``gloo``, and the parent's launcher
+(:func:`spawn`).
 
 ``python tests/torch_mesh_worker.py JOB RANK WORLD`` reads the job (JSON:
 the rendezvous store, the output directory, the cases), joins the process
@@ -79,25 +81,11 @@ def _runtime(mesh: dict):
 def _whole_grads(prog, state, batch) -> dict:
     """The step's gradients of ``batch`` at ``state``'s weights, reduced
     over the ranks as the step reduces them and gathered whole (over
-    ``fsdp`` where they are split, then over ``model``)."""
-    from torch.utils.checkpoint import set_checkpoint_early_stop
-
-    from tpu_engine_torch.parallel.collectives import gather_dim
-    from tpu_engine_torch.train import accumulate_grads
-
-    z = prog.zero
-    rows, denom = prog._rows_and_denom(batch)
-    with set_checkpoint_early_stop(False):
-        _, grads = accumulate_grads(prog.loss_fn, state["params"], rows,
-                                    prog.stream.sums if prog.stream else None, denom)
-    out = {}
-    for k, g in z.reduce_grads(grads).items():
-        if z.grads_split and z.dims[k] is not None:
-            g = gather_dim(g, z.dims[k], z.fsdp)
-        if z.mdims[k] is not None:
-            g = gather_dim(g, z.mdims[k], z.model)
-        out[f"grad:{k}"] = g.numpy()
-    return out
+    ``fsdp`` where they are split, then over ``model``, then over
+    ``pipe``)."""
+    _, grads = prog.mesh_grads(state["params"], batch)
+    whole = prog.whole_tree(grads, split=prog.zero.grads_split)
+    return {f"grad:{k}": g.numpy() for k, g in whole.items()}
 
 
 def _train(case: dict, rank: int) -> dict:
@@ -126,19 +114,29 @@ def _train(case: dict, rank: int) -> dict:
     out = {"param_bytes": nbytes(state["params"]),
            "opt_bytes": sum(nbytes(t) for n, t in state["opt_state"].items() if n != "count")}
     out.update({f"numel:{k}": p.numel() for k, p in state["params"].items()})
+    if case.get("held"):  # the leaves this rank holds, as placed
+        out.update({f"held:{k}": p.detach().numpy().copy() for k, p in state["params"].items()})
+    out["schedule"] = prog.pipeline_schedule
     if case.get("grads"):
         out.update(_whole_grads(prog, state, torch.tensor(np.load(case["batches"])[0],
                                                           dtype=torch.long)))
     losses, norms = [], []
+    from tpu_engine_torch.parallel import collectives
+
     for b in np.load(case["batches"]):
+        collectives.reset_moved()  # the bytes of the last step are kept
         state, m = prog.step(state, torch.tensor(b, dtype=torch.long))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    out.update({f"moved:{k}": v for k, v in collectives.moved.items()})
     out.update(losses=np.array(losses), norms=np.array(norms))
     out["eval"] = float(prog.eval_step(state, torch.tensor(np.load(case["batches"])[0],
                                                            dtype=torch.long)))
     for k, p in prog.whole_params(state).items():
         out[f"param:{k}"] = p.detach().numpy()
+    if case.get("merged"):  # LoRA: this rank's block of the merged tree
+        out.update({f"merged:{k}": p.numpy()
+                    for k, p in prog.merged_params(state["params"]).items()})
     return out
 
 
@@ -181,6 +179,20 @@ def _serve(case: dict, rank: int) -> dict:
     rt = _runtime(case["mesh"])
     cfg = MODEL_CONFIGS[case["model"]]
     params = {k: torch.tensor(v) for k, v in np.load(case["init"]).items()}
+    held = {}
+    if case.get("quant") == "tree":  # the whole int8 tree; the batcher cuts it
+        from tpu_engine_torch.quant import quantize_params
+
+        params = quantize_params(params)
+    elif case.get("quant") == "snapshot":  # this rank's blocks, read from the files
+        from tpu_engine_torch.quant import QuantWeight, load_quantized
+
+        params = load_quantized(case["snapshot"], device="cpu", mesh=rt)
+        for k, v in params.items():
+            if isinstance(v, QuantWeight):
+                held[f"held:{k}.q"], held[f"held:{k}.scale"] = v.q.numpy(), v.scale.numpy()
+            else:
+                held[f"held:{k}"] = v.numpy()
     if case.get("refusals"):  # a draft on the mesh, and a mesh with data=2
         out = {}
         try:
@@ -219,7 +231,7 @@ def _serve(case: dict, rank: int) -> dict:
         while not srv._closed:
             srv.step()
     out = {"hits": srv.stats().get("prefix_cache", {}).get("hits", 0),
-           "kv_heads": srv._cache.k.shape[2]}
+           "kv_heads": srv._cache.k.shape[2], **held}
     for i in range(len(plan)):
         res = srv.result(i)
         out[f"tokens:{i}"] = np.array(res["tokens"])

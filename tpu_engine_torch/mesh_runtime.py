@@ -7,7 +7,10 @@ The mesh has JAX's five axes, outer to inner:
 - ``data``: data parallelism (gradients all-reduced);
 - ``fsdp``: ZeRO sharding of parameters, gradients and optimizer state
   (``tpu_engine_torch/sharding.py``);
-- ``pipe``: pipeline stages (not ported: ``pipe > 1`` raises);
+- ``pipe``: pipeline stages, one rank a stage: each holds a contiguous
+  block of the layers and trades boundary activations and their
+  cotangents with its neighbours (:meth:`MeshRuntime.stage_peers`,
+  ``tpu_engine_torch/parallel/pipeline.py``);
 - ``sequence``: sequence parallelism (ring or Ulysses attention across
   ranks, ``tpu_engine_torch/parallel``);
 - ``model``: tensor and expert parallelism (whole heads, MLP columns,
@@ -229,6 +232,42 @@ class MeshRuntime:
         for axes in (TOKEN_AXES, ("data", "sequence"), (*TOKEN_AXES, "model"),
                      ("data", "sequence", "model")):
             self._make(axes)
+        self._ends = self._make_ends()
+
+    def _make_ends(self):
+        """The group of the first and the last stage of this rank's
+        pipeline (the two holders of a tied table), or None under three
+        stages (the ``pipe`` group itself serves at two)."""
+        n = self.axis_sizes["pipe"]
+        if n < 3:
+            return None
+        ranks = torch.arange(self.n_devices).reshape(self.shape).movedim(2, -1)
+        mine = None
+        for row in ranks.reshape(-1, n).tolist():
+            g = dist.new_group([row[0], row[-1]])
+            if self.rank in (row[0], row[-1]):
+                mine = g
+        return mine
+
+    def stage_peers(self) -> tuple[Optional[int], Optional[int]]:
+        """The global ranks of this rank's previous and next pipeline
+        stage (None at the first and the last)."""
+        n, p = self.axis_sizes["pipe"], self.coords["pipe"]
+        ranks = torch.arange(self.n_devices).reshape(self.shape)
+        idx = [self.coords[a] for a in MESH_AXES]
+
+        def at(q):
+            idx[2] = q
+            return int(ranks[tuple(idx)])
+
+        return (at(p - 1) if p > 0 else None), (at(p + 1) if p < n - 1 else None)
+
+    def ends_group(self):
+        """The group of the first and the last pipeline stage (None at one
+        stage)."""
+        if self.axis_sizes["pipe"] == 1:
+            return None
+        return self.group("pipe") if self.axis_sizes["pipe"] == 2 else self._ends
 
     @property
     def axis_sizes(self) -> dict[str, int]:

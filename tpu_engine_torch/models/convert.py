@@ -148,6 +148,48 @@ def lora_from_jax(tree: dict, device="cuda",
             for t, ab in tree["layers"].items() for name in ("A", "B")}
 
 
+def stage_block_np(flat: dict[str, Any], cfg, n_stages: int, index: int) -> dict[str, Any]:
+    """Stage ``index``'s leaves of a flat tree of JAX's parameters (numpy,
+    the port's keys): its block of every stacked ``layers.*`` leaf and the
+    outer leaves it holds (``sharding.stage_keys``), what the program on a
+    ``pipe`` mesh places on that rank."""
+    from tpu_engine_torch import sharding
+
+    first, per = sharding.stage_layers(cfg.n_layers, n_stages, index)
+    return {k: flat[k][first:first + per] if k.startswith("layers.") else flat[k]
+            for k in sharding.stage_keys(cfg, flat, n_stages, index)}
+
+
+def model_block_np(flat: dict[str, Any], cfg, n_model: int, index: int) -> dict[str, Any]:
+    """Rank ``index``'s ``model`` blocks of a flat numpy tree (the port's
+    keys): model leaves, LoRA adapters (``layers.<t>.A``/``.B``) or an int8
+    tree (a site anything with ``q`` and ``scale``: codes and scale split
+    as ``QuantWeight.narrow`` splits them, returned as ``(q, scale)``), the
+    numpy counterpart of ``tensor_parallel.model_block``."""
+    from tpu_engine_torch import sharding
+
+    logical = sharding.logical_axes(cfg)
+    targets = [k[len("layers."):-len(".A")] for k in flat if k.endswith(".A")]
+    logical.update(sharding.lora_logical_axes(logical, targets))
+    dims = sharding.model_split(cfg, logical, n_model)
+
+    def cut(a, d, contracted=False):
+        if d is None or contracted:
+            return np.asarray(a)
+        per = a.shape[d] // n_model
+        return np.take(np.asarray(a), np.arange(index * per, (index + 1) * per), axis=d)
+
+    out: dict[str, Any] = {}
+    for k, v in flat.items():
+        d = dims.get(k)
+        if hasattr(v, "q") and hasattr(v, "scale"):
+            q = np.asarray(v.q)
+            out[k] = (cut(q, d), cut(v.scale, d, d is not None and d == q.ndim - 2))
+        else:
+            out[k] = cut(v, d)
+    return out
+
+
 def params_to_numpy(params: dict[str, torch.Tensor]) -> dict:
     """The port's flat parameters → the JAX-shaped nested dict of float32
     numpy arrays (for comparing updated weights across packages)."""

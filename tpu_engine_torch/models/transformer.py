@@ -343,7 +343,11 @@ def _row_proj(h: torch.Tensor, lp: dict[str, torch.Tensor], name: str, dot=None,
     product over its rows, summed by ``g``, then the bias added once."""
     if tp is None:
         return _layer_proj(h, lp, name, dot, lora_scale)
-    out = reduce_from(_proj(h, lp[f"{name}.kernel"], None, None, lora_scale, dot), tp)
+    # A LoRA term rides inside the sum: the rank's rows of A give a partial
+    # x·A, so (Σ x_i·A_i)·B = Σ (x_i·A_i)·B (B's gradient is partial).
+    a = lp.get(f"{name}.A")
+    out = reduce_from(_proj(h, lp[f"{name}.kernel"], None,
+                            None if a is None else (a, lp[f"{name}.B"]), lora_scale, dot), tp)
     bias = lp.get(f"{name}.bias")
     return out if bias is None else out + bias.to(out.dtype)
 
@@ -388,9 +392,11 @@ def _qkv(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
         if tp is None or tp.kv_split or not kv_local:
             return _layer_proj(h, lp, name, dot, lora_scale)
         cols = (tp.kv_first * HD, tp.kv_count * HD)
-        bias = lp.get(f"{name}.bias")
+        bias, a = lp.get(f"{name}.bias"), lp.get(f"{name}.A")
         return _proj(h, lp[f"{name}.kernel"].narrow(-1, *cols),
-                     None if bias is None else bias.narrow(-1, *cols), dot=dot)
+                     None if bias is None else bias.narrow(-1, *cols),
+                     None if a is None else (a, lp[f"{name}.B"].narrow(-1, *cols)),
+                     lora_scale, dot)
 
     q = _layer_proj(h, lp, "q", dot, lora_scale).reshape(B, S, -1, HD)
     k = kv("k").reshape(B, S, -1, HD)
@@ -885,6 +891,23 @@ def forward_hidden_and_aux(
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_tokens(params, tokens, compute_dtype, positions=positions, cfg=cfg, mesh=mesh)
+    x, auxes = run_layers(params, x, cfg, positions, cfg.n_layers, compute_dtype, policy,
+                          sequence, lora, lora_scale, layer_stream, mesh)
+    if cfg.is_moe:
+        return x, torch.stack(auxes).mean()
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def run_layers(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+               n_layers: int, compute_dtype=torch.bfloat16, policy: Optional[str] = None,
+               sequence: Optional[int] = None, lora=None, lora_scale: float = 1.0,
+               layer_stream=None, mesh=None):
+    """The first ``n_layers`` blocks of the stacked leaves of ``params``
+    (or of ``layer_stream``) over the activations ``x`` [B, S, D], each
+    checkpointed under the remat ``policy`` (None: no checkpoint). Returns
+    (x, the blocks' MoE aux losses, a list; Nones for a dense MLP). A
+    pipeline stage runs its own block of layers through it
+    (``tpu_engine_torch/parallel/pipeline.py``)."""
     if layer_stream is None:
         stack = cast_layer_stack(params, compute_dtype)
         if lora is not None:
@@ -894,19 +917,17 @@ def forward_hidden_and_aux(
         # copies.
         layers = {k: t.unbind(0) for k, t in stack.items()}
     auxes = []
-    for i in range(cfg.n_layers):
+    for i in range(n_layers):
         if layer_stream is None:
             lp = {k: t[i] for k, t in layers.items()}
         else:
             lp = partial(layer_stream.layer, i)
-        if remat:
+        if policy is not None:
             x, aux = _remat_block(policy, x, lp, cfg, positions, sequence, lora_scale, mesh)
         else:
             x, aux = _block(x, lp, cfg, positions, sequence, lora_scale, mesh)
         auxes.append(aux)
-    if cfg.is_moe:
-        return x, torch.stack(auxes).mean()
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, auxes
 
 
 def forward_and_aux(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16,
@@ -934,6 +955,7 @@ def forward(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16,
 __all__ = [
     "ModelConfig", "MODEL_CONFIGS", "init_params", "param_count",
     "active_param_count", "train_flops_per_token", "embed_tokens", "unembed",
-    "cast_layer_stack", "inference_params", "forward_hidden_and_aux", "forward_and_aux", "forward",
+    "cast_layer_stack", "inference_params", "forward_hidden_and_aux", "run_layers",
+    "forward_and_aux", "forward",
     "REMAT_POLICIES", "resolve_remat_policy",
 ]

@@ -69,14 +69,32 @@ def model_axis(mesh, cfg) -> Optional[ModelAxis]:
 
 
 def model_block(params: dict, cfg, n_model: int, index: int) -> dict:
-    """Rank ``index``'s blocks of the whole leaves ``params`` (views: a leaf
-    on the host is not copied), by :func:`~tpu_engine_torch.sharding.model_split`."""
-    dims = sharding.model_split(cfg, sharding.logical_axes(cfg), n_model)
+    """Rank ``index``'s blocks of ``params`` (views: a leaf on the host is
+    not copied), by :func:`~tpu_engine_torch.sharding.model_split`: the
+    model's leaves, LoRA's adapters (``layers.<t>.A``/``.B``) and int8
+    :class:`~tpu_engine_torch.quant.QuantWeight` sites (codes and scale,
+    ``QuantWeight.narrow``). A leaf that already has its block's size along
+    the split dim (one :func:`~tpu_engine_torch.quant.load_quantized` read
+    with ``mesh=``) is the rank's block and is kept."""
+    logical = sharding.logical_axes(cfg)
+    targets = [k[len("layers."):-len(".A")] for k in params if k.endswith(".A")]
+    logical.update(sharding.lora_logical_axes(logical, targets))
+    dims = sharding.model_split(cfg, logical, n_model)
+    whole = sharding.whole_shapes(cfg, targets)
     out = {}
     for k, p in params.items():
         d = dims.get(k)
-        out[k] = p if d is None else p.narrow(d, index * (p.shape[d] // n_model),
-                                              p.shape[d] // n_model)
+        if d is None:
+            out[k] = p
+            continue
+        n = whole[k][d] // n_model
+        if p.shape[d] == n:
+            out[k] = p
+        elif p.shape[d] == whole[k][d]:
+            out[k] = p.narrow(d, index * n, n)
+        else:
+            raise ValueError(f"{k}: dim {d} of size {p.shape[d]} is neither whole "
+                             f"({whole[k][d]}) nor a model block ({n})")
     return out
 
 

@@ -75,6 +75,11 @@ class ZeroLayout:
             if d is not None and shapes[k][d] % self.n_fsdp:
                 raise ValueError(f"{k}: dim {d} of size {shapes[k][d]} does not split "
                                  f"over fsdp={self.n_fsdp}")
+        # A pipeline stage's (the program sets them): the pipe group, over
+        # which the gradient norm's squares sum, and the leaves this stage
+        # leaves out of the norm (a tied table counted on the first stage).
+        self.pipe = None
+        self.norm_skip: frozenset = frozenset()
         self.params_split = self.stage >= sharding.ShardingStage.FULL_PARTITIONING
         self.grads_split = self.stage >= sharding.ShardingStage.GRADIENT_PARTITIONING
         self.state_split = self.stage >= sharding.ShardingStage.OPTIMIZER_STATE
@@ -108,13 +113,15 @@ class ZeroLayout:
             return params
         return {k: self.shard(k, p) for k, p in params.items()}
 
-    def whole(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        """Whole leaves from what this rank holds (gathers over ``fsdp`` at
-        stage 3, then over ``model``)."""
-        if self.params_split:
+    def whole(self, params: dict[str, torch.Tensor], fsdp: Optional[bool] = None,
+              model: bool = True) -> dict[str, torch.Tensor]:
+        """Whole leaves from what this rank holds: gathered over ``fsdp``
+        where ``fsdp`` (default: at stage 3, where the params are split),
+        then over ``model`` unless ``model`` is False (the rank's blocks)."""
+        if self.params_split if fsdp is None else fsdp:
             params = {k: gather_dim(p.detach(), d, self.fsdp) if (d := self.dims[k]) is not None
                       else p for k, p in params.items()}
-        if self.model is None:
+        if self.model is None or not model:
             return params
         return {k: gather_dim(p.detach(), d, self.model) if (d := self.mdims[k]) is not None
                 else p for k, p in params.items()}
@@ -154,7 +161,16 @@ class ZeroLayout:
         """The global norm of the reduced gradients: each rank's own shards'
         squares summed over ``fsdp`` and its ``model`` blocks' over
         ``model``, each leaf held whole on those ranks counted once.
-        ``norm`` is the one-rank norm of a list (``train.global_norm``)."""
+        ``norm`` is the one-rank norm of a list (``train.global_norm``). On
+        a pipeline stage the squares of its leaves (:attr:`norm_skip` left
+        out) sum over ``pipe``."""
+        if self.pipe is None:
+            return self._stage_norm(grads, norm)
+        grads = {k: g for k, g in grads.items() if k not in self.norm_skip}
+        sq = self._stage_norm(grads, norm).square().reshape(1)
+        return all_reduce_(sq, self.pipe)[0].sqrt()
+
+    def _stage_norm(self, grads: dict[str, torch.Tensor], norm) -> torch.Tensor:
         if self.model is not None:
             return self._grad_norm_model(grads, norm)
         split = [g for k, g in grads.items() if self.dims[k] is not None]

@@ -64,6 +64,22 @@ class QuantWeight:
     def to(self, device) -> "QuantWeight":
         return QuantWeight(self.q.to(device), self.scale.to(device))
 
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    def narrow(self, dim: int, start: int, length: int) -> "QuantWeight":
+        """A block of the codes along ``dim`` and the scale's matching block
+        (JAX's ``quantize_pspecs``): the scale takes the codes' split,
+        except along the contracted dim (its size 1 there), where a
+        row-split site keeps the whole scale."""
+        dim = dim % self.q.dim()
+        scale = self.scale if dim == self.q.dim() - 2 else self.scale.narrow(dim, start, length)
+        return QuantWeight(self.q.narrow(dim, start, length), scale)
+
+    def clone(self) -> "QuantWeight":
+        return QuantWeight(self.q.clone(), self.scale.clone())
+
 
 def quantize_weight(w: torch.Tensor, axis: int = -2) -> QuantWeight:
     """Symmetric int8 quantization with the absmax taken over ``axis`` (the
@@ -227,32 +243,57 @@ def load_quantized_config(snapshot_dir: str) -> Optional[ModelConfig]:
     return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in raw.items()})
 
 
-def load_quantized(snapshot_dir: str, device="cuda") -> dict[str, Any]:
+def load_quantized(snapshot_dir: str, device="cuda", mesh=None,
+                   cfg: Optional[ModelConfig] = None) -> dict[str, Any]:
     """The flat serving tree of a snapshot written by either package's
     ``save_quantized``, on ``device``. Each leaf is memory-mapped and
     copied to the device before the next is read, so the host never holds
-    the tree. (Mesh-sharded loading, JAX's ``shardings``, waits for
-    multi-GPU serving.)"""
+    the tree.
+
+    ``mesh`` (a :class:`~tpu_engine_torch.mesh_runtime.MeshRuntime`; JAX's
+    ``shardings``): the tree of this rank's ``model`` blocks
+    (:func:`~tpu_engine_torch.sharding.model_split`; at a quantized site
+    the codes take the kernel's split and the scale the same one, whole
+    along the contracted dim). Each rank reads only its block of each
+    memory-mapped leaf, leaf by leaf. ``cfg`` defaults to the snapshot's
+    recorded config."""
     with open(os.path.join(snapshot_dir, _MANIFEST)) as f:
         leaves = json.load(f)["leaves"]
+    dims: dict[str, Optional[int]] = {}
+    n = index = 1
+    if mesh is not None and mesh.axis_sizes["model"] > 1:
+        from tpu_engine_torch import sharding
 
-    def put(path: str) -> torch.Tensor:
+        cfg = cfg or load_quantized_config(snapshot_dir)
+        if cfg is None:
+            raise ValueError("load_quantized(mesh=...) needs cfg: the snapshot records none")
+        n, index = mesh.axis_sizes["model"], mesh.coords["model"]
+        dims = sharding.model_split(cfg, sharding.logical_axes(cfg), n)
+
+    def put(path: str, dim: Optional[int] = None) -> torch.Tensor:
         meta = leaves[path]
         host = np.load(os.path.join(snapshot_dir, meta["file"]), mmap_mode="r")
+        if dim is not None:  # this rank's block of the mapped file, read alone
+            per = host.shape[dim] // n
+            host = host[(slice(None),) * dim + (slice(index * per, (index + 1) * per),)]
         want = _TORCH_DTYPES[meta["dtype"]]
         if want == torch.bfloat16:
             # Raw 16-bit words (JAX writes them as void, this package as int16).
-            bits = torch.from_numpy(np.array(host).view(np.int16))
-            return bits.view(torch.bfloat16).reshape(meta["shape"]).to(device)
+            bits = torch.from_numpy(np.ascontiguousarray(host).view(np.int16))
+            return bits.view(torch.bfloat16).reshape(host.shape).to(device)
         return torch.from_numpy(np.array(host, dtype=_NP_DTYPES[want])).to(device)
 
     tree: dict[str, Any] = {}
     for path, meta in leaves.items():
+        key = path.replace("/", ".")
         if meta["kind"] == "array":
-            tree[path.replace("/", ".")] = put(path)
+            tree[key] = put(path, dims.get(key))
         elif meta["kind"] == "quant_q":
             site = path.removesuffix(".q")
-            tree[site.replace("/", ".")] = QuantWeight(q=put(path), scale=put(site + ".scale"))
+            d = dims.get(site.replace("/", "."))
+            contracted = d is not None and d == len(meta["shape"]) - 2
+            tree[site.replace("/", ".")] = QuantWeight(
+                q=put(path, d), scale=put(site + ".scale", None if contracted else d))
     return tree
 
 

@@ -48,7 +48,14 @@ Deliberate differences from JAX:
 On a mesh (``mesh=``, a :class:`~tpu_engine_torch.mesh_runtime.MeshRuntime`
 whose ranks all lie on ``model``, as the serving fleet's): each rank is a
 process that holds its ``model`` blocks of the weights and its kv heads of
-the pool (``tpu_engine_torch/generate.py``). ``submit`` is called on rank 0;
+the pool (``tpu_engine_torch/generate.py``). A weight-only int8 tree splits
+as JAX's ``quantize_pspecs`` does (``QuantWeight.narrow``): a column-split
+site's codes and scales on the output (or expert) dim, a row-split site's
+codes on the input dim with the whole scale, which multiplies each rank's
+partial product before ``g``'s all-reduce sums them (one place: ``_proj``).
+The parameters may be whole or already the rank's blocks (``load_quantized``
+with ``mesh=``). A draft on a mesh stays refused (JAX's
+``draft_mesh_sharded``). ``submit`` is called on rank 0;
 each ``step`` first broadcasts rank 0's new admissions over ``model``, so
 every rank runs the same plan, and every rank draws the same tokens from
 the logits gathered whole. Results are read on rank 0 (every rank holds
@@ -56,8 +63,8 @@ the same). Rank 0's :meth:`ContinuousBatcher.shutdown` (or its
 ``serve_forever`` stopping) ends the other ranks' ``serve_forever``.
 
 Not ported yet; each raises ``NotImplementedError`` when asked for: a
-mesh with ``data``, ``fsdp``, ``pipe`` or ``sequence`` above 1, a weight-only
-int8 tree on a mesh, and the disaggregated-serving plane (``hold_kv``,
+mesh with ``data``, ``fsdp``, ``pipe`` or ``sequence`` above 1, and the
+disaggregated-serving plane (``hold_kv``,
 ``submit_prefilled``, ``request_handoff``, ``release_held``,
 ``take_handoff``, ``wait_handoff``, ``export_prefix``, ``install_prefix``),
 after JAX's own guards (a speculative server refuses ``hold_kv`` and
@@ -480,6 +487,14 @@ class _PrefillState:
         return self.toks.shape[1]
 
 
+def _own(t):
+    """``t`` with storage of its own size (a clone of a view into a larger
+    leaf), for a tensor or both halves of a :class:`QuantWeight`."""
+    if isinstance(t, QuantWeight):
+        return QuantWeight(_own(t.q), _own(t.scale))
+    return t.clone() if t.untyped_storage().nbytes() > t.nbytes else t
+
+
 class ContinuousBatcher:
     """Slot-pool batcher over :func:`decode_chunk`.
 
@@ -522,10 +537,6 @@ class ContinuousBatcher:
                     f"serving on a mesh with {others} is not ported: the batcher runs on a "
                     "mesh whose ranks all lie on model (ROADMAP Queue 1, item 4: the serving "
                     "fleet)")
-            if any(isinstance(p, QuantWeight) for p in params.values()):
-                raise NotImplementedError(
-                    "a weight-only int8 tree on a mesh is not ported (ROADMAP Queue 1, "
-                    "item 2.2: quant.py shardings)")
             self._tp = model_axis(mesh, cfg)
             self._lead = mesh.coords["model"] == 0
             if self._tp is not None:
@@ -613,8 +624,7 @@ class ContinuousBatcher:
         _require_ported(cfg)
         self.params = inference_params(params, compute_dtype, self.device)
         if self._tp is not None:  # a block owns its bytes: the whole leaf it came from can go
-            self.params = {k: v.clone() if v.untyped_storage().nbytes() > v.nbytes else v
-                           for k, v in self.params.items()}
+            self.params = {k: _own(v) for k, v in self.params.items()}
 
         self._slots: list[Optional[Request]] = [None] * self.max_slots
         self._last_tokens = np.zeros((self.max_slots,), np.int64)

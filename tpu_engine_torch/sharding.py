@@ -34,9 +34,20 @@ vocabulary blocks, under one rule:
 
 A leaf ``model`` leaves whole may get only part of its gradient on a rank
 (:func:`model_partial`): qwen's q/k norm scales and whole K/V kernels
-(used on the rank's heads alone) and the MoE router (each rank's combine
-covers its own experts). Those gradients are summed over ``model``; every
-other whole leaf gets the whole gradient on every rank.
+(used on the rank's heads alone), the MoE router (each rank's combine
+covers its own experts), and LoRA's whole factors: A of a column-split
+target (every rank's B columns pull on it) and B of a row-split one (its
+term is applied to the rank's partial ``x·A`` before ``g`` sums it). Those
+gradients are summed over ``model``; every other whole leaf gets the whole
+gradient on every rank.
+
+Where ``pipe`` falls (:func:`stage_keys`, :func:`resolve_pipeline_schedule`):
+the ``layers`` → ``pipe`` rule of ``_PIPE_AXES`` gives stage p the
+contiguous block of ``n_layers / pipe`` layers starting at p · L/P of every
+stacked leaf; the outer leaves live on the stage that uses them (Megatron's
+placement, where JAX replicates them over ``pipe``): the embedding and
+gpt2's positions on the first stage, the final norm and the head on the
+last, a tied table (gpt2, gemma) on both.
 """
 
 from __future__ import annotations
@@ -243,7 +254,46 @@ def model_partial(cfg, logical: dict[str, tuple], n_model: int) -> frozenset:
     split = model_split(cfg, logical, n_model)
     keys = {"layers.q_norm.scale", "layers.k_norm.scale", "layers.router.kernel",
             "layers.k.kernel", "layers.v.kernel", "layers.k.bias", "layers.v.bias"}
-    return frozenset(k for k in keys if k in logical and split[k] is None)
+    base = logical_axes(cfg)
+    kernels = model_split(cfg, base, n_model)
+    whole_kv = {k for k in keys if k in base and kernels[k] is None}
+    out = {k for k in keys if k in logical and split[k] is None}
+    # LoRA's factors (lora_logical_axes: A (layers, in, None), B (layers,
+    # None, out)); the kernel's own split says which factor is partial.
+    for k in logical:
+        target, _, factor = k.rpartition(".")
+        if factor not in ("A", "B") or split[k] is not None:
+            continue
+        d = kernels[f"{target}.kernel"]
+        if (d == 2 and factor == "A"          # column-split: B's columns pull on A
+                or d == 1 and factor == "B"   # row-split: B's term sums over model
+                or f"{target}.kernel" in whole_kv):  # whole K/V, a kv head a rank
+            out.add(k)
+    return frozenset(out)
+
+
+def whole_shapes(cfg, lora_targets=(), lora_rank: int = 1) -> dict[str, tuple]:
+    """The whole shape of every leaf of ``cfg`` (and of the adapters of
+    ``lora_targets``, at ``lora_rank``), keyed as the port's flat dict."""
+    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    H, KV, HD, V, E = cfg.n_heads, kv_heads(cfg), cfg.head_dim, cfg.vocab_size, cfg.n_experts
+    out = {}
+    for k, lg in logical_axes(cfg).items():
+        size = {"vocab": V, "embed": D, "layers": L, "heads": H * HD, "kv_heads": KV * HD,
+                "mlp": F, "expert": E, None: None}
+        shape = [size[a] for a in lg]
+        if k == "pos_embed.embedding":
+            shape[0] = cfg.max_seq_len
+        elif k in ("layers.q_norm.scale", "layers.k_norm.scale"):
+            shape[1] = HD
+        elif k == "layers.router.kernel":
+            shape[2] = E
+        out[k] = tuple(shape)
+    for t in lora_targets:
+        lyr, i, o = out[f"layers.{t}.kernel"]
+        out[f"layers.{t}.A"] = (lyr, i, lora_rank)
+        out[f"layers.{t}.B"] = (lyr, lora_rank, o)
+    return out
 
 
 def local_kv_heads(cfg, n_model: int, index: int) -> tuple[int, int]:
@@ -256,3 +306,56 @@ def local_kv_heads(cfg, n_model: int, index: int) -> tuple[int, int]:
         return index * per, per
     group = cfg.n_heads // kv
     return index * (cfg.n_heads // n_model) // group, 1
+
+
+# ---------------------------------------------------------------------------
+# Pipelines (``pipe``)
+# ---------------------------------------------------------------------------
+
+PIPELINE_SCHEDULES = ("auto", "gpipe", "1f1b", "zb")
+
+
+def resolve_pipeline_schedule(cfg) -> str:
+    """JAX's ``resolve_pipeline_schedule``: ``"auto"`` is zb where the
+    microbatches outnumber the stages and the manual-vjp schedules support
+    the config (no chunked exit loss, no int8 training's custom backward,
+    no reduced-dtype gradient collectives), gpipe otherwise; an explicit
+    schedule is kept."""
+    if cfg.pipeline_schedule != "auto":
+        return cfg.pipeline_schedule
+    unsupported_manual = (
+        bool(cfg.loss_chunk_size)
+        or cfg.quant_training != "none"
+        or (cfg.grad_allreduce_dtype is not None and cfg.grad_allreduce_dtype != "fp32")
+    )
+    if (cfg.mesh.pipe > 1 and cfg.gradient_accumulation_steps > cfg.mesh.pipe
+            and not unsupported_manual):
+        return "zb"
+    return "gpipe"
+
+
+def outer_stages(cfg, key: str, n_stages: int) -> tuple[int, ...]:
+    """The stages that hold the non-layer leaf ``key``: the embedding (and
+    gpt2's position table) on the first, the final norm and an untied head
+    on the last, a tied table (gpt2, gemma) on both."""
+    last = n_stages - 1
+    if key == "embed.embedding":
+        return (0, last) if cfg.arch in ("gpt2", "gemma") and last else (0,)
+    if key == "pos_embed.embedding":
+        return (0,)
+    return (last,)
+
+
+def stage_keys(cfg, keys, n_stages: int, index: int) -> list[str]:
+    """The leaves of ``keys`` that stage ``index`` of ``n_stages`` holds:
+    every stacked leaf (its block of layers) and the outer leaves it uses."""
+    return [k for k in keys if k.startswith("layers.")
+            or index in outer_stages(cfg, k, n_stages)]
+
+
+def stage_layers(n_layers: int, n_stages: int, index: int) -> tuple[int, int]:
+    """(first layer, layers) of stage ``index``: its contiguous block."""
+    if n_layers % n_stages:
+        raise ValueError(f"n_layers={n_layers} not divisible by pipeline stages={n_stages}")
+    per = n_layers // n_stages
+    return index * per, per

@@ -24,10 +24,13 @@ On a mesh (``cfg.mesh``, ``cfg.sharding_stage``; a process group joined by
 ``mesh_runtime.initialize_distributed``) the step is JAX's GSPMD program's
 with explicit collectives (``tpu_engine_torch/parallel/zero.py``): ZeRO
 stages 0–3 over ``data`` and ``fsdp``, ring or Ulysses attention over
-``sequence``, and tensor and expert parallelism over ``model``
+``sequence``, tensor and expert parallelism over ``model``
 (``tpu_engine_torch/parallel/tensor_parallel.py``: each rank holds its
 heads, MLP columns, experts and vocabulary block; the loss's reductions
-run over the vocabulary blocks).
+run over the vocabulary blocks; LoRA's adapters split with their
+projections; Adafactor's factored means reduce over the split dims), and
+pipelines over ``pipe``, one rank a stage (GPipe, 1F1B and zero-bubble,
+``tpu_engine_torch/parallel/pipeline*.py``).
 """
 
 from __future__ import annotations
@@ -50,9 +53,11 @@ from tpu_engine_torch.mesh_runtime import TOKEN_AXES, MeshConfig, MeshRuntime
 from tpu_engine_torch.offload import GradSums, HostArena, HostParams, UpdateWalk
 from tpu_engine_torch.models import transformer as tfm
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig
-from tpu_engine_torch.parallel import zero
+from tpu_engine_torch.parallel import pipeline, zero
 from tpu_engine_torch.parallel.collectives import all_reduce_
-from tpu_engine_torch.parallel.tensor_parallel import model_axis, vocab_ce_sums
+from tpu_engine_torch.parallel.pipeline_1f1b import pipeline_1f1b_grads
+from tpu_engine_torch.parallel.pipeline_zb import pipeline_zb_grads
+from tpu_engine_torch.parallel.tensor_parallel import model_axis, model_block, vocab_ce_sums
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 _PLACES = ("none", "host", "disk")
@@ -74,15 +79,14 @@ class TrainConfig:
     ``sharding_stage``, ``grad_allreduce_dtype``), and ``sequence``, the
     ring size of sequence-parallel attention with every rank in this
     process (``mesh.sequence`` is the ring across ranks; setting both
-    raises). Values the port does not support raise; the combinations JAX
-    refuses raise JAX's messages. Still refused on a mesh, with
-    ``NotImplementedError``: ``pipe > 1``, ``grad_allreduce_dtype`` other
-    than fp32, (on more than one rank) host and disk placements, int8
-    training, Adafactor with its state split over ``fsdp`` and
-    dense-dispatch MoE over ``sequence``, and (on more than one ``model``
-    rank) LoRA, Adafactor with a factored moment over a ``model``-split
-    leaf, and a model whose heads, MLP or experts do not split
-    (``tpu_engine_torch/sharding.py``)."""
+    raises). ``pipeline_schedule`` is JAX's ("auto" resolves by
+    ``sharding.resolve_pipeline_schedule``). Values the port does not
+    support raise; the combinations JAX refuses raise JAX's messages.
+    Still refused on a mesh, with ``NotImplementedError``:
+    ``grad_allreduce_dtype`` other than fp32, (on more than one rank) host
+    and disk placements and int8 training, dense-dispatch MoE over
+    ``sequence``, and (on more than one ``model`` rank) a model whose
+    heads, MLP or experts do not split (``tpu_engine_torch/sharding.py``)."""
 
     model_name: str = "gpt-125m"
     micro_batch_size: int = 1
@@ -133,6 +137,7 @@ class TrainConfig:
     sharding_stage: int = 3
     mesh: MeshConfig = field(default_factory=MeshConfig)
     grad_allreduce_dtype: Optional[str] = None  # None | "fp32"
+    pipeline_schedule: str = "auto"  # auto | gpipe | 1f1b | zb (pipe > 1)
 
     def __post_init__(self):
         # Enum-valued fields of the JAX config arrive as str subclasses.
@@ -181,6 +186,8 @@ class TrainConfig:
             (self.sequence == 1 or self.mesh.sequence == 1,
              f"sequence={self.sequence} (a ring in this process) and mesh.sequence="
              f"{self.mesh.sequence} (a ring across ranks): set one"),
+            (self.pipeline_schedule in sharding.PIPELINE_SCHEDULES,
+             f"pipeline_schedule={self.pipeline_schedule!r}: auto, gpipe, 1f1b or zb"),
         ]
         for ok, msg in checks:
             if not ok:
@@ -202,6 +209,14 @@ class TrainConfig:
                 raise ValueError(
                     f"grad_allreduce_dtype={self.grad_allreduce_dtype!r} must "
                     f"be 'fp32' or match precision={self.precision!r}")
+            schedule = sharding.resolve_pipeline_schedule(self)
+            if self.mesh.pipe > 1 and schedule in ("1f1b", "zb"):
+                raise ValueError(
+                    f"grad_allreduce_dtype with pipeline_schedule="
+                    f"{schedule!r} is not supported: the manual-vjp schedule "
+                    "accumulates gradients in fp32 inside its scan, so the "
+                    "reduced-dtype collective the option exists for would never "
+                    "materialise (use 'gpipe', or drop grad_allreduce_dtype)")
             raise NotImplementedError(
                 f"grad_allreduce_dtype={self.grad_allreduce_dtype!r} is not ported "
                 "(ROADMAP Queue 1, item 2: comm.py, then comm_compress.py)")
@@ -353,7 +368,7 @@ class _Chain:
         for k, p, g, st in walk.walk(params, grads, state, self.elementwise):
             if g.dtype != torch.float32:
                 g = g.float().mul_(factor)
-            u = self.scale(g, p, st, count)
+            u = self.scale(g, p, st, count, k)
             low = p.dtype != torch.float32
             if self.weight_decay and (self.decay_all_params or decay[k]):
                 if low:
@@ -399,7 +414,7 @@ class AdamW(_Chain):
             "nu": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
         }
 
-    def scale(self, g, p, st, count):
+    def scale(self, g, p, st, count, key=None):
         mu, nu = st["mu"], st["nu"]
         bc1 = 1 - self.b1 ** (count + 1)
         bc2 = 1 - self.b2 ** (count + 1)
@@ -434,17 +449,41 @@ class Adafactor(_Chain):
     decay ``1 - (t + 1) ** -decay_rate`` at count t. The statistics are
     fp32 whatever the masters' dtype (optax's promote to fp32 at the first
     update). Its units are whole leaves (the factored means reduce over
-    them)."""
+    them).
+
+    On a mesh a leaf may be a rank's block (``splits``: key → the dims
+    ``model`` or ``fsdp`` split, each with its group and rank count; set
+    by the program). Whether a leaf is factored, and over which dims, is
+    decided on its whole shape (``shapes``): a split must not bring a
+    local dim under 128 and change the decision. A mean over a split dim
+    is the group's sum of the local means over its rank count (equal
+    blocks); the row means' own normalising mean likewise."""
 
     decay_rate: float = 0.8
     epsilon: float = 1e-30
     elementwise: ClassVar[bool] = False
+    shapes: dict = field(default_factory=dict)
+    splits: dict = field(default_factory=dict)
+
+    def _dims(self, key, p) -> Optional[tuple[int, int]]:
+        return factored_dims(self.shapes.get(key, tuple(p.shape)))
+
+    def _mean(self, x: torch.Tensor, dim: int, key, keepdim: bool = False,
+               shift: int = 0) -> torch.Tensor:
+        """``x.mean(dim)`` over the whole leaf: summed over the group that
+        splits ``dim`` (``shift`` maps a reduced tensor's dim back to the
+        leaf's)."""
+        m = x.mean(dim=dim, keepdim=keepdim)
+        for d, group, n in self.splits.get(key, ()):
+            if d == dim + shift:
+                m = all_reduce_(m.contiguous(), group).div_(n)
+        return m
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
         v_row, v_col, v = {}, {}, {}
         f32 = torch.float32
         for k, p in params.items():
-            dims = factored_dims(p.shape)
+            dims = self._dims(k, p)
             if dims is None:
                 v[k] = torch.zeros_like(p, dtype=f32)
             else:
@@ -453,22 +492,23 @@ class Adafactor(_Chain):
                 v_col[k] = torch.zeros_like(p.select(d1, 0), dtype=f32)
         return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
 
-    def scale(self, g, p, st, count):
+    def scale(self, g, p, st, count, key=None):
         # optax computes the decay in fp32: 1 - float32(t + 1) ** -rate.
         beta = np.float32(1.0) - np.float32(count + 1) ** np.float32(-self.decay_rate)
         beta, rest = float(beta), float(np.float32(1.0) - beta)
         grad_sqr = g * g + self.epsilon
-        dims = factored_dims(p.shape)
+        dims = self._dims(key, p)
         if dims is None:
             v = st["v"]
             v.mul_(beta).add_(grad_sqr, alpha=rest)
             return g * v.rsqrt()
         d1, d0 = dims
         v_row, v_col = st["v_row"], st["v_col"]
-        v_row.mul_(beta).add_(grad_sqr.mean(dim=d0), alpha=rest)
-        v_col.mul_(beta).add_(grad_sqr.mean(dim=d1), alpha=rest)
+        v_row.mul_(beta).add_(self._mean(grad_sqr, d0, key), alpha=rest)
+        v_col.mul_(beta).add_(self._mean(grad_sqr, d1, key), alpha=rest)
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+        row_mean = self._mean(v_row, reduced_d1, key, keepdim=True, shift=d1 - reduced_d1)
+        row_factor = (v_row / row_mean).rsqrt()
         return g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
 
 
@@ -487,7 +527,7 @@ class Lion(_Chain):
                 "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype or torch.float32)
                        for k, p in params.items()}}
 
-    def scale(self, g, p, st, count):
+    def scale(self, g, p, st, count, key=None):
         mu = st["mu"]
         # optax's b·μ is in μ's dtype, b rounded to it: a bf16 product for a
         # bf16 mu_dtype, fp32 otherwise, before the fp32 sum.
@@ -643,20 +683,32 @@ def accumulate_grads(loss_fn, params: dict[str, torch.Tensor], batch: torch.Tens
     loss, 0-d; the summed gradients), JAX's pair."""
     if denom is None:
         denom = torch.clamp(torch.sum((batch[:, :, 1:] >= 0).float()), min=1.0)
-    sums = sums if sums is not None else GradSums(batch.device)
+
+    def run():
+        total = torch.zeros((), dtype=torch.float32, device=batch.device)
+        for tokens in batch:
+            loss = loss_fn(params, tokens, include_aux=True, denom=denom,
+                           aux_weight=1.0 / batch.shape[0])
+            loss.backward()
+            total = total + loss.detach()
+        return total
+
+    return collect_grads(run, params, sums if sums is not None else GradSums(batch.device))
+
+
+def collect_grads(run: Callable[[], torch.Tensor], params: dict[str, torch.Tensor],
+                  sums: GradSums):
+    """Call ``run`` (which runs a step's backward passes and returns its
+    summed loss) with every trainable leaf's ``.grad`` taken into ``sums``
+    as autograd finishes it; returns (the loss, the summed gradients)."""
     sums.begin(params)
     hooks = []
     for k, p in params.items():
         p.grad = None
         if p.requires_grad:
             hooks.append(p.register_post_accumulate_grad_hook(partial(_take_grad, sums, k)))
-    total = torch.zeros((), dtype=torch.float32, device=batch.device)
     try:
-        for tokens in batch:
-            loss = loss_fn(params, tokens, include_aux=True, denom=denom,
-                           aux_weight=1.0 / batch.shape[0])
-            loss.backward()
-            total = total + loss.detach()
+        total = run()
     finally:
         for h in hooks:
             h.remove()
@@ -698,7 +750,10 @@ class TrainProgram:
     ``state["params"]`` and the optimizer state hold this rank's shards as
     ``zero`` (:class:`~tpu_engine_torch.parallel.zero.ZeroLayout`) places
     them, ``stream`` gathering stage 3's layer by layer; :meth:`whole_params`
-    gathers them whole."""
+    gathers them whole. With ``pipe > 1`` (``pipe``, a
+    :class:`~tpu_engine_torch.parallel.pipeline.Stage`) a rank holds its
+    stage's leaves alone and the step runs ``pipeline_schedule`` (the
+    resolved one; "gpipe" without ``pipe``, as JAX names it)."""
 
     config: TrainConfig
     model_config: ModelConfig
@@ -712,6 +767,8 @@ class TrainProgram:
     runtime: Optional[MeshRuntime] = field(default=None, repr=False)
     zero: Optional[zero.ZeroLayout] = field(default=None, repr=False)
     stream: Optional[zero.ShardedParams] = field(default=None, repr=False)
+    pipe: Optional[pipeline.Stage] = field(default=None, repr=False)
+    pipeline_schedule: str = "gpipe"
 
     def global_batch_shape(self) -> tuple[int, int, int]:
         c = self.config
@@ -750,6 +807,9 @@ class TrainProgram:
         if self.disk is not None:
             return self.disk.state(self.disk.seed(params))
         if self.zero is not None:
+            if self.pipe is not None:  # leaves of the stage's own
+                params = {k: v.detach().clone().requires_grad_(v.requires_grad)
+                          for k, v in self.pipe.block(params).items()}
             params = self.zero.place(params)
             return {"params": params, "opt_state": self.tx.init(self.zero.state_like(params)),
                     "step": 0, "lr_scale": 1.0}
@@ -788,6 +848,30 @@ class TrainProgram:
                 lora = self.stream.bind(lora, layers=False)
             else:
                 params, layer_stream = self.stream.bind(params), self.stream
+        tokens, loss_tokens, positions, targets = self._inputs(raw_tokens)
+        hidden, aux = tfm.forward_hidden_and_aux(
+            params, tokens, self.model_config, compute_dtype=cfg.compute_dtype(),
+            remat=cfg.activation_checkpointing, positions=positions, sequence=cfg.sequence,
+            remat_policy=cfg.remat_policy, lora=lora, lora_scale=cfg.lora_scale(),
+            layer_stream=layer_stream, mesh=self.runtime,
+        )
+        loss = self._exit(params, hidden, loss_tokens, targets, denom, include_aux)
+        if self.model_config.is_moe and include_aux:
+            loss = loss + aux_weight * self._aux_coef() * aux
+        return loss
+
+    def _aux_coef(self) -> float:
+        """The MoE aux loss's weight, over the token ranks (each rank's
+        term is the same, so the ranks' losses sum to JAX's)."""
+        ranks = self.runtime.size(TOKEN_AXES) if self.runtime is not None else 1
+        return self.model_config.router_aux_coef / ranks
+
+    def _inputs(self, raw_tokens):
+        """(tokens, loss-view tokens, positions, targets) of one microbatch
+        [B, S] of this rank's rows: on a ``sequence`` axis the rank's block
+        of the positions and each one's next token as its target; else
+        None for both (all positions, the next tokens read from the loss
+        view)."""
         tokens, loss_tokens = decode_masked_tokens(raw_tokens)
         positions = targets = None
         block = zero.sequence_block(self.runtime, tokens.shape[1]) if self.runtime else None
@@ -796,13 +880,14 @@ class TrainProgram:
             targets = _next_targets(loss_tokens)[:, s0:s0 + n]
             tokens = tokens[:, s0:s0 + n]
             positions = torch.arange(s0, s0 + n, device=tokens.device).expand(tokens.shape)
-        hidden, aux = tfm.forward_hidden_and_aux(
-            params, tokens, self.model_config, compute_dtype=cfg.compute_dtype(),
-            remat=cfg.activation_checkpointing, positions=positions, sequence=cfg.sequence,
-            remat_policy=cfg.remat_policy, lora=lora, lora_scale=cfg.lora_scale(),
-            layer_stream=layer_stream, mesh=self.runtime,
-        )
-        mesh, tp = self.runtime, model_axis(self.runtime, self.model_config)
+        return tokens, loss_tokens, positions, targets
+
+    def _exit(self, params, hidden, loss_tokens, targets, denom, include_aux: bool):
+        """The cross-entropy of ``hidden`` (and the z-loss with
+        ``include_aux``) over ``denom`` (None: this microbatch's own valid
+        count): the final norm, the head and the loss."""
+        cfg, mesh = self.config, self.runtime
+        tp = model_axis(mesh, self.model_config)
         if cfg.loss_chunk_size:
             ll_sum, z_sum, n_valid = _chunked_ce_sums(
                 params, hidden, loss_tokens, self.model_config, cfg.loss_chunk_size, targets,
@@ -818,10 +903,63 @@ class TrainProgram:
         z_coef = cfg.z_loss_coef if include_aux else 0.0
         if z_coef:
             loss = loss + z_coef * z_sum / d
-        if self.model_config.is_moe and include_aux:
-            ranks = self.runtime.size(TOKEN_AXES) if self.runtime is not None else 1
-            loss = loss + aux_weight * self.model_config.router_aux_coef / ranks * aux
         return loss
+
+    def _stage_work(self, params, rows, denom, include_aux: bool = True) -> pipeline.StageWork:
+        """This stage's work for one step over ``rows`` [accum, B, S]
+        (:class:`~tpu_engine_torch.parallel.pipeline.StageWork`): the first
+        stage embeds, every stage runs its block of layers (under the remat
+        policy; stage 3 gathering each layer from ``stream``), the last takes
+        the loss. A stage's MoE aux term is its layers' aux losses summed,
+        at JAX's ``router_aux_coef / (n_layers · accum)`` over the token
+        ranks."""
+        cfg, mc, stage = self.config, self.model_config, self.pipe
+        inputs = [self._inputs(r) for r in rows]
+        tokens0, _, positions, _ = inputs[0]
+        if positions is None:
+            B, S = tokens0.shape
+            positions = torch.arange(S, device=tokens0.device).expand(B, S)
+        if self.stream is not None:
+            self.stream.params = params  # the layer stream reads the stage's shards
+        policy = tfm.resolve_remat_policy(cfg.remat_policy) if cfg.activation_checkpointing \
+            else None
+        aux_w = (self._aux_coef() / (mc.n_layers * rows.shape[0])
+                 if mc.is_moe and include_aux else None)
+
+        def bound():
+            return self.stream.bind(params) if self.stream is not None else params
+
+        def embed(m):
+            return tfm.embed_tokens(bound(), inputs[m][0], cfg.compute_dtype(),
+                                    positions=positions, cfg=mc, mesh=self.runtime)
+
+        def layers(x):
+            y, auxes = tfm.run_layers(params, x, mc, positions, stage.layers,
+                                      cfg.compute_dtype(), policy, cfg.sequence,
+                                      layer_stream=self.stream, mesh=self.runtime)
+            return y, (None if aux_w is None else aux_w * torch.stack(auxes).sum())
+
+        def loss(y, m):
+            _, loss_tokens, _, targets = inputs[m]
+            return self._exit(bound(), y, loss_tokens, targets, denom, include_aux)
+
+        like = torch.empty((*tokens0.shape, mc.d_model), dtype=cfg.compute_dtype(),
+                           device=self.device)
+        return pipeline.StageWork(embed, layers, loss, like, rows.shape[0])
+
+    def _pipe_grads(self, params, rows, denom):
+        """The step's loss terms of this stage (summed over the
+        microbatches, CE on the last stage plus the stage's aux terms) and
+        its gradients, by the resolved schedule."""
+        work = self._stage_work(params, rows, denom)
+        run = _SCHEDULES[self.pipeline_schedule]
+        sums = self.stream.sums if self.stream is not None else GradSums(self.device)
+
+        def go():
+            loss, aux = run(self.pipe, work)
+            return loss + aux
+
+        return collect_grads(go, params, sums)
 
     def _rows_and_denom(self, batch: torch.Tensor):
         """A mesh step's share: this rank's rows of the global ``batch``,
@@ -840,26 +978,55 @@ class TrainProgram:
         the global norm, the update of this rank's shards, and at stages
         1 and 2 the parameters gathered whole again."""
         z, params = self.zero, state["params"]
-        rows, denom = self._rows_and_denom(batch)
-        # Recompute every collective a checkpointed block ran: stopping
-        # early after its last saved tensor could leave one out on one rank.
-        with set_checkpoint_early_stop(False):
-            loss, grads = accumulate_grads(self.loss_fn, params, rows,
-                                           self.stream.sums if self.stream else None, denom)
-        grads = z.reduce_grads(grads)
+        loss, grads = self.mesh_grads(params, batch)
         norm = z.grad_norm(grads, global_norm)
         lr = self.schedule(state["step"]) * state["lr_scale"]
         p_upd, g_upd = z.update_views(params, grads)
         self.tx.update(p_upd, g_upd, state["opt_state"], lr, self.walk, norm=norm)
         z.gather_updated(params)
         state["step"] += 1
-        return state, {"loss": all_reduce_(loss, z.tokens), "grad_norm": norm,
+        return state, {"loss": loss, "grad_norm": norm,
                        "learning_rate": lr, "step": state["step"]}
+
+    def mesh_grads(self, params: dict, batch: torch.Tensor):
+        """A mesh step's loss (summed over the ranks: every rank reports
+        JAX's) and this rank's gradients, reduced over the ranks as the
+        update takes them (this rank's shards where they are split)."""
+        z = self.zero
+        rows, denom = self._rows_and_denom(batch)
+        # Recompute every collective a checkpointed block ran: stopping
+        # early after its last saved tensor could leave one out on one rank.
+        with set_checkpoint_early_stop(False):
+            if self.pipe is not None:
+                loss, grads = self._pipe_grads(params, rows, denom)
+            else:
+                loss, grads = accumulate_grads(self.loss_fn, params, rows,
+                                               self.stream.sums if self.stream else None,
+                                               denom)
+        grads = z.reduce_grads(grads)
+        if self.pipe is not None:
+            grads = self.pipe.reduce_tied(grads)
+            loss = all_reduce_(loss, self.pipe.group)  # each stage's terms
+        return all_reduce_(loss, z.tokens), grads
 
     def whole_params(self, state: dict) -> dict[str, torch.Tensor]:
         """``state["params"]`` with every leaf whole (stage 3's shards
-        gathered; the leaves themselves otherwise)."""
-        return self.zero.whole(state["params"]) if self.zero is not None else state["params"]
+        gathered, the ``model`` blocks joined, every stage's leaves on
+        every rank; the leaves themselves otherwise)."""
+        if self.zero is None:
+            return state["params"]
+        return self.whole_tree(state["params"])
+
+    def whole_tree(self, tree: dict, split: Optional[bool] = None) -> dict:
+        """A tree of this rank's leaves (params, or gradients as
+        :meth:`mesh_grads` returns them) made whole on every rank:
+        gathered over ``fsdp`` where ``split`` (default: where stage 3
+        splits the params), over ``model`` and over ``pipe``."""
+        z = self.zero
+        out = z.whole(tree, fsdp=z.params_split if split is None else split)
+        if self.pipe is None:
+            return out
+        return self.pipe.whole(out, sharding.whole_shapes(self.model_config))
 
     def step(self, state: dict, batch: torch.Tensor) -> tuple[dict, dict]:
         """One optimizer step. Metrics are device tensors (no host sync)
@@ -893,12 +1060,15 @@ class TrainProgram:
     def merged_params(self, adapters: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """LoRA only: the base with ``adapters`` (``state["params"]``)
         merged (``lora.merge_lora``), every leaf in the compute dtype, for
-        ``generate`` and the ``ContinuousBatcher``."""
+        ``generate`` and the ``ContinuousBatcher``. On a ``model`` mesh it
+        is this rank's block of the merged tree (the base's block plus its
+        adapters' product: A whole times B's columns, or A's rows times B
+        whole), what a batcher on the same mesh takes."""
         if self.base_params is None:
             raise ValueError("merged_params needs a LoRA program (lora_rank set)")
         cfg = self.config
-        if self.zero is not None:
-            adapters = self.zero.whole(adapters)
+        if self.zero is not None:  # this rank's model block of the merged tree
+            adapters = self.zero.whole(adapters, fsdp=self.zero.params_split, model=False)
         merged = lora_mod.merge_lora(self.base_params, adapters, cfg.lora_alpha, cfg.lora_rank)
         return {k: v.to(cfg.compute_dtype()) for k, v in merged.items()}
 
@@ -909,6 +1079,11 @@ class TrainProgram:
             batch, denom = self._rows_and_denom(batch)
         else:
             denom = torch.clamp(torch.sum((batch[:, :, 1:] >= 0).float()), min=1.0)
+        if self.pipe is not None:
+            work = self._stage_work(state["params"], batch, denom, include_aux=False)
+            with set_checkpoint_early_stop(False):
+                total = all_reduce_(pipeline.eval_losses(self.pipe, work), self.pipe.group)
+            return all_reduce_(total, self.zero.tokens)
         total = torch.zeros((), dtype=torch.float32, device=batch.device)
         for tokens in batch:
             total = total + self.loss_fn(state["params"], tokens, include_aux=False,
@@ -1092,9 +1267,14 @@ class _DiskTier:
         return {**state, "params": self._params(walk.join())}
 
 
+_SCHEDULES = {"gpipe": pipeline.pipeline_gpipe_grads, "1f1b": pipeline_1f1b_grads,
+              "zb": pipeline_zb_grads}
+
+
 def _mesh_refusals(cfg: TrainConfig, model_cfg: ModelConfig) -> None:
-    """JAX's ``ValueError``s for the mesh axes the port does not run, then
-    the port's ``NotImplementedError`` for each, naming its ROADMAP item."""
+    """JAX's ``ValueError``s for the mesh combinations it refuses, with its
+    messages; a model that does not split over ``model`` raises
+    ``NotImplementedError``."""
     mesh = cfg.mesh
     if mesh.model > 1:
         if model_cfg.is_moe and model_cfg.moe_impl == "ragged":
@@ -1102,27 +1282,7 @@ def _mesh_refusals(cfg: TrainConfig, model_cfg: ModelConfig) -> None:
                 "moe_impl='ragged' does not support expert parallelism "
                 "(ragged_dot cannot shard over the expert dim); use "
                 "moe_impl='dense' on meshes with a model axis")
-        if cfg.lora_rank is not None:
-            raise NotImplementedError(
-                f"LoRA on mesh.model={mesh.model} is not ported: the adapters of a "
-                "model-split projection split with it (ROADMAP Queue 1, item 2.1: LoRA "
-                "and Adafactor over model)")
         sharding.check_model_axis(model_cfg, mesh.model)
-        if cfg.optimizer == "adafactor":
-            shapes = {k: tuple(p.shape) for k, p in
-                      tfm.init_params(model_cfg, None, device="meta").items()}
-            dims = sharding.model_split(model_cfg, sharding.logical_axes(model_cfg), mesh.model)
-            for k, d in dims.items():
-                if d is None:
-                    continue
-                local = shapes[k][:d] + (shapes[k][d] // mesh.model,) + shapes[k][d + 1:]
-                whole = factored_dims(shapes[k])
-                if whole != factored_dims(local) or (whole is not None and d in whole):
-                    raise NotImplementedError(
-                        f"optimizer='adafactor' on mesh.model={mesh.model} is not ported "
-                        f"where a factored moment reduces over a model-split dim ({k}: "
-                        f"dim {d}) (ROADMAP Queue 1, item 2.1: LoRA and Adafactor over "
-                        "model)")
     if mesh.pipe > 1:
         if model_cfg.n_layers % mesh.pipe != 0:
             raise ValueError(f"model n_layers={model_cfg.n_layers} must be divisible by the "
@@ -1138,9 +1298,12 @@ def _mesh_refusals(cfg: TrainConfig, model_cfg: ModelConfig) -> None:
             raise ValueError(
                 "optimizer_offload='disk' with pipeline parallelism is not "
                 "supported (the host update walks the flat gradient tree)")
-        raise NotImplementedError(
-            f"mesh.pipe={mesh.pipe}: pipeline parallelism is not ported "
-            "(ROADMAP Queue 1, item 2.3)")
+        schedule = sharding.resolve_pipeline_schedule(cfg)
+        if schedule in ("1f1b", "zb") and cfg.loss_chunk_size:
+            raise ValueError(
+                f"loss_chunk_size is not supported with "
+                f"pipeline_schedule={schedule!r} (the exit loss "
+                "runs inside the schedule's scan)")
 
 
 def _runtime_for(cfg: TrainConfig, device: torch.device,
@@ -1274,7 +1437,8 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
     prog = TrainProgram(config=cfg, model_config=model_cfg, device=device, tx=tx,
                         schedule=schedule, base_params=base_params,
                         walk=UpdateWalk(device, host_params=cfg.param_offload == "host",
-                                        host_state=cfg.optimizer_offload == "host"))
+                                        host_state=cfg.optimizer_offload == "host"),
+                        pipeline_schedule=sharding.resolve_pipeline_schedule(cfg))
     if runtime is not None:
         _bind_mesh(prog, runtime)
     if cfg.param_offload == "host":
@@ -1289,30 +1453,56 @@ def _bind_mesh(prog: TrainProgram, runtime: MeshRuntime) -> None:
     tree (the adapters under LoRA, as JAX's ``train_logical``) and, at
     stage 3, its layer stream; refuses what the mesh step does not run."""
     cfg, mc = prog.config, prog.model_config
-    n_seq, n_fsdp = runtime.axis_sizes["sequence"], runtime.axis_sizes["fsdp"]
+    n_seq = runtime.axis_sizes["sequence"]
     if mc.is_moe and mc.moe_impl == "dense" and n_seq > 1:
         raise NotImplementedError(
             "dense-dispatch MoE over a sequence axis is not ported: its expert capacity "
             "counts along a row's whole sequence (ROADMAP Queue 1, item 2); use "
             "moe_impl='ragged'")
-    if cfg.optimizer == "adafactor" and cfg.sharding_stage >= 1 and n_fsdp > 1:
-        raise NotImplementedError(
-            "optimizer='adafactor' with its state split over fsdp is not ported: its "
-            "factored moments reduce over the dims fsdp splits (ROADMAP Queue 1, item 2); "
-            "use sharding_stage=0 or fsdp=1")
     if cfg.seq_len % n_seq:
         raise ValueError(f"mesh.sequence={n_seq} must divide seq_len={cfg.seq_len}")
     if cfg.loss_chunk_size and (cfg.seq_len // n_seq) % cfg.loss_chunk_size:
         raise ValueError(f"loss_chunk_size={cfg.loss_chunk_size} must divide a rank's "
                          f"{cfg.seq_len // n_seq} positions (seq_len / sequence)")
     logical = sharding.logical_axes(mc)
-    shapes = {k: tuple(p.shape)
-              for k, p in tfm.init_params(mc, None, device="meta").items()}
+    targets = cfg.lora_targets if cfg.lora_rank is not None else ()
+    shapes = sharding.whole_shapes(mc, targets, cfg.lora_rank or 1)
     if cfg.lora_rank is not None:
         logical = sharding.lora_logical_axes(logical, cfg.lora_targets)
-        shapes = {k: tuple(p.shape) for k, p in lora_mod.init_lora_params(
-            None, mc, cfg.lora_rank, cfg.lora_targets, device="meta").items()}
+        shapes = {k: shapes[k] for k in logical}
+    whole = dict(shapes)
     prog.runtime = runtime
-    prog.zero = zero.ZeroLayout(runtime, cfg.sharding_stage, logical, shapes, mc)
-    if prog.zero.params_split:
-        prog.stream = zero.ShardedParams(prog.zero, prog.device, cfg.compute_dtype())
+    if runtime.axis_sizes["pipe"] > 1:
+        prog.pipe = pipeline.Stage(runtime, mc)
+        shapes = prog.pipe.shapes(shapes)
+        logical = {k: logical[k] for k in shapes}
+    z = prog.zero = zero.ZeroLayout(runtime, cfg.sharding_stage, logical, shapes, mc)
+    if prog.pipe is not None:
+        z.pipe, z.norm_skip = prog.pipe.group, prog.pipe.norm_skip(shapes)
+    if z.params_split:
+        prog.stream = zero.ShardedParams(z, prog.device, cfg.compute_dtype())
+    if prog.base_params is not None and z.model is not None:
+        # The frozen base as the products take it: the rank's model blocks.
+        prog.base_params = {k: v.clone() for k, v in model_block(
+            prog.base_params, mc, z.n_model, z.i_model).items()}
+    if isinstance(prog.tx, Adafactor):
+        _adafactor_splits(prog.tx, z, whole, prog.pipe is not None)
+
+
+def _adafactor_splits(tx: "Adafactor", z: zero.ZeroLayout, whole: dict, piped: bool) -> None:
+    """Tell Adafactor the whole shape of each leaf and the dims of the
+    optimizer's view that ``model`` and (its state split, stage >= 1)
+    ``fsdp`` split, with their groups."""
+    tx.shapes = whole
+    tx.splits = {}
+    for k in z.dims:
+        if piped and 0 in (factored_dims(whole[k]) or ()):
+            raise NotImplementedError(
+                f"optimizer='adafactor' with pipe > 1: {k}'s factored moment reduces over "
+                "its layers, which pipe splits")
+        splits = []
+        if z.mdims[k] is not None:
+            splits.append((z.mdims[k], z.model, z.n_model))
+        if z.state_split and z.dims[k] is not None:
+            splits.append((z.dims[k], z.fsdp, z.n_fsdp))
+        tx.splits[k] = splits

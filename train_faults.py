@@ -59,7 +59,20 @@ Each fault patches one function for the length of its reading:
   in place of their sum (``transformer._row_proj``; the all-reduce still
   runs, so the ranks' collectives pair); ``mesh_ep_router_sum_dropped``: the
   router's gradient, a part on each rank, is not summed over ``model``
-  (``parallel.zero.ZeroLayout.reduce_leaf``).
+  (``parallel.zero.ZeroLayout.reduce_leaf``). LoRA and Adafactor over
+  ``model`` (``lora_tp2``, ``adafactor_tp2``) and the pipelines
+  (``pipe_gpipe``, ``pipe_1f1b``, ``pipe_zb``: llama-1b on pipe=2, 4
+  microbatches, each against ``w1_pipe``): ``mesh_sound`` reads them too;
+  ``mesh_lora_partial_unsummed``: the gradient of o's B (a part on each
+  rank: its LoRA term is applied to the rank's partial x·A) is not summed
+  over ``model``; ``mesh_adafactor_mean_local``: Adafactor's factored means
+  over a split dim stay the rank's own (the all-reduce runs, its sum is
+  dropped), which the gap cannot see: the factored moment is invariant to
+  a constant scale of its means, and the means over half of 2048 columns
+  differ from the whole's by sampling alone (read as the sound run;
+  ``tests/test_torch_tp_lora.py`` holds the reduction at 1e-6);
+  ``mesh_pipe_cotangent_zero``: the last stage sends zeros in place of its
+  input cotangents (``parallel.pipeline.exchange``; the trade still pairs).
 
 ``python3 train_faults.py --mesh`` reads the mesh alone, ``--offload`` the
 placements alone (llama-1b at ``chip_smoke.OFFLOAD_L`` layers). The readings are
@@ -193,44 +206,89 @@ def _o_g_skipped(real):
 
 
 MESH_ROUTER = "layers.router.kernel"
+# The LoRA factor whose partial gradient the lora_tp2 fault leaves unsummed
+# over model: B of a row-split target (its term rides inside g's sum). A of
+# a column-split target would read as sound: B starts at zero, so A's
+# gradient is zero until the last of three steps.
+MESH_LORA_FACTOR = "layers.o.B"
+
+
+def _sum_dropped(leaf):
+    def wrap(real):
+        def reduce_leaf(self, key, g, dim_offset=0, owned=True):
+            if key != leaf or key not in self.partial:
+                return real(self, key, g, dim_offset, owned)
+            partial, self.partial = self.partial, self.partial - {key}
+            try:
+                return real(self, key, g, dim_offset, owned)
+            finally:
+                self.partial = partial
+
+        return reduce_leaf
+
+    return wrap
 
 
 def _router_sum_dropped(real):
-    def reduce_leaf(self, key, g, dim_offset=0, owned=True):
-        if key != MESH_ROUTER or key not in self.partial:
-            return real(self, key, g, dim_offset, owned)
-        partial, self.partial = self.partial, self.partial - {key}
-        try:
-            return real(self, key, g, dim_offset, owned)
-        finally:
-            self.partial = partial
+    return _sum_dropped(MESH_ROUTER)(real)
 
-    return reduce_leaf
+
+def _factored_mean_local(real):
+    def mean(self, x, dim, key, keepdim=False, shift=0):
+        out = x.mean(dim=dim, keepdim=keepdim)
+        for d, group, n in self.splits.get(key, ()):
+            if d == dim + shift:  # the collective still runs; its sum is discarded
+                real(self, x, dim, key, keepdim, shift)
+        return out
+
+    return mean
+
+
+def _last_stage_cotangent_zero(real):
+    def exchange(sends, recvs, group):
+        import torch
+        import torch.distributed as dist
+
+        if dist.get_rank() == dist.get_world_size() - 1:  # pipe=2: the last stage
+            sends = [(torch.zeros_like(t), peer) for t, peer in sends]
+        return real(sends, recvs, group)
+
+    return exchange
 
 
 def mesh_fault(name: str):
     """The patch of the planted mesh fault ``name`` (for :func:`_patched`)."""
+    from tpu_engine_torch import train
     from tpu_engine_torch.models import transformer
-    from tpu_engine_torch.parallel import ring_attention, zero
+    from tpu_engine_torch.parallel import pipeline, ring_attention, zero
 
     return {"fsdp_skip_reduce_scatter": (zero.ZeroLayout, "reduce_leaf", _skip_reduce_scatter),
             "ring_cotangents_dropped": (ring_attention._Hop, "backward",
                                         _cotangents_dropped),
             "tp_o_g_skipped": (transformer, "_row_proj", _o_g_skipped),
             "ep_router_sum_dropped": (zero.ZeroLayout, "reduce_leaf",
-                                      _router_sum_dropped)}[name]
+                                      _router_sum_dropped),
+            "lora_partial_unsummed": (zero.ZeroLayout, "reduce_leaf",
+                                      _sum_dropped(MESH_LORA_FACTOR)),
+            "adafactor_mean_local": (train.Adafactor, "_mean", _factored_mean_local),
+            "pipe_cotangent_zero": (pipeline, "exchange", _last_stage_cotangent_zero)}[name]
 
 
 def mesh_readings(cs, out: dict, steps: int = 3) -> None:
     """The mesh's readings (module docstring) into ``out``: each two-rank
     run's largest relative gap to its world-1 run, per rank."""
-    w1 = cs.mesh_world1(["w1_2048", "w1_8192", "w1_moe"], steps)
+    w1 = cs.mesh_world1(["w1_2048", "w1_8192", "w1_moe", "w1_lora", "w1_ada", "w1_pipe"],
+                        steps)
     for name, runs, fault in (
-            ("mesh_sound", ["fsdp2", "ring2", "tp2", "ep2"], None),
+            ("mesh_sound", ["fsdp2", "ring2", "tp2", "ep2", "lora_tp2", "adafactor_tp2",
+                            "pipe_gpipe", "pipe_1f1b", "pipe_zb"], None),
             ("mesh_fsdp_skip_reduce_scatter", ["fsdp2"], "fsdp_skip_reduce_scatter"),
             ("mesh_ring_cotangents_dropped", ["ring2"], "ring_cotangents_dropped"),
             ("mesh_tp_o_g_skipped", ["tp2"], "tp_o_g_skipped"),
-            ("mesh_ep_router_sum_dropped", ["ep2"], "ep_router_sum_dropped")):
+            ("mesh_ep_router_sum_dropped", ["ep2"], "ep_router_sum_dropped"),
+            ("mesh_lora_partial_unsummed", ["lora_tp2"], "lora_partial_unsummed"),
+            ("mesh_adafactor_mean_local", ["adafactor_tp2"], "adafactor_mean_local"),
+            ("mesh_pipe_cotangent_zero", ["pipe_zb"], "pipe_cotangent_zero")):
         ranks = cs.mesh_launch(runs, 2, steps, f"faults_{name}", fault)
         for run in runs:
             ref = w1[cs.MESH_RUNS[run][3]]

@@ -3,8 +3,8 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --steps 5  # more training steps (3, the least, by default)
 
-(``--mesh-worker JOB RANK`` runs one rank of ``train_mesh``, ``train_pipe``
-or ``serve_mesh``; the phase starts those processes itself.)
+(``--mesh-worker JOB RANK`` runs one rank of ``train_mesh``, ``train_pipe``,
+``train_comm`` or ``serve_mesh``; the phase starts those processes itself.)
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
@@ -49,7 +49,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    head: the LM head's backward against fp32 products;
 4. train: a llama-1b training step at full width (seq 2048, bf16 compute,
    fp32 masters, AdamW, activation checkpointing, attention "auto"), with the
-   kernel launch counts read around the run;
+   kernel launch counts read around the run; then train_data: the same
+   llama-1b trained from a token file of seeded ids through ``make_data_fn``
+   (the native reader), an asynchronous checkpoint of step 2, and a fresh
+   program restored from it whose step 3 is bitwise the uninterrupted one
+   (save and restore GB/s, the reader's host tokens/s);
 5. ring: ``ring_mha`` over 4 ranks against ``flash_mha`` at S 8192 (and a
    GQA case), output and gradients, and both timed;
 6. train_ring: llama-1b at full width and depth with ring attention
@@ -101,8 +105,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    and positive at every step, K1/K2/K3 exactly 4/2/2 a step; then dense
    against ragged dispatch where nothing drops (capacity factor 4), in
    fp32 and bf16 compute, and one ragged step;
-15. serve_moe: moe-8x7b at full width and depth in weight-only int8, built
-   on the card a layer at a time, served by the ``ContinuousBatcher`` (8
+15. serve_moe: moe-8x7b at full width and SERVE_MOE_L of its 32 layers in
+   weight-only int8, built on the card a layer at a time, served by the ``ContinuousBatcher`` (8
    slots of 2048 lanes, bf16 pool, 16 greedy requests, prompts 128-512, 64
    tokens each): the streams teacher-forced through forward with ragged
    dispatch and flash attention, the median gap within SERVE_MOE_TAU, and
@@ -143,28 +147,35 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    host's memory and each configuration's reckoned bytes;
 22. train_window: ``train`` with ``sliding_window=1024``: every K1-K3
    launch windowed, the first loss held to the plain windowed path's;
-23. train_mesh: llama-1b at full width and depth on a mesh through NCCL, 3
-   steps a run: at world 1 in this process, the mesh program at stage 3
-   bitwise the no-mesh program (seq 2048 × 4), and at seq 8192 × 1 (8 of
-   the 16 layers); then two ranks, a process each on the one card
+23. train_mesh: llama-1b at full width and 8 of its 16 layers on a mesh
+   through NCCL, 3 steps a run: at world 1 in this process, the mesh
+   program at stage 3 bitwise the no-mesh program (seq 2048 × 4), and at
+   seq 8192 × 1 (4 layers); then two ranks, a process each on the one card
    (``--mesh-worker``; each its own ``NCCL_HOSTID``): fsdp=2 at stage 3
    (seq 2048 × 2 a rank), a ring and Ulysses over sequence=2 (seq 8192 ×
-   1, 8 layers), tensor parallelism at model=2 (``tp2``: 8 heads, 2752 MLP columns, 16000 vocabulary rows a
+   1, 4 layers), tensor parallelism at model=2 (``tp2``: 8 heads, 2752 MLP
+   columns, 16000 vocabulary rows a
    rank, seq 2048 × 4), and ``train_moe``'s moe-8x7b at model=2 (``ep2``:
    4 experts a rank, seq 2048 × 2, held to its own world-1 run
-   ``w1_moe``), LoRA on q/k/v/o and the MLP at model=2 (``lora_tp2``, 8
+   ``w1_moe``), LoRA on q/k/v/o and the MLP at model=2 (``lora_tp2``, 4
    layers, held to ``w1_lora``) and Adafactor at model=2 (``adafactor_tp2``,
    4 layers, held to ``w1_ada``), each held to the world-1 run at the same
    global batch by MESH_LOSS_REL (ep2: MESH_EP_LOSS_REL; train_faults.py),
    the ranks' losses and norms equal, launch counts exact per rank; step
    time, peak memory and the bytes each collective moved a step, per rank;
-24. train_pipe: llama-1b at full width and depth on pipe=2 (8 layers a
-   rank, two ``--mesh-worker`` processes), seq 2048 × 1 × 4 microbatches,
+24. train_pipe: llama-1b at full width and 8 of its 16 layers on pipe=2
+   (4 layers a rank, two ``--mesh-worker`` processes), seq 2048 × 1 × 4 microbatches,
    3 steps under each of gpipe, 1f1b and zb, held to the world-1 program
    at the same global batch by MESH_LOSS_REL, the ranks' losses and norms
    equal, K1-K3 launches exact per rank and schedule; step time, peak
    memory and bytes sent a step per rank, beside JAX's F-units of the
    schedule;
+   then train_comm: llama-1b at full width and 4 layers on two ranks:
+   fsdp=2 stage 3 with qwZ+hpZ against uncompressed, two slices of data=2
+   with qgZ against fp32, data=2 with a bf16 gradient reduction against
+   fp32, and (a)'s checkpoint restored at world 1 by ``restore_resharded``;
+   held by train_faults.py's COMM_* bounds (loss gaps, the int8 gather's
+   and the cross-slice byte ratios, hpZ's store, the ranks' weights);
 25. serve_mesh: the ContinuousBatcher at llama-1b's width and 2 layers on
    model=2 (two ranks, ``--mesh-worker`` processes, rank 0 submitting
    ``serve``'s 16 requests), with the bf16 and the int8 pool, and with the
@@ -501,27 +512,30 @@ SPEC_ACCEPT_MIN = 4.2
 # model (read 8.2e-3); the rerouted tokens and the gradients are reported.
 MOE_TRAIN_LAYERS = 2
 MOE_NO_DROP_CF = 4.0
-# serve_moe: moe-8x7b at full width and depth in weight-only int8 (built on
-# the card, _moe_int8_tree), SERVE_CFG's pool without a prefix cache, 16
-# greedy requests (prompts 128-512, 64 tokens each). Each stream is
-# teacher-forced through forward with ragged dispatch (exact top-k, as
-# decode) and flash attention, giving each generated position's gap.
-# Routing makes 32 random layers chaotic in bf16: decode and forward round
-# differently, experts flip at near-ties from the second layer on, a
+# serve_moe: moe-8x7b at full width and SERVE_MOE_L of its 32 layers in
+# weight-only int8 (built on the card, _moe_int8_tree; all 32 until PR 20
+# cut it for the run's time limit, PERF.md §4), SERVE_CFG's pool without a
+# prefix cache, 16 greedy requests (prompts 128-512, 64 tokens each). Each
+# stream is teacher-forced through forward with ragged dispatch (exact
+# top-k, as decode) and flash attention, giving each generated position's
+# gap. Routing makes random layers chaotic in bf16: decode and forward
+# round differently, experts flip at near-ties from the second layer on, a
 # flipped token's later layers flip more, and attention spreads it (on an
-# H100, 157 of 319 tokens rerouted in layer 32). So the largest gap of a
-# sound bf16 run (7.6) reaches the faults' (8.0-10.0); its median does not.
-# The bf16 run is held by the median of its gaps to SERVE_MOE_TAU, and
-# SERVE_MOE_FP32 holds a shorter run in fp32 compute (TF32 off), where the
-# two paths agree to ~1e-6 and experts rarely flip: the share of its
-# positions within a gap of 0.1. Readings on an H100 (NVIDIA H100 80GB HBM3,
-# 700 W; serve_faults.py --moe): bf16 median 1.35 sound, 4.23 with the
-# top-k gates not renormalised, 4.69 with the first expert alone, 5.07 with
-# an expert kernel's scale left out; fp32 share 1.000 sound, 0.000 for each
-# fault. Each bound lies midway between the sound reading and the nearer
-# fault's.
+# H100, 100 of 319 tokens rerouted in layer 16; 157 in layer 32 at full
+# depth). So the largest gap of a sound bf16 run (6.7) nears the faults'
+# (8.8-10.6); its median does not. The bf16 run is held by the median of
+# its gaps to SERVE_MOE_TAU, and SERVE_MOE_FP32 holds a shorter run in fp32
+# compute (TF32 off), where the two paths agree to ~1e-5 and experts rarely
+# flip: the share of its positions within a gap of 0.1. Readings at 16
+# layers on an H100 (NVIDIA H100 80GB HBM3, 700 W; serve_faults.py --moe):
+# bf16 median 0.260 sound, 3.243 with the top-k gates not renormalised,
+# 4.389 with the first expert alone, 4.862 with an expert kernel's scale
+# left out; fp32 share 1.000 sound, at most 0.016 for a fault (at 32 layers:
+# medians 1.35, 4.23, 4.69, 5.07, and SERVE_MOE_TAU 2.8). Each bound lies
+# midway between the sound reading and the nearer fault's.
+SERVE_MOE_L = 16
 SERVE_MOE_CFG = dict(SERVE_CFG, prefix_cache_tokens=0)
-SERVE_MOE_TAU = 2.8
+SERVE_MOE_TAU = 1.75
 SERVE_MOE_FP32 = dict(requests=8, tokens=16, gap=0.1, share=0.5)
 
 
@@ -934,7 +948,7 @@ def phase_kernels(res: dict) -> None:
 # forwards); remat's launches are nothing_saveable's.
 D128_PATHS = ("train", "train_ring", "train_moe", "train_int8", "train_lora",
               "train_adafactor", "train_lion", "remat", "train_offload", "train_7b",
-              "train_window", "train_mesh", "train_pipe")
+              "train_window", "train_mesh", "train_pipe", "train_data", "train_comm")
 
 
 def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
@@ -2421,8 +2435,8 @@ def _moe_fp32_check(params, cfg, plan: list) -> dict:
 
 
 def phase_serve_moe(res: dict) -> None:
-    """moe-8x7b at full width and depth (32 layers, 8 experts, top 2) in
-    weight-only int8 on one card (:func:`_moe_int8_tree`), served by the
+    """moe-8x7b at full width and SERVE_MOE_L of its 32 layers (8 experts,
+    top 2) in weight-only int8 on one card (:func:`_moe_int8_tree`), served by the
     ContinuousBatcher (SERVE_MOE_CFG: 8 slots of 2048 lanes, bf16 pool, 8
     tokens a dispatch, on a ``serve_forever`` thread) for 16 greedy
     requests (:func:`_serve_moe_plan`). Decode runs every expert and
@@ -2439,7 +2453,7 @@ def phase_serve_moe(res: dict) -> None:
     from tpu_engine_torch.ops import _flash_cuda as fc
     from tpu_engine_torch.quant import dequantize_weight, quantized_param_bytes
 
-    cfg = tfm.MODEL_CONFIGS["moe-8x7b"]
+    cfg = tfm.MODEL_CONFIGS["moe-8x7b"].with_(n_layers=SERVE_MOE_L)
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3346,10 +3360,11 @@ def phase_train_window(res: dict, steps: int = OFFLOAD_STEPS) -> None:
 # to the no-mesh one bitwise; the two-rank runs are held to the world-1 run
 # at the same global batch by MESH_LOSS_REL (train_faults.py, set from its
 # planted-fault readings).
-MESH_L = 16
-# The two-rank ring and Ulysses runs and their world-1 run take 8 of the 16
-# layers: the run's time limit (PERF.md, PR 18).
-MESH_SEQ_L = 8
+# The run's time limit (PERF.md §4): llama-1b's 16 layers cut to 8 since
+# PR 20 (the runs at seq 2048 and the pipelines), the two-rank ring and
+# Ulysses runs and their world-1 run to 4 (8 in PRs 18–19).
+MESH_L = 8
+MESH_SEQ_L = 4
 MESH_SEQ = 8192
 MESH_MOE = dict(model_name="moe-8x7b", moe_impl="dense")  # at MOE_TRAIN_LAYERS layers
 MESH_LORA = dict(lora_rank=16, lora_alpha=32.0, lora_targets=("q", "k", "v", "o", "gate",
@@ -3385,7 +3400,7 @@ MESH_RUNS = {
                "flash"),
     "adafactor_tp2": (2, dict(model=2), dict(optimizer="adafactor", micro_batch_size=4,
                                              seq_len=2048), "w1_ada", "flash"),
-    # Pipelines (train_pipe): llama-1b's 16 layers over pipe=2, 8 a rank,
+    # Pipelines (train_pipe): llama-1b's MESH_L layers over pipe=2, half a rank,
     # seq 2048 × 1 × PIPE_M microbatches, under each schedule.
     "w1_pipe": (1, {}, dict(micro_batch_size=1, seq_len=2048,
                             gradient_accumulation_steps=PIPE_M), None, "flash"),
@@ -3395,7 +3410,7 @@ MESH_RUNS = {
        for s in PIPE_SCHEDULES},
 }
 # Layers of the runs not at MESH_L (the run's time limit, PERF.md §4).
-MESH_LAYERS = {"w1_lora": 8, "lora_tp2": 8, "w1_ada": 4, "adafactor_tp2": 4}
+MESH_LAYERS = {"w1_lora": 4, "lora_tp2": 4, "w1_ada": 4, "adafactor_tp2": 4}
 MESH_TIMEOUT_S = 300
 SERVE_MESH_TIMEOUT_S = 600
 # NCCL's socket transport between the ranks (the only one NCCL takes
@@ -3535,10 +3550,11 @@ def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
 
 
 def mesh_worker(job_path: str, rank: int) -> None:
-    """One rank of ``train_mesh`` or ``serve_mesh`` (``chip_smoke.py
-    --mesh-worker JOB RANK``): joins the job's process group on cuda:0
-    through NCCL, takes its runs (:func:`_mesh_runs`) or serves
-    (:func:`_mesh_serve`) and writes ``JOB.rank<R>.json``."""
+    """One rank of ``train_mesh``, ``train_pipe``, ``train_comm`` or
+    ``serve_mesh`` (``chip_smoke.py --mesh-worker JOB RANK``): joins the
+    job's process group on cuda:0 through NCCL, takes its runs
+    (:func:`_mesh_runs`, :func:`_comm_runs`) or serves (:func:`_mesh_serve`)
+    and writes ``JOB.rank<R>.json``."""
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT))
@@ -3552,6 +3568,8 @@ def mesh_worker(job_path: str, rank: int) -> None:
     out = {"rank": rank, "joined_s": time.time() - job["t0"]}
     if job.get("serve"):
         out["serve"] = _mesh_serve(job["serve"], rank, job.get("fault"))
+    elif job.get("comm"):
+        out["comm"] = _comm_runs(job, rank)
     else:
         out["runs"] = _mesh_runs(job["runs"], job["steps"], job.get("fault"))
     Path(f"{job_path}.rank{rank}.json").write_text(json.dumps(out))
@@ -3581,20 +3599,24 @@ def _free_port() -> int:
 
 
 def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None,
-                serve=None) -> list:
-    """Run ``runs`` (or with ``serve``, :func:`_mesh_serve` in that mode) on
-    ``world`` rank processes (:func:`mesh_worker`) and return each rank's
-    results. Every process is stopped on return; a rank that fails, or a
-    job that outlives MESH_TIMEOUT_S (SERVE_MESH_TIMEOUT_S serving), raises."""
+                serve=None, comm=None, ckpt=None) -> list:
+    """Run ``runs`` (or with ``serve``, :func:`_mesh_serve` in that mode;
+    with ``comm``, those runs of COMM_RUNS through :func:`_comm_runs`,
+    saving to ``ckpt``) on ``world`` rank processes (:func:`mesh_worker`)
+    and return each rank's results. Every process is stopped on return; a
+    rank that fails, or a job that outlives MESH_TIMEOUT_S
+    (SERVE_MESH_TIMEOUT_S serving), raises."""
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     job_path = out_dir / f"mesh_{tag}.json"
     job_path.write_text(json.dumps({"runs": runs, "world": world, "steps": steps,
                                     "port": _free_port(), "fault": fault, "t0": time.time(),
-                                    "serve": serve}))
+                                    "serve": serve, "comm": comm, "ckpt": ckpt}))
     procs = []
     for r in range(world):
-        env = dict(os.environ, NCCL_HOSTID=f"mesh-rank-{r}", **MESH_NCCL_ENV)
+        # GLOO_SOCKET_IFNAME: the checkpoint manager's gloo group, on the loopback.
+        env = dict(os.environ, NCCL_HOSTID=f"mesh-rank-{r}", GLOO_SOCKET_IFNAME="lo",
+                   **MESH_NCCL_ENV)
         log = open(out_dir / f"mesh_{tag}.rank{r}.log", "w")
         procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                                         "--mesh-worker", str(job_path), str(r)],
@@ -3625,14 +3647,15 @@ def mesh_rel(got: dict, ref: dict) -> float:
 
 
 def phase_train_mesh(res: dict, steps: int) -> None:
-    """llama-1b (d_model 2048, 16 layers, 16 heads of 128), bf16 compute,
-    fp32 masters, AdamW, checkpointing, flash kernels, ``steps`` steps each,
-    a rank a process through NCCL on cuda:0: at world 1 the no-mesh program
-    and the mesh program at stage 3 (seq 2048 × 4; the losses must be
-    bitwise equal), and the mesh program at seq 8192 × 1 (8 layers), in
-    this process; on two ranks, a process each (fsdp=2) at stage 3, seq
-    2048 × 2 a rank; a ring over sequence=2 and Ulysses over sequence=2,
-    seq 8192 × 1 at 8 layers; tensor parallelism at model=2, seq 2048 × 4
+    """llama-1b (d_model 2048, MESH_L of its 16 layers, 16 heads of 128),
+    bf16 compute, fp32 masters, AdamW, checkpointing, flash kernels,
+    ``steps`` steps each, a rank a process through NCCL on cuda:0: at world
+    1 the no-mesh program and the mesh program at stage 3 (seq 2048 × 4;
+    the losses must be bitwise equal), and the mesh program at seq 8192 × 1
+    (MESH_SEQ_L layers), in this process; on two ranks, a process each
+    (fsdp=2) at stage 3, seq 2048 × 2 a rank; a ring over sequence=2 and
+    Ulysses over sequence=2, seq 8192 × 1 at MESH_SEQ_L layers; tensor
+    parallelism at model=2, seq 2048 × 4
     (``tp2``); moe-8x7b at MOE_TRAIN_LAYERS layers on model=2,
     seq 2048 × 2 (``ep2``, held to ``w1_moe``, the same at world 1). Each
     two-rank run is held to the world-1 run at the same global batch within
@@ -3708,10 +3731,10 @@ def mesh_checks(out: dict, groups, steps: int) -> list:
 
 
 def phase_train_pipe(res: dict, steps: int) -> None:
-    """llama-1b at full width and depth (d_model 2048, 16 layers, 16 heads
-    of 128, d_ff 5504, vocab 32000), bf16 compute, fp32 masters, AdamW,
-    checkpointing, flash, on pipe=2 (8 layers a rank): two rank processes
-    on cuda:0 through NCCL, each with its own NCCL_HOSTID, seq 2048 × 1 ×
+    """llama-1b at full width and MESH_L of its 16 layers (d_model 2048, 16
+    heads of 128, d_ff 5504, vocab 32000), bf16 compute, fp32 masters,
+    AdamW, checkpointing, flash, on pipe=2 (MESH_L / 2 layers a rank): two
+    rank processes on cuda:0 through NCCL, each with its own NCCL_HOSTID, seq 2048 × 1 ×
     PIPE_M microbatches a step, ``steps`` steps under each of gpipe, 1f1b
     and zb, each held to the world-1 program at the same global batch
     (``w1_pipe``, in this process) within MESH_LOSS_REL on losses and
@@ -3759,6 +3782,397 @@ SERVE_MESH_RUNS = (("bf16", "bf16", False), ("int8", "bf16", True),
 # when its third run, the int8 tree, came).
 SERVE_MESH_L = 2
 SERVE_MESH_TEACHER = (8, 16)  # rows and tokens of the teacher-forced decode
+
+
+# -- train_data and train_comm ------------------------------------------------
+
+# train_data: llama-1b's training from a token file of this many sequences
+# of 2048 seeded ids (uint16), 4 a microbatch, through the native reader.
+DATA_SEQS = 64
+# The host reader's timing: batches read through a fresh reader.
+DATA_READ_BATCHES = 16
+
+
+def _params_host(prog, state) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in prog.whole_params(state).items()}
+
+
+def phase_train_data(res: dict) -> None:
+    """llama-1b at full width and depth (seq 2048 × 4, bf16 compute, fp32
+    masters, flash) trained from a token file of seeded ids: steps 1–2 from
+    ``make_data_fn`` (the native reader), an asynchronous save of step 2
+    (dispatch and write timed), the uninterrupted step 3; then a fresh
+    program restored from the checkpoint takes step 3, whose loss and
+    weights must be bitwise the uninterrupted ones. Prints the bytes
+    written, save and restore GB/s, and the reader's host tokens/s beside
+    what a step needs. The directory is removed after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_engine_torch import checkpoint as ck
+    from tpu_engine_torch import data as tdata
+    from tpu_engine_torch.ops import _flash_cuda as fc
+    from tpu_engine_torch.train import build_train_program
+
+    L = 16
+    cfg = _llama_1b_cfg()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_data_"))
+    out = res["train_data"] = {"steps": 2, "accum": 1, "n_layers": L}
+    try:
+        usage = shutil.disk_usage(work)
+        out["disk_free_gib"] = usage.free / 2**30
+        vocab = 32000
+        toks = np.random.default_rng(0).integers(0, vocab, DATA_SEQS * cfg.seq_len)
+        tdata.write_token_file(toks.astype(np.uint16), str(work / "tokens.bin"))
+        prog = build_train_program(cfg, device="cuda")
+        if prog.model_config.vocab_size != vocab:
+            raise AssertionError(f"llama-1b's vocabulary is {prog.model_config.vocab_size}")
+        ds = tdata.TokenFileDataset(str(work / "tokens.bin"), cfg.seq_len)
+        data_fn = tdata.make_data_fn(prog, ds, seed=0)
+        out["reader"] = data_fn.reader
+        if data_fn.reader != "native":
+            from tpu_engine_torch import native
+
+            raise AssertionError(f"the data path runs the {data_fn.reader} reader: "
+                                 f"{native.build_error()}")
+        batches = [data_fn(i) for i in range(3)]
+        data_fn.close()
+        state = prog.init()
+        torch.cuda.synchronize()
+        fc.reset_launches()
+        losses, times = [], []
+        for b in batches[:2]:
+            t0 = time.perf_counter()
+            state, m = prog.step(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["launches"] = dict(fc.launches)
+        want = {"flash_fwd": 2 * L * 2, "flash_bwd_dq": L * 2, "flash_bwd_dkv": L * 2}
+        if {k: v for k, v in out["launches"].items() if v} != want:
+            raise AssertionError(f"train_data launches {out['launches']} != {want}")
+        mgr = ck.TrainCheckpointManager(str(work / "ck"), program=prog)
+        t0 = time.perf_counter()
+        if not mgr.save(2, state):
+            raise AssertionError("the save of step 2 was refused")
+        dispatch_s = time.perf_counter() - t0
+        state, m = prog.step(state, batches[2])  # races the save in flight
+        loss3 = float(m["loss"])
+        mgr.wait_until_finished()
+        wait_s = time.perf_counter() - t0
+        nbytes = mgr.last_save["bytes"]
+        written = sum(f.stat().st_size for f in (work / "ck" / "2").iterdir())
+        want_params = _params_host(prog, state)
+        del prog, state, m
+        _free()
+        prog = build_train_program(cfg, device="cuda")
+        like = ck.abstract_state_like(prog)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, state = ck.TrainCheckpointManager(str(work / "ck"), program=prog).restore(like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != 2 or state["step"] != 2:
+            raise AssertionError(f"restored step {step}, state step {state['step']}")
+        state, m = prog.step(state, batches[2])
+        loss3_restored = float(m["loss"])
+        got = _params_host(prog, state)
+        diff = [k for k in want_params if not torch.equal(got[k], want_params[k])]
+        t0 = time.perf_counter()
+        reader = tdata.TokenFileDataset(str(work / "tokens.bin"), cfg.seq_len)
+        reader.start(cfg.micro_batch_size, seed=1)
+        for _ in range(DATA_READ_BATCHES):
+            reader.next_batch()
+        read_s = time.perf_counter() - t0
+        reader.close()
+        step_tokens = cfg.micro_batch_size * cfg.seq_len
+        out.update(
+            losses=losses + [loss3], loss3_restored=loss3_restored,
+            step_ms_each=[t * 1e3 for t in times], state_bytes=nbytes, bytes_written=written,
+            save_dispatch_s=dispatch_s, save_total_s=wait_s, restore_s=restore_s,
+            save_gb_s=nbytes / wait_s / 1e9, restore_gb_s=nbytes / restore_s / 1e9,
+            reader_tokens_per_s=DATA_READ_BATCHES * step_tokens / read_s,
+            step_tokens_per_s=step_tokens / min(times), weights_differing=len(diff))
+        print(f"train_data: reader {out['reader']}, losses {[round(x, 5) for x in losses]}, "
+              f"step 3 {loss3!r} uninterrupted, {loss3_restored!r} restored; steps "
+              f"{[round(t * 1e3, 1) for t in times]} ms; launches {out['launches']}", flush=True)
+        print(f"train_data: state {nbytes} B, {written} B written; save dispatch "
+              f"{dispatch_s * 1e3:.1f} ms, until written {wait_s:.2f} s "
+              f"({out['save_gb_s']:.3f} GB/s, raced by step 3); restore {restore_s:.2f} s "
+              f"({out['restore_gb_s']:.3f} GB/s, the page cache warm); reader "
+              f"{out['reader_tokens_per_s']:.0f} tokens/s on the host against the step's "
+              f"{out['step_tokens_per_s']:.0f}; disk free {out['disk_free_gib']:.1f} GiB",
+              flush=True)
+        if not all(math.isfinite(x) for x in losses + [loss3]):
+            raise AssertionError(f"non-finite loss: {losses + [loss3]}")
+        if abs(losses[0] - math.log(vocab)) > 0.5:
+            raise AssertionError(f"first loss {losses[0]} is not near ln(vocab)")
+        if loss3_restored != loss3 or diff:
+            raise AssertionError(f"restored step 3 is not the uninterrupted one: loss "
+                                 f"{loss3_restored!r} vs {loss3!r}, {len(diff)} weights differ "
+                                 f"({diff[:3]})")
+        if dispatch_s >= wait_s:
+            raise AssertionError("the save was not asynchronous")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        _free()
+
+
+# train_comm: llama-1b at full width and COMM_L layers, seq 2048 × 2 a rank,
+# on two ranks of the one card; each run by (mesh, slices, fields).
+COMM_L = 4
+COMM_BLOCK = 256
+_XLA = dict(attention_impl="xla")
+COMM_RUNS = {
+    "fsdp2_fp32": (dict(fsdp=2), None, _XLA),
+    "fsdp2_qwz": (dict(fsdp=2), None, dict(_XLA, comm_quant_weights=True,
+                                           comm_secondary_weights=True)),
+    "dcn_fp32": (dict(data=2, dcn_data=2), [0, 1], _XLA),
+    "dcn_qgz": (dict(data=2, dcn_data=2), [0, 1], dict(_XLA, comm_quant_grads=True)),
+    "data2_fp32": (dict(data=2), None, {}),
+    "data2_bf16": (dict(data=2), None, dict(grad_allreduce_dtype="bf16")),
+}
+COMM_PAIRS = (("fsdp2_qwz", "fsdp2_fp32"), ("dcn_qgz", "dcn_fp32"), ("data2_bf16", "data2_fp32"))
+# The run whose checkpoint (d) restores at world 1.
+COMM_SAVE = "fsdp2_qwz"
+
+
+def _comm_cfg(name: str):
+    from tpu_engine_torch.mesh_runtime import MeshConfig
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+    from tpu_engine_torch.train import TrainConfig
+
+    mesh, _, kw = COMM_RUNS[name]
+    cfg = TrainConfig(**{**dict(model_name="llama-1b", micro_batch_size=2,
+                                gradient_accumulation_steps=1, seq_len=2048, precision="bf16",
+                                param_dtype="fp32", activation_checkpointing=True,
+                                sharding_stage=3, comm_quant_block_size=COMM_BLOCK,
+                                mesh=MeshConfig(**mesh), **TRAIN_LR), **kw})
+    return cfg, MODEL_CONFIGS["llama-1b"].with_(n_layers=COMM_L)
+
+
+def _whole_checksums(prog, state) -> dict:
+    from tpu_engine_torch import reshard
+
+    return reshard.leaf_checksums(prog.whole_params(state))
+
+
+def _comm_runs(job: dict, rank: int) -> dict:
+    """One rank of ``train_comm``: each of ``job["comm"]`` for ``job["steps"]``
+    steps on one synthetic batch, every counter set to 0 just before and
+    read just after; the runs' collective records per step, checksums of
+    the whole weights, hpZ's store against the quantized shards, and the
+    checkpoint of COMM_SAVE (saved at its last step)."""
+    import contextlib
+
+    import torch
+
+    from tpu_engine_torch import checkpoint as ck
+    from tpu_engine_torch import comm_compress as cc
+    from tpu_engine_torch import reshard
+    from tpu_engine_torch.mesh_runtime import MeshRuntime
+    from tpu_engine_torch.ops import _flash_cuda as fc
+    from tpu_engine_torch.parallel import collectives
+    from tpu_engine_torch.train import build_train_program
+
+    fault = job.get("fault")
+    if fault:
+        import train_faults
+
+        patch = train_faults._patched(train_faults.comm_fault(fault))
+    else:
+        patch = contextlib.nullcontext()
+    device = torch.device("cuda", 0)
+    steps, out, runtimes = job["steps"], {}, {}
+    with patch:
+        for name in job["comm"]:
+            cfg, model_cfg = _comm_cfg(name)
+            key = json.dumps(COMM_RUNS[name][:2])
+            if key not in runtimes:
+                runtimes[key] = MeshRuntime(cfg.mesh, device=device,
+                                            slice_assignments=COMM_RUNS[name][1])
+            prog = build_train_program(cfg, model_cfg, device=device, runtime=runtimes[key])
+            state = prog.init()
+            batch = prog.synthetic_batch(seed=0)
+            torch.cuda.synchronize()
+            fc.reset_launches()
+            collectives.reset_moved()
+            losses, norms, times = [], [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, m = prog.step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            stats = cc.collective_stats()
+            r = out[name] = {
+                "losses": losses, "grad_norms": norms, "step_ms_each": [t * 1e3 for t in times],
+                "launches": dict(fc.launches), "impl": prog.model_config.attention_impl,
+                "stats_per_step": {
+                    "total_wire_bytes": stats["total_wire_bytes"] // steps,
+                    "cross_slice_bytes": stats["cross_slice_bytes"] // steps,
+                    "collectives": [dict(c, bytes=c["bytes"] // steps,
+                                         payload_bytes=c["payload_bytes"] // steps,
+                                         calls=c["calls"] // steps)
+                                    for c in stats["collectives"]]},
+                "checksums": _whole_checksums(prog, state)}
+            if "hpz" in state:
+                r["hpz_leaves"] = len(state["hpz"]["codes"])
+                r["hpz_equal"] = all(
+                    torch.equal(c, cc.blockwise_quantize(state["params"][k], COMM_BLOCK)[0])
+                    for k, c in state["hpz"]["codes"].items())
+            if name == COMM_SAVE and job.get("ckpt"):
+                mgr = ck.TrainCheckpointManager(job["ckpt"], program=prog)
+                mgr.save(steps, state, wait=True)
+                if rank == 0:
+                    reshard.write_topology(job["ckpt"], reshard.mesh_topology(prog.runtime))
+            del prog, state, batch
+            _free()
+    return out
+
+
+def comm_readings(ranks: list) -> dict:
+    """The readings of a ``train_comm`` job (each rank's ``_comm_runs``):
+    per pair (compressed, reference) the largest relative loss gap of any
+    step, per rank; the qwZ gather's ratio of fp32 bytes to the bytes its
+    int8 codes and fp32 scales moved over ``fsdp``; the cross-slice ratio
+    (the fp32 run's cross-slice bytes over the compressed run's); and
+    whether each data-parallel run's ranks hold bitwise the same weights."""
+    r0 = ranks[0]["comm"]
+    out = {}
+    for comp, ref in COMM_PAIRS:
+        if comp not in r0:
+            continue
+        gaps = [max(abs(a - b) / abs(b) for a, b in zip(rk["comm"][comp]["losses"],
+                                                         rk["comm"][ref]["losses"]))
+                for rk in ranks]
+        out[f"{comp}:loss_rel"] = gaps
+    for name in r0:
+        if COMM_RUNS[name][0].get("data", 1) > 1:
+            out[f"{name}:ranks_agree"] = all(rk["comm"][name]["checksums"] == r0[name]["checksums"]
+                                             for rk in ranks)
+    if "fsdp2_qwz" in r0:
+        gathers = [c for c in r0["fsdp2_qwz"]["stats_per_step"]["collectives"]
+                   if c["op"] == "all-gather" and not c["cross_slice"]]
+        int8 = sum(c["bytes"] for c in gathers if c["dtype"] == "int8")
+        fp32 = sum(c["bytes"] for c in gathers if c["dtype"] == "float32")
+        out["gather_fp32_over_int8"] = 4 * int8 / (int8 + fp32) if int8 else 0.0
+    if "dcn_qgz" in r0:
+        out["cross_slice_ratio"] = (r0["dcn_fp32"]["stats_per_step"]["cross_slice_bytes"]
+                                    / max(r0["dcn_qgz"]["stats_per_step"]["cross_slice_bytes"], 1))
+    return out
+
+
+def phase_train_comm(res: dict, steps: int) -> None:
+    """llama-1b at full width and COMM_L layers on two ranks (processes on
+    the one card, NCCL, each its own NCCL_HOSTID): (a) fsdp=2 at stage 3
+    with qwZ+hpZ against the same mesh uncompressed; (b) data=2 as two
+    slices (dcn_data=2, slices [0, 1]) with qgZ against fp32; (c) data=2
+    with a bf16 gradient reduction against fp32 (flash attention; (a) and
+    (b) run JAX's attention_impl='xla', as compression requires); (d) (a)'s
+    checkpoint restored at world 1 through ``restore_resharded``, the
+    parity gate passing and the weights the checksums (a) left. Gated by
+    train_faults.py's COMM_* bounds; prints step ms, bytes a rank a step by
+    collective and dtype, the ratios and the loss gaps."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from train_faults import (COMM_BF16_LOSS_REL, COMM_CROSS_RATIO_MIN, COMM_GATHER_RATIO_MIN,
+                              COMM_LOSS_REL)
+
+    from tpu_engine_torch import checkpoint as ck
+    from tpu_engine_torch import reshard
+    from tpu_engine_torch.train import build_train_program
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_comm_"))
+    out = res["train_comm"] = {"steps": steps, "accum": 1, "n_layers": COMM_L}
+    try:
+        ranks = mesh_launch([], 2, steps, "comm", comm=list(COMM_RUNS), ckpt=str(work / "ck"))
+        out["runs"] = {name: [rk["comm"][name] for rk in ranks] for name in COMM_RUNS}
+        # The flash kernels launch on (c) alone (rank 0's count).
+        out["launches"] = {}
+        for name in ("data2_fp32", "data2_bf16"):
+            for k, v in ranks[0]["comm"][name]["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+        out["steps"] = 2 * steps
+        rd = out["readings"] = comm_readings(ranks)
+        fails = []
+        for name, per_rank in out["runs"].items():
+            r = per_rank[0]
+            by = {}
+            for c in r["stats_per_step"]["collectives"]:
+                k = f"{c['op']} {c['dtype']}{' across' if c['cross_slice'] else ''}"
+                by[k] = by.get(k, 0) + c["bytes"]
+            print(f"train_comm {name}: losses {[round(x, 5) for x in r['losses']]}, step ms "
+                  f"{[round(t, 1) for t in r['step_ms_each']]}, bytes a rank a step {by}, "
+                  f"cross-slice {r['stats_per_step']['cross_slice_bytes']}", flush=True)
+            if any(rk["losses"] != r["losses"] for rk in per_rank):
+                fails.append(f"{name}: the ranks report different losses")
+            if not all(math.isfinite(x) for x in r["losses"]):
+                fails.append(f"{name}: non-finite loss {r['losses']}")
+            want_impl = COMM_RUNS[name][2].get("attention_impl", "flash")
+            if r["impl"] != want_impl:
+                fails.append(f"{name}: attention {r['impl']} != {want_impl}")
+            want = ({"flash_fwd": 2 * COMM_L * steps, "flash_bwd_dq": COMM_L * steps,
+                     "flash_bwd_dkv": COMM_L * steps} if want_impl == "flash" else {})
+            for rk in per_rank:
+                if {k: v for k, v in rk["launches"].items() if v} != want:
+                    fails.append(f"{name}: launches {rk['launches']} != {want}")
+        print(f"train_comm readings: {json.dumps(rd)}; bounds: loss {COMM_LOSS_REL}, bf16 "
+              f"{COMM_BF16_LOSS_REL}, gather >= {COMM_GATHER_RATIO_MIN} (block {COMM_BLOCK} "
+              f"reckons {4 / (1 + 4 / COMM_BLOCK):.4f}), cross-slice >= {COMM_CROSS_RATIO_MIN}",
+              flush=True)
+        for comp, _ in COMM_PAIRS:
+            bound = COMM_BF16_LOSS_REL if comp == "data2_bf16" else COMM_LOSS_REL
+            if max(rd[f"{comp}:loss_rel"]) > bound:
+                fails.append(f"{comp}: loss gap {rd[f'{comp}:loss_rel']} > {bound}")
+        for k, v in rd.items():
+            if k.endswith(":ranks_agree") and not v:
+                fails.append(f"{k.split(':')[0]}: the ranks' weights differ")
+        if rd["gather_fp32_over_int8"] < COMM_GATHER_RATIO_MIN:
+            fails.append(f"qwZ gather ratio {rd['gather_fp32_over_int8']}")
+        if rd["cross_slice_ratio"] < COMM_CROSS_RATIO_MIN:
+            fails.append(f"cross-slice ratio {rd['cross_slice_ratio']}")
+        for rk in out["runs"][COMM_SAVE]:
+            if not rk.get("hpz_equal"):
+                fails.append("hpZ's store is not the quantized shards")
+        # (d) the checkpoint of (a) at world 1, in this process.
+        cfg, model_cfg = _comm_cfg(COMM_SAVE)
+        cfg = dataclasses.replace(cfg, mesh=type(cfg.mesh)(), comm_quant_weights=False,
+                                  comm_secondary_weights=False)
+        prog = build_train_program(cfg, model_cfg, device="cuda")
+        mgr = ck.TrainCheckpointManager(str(work / "ck"), program=prog)
+        like = ck.abstract_state_like(prog)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, state, report = reshard.restore_resharded(mgr, like, program=prog)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        nbytes = report["plan"]["total_bytes"]
+        out["reshard"] = {"step": step, "parity_ok": report.get("parity_ok"),
+                          "bytes": nbytes, "bytes_remapped": report.get("bytes_remapped"),
+                          "seconds": restore_s, "gb_s": nbytes / restore_s / 1e9,
+                          "src": report["plan"]["src_topology"]}
+        print(f"train_comm reshard: step {step}, parity {report.get('parity_ok')}, "
+              f"{nbytes} B from {report['plan']['src_topology']} to world 1 in "
+              f"{restore_s:.2f} s ({out['reshard']['gb_s']:.3f} GB/s)", flush=True)
+        if step != steps or not report.get("parity_ok"):
+            fails.append(f"restore_resharded: step {step}, report {report}")
+        elif _whole_checksums(prog, state) != out["runs"][COMM_SAVE][0]["checksums"]:
+            fails.append("restore_resharded: the weights are not (a)'s")
+        del prog, state, like
+        if fails:
+            raise AssertionError("; ".join(fails))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        _free()
 
 
 def _serve_mesh_model(state: dict):
@@ -4043,6 +4457,7 @@ def main() -> int:
         run("model", phase_model, res)
         run("head", phase_head, res)
         run("train", phase_train, res, args.steps)
+        run("train_data", phase_train_data, res)
         run("ring", phase_ring, res)
         run("train_ring", phase_train_ring, res, args.steps)
         run("train_fp32", phase_train_fp32, res, args.steps)
@@ -4058,6 +4473,7 @@ def main() -> int:
         run("train_window", phase_train_window, res)
         run("train_mesh", phase_train_mesh, res, args.steps)
         run("train_pipe", phase_train_pipe, res, args.steps)
+        run("train_comm", phase_train_comm, res, args.steps)
         serving: dict = {}
         run("generate", phase_generate, res, serving)
         run("serve", phase_serve, res, serving)

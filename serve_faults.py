@@ -48,7 +48,7 @@ the rounds off the accepted frontier (``chip_smoke.spec_frontier``, held to
   ``gamma + 1``, so the last proposal's K/V never reaches its pool.
 
 MoE faults (``--moe``), on ``chip_smoke.py``'s ``serve_moe`` batcher:
-moe-8x7b at full width and depth in weight-only int8
+moe-8x7b at full width and ``chip_smoke.SERVE_MOE_L`` layers in weight-only int8
 (``chip_smoke._moe_int8_tree``, ``SERVE_MOE_CFG``) serving
 ``chip_smoke._serve_moe_plan``'s 16 greedy requests; read as the
 teacher-forced gaps through forward with ragged dispatch and flash
@@ -308,7 +308,7 @@ def main_moe(card: str) -> dict:
 
     import torch
 
-    cfg = MODEL_CONFIGS["moe-8x7b"]
+    cfg = MODEL_CONFIGS["moe-8x7b"].with_(n_layers=cs.SERVE_MOE_L)
     params = cs._moe_int8_tree(cfg)
     plan = cs._serve_moe_plan(cfg)
     out: dict = {"card": card, "tau": cs.SERVE_MOE_TAU, "fp32_bound": cs.SERVE_MOE_FP32,

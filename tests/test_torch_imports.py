@@ -33,7 +33,8 @@ def test_port_modules_import_neither_jax_nor_tpu_engine():
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
     assert bad == "[]", bad
     wanted = {"quant_train", "lora", "train", "serving", "generate", "quant", "offload",
-              "disk_offload", "mesh_runtime", "sharding"}
+              "disk_offload", "mesh_runtime", "sharding", "comm", "comm_compress", "checkpoint",
+              "reshard", "data", "native"}
     have = {m.name.rsplit(".", 1)[-1] for m in pkgutil.walk_packages(
         [str(ROOT / "tpu_engine_torch")])}
     assert wanted <= have and int(count) >= len(have)

@@ -1,7 +1,9 @@
 """One rank of the port's mesh tests (``tests/test_torch_mesh.py``,
 ``tests/test_torch_mesh_train.py``, ``tests/test_torch_tp_train.py``,
 ``tests/test_torch_tp_serving.py``, ``tests/test_torch_pipeline.py``,
-``tests/test_torch_tp_lora.py``, ``tests/test_torch_tp_int8_serving.py``),
+``tests/test_torch_tp_lora.py``, ``tests/test_torch_tp_int8_serving.py``,
+``tests/test_torch_comm_compress.py``, ``tests/test_torch_checkpoint.py``,
+``tests/test_torch_reshard.py``),
 run as its own process on the CPU with ``gloo``, and the parent's launcher
 (:func:`spawn`).
 
@@ -69,12 +71,12 @@ def spawn(job: dict, world: int, tmp_path, timeout: float = TIMEOUT_S, during=No
 _RUNTIMES: dict = {}  # one per mesh shape: its groups are made once
 
 
-def _runtime(mesh: dict):
+def _runtime(mesh: dict, slices=None):
     from tpu_engine_torch.mesh_runtime import MeshConfig, MeshRuntime
 
-    key = json.dumps(mesh, sort_keys=True)
+    key = json.dumps([mesh, slices], sort_keys=True)
     if key not in _RUNTIMES:
-        _RUNTIMES[key] = MeshRuntime(MeshConfig(**mesh), device="cpu")
+        _RUNTIMES[key] = MeshRuntime(MeshConfig(**mesh), device="cpu", slice_assignments=slices)
     return _RUNTIMES[key]
 
 
@@ -103,7 +105,7 @@ def _train(case: dict, rank: int) -> dict:
     if case.get("base"):  # LoRA: the frozen base; "init" holds the adapters
         base = {k: torch.tensor(v) for k, v in np.load(case["base"]).items()}
     prog = build_train_program(cfg, model_cfg, device="cpu", base_params=base,
-                               runtime=_runtime(case["mesh"]))
+                               runtime=_runtime(case["mesh"], case.get("slices")))
     init = np.load(case["init"])
     state = prog.init(params={k: torch.tensor(init[k]).requires_grad_(True)
                               for k in init.files})
@@ -129,6 +131,12 @@ def _train(case: dict, rank: int) -> dict:
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     out.update({f"moved:{k}": v for k, v in collectives.moved.items()})
+    from tpu_engine_torch.comm_compress import collective_stats
+
+    out["stats"] = json.dumps(collective_stats())
+    for part, tree in state.get("hpz", {}).items():  # hpZ's store, as the last step left it
+        out.update({f"hpz_{part}:{k}": t.numpy() for k, t in tree.items()})
+        out.update({f"shard:{k}": state["params"][k].detach().numpy() for k in tree})
     out.update(losses=np.array(losses), norms=np.array(norms))
     out["eval"] = float(prog.eval_step(state, torch.tensor(np.load(case["batches"])[0],
                                                            dtype=torch.long)))
@@ -240,6 +248,81 @@ def _serve(case: dict, rank: int) -> dict:
     return out
 
 
+def _flat_tensors(state: dict) -> dict:
+    from tpu_engine_torch.checkpoint import flatten_state
+
+    return {k: v.detach().clone() for k, v in flatten_state(state).items()
+            if hasattr(v, "detach")}
+
+
+def _whole_state(prog, state: dict) -> dict:
+    """Params and AdamW moments gathered whole (stage 3's shards)."""
+    z = prog.zero
+    out = {f"param:{k}": v.detach().numpy().copy() for k, v in prog.whole_params(state).items()}
+    for name in ("mu", "nu"):
+        tree = z.whole(state["opt_state"][name], fsdp=z.state_split)
+        out.update({f"{name}:{k}": v.numpy().copy() for k, v in tree.items()})
+    return out
+
+
+def _ckpt(case: dict, rank: int) -> dict:
+    """A checkpoint on the mesh. ``save``: steps 1–2 from ``init``, an
+    asynchronous save of step 2 raced by step 3's in-place update, then a
+    fresh program restored from it (its state against the snapshot taken
+    at the save, bitwise) and its step 3. ``reshard``: a fresh program on
+    this mesh restored through ``restore_resharded`` and its step 3. Both
+    return the whole state of step 2 and the losses and whole state after
+    step 3."""
+    import torch
+
+    from tpu_engine_torch import checkpoint as ck
+    from tpu_engine_torch import reshard
+    from tpu_engine_torch.mesh_runtime import MeshConfig
+    from tpu_engine_torch.train import TrainConfig, build_train_program
+
+    rt = _runtime(case["mesh"])
+    cfg = TrainConfig(mesh=MeshConfig(**case["mesh"]), **case["cfg"])
+    batches = [torch.tensor(b, dtype=torch.long) for b in np.load(case["batches"])]
+    prog = build_train_program(cfg, device="cpu", runtime=rt)
+    out = {}
+    if case["mode"] == "save":
+        init = np.load(case["init"])
+        state = prog.init(params={k: torch.tensor(init[k]) for k in init.files})
+        for b in batches[:2]:
+            state, _ = prog.step(state, b)
+        mgr = ck.TrainCheckpointManager(case["dir"], program=prog)
+        assert mgr.save(2, state)  # asynchronous: step 3 below updates in place meanwhile
+        snapshot = _flat_tensors(state)
+        out.update({f"s2.{k}": v for k, v in _whole_state(prog, state).items()})
+        if rank == 0:
+            reshard.write_topology(case["dir"], reshard.mesh_topology(rt))
+        state, m = prog.step(state, batches[2])
+        mgr.wait_until_finished()
+        out["loss3"] = float(m["loss"])
+        out.update({f"s3.{k}": v for k, v in _whole_state(prog, state).items()})
+        prog2 = build_train_program(cfg, device="cpu", runtime=rt)
+        mgr2 = ck.TrainCheckpointManager(case["dir"], program=prog2)
+        step, restored = mgr2.restore(ck.abstract_state_like(prog2))
+        got = _flat_tensors(restored)
+        out["restored_step"] = step
+        out["bitwise"] = (got.keys() == snapshot.keys()
+                          and all(torch.equal(got[k], snapshot[k]) for k in got))
+        out["scalars"] = np.array([restored["step"], restored["opt_state"]["count"]])
+        restored, m = prog2.step(restored, batches[2])
+        out["loss3_restored"] = float(m["loss"])
+        out.update({f"r3.{k}": v for k, v in _whole_state(prog2, restored).items()})
+    else:
+        mgr = ck.TrainCheckpointManager(case["dir"], program=prog)
+        step, state, report = reshard.restore_resharded(mgr, ck.abstract_state_like(prog),
+                                                        program=prog)
+        out["restored_step"], out["parity_ok"] = step, report["parity_ok"]
+        out.update({f"s2.{k}": v for k, v in _whole_state(prog, state).items()})
+        state, m = prog.step(state, batches[2])
+        out["loss3"] = float(m["loss"])
+        out.update({f"s3.{k}": v for k, v in _whole_state(prog, state).items()})
+    return out
+
+
 def _rendezvous(case: dict, rank: int) -> dict:
     """The process group as ``initialize_distributed`` joined it: the
     default mesh over every rank, the topology report and one all-reduce."""
@@ -274,7 +357,7 @@ def main(job_path: str, rank: int, world: int) -> None:
     else:
         assert initialize_distributed(f"file://{job['store']}", world, rank, device="cpu")
     run = {"train": _train, "attention": _attention, "rendezvous": _rendezvous,
-           "serve": _serve}
+           "serve": _serve, "ckpt": _ckpt}
     for case in job["cases"]:
         out = run[case["kind"]](case, rank)
         np.savez(os.path.join(job["out"], f"{case['name']}.rank{rank}.npz"), **out)

@@ -51,8 +51,19 @@ Then qwen and gemma with experts, and the first multi-GPU pieces:
 - ring attention across ranks (``parallel.ring_attention.ring_mha_group``)
   and Ulysses (``parallel.ulysses_attention``) over ``sequence``.
 
+The mesh's wire and the training state on disk:
+
+- ``tpu_engine_torch.comm`` / ``tpu_engine_torch.comm_compress`` — ZeRO++
+  compressed collectives (qwZ, hpZ, qgZ across slices) and their plan;
+- ``tpu_engine_torch.checkpoint`` — ``TrainCheckpointManager`` over
+  ``torch.distributed.checkpoint`` (stable pointer, rollback, quarantine);
+- ``tpu_engine_torch.reshard`` — restores onto another mesh;
+- ``tpu_engine_torch.data`` and ``tpu_engine_torch.native`` — token files
+  and their native reader.
+
 Imports here stay light: submodules are imported by the caller.
 """
 
-__all__ = ["disk_offload", "generate", "lora", "mesh_runtime", "models", "offload", "ops",
-           "parallel", "quant", "quant_train", "serving", "sharding", "train"]
+__all__ = ["checkpoint", "comm", "comm_compress", "data", "disk_offload", "generate", "lora",
+           "mesh_runtime", "models", "native", "offload", "ops", "parallel", "quant",
+           "quant_train", "reshard", "serving", "sharding", "train"]

@@ -21,9 +21,10 @@ The mesh has JAX's five axes, outer to inner:
 A rank is one process with one device. :func:`initialize_distributed`
 joins the process group (NCCL for a CUDA device, ``gloo`` only when the
 caller asks for the CPU); :func:`build_mesh` lays the ranks out on the five
-axes with ``torch.distributed.device_mesh.init_device_mesh``, rank r at the
+axes as a ``torch.distributed.device_mesh.DeviceMesh``, rank r at the
 row-major coordinates of the resolved shape, as JAX's ``Mesh`` orders its
-devices; :class:`MeshRuntime` hands out the process groups of an axis or of
+devices (with ``dcn_data > 1``, whole slices as the outer blocks of
+``data``, :func:`rank_array`); :class:`MeshRuntime` hands out the process groups of an axis or of
 several axes.
 """
 
@@ -197,33 +198,82 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     return True
 
 
-def build_mesh(config: Optional[MeshConfig] = None, device="cuda"):
+def rank_array(config: MeshConfig, world: int,
+               slice_assignments: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The ranks laid out on the five axes (JAX's ``build_mesh`` device
+    array): row-major over the resolved shape, or with ``dcn_data > 1``
+    whole slices as the outer blocks of ``data``, the ranks of slice ``s``
+    (``slice_assignments[r]`` is rank r's slice; one host has no slice of
+    its own to read) in rank order. JAX's checks and messages."""
+    shape = config.resolved_shape(world)
+    if slice_assignments is not None and len(slice_assignments) != world:
+        raise ValueError("slice_assignments must cover every device")
+    if config.dcn_data == 1:
+        if slice_assignments is not None:
+            raise ValueError(
+                "slice_assignments given but dcn_data=1 — the slice layout "
+                "would be silently ignored; set mesh.dcn_data")
+        return torch.arange(world).reshape(shape)
+    if shape[0] % config.dcn_data != 0:
+        raise ValueError(
+            f"resolved data axis {shape[0]} not divisible by dcn_data={config.dcn_data}")
+    inner_shape = (shape[0] // config.dcn_data, *shape[1:])
+    if slice_assignments is None:
+        raise ValueError(
+            "dcn_data > 1 but this platform exposes no device.slice_index; "
+            "pass slice_assignments explicitly")
+    groups: dict[int, list[int]] = {}
+    for rank, sid in enumerate(slice_assignments):
+        groups.setdefault(int(sid), []).append(rank)
+    if len(groups) != config.dcn_data:
+        raise ValueError(
+            f"dcn_data={config.dcn_data} but found {len(groups)} device "
+            f"slices ({sorted(groups)}); one replica group per slice required")
+    per_slice = world // config.dcn_data
+    blocks = []
+    for sid in sorted(groups):
+        grp = groups[sid]
+        if len(grp) != per_slice:
+            raise ValueError(f"slice {sid} has {len(grp)} devices; expected {per_slice}")
+        blocks.append(torch.tensor(grp).reshape(inner_shape))
+    return torch.cat(blocks, dim=0)
+
+
+def build_mesh(config: Optional[MeshConfig] = None, device="cuda",
+               slice_assignments: Optional[Sequence[int]] = None):
     """The :class:`~torch.distributed.device_mesh.DeviceMesh` of ``config``
-    over this process group's ranks, with the five axis names. Needs
-    :func:`initialize_distributed` first; ``dcn_data > 1`` (several slices)
-    raises ``NotImplementedError``: one host has no slices."""
-    from torch.distributed.device_mesh import init_device_mesh
+    over this process group's ranks, with the five axis names, laid out as
+    :func:`rank_array`. Needs :func:`initialize_distributed` first."""
+    from torch.distributed.device_mesh import DeviceMesh
 
     config = config or MeshConfig()
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs a process group: call initialize_distributed")
-    shape = config.resolved_shape(dist.get_world_size())
-    if config.dcn_data != 1:
-        raise NotImplementedError("dcn_data > 1 (a mesh across slices) is not ported")
-    return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=MESH_AXES)
+    ranks = rank_array(config, dist.get_world_size(), slice_assignments)
+    return DeviceMesh(torch.device(device).type, ranks, mesh_dim_names=MESH_AXES)
 
 
 class MeshRuntime:
     """Owns this rank's mesh and its process groups; one per training
     process. :meth:`group` gives the group of the ranks that differ from
     this one along ``axes`` only (None for a group of one rank: its
-    collectives are copies, and the callers skip them)."""
+    collectives are copies, and the callers skip them).
 
-    def __init__(self, config: Optional[MeshConfig] = None, device="cuda"):
+    With ``dcn_data > 1`` (``slice_assignments``: each rank's slice, JAX's
+    argument) the outer ``dcn_data`` blocks of ``data`` are slices:
+    :meth:`slice_groups` gives this rank's intra- and cross-slice groups
+    over ``data`` (``comm_compress.data_slice_groups``), and the collective
+    counters learn each rank's slice."""
+
+    def __init__(self, config: Optional[MeshConfig] = None, device="cuda",
+                 slice_assignments: Optional[Sequence[int]] = None):
+        from tpu_engine_torch.parallel import collectives
+
         self.config = config or MeshConfig()
         self.device = torch.device(device)
-        self.mesh = build_mesh(self.config, self.device)
-        self.shape = tuple(int(s) for s in self.mesh.mesh.shape)
+        self.mesh = build_mesh(self.config, self.device, slice_assignments)
+        self.ranks = self.mesh.mesh.clone()
+        self.shape = tuple(int(s) for s in self.ranks.shape)
         self.rank = dist.get_rank()
         self.coords = dict(zip(MESH_AXES, (int(c) for c in self.mesh.get_coordinate())))
         self._groups: dict[tuple[str, ...], Any] = {}
@@ -233,6 +283,42 @@ class MeshRuntime:
                      ("data", "sequence", "model")):
             self._make(axes)
         self._ends = self._make_ends()
+        self.slice_of: Optional[list[int]] = None
+        self._slices = self._make_slices()
+        if self.slice_of is not None:
+            collectives.slice_of = self.slice_of
+
+    def _make_slices(self):
+        """(intra-slice, cross-slice) groups of this rank over ``data``
+        (None for a group of one rank), and :attr:`slice_of`; (None, None)
+        for one slice."""
+        from tpu_engine_torch.comm_compress import data_slice_groups
+
+        dcn = self.config.dcn_data
+        if dcn == 1:
+            return None, None
+        n_data = self.shape[0]
+        per = n_data // dcn
+        self.slice_of = [0] * self.n_devices
+        for d in range(n_data):
+            for r in self.ranks[d].reshape(-1).tolist():
+                self.slice_of[r] = d // per
+        lines = self.ranks.movedim(0, -1).reshape(-1, n_data).tolist()
+        intra, cross = data_slice_groups(n_data, dcn)
+        mine = [None, None]
+        for line in lines:
+            for slot, groups in enumerate((intra, cross)):
+                for idx in groups:
+                    members = [line[i] for i in idx]
+                    g = dist.new_group(members) if len(members) > 1 else None
+                    if self.rank in members:
+                        mine[slot] = g
+        return tuple(mine)
+
+    def slice_groups(self):
+        """(intra-slice group, cross-slice group) of this rank over
+        ``data``; either is None where it has one rank."""
+        return self._slices
 
     def _make_ends(self):
         """The group of the first and the last stage of this rank's
@@ -241,7 +327,7 @@ class MeshRuntime:
         n = self.axis_sizes["pipe"]
         if n < 3:
             return None
-        ranks = torch.arange(self.n_devices).reshape(self.shape).movedim(2, -1)
+        ranks = self.ranks.movedim(2, -1)
         mine = None
         for row in ranks.reshape(-1, n).tolist():
             g = dist.new_group([row[0], row[-1]])
@@ -253,7 +339,7 @@ class MeshRuntime:
         """The global ranks of this rank's previous and next pipeline
         stage (None at the first and the last)."""
         n, p = self.axis_sizes["pipe"], self.coords["pipe"]
-        ranks = torch.arange(self.n_devices).reshape(self.shape)
+        ranks = self.ranks
         idx = [self.coords[a] for a in MESH_AXES]
 
         def at(q):
@@ -289,7 +375,7 @@ class MeshRuntime:
         return n
 
     def _make(self, axes: tuple[str, ...]) -> None:
-        ranks = torch.arange(self.n_devices).reshape(self.shape)
+        ranks = self.ranks
         keep = [i for i, a in enumerate(MESH_AXES) if a not in axes]
         vary = [i for i, a in enumerate(MESH_AXES) if a in axes]
         grid = ranks.permute(*keep, *vary).reshape(-1, self.size(axes))
@@ -315,5 +401,5 @@ class MeshRuntime:
     def topology_report(self) -> dict[str, Any]:
         report = detect_topology(self.device)
         report["mesh"] = {"axes": self.axis_sizes,
-                          "device_ids": torch.arange(self.n_devices).reshape(self.shape).tolist()}
+                          "device_ids": self.ranks.tolist()}
         return report

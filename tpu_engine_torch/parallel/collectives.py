@@ -10,7 +10,11 @@ collective, which joins or splits dim 0 only.
 rank since :func:`reset_moved`, as the ring algorithms move them: an
 all-gather or a reduce-scatter (n − 1)/n of the whole tensor, an all-reduce
 twice that, an all-to-all (n − 1)/n of its input, a send its tensor (ring
-attention's hops and the Ulysses swaps count here too).
+attention's hops and the Ulysses swaps count here too). :data:`records`
+counts the same calls by (kind, dtype, group size, whether the group spans
+two slices of :data:`slice_of`): calls, wire bytes and payload bytes, what
+``comm_compress.collective_stats`` reads. The dtype is the tensor's as it
+went on the wire.
 """
 
 from __future__ import annotations
@@ -29,16 +33,38 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 
 KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all", "send")
 moved: dict[str, int] = {k: 0 for k in KINDS}
+records: dict[tuple, list] = {}
+# Global rank → its slice (``MeshRuntime`` sets it on a mesh of slices);
+# None: one slice.
+slice_of: Optional[list[int]] = None
+_crossing: dict[int, bool] = {}
 
 
 def reset_moved() -> None:
     for k in KINDS:
         moved[k] = 0
+    records.clear()
 
 
-def count(kind: str, t: torch.Tensor, share: float = 1.0) -> None:
-    """Add ``share`` of ``t``'s bytes to ``moved[kind]``."""
-    moved[kind] += int(t.numel() * t.element_size() * share)
+def _crosses(group) -> bool:
+    if slice_of is None or group is None:
+        return False
+    key = id(group)
+    if key not in _crossing:
+        _crossing[key] = len({slice_of[r] for r in dist.get_process_group_ranks(group)}) > 1
+    return _crossing[key]
+
+
+def count(kind: str, t: torch.Tensor, share: float = 1.0, group=None) -> None:
+    """Add ``share`` of ``t``'s bytes to ``moved[kind]``, and the call to
+    :data:`records` (``group``: the call's)."""
+    payload = t.numel() * t.element_size()
+    moved[kind] += int(payload * share)
+    key = (kind, str(t.dtype).replace("torch.", ""), _size(group), _crosses(group))
+    rec = records.setdefault(key, [0, 0, 0])
+    rec[0] += 1
+    rec[1] += int(payload * share)
+    rec[2] += payload
 
 
 def _size(group) -> int:
@@ -54,7 +80,7 @@ def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = torch.empty((_size(group) * src.shape[0], *src.shape[1:]), dtype=t.dtype,
                       device=t.device)
     _all_gather(out, src, group=group)
-    count("all_gather", out, (_size(group) - 1) / _size(group))
+    count("all_gather", out, (_size(group) - 1) / _size(group), group)
     return out.movedim(0, dim)
 
 
@@ -69,7 +95,7 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
         raise ValueError(f"dim {dim} of size {src.shape[0]} does not split over {n} ranks")
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype, device=t.device)
     _reduce_scatter(out, src, op=dist.ReduceOp.SUM, group=group)
-    count("reduce_scatter", src, (n - 1) / n)
+    count("reduce_scatter", src, (n - 1) / n, group)
     return out.movedim(0, dim)
 
 
@@ -78,7 +104,7 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     ``t``."""
     if group is not None:
         dist.all_reduce(t, op=op, group=group)
-        count("all_reduce", t, 2 * (_size(group) - 1) / _size(group))
+        count("all_reduce", t, 2 * (_size(group) - 1) / _size(group), group)
     return t
 
 

@@ -61,8 +61,8 @@ def _send_recv(a: torch.Tensor, b: torch.Tensor, to: int, frm: int, group):
            dist.P2POp(dist.isend, b, to, group), dist.P2POp(dist.irecv, rb, frm, group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    collectives.count("send", a)
-    collectives.count("send", b)
+    collectives.count("send", a, group=group)
+    collectives.count("send", b, group=group)
     return ra, rb
 
 

@@ -33,7 +33,7 @@ def _swap(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tens
     src = torch.stack(x.chunk(n, dim=split_dim), 0).contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
-    collectives.count("all_to_all", src, (n - 1) / n)
+    collectives.count("all_to_all", src, (n - 1) / n, group)
     return torch.cat(out.unbind(0), dim=concat_dim)
 
 

@@ -80,6 +80,11 @@ class ZeroLayout:
         # leaves out of the norm (a tied table counted on the first stage).
         self.pipe = None
         self.norm_skip: frozenset = frozenset()
+        # The program sets them: the compressed collectives of stage 3
+        # (``comm_compress.Compression``) and the dtype gradients are
+        # reduced in (``grad_allreduce_dtype`` below fp32; None: as they are).
+        self.compress = None
+        self.comm_dtype: Optional[torch.dtype] = None
         self.params_split = self.stage >= sharding.ShardingStage.FULL_PARTITIONING
         self.grads_split = self.stage >= sharding.ShardingStage.GRADIENT_PARTITIONING
         self.state_split = self.stage >= sharding.ShardingStage.OPTIMIZER_STATE
@@ -134,8 +139,26 @@ class ZeroLayout:
         shard of the sum where the gradients are split, the whole sum
         otherwise; a leaf of :attr:`partial` gradients is summed over
         ``model`` too. ``dim_offset`` -1 for one layer of a stacked leaf; a
-        gradient not ``owned`` is not summed in place."""
+        gradient not ``owned`` is not summed in place. With
+        :attr:`comm_dtype` the sum runs in that dtype and is upcast to fp32
+        once after it (JAX's ``grad_allreduce_dtype``); under qgZ the sum
+        over ``data`` is :meth:`Compression.reduce_data`."""
+        if self.comm_dtype is not None:
+            low = g.to(self.comm_dtype)
+            return self._reduce_leaf(key, low, dim_offset, owned or low is not g).float()
+        return self._reduce_leaf(key, g, dim_offset, owned)
+
+    def _reduce_leaf(self, key: str, g: torch.Tensor, dim_offset: int,
+                     owned: bool) -> torch.Tensor:
         d = self.dims[key]
+        if self.compress is not None and self.compress.quant_grads:
+            # fsdp first (the gather's reduce-scatter, or the partials of a
+            # leaf fsdp leaves whole), then data across the slices.
+            if d is not None:
+                g = reduce_scatter_dim(g, d + dim_offset, self.fsdp)
+            elif self.fsdp is not None:
+                g = all_reduce_(g if owned else g.clone(), self.fsdp)
+            return self.compress.reduce_data(g)
         part = key in self.partial
         tokens = self.tokens_model if part else self.tokens
         rest = self.rest_model if part else self.rest
@@ -223,26 +246,38 @@ class ZeroLayout:
 
 class _Gather(torch.autograd.Function):
     """A leaf (or one layer of it) gathered whole from the ranks' shards,
-    cast to ``dtype`` first (None: as it is). ``anchor`` (a 0-d device
+    cast to ``dtype`` first (None: as it is); under qwZ a quantized leaf's
+    int8 codes and scales are gathered instead and dequantized to ``dtype``
+    (:meth:`~tpu_engine_torch.comm_compress.Compression.gather`, reading
+    the stream's hpZ store where it has one). ``anchor`` (a 0-d device
     tensor that requires grad) puts the gather on the graph; the backward
-    rounds the cotangent to the master's dtype, reduces it over the step's
-    ranks to this rank's shard (:meth:`ZeroLayout.reduce_leaf`) and adds it
-    to the stream's :class:`~tpu_engine_torch.offload.GradSums`."""
+    (the exact one under qwZ, a straight-through estimator) rounds the
+    cotangent to the master's dtype (to the reduction's where
+    ``grad_allreduce_dtype`` sets one), reduces it over the step's ranks to
+    this rank's shard (:meth:`ZeroLayout.reduce_leaf`) and adds it to the
+    stream's :class:`~tpu_engine_torch.offload.GradSums`."""
 
     @staticmethod
     def forward(ctx, anchor, src, dtype, stream, key, index):
         ctx.stream, ctx.key, ctx.index, ctx.master = stream, key, index, src.dtype
-        x = src if dtype is None else src.to(dtype)
-        d = stream.layout.dims[key]
+        layout = stream.layout
         off = 0 if index is None else -1
-        out = x if d is None else gather_dim(x, d + off, stream.layout.fsdp)
+        cc = layout.compress
+        if cc is not None and cc.quantizes(key):
+            return cc.gather(src, key, cc.plans[key].fsdp_dim + off,
+                             src.dtype if dtype is None else dtype, stream.hpz, index)
+        x = src if dtype is None else src.to(dtype)
+        d = layout.dims[key]
+        out = x if d is None else gather_dim(x, d + off, layout.fsdp)
         return out.view_as(out) if out is src else out
 
     @staticmethod
     def backward(ctx, g):
         layout = ctx.stream.layout
         off = 0 if ctx.index is None else -1
-        g = layout.reduce_leaf(ctx.key, g.to(ctx.master), off, owned=False)
+        if layout.comm_dtype is None:
+            g = g.to(ctx.master)
+        g = layout.reduce_leaf(ctx.key, g, off, owned=False)
         ctx.stream.sums.add(ctx.key, g, ctx.index)
         return None, None, None, None, None, None
 
@@ -260,6 +295,7 @@ class ShardedParams:
         self.compute_dtype = compute_dtype
         self.anchor = torch.zeros((), device=self.device, requires_grad=True)
         self.params: dict[str, torch.Tensor] = {}
+        self.hpz: Optional[dict] = None  # hpZ's store of the state stepped (the program sets it)
         self.sums = GradSums(self.device)
 
     def bind(self, params: dict[str, torch.Tensor], layers: bool = True) -> dict:

@@ -46,6 +46,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from tpu_engine_torch import comm_compress
 from tpu_engine_torch import disk_offload as dsk
 from tpu_engine_torch import lora as lora_mod
 from tpu_engine_torch import quant_train, sharding
@@ -76,15 +77,18 @@ _DEFAULT_BETA2 = _DefaultFloat(0.95)
 class TrainConfig:
     """The fields of ``TPUTrainConfig`` (``tpu_engine/sharding.py``) with its
     defaults: the single-device ones, the mesh (``mesh``,
-    ``sharding_stage``, ``grad_allreduce_dtype``), and ``sequence``, the
+    ``sharding_stage``, ``grad_allreduce_dtype``, the ``comm_quant_*``
+    compressed collectives), and ``sequence``, the
     ring size of sequence-parallel attention with every rank in this
     process (``mesh.sequence`` is the ring across ranks; setting both
     raises). ``pipeline_schedule`` is JAX's ("auto" resolves by
     ``sharding.resolve_pipeline_schedule``). Values the port does not
     support raise; the combinations JAX refuses raise JAX's messages.
-    Still refused on a mesh, with ``NotImplementedError``:
-    ``grad_allreduce_dtype`` other than fp32, (on more than one rank) host
-    and disk placements and int8 training, dense-dispatch MoE over
+    JAX's XLA flag fields (``async_collectives``,
+    ``latency_hiding_scheduler``, ``xla_extra_flags``) have no counterpart:
+    the port's collectives are explicit calls. Still refused on a mesh,
+    with ``NotImplementedError``: (on more than one rank) host and disk
+    placements and int8 training, dense-dispatch MoE over
     ``sequence``, and (on more than one ``model`` rank) a model whose
     heads, MLP or experts do not split (``tpu_engine_torch/sharding.py``)."""
 
@@ -136,8 +140,15 @@ class TrainConfig:
     # The mesh (JAX's TPUTrainConfig fields): ZeRO stage 0-3 and the axes.
     sharding_stage: int = 3
     mesh: MeshConfig = field(default_factory=MeshConfig)
-    grad_allreduce_dtype: Optional[str] = None  # None | "fp32"
+    grad_allreduce_dtype: Optional[str] = None  # None | "fp32" | the compute dtype
     pipeline_schedule: str = "auto"  # auto | gpipe | 1f1b | zb (pipe > 1)
+    # ZeRO++ compressed collectives at stage 3 (tpu_engine_torch/comm_compress.py):
+    # qwZ int8 weight gathers, hpZ their secondary int8 store, qgZ int8
+    # gradient sums across slices (dcn_data > 1).
+    comm_quant_weights: bool = False
+    comm_secondary_weights: bool = False
+    comm_quant_grads: bool = False
+    comm_quant_block_size: int = 256
 
     def __post_init__(self):
         # Enum-valued fields of the JAX config arrive as str subclasses.
@@ -188,6 +199,7 @@ class TrainConfig:
              f"{self.mesh.sequence} (a ring across ranks): set one"),
             (self.pipeline_schedule in sharding.PIPELINE_SCHEDULES,
              f"pipeline_schedule={self.pipeline_schedule!r}: auto, gpipe, 1f1b or zb"),
+            (self.comm_quant_block_size >= 8, "comm_quant_block_size must be >= 8"),
         ]
         for ok, msg in checks:
             if not ok:
@@ -217,9 +229,7 @@ class TrainConfig:
                     "accumulates gradients in fp32 inside its scan, so the "
                     "reduced-dtype collective the option exists for would never "
                     "materialise (use 'gpipe', or drop grad_allreduce_dtype)")
-            raise NotImplementedError(
-                f"grad_allreduce_dtype={self.grad_allreduce_dtype!r} is not ported "
-                "(ROADMAP Queue 1, item 2: comm.py, then comm_compress.py)")
+        comm_compress.validate_config(self)
 
     def _check_disk_offload(self) -> None:
         """JAX's ``_validate_disk_offload``: the combinations the disk tier
@@ -746,7 +756,8 @@ class TrainProgram:
 
     On a mesh (``runtime``, a :class:`~tpu_engine_torch.mesh_runtime.MeshRuntime`)
     ``step`` and ``eval_step`` take the global batch [accum, micro_batch ·
-    data · fsdp, seq_len], JAX's, and each rank computes its block of it;
+    data · fsdp, seq_len], JAX's, and each rank computes its block of it
+    (or just this rank's rows, [accum, micro_batch, seq_len]);
     ``state["params"]`` and the optimizer state hold this rank's shards as
     ``zero`` (:class:`~tpu_engine_torch.parallel.zero.ZeroLayout`) places
     them, ``stream`` gathering stage 3's layer by layer; :meth:`whole_params`
@@ -811,8 +822,12 @@ class TrainProgram:
                 params = {k: v.detach().clone().requires_grad_(v.requires_grad)
                           for k, v in self.pipe.block(params).items()}
             params = self.zero.place(params)
-            return {"params": params, "opt_state": self.tx.init(self.zero.state_like(params)),
-                    "step": 0, "lr_scale": 1.0}
+            state = {"params": params, "opt_state": self.tx.init(self.zero.state_like(params)),
+                     "step": 0, "lr_scale": 1.0}
+            hpz = self._refresh_hpz(params)
+            if hpz is not None:
+                state["hpz"] = hpz
+            return state
         pin = self.device.type == "cuda"
         opt_state = self.tx.init({k: torch.empty_like(p, device="meta") for k, p in params.items()}
                                  if cfg.optimizer_offload == "host" else params)
@@ -962,9 +977,16 @@ class TrainProgram:
         return collect_grads(go, params, sums)
 
     def _rows_and_denom(self, batch: torch.Tensor):
-        """A mesh step's share: this rank's rows of the global ``batch``,
-        and the step's valid-target count summed over every rank."""
-        rows = zero.local_rows(batch, self.runtime, self.config.micro_batch_size)
+        """A mesh step's share: this rank's rows of the global ``batch`` (or
+        ``batch`` itself where it holds just this rank's
+        ``micro_batch_size`` rows of each microbatch, as ``data.make_data_fn``
+        reads them on a mesh), and the step's valid-target count summed over
+        every rank."""
+        micro = self.config.micro_batch_size
+        if batch.shape[1] == micro and self.runtime.data_parallel_size() > 1:
+            rows = batch
+        else:
+            rows = zero.local_rows(batch, self.runtime, micro)
         targets = rows[:, :, 1:]
         block = zero.sequence_block(self.runtime, rows.shape[2])
         if block is not None:
@@ -972,18 +994,29 @@ class TrainProgram:
         count = all_reduce_(torch.sum((targets >= 0).float()), self.zero.tokens)
         return rows, torch.clamp(count, min=1.0)
 
+    def _refresh_hpz(self, params: dict) -> Optional[dict]:
+        """hpZ's secondary store of ``params`` (this rank's shards), or None
+        without hpZ."""
+        cc = self.zero.compress if self.zero is not None else None
+        return cc.refresh(params) if cc is not None else None
+
     def _mesh_step(self, state: dict, batch: torch.Tensor) -> tuple[dict, dict]:
         """The step on a mesh: this rank's share of the loss and gradients;
         the gradients reduced over the ranks (stage 3's in its backward),
         the global norm, the update of this rank's shards, and at stages
-        1 and 2 the parameters gathered whole again."""
+        1 and 2 the parameters gathered whole again; under hpZ the
+        secondary store refreshed from the updated shards."""
         z, params = self.zero, state["params"]
+        if self.stream is not None:
+            self.stream.hpz = state.get("hpz")
         loss, grads = self.mesh_grads(params, batch)
         norm = z.grad_norm(grads, global_norm)
         lr = self.schedule(state["step"]) * state["lr_scale"]
         p_upd, g_upd = z.update_views(params, grads)
         self.tx.update(p_upd, g_upd, state["opt_state"], lr, self.walk, norm=norm)
         z.gather_updated(params)
+        if "hpz" in state:
+            state["hpz"] = self._refresh_hpz(params)
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": norm,
                        "learning_rate": lr, "step": state["step"]}
@@ -1074,7 +1107,8 @@ class TrainProgram:
 
     @torch.no_grad()
     def eval_step(self, state: dict, batch: torch.Tensor) -> torch.Tensor:
-        """Held-out loss over one [accum, B, S] batch: pure cross-entropy."""
+        """Held-out loss over one [accum, B, S] batch: pure cross-entropy,
+        on the full-width weights (JAX's eval runs no compressed gather)."""
         if self.runtime is not None:
             batch, denom = self._rows_and_denom(batch)
         else:
@@ -1085,9 +1119,16 @@ class TrainProgram:
                 total = all_reduce_(pipeline.eval_losses(self.pipe, work), self.pipe.group)
             return all_reduce_(total, self.zero.tokens)
         total = torch.zeros((), dtype=torch.float32, device=batch.device)
-        for tokens in batch:
-            total = total + self.loss_fn(state["params"], tokens, include_aux=False,
-                                         denom=denom)
+        compress = self.zero.compress if self.zero is not None else None
+        try:
+            if compress is not None:
+                self.zero.compress = None
+            for tokens in batch:
+                total = total + self.loss_fn(state["params"], tokens, include_aux=False,
+                                             denom=denom)
+        finally:
+            if compress is not None:
+                self.zero.compress = compress
         return all_reduce_(total, self.zero.tokens) if self.runtime is not None else total
 
 
@@ -1418,6 +1459,19 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
             f"attention_impl={impl!r} (a windowed model has no use for "
             "full-sequence context parallelism); set sequence=1 or sliding_window=0"
         )
+    if comm_compress.enabled(cfg):
+        sizes = runtime.axis_sizes if runtime is not None else dict.fromkeys(
+            ("pipe", "sequence", "model"), 1)
+        comm_compress.validate_runtime(cfg, sizes, model_cfg, impl)
+        if runtime is None:
+            raise NotImplementedError(
+                "comm compression runs on a mesh runtime (a process group, or "
+                "runtime=MeshRuntime(...) of one rank): one device has no collective")
+    if cfg.grad_allreduce_dtype not in (None, "fp32") and cfg.param_offload == "host":
+        raise ValueError(
+            "grad_allreduce_dtype with param_offload=host is not supported: "
+            "offloaded layers already stream in the compute dtype, and the "
+            "host-resident master tree cannot be re-cast in device code")
     if cfg.lora_rank is not None:
         lora_mod.validate_targets(model_cfg, cfg.lora_targets)
         if cfg.param_offload == "host":
@@ -1479,6 +1533,14 @@ def _bind_mesh(prog: TrainProgram, runtime: MeshRuntime) -> None:
     z = prog.zero = zero.ZeroLayout(runtime, cfg.sharding_stage, logical, shapes, mc)
     if prog.pipe is not None:
         z.pipe, z.norm_skip = prog.pipe.group, prog.pipe.norm_skip(shapes)
+    if cfg.grad_allreduce_dtype not in (None, "fp32"):
+        z.comm_dtype = _DTYPES[cfg.grad_allreduce_dtype]
+    if comm_compress.enabled(cfg):
+        plans = comm_compress.build_leaf_plans(sharding.param_pspecs(logical, 3), shapes,
+                                               runtime.axis_sizes["fsdp"], cfg.comm_quant_weights)
+        z.compress = comm_compress.Compression(
+            runtime, plans, cfg.comm_quant_block_size, quant_weights=cfg.comm_quant_weights,
+            secondary_weights=cfg.comm_secondary_weights, quant_grads=cfg.comm_quant_grads)
     if z.params_split:
         prog.stream = zero.ShardedParams(z, prog.device, cfg.compute_dtype())
     if prog.base_params is not None and z.model is not None:

@@ -74,8 +74,23 @@ Each fault patches one function for the length of its reading:
   ``mesh_pipe_cotangent_zero``: the last stage sends zeros in place of its
   input cotangents (``parallel.pipeline.exchange``; the trade still pairs).
 
-``python3 train_faults.py --mesh`` reads the mesh alone, ``--offload`` the
-placements alone (llama-1b at ``chip_smoke.OFFLOAD_L`` layers). The readings are
+- the compressed collectives (``chip_smoke.py``'s ``train_comm``: llama-1b
+  at ``chip_smoke.COMM_L`` layers on two ranks; ``chip_smoke.comm_readings``):
+  ``comm_sound``; ``qwz_dequant_before_wire``: the qwZ gather dequantizes
+  its shard first and moves it full width (the rounding kept, so the loss
+  cannot tell: the gather ratio does); ``qwz_scales_shifted``: each block
+  dequantized with its neighbour's scale (the loss gap);
+  ``hpz_stale``: hpZ's store never refreshed after the first one (the
+  store's codes against the quantized shards); ``qgz_fp32_across``: the
+  cross-slice sum moves fp32 (the cross-slice ratio);
+  ``qgz_cross_unsummed``: each slice keeps its own gradient, the gather
+  still run (the ranks' weights differ); ``bf16_rank1_unsummed``: rank 1
+  keeps its own bf16 gradient (the ranks' weights differ). They set the
+  ``COMM_*`` bounds.
+
+``python3 train_faults.py --mesh`` reads the mesh alone, ``--comm`` the
+compressed collectives alone, ``--offload`` the placements alone (llama-1b
+at ``chip_smoke.OFFLOAD_L`` layers). The readings are
 printed and written to ``chiprun_out/train_faults.json``.
 """
 
@@ -256,6 +271,140 @@ def _last_stage_cotangent_zero(real):
     return exchange
 
 
+# train_comm's bounds (chip_smoke.phase_train_comm), set between the sound
+# readings and the planted faults' of ``--comm`` (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md): the largest relative loss gap of a compressed run to its
+# uncompressed one (qwZ+hpZ 4.488e-5, qgZ 3.248e-5; each block read with
+# its neighbour's scale 2.004e-3, each slice keeping its own gradient
+# 3.458e-2), of the bf16 gradient reduction to the fp32 one (1.427e-5; rank
+# 1 keeping its own 1.727e-2), the least ratio of the qwZ gather's fp32
+# bytes to what its int8 codes and scales moved (3.9384; dequantized before
+# the wire 0), and the least ratio of the cross-slice bytes of fp32 to
+# those of qgZ (3.9385; fp32 across 1.0).
+COMM_LOSS_REL = 5e-4
+COMM_BF16_LOSS_REL = 5e-4
+COMM_GATHER_RATIO_MIN = 3.5
+COMM_CROSS_RATIO_MIN = 3.0
+
+
+def _dequant_before_wire(real):
+    def gather(self, src, key, dim, dtype, hpz=None, index=None):
+        from tpu_engine_torch import comm_compress as cc
+        from tpu_engine_torch.parallel.collectives import gather_dim
+
+        codes, scales = cc.blockwise_quantize(src, self.block)
+        local = cc.blockwise_dequantize(codes, scales, self.block, last=src.shape[-1],
+                                        dtype=dtype)
+        return gather_dim(local, dim, self.fsdp)  # the rounding kept, the wire full width
+
+    return gather
+
+
+def _scales_shifted(real):
+    def gather(self, src, key, dim, dtype, hpz=None, index=None):
+        import torch
+
+        from tpu_engine_torch import comm_compress as cc
+
+        real_q = cc.blockwise_quantize
+
+        def shifted(x, block, *a, **kw):
+            codes, scales = real_q(x, block, *a, **kw)
+            return codes, torch.roll(scales, 1, dims=-1)  # each block reads its neighbour's
+
+        cc.blockwise_quantize = shifted
+        try:
+            return real(self, src, key, dim, dtype, None, index)
+        finally:
+            cc.blockwise_quantize = real_q
+
+    return gather
+
+
+def _stale_hpz(real):
+    def refresh(self, params):
+        if getattr(self, "_first", None) is None:
+            self._first = real(self, params)  # the store of the initial weights, kept
+        return self._first
+
+    return refresh
+
+
+def _fp32_across(real):
+    def reduce_data(self, g):
+        from tpu_engine_torch.parallel.collectives import all_reduce_
+
+        if self.intra is not None:
+            g = all_reduce_(g.contiguous(), self.intra)
+        return all_reduce_(g.contiguous(), self.cross)
+
+    return reduce_data
+
+
+def _cross_unsummed(real):
+    def reduce_data(self, g):
+        from tpu_engine_torch.parallel.collectives import all_reduce_
+
+        own = all_reduce_(g.contiguous(), self.intra) if self.intra is not None else g.clone()
+        real(self, g)  # the cross-slice gather still runs; its sum is dropped
+        return own
+
+    return reduce_data
+
+
+def _bf16_rank1_unsummed(real):
+    def reduce_leaf(self, key, g, dim_offset=0, owned=True):
+        import torch.distributed as dist
+
+        summed = real(self, key, g, dim_offset, owned)
+        if self.comm_dtype is None or dist.get_rank() != 1:
+            return summed
+        return g.to(self.comm_dtype).float()  # rank 1 keeps its own bf16 gradient
+
+    return reduce_leaf
+
+
+def comm_fault(name: str):
+    """The patch of the planted train_comm fault ``name``."""
+    from tpu_engine_torch import comm_compress
+    from tpu_engine_torch.parallel import zero
+
+    return {"qwz_dequant_before_wire": (comm_compress.Compression, "gather",
+                                        _dequant_before_wire),
+            "qwz_scales_shifted": (comm_compress.Compression, "gather", _scales_shifted),
+            "hpz_stale": (comm_compress.Compression, "refresh", _stale_hpz),
+            "qgz_fp32_across": (comm_compress.Compression, "reduce_data", _fp32_across),
+            "qgz_cross_unsummed": (comm_compress.Compression, "reduce_data", _cross_unsummed),
+            "bf16_rank1_unsummed": (zero.ZeroLayout, "reduce_leaf", _bf16_rank1_unsummed)}[name]
+
+
+COMM_FAULT_RUNS = {
+    "comm_sound": None,
+    "qwz_dequant_before_wire": ["fsdp2_fp32", "fsdp2_qwz"],
+    "qwz_scales_shifted": ["fsdp2_fp32", "fsdp2_qwz"],
+    "hpz_stale": ["fsdp2_fp32", "fsdp2_qwz"],
+    "qgz_fp32_across": ["dcn_fp32", "dcn_qgz"],
+    "qgz_cross_unsummed": ["dcn_fp32", "dcn_qgz"],
+    "bf16_rank1_unsummed": ["data2_fp32", "data2_bf16"],
+}
+
+
+def comm_readings(cs, out: dict, steps: int = 3) -> None:
+    """train_comm's readings (``chip_smoke.comm_readings``, and whether
+    hpZ's store is the quantized shards) for the sound code and each
+    planted fault, a two-rank job each."""
+    for name, runs in COMM_FAULT_RUNS.items():
+        ranks = cs.mesh_launch([], 2, steps, f"faults_{name}",
+                               None if name == "comm_sound" else name,
+                               comm=runs or list(cs.COMM_RUNS))
+        r = out[name] = cs.comm_readings(ranks)
+        if "fsdp2_qwz" in ranks[0]["comm"]:
+            r["hpz_equal"] = [rk["comm"]["fsdp2_qwz"].get("hpz_equal") for rk in ranks]
+        r["losses"] = {run: [rk["comm"][run]["losses"] for rk in ranks]
+                       for run in ranks[0]["comm"]}
+        print(f"{name}: {json.dumps(r)}", flush=True)
+
+
 def mesh_fault(name: str):
     """The patch of the planted mesh fault ``name`` (for :func:`_patched`)."""
     from tpu_engine_torch import train
@@ -414,6 +563,14 @@ def main() -> int:
         out = {"card": card, "bounds": {"mesh_loss_rel": MESH_LOSS_REL,
                                         "mesh_ep_loss_rel": MESH_EP_LOSS_REL}}
         mesh_readings(cs, out)
+        _write(out)
+        return 0
+    if sys.argv[1:] == ["--comm"]:
+        out = {"card": card, "bounds": {"comm_loss_rel": COMM_LOSS_REL,
+                                        "comm_bf16_loss_rel": COMM_BF16_LOSS_REL,
+                                        "comm_gather_ratio_min": COMM_GATHER_RATIO_MIN,
+                                        "comm_cross_ratio_min": COMM_CROSS_RATIO_MIN}}
+        comm_readings(cs, out)
         _write(out)
         return 0
     if sys.argv[1:] == ["--offload"]:

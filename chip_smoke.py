@@ -147,7 +147,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    host's memory and each configuration's reckoned bytes;
 22. train_window: ``train`` with ``sliding_window=1024``: every K1-K3
    launch windowed, the first loss held to the plain windowed path's;
-23. train_mesh: llama-1b at full width and 8 of its 16 layers on a mesh
+23. train_mesh: llama-1b at full width and 4 of its 16 layers on a mesh
    through NCCL, 3 steps a run: at world 1 in this process, the mesh
    program at stage 3 bitwise the no-mesh program (seq 2048 × 4), and at
    seq 8192 × 1 (4 layers); then two ranks, a process each on the one card
@@ -163,19 +163,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    global batch by MESH_LOSS_REL (ep2: MESH_EP_LOSS_REL; train_faults.py),
    the ranks' losses and norms equal, launch counts exact per rank; step
    time, peak memory and the bytes each collective moved a step, per rank;
-24. train_pipe: llama-1b at full width and 8 of its 16 layers on pipe=2
-   (4 layers a rank, two ``--mesh-worker`` processes), seq 2048 × 1 × 4 microbatches,
+24. train_pipe: llama-1b at full width and 4 of its 16 layers on pipe=2
+   (2 layers a rank, two ``--mesh-worker`` processes), seq 2048 × 1 × 4 microbatches,
    3 steps under each of gpipe, 1f1b and zb, held to the world-1 program
    at the same global batch by MESH_LOSS_REL, the ranks' losses and norms
    equal, K1-K3 launches exact per rank and schedule; step time, peak
    memory and bytes sent a step per rank, beside JAX's F-units of the
    schedule;
-   then train_comm: llama-1b at full width and 4 layers on two ranks:
+   then train_comm: llama-1b at full width and 2 layers on two ranks:
    fsdp=2 stage 3 with qwZ+hpZ against uncompressed, two slices of data=2
    with qgZ against fp32, data=2 with a bf16 gradient reduction against
    fp32, and (a)'s checkpoint restored at world 1 by ``restore_resharded``;
    held by train_faults.py's COMM_* bounds (loss gaps, the int8 gather's
    and the cross-slice byte ratios, hpZ's store, the ranks' weights);
+   then train_mesh_state: llama-1b at full width and 2 layers on two
+   ranks: fsdp=2 stage 3 with masters and moments in pinned host memory,
+   fsdp=2 stage 3 with the disk tier, data=2 with int8 products,
+   moe-8x7b at 1 layer over sequence=2 (dense dispatch, capacity factor
+   0.5), and pipe=2 with a save, a bitwise restore on the ranks and a
+   whole read at world 1; each held to its world-1 run by train_faults.py's
+   STATE_LOSS_REL or STATE_INT8_LOSS_REL, launches exact per rank; step
+   time, peak and pinned memory, host copies and collective bytes a step
+   per rank;
 25. serve_mesh: the ContinuousBatcher at llama-1b's width and 2 layers on
    model=2 (two ranks, ``--mesh-worker`` processes, rank 0 submitting
    ``serve``'s 16 requests), with the bf16 and the int8 pool, and with the
@@ -948,7 +957,8 @@ def phase_kernels(res: dict) -> None:
 # forwards); remat's launches are nothing_saveable's.
 D128_PATHS = ("train", "train_ring", "train_moe", "train_int8", "train_lora",
               "train_adafactor", "train_lion", "remat", "train_offload", "train_7b",
-              "train_window", "train_mesh", "train_pipe", "train_data", "train_comm")
+              "train_window", "train_mesh", "train_pipe", "train_data", "train_comm",
+              "train_mesh_state")
 
 
 def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
@@ -3360,10 +3370,10 @@ def phase_train_window(res: dict, steps: int = OFFLOAD_STEPS) -> None:
 # to the no-mesh one bitwise; the two-rank runs are held to the world-1 run
 # at the same global batch by MESH_LOSS_REL (train_faults.py, set from its
 # planted-fault readings).
-# The run's time limit (PERF.md §4): llama-1b's 16 layers cut to 8 since
-# PR 20 (the runs at seq 2048 and the pipelines), the two-rank ring and
-# Ulysses runs and their world-1 run to 4 (8 in PRs 18–19).
-MESH_L = 8
+# The run's time limit (PERF.md §4): llama-1b's 16 layers cut to 4 (the
+# runs at seq 2048 and the pipelines, as the two-rank ring and Ulysses
+# runs and their world-1 run).
+MESH_L = 4
 MESH_SEQ_L = 4
 MESH_SEQ = 8192
 MESH_MOE = dict(model_name="moe-8x7b", moe_impl="dense")  # at MOE_TRAIN_LAYERS layers
@@ -3408,9 +3418,36 @@ MESH_RUNS = {
                                            gradient_accumulation_steps=PIPE_M,
                                            pipeline_schedule=s), "w1_pipe", "flash")
        for s in PIPE_SCHEDULES},
+    # train_mesh_state (STATE_L layers; moe-8x7b at STATE_MOE_L): the state's
+    # placements, int8 training, dense MoE over sequence and a pipeline's
+    # checkpoint on two ranks, each held to its world-1 run.
+    "w1_state": (1, {}, dict(micro_batch_size=4, seq_len=2048), None, "flash"),
+    "place2": (2, dict(fsdp=2), dict(optimizer_offload="host", param_offload="host",
+                                     micro_batch_size=2, seq_len=2048), "w1_state", "flash"),
+    "disk2": (2, dict(fsdp=2), dict(optimizer_offload="disk", micro_batch_size=2,
+                                    seq_len=2048), "w1_state", "flash"),
+    "w1_int8": (1, {}, dict(quant_training="int8", micro_batch_size=4, seq_len=2048), None,
+                "flash"),
+    "int8_d2": (2, dict(data=2), dict(quant_training="int8", micro_batch_size=2, seq_len=2048),
+                "w1_int8", "flash"),
+    "w1_moe_seq": (1, {}, dict(MESH_MOE, micro_batch_size=2, seq_len=4096), None, "flash"),
+    "moe_seq2": (2, dict(sequence=2), dict(MESH_MOE, micro_batch_size=2, seq_len=4096),
+                 "w1_moe_seq", "ring"),
+    "pipe_ckpt": (2, dict(pipe=2), dict(micro_batch_size=4, seq_len=2048,
+                                        pipeline_schedule="gpipe"), "w1_state", "flash"),
 }
+STATE_L = 2
+STATE_MOE_L = 1
+STATE_RUNS = ("place2", "disk2", "int8_d2", "moe_seq2", "pipe_ckpt")
 # Layers of the runs not at MESH_L (the run's time limit, PERF.md §4).
-MESH_LAYERS = {"w1_lora": 4, "lora_tp2": 4, "w1_ada": 4, "adafactor_tp2": 4}
+MESH_LAYERS = {"w1_lora": 4, "lora_tp2": 4, "w1_ada": 4, "adafactor_tp2": 4,
+               **{k: STATE_L for k in ("w1_state", "place2", "disk2", "w1_int8", "int8_d2",
+                                       "pipe_ckpt")},
+               "w1_moe_seq": STATE_MOE_L, "moe_seq2": STATE_MOE_L}
+# Model fields changed in a run: moe_seq2's capacity factor cut so that each
+# expert fills on the first sequence rank's tokens, and the buffer positions
+# of the second rank's decide which of its tokens drop.
+MESH_MODEL = {"w1_moe_seq": dict(capacity_factor=0.5), "moe_seq2": dict(capacity_factor=0.5)}
 MESH_TIMEOUT_S = 300
 SERVE_MESH_TIMEOUT_S = 600
 # NCCL's socket transport between the ranks (the only one NCCL takes
@@ -3422,10 +3459,10 @@ MESH_NCCL_ENV = {"NCCL_SOCKET_NTHREADS": "8", "NCCL_NSOCKS_PERTHREAD": "2",
 
 
 def _mesh_layers(name: str) -> int:
-    if MESH_RUNS[name][2].get("model_name") == "moe-8x7b":
-        return MOE_TRAIN_LAYERS
     if name in MESH_LAYERS:
         return MESH_LAYERS[name]
+    if MESH_RUNS[name][2].get("model_name") == "moe-8x7b":
+        return MOE_TRAIN_LAYERS
     return MESH_SEQ_L if MESH_RUNS[name][2]["seq_len"] == MESH_SEQ else MESH_L
 
 
@@ -3462,40 +3499,47 @@ def _mesh_want(name: str, rank: int) -> dict:
     kw = MESH_RUNS[name][2]
     if MESH_RUNS[name][1] and MESH_RUNS[name][1].get("pipe", 1) > 1:
         P = MESH_RUNS[name][1]["pipe"]
-        return pipe_want(kw["pipeline_schedule"], P, kw["gradient_accumulation_steps"], rank,
-                         L // P)
+        return pipe_want(kw["pipeline_schedule"], P, kw.get("gradient_accumulation_steps", 1),
+                         rank, L // P)
     M = kw.get("gradient_accumulation_steps", 1)
     causal = {"flash_fwd": 2 * L * M, "flash_bwd_dq": L * M, "flash_bwd_dkv": L * M}
-    if name == "ring2" and rank == 1:
+    if MESH_RUNS[name][4] == "ring" and rank == 1:
         return {**causal, **{f"{k}_full": v for k, v in causal.items()}}
     return causal
 
 
-def _mesh_cfg(name: str):
+def _mesh_cfg(name: str, spill=None):
     """(the TrainConfig of ``name``, its model config: llama-1b, or
-    moe-8x7b at MOE_TRAIN_LAYERS layers)."""
+    moe-8x7b at MOE_TRAIN_LAYERS layers); ``spill``: the disk tier's
+    directory, where the run spills."""
     from tpu_engine_torch.mesh_runtime import MeshConfig
     from tpu_engine_torch.models.config import MODEL_CONFIGS
     from tpu_engine_torch.train import TrainConfig
 
     _, mesh, kw, _, _ = MESH_RUNS[name]
+    if kw.get("optimizer_offload") == "disk":
+        kw = dict(kw, optimizer_spill_dir=spill)
     cfg = TrainConfig(**{**dict(model_name="llama-1b", gradient_accumulation_steps=1,
                                 precision="bf16", param_dtype="fp32",
                                 activation_checkpointing=True, attention_impl="auto",
                                 sharding_stage=3, mesh=MeshConfig(**(mesh or {})),
                                 **TRAIN_LR), **kw})
-    return cfg, MODEL_CONFIGS[cfg.model_name].with_(n_layers=_mesh_layers(name))
+    return cfg, MODEL_CONFIGS[cfg.model_name].with_(n_layers=_mesh_layers(name),
+                                                    **MESH_MODEL.get(name, {}))
 
 
-def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
+def _mesh_runs(runs: list, steps: int, fault=None, work=None) -> dict:
     """Take ``steps`` steps of each of ``runs`` (names of MESH_RUNS) on one
     synthetic batch, in this process's group on cuda:0, every launch and
     collective counter set to 0 just before and read just after. ``fault``
-    names a planted fault of train_faults.py, patched around each run."""
+    names a planted fault of train_faults.py, patched around each run.
+    ``work``: the directory of the disk tier's spills (``<work>/<run>``)
+    and of ``pipe_ckpt``'s checkpoint (:func:`_pipe_ckpt`)."""
     import contextlib
 
     import torch
 
+    from tpu_engine_torch import offload
     from tpu_engine_torch.mesh_runtime import MeshRuntime
     from tpu_engine_torch.ops import _flash_cuda as fc
     from tpu_engine_torch.parallel import collectives
@@ -3512,7 +3556,7 @@ def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
     out, runtimes = {}, {}  # one runtime a mesh shape, shared by its runs
     for name in runs:
         t_setup = time.perf_counter()
-        cfg, model_cfg = _mesh_cfg(name)
+        cfg, model_cfg = _mesh_cfg(name, str(Path(work) / name) if work else None)
         with patch():
             runtime = None
             if MESH_RUNS[name][1] is not None:
@@ -3536,17 +3580,67 @@ def _mesh_runs(runs: list, steps: int, fault=None) -> dict:
                 norms.append(float(m["grad_norm"]))
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
+            launches = dict(fc.launches)
+            transfer = prog.transfer_bytes()
         out[name] = {
             "losses": losses, "grad_norms": norms, "step_ms_each": [t * 1e3 for t in times],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": dict(fc.launches),
+            "launches": launches,
             "moved_bytes_per_step": {k: v // steps for k, v in collectives.moved.items()},
             "impl": prog.model_config.attention_impl, "setup_s": t_setup,
             "mesh": runtime.axis_sizes if runtime is not None else None,
-            "schedule": prog.pipeline_schedule}
+            "schedule": prog.pipeline_schedule,
+            "pinned_gib": offload.pinned_bytes(
+                state["params"], *(t for n, t in state.get("opt_state", {}).items()
+                                   if n != "count")) / 2**30,
+            "host_bytes_per_step": {k: v // steps for k, v in transfer.items()}}
+        print(f"{name}: losses {losses}, step ms {out[name]['step_ms_each']}", flush=True)
+        if name == "pipe_ckpt" and work is not None:
+            with patch():
+                out[name]["ckpt"] = _pipe_ckpt(prog, state, cfg, model_cfg, runtime, work)
         del prog, state, batch
         _free()
     return out
+
+
+def _pipe_ckpt(prog, state, cfg, model_cfg, runtime, work) -> dict:
+    """``pipe_ckpt`` after its steps: a save of the state (each stage its
+    block of layers and the outer leaves it holds), then a fresh program on
+    the same ranks restored from it; whether the restore is bitwise the
+    state saved, and crc32s of the whole params and moments (every stage's
+    leaves gathered) for the world-1 read."""
+    import torch
+
+    from tpu_engine_torch import checkpoint as ck
+    from tpu_engine_torch import reshard
+    from tpu_engine_torch.train import build_train_program
+
+    path = str(Path(work) / "pipe_ckpt")
+    mgr = ck.TrainCheckpointManager(path, program=prog)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state["step"], state, wait=True)
+    save_s = time.perf_counter() - t0
+    saved = {k: v.detach().clone() for k, v in ck.flatten_state(state).items()
+             if isinstance(v, torch.Tensor)}
+    nbytes = sum(v.numel() * v.element_size() for v in saved.values())
+    whole = {"params": prog.whole_params(state),
+             **{n: prog.whole_tree(state["opt_state"][n], split=prog.zero.state_split)
+                for n in ("mu", "nu")}}
+    sums = {part: reshard.leaf_checksums(tree) for part, tree in whole.items()}
+    del whole
+    prog2 = build_train_program(cfg, model_cfg, device=prog.device, runtime=runtime)
+    like = ck.abstract_state_like(prog2)
+    t0 = time.perf_counter()
+    step, got = ck.TrainCheckpointManager(path, program=prog2).restore(like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    flat = {k: v for k, v in ck.flatten_state(got).items() if isinstance(v, torch.Tensor)} \
+        if got is not None else {}
+    bitwise = flat.keys() == saved.keys() and all(torch.equal(flat[k], saved[k]) for k in flat)
+    del prog2, like, got, flat, saved
+    return {"step": step, "bitwise": bitwise, "checksums": sums, "bytes": nbytes,
+            "save_s": save_s, "restore_s": restore_s, "path": path}
 
 
 def mesh_worker(job_path: str, rank: int) -> None:
@@ -3571,7 +3665,7 @@ def mesh_worker(job_path: str, rank: int) -> None:
     elif job.get("comm"):
         out["comm"] = _comm_runs(job, rank)
     else:
-        out["runs"] = _mesh_runs(job["runs"], job["steps"], job.get("fault"))
+        out["runs"] = _mesh_runs(job["runs"], job["steps"], job.get("fault"), job.get("work"))
     Path(f"{job_path}.rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
 
@@ -3599,19 +3693,21 @@ def _free_port() -> int:
 
 
 def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None,
-                serve=None, comm=None, ckpt=None) -> list:
+                serve=None, comm=None, ckpt=None, work=None) -> list:
     """Run ``runs`` (or with ``serve``, :func:`_mesh_serve` in that mode;
     with ``comm``, those runs of COMM_RUNS through :func:`_comm_runs`,
     saving to ``ckpt``) on ``world`` rank processes (:func:`mesh_worker`)
     and return each rank's results. Every process is stopped on return; a
-    rank that fails, or a job that outlives MESH_TIMEOUT_S
-    (SERVE_MESH_TIMEOUT_S serving), raises."""
+    rank that fails (its peers are stopped then: they would wait on it in a
+    collective), or a job that outlives MESH_TIMEOUT_S
+    (SERVE_MESH_TIMEOUT_S serving), raises with each failed rank's log
+    tail."""
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     job_path = out_dir / f"mesh_{tag}.json"
     job_path.write_text(json.dumps({"runs": runs, "world": world, "steps": steps,
                                     "port": _free_port(), "fault": fault, "t0": time.time(),
-                                    "serve": serve, "comm": comm, "ckpt": ckpt}))
+                                    "serve": serve, "comm": comm, "ckpt": ckpt, "work": work}))
     procs = []
     for r in range(world):
         # GLOO_SOCKET_IFNAME: the checkpoint manager's gloo group, on the loopback.
@@ -3621,20 +3717,26 @@ def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None,
         procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                                         "--mesh-worker", str(job_path), str(r)],
                                        stdout=log, stderr=subprocess.STDOUT, env=env), log))
-    deadline = time.monotonic() + (SERVE_MESH_TIMEOUT_S if serve else MESH_TIMEOUT_S)
+    t0 = time.monotonic()
+    deadline = t0 + (SERVE_MESH_TIMEOUT_S if serve else MESH_TIMEOUT_S)
     try:
-        for p, _ in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1))
+        while any(p.poll() is None for p, _ in procs) and time.monotonic() < deadline:
+            if any(p.returncode not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.5)
     finally:
         for p, log in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
             log.close()
-    for r, (p, _) in enumerate(procs):
-        if p.returncode != 0:
-            tail = (out_dir / f"mesh_{tag}.rank{r}.log").read_text()[-3000:]
-            raise AssertionError(f"mesh rank {r} of {tag} exited {p.returncode}:\n{tail}")
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = "\n".join(f"rank {r} exited {procs[r][0].returncode}:\n"
+                          + (out_dir / f"mesh_{tag}.rank{r}.log").read_text()[-3000:]
+                          for r in failed)
+        raise AssertionError(f"mesh job {tag} failed after {time.monotonic() - t0:.0f} s:\n"
+                             f"{tails}")
     return [json.loads(Path(f"{job_path}.rank{r}.json").read_text()) for r in range(world)]
 
 
@@ -3663,8 +3765,6 @@ def phase_train_mesh(res: dict, steps: int) -> None:
     step), its ranks must report the same losses and norms, its launches
     are checked exactly per rank, and its step time, peak memory and the
     bytes each collective moved a step are reported per rank."""
-    from train_faults import MESH_EP_LOSS_REL, MESH_LOSS_REL
-
     out = res["train_mesh"] = {"steps": steps, "accum": 1, "runs": {}, "launches": {}}
     one = [{"runs": mesh_world1(["nomesh", "w1_2048", "w1_8192", "w1_moe", "w1_lora",
                                  "w1_ada"], steps)}]
@@ -3675,14 +3775,28 @@ def phase_train_mesh(res: dict, steps: int) -> None:
         raise AssertionError("; ".join(fails))
 
 
+def state_bound(name: str) -> float:
+    """The bound of a mesh run's gap to its world-1 run (train_faults.py,
+    each set from planted faults): MESH_LOSS_REL, ep2's
+    MESH_EP_LOSS_REL, int8's STATE_INT8_LOSS_REL, the other
+    train_mesh_state runs' STATE_LOSS_REL."""
+    import train_faults as tf
+
+    if name == "ep2":
+        return tf.MESH_EP_LOSS_REL
+    if name == "int8_d2":
+        return tf.STATE_INT8_LOSS_REL
+    if name in STATE_RUNS:
+        return tf.STATE_LOSS_REL
+    return tf.MESH_LOSS_REL
+
+
 def mesh_checks(out: dict, groups, steps: int) -> list:
     """The checks of each mesh run of ``groups`` (each a list of the
     ranks' results): the ranks' losses and norms equal, attention as
     resolved, launches exact per rank, the loss falling, and the gap to
     the world-1 run within its bound; prints each run's numbers and
     records them in ``out``. Returns the failures."""
-    from train_faults import MESH_EP_LOSS_REL, MESH_LOSS_REL
-
     fails = []
     one, two = groups
     for ranks in (one, two):
@@ -3690,7 +3804,7 @@ def mesh_checks(out: dict, groups, steps: int) -> list:
             world, _, _, ref, impl = MESH_RUNS[name]
             runs = [r["runs"][name] for r in ranks]
             out["runs"][name] = runs
-            bound = MESH_EP_LOSS_REL if name == "ep2" else MESH_LOSS_REL
+            bound = state_bound(name)
             if any((r["losses"], r["grad_norms"]) != (runs[0]["losses"], runs[0]["grad_norms"])
                    for r in runs):
                 fails.append(f"{name}: the ranks' losses or gradient norms differ")
@@ -3728,6 +3842,88 @@ def mesh_checks(out: dict, groups, steps: int) -> list:
                 if not rel <= bound:
                     fails.append(f"{name} rank {rank}: relative gap {rel:.3e} to {ref}")
     return fails
+
+
+def phase_train_mesh_state(res: dict, steps: int) -> None:
+    """The training configurations of a mesh that hold its state apart, at
+    llama-1b's width (d_model 2048, 16 heads of 128, d_ff 5504, vocab
+    32000) and STATE_L layers, bf16 compute, fp32 masters, flash, ``steps``
+    steps, two rank processes on cuda:0 through NCCL (as ``train_mesh``):
+    ``place2`` (fsdp=2 at stage 3, masters and moments in each rank's
+    pinned host memory, the shard uploaded before its gather), ``disk2``
+    (fsdp=2 at stage 3, the disk tier spilling each rank's shards under a
+    temporary directory), ``int8_d2`` (data=2, int8 products, the weight
+    gradient's scales over both ranks), ``moe_seq2`` (moe-8x7b at
+    STATE_MOE_L layer over sequence=2 by the ring, dense dispatch at
+    capacity factor 0.5, seq 4096 × 2, the second rank's buffer positions
+    after the first's) and ``pipe_ckpt`` (pipe=2, gpipe, one microbatch of
+    4 × 2048; then a save, a bitwise restore on the ranks, and the checkpoint read
+    whole at world 1 in this process, equal to the ranks' crc32s of the
+    whole params and moments). Each run is held to its world-1 run at the
+    same global batch (in this process) by its bound from train_faults.py
+    (:func:`state_bound`), its launches exact per rank; prints step ms,
+    peak and pinned GiB and the bytes each collective and the host copies
+    moved a step per rank."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpu_engine_torch import checkpoint as ck
+    from tpu_engine_torch import reshard
+    from tpu_engine_torch.train import build_train_program
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_state_"))
+    out = res["train_mesh_state"] = {"steps": steps, "accum": 1, "runs": {}, "launches": {},
+                                     "card": _card_line(), "layers": STATE_L}
+    free, total = torch.cuda.mem_get_info()
+    host = _meminfo()
+    print(f"train_mesh_state: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB; the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free, the host "
+          f"{host['MemAvailable'] / 2**30:.1f} of {host['MemTotal'] / 2**30:.1f} GiB", flush=True)
+    try:
+        one = [{"runs": mesh_world1(list(dict.fromkeys(MESH_RUNS[r][3] for r in STATE_RUNS)),
+                                    steps)}]
+        two = mesh_launch(list(STATE_RUNS), 2, steps, "state", work=str(work))
+        fails = mesh_checks(out, (one, two), steps)
+        for name in STATE_RUNS:
+            for rank, run in enumerate(out["runs"].get(name, [])):
+                print(f"train_mesh_state {name} rank {rank}: pinned {run['pinned_gib']:.3f} GiB, "
+                      f"host copies a step {run['host_bytes_per_step']}, setup "
+                      f"{run['setup_s']:.1f} s ({_card_line()})", flush=True)
+        for rank, run in enumerate(out["runs"].get("place2", [])):
+            if run["pinned_gib"] <= 0 or run["host_bytes_per_step"]["h2d"] <= 0:
+                fails.append(f"place2 rank {rank}: nothing pinned or streamed")
+        ckpts = [run["ckpt"] for run in out["runs"].get("pipe_ckpt", [])]
+        for rank, c in enumerate(ckpts):
+            print(f"train_mesh_state pipe_ckpt rank {rank}: saved {c['bytes']} B in "
+                  f"{c['save_s']:.2f} s, restored in {c['restore_s']:.2f} s, bitwise "
+                  f"{c['bitwise']}", flush=True)
+            if not c["bitwise"] or c["step"] != steps:
+                fails.append(f"pipe_ckpt rank {rank}: restore step {c['step']}, bitwise "
+                             f"{c['bitwise']}")
+        if ckpts:  # the checkpoint read whole at world 1
+            cfg, model_cfg = _mesh_cfg("w1_state")
+            prog = build_train_program(cfg, model_cfg, device="cuda")
+            t0 = time.perf_counter()
+            step, state = ck.TrainCheckpointManager(ckpts[0]["path"]).restore(
+                ck.abstract_state_like(prog))
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            got = {"params": reshard.leaf_checksums(state["params"]),
+                   **{n: reshard.leaf_checksums(state["opt_state"][n]) for n in ("mu", "nu")}}
+            same = got == ckpts[0]["checksums"]
+            out["pipe_ckpt_world1"] = {"step": step, "equal": same, "seconds": whole_s}
+            print(f"train_mesh_state pipe_ckpt: read whole at world 1 in {whole_s:.2f} s, "
+                  f"step {step}, params and moments equal the ranks' {same}", flush=True)
+            if step != steps or not same:
+                fails.append(f"pipe_ckpt at world 1: step {step}, equal {same}")
+            del prog, state
+        if fails:
+            raise AssertionError("; ".join(fails))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        _free()
 
 
 def phase_train_pipe(res: dict, steps: int) -> None:
@@ -3923,7 +4119,7 @@ def phase_train_data(res: dict) -> None:
 
 # train_comm: llama-1b at full width and COMM_L layers, seq 2048 × 2 a rank,
 # on two ranks of the one card; each run by (mesh, slices, fields).
-COMM_L = 4
+COMM_L = 2
 COMM_BLOCK = 256
 _XLA = dict(attention_impl="xla")
 COMM_RUNS = {
@@ -4473,6 +4669,7 @@ def main() -> int:
         run("train_window", phase_train_window, res)
         run("train_mesh", phase_train_mesh, res, args.steps)
         run("train_pipe", phase_train_pipe, res, args.steps)
+        run("train_mesh_state", phase_train_mesh_state, res, args.steps)
         run("train_comm", phase_train_comm, res, args.steps)
         serving: dict = {}
         run("generate", phase_generate, res, serving)

@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -6,10 +6,12 @@ calls (saves of steps 1–5 with ``max_to_keep=3``, repeated and off-interval
 steps, a stable pointer, a quarantine, injected save and restore faults
 through ``tpu_engine.faults``' injector passed explicitly to both, a
 fall-back restore, ``delete_after``) and report the same steps at every
-point. The port's restored state is bitwise its saved state on one device
-and on two ``gloo`` ranks at stage 3 (``tests/torch_mesh_worker.py``),
-where the save is asynchronous and raced by the next step's in-place
-update."""
+point. The port's restored state is bitwise its saved state on one device,
+on two ``gloo`` ranks at stage 3 (``tests/torch_mesh_worker.py``), where
+the save is asynchronous and raced by the next step's in-place update, and
+on four ranks of a ``pipe=2`` program. With a ``trace_id`` both managers
+record the same ``checkpoint_save`` / ``checkpoint_restore`` spans, and
+with no injector passed both consult their package's process-wide one."""
 
 import os
 
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -188,3 +191,119 @@ def test_two_ranks_stage3_restore_is_bitwise(tmp_path):
                 np.testing.assert_array_equal(o["r3." + k[3:]], o[k])
     files = os.listdir(tmp_path / "ck" / "2")
     assert sum(f.endswith(".distcp") for f in files) == 2  # each rank wrote its shards
+
+
+def test_pipe_program_restores_bitwise_and_reads_whole(tmp_path):
+    """Four gloo ranks of gpt-tiny on (pipe=2, fsdp=2) at stage 3: each
+    stage writes its block of layers at its offset and the outer leaves it
+    holds (the tied table, held by both end stages, once); a fresh
+    program's restore is bitwise the state saved and its step 3 the
+    uninterrupted one. The checkpoint then restores onto (pipe=2, data=2)
+    through ``restore_resharded`` (its crc32 parity gate passes) and reads
+    whole into a one-device program, equal to the saved weights and
+    moments."""
+    from tpu_engine_torch.models import transformer as tfm
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+
+    gen = torch.Generator().manual_seed(0)
+    init = {k: v.detach().numpy()
+            for k, v in tfm.init_params(MODEL_CONFIGS["gpt-tiny"], gen, "cpu").items()}
+    np.savez(tmp_path / "init.npz", **init)
+    np.save(tmp_path / "batches.npy", _batches(rows=4))
+    common = dict(kind="ckpt", init=str(tmp_path / "init.npz"),
+                  batches=str(tmp_path / "batches.npy"), dir=str(tmp_path / "ck"))
+    cases = [dict(name="save", mode="save", mesh=dict(pipe=2, fsdp=2),
+                  cfg={**_CFG, "micro_batch_size": 2}, **common),
+             dict(name="reshard", mode="reshard", mesh=dict(pipe=2, data=2),
+                  cfg={**_CFG, "micro_batch_size": 2}, **common)]
+    out = spawn(dict(cases=cases), 4, tmp_path)
+    saved = out[("save", 0)]
+    for r in range(4):
+        o = out[("save", r)]
+        assert bool(o["bitwise"]) and int(o["restored_step"]) == 2
+        assert o["scalars"].tolist() == [2, 2]
+        assert float(o["loss3_restored"]) == float(o["loss3"])
+        for k in o:
+            if k.startswith("s3."):
+                np.testing.assert_array_equal(o["r3." + k[3:]], o[k])
+        rs = out[("reshard", r)]
+        assert bool(rs["parity_ok"]) and int(rs["restored_step"]) == 2
+        for k in saved:
+            if k.startswith("s2."):
+                np.testing.assert_array_equal(rs[k], saved[k], err_msg=k)
+    prog1 = build_train_program(TrainConfig(**{**_CFG, "micro_batch_size": 4}), device="cpu")
+    step, whole = tck.TrainCheckpointManager(str(tmp_path / "ck")).restore(
+        tck.abstract_state_like(prog1))
+    assert step == 2 and whole["step"] == 2
+    for k, v in whole["params"].items():
+        np.testing.assert_array_equal(v.detach().numpy(), saved[f"s2.param:{k}"], err_msg=k)
+    for name in ("mu", "nu"):
+        for k, v in whole["opt_state"][name].items():
+            np.testing.assert_array_equal(v.numpy(), saved[f"s2.{name}:{k}"], err_msg=k)
+
+
+def test_spans_and_process_wide_injector_match_jax(tmp_path):
+    """With a ``trace_id`` each manager records JAX's spans on its own
+    package's flight recorder (save: step, wait, force, blocking, outcome;
+    restore: step, quarantined), and with no injector passed each consults
+    its package's process-wide one (``faults.set_active``), so an armed
+    restore fault quarantines the step in both."""
+    from tpu_engine import faults as jfaults
+    from tpu_engine import tracing as jtracing
+    from tpu_engine_torch import faults as tfaults
+    from tpu_engine_torch import tracing as ttracing
+
+    def plan(f):
+        return f.FaultInjector(f.FaultPlan(specs=[f.FaultSpec(
+            kind=f.FaultKind.CHECKPOINT_RESTORE_CORRUPTION, at_step=2, count=1)]))
+
+    def run(ck, tracing, faults, state, like, restore, d):
+        rec = tracing.FlightRecorder()
+        tracing.set_recorder(rec)
+        faults.set_active(plan(faults))
+        try:
+            mgr = ck.TrainCheckpointManager(str(d), trace_id="t0", async_save=False)
+            for s in (1, 2):
+                mgr.save(s, state(s), wait=True)
+            mgr.save(2, state(2))  # skipped: saved already
+            step, _ = restore(mgr, like())
+            quarantined = mgr.quarantined_steps()
+        finally:
+            faults.clear_active()
+            tracing.set_recorder(None)
+        spans = [(sp["name"], sp["kind"], sp["trace_id"], sp["attrs"])
+                 for sp in rec.spans(trace_id="t0")]
+        return step, quarantined, spans
+
+    def jax_like():
+        return jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype, sharding=a.sharding),
+                            _jax_state(0))
+
+    want = run(jck, jtracing, jfaults, _jax_state, jax_like, lambda m, like: m.restore(like),
+               tmp_path / "jax")
+    got = run(tck, ttracing, tfaults, _port_state, lambda: _port_state(0),
+              lambda m, like: m.restore(like), tmp_path / "port")
+    assert got == want
+    assert want[0] == 1 and want[1] == [2]
+
+
+def test_a_step_missing_a_leaf_is_quarantined_as_in_jax(tmp_path):
+    """A step whose saved tree lacks a leaf of the state restored into
+    fails to load: JAX's manager quarantines it and falls back to the step
+    before, and so does the port's, though DCP raises the failure as a
+    ``CheckpointException`` (a ``BaseException``)."""
+    def run(mgr, state, like):
+        mgr.save(1, state(1), wait=True)
+        mgr.save(2, {"w": state(2)["w"]}, wait=True)
+        step, got = mgr.restore(like())
+        return step, mgr.quarantined_steps()
+
+    def jax_like():
+        return jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype, sharding=a.sharding),
+                            _jax_state(0))
+
+    want = run(jck.TrainCheckpointManager(str(tmp_path / "jax"), async_save=False), _jax_state,
+               jax_like)
+    got = run(tck.TrainCheckpointManager(str(tmp_path / "port"), async_save=False), _port_state,
+              lambda: _port_state(0))
+    assert got == want == (1, [2])

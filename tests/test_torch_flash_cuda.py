@@ -9,6 +9,7 @@ On the GPU machine (which has no JAX, so the root conftest is skipped):
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from tpu_engine_torch.ops import _flash_cuda as fc  # noqa: E402
 from tpu_engine_torch.ops import flash_attention as tfa  # noqa: E402

@@ -8,7 +8,7 @@ from pathlib import Path
 
 import pytest
 
-pytest.importorskip("torch")
+pytest.importorskip("torch").set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -34,7 +34,8 @@ def test_port_modules_import_neither_jax_nor_tpu_engine():
     assert bad == "[]", bad
     wanted = {"quant_train", "lora", "train", "serving", "generate", "quant", "offload",
               "disk_offload", "mesh_runtime", "sharding", "comm", "comm_compress", "checkpoint",
-              "reshard", "data", "native"}
+              "reshard", "data", "native", "historian", "journal", "tracing", "loss_monitor",
+              "preemption", "faults"}
     have = {m.name.rsplit(".", 1)[-1] for m in pkgutil.walk_packages(
         [str(ROOT / "tpu_engine_torch")])}
     assert wanted <= have and int(count) >= len(have)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -107,7 +108,18 @@ def test_arch_moe_logits_and_gradients_match_jax(name, impl, monkeypatch):
 def test_arch_moe_training_matches_jax(name, impl):
     """Four AdamW steps at accumulation 2 from the same weights on the same
     batches: losses and gradient norms within rtol 1e-4 and every final
-    weight within 1e-6, the bounds of tests/test_torch_archs.py."""
+    weight within 1e-6, the bounds of tests/test_torch_archs.py.
+
+    An element whose gradient stays inside the gradient bound of zero at
+    every step (|g| <= 5e-4·max|g| of its leaf, the bound of
+    ``test_arch_moe_logits_and_gradients_match_jax``) has an update the
+    gradient bound cannot fix: with √v̂ near AdamW's eps, m̂/(√v̂ + eps)
+    turns a gradient difference a thousandth of that bound into a 5 %
+    different update (qwen-tiny dense: ``embed.embedding[312, 7]``'s
+    gradient of 3.4e-8 differs by 1.6e-9, its weight by 1.1e-5 after four
+    steps). A zero gradient would leave such an element unmoved, so it is
+    held to 1e-6 plus the sum of JAX's own updates lr·|m̂/(√v̂ + eps)| of
+    it (:class:`_NearZeroSlack`); every other element to 1e-6."""
     jc, cfg, tree, _ = _arch_moe(name)
     kw = dict(model_name=name, micro_batch_size=2, gradient_accumulation_steps=2,
               seq_len=32, precision="fp32", attention_impl="xla", learning_rate=1e-3,
@@ -124,18 +136,52 @@ def test_arch_moe_training_matches_jax(name, impl):
     prog = ttrain.build_train_program(ttrain.TrainConfig(**kw), model_cfg=cfg, device="cpu")
     state = prog.init(params=convert.params_from_jax(tree, prog.model_config, device="cpu"))
     jl, jn, tl, tn = [], [], [], []
+    slack = _NearZeroSlack()
     for b in batches:
         jstate, m = jprog.step(jstate, jax.device_put(jnp.asarray(b), jprog.batch_sharding))
         jl.append(float(m["loss"]))
         jn.append(float(m["grad_norm"]))
+        slack.add(jstate["opt_state"], float(m["learning_rate"]))
         state, m = prog.step(state, torch.tensor(b, dtype=torch.long))
         tl.append(float(m["loss"]))
         tn.append(float(m["grad_norm"]))
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
     np.testing.assert_allclose(tn, jn, rtol=1e-4)
     want = convert._flatten(jax.tree.map(np.asarray, jstate["params"]))
+    extra = slack.bounds()
     for k, p in state["params"].items():
-        np.testing.assert_allclose(p.detach().numpy(), want[k], atol=1e-6, rtol=0, err_msg=k)
+        atol = 1e-6 + extra[k]
+        np.testing.assert_array_less(np.abs(p.detach().numpy() - want[k]), atol + 1e-12,
+                                     err_msg=k)
+
+
+class _NearZeroSlack:
+    """JAX's optimizer state and the step's lr, fed after each step
+    (:meth:`add`); :meth:`bounds` is leaf → the extra bound of each element:
+    Σ lr·|m̂/(√v̂ + eps)| (JAX's own updates, from its Adam moments) where
+    the element's gradient (read from mu: (mu_t − b1·mu_{t−1}) / (1 − b1),
+    clipped as the update took it) was within 5e-4·max|g| of its leaf at
+    every step, 0 elsewhere."""
+
+    def __init__(self, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8):
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.t, self.prev, self.near, self.total = 0, {}, {}, {}
+
+    def add(self, opt, lr: float) -> None:
+        adam = next(s for s in opt if hasattr(s, "mu"))
+        mu = convert._flatten(jax.tree.map(np.array, adam.mu))
+        nu = convert._flatten(jax.tree.map(np.array, adam.nu))
+        self.t += 1
+        b1, b2, t = self.b1, self.b2, self.t
+        for k in mu:
+            g = (mu[k] - b1 * self.prev.get(k, 0.0)) / (1 - b1)
+            u = (mu[k] / (1 - b1 ** t)) / (np.sqrt(nu[k] / (1 - b2 ** t)) + self.eps)
+            self.near[k] = self.near.get(k, True) & (np.abs(g) <= 5e-4 * np.abs(g).max())
+            self.total[k] = self.total.get(k, 0.0) + lr * np.abs(u)
+        self.prev = mu
+
+    def bounds(self) -> dict:
+        return {k: np.where(self.near[k], self.total[k], 0.0) for k in self.near}
 
 
 @pytest.mark.parametrize("name", NAMES)

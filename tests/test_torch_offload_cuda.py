@@ -14,6 +14,7 @@ import gc
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from tpu_engine_torch import offload  # noqa: E402
 from tpu_engine_torch import train as ttrain  # noqa: E402

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -259,7 +260,7 @@ _TKW = dict(model_name="gpt-tiny", micro_batch_size=1, seq_len=32)
 
 def test_model_axis_refusals():
     """Ragged MoE on model raises JAX's ValueError and heads that do not
-    split raise NotImplementedError naming the ROADMAP item; LoRA and
+    split raise NotImplementedError naming the cause; LoRA and
     Adafactor with a factored moment over a model-split leaf pass the
     refusals (they run: tests/test_torch_tp_lora.py) and reach the mesh's
     shape check (all before any process group is needed)."""

@@ -3,7 +3,8 @@
 ``tests/test_torch_tp_serving.py``, ``tests/test_torch_pipeline.py``,
 ``tests/test_torch_tp_lora.py``, ``tests/test_torch_tp_int8_serving.py``,
 ``tests/test_torch_comm_compress.py``, ``tests/test_torch_checkpoint.py``,
-``tests/test_torch_reshard.py``),
+``tests/test_torch_reshard.py``, ``tests/test_torch_mesh_place.py``,
+``tests/test_torch_mesh_int8.py``, ``tests/test_torch_mesh_moe_seq.py``),
 run as its own process on the CPU with ``gloo``, and the parent's launcher
 (:func:`spawn`).
 
@@ -113,8 +114,13 @@ def _train(case: dict, rank: int) -> dict:
     def nbytes(tree):
         return sum(t.numel() * t.element_size() for t in tree.values())
 
+    opt = state.get("opt_state", {})
     out = {"param_bytes": nbytes(state["params"]),
-           "opt_bytes": sum(nbytes(t) for n, t in state["opt_state"].items() if n != "count")}
+           "opt_bytes": sum(nbytes(t) for n, t in opt.items() if n != "count")}
+    # Where the state lives: every leaf in a host arena (host placements).
+    out["params_in_arena"] = all(hasattr(t, "_host_arena") for t in state["params"].values())
+    out["opt_in_arena"] = all(hasattr(t, "_host_arena") for n, tree in opt.items()
+                              if n != "count" for t in tree.values())
     out.update({f"numel:{k}": p.numel() for k, p in state["params"].items()})
     if case.get("held"):  # the leaves this rank holds, as placed
         out.update({f"held:{k}": p.detach().numpy().copy() for k, p in state["params"].items()})
@@ -123,8 +129,10 @@ def _train(case: dict, rank: int) -> dict:
         out.update(_whole_grads(prog, state, torch.tensor(np.load(case["batches"])[0],
                                                           dtype=torch.long)))
     losses, norms = [], []
+    from tpu_engine_torch import quant_train
     from tpu_engine_torch.parallel import collectives
 
+    quant_train.reset_launches()
     for b in np.load(case["batches"]):
         collectives.reset_moved()  # the bytes of the last step are kept
         state, m = prog.step(state, torch.tensor(b, dtype=torch.long))
@@ -138,6 +146,11 @@ def _train(case: dict, rank: int) -> dict:
         out.update({f"hpz_{part}:{k}": t.numpy() for k, t in tree.items()})
         out.update({f"shard:{k}": state["params"][k].detach().numpy() for k in tree})
     out.update(losses=np.array(losses), norms=np.array(norms))
+    out["int_mm"] = quant_train.launches["int_mm"]
+    out["h2d"] = prog.transfer_bytes()["h2d"]
+    if prog.disk is not None:
+        out["consensus_checks"] = prog.disk.store.consensus_checks
+        out["step_on_disk"] = prog.disk.store.step_on_disk
     out["eval"] = float(prog.eval_step(state, torch.tensor(np.load(case["batches"])[0],
                                                            dtype=torch.long)))
     for k, p in prog.whole_params(state).items():
@@ -256,11 +269,12 @@ def _flat_tensors(state: dict) -> dict:
 
 
 def _whole_state(prog, state: dict) -> dict:
-    """Params and AdamW moments gathered whole (stage 3's shards)."""
+    """Params and AdamW moments gathered whole (stage 3's shards, every
+    pipeline stage's leaves)."""
     z = prog.zero
     out = {f"param:{k}": v.detach().numpy().copy() for k, v in prog.whole_params(state).items()}
     for name in ("mu", "nu"):
-        tree = z.whole(state["opt_state"][name], fsdp=z.state_split)
+        tree = prog.whole_tree(state["opt_state"][name], split=z.state_split)
         out.update({f"{name}:{k}": v.numpy().copy() for k, v in tree.items()})
     return out
 
@@ -323,6 +337,65 @@ def _ckpt(case: dict, rank: int) -> dict:
     return out
 
 
+def _disk(case: dict, rank: int) -> dict:
+    """The disk tier's agreement across the ranks, after a ``train`` case
+    left its spill under ``case["dir"]`` at step 3. ``torn``: rank 1's
+    spill is torn (an update in progress); a fresh program on every rank
+    then reseeds from the weights it is given instead of attaching.
+    ``behind``: rank 1's spill says it applied step 2; every rank attaches,
+    and the first step from a state at step 3 reseeds every rank's masters
+    (moments zeroed), so the next steps count moments from 1. Returns each
+    rank's params after init (whole), the attach decision and the moment
+    steps and checks after one more step."""
+    import json as _json
+
+    import torch
+
+    from tpu_engine_torch.mesh_runtime import MeshConfig
+    from tpu_engine_torch.train import TrainConfig, build_train_program
+
+    rt = _runtime(case["mesh"])
+    cfg = TrainConfig(mesh=MeshConfig(**case["mesh"]), **case["cfg"])
+    meta = os.path.join(case["cfg"]["optimizer_spill_dir"], f"proc{rank}", "disk_adamw.json")
+    if rank == 1:
+        m = _json.load(open(meta))
+        if case["mode"] == "torn":
+            m["in_progress"] = 4
+        else:
+            m["step"] = 2
+        _json.dump(m, open(meta, "w"))
+    torch.distributed.barrier()
+    prog = build_train_program(cfg, device="cpu", runtime=rt)
+    init = np.load(case["init"])
+    state = prog.init(params={k: torch.tensor(init[k]) for k in init.files})
+    out = {f"init:{k}": v.detach().float().numpy()
+           for k, v in prog.whole_params(state).items()}
+    store = prog.disk.store
+    out["attached_step"] = -1 if store.step_on_disk is None else store.step_on_disk
+    state["step"] = 3
+    state, _ = prog.step(state, torch.tensor(np.load(case["batches"])[0], dtype=torch.long))
+    out["moment_steps"] = prog.disk.store.moment_steps
+    out["consensus_checks"] = prog.disk.store.consensus_checks
+    return out
+
+
+def _int8_scales(case: dict, rank: int) -> dict:
+    """The weight gradient's operand scales on this rank's rows of a global
+    [B, S, D] operand, reduced over the token ranks (``token_scales``),
+    and the forward codes of its own rows."""
+    import torch
+
+    from tpu_engine_torch import quant_train as qt
+    from tpu_engine_torch.parallel import zero
+
+    rt = _runtime(case["mesh"])
+    x = torch.tensor(np.load(case["inputs"])["x"])
+    rows = zero.local_rows(x.unsqueeze(0), rt, x.shape[0] // rt.data_parallel_size())[0]
+    _, scales = qt.channel_quantize(rows, (0, 1), group=rt.group(("data", "fsdp", "sequence")))
+    codes, row_scales = qt.channel_quantize(rows, (2,))
+    return {"scales": scales.numpy(), "codes": codes.numpy(), "row_scales": row_scales.numpy()}
+
+
 def _rendezvous(case: dict, rank: int) -> dict:
     """The process group as ``initialize_distributed`` joined it: the
     default mesh over every rank, the topology report and one all-reduce."""
@@ -357,7 +430,7 @@ def main(job_path: str, rank: int, world: int) -> None:
     else:
         assert initialize_distributed(f"file://{job['store']}", world, rank, device="cpu")
     run = {"train": _train, "attention": _attention, "rendezvous": _rendezvous,
-           "serve": _serve, "ckpt": _ckpt}
+           "serve": _serve, "ckpt": _ckpt, "disk": _disk, "int8_scales": _int8_scales}
     for case in job["cases"]:
         out = run[case["kind"]](case, rank)
         np.savez(os.path.join(job["out"], f"{case['name']}.rank{rank}.npz"), **out)

@@ -23,10 +23,13 @@ replicated shard is written once. Without a program (one device) every
 leaf is whole. DCP's planning collectives run over a ``gloo`` group of
 their own, on the save thread.
 
-The fault seam is the explicit, duck-typed injector (``take_save_fault``,
-``take_restore_fault``). JAX's process-wide injector and its trace spans
-have no counterpart yet. A URL directory (``gs://``) raises
-``NotImplementedError``: there is no object-store client.
+The fault seam is JAX's: the injector passed in (duck-typed:
+``take_save_fault``, ``take_restore_fault``) or else the process-wide one
+(``tpu_engine_torch.faults.get_active()``), consulted at each call. With a
+``trace_id`` the saves and restores record JAX's ``checkpoint_save`` and
+``checkpoint_restore`` spans on the flight recorder
+(``tpu_engine_torch.tracing.get_recorder()``). A URL directory (``gs://``)
+raises ``NotImplementedError``: there is no object-store client.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
+
+from tpu_engine_torch import tracing
 
 log = logging.getLogger(__name__)
 
@@ -91,8 +96,11 @@ def unflatten_state(flat: dict[str, Any]) -> dict:
 
 def leaf_splits(program, flat: dict[str, Any]) -> dict[str, list[tuple[int, int]]]:
     """Each tensor leaf of a flattened state of ``program``: the (mesh dim,
-    tensor dim) pairs that split it on this rank (``fsdp`` and ``model``;
-    empty where the rank holds it whole). ``program`` None or off a mesh:
+    tensor dim) pairs that split it on this rank (``fsdp``, ``model``, and
+    ``pipe`` along a stacked leaf's layer dim; empty where the rank holds it
+    whole). A pipeline's outer leaves are in the states of the stages that
+    hold them only, and DCP writes a tied table held by two stages once.
+    ``program`` None or off a mesh:
     every leaf whole. Parameters and hpZ's store are split as stage 3's
     shards, the optimizer's tensors as its view (shards at stage >= 1),
     Adafactor's factored moments with the reduced dim taken out."""
@@ -102,11 +110,10 @@ def leaf_splits(program, flat: dict[str, Any]) -> dict[str, list[tuple[int, int]
     out = {k: [] for k, v in flat.items() if isinstance(v, torch.Tensor)}
     if z is None:
         return out
-    if program.pipe is not None:
-        raise NotImplementedError(
-            "checkpoints of a pipe > 1 program are not ported: a stage's outer leaves "
-            "live on some stages only (ROADMAP Queue 1, item 2.5)")
     i_fsdp, i_model = MESH_AXES.index("fsdp"), MESH_AXES.index("model")
+    # A pipeline stage's block of layers sits at its offset along the
+    # layer dim; an outer leaf lives whole on the stages that hold it.
+    i_pipe = MESH_AXES.index("pipe") if program.pipe is not None else None
     tx = program.tx
     for path in out:
         parts = path.split(_SEP)
@@ -118,6 +125,8 @@ def leaf_splits(program, flat: dict[str, Any]) -> dict[str, list[tuple[int, int]
         else:
             continue
         splits = [(i_fsdp, fsdp), (i_model, z.mdims[key] if z.model is not None else None)]
+        if i_pipe is not None and key.startswith("layers."):
+            splits.append((i_pipe, 0))
         if parts[0] == "opt_state" and parts[1] in ("v_row", "v_col"):
             whole = tx.shapes.get(key)
             d1, d0 = tx._dims(key, torch.empty(whole, device="meta")) if whole else (None, None)
@@ -172,8 +181,13 @@ class TrainCheckpointManager:
 
     def __init__(self, directory: str, max_to_keep: int = 3, save_interval_steps: int = 1,
                  async_save: bool = True, fault_injector: Optional[Any] = None,
-                 program: Any = None):
+                 program: Any = None, trace_id: Optional[str] = None):
+        # The injector passed in wins; otherwise the process-wide one, read
+        # at each call (a fault may be armed after construction).
         self._fault_injector = fault_injector
+        # The flight-recorder trace the saves and restores annotate (None:
+        # untraced).
+        self.trace_id = trace_id
         self.directory = resolve_checkpoint_dir(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
@@ -192,7 +206,11 @@ class TrainCheckpointManager:
         self.last_save = {}  # seconds and bytes of the last save
 
     def _injector(self):
-        return self._fault_injector
+        if self._fault_injector is not None:
+            return self._fault_injector
+        from tpu_engine_torch import faults
+
+        return faults.get_active()
 
     # -- save ----------------------------------------------------------------
 
@@ -212,6 +230,26 @@ class TrainCheckpointManager:
         its device first) unless ``wait`` or ``async_save=False``. Returns
         False for a step that should not be saved (unless ``force``) or is
         saved already."""
+        t_span = time.time()
+        outcome = "saved"
+        try:
+            saved = self._save(step, state, metrics, force, wait)
+            if not saved:
+                outcome = "skipped"
+            return saved
+        except Exception as e:
+            outcome = f"error: {type(e).__name__}"
+            raise
+        finally:
+            if self.trace_id is not None:
+                # Only a synchronous save displaces training time (the
+                # goodput ledger's "blocking").
+                tracing.get_recorder().record_span(
+                    "checkpoint_save", kind="checkpoint_save", trace_id=self.trace_id,
+                    t0=t_span, attrs={"step": step, "wait": wait, "force": force,
+                                      "blocking": bool(wait), "outcome": outcome})
+
+    def _save(self, step: int, state: dict, metrics, force: bool, wait: bool) -> bool:
         with self._lock:
             inj = self._injector()
             if inj is not None and inj.take_save_fault(step):
@@ -442,21 +480,43 @@ class TrainCheckpointManager:
         load is quarantined; with ``fall_back`` the next older one is tried.
         Returns (step, state), or (None, None) when nothing loads. With
         ``placed=False`` ``state_like`` holds whole leaves and every leaf
-        is read whole (JAX's single-replica host form)."""
+        is read whole (JAX's single-replica host form). DCP raises a
+        failed load (a leaf missing from the step, on any rank) as a
+        ``CheckpointException``, a ``BaseException``: it counts as any
+        other failure."""
+        from torch.distributed.checkpoint.api import CheckpointException
+
         self.wait_until_finished()
         program = self.program if placed else None
         candidates = [step] if step is not None else list(reversed(self.all_steps()))
-        for s in candidates:
-            try:
-                inj = self._injector()
-                if inj is not None and inj.take_restore_fault(s):
-                    raise OSError(f"injected fault: checkpoint-restore-corruption at step {s}")
-                return s, self._load(s, state_like, program)
-            except Exception:
-                self._quarantined.add(s)
-                if not fall_back:
-                    raise
-        return None, None
+        t0 = time.time()
+        quarantined: list[int] = []
+        try:
+            for s in candidates:
+                try:
+                    inj = self._injector()
+                    if inj is not None and inj.take_restore_fault(s):
+                        raise OSError(f"injected fault: checkpoint-restore-corruption at step {s}")
+                    state = self._load(s, state_like, program)
+                    self._trace_restore(t0, s, quarantined)
+                    return s, state
+                except (Exception, CheckpointException):
+                    self._quarantined.add(s)
+                    quarantined.append(s)
+                    if not fall_back:
+                        raise
+            self._trace_restore(t0, None, quarantined)
+            return None, None
+        except (Exception, CheckpointException):
+            self._trace_restore(t0, None, quarantined)
+            raise
+
+    def _trace_restore(self, t0: float, step: Optional[int], quarantined: list[int]) -> None:
+        if self.trace_id is None:
+            return
+        tracing.get_recorder().record_span(
+            "checkpoint_restore", kind="checkpoint_restore", trace_id=self.trace_id, t0=t0,
+            attrs={"step": step, "quarantined": list(quarantined)})
 
     def restore_resharded(self, state_like: dict, step: Optional[int] = None,
                           fall_back: bool = True, saved_topology: Optional[dict] = None,

@@ -454,16 +454,14 @@ def _check_seq_len(dataset: Any, seq_len: int) -> None:
         )
 
 
-HETERO_ITEM = "ROADMAP Queue 1, item 4: the heterogeneous rebalancer"
-
-
 def _uniform_only(rows: list[int], global_micro: int, pc: int) -> None:
     """A rank's rows are its ``micro_batch_size`` of each microbatch; an
     unequal split feeds the heterogeneous rebalancer, which is not ported."""
     if rows != [global_micro // pc] * pc:
         raise NotImplementedError(
             f"row assignment {rows} is not the equal split of the mesh's {pc} row ranks: "
-            f"non-uniform rows per rank are not ported ({HETERO_ITEM})")
+            "non-uniform rows per rank are not ported (they come from the "
+            "heterogeneous rebalancer, which the port lacks)")
 
 
 def _reader_of(dataset: Any) -> str:

@@ -16,11 +16,14 @@ b2, eps=1e-8) → add_decayed_weights(wd, kernel mask) → ``-lr``), so the
 tier is step-for-step comparable to the in-memory path. The spill persists:
 a restart re-attaches to the exact moments.
 
-This copy is single-process. Slabs are keyed by the port's flat parameter
-names (``layers.q.kernel``): its params are already the flat path-keyed
-dict JAX's ``flatten_with_paths`` makes. :class:`Uploader` puts each
-updated master on one device, where JAX's ``AsyncShardUploader`` stitches
-shards across hosts (multi-GPU work, not ported).
+Slabs are keyed by the port's flat parameter names (``layers.q.kernel``):
+its params are already the flat path-keyed dict JAX's
+``flatten_with_paths`` makes. On a mesh every rank is one of JAX's
+processes with one device: it spills its own shards in a directory of its
+own, and :class:`Uploader` puts each updated master shard on the rank's
+device, where JAX's ``AsyncShardUploader`` stitches a process's shards
+across its devices. A block is a replicated leaf only where it is the
+whole leaf (:func:`is_replicated_upload`).
 """
 
 from __future__ import annotations
@@ -376,6 +379,15 @@ class DiskAdamW:
 
     def spill_bytes(self) -> int:
         return sum(3 * int(np.prod(s.shape)) * 4 for s in self.slabs.values())
+
+
+def is_replicated_upload(block_shape: tuple, leaf_shape: tuple) -> bool:
+    """Whether an uploaded block stands for the whole leaf, replicated on
+    every rank that holds it (JAX's ``is_replicated_upload`` with one
+    device a process): a rank's block of a leaf its mesh splits is a
+    fraction of the leaf, and only a block that *is* the full leaf may be
+    placed as a replicated one."""
+    return tuple(block_shape) == tuple(leaf_shape)
 
 
 class Uploader:

@@ -80,7 +80,7 @@ from tpu_engine_torch.mesh_runtime import TOKEN_AXES
 from tpu_engine_torch.models.config import MODEL_CONFIGS, ModelConfig  # noqa: F401
 from tpu_engine_torch.models.convert import param_keys
 from tpu_engine_torch.ops import flash_attention
-from tpu_engine_torch.parallel.collectives import all_reduce_, all_reduce_sum
+from tpu_engine_torch.parallel.collectives import all_reduce_, all_reduce_sum, gather_dim
 from tpu_engine_torch.parallel.tensor_parallel import (
     copy_to,
     model_axis,
@@ -442,6 +442,23 @@ def _switch_aux(probs: torch.Tensor, first: torch.Tensor, E: int, mesh=None) -> 
     return E * torch.sum(f * p)
 
 
+def _sequence_ranks(mesh) -> Optional[tuple]:
+    """(group, size, index) of the mesh's ``sequence`` axis, or None
+    without one."""
+    if mesh is None or mesh.axis_sizes["sequence"] == 1:
+        return None
+    return mesh.group("sequence"), mesh.axis_sizes["sequence"], mesh.coords["sequence"]
+
+
+@torch.no_grad()
+def _rank_prefix(counts: torch.Tensor, seq: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the sum of ``counts`` [B, E] over the lower ``sequence`` ranks, the
+    sum over every rank): one all-gather of the rank's counts."""
+    group, n, i = seq
+    parts = gather_dim(counts.unsqueeze(0).contiguous(), 0, group)  # [n, B, E]
+    return parts[:i].sum(dim=0), parts.sum(dim=0)
+
+
 def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
     """Top-k MoE by dense dispatch (JAX ``_moe_mlp``): h [B, S, D] →
     (out [B, S, D], aux).
@@ -459,10 +476,18 @@ def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
     its slice of the dispatch; the partial combine is summed by ``g``. The
     router's gradient is then a part on each rank (summed over ``model``
     by the program), so the aux loss, whole on every rank, enters it at
-    ``1/model`` (:func:`replicated_share`)."""
+    ``1/model`` (:func:`replicated_share`). Over its ``sequence`` axis a
+    rank holds a block of each row's positions, and routing is the whole
+    row's, as JAX's program computes it on the global sequence: the
+    capacity is the whole row's, and a token's position in its expert's
+    buffer adds the choices of the same rank ``k`` made on the lower
+    sequence ranks (:func:`_rank_prefix`); the choices of earlier ranks
+    count over the whole row. A rank's buffer slots then hold its own
+    tokens alone, and the expert products run on them."""
     B, S, D = h.shape
     E, K = cfg.n_experts, cfg.top_k
-    C = cfg.expert_capacity(S)
+    seq = _sequence_ranks(mesh)
+    C = cfg.expert_capacity(S * (seq[1] if seq else 1))  # the whole row's
     tp = model_axis(mesh, cfg)
     h = copy_to(h, tp)
     probs = _router_probs(h, lp)  # [B, S, E] fp32
@@ -474,10 +499,12 @@ def _moe_mlp(h: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None):
         idx = torch.argmax(remaining, dim=-1)                # first maximum, as jnp.argmax
         mask = F.one_hot(idx, E).float()                     # [B, S, E]
         gate = torch.sum(probs * mask, dim=-1)               # [B, S]
-        pos = torch.cumsum(mask, dim=1) - 1 + count[:, None, :]
+        here = mask.sum(dim=1)                               # [B, E]
+        before, row = (_rank_prefix(here, seq) if seq else (0.0, here))
+        pos = torch.cumsum(mask, dim=1) - 1 + (count + before)[:, None, :]
         pos_tok = torch.sum(pos * mask, dim=-1)              # [B, S]
         keep = (pos_tok < C) & (gate > 0)
-        count = count + mask.sum(dim=1)
+        count = count + row
         # One-hot of the buffer position; a position past C has none.
         onehot_pos = (pos_tok.long()[..., None] == slots).float()  # [B, S, C]
         contrib = ((gate * keep)[:, :, None, None] * mask[:, :, :, None]

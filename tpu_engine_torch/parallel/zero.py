@@ -27,7 +27,13 @@ The port keeps plain local tensors and calls the collectives itself
   state; at stages 1 and 2 it then all-gathers the parameters;
 - at stage 3 (:class:`ShardedParams`) each layer's shards are all-gathered
   inside its checkpointed block, in the forward and again in the
-  recompute, and their gradients reduce-scattered in the backward.
+  recompute, and their gradients reduce-scattered in the backward;
+- with ``param_offload="host"`` a rank's params live in its host memory
+  (its shards at stage 3, as JAX places them in ``pinned_host`` with their
+  ZeRO shardings): stage 3's stream uploads a shard and then gathers it,
+  one stream a layer; below stage 3 the one-device stream
+  (``offload.HostParams``) brings each whole leaf, and the updated shards
+  go up to the device for their gather.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ class ZeroLayout:
     def __init__(self, runtime, stage: int, logical: dict[str, tuple],
                  shapes: dict[str, tuple], model_cfg=None):
         self.stage = int(stage)
+        self.device = runtime.device
         sizes = runtime.axis_sizes
         self.n_fsdp, self.i_fsdp = sizes["fsdp"], runtime.coords["fsdp"]
         self.n_model, self.i_model = sizes["model"], runtime.coords["model"]
@@ -124,12 +131,17 @@ class ZeroLayout:
         where ``fsdp`` (default: at stage 3, where the params are split),
         then over ``model`` unless ``model`` is False (the rank's blocks)."""
         if self.params_split if fsdp is None else fsdp:
-            params = {k: gather_dim(p.detach(), d, self.fsdp) if (d := self.dims[k]) is not None
+            params = {k: self._gather(p, d, self.fsdp) if (d := self.dims[k]) is not None
                       else p for k, p in params.items()}
         if self.model is None or not model:
             return params
-        return {k: gather_dim(p.detach(), d, self.model) if (d := self.mdims[k]) is not None
+        return {k: self._gather(p, d, self.model) if (d := self.mdims[k]) is not None
                 else p for k, p in params.items()}
+
+    def _gather(self, t: torch.Tensor, dim: int, group) -> torch.Tensor:
+        """``t``'s blocks over ``group`` joined along ``dim`` on the device
+        (a host shard goes up first)."""
+        return gather_dim(t.detach().to(self.device), dim, group)
 
     # -- gradients and the update ------------------------------------------------
 
@@ -241,7 +253,7 @@ class ZeroLayout:
         for k, p in params.items():
             d = self.dims[k]
             if d is not None:
-                p.copy_(gather_dim(self.shard(k, p), d, self.fsdp))
+                p.copy_(self._gather(self.shard(k, p), d, self.fsdp))
 
 
 class _Gather(torch.autograd.Function):
@@ -261,6 +273,10 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, anchor, src, dtype, stream, key, index):
         ctx.stream, ctx.key, ctx.index, ctx.master = stream, key, index, src.dtype
         layout = stream.layout
+        if src.device != anchor.device:  # a host shard: up first, then gathered
+            up = torch.empty(src.shape, dtype=src.dtype, device=anchor.device)
+            src = up.copy_(src, non_blocking=True)
+            stream.bytes["h2d"] += src.numel() * src.element_size()
         off = 0 if index is None else -1
         cc = layout.compress
         if cc is not None and cc.quantizes(key):
@@ -287,7 +303,9 @@ class ShardedParams:
     :class:`~tpu_engine_torch.offload.HostParams`): the shards of the
     non-layer leaves gathered once a loss call (:meth:`bind`), each layer's
     inside its checkpointed block (:meth:`layer`), cast to the compute
-    dtype; their gradients reduce-scatter into :attr:`sums`."""
+    dtype; their gradients reduce-scatter into :attr:`sums`. Shards in host
+    memory (``param_offload="host"``) are copied up before their gather;
+    :attr:`bytes` counts them."""
 
     def __init__(self, layout: ZeroLayout, device, compute_dtype):
         self.layout = layout
@@ -297,6 +315,7 @@ class ShardedParams:
         self.params: dict[str, torch.Tensor] = {}
         self.hpz: Optional[dict] = None  # hpZ's store of the state stepped (the program sets it)
         self.sums = GradSums(self.device)
+        self.bytes = {"h2d": 0, "d2h": 0}
 
     def bind(self, params: dict[str, torch.Tensor], layers: bool = True) -> dict:
         """Gather from ``params`` (this rank's shards): the non-layer leaves

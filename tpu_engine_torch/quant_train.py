@@ -19,6 +19,13 @@ the MoE expert products) run as int8 × int8 → int32 products:
 The forward rounds to nearest (``torch.round``, half to even, as
 ``jnp.round``), so its codes and int32 sums equal JAX's exactly.
 
+On a mesh (:func:`token_scales`) the weight gradient's product, which sums
+over the tokens, takes its operands' absmax over every rank that holds a
+part of the microbatch (a max all-reduce), as JAX's GSPMD program computes
+it over the global batch; the other two products contract a feature dim a
+rank holds whole. Under the compressed collectives JAX runs the loss in a
+manual region, where each device's scales are its own, and so does the port.
+
 The stochastic rounding's random numbers come from the data, as in JAX: a
 salt is the bit pattern of the operand's fp32 sum, read on the device, so a
 step is a pure function of its inputs (a restart reproduces it), layers and
@@ -37,13 +44,16 @@ product still refuses raises; nothing falls back to a float product.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_engine_torch.counter_hash import _M32, _mix32, _uniform
+from tpu_engine_torch.parallel.collectives import all_reduce_
 
 # Matmul groups a config can route through the int8 product: "attn" = the
 # q/k/v/o projections; "mlp" = the dense MLP; "moe" = the per-expert
@@ -73,6 +83,23 @@ def reset_launches() -> None:
     launches["int_mm"] = 0
 
 
+# The process group over which the weight gradient's product takes its
+# token-contracted scales (None: this rank's own); :func:`token_scales`
+# sets it for a mesh step.
+_TOKEN_GROUP: list = [None]
+
+
+@contextlib.contextmanager
+def token_scales(group):
+    """Within the block, the weight gradient's product reduces its
+    operands' absmax over ``group`` (the ranks that split the tokens)."""
+    prev, _TOKEN_GROUP[0] = _TOKEN_GROUP[0], group
+    try:
+        yield
+    finally:
+        _TOKEN_GROUP[0] = prev
+
+
 def _data_salt(xf: torch.Tensor) -> torch.Tensor:
     """0-d int64 in [0, 2**32): the bit pattern of ``xf``'s fp32 sum, on
     ``xf``'s device."""
@@ -96,14 +123,17 @@ def stochastic_round(y: torch.Tensor, salt) -> torch.Tensor:
 
 
 def channel_quantize(x: torch.Tensor, axes: tuple[int, ...], stochastic: bool = False,
-                     salt=None) -> tuple[torch.Tensor, torch.Tensor]:
+                     salt=None, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantisation with one scale per channel: absmax over
-    the contraction ``axes``, kept as size-1 dims. Returns (codes int8,
+    the contraction ``axes``, kept as size-1 dims (and over the ranks of
+    ``group``, whose parts of those axes it joins). Returns (codes int8,
     scales fp32) with ``x ≈ codes * scales``. ``stochastic`` rounds by
     :func:`stochastic_round`, salted by the data; an explicit ``salt`` draws
     another rounding of the same data (tests)."""
     xf = x.float()
     absmax = torch.amax(torch.abs(xf), dim=axes, keepdim=True)
+    if group is not None:
+        absmax = all_reduce_(absmax.contiguous(), group, op=dist.ReduceOp.MAX)
     scales = torch.clamp_min(absmax, 1e-30) / 127.0
     y = xf / scales
     if stochastic or salt is not None:
@@ -195,19 +225,22 @@ def _scales_outer(spec: str, sl: torch.Tensor, sr: torch.Tensor) -> torch.Tensor
 
 
 def _quantized_dot(spec: str, lhs: torch.Tensor, rhs: torch.Tensor,
-                   stochastic: bool) -> torch.Tensor:
+                   stochastic: bool, group=None) -> torch.Tensor:
     """One quantised einsum in fp32: int8 codes summed in int32, scaled by
-    the outer product of the two operands' channel scales."""
+    the outer product of the two operands' channel scales (their absmax
+    over ``group`` too)."""
     laxes, raxes = _contraction_axes(spec)
-    ql, sl = channel_quantize(lhs, laxes, stochastic=stochastic)
-    qr, sr = channel_quantize(rhs, raxes, stochastic=stochastic)
+    ql, sl = channel_quantize(lhs, laxes, stochastic=stochastic, group=group)
+    qr, sr = channel_quantize(rhs, raxes, stochastic=stochastic, group=group)
     return _codes_einsum(spec, ql, qr).float() * _scales_outer(spec, sl, sr)
 
 
 class _Int8Einsum(torch.autograd.Function):
     """Forward: round-to-nearest int8 product, cast to the operands'
     promoted dtype. Backward (straight-through): the two transpose products
-    through the same int8 product with stochastic rounding."""
+    through the same int8 product with stochastic rounding; the weight
+    gradient's (``l,o->r``, which sums over the tokens) takes its scales
+    over :func:`token_scales`' group."""
 
     @staticmethod
     def forward(ctx, spec, lhs, rhs):
@@ -224,7 +257,8 @@ class _Int8Einsum(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dlhs = _quantized_dot(dlhs_spec, g, rhs, stochastic=True).to(lhs.dtype)
         if ctx.needs_input_grad[2]:
-            drhs = _quantized_dot(drhs_spec, lhs, g, stochastic=True).to(rhs.dtype)
+            drhs = _quantized_dot(drhs_spec, lhs, g, stochastic=True,
+                                  group=_TOKEN_GROUP[0]).to(rhs.dtype)
         return None, dlhs, drhs
 
 

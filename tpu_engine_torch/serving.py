@@ -535,8 +535,8 @@ class ContinuousBatcher:
             if others:
                 raise NotImplementedError(
                     f"serving on a mesh with {others} is not ported: the batcher runs on a "
-                    "mesh whose ranks all lie on model (ROADMAP Queue 1, item 4: the serving "
-                    "fleet)")
+                    "mesh whose ranks all lie on model (replicas over data, fsdp, pipe or "
+                    "sequence belong to the serving fleet, which the port lacks)")
             self._tp = model_axis(mesh, cfg)
             self._lead = mesh.coords["model"] == 0
             if self._tp is not None:

@@ -207,16 +207,15 @@ def model_dim(spec: Spec) -> Optional[int]:
     return spec.index("model") if "model" in spec else None
 
 
-MODEL_ITEM = "ROADMAP Queue 1, item 2.1"
-
-
 def kv_heads(cfg) -> int:
     return cfg.n_heads if cfg.arch == "gpt2" else cfg.n_kv_heads  # gpt2's k, v are full width
 
 
 def check_model_axis(cfg, n_model: int) -> None:
     """Refuse a model whose heads, MLP or experts do not split over
-    ``n_model`` ranks by the module's rule."""
+    ``n_model`` ranks by the module's rule. JAX's program does not train
+    such a model either: its shardings need each split dim to divide by
+    the axis (gpt2-xl's 25 heads at model=2 fail its jit)."""
     if n_model == 1:
         return
     kv = kv_heads(cfg)
@@ -228,7 +227,8 @@ def check_model_axis(cfg, n_model: int) -> None:
     if bad:
         raise NotImplementedError(
             f"model {cfg.name!r} does not split over model={n_model}: {', '.join(bad)} "
-            f"({MODEL_ITEM}: whole heads, MLP columns and experts per rank)")
+            "(a rank holds whole heads, MLP columns and experts; JAX's program refuses "
+            "it too, its shardings needing each split dim to divide by the axis)")
 
 
 def model_split(cfg, logical: dict[str, tuple], n_model: int) -> dict[str, Optional[int]]:

@@ -30,12 +30,17 @@ heads, MLP columns, experts and vocabulary block; the loss's reductions
 run over the vocabulary blocks; LoRA's adapters split with their
 projections; Adafactor's factored means reduce over the split dims), and
 pipelines over ``pipe``, one rank a stage (GPipe, 1F1B and zero-bubble,
-``tpu_engine_torch/parallel/pipeline*.py``).
+``tpu_engine_torch/parallel/pipeline*.py``). The placements and int8
+training run there too: a rank's shards of the state in its host memory,
+or spilled under a directory of its own with the attach and reseed
+decisions agreed over the world; int8's weight-gradient scales span the
+ranks that split the tokens.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from functools import partial
@@ -86,11 +91,10 @@ class TrainConfig:
     support raise; the combinations JAX refuses raise JAX's messages.
     JAX's XLA flag fields (``async_collectives``,
     ``latency_hiding_scheduler``, ``xla_extra_flags``) have no counterpart:
-    the port's collectives are explicit calls. Still refused on a mesh,
-    with ``NotImplementedError``: (on more than one rank) host and disk
-    placements and int8 training, dense-dispatch MoE over
-    ``sequence``, and (on more than one ``model`` rank) a model whose
-    heads, MLP or experts do not split (``tpu_engine_torch/sharding.py``)."""
+    the port's collectives are explicit calls. Refused on a mesh, with
+    ``NotImplementedError``: int8 training with ``model > 1``, and a model
+    whose heads, MLP or experts do not split over ``model`` (JAX's program
+    refuses that too; ``tpu_engine_torch/sharding.py``)."""
 
     model_name: str = "gpt-125m"
     micro_batch_size: int = 1
@@ -817,26 +821,26 @@ class TrainProgram:
                       .requires_grad_(True) for k, v in params.items()}
         if self.disk is not None:
             return self.disk.state(self.disk.seed(params))
+        like = params
         if self.zero is not None:
             if self.pipe is not None:  # leaves of the stage's own
                 params = {k: v.detach().clone().requires_grad_(v.requires_grad)
                           for k, v in self.pipe.block(params).items()}
             params = self.zero.place(params)
-            state = {"params": params, "opt_state": self.tx.init(self.zero.state_like(params)),
-                     "step": 0, "lr_scale": 1.0}
-            hpz = self._refresh_hpz(params)
-            if hpz is not None:
-                state["hpz"] = hpz
-            return state
+            like = self.zero.state_like(params)
         pin = self.device.type == "cuda"
-        opt_state = self.tx.init({k: torch.empty_like(p, device="meta") for k, p in params.items()}
-                                 if cfg.optimizer_offload == "host" else params)
+        opt_state = self.tx.init({k: torch.empty_like(p, device="meta") for k, p in like.items()}
+                                 if cfg.optimizer_offload == "host" else like)
         if cfg.optimizer_offload == "host":
             opt_state = {name: tree if name == "count" else HostArena(tree, pin).tensors
                          for name, tree in opt_state.items()}
-        if self.host is not None:
+        if cfg.param_offload == "host":
             params = HostArena(params, pin).tensors
-        return {"params": params, "opt_state": opt_state, "step": 0, "lr_scale": 1.0}
+        state = {"params": params, "opt_state": opt_state, "step": 0, "lr_scale": 1.0}
+        hpz = self._refresh_hpz(params)
+        if hpz is not None:
+            state["hpz"] = hpz
+        return state
 
     def loss_fn(self, params, raw_tokens, include_aux: bool = True, denom=None,
                 aux_weight: float = 1.0):
@@ -1027,15 +1031,20 @@ class TrainProgram:
         update takes them (this rank's shards where they are split)."""
         z = self.zero
         rows, denom = self._rows_and_denom(batch)
+        sink = self.stream or self.host
+        # int8's weight-gradient scales over the microbatch's ranks, as
+        # JAX's GSPMD program; a rank's own under the compressed
+        # collectives (JAX's manual region).
+        scales = z.tokens if self.model_config.quant_training == "int8" \
+            and z.compress is None else None
         # Recompute every collective a checkpointed block ran: stopping
         # early after its last saved tensor could leave one out on one rank.
-        with set_checkpoint_early_stop(False):
+        with set_checkpoint_early_stop(False), quant_train.token_scales(scales):
             if self.pipe is not None:
                 loss, grads = self._pipe_grads(params, rows, denom)
             else:
                 loss, grads = accumulate_grads(self.loss_fn, params, rows,
-                                               self.stream.sums if self.stream else None,
-                                               denom)
+                                               sink.sums if sink else None, denom)
         grads = z.reduce_grads(grads)
         if self.pipe is not None:
             grads = self.pipe.reduce_tied(grads)
@@ -1086,7 +1095,8 @@ class TrainProgram:
     def transfer_bytes(self) -> dict[str, int]:
         """Bytes copied host→device and device→host by the placements
         since the program was built."""
-        parts = [x.bytes for x in (self.walk, self.host, self.disk) if x is not None]
+        parts = [x.bytes for x in (self.walk, self.host, self.stream, self.disk)
+                 if x is not None]
         return {d: sum(b[d] for b in parts) for d in ("h2d", "d2h")}
 
     @torch.no_grad()
@@ -1147,17 +1157,42 @@ class _DiskTier:
     master that still rounds to the incoming value (``reseed_masters``'s
     ``cast_dtype``). With ``disk_update_overlap`` the walk of step N runs
     on a thread while the device computes step N+1 (JAX's one-step-stale
-    delayed parameter update)."""
+    delayed parameter update).
+
+    On a mesh (stage 3 only, as JAX across processes) each rank is one of
+    JAX's processes: it spills its own shards under
+    ``<optimizer_spill_dir>/proc<rank>`` and updates them from its
+    reduce-scattered gradient shards, and the attach-or-reseed decisions
+    are one all-reduce (MIN) of a boolean over the world
+    (:meth:`_all_ranks`), so a torn or discontinuous spill on any rank
+    reseeds every rank. The steady state skips that collective;
+    ``store.consensus_checks`` counts the ones that ran."""
 
     def __init__(self, prog: TrainProgram):
         cfg = prog.config
         self.prog = prog
         self.device = prog.device
         self.compute_dtype = cfg.compute_dtype()
-        self.store = dsk.DiskAdamW(cfg.optimizer_spill_dir, b1=cfg.beta1, b2=float(cfg.beta2),
+        self.mesh = prog.zero is not None
+        spill = cfg.optimizer_spill_dir
+        if self.mesh:
+            rank = dist.get_rank()
+            spill = os.path.join(cfg.optimizer_spill_dir, f"proc{rank}")
+            if rank == 0 and os.path.isdir(cfg.optimizer_spill_dir):
+                # A one-process run's flat slabs, never read by this layout.
+                for f in os.listdir(cfg.optimizer_spill_dir):
+                    if f.endswith(".f32") or f == dsk._META:
+                        try:
+                            os.remove(os.path.join(cfg.optimizer_spill_dir, f))
+                        except OSError:
+                            pass
+        self.store = dsk.DiskAdamW(spill, b1=cfg.beta1, b2=float(cfg.beta2),
                                    eps=1e-8, weight_decay=cfg.weight_decay)
         self.store.consensus_checks = 0  # discontinuity checks run (JAX's counter)
         shapes = tfm.init_params(prog.model_config, None, device="meta")
+        self.whole_shapes = {k: tuple(p.shape) for k, p in shapes.items()}
+        if self.mesh:  # the rank's shards
+            shapes = prog.zero.place(shapes)
         self.shapes = {k: tuple(p.shape) for k, p in shapes.items()}
         decay = kernel_decay_mask(shapes)
         self.mask = {k: cfg.decay_all_params or decay[k] for k in shapes}
@@ -1169,10 +1204,21 @@ class _DiskTier:
         self.bytes = {"h2d": 0, "d2h": 0}
         self.walk_s: Optional[float] = None  # the last serial walk's host seconds
 
+    def _all_ranks(self, flag: bool) -> bool:
+        """JAX's ``_all_hosts``: True only where every rank says True (one
+        all-reduce MIN over the world; ``flag`` itself on one device)."""
+        if not self.mesh:
+            return flag
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return bool(t.item())
+
     def attach(self) -> bool:
-        """Whether a matching clean spill is (or could be) attached."""
+        """Whether a matching clean spill is (or could be) attached, on
+        every rank."""
         self.verified = None
-        return bool(self.store.slabs) or self.store.try_attach(self.shapes, self.mask)
+        return self._all_ranks(bool(self.store.slabs)
+                               or self.store.try_attach(self.shapes, self.mask))
 
     def state(self, params: dict) -> dict:
         return {"params": params, "step": 0, "lr_scale": 1.0}
@@ -1182,17 +1228,32 @@ class _DiskTier:
         return lambda k: params[k].detach().to("cpu", torch.float32).numpy()
 
     def seed(self, masters: dict) -> dict:
-        """A fresh spill from ``masters``; returns the compute-dtype params."""
+        """A fresh spill from ``masters`` (whole leaves; on a mesh the
+        rank's shards of them); returns the compute-dtype params."""
+        if self.mesh:
+            masters = self.prog.zero.place(masters)
         self.store.initialize(self._fetcher(masters), self.mask, shapes=self.shapes,
                               force_fresh=True)
-        return {k: p.detach().to(self.compute_dtype).requires_grad_(True)
-                for k, p in masters.items()}
+        return self._params({k: p.detach().to(self.compute_dtype) for k, p in masters.items()})
 
     def _uploader(self) -> dsk.Uploader:
         return dsk.Uploader(self.device, self.compute_dtype, self.upload_stream)
 
     def _params(self, leaves: dict) -> dict:
-        return {k: leaves[k].requires_grad_(True) for k in self.shapes}
+        """The state's params from uploaded leaves: each a whole leaf with
+        its gradient on one device; on a mesh the rank's shards, no
+        gradient (the stream's gathers carry it), and a block is a
+        replicated leaf only where it is the whole leaf
+        (``disk_offload.is_replicated_upload``)."""
+        if not self.mesh:
+            return {k: leaves[k].requires_grad_(True) for k in self.shapes}
+        z = self.prog.zero
+        for k in self.shapes:
+            whole = dsk.is_replicated_upload(tuple(leaves[k].shape), self.whole_shapes[k])
+            if tuple(leaves[k].shape) != self.shapes[k] or whole != (z.dims[k] is None):
+                raise ValueError(f"{k}: uploaded block {tuple(leaves[k].shape)} is not this "
+                                 f"rank's shard {self.shapes[k]}")
+        return {k: leaves[k] for k in self.shapes}
 
     def params_from_masters(self) -> dict:
         up = self._uploader()
@@ -1208,10 +1269,13 @@ class _DiskTier:
         ``grad_step``: scale min(1, clip / max(norm, 1e-12))), and the
         metrics."""
         prog = self.prog
-        loss, grads = accumulate_grads(prog.loss_fn, state["params"], batch)
+        if self.mesh:  # the rank's reduce-scattered shards
+            loss, grads = prog.mesh_grads(state["params"], batch)
+        else:
+            loss, grads = accumulate_grads(prog.loss_fn, state["params"], batch)
         grads = {k: g.float() for k, g in grads.items()}
         g_list = list(grads.values())
-        norm = global_norm(g_list)
+        norm = prog.zero.grad_norm(grads, global_norm) if self.mesh else global_norm(g_list)
         clip = prog.config.grad_clip_norm
         torch._foreach_mul_(g_list, torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0))
         lr = prog.schedule(state["step"]) * state["lr_scale"]
@@ -1240,16 +1304,23 @@ class _DiskTier:
         self.bytes["h2d"] += n * torch.tensor([], dtype=self.compute_dtype).element_size()
 
     def _ensure_store(self, params: dict) -> None:
+        """Attach where a clean matching spill is on every rank; otherwise
+        every rank seeds a fresh one from ``params``."""
         if not self.attach():
             self.store.initialize(self._fetcher(params), self.mask, shapes=self.shapes,
                                   force_fresh=True)
         self.verified = None
 
     def _check_discontinuity(self, state: dict, t: int) -> None:
+        """The spill must have applied exactly step t - 1; where it has not
+        on any rank, every rank reseeds its masters from the state's params
+        (moments zeroed). Skipped once this program applied or checked
+        t - 1 itself (every rank takes the same branch)."""
         if self.verified == t - 1:
             return
         self.store.consensus_checks += 1
-        if self.store.step_on_disk is not None and self.store.step_on_disk != t - 1:
+        needs = self.store.step_on_disk is not None and self.store.step_on_disk != t - 1
+        if not self._all_ranks(not needs):
             self.store.reseed_masters(self._fetcher(state["params"]), step=t - 1,
                                       cast_dtype=self.compute_dtype)
         self.verified = t - 1
@@ -1315,7 +1386,7 @@ _SCHEDULES = {"gpipe": pipeline.pipeline_gpipe_grads, "1f1b": pipeline_1f1b_grad
 def _mesh_refusals(cfg: TrainConfig, model_cfg: ModelConfig) -> None:
     """JAX's ``ValueError``s for the mesh combinations it refuses, with its
     messages; a model that does not split over ``model`` raises
-    ``NotImplementedError``."""
+    ``NotImplementedError`` naming the dims (JAX's jit refuses it too)."""
     mesh = cfg.mesh
     if mesh.model > 1:
         if model_cfg.is_moe and model_cfg.moe_impl == "ragged":
@@ -1352,8 +1423,7 @@ def _runtime_for(cfg: TrainConfig, device: torch.device,
     """The mesh the program runs on: ``runtime`` if given, else one built
     from ``cfg.mesh`` where this process is one rank of several, else none
     (``cfg.mesh`` must then resolve to one rank). One rank keeps the
-    one-device paths of the placements and int8 training; more than one
-    refuses them."""
+    one-device paths of the placements and int8 training."""
     if runtime is None and dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
         runtime = MeshRuntime(cfg.mesh, device=device)
@@ -1362,17 +1432,24 @@ def _runtime_for(cfg: TrainConfig, device: torch.device,
         return None
     if runtime.device.type != device.type:
         raise ValueError(f"the mesh runs on {runtime.device}, the program on {device}")
-    single_paths = [name for name, on in (
-        ("optimizer_offload", cfg.optimizer_offload != "none"),
-        ("param_offload", cfg.param_offload != "none"),
-        ("quant_training", cfg.quant_training != "none")) if on]
-    if not single_paths:
-        return runtime
-    if runtime.n_devices == 1:
+    single_paths = (cfg.optimizer_offload != "none" or cfg.param_offload != "none"
+                    or cfg.quant_training != "none")
+    if single_paths and runtime.n_devices == 1:
         return None
-    raise NotImplementedError(
-        f"{', '.join(single_paths)} on a mesh of {runtime.n_devices} ranks is not ported "
-        "(ROADMAP Queue 1, item 2: host and disk placements and int8 training across ranks)")
+    if cfg.quant_training != "none" and runtime.axis_sizes["model"] > 1:
+        raise NotImplementedError(
+            "quant_training='int8' with model > 1 is not ported: a product "
+            "whose contraction dim the model axis splits (o and down forward, "
+            "the other projections' input gradients) needs its per-channel "
+            "absmax reduced over the model ranks, as JAX's GSPMD program takes it")
+    if (cfg.optimizer_offload == "disk"
+            and cfg.sharding_stage < sharding.ShardingStage.FULL_PARTITIONING):
+        # JAX's refusal across processes; every rank of the port is one.
+        raise ValueError(
+            "optimizer_offload='disk' across processes requires "
+            "sharding_stage=3 (param and gradient shards must coincide "
+            "per host)")
+    return runtime
 
 
 def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = None,
@@ -1495,7 +1572,7 @@ def build_train_program(cfg: TrainConfig, model_cfg: Optional[ModelConfig] = Non
                         pipeline_schedule=sharding.resolve_pipeline_schedule(cfg))
     if runtime is not None:
         _bind_mesh(prog, runtime)
-    if cfg.param_offload == "host":
+    if cfg.param_offload == "host" and prog.stream is None:
         prog.host = HostParams(device, cfg.compute_dtype())
     if cfg.optimizer_offload == "disk":
         prog.disk = _DiskTier(prog)
@@ -1508,11 +1585,6 @@ def _bind_mesh(prog: TrainProgram, runtime: MeshRuntime) -> None:
     stage 3, its layer stream; refuses what the mesh step does not run."""
     cfg, mc = prog.config, prog.model_config
     n_seq = runtime.axis_sizes["sequence"]
-    if mc.is_moe and mc.moe_impl == "dense" and n_seq > 1:
-        raise NotImplementedError(
-            "dense-dispatch MoE over a sequence axis is not ported: its expert capacity "
-            "counts along a row's whole sequence (ROADMAP Queue 1, item 2); use "
-            "moe_impl='ragged'")
     if cfg.seq_len % n_seq:
         raise ValueError(f"mesh.sequence={n_seq} must divide seq_len={cfg.seq_len}")
     if cfg.loss_chunk_size and (cfg.seq_len // n_seq) % cfg.loss_chunk_size:

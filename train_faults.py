@@ -88,7 +88,24 @@ Each fault patches one function for the length of its reading:
   keeps its own bf16 gradient (the ranks' weights differ). They set the
   ``COMM_*`` bounds.
 
-``python3 train_faults.py --mesh`` reads the mesh alone, ``--comm`` the
+- the mesh's state (``chip_smoke.py``'s ``train_mesh_state``: llama-1b at
+  ``chip_smoke.STATE_L`` layers on two ranks, each run against its world-1
+  run; ``state_sound``): ``host_shard_not_uploaded``: rank 1 gathers a zero
+  buffer where its host shard should have been copied up
+  (``parallel.zero._Gather``; the gather still pairs); ``disk_rank1_update_skipped``:
+  rank 1's host walk uploads its masters unchanged
+  (``disk_offload.DiskAdamW.update``); ``int8_rank1_grad_scales_dropped``:
+  rank 1 dequantizes its weight gradient's product without the scales'
+  outer product (``quant_train._quantized_dot``); ``moe_offset_dropped``:
+  the sequence ranks' capacity offset left out, each rank placing its
+  tokens from slot 0 (``transformer._rank_prefix``; the all-gather still
+  runs); ``outer_leaves_unwritten``: the last stage saves its layer block
+  alone (``checkpoint.TrainCheckpointManager._write``), read by the
+  restore's bitwise check. They set ``STATE_LOSS_REL`` and
+  ``STATE_INT8_LOSS_REL``.
+
+``python3 train_faults.py --mesh`` reads the mesh alone (``--mesh --state``
+only train_mesh_state's runs), ``--comm`` the
 compressed collectives alone, ``--offload`` the placements alone (llama-1b
 at ``chip_smoke.OFFLOAD_L`` layers). The readings are
 printed and written to ``chiprun_out/train_faults.json``.
@@ -186,6 +203,14 @@ MESH_LOSS_REL = 2e-3
 MESH_EP_LOSS_REL = 5e-3
 # The leaf the fsdp fault leaves out of the reduce-scatter.
 MESH_DROPPED_LEAF = "layers.gate.kernel"
+# train_mesh_state's bounds against the world-1 runs (the state readings
+# below; PERF.md §6): place2, disk2, moe_seq2 and pipe_ckpt by
+# STATE_LOSS_REL (sound at most 4.694e-4, moe_seq2's; the nearest fault
+# 1.935e-2, a host shard gathered unuploaded), int8_d2 (its backward's
+# rounding drawn per rank) by STATE_INT8_LOSS_REL (sound 1.406e-4, the
+# fault 1.110e8).
+STATE_LOSS_REL = 2e-3
+STATE_INT8_LOSS_REL = 2e-3
 
 
 def _skip_reduce_scatter(real):
@@ -405,13 +430,91 @@ def comm_readings(cs, out: dict, steps: int = 3) -> None:
         print(f"{name}: {json.dumps(r)}", flush=True)
 
 
+def _rank1() -> bool:
+    import torch.distributed as dist
+
+    return dist.get_rank() == 1
+
+
+def _host_shard_not_uploaded(real):
+    """Rank 1 gathers a zero buffer where its host shard should have been
+    copied up (the gather still runs, so the ranks' collectives pair)."""
+    def forward(ctx, anchor, src, dtype, stream, key, index):
+        if src.device != anchor.device and _rank1():
+            import torch
+
+            src = torch.zeros(src.shape, dtype=src.dtype, device=anchor.device)
+        return real(ctx, anchor, src, dtype, stream, key, index)
+
+    return forward
+
+
+def _disk_rank1_update_skipped(real):
+    """Rank 1's host walk applies no update: it uploads its masters as they
+    were and records the step as applied."""
+    def update(self, grads, lr, step, emit):
+        if not _rank1():
+            return real(self, grads, lr, step, emit)
+        for key, slab in self.slabs.items():
+            emit(key, slab.master)
+        self.step_on_disk = step
+
+    return update
+
+
+def _int8_rank1_grad_scales_dropped(real):
+    """Rank 1 dequantizes its weight gradient's product without the scales'
+    outer product (their max over the ranks still runs)."""
+    def dot(spec, lhs, rhs, stochastic, group=None):
+        if group is None or not _rank1():
+            return real(spec, lhs, rhs, stochastic, group)
+        from tpu_engine_torch import quant_train as qt
+
+        with mock.patch.object(qt, "_scales_outer", lambda s, a, b: a.new_ones(())):
+            return real(spec, lhs, rhs, stochastic, group)
+
+    return dot
+
+
+def _moe_offset_dropped(real):
+    """The sequence ranks' capacity offset left out: each rank places its
+    tokens from slot 0 (the all-gather of the counts still runs)."""
+    def prefix(counts, seq):
+        before, row = real(counts, seq)
+        return before * 0, row
+
+    return prefix
+
+
+def _outer_leaves_unwritten(real):
+    """The last stage writes its layer block alone: its outer leaves (the
+    final norm, the head and their moments) are left out of its save."""
+    def write(self, step, snap, splits, metrics, ready, t0):
+        if _rank1():
+            keep = {k for k, v in snap.items()
+                    if not hasattr(v, "shape") or k.rsplit("/", 1)[-1].startswith("layers.")}
+            snap = {k: v for k, v in snap.items() if k in keep}
+            splits = {k: v for k, v in splits.items() if k in keep}
+        return real(self, step, snap, splits, metrics, ready, t0)
+
+    return write
+
+
 def mesh_fault(name: str):
     """The patch of the planted mesh fault ``name`` (for :func:`_patched`)."""
-    from tpu_engine_torch import train
+    from tpu_engine_torch import checkpoint, quant_train, train
+    from tpu_engine_torch import disk_offload as dsk
     from tpu_engine_torch.models import transformer
     from tpu_engine_torch.parallel import pipeline, ring_attention, zero
 
-    return {"fsdp_skip_reduce_scatter": (zero.ZeroLayout, "reduce_leaf", _skip_reduce_scatter),
+    return {"host_shard_not_uploaded": (zero._Gather, "forward", _host_shard_not_uploaded),
+            "disk_rank1_update_skipped": (dsk.DiskAdamW, "update", _disk_rank1_update_skipped),
+            "int8_rank1_grad_scales_dropped": (quant_train, "_quantized_dot",
+                                               _int8_rank1_grad_scales_dropped),
+            "moe_offset_dropped": (transformer, "_rank_prefix", _moe_offset_dropped),
+            "outer_leaves_unwritten": (checkpoint.TrainCheckpointManager, "_write",
+                                       _outer_leaves_unwritten),
+            "fsdp_skip_reduce_scatter": (zero.ZeroLayout, "reduce_leaf", _skip_reduce_scatter),
             "ring_cotangents_dropped": (ring_attention._Hop, "backward",
                                         _cotangents_dropped),
             "tp_o_g_skipped": (transformer, "_row_proj", _o_g_skipped),
@@ -451,6 +554,43 @@ def mesh_readings(cs, out: dict, steps: int = 3) -> None:
                   f"{[f'{x:.4e}' for x in r['rel']]} (bound {bound}); "
                   f"losses {r['losses']}, grad norms {r['grad_norms']}; world 1 "
                   f"{r['ref_losses']}, {r['ref_grad_norms']}", flush=True)
+
+
+def state_readings(cs, out: dict, steps: int = 3) -> None:
+    """train_mesh_state's readings: each run's largest relative gap to its
+    world-1 run per rank, sound and under its planted fault, and
+    pipe_ckpt's restore (bitwise on the ranks) sound and with the last
+    stage's outer leaves unwritten."""
+    import shutil
+    import tempfile
+
+    w1 = cs.mesh_world1(list(dict.fromkeys(cs.MESH_RUNS[r][3] for r in cs.STATE_RUNS)), steps)
+    for name, runs, fault in (
+            ("state_sound", list(cs.STATE_RUNS), None),
+            ("state_host_shard_not_uploaded", ["place2"], "host_shard_not_uploaded"),
+            ("state_disk_rank1_update_skipped", ["disk2"], "disk_rank1_update_skipped"),
+            ("state_int8_rank1_grad_scales_dropped", ["int8_d2"],
+             "int8_rank1_grad_scales_dropped"),
+            ("state_moe_offset_dropped", ["moe_seq2"], "moe_offset_dropped"),
+            ("state_outer_leaves_unwritten", ["pipe_ckpt"], "outer_leaves_unwritten")):
+        work = tempfile.mkdtemp(prefix="train_faults_state_")
+        try:
+            ranks = cs.mesh_launch(runs, 2, steps, f"faults_{name}", fault, work=work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        for run in runs:
+            ref = w1[cs.MESH_RUNS[run][3]]
+            r = out[f"{name}:{run}"] = {
+                "rel": [cs.mesh_rel(rk["runs"][run], ref) for rk in ranks],
+                "losses": [rk["runs"][run]["losses"] for rk in ranks],
+                "ref_losses": ref["losses"], "bound": cs.state_bound(run)}
+            if run == "pipe_ckpt":
+                r["ckpt_bitwise"] = [rk["runs"][run]["ckpt"]["bitwise"] for rk in ranks]
+            print(f"{name} {run}: largest relative gap to the world-1 run, per rank, "
+                  f"{[f'{x:.4e}' for x in r['rel']]} (bound {r['bound']}); losses "
+                  f"{r['losses']}; world 1 {r['ref_losses']}"
+                  + (f"; restore bitwise {r['ckpt_bitwise']}" if "ckpt_bitwise" in r else ""),
+                  flush=True)
 
 
 def _offload_run(cs, extra: dict) -> tuple[list, dict, list]:
@@ -559,10 +699,14 @@ def main() -> int:
     print(card, flush=True)
     fc.build()
     fc._load()
-    if sys.argv[1:] == ["--mesh"]:
+    if sys.argv[1:2] == ["--mesh"]:
         out = {"card": card, "bounds": {"mesh_loss_rel": MESH_LOSS_REL,
-                                        "mesh_ep_loss_rel": MESH_EP_LOSS_REL}}
-        mesh_readings(cs, out)
+                                        "mesh_ep_loss_rel": MESH_EP_LOSS_REL,
+                                        "state_loss_rel": STATE_LOSS_REL,
+                                        "state_int8_loss_rel": STATE_INT8_LOSS_REL}}
+        if sys.argv[2:] != ["--state"]:
+            mesh_readings(cs, out)
+        state_readings(cs, out)
         _write(out)
         return 0
     if sys.argv[1:] == ["--comm"]:
@@ -613,8 +757,10 @@ def main() -> int:
         print(f"{name}: kept over nothing_saveable, as a share of the tagged bytes: "
               f"{out[name]}", flush=True)
     offload_readings(cs, out)
-    out["bounds"].update(mesh_loss_rel=MESH_LOSS_REL, mesh_ep_loss_rel=MESH_EP_LOSS_REL)
+    out["bounds"].update(mesh_loss_rel=MESH_LOSS_REL, mesh_ep_loss_rel=MESH_EP_LOSS_REL,
+                         state_loss_rel=STATE_LOSS_REL, state_int8_loss_rel=STATE_INT8_LOSS_REL)
     mesh_readings(cs, out)
+    state_readings(cs, out)
     _write(out)
     return 0
 

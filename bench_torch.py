@@ -42,8 +42,10 @@ import sys
 import time
 from pathlib import Path
 
+from tpu_engine_torch.profiler import PEAK_FLOPS_BF16
+
 ROOT = Path(__file__).resolve().parent
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BF16_FLOPS = PEAK_FLOPS_BF16["h100"]   # H100 SXM dense bf16 (NVIDIA data sheet)
 MFU_TARGET = 0.45          # bench.py's north-star MFU: vs_baseline = MFU / 0.45
 SEQ = 2048
 # bench.py:_candidates' on-chip list, in its order: (model, micro-batch,

@@ -6,7 +6,12 @@
 (``--mesh-worker JOB RANK`` runs one rank of ``train_mesh``, ``train_pipe``,
 ``train_comm`` or ``serve_mesh``; the phase starts those processes itself.)
 
-Phases, each of which must pass (the script exits non-zero otherwise):
+Phases, each of which must pass (the script exits non-zero otherwise).
+The serving phases that launch no kernel of the port (``serve_mesh``,
+``generate``, ``hf_bridge``, ``generate_gemma``) run first, on the card,
+while nvcc compiles the kernels (and cuobjdump reads their SASS) on a
+thread; the build phase then waits for it, and the script fails if one
+of them loaded the kernels:
 
 1. build: compile the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV,
    each causal and non-causal, head dims 16/32/64/128/256) from
@@ -50,7 +55,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 4. train: a llama-1b training step at full width (seq 2048, bf16 compute,
    fp32 masters, AdamW, activation checkpointing, attention "auto"), with the
    kernel launch counts read around the run; then train_data: the same
-   llama-1b trained from a token file of seeded ids through ``make_data_fn``
+   llama-1b at DATA_L of its layers trained from a token file of seeded ids
+   through ``make_data_fn``
    (the native reader), an asynchronous checkpoint of step 2, and a fresh
    program restored from it whose step 3 is bitwise the uninterrupted one
    (save and restore GB/s, the reader's host tokens/s);
@@ -178,13 +184,31 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    and the cross-slice byte ratios, hpZ's store, the ranks' weights);
    then train_mesh_state: llama-1b at full width and 2 layers on two
    ranks: fsdp=2 stage 3 with masters and moments in pinned host memory,
-   fsdp=2 stage 3 with the disk tier, data=2 with int8 products,
+   fsdp=2 stage 3 with the disk tier, data=2 and model=2 with int8
+   products (``tp2_int8``: o's and down's scales over both ranks, held in
+   one more step to the whole operand's, all-gathered, bitwise),
    moe-8x7b at 1 layer over sequence=2 (dense dispatch, capacity factor
    0.5), and pipe=2 with a save, a bitwise restore on the ranks and a
    whole read at world 1; each held to its world-1 run by train_faults.py's
    STATE_LOSS_REL or STATE_INT8_LOSS_REL, launches exact per rank; step
    time, peak and pinned memory, host copies and collective bytes a step
    per rank;
+   then train_job: the port's supervised ``TrainingJob`` at llama-1b's
+   width and 2 layers (seq 2048 × 4, bf16 compute, fp32 masters, AdamW,
+   flash), three jobs on one checkpoint directory under ``chiprun_out/``:
+   (a) checkpoints every 4 steps and a NaN loss planted on step 6: one
+   rollback to step 4 at lr_scale 0.5, COMPLETED at step 8, its losses
+   bitwise a plain loop's before the NaN and a plain loop's restored from
+   step 4 at lr_scale 0.5 after it, K1-K3 launches exact; while it runs
+   a two-step ``TraceSession`` naming K1-K3, the profiler's MFU and the
+   HBM estimate's terms beside the state's bytes (params and optimizer
+   state within 0.1 %); (b) resumed there, without periodic checkpoints,
+   read while its steps run: the fleet (one card, the job attributed to
+   it, HBM total within 1 % of nvidia-smi's, a utilization above 0 and
+   the health JAX's thresholds give that reading, no alert but the duty
+   cycle's) and the nvidia-smi snapshot; then preempted through the
+   simulated check, with an emergency save; (c) resumed at (b)'s step,
+   COMPLETED, its compile recorded in the compile index;
 25. serve_mesh: the ContinuousBatcher at llama-1b's width and 2 layers on
    model=2 (two ranks, ``--mesh-worker`` processes, rank 0 submitting
    ``serve``'s 16 requests), with the bf16 and the int8 pool, and with the
@@ -210,18 +234,22 @@ Everything is also written to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
 
+from tpu_engine_torch.profiler import PEAK_FLOPS_BF16
+
 ROOT = Path(__file__).resolve().parent
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BF16_FLOPS = PEAK_FLOPS_BF16["h100"]   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 (tensor cores)
 # An fp32-accurate product on the tensor cores is three TF32 products (split
@@ -955,7 +983,7 @@ def phase_kernels(res: dict) -> None:
 
 # The training paths of the bf16 D 128 kernels (K1 also serve_moe's teacher
 # forwards); remat's launches are nothing_saveable's.
-D128_PATHS = ("train", "train_ring", "train_moe", "train_int8", "train_lora",
+D128_PATHS = ("train", "train_job", "train_ring", "train_moe", "train_int8", "train_lora",
               "train_adafactor", "train_lion", "remat", "train_offload", "train_7b",
               "train_window", "train_mesh", "train_pipe", "train_data", "train_comm",
               "train_mesh_state")
@@ -3430,6 +3458,10 @@ MESH_RUNS = {
                 "flash"),
     "int8_d2": (2, dict(data=2), dict(quant_training="int8", micro_batch_size=2, seq_len=2048),
                 "w1_int8", "flash"),
+    # int8 over model: o's and down's forward absmax, and the column
+    # products' input-gradient absmax, reduced over both ranks.
+    "tp2_int8": (2, dict(model=2), dict(quant_training="int8", micro_batch_size=4,
+                                        seq_len=2048), "w1_int8", "flash"),
     "w1_moe_seq": (1, {}, dict(MESH_MOE, micro_batch_size=2, seq_len=4096), None, "flash"),
     "moe_seq2": (2, dict(sequence=2), dict(MESH_MOE, micro_batch_size=2, seq_len=4096),
                  "w1_moe_seq", "ring"),
@@ -3438,11 +3470,11 @@ MESH_RUNS = {
 }
 STATE_L = 2
 STATE_MOE_L = 1
-STATE_RUNS = ("place2", "disk2", "int8_d2", "moe_seq2", "pipe_ckpt")
+STATE_RUNS = ("place2", "disk2", "int8_d2", "tp2_int8", "moe_seq2", "pipe_ckpt")
 # Layers of the runs not at MESH_L (the run's time limit, PERF.md §4).
 MESH_LAYERS = {"w1_lora": 4, "lora_tp2": 4, "w1_ada": 4, "adafactor_tp2": 4,
                **{k: STATE_L for k in ("w1_state", "place2", "disk2", "w1_int8", "int8_d2",
-                                       "pipe_ckpt")},
+                                       "tp2_int8", "pipe_ckpt")},
                "w1_moe_seq": STATE_MOE_L, "moe_seq2": STATE_MOE_L}
 # Model fields changed in a run: moe_seq2's capacity factor cut so that each
 # expert fills on the first sequence rank's tokens, and the buffer positions
@@ -3582,11 +3614,15 @@ def _mesh_runs(runs: list, steps: int, fault=None, work=None) -> dict:
                 times.append(time.perf_counter() - t0)
             launches = dict(fc.launches)
             transfer = prog.transfer_bytes()
+            peak = torch.cuda.max_memory_allocated()
+            moved = dict(collectives.moved)
+            probe = (_row_scale_probe(prog, state, batch, runtime.group("model"))
+                     if name == "tp2_int8" else None)
         out[name] = {
             "losses": losses, "grad_norms": norms, "step_ms_each": [t * 1e3 for t in times],
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": launches,
-            "moved_bytes_per_step": {k: v // steps for k, v in collectives.moved.items()},
+            "peak_mem_gib": peak / 2**30,
+            "launches": launches, "row_scales": probe,
+            "moved_bytes_per_step": {k: v // steps for k, v in moved.items()},
             "impl": prog.model_config.attention_impl, "setup_s": t_setup,
             "mesh": runtime.axis_sizes if runtime is not None else None,
             "schedule": prog.pipeline_schedule,
@@ -3601,6 +3637,50 @@ def _mesh_runs(runs: list, steps: int, fault=None, work=None) -> dict:
         del prog, state, batch
         _free()
     return out
+
+
+def _row_scale_probe(prog, state, batch, group) -> dict:
+    """One more step of a model-split int8 run with the forward scales of
+    every row-parallel product (o, down) held, bitwise, to those of the
+    whole operand: each operand's block all-gathered over ``group`` along
+    the dim it contracts, its absmax taken there. Counts the operands
+    checked and those whose scales differ."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_engine_torch import quant_train as qt
+    from tpu_engine_torch.models import transformer as tfm
+
+    plain_quantize, plain_row = qt.channel_quantize, tfm._row_proj
+    inside, tally = [0], {"checked": 0, "differ": 0}
+
+    def quantize(x, axes, *a, **kw):
+        codes, scales = plain_quantize(x, axes, *a, **kw)
+        if inside[0]:
+            parts = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, x.contiguous(), group=group)
+            whole = torch.cat(parts, dim=axes[0]).float()
+            want = torch.clamp_min(torch.amax(torch.abs(whole), dim=axes, keepdim=True),
+                                   1e-30) / 127.0
+            tally["checked"] += 1
+            tally["differ"] += int(not torch.equal(scales, want))
+        return codes, scales
+
+    def row_proj(*a, **kw):
+        inside[0] += 1
+        try:
+            return plain_row(*a, **kw)
+        finally:
+            inside[0] -= 1
+
+    qt.channel_quantize, tfm._row_proj = quantize, row_proj
+    try:
+        prog.step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        qt.channel_quantize, tfm._row_proj = plain_quantize, plain_row
+    return tally
 
 
 def _pipe_ckpt(prog, state, cfg, model_cfg, runtime, work) -> dict:
@@ -3658,7 +3738,7 @@ def mesh_worker(job_path: str, rank: int) -> None:
     job = json.loads(Path(job_path).read_text())
     if not job.get("serve"):  # serving launches no kernel of the port
         fc._load()
-    initialize_distributed(f"127.0.0.1:{job['port']}", job["world"], rank, device="cuda:0")
+    initialize_distributed(job["store"], job["world"], rank, device="cuda:0")
     out = {"rank": rank, "joined_s": time.time() - job["t0"]}
     if job.get("serve"):
         out["serve"] = _mesh_serve(job["serve"], rank, job.get("fault"))
@@ -3677,19 +3757,24 @@ def mesh_world1(runs: list, steps: int) -> dict:
 
     from tpu_engine_torch.mesh_runtime import initialize_distributed
 
-    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda:0")
+    store = _store_path("w1")
+    initialize_distributed(f"file://{store}", 1, 0, device="cuda:0")
     try:
         return _mesh_runs(runs, steps)
     finally:
         dist.destroy_process_group()
+        store.unlink(missing_ok=True)
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _store_path(tag: str) -> Path:
+    """A fresh file for a job's ``file://`` rendezvous store. A file, not a
+    TCP port: a port found free and then closed can be taken by another
+    socket before rank 0's store binds it (EADDRINUSE)."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / f"mesh_{tag}.store"
+    path.unlink(missing_ok=True)
+    return path
 
 
 def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None,
@@ -3705,8 +3790,9 @@ def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None,
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     job_path = out_dir / f"mesh_{tag}.json"
+    store = _store_path(tag)
     job_path.write_text(json.dumps({"runs": runs, "world": world, "steps": steps,
-                                    "port": _free_port(), "fault": fault, "t0": time.time(),
+                                    "store": f"file://{store}", "fault": fault, "t0": time.time(),
                                     "serve": serve, "comm": comm, "ckpt": ckpt, "work": work}))
     procs = []
     for r in range(world):
@@ -3730,6 +3816,7 @@ def mesh_launch(runs: list, world: int, steps: int, tag: str, fault=None,
                 p.kill()
                 p.wait()
             log.close()
+        store.unlink(missing_ok=True)
     failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
     if failed:
         tails = "\n".join(f"rank {r} exited {procs[r][0].returncode}:\n"
@@ -3784,7 +3871,7 @@ def state_bound(name: str) -> float:
 
     if name == "ep2":
         return tf.MESH_EP_LOSS_REL
-    if name == "int8_d2":
+    if name in ("int8_d2", "tp2_int8"):
         return tf.STATE_INT8_LOSS_REL
     if name in STATE_RUNS:
         return tf.STATE_LOSS_REL
@@ -3853,7 +3940,9 @@ def phase_train_mesh_state(res: dict, steps: int) -> None:
     pinned host memory, the shard uploaded before its gather), ``disk2``
     (fsdp=2 at stage 3, the disk tier spilling each rank's shards under a
     temporary directory), ``int8_d2`` (data=2, int8 products, the weight
-    gradient's scales over both ranks), ``moe_seq2`` (moe-8x7b at
+    gradient's scales over both ranks), ``tp2_int8`` (model=2, int8
+    products, o's and down's forward scales and the column products'
+    input-gradient scales over both ranks), ``moe_seq2`` (moe-8x7b at
     STATE_MOE_L layer over sequence=2 by the ring, dense dispatch at
     capacity factor 0.5, seq 4096 × 2, the second rank's buffer positions
     after the first's) and ``pipe_ckpt`` (pipe=2, gpipe, one microbatch of
@@ -3894,6 +3983,13 @@ def phase_train_mesh_state(res: dict, steps: int) -> None:
         for rank, run in enumerate(out["runs"].get("place2", [])):
             if run["pinned_gib"] <= 0 or run["host_bytes_per_step"]["h2d"] <= 0:
                 fails.append(f"place2 rank {rank}: nothing pinned or streamed")
+        for rank, run in enumerate(out["runs"].get("tp2_int8", [])):
+            probe = run["row_scales"]
+            print(f"train_mesh_state tp2_int8 rank {rank}: o's and down's forward scales, "
+                  f"{probe['checked']} operands held to the whole operand's absmax "
+                  f"(all-gathered over model), {probe['differ']} differ", flush=True)
+            if probe["checked"] == 0 or probe["differ"]:
+                fails.append(f"tp2_int8 rank {rank}: row-parallel scales {probe}")
         ckpts = [run["ckpt"] for run in out["runs"].get("pipe_ckpt", [])]
         for rank, c in enumerate(ckpts):
             print(f"train_mesh_state pipe_ckpt rank {rank}: saved {c['bytes']} B in "
@@ -3923,6 +4019,316 @@ def phase_train_mesh_state(res: dict, steps: int) -> None:
             raise AssertionError("; ".join(fails))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        _free()
+
+
+JOB_L = 2            # llama-1b's layers in train_job
+JOB_STEPS = 8        # job (a)'s last step
+JOB_CKPT_EVERY = 4   # its checkpoint interval
+JOB_NAN_STEP = 6     # the step whose loss is reported NaN
+JOB_B_WARM = 10      # job (b)'s steps before the fleet is read under load
+JOB_B_MAX = 60       # its steps at most: the simulated preemption after them
+# The HBM estimate's params and optimizer-state terms against the bytes the
+# program's state holds: equal up to the estimate's rounding to 1e-4 GiB.
+JOB_HBM_REL = 1e-3
+
+
+def _job_cfg(ck: str):
+    """train_job's TrainConfig: ``train``'s llama-1b fields, the job's
+    checkpoints on ``ck``, every step logged to ``ck``'s metrics file."""
+    return _llama_1b_cfg(attention_impl="flash", checkpoint_dir=ck,
+                         checkpoint_interval_steps=JOB_CKPT_EVERY, log_every_steps=1,
+                         metrics_log_path=os.path.join(ck, "metrics.jsonl"), total_steps=100)
+
+
+def _job_records(ck: str, job_id: str) -> list:
+    with open(os.path.join(ck, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["job_id"] == job_id]
+
+
+def _plain_losses(cfg, model_cfg, steps: range, restore_from=None, ck=None, lr_scale=1.0):
+    """A plain ``TrainProgram.step`` loop over ``steps`` on the synthetic
+    batch of each step, from a fresh init or restored from ``ck``'s
+    ``restore_from`` (``lr_scale`` then set): its losses."""
+    import torch
+
+    from tpu_engine_torch import checkpoint as ckm
+    from tpu_engine_torch.train import build_train_program
+
+    prog = build_train_program(cfg, model_cfg, device="cuda")
+    if restore_from is None:
+        state = prog.init()
+    else:
+        mgr = ckm.TrainCheckpointManager(ck, program=prog)
+        got, state = mgr.restore(ckm.abstract_state_like(prog), step=restore_from)
+        if got != restore_from:
+            raise AssertionError(f"plain restore of step {restore_from} gave {got}")
+        state["lr_scale"] = lr_scale
+    losses = []
+    for i in steps:
+        state, m = prog.step(state, prog.synthetic_batch(i))
+        losses.append(float(m["loss"]))
+    del prog, state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_train_job(res: dict) -> None:
+    """The port's supervised ``TrainingJob`` (module docstring, train_job):
+    job (a) drives ``train``'s path through the supervisor (every launch
+    counter set to 0 just before it, read just after: K1 twice a layer a
+    step, K2 and K3 once); its planted NaN comes through the step seam of
+    ``tests/test_checkpoint_supervisor.py``. The trace is taken through
+    its ``fleet_fn``, which the loop calls after each step's timing
+    closes: after step 2 and after step 4 it waits while this thread
+    starts and stops the capture (``TraceSession`` keeps a capture of the
+    card on the main thread). The fleet and nvidia-smi are read from this
+    thread while job (b)'s steps run (nvidia-smi's utilization is an
+    average over its last sample period), after JOB_B_WARM steps; (b) is
+    preempted once the reading is taken, or at JOB_B_MAX steps."""
+    import shutil
+    import threading
+
+    import torch
+
+    from tpu_engine_torch import compile_index, hbm_estimate, telemetry, tpu_manager
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+    from tpu_engine_torch.models import transformer as tfm
+    from tpu_engine_torch.ops import _flash_cuda as fc
+    from tpu_engine_torch.profiler import TraceSession
+    from tpu_engine_torch.supervisor import JobStatus, TrainingJob
+    from tpu_engine_torch.train import build_train_program
+
+    ck = str(ROOT / "chiprun_out" / "train_job_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    os.makedirs(ck)
+    trace_dir = str(ROOT / "chiprun_out" / "train_job_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    cfg = _job_cfg(ck)
+    model_cfg = MODEL_CONFIGS["llama-1b"].with_(n_layers=JOB_L)
+    out = res["train_job"] = {"steps": 0, "accum": 1, "card": _card_line(), "layers": JOB_L}
+    fails = []
+    t_phase = time.perf_counter()
+    session = TraceSession()
+    try:
+        # (a) rollback. The program is built here so that its step can be
+        # wrapped with the NaN.
+        prog = build_train_program(cfg, model_cfg, device="cuda")
+        real = prog.step
+        seen = {"nan": False}
+
+        def step(state, batch):
+            new, metrics = real(state, batch)
+            if new["step"] == JOB_NAN_STEP and not seen["nan"]:
+                seen["nan"] = True
+                metrics = dict(metrics, loss=torch.tensor(float("nan"), device="cuda"))
+            return new, metrics
+
+        asked = {2: threading.Event(), 4: threading.Event()}  # capture start, stop
+        answered = {2: threading.Event(), 4: threading.Event()}
+
+        def fleet_fn():
+            n = holder["a"].current_step
+            if seen["nan"]:
+                return None
+            torch.cuda.synchronize()
+            if n in asked and not answered[n].is_set():
+                asked[n].set()
+                answered[n].wait(120)
+            return None
+
+        prog.step = step
+        holder = {}
+        torch.cuda.reset_peak_memory_stats()  # the job's own peak, not an earlier phase's
+        fc.reset_launches()
+        job_a = holder["a"] = TrainingJob("job-a", cfg, program=prog, max_steps=JOB_STEPS,
+                                          stable_margin_steps=1, devices=[0], fleet_fn=fleet_fn)
+        t0 = time.perf_counter()
+        job_a.start()
+        for n in (2, 4):  # the capture covers steps 3 and 4
+            while not asked[n].wait(0.2) and job_a.is_alive:
+                pass
+            if asked[n].is_set():
+                if n == 2:
+                    session.start(trace_dir)
+                else:
+                    session.stop()
+            answered[n].set()
+        job_a.join(600)
+        a_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(fc.launches)
+        executed = JOB_NAN_STEP + (JOB_STEPS - 4)
+        out.update(steps=executed, launches=launches, job_a_s=a_s)
+        want = {"flash_fwd": 2 * JOB_L * executed, "flash_bwd_dq": JOB_L * executed,
+                "flash_bwd_dkv": JOB_L * executed}
+        got = {k: v for k, v in launches.items() if v}
+        out["launches_expected"] = want
+        if got != want:
+            fails.append(f"job (a) launches {got} != {want}")
+        d = job_a.describe()
+        out["job_a"] = {k: d[k] for k in ("status", "rollback_count", "current_step",
+                                          "tokens_per_sec", "last_step_time_s")}
+        out["job_a"]["lr_scale"] = float(job_a._state["lr_scale"])
+        print(f"train_job (a): {d['status']} at step {d['current_step']}, rollbacks "
+              f"{d['rollback_count']}, lr_scale {job_a._state['lr_scale']}, {a_s:.1f} s, "
+              f"launches {got}, error {job_a.error}", flush=True)
+        if (job_a.status, job_a.rollback_count, out["job_a"]["lr_scale"],
+                job_a.current_step) != (JobStatus.COMPLETED, 1, 0.5, JOB_STEPS):
+            fails.append(f"job (a): {job_a.status} rollbacks {job_a.rollback_count} lr_scale "
+                         f"{out['job_a']['lr_scale']} step {job_a.current_step}")
+
+        traces = sorted(Path(trace_dir).glob("trace_*.json"))
+        names = set()
+        if traces:
+            names = {e.get("name", "") for e in json.loads(traces[-1].read_text()).get(
+                "traceEvents", []) if e.get("cat") == "kernel"}
+        k123 = {k: sorted(n for n in names if k in n)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        out["trace"] = {"files": [t.name for t in traces], "bytes": [t.stat().st_size
+                                                                     for t in traces],
+                        "kernels": len(names), "k1_k3": k123}
+        print(f"train_job trace: {len(traces)} file(s), {len(names)} kernel names, "
+              f"K1-K3 {k123}", flush=True)
+        if not all(k123.values()):
+            fails.append(f"the two-step trace names no launch of some of K1-K3: {k123}")
+
+        # The profiler's MFU against tokens/s x flops per token / the peak.
+        prof = d["profile"] or {}
+        flops_tok = tfm.train_flops_per_token(prog.model_config, cfg.seq_len)
+        tps = prof.get("tokens_per_sec_per_chip")
+        mine = None if not tps else tps * flops_tok / PEAK_BF16_FLOPS
+        out["mfu"] = {"profiler": prof.get("mfu"), "tokens_per_s": tps, "recomputed": mine,
+                      "step_ms": prof.get("total"), "phases": prof.get("phases")}
+        print(f"train_job MFU: profiler {prof.get('mfu')}, tokens/s {tps} x "
+              f"{flops_tok:.4e} FLOP/token / {PEAK_BF16_FLOPS:.3e} = {mine}; its window's "
+              f"step ms {prof.get('total')}, phases {prof.get('phases')} ({_card_line()})",
+              flush=True)
+        if prof.get("mfu") is None or abs(prof["mfu"] - mine) > 1e-3 * mine + 1e-4:
+            fails.append(f"profiler MFU {prof.get('mfu')} vs recomputed {mine}")
+
+        # The HBM estimate beside the state's bytes.
+        est = hbm_estimate.estimate_job_hbm(cfg, 1, model_cfg=model_cfg)
+        state = job_a._state
+        held = {"params_gib": hbm_estimate.per_device_bytes(state["params"], False) / 2**30,
+                "opt_gib": hbm_estimate.per_device_bytes(state["opt_state"], False) / 2**30}
+        out["hbm"] = {"estimate": est.model_dump(), "state": held,
+                      "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"train_job HBM estimate {est.model_dump()}; the state holds {held}; "
+              f"max allocated {out['hbm']['max_allocated_gib']:.2f} GiB", flush=True)
+        for k, v in held.items():
+            if abs(getattr(est, k) - v) > JOB_HBM_REL * v:
+                fails.append(f"estimate {k} {getattr(est, k)} vs the state's {v:.4f}")
+        recs = {(r["kind"], r["step"], r["rollback"]): r for r in _job_records(ck, "job-a")}
+        del prog, state
+        job_a._state = None
+
+        # (a)'s losses against plain loops: before the NaN from init; after
+        # it from the stable step at lr_scale 0.5.
+        before = [recs[("train", s, 0)]["loss"] for s in range(1, JOB_NAN_STEP)]
+        after = [recs[("train", s, 1)]["loss"] for s in range(5, JOB_STEPS + 1)]
+        plain_before = _plain_losses(cfg, model_cfg, range(JOB_NAN_STEP - 1))
+        plain_after = _plain_losses(cfg, model_cfg, range(4, JOB_STEPS), restore_from=4, ck=ck,
+                                    lr_scale=0.5)
+        out["losses"] = {"before": before, "plain_before": plain_before, "after": after,
+                         "plain_after": plain_after}
+        print(f"train_job (a) losses before the NaN {before}, plain {plain_before}; after "
+              f"the rollback {after}, plain from step 4 at lr_scale 0.5 {plain_after}",
+              flush=True)
+        if before != plain_before or after != plain_after:
+            fails.append("job (a)'s losses are not bitwise the plain loops'")
+
+        # (b) read under load, then preempted; (c) resumed: each builds its
+        # own program. (b) saves only when preempted.
+        taken = {}
+        job_b = TrainingJob("job-b", dataclasses.replace(cfg, checkpoint_interval_steps=1000),
+                            max_steps=JOB_STEPS + JOB_B_MAX + 10, watch_preemption=True,
+                            simulate_preemption_check=lambda: "fleet" in taken
+                            or holder["b"].current_step >= JOB_STEPS + JOB_B_MAX, devices=[0],
+                            model_config=model_cfg, fleet_fn=lambda: taken.get("fleet"))
+        holder["b"] = job_b
+        t0 = time.perf_counter()
+        job_b.start()
+        while job_b.is_alive and job_b.current_step < JOB_STEPS + JOB_B_WARM:
+            time.sleep(0.01)
+        steps_read = [job_b.current_step]
+        snap = telemetry.NvidiaSmiSource(min_interval_s=0).sample(torch.cuda.device_count())
+        fleet = tpu_manager.TPUManager().get_fleet_status()
+        steps_read.append(job_b.current_step)
+        taken["fleet"] = fleet
+        job_b.join(600)
+        b_s = time.perf_counter() - t0
+
+        # The fleet and nvidia-smi, read while (b)'s steps ran.
+        card = fleet.devices[0] if fleet.devices else None
+        smi_total_gib = snap.per_chip[0].get("hbm_total_gb", 0.0) if snap else 0.0
+        out["fleet"] = fleet.model_dump(mode="json")
+        out["fleet_steps"] = steps_read
+        print(f"train_job fleet, read while job (b) took steps {steps_read[0]} to "
+              f"{steps_read[1]}: {fleet.total_devices} device(s), sources "
+              f"{fleet.telemetry_sources}, alerts {fleet.fleet_alerts}", flush=True)
+        busy = None
+        if card is not None:
+            busy = (card.duty_cycle_pct is not None
+                    and card.duty_cycle_pct >= tpu_manager.TPUManager.DUTY_WARNING_PCT)
+            print(f"train_job fleet device 0: {card.device_kind}, HBM {card.hbm_used_gb:.2f} of "
+                  f"{card.hbm_total_gb:.2f} GiB (nvidia-smi {smi_total_gib:.2f}), health "
+                  f"{card.health_status.value}, duty {card.duty_cycle_pct}, "
+                  f"{card.temperature_c} C, {card.power_draw_w} of {card.power_limit_w} W, "
+                  f"throttle {card.throttle_score}, alerts {card.alerts}, jobs "
+                  f"{[j.model_dump() for j in card.jobs]}", flush=True)
+        health = tpu_manager.TPUHealthStatus
+        if (card is None or fleet.total_devices != torch.cuda.device_count()
+                or card.device_kind != torch.cuda.get_device_name(0)
+                or abs(card.hbm_total_gb - smi_total_gib) > 0.01 * smi_total_gib
+                or [j.job_id for j in card.jobs] != ["job-b"]):
+            fails.append("fleet status: not one card holding job-b with the card's name and "
+                         "memory")
+        elif steps_read[1] <= steps_read[0] or not card.duty_cycle_pct:
+            fails.append(f"fleet status: not read under load (steps {steps_read}, duty "
+                         f"{card.duty_cycle_pct})")
+        elif (card.health_status != (health.WARNING if busy else health.HEALTHY)
+                or [a for a in card.alerts if "duty cycle" not in a]):
+            fails.append(f"fleet status: {card.health_status.value} with alerts {card.alerts} "
+                         f"at duty {card.duty_cycle_pct}")
+        out["telemetry"] = None if snap is None else snap.per_chip
+        print(f"train_job nvidia-smi snapshot: {out['telemetry']}", flush=True)
+        if snap is None:
+            fails.append("the nvidia-smi telemetry source returned no snapshot on the card")
+        saved = job_b.ckpt.latest_step()
+        out["job_b"] = {"status": job_b.status.value, "resumed_from_step": job_b.resumed_from_step,
+                        "current_step": job_b.current_step, "saved": saved, "seconds": b_s,
+                        "reason": job_b.preemption_reason}
+        print(f"train_job (b): {out['job_b']}, error {job_b.error}", flush=True)
+        if (job_b.status != JobStatus.PREEMPTED or job_b.resumed_from_step != JOB_STEPS
+                or saved != job_b.current_step or saved >= JOB_STEPS + JOB_B_MAX):
+            fails.append(f"job (b): {out['job_b']}")
+        records = compile_index.get_index().stats()["records_total"]
+        job_c = TrainingJob("job-c", cfg, max_steps=job_b.current_step + 2, devices=[0],
+                            model_config=model_cfg)
+        t0 = time.perf_counter()
+        job_c.start()
+        job_c.join(600)
+        c_s = time.perf_counter() - t0
+        entries = compile_index.get_index().entries()
+        out["job_c"] = {"status": job_c.status.value, "resumed_from_step": job_c.resumed_from_step,
+                        "current_step": job_c.current_step, "seconds": c_s,
+                        "compile_index": entries}
+        print(f"train_job (c): {job_c.status.value}, resumed from {job_c.resumed_from_step}, "
+              f"step {job_c.current_step}, {c_s:.1f} s, error {job_c.error}; compile index "
+              f"{[(e.get('label'), e['warm'], e['last_compile_s']) for e in entries]}",
+              flush=True)
+        if (job_c.status != JobStatus.COMPLETED or job_c.resumed_from_step != job_b.current_step
+                or compile_index.get_index().stats()["records_total"] != records + 1):
+            fails.append(f"job (c): {out['job_c']}")
+        out["phase_s"] = time.perf_counter() - t_phase
+        if fails:
+            raise AssertionError("; ".join(fails))
+    finally:
+        if session.active:
+            session.stop()
+        shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(trace_dir, ignore_errors=True)
         _free()
 
 
@@ -3985,6 +4391,9 @@ SERVE_MESH_TEACHER = (8, 16)  # rows and tokens of the teacher-forced decode
 # train_data: llama-1b's training from a token file of this many sequences
 # of 2048 seeded ids (uint16), 4 a microbatch, through the native reader.
 DATA_SEQS = 64
+# llama-1b's layers in train_data: 2 of 16 (its 11.3 GB save at
+# 16 layers took 18-26 s of the run's time limit; PERF.md §4).
+DATA_L = 2
 # The host reader's timing: batches read through a fresh reader.
 DATA_READ_BATCHES = 16
 
@@ -3994,8 +4403,9 @@ def _params_host(prog, state) -> dict:
 
 
 def phase_train_data(res: dict) -> None:
-    """llama-1b at full width and depth (seq 2048 × 4, bf16 compute, fp32
-    masters, flash) trained from a token file of seeded ids: steps 1–2 from
+    """llama-1b at full width and DATA_L of its 16 layers (seq 2048 × 4,
+    bf16 compute, fp32 masters, flash) trained from a token file of seeded
+    ids: steps 1–2 from
     ``make_data_fn`` (the native reader), an asynchronous save of step 2
     (dispatch and write timed), the uninterrupted step 3; then a fresh
     program restored from the checkpoint takes step 3, whose loss and
@@ -4013,8 +4423,11 @@ def phase_train_data(res: dict) -> None:
     from tpu_engine_torch.ops import _flash_cuda as fc
     from tpu_engine_torch.train import build_train_program
 
-    L = 16
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+
+    L = DATA_L
     cfg = _llama_1b_cfg()
+    model_cfg = MODEL_CONFIGS["llama-1b"].with_(n_layers=L)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_data_"))
     out = res["train_data"] = {"steps": 2, "accum": 1, "n_layers": L}
     try:
@@ -4023,7 +4436,7 @@ def phase_train_data(res: dict) -> None:
         vocab = 32000
         toks = np.random.default_rng(0).integers(0, vocab, DATA_SEQS * cfg.seq_len)
         tdata.write_token_file(toks.astype(np.uint16), str(work / "tokens.bin"))
-        prog = build_train_program(cfg, device="cuda")
+        prog = build_train_program(cfg, model_cfg, device="cuda")
         if prog.model_config.vocab_size != vocab:
             raise AssertionError(f"llama-1b's vocabulary is {prog.model_config.vocab_size}")
         ds = tdata.TokenFileDataset(str(work / "tokens.bin"), cfg.seq_len)
@@ -4064,7 +4477,7 @@ def phase_train_data(res: dict) -> None:
         want_params = _params_host(prog, state)
         del prog, state, m
         _free()
-        prog = build_train_program(cfg, device="cuda")
+        prog = build_train_program(cfg, model_cfg, device="cuda")
         like = ck.abstract_state_like(prog)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4633,8 +5046,42 @@ def main() -> int:
             res["failed"].append(name)
         res.setdefault("phase_s", {})[name] = time.perf_counter() - t0
 
+    t_start = time.perf_counter()
+    compiled: dict = {}
+
+    def compile_kernels():
+        t0 = time.perf_counter()
+        try:
+            compiled["lib"] = fc.build()
+            fc.sass_dump()  # kept for the build phase's SASS checks
+        except Exception as e:  # raised again by the build phase
+            compiled["error"] = e
+        compiled["s"] = time.perf_counter() - t0
+
+    # nvcc builds the kernels, and cuobjdump reads their SASS, on a thread
+    # while the serving phases that launch no kernel of the port (plain
+    # attention; the decode path has none) use the card; the build phase
+    # then waits for it.
+    compiling = threading.Thread(target=compile_kernels, name="nvcc", daemon=True)
+    compiling.start()
+    serving: dict = {}
+    run("serve_mesh", phase_serve_mesh, res, serving)
+    run("generate", phase_generate, res, serving)
+    run("hf_bridge", phase_hf_bridge, res, serving)
+    serving.clear()
+    run("generate_gemma", phase_generate_gemma, res)
+    _free()
+    if fc._lib is not None:
+        print("chip_smoke: a serving phase loaded the kernels during their build",
+              file=sys.stderr)
+        res["failed"].append("serving_before_build")
+
     def build():
-        lib = fc.build()
+        compiling.join()
+        res["build_compile_s"] = compiled["s"]
+        if "error" in compiled:
+            raise compiled["error"]
+        lib = compiled["lib"]
         log = Path(str(lib) + ".log").read_text()
         res["build"] = {"library": str(lib.relative_to(ROOT))}
         for line in log.splitlines():
@@ -4654,6 +5101,7 @@ def main() -> int:
         run("head", phase_head, res)
         run("train", phase_train, res, args.steps)
         run("train_data", phase_train_data, res)
+        run("train_job", phase_train_job, res)
         run("ring", phase_ring, res)
         run("train_ring", phase_train_ring, res, args.steps)
         run("train_fp32", phase_train_fp32, res, args.steps)
@@ -4671,14 +5119,10 @@ def main() -> int:
         run("train_pipe", phase_train_pipe, res, args.steps)
         run("train_mesh_state", phase_train_mesh_state, res, args.steps)
         run("train_comm", phase_train_comm, res, args.steps)
-        serving: dict = {}
-        run("generate", phase_generate, res, serving)
+        serving = {}
         run("serve", phase_serve, res, serving)
         run("serve_spec", phase_serve_spec, res, serving)
-        run("hf_bridge", phase_hf_bridge, res, serving)
-        run("serve_mesh", phase_serve_mesh, res, serving)
         serving.clear()
-        run("generate_gemma", phase_generate_gemma, res)
         run("serve_moe", phase_serve_moe, res)
     # Launches per training step on the paths, each counted from 0 around its
     # own run of steps x accumulation microbatches: the bf16 D 128 kernels'
@@ -4701,6 +5145,10 @@ def main() -> int:
         print(f"chip_smoke: kernels never launched on their paths: {idle}", file=sys.stderr)
         res["failed"].append("launches")
     print(f"phases: {json.dumps(res.get('phase_s', {}))}", flush=True)
+    res["wall_s"] = time.perf_counter() - t_start
+    print(f"wall: {res['wall_s']:.1f} s from the build's start; nvcc and cuobjdump "
+          f"{res.get('build_compile_s', float('nan')):.1f} s beside serve_mesh, generate, "
+          "hf_bridge and generate_gemma", flush=True)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

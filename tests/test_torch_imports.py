@@ -35,7 +35,8 @@ def test_port_modules_import_neither_jax_nor_tpu_engine():
     wanted = {"quant_train", "lora", "train", "serving", "generate", "quant", "offload",
               "disk_offload", "mesh_runtime", "sharding", "comm", "comm_compress", "checkpoint",
               "reshard", "data", "native", "historian", "journal", "tracing", "loss_monitor",
-              "preemption", "faults"}
+              "preemption", "faults", "compile_cache", "compile_index", "profiler", "telemetry",
+              "tpu_manager", "hbm_estimate", "hetero", "supervisor"}
     have = {m.name.rsplit(".", 1)[-1] for m in pkgutil.walk_packages(
         [str(ROOT / "tpu_engine_torch")])}
     assert wanted <= have and int(count) >= len(have)

@@ -396,6 +396,75 @@ def _int8_scales(case: dict, rank: int) -> dict:
     return {"scales": scales.numpy(), "codes": codes.numpy(), "row_scales": row_scales.numpy()}
 
 
+def _int8_tp_scales(case: dict, rank: int) -> dict:
+    """Two int8 products of gpt-tiny (``case["model_cfg"]`` changed) on
+    ``model``, with the scales each operand was quantised with:
+
+    * the o and down forward on this rank's blocks of whole operands (its
+      columns of the activation, its rows of the kernel), through the
+      block's row-parallel projection, and the output summed over
+      ``model``;
+    * the q, k and v input gradient, one backward through the block's
+      ``_qkv`` from the whole input and this rank's kernel columns (K and V
+      whole where the kv heads do not split), each output's cotangent drawn
+      from a seed and the rank's ``model`` index: the gradient operand and
+      the kernel block each product was given, and their scales."""
+    import torch
+
+    from tpu_engine_torch import quant_train as qt
+    from tpu_engine_torch.models import transformer as tfm
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+    from tpu_engine_torch.parallel.tensor_parallel import model_axis
+
+    cfg = MODEL_CONFIGS["gpt-tiny"].with_(**case.get("model_cfg", {}))
+    rt = _runtime(case["mesh"])
+    tp = model_axis(rt, cfg)
+    seen, plain = [], qt.channel_quantize
+
+    def spy(x, axes, *a, **kw):
+        codes, scales = plain(x, axes, *a, **kw)
+        seen.append((x.detach().numpy().copy(), scales.numpy().copy()))
+        return codes, scales
+
+    qt.channel_quantize = spy
+    out = {}
+    ops = np.load(case["inputs"])
+    try:
+        for name in ("o", "down"):
+            x, w = torch.tensor(ops[f"{name}_x"]), torch.tensor(ops[f"{name}_w"])
+            n = x.shape[-1] // tp.size
+            xb, wb = x.narrow(-1, tp.index * n, n), w.narrow(0, tp.index * n, n)
+            seen.clear()
+            y = tfm._row_proj(xb, {f"{name}.kernel": wb}, name, qt.int8_einsum, tp=tp)
+            (_, out[f"{name}_x_scales"]), (_, out[f"{name}_w_scales"]) = seen
+            out[f"{name}_y"] = y.numpy()
+        h = torch.tensor(ops["qkv_h"], requires_grad=True)
+        lp = {}
+        for name in ("q", "k", "v"):
+            w = torch.tensor(ops[f"{name}_w"])
+            n = w.shape[-1] // tp.size
+            lp[f"{name}.kernel"] = (w if name != "q" and not tp.kv_split
+                                    else w.narrow(-1, tp.index * n, n))
+        positions = torch.arange(h.shape[1]).expand(h.shape[0], -1)
+        seen.clear()
+        outs = tfm._qkv(h, lp, cfg, positions, qt.int8_einsum, tp=tp)
+        gen = torch.Generator().manual_seed(10 + tp.index)
+        loss = sum((t * torch.randn(t.shape, generator=gen)).sum() for t in outs)
+        n_fwd = len(seen)
+        loss.backward()
+        blocks = {k: v.detach().numpy() for k, v in lp.items()}
+        for i in range(n_fwd, len(seen), 2):  # each input gradient: (g, kernel) in turn
+            (g, sg), (w, sw) = seen[i], seen[i + 1]
+            name = next(k[0] for k, b in blocks.items() if b.shape == w.shape
+                        and np.array_equal(b, w))
+            out.update({f"{name}_g": g, f"{name}_g_scales": sg, f"{name}_wb": w,
+                        f"{name}_wb_scales": sw})
+        out.update(model_index=tp.index, data_index=rt.coords["data"])
+    finally:
+        qt.channel_quantize = plain
+    return out
+
+
 def _rendezvous(case: dict, rank: int) -> dict:
     """The process group as ``initialize_distributed`` joined it: the
     default mesh over every rank, the topology report and one all-reduce."""
@@ -430,7 +499,8 @@ def main(job_path: str, rank: int, world: int) -> None:
     else:
         assert initialize_distributed(f"file://{job['store']}", world, rank, device="cpu")
     run = {"train": _train, "attention": _attention, "rendezvous": _rendezvous,
-           "serve": _serve, "ckpt": _ckpt, "disk": _disk, "int8_scales": _int8_scales}
+           "serve": _serve, "ckpt": _ckpt, "disk": _disk, "int8_scales": _int8_scales,
+           "int8_tp_scales": _int8_tp_scales}
     for case in job["cases"]:
         out = run[case["kind"]](case, rank)
         np.savez(os.path.join(job["out"], f"{case['name']}.rank{rank}.npz"), **out)

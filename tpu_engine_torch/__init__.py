@@ -61,9 +61,19 @@ The mesh's wire and the training state on disk:
 - ``tpu_engine_torch.data`` and ``tpu_engine_torch.native`` — token files
   and their native reader.
 
+The supervised job and the device plane:
+
+- ``tpu_engine_torch.supervisor`` — ``TrainingJob`` (rollback, resume,
+  preemption, self-heal) on the modules below and ``hetero``;
+- ``tpu_engine_torch.tpu_manager`` and ``telemetry`` — the H100 fleet
+  manager and its ``nvidia-smi`` source; ``profiler`` — MFU and traces;
+  ``hbm_estimate``; ``compile_cache`` and ``compile_index`` — the kernel
+  build directory and its warm/cold index.
+
 Imports here stay light: submodules are imported by the caller.
 """
 
-__all__ = ["checkpoint", "comm", "comm_compress", "data", "disk_offload", "generate", "lora",
-           "mesh_runtime", "models", "native", "offload", "ops", "parallel", "quant",
-           "quant_train", "reshard", "serving", "sharding", "train"]
+__all__ = ["checkpoint", "comm", "comm_compress", "compile_cache", "compile_index", "data",
+           "disk_offload", "generate", "hbm_estimate", "hetero", "lora", "mesh_runtime",
+           "models", "native", "offload", "ops", "parallel", "profiler", "quant", "quant_train",
+           "reshard", "serving", "sharding", "supervisor", "telemetry", "tpu_manager", "train"]

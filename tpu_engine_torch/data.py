@@ -456,12 +456,14 @@ def _check_seq_len(dataset: Any, seq_len: int) -> None:
 
 def _uniform_only(rows: list[int], global_micro: int, pc: int) -> None:
     """A rank's rows are its ``micro_batch_size`` of each microbatch; an
-    unequal split feeds the heterogeneous rebalancer, which is not ported."""
+    unequal split (a live plan of the heterogeneous rebalancer) needs a
+    train step that takes a different row count on each rank, which the
+    port's mesh step does not."""
     if rows != [global_micro // pc] * pc:
         raise NotImplementedError(
             f"row assignment {rows} is not the equal split of the mesh's {pc} row ranks: "
-            "non-uniform rows per rank are not ported (they come from the "
-            "heterogeneous rebalancer, which the port lacks)")
+            "non-uniform rows per rank are not ported (the heterogeneous rebalancer's "
+            "live plans need a mesh step with a row count per rank)")
 
 
 def _reader_of(dataset: Any) -> str:
@@ -500,8 +502,8 @@ def make_data_fn(
 
     ``row_assignment``: rows a row rank, validated
     (:func:`validate_row_assignment`); on a mesh only the equal split runs
-    (an unequal one raises ``NotImplementedError``: the heterogeneous
-    rebalancer is not ported). The returned function has ``reader``
+    (an unequal one, a live plan of the heterogeneous rebalancer, raises
+    ``NotImplementedError``: the mesh step takes one row count a rank). The returned function has ``reader``
     (``"native"``, ``"numpy"``, ``"synthetic"``), ``reassign(assignment)``
     and ``close()``.
     """

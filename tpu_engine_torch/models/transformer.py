@@ -301,6 +301,17 @@ def _train_dot(cfg: ModelConfig, group: str):
     return None
 
 
+def _split_dot(dot, tp, row: bool):
+    """``dot`` with its int8 scales taken over ``model`` where the axis
+    splits a dim the product contracts: a row-parallel product's forward
+    (``row``: o, down, proj), a column-parallel one's input gradient (q, k,
+    v, gate, up, fc), as JAX's GSPMD program takes them over the whole
+    operand."""
+    if dot is None or tp is None:
+        return dot
+    return partial(dot, **{"fwd_group" if row else "dlhs_group": tp.group})
+
+
 def _proj(h: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None, lora_ab=None,
           lora_scale: float = 1.0, dot=None) -> torch.Tensor:
     """``h @ W (+ b)``: h [B, S, in], kernel [in, out] → [B, S, out].
@@ -347,7 +358,8 @@ def _row_proj(h: torch.Tensor, lp: dict[str, torch.Tensor], name: str, dot=None,
     # x·A, so (Σ x_i·A_i)·B = Σ (x_i·A_i)·B (B's gradient is partial).
     a = lp.get(f"{name}.A")
     out = reduce_from(_proj(h, lp[f"{name}.kernel"], None,
-                            None if a is None else (a, lp[f"{name}.B"]), lora_scale, dot), tp)
+                            None if a is None else (a, lp[f"{name}.B"]), lora_scale,
+                            _split_dot(dot, tp, row=True)), tp)
     bias = lp.get(f"{name}.bias")
     return out if bias is None else out + bias.to(out.dtype)
 
@@ -363,7 +375,7 @@ def _dense_mlp(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
     h = copy_to(h, tp)
 
     def proj(x, name):
-        return _layer_proj(x, lp, name, dot, lora_scale)
+        return _layer_proj(x, lp, name, _split_dot(dot, tp, row=False), lora_scale)
 
     if cfg.arch == "gpt2":
         return _row_proj(F.gelu(proj(h, "fc"), approximate="tanh"), lp, "proj", dot,
@@ -387,6 +399,7 @@ def _qkv(h: torch.Tensor, lp: dict[str, torch.Tensor], cfg: ModelConfig,
     B, S, _ = h.shape
     HD = cfg.head_dim
     h = copy_to(h, tp)
+    dot = _split_dot(dot, tp, row=False)
 
     def kv(name):
         if tp is None or tp.kv_split or not kv_local:

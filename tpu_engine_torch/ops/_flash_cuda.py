@@ -168,15 +168,25 @@ def build_log() -> str:
     return Path(str(build()) + ".log").read_text()
 
 
+_sass: dict[Path, str] = {}
+
+
+def sass_dump() -> str:
+    """``cuobjdump -sass`` of the library (built first if need be), run
+    once a library and kept."""
+    lib = build()
+    if lib not in _sass:
+        tool = Path(_nvcc()).parent / "cuobjdump"
+        _sass[lib] = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                                    text=True, check=True).stdout
+    return _sass[lib]
+
+
 def sass_op_counts(symbol: str, ops: tuple[str, ...]) -> dict[str, dict[str, int]]:
     """How often each SASS opcode of ``ops`` occurs in every built kernel
-    whose mangled name contains ``symbol`` (``cuobjdump -sass`` on the
-    library, which is built first if need be)."""
-    tool = Path(_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(build())], capture_output=True, text=True,
-                          check=True).stdout
+    whose mangled name contains ``symbol`` (in :func:`sass_dump`)."""
     out = {}
-    for chunk in sass.split("Function : ")[1:]:
+    for chunk in sass_dump().split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
         if symbol in name:
             out[name] = {op: chunk.count(op) for op in ops}

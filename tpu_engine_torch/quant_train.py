@@ -25,6 +25,12 @@ part of the microbatch (a max all-reduce), as JAX's GSPMD program computes
 it over the global batch; the other two products contract a feature dim a
 rank holds whole. Under the compressed collectives JAX runs the loss in a
 manual region, where each device's scales are its own, and so does the port.
+Over ``model`` a product whose contraction dim the axis splits takes its
+absmax over the model ranks too: the row-parallel products' forward (o,
+down: ``fwd_group``) and the column-parallel products' input gradient (q,
+k, v, gate, up: ``dlhs_group``), so every rank dequantises its int32
+partial sum with the scales of the whole operand before the sum over
+``model``.
 
 The stochastic rounding's random numbers come from the data, as in JAX: a
 salt is the bit pattern of the operand's fp32 sum, read on the device, so a
@@ -237,17 +243,18 @@ def _quantized_dot(spec: str, lhs: torch.Tensor, rhs: torch.Tensor,
 
 class _Int8Einsum(torch.autograd.Function):
     """Forward: round-to-nearest int8 product, cast to the operands'
-    promoted dtype. Backward (straight-through): the two transpose products
-    through the same int8 product with stochastic rounding; the weight
-    gradient's (``l,o->r``, which sums over the tokens) takes its scales
-    over :func:`token_scales`' group."""
+    promoted dtype, its scales over ``fwd_group``. Backward
+    (straight-through): the two transpose products through the same int8
+    product with stochastic rounding; the input gradient's (``o,r->l``)
+    takes its scales over ``dlhs_group``, the weight gradient's (``l,o->r``,
+    which sums over the tokens) over :func:`token_scales`' group."""
 
     @staticmethod
-    def forward(ctx, spec, lhs, rhs):
-        ctx.spec = spec
+    def forward(ctx, spec, lhs, rhs, fwd_group, dlhs_group):
+        ctx.spec, ctx.dlhs_group = spec, dlhs_group
         ctx.save_for_backward(lhs, rhs)
         out_dtype = torch.promote_types(lhs.dtype, rhs.dtype)
-        return _quantized_dot(spec, lhs, rhs, stochastic=False).to(out_dtype)
+        return _quantized_dot(spec, lhs, rhs, stochastic=False, group=fwd_group).to(out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -255,17 +262,22 @@ class _Int8Einsum(torch.autograd.Function):
         dlhs_spec, drhs_spec = _transpose_specs(ctx.spec)
         dlhs = drhs = None
         if ctx.needs_input_grad[1]:
-            dlhs = _quantized_dot(dlhs_spec, g, rhs, stochastic=True).to(lhs.dtype)
+            dlhs = _quantized_dot(dlhs_spec, g, rhs, stochastic=True,
+                                  group=ctx.dlhs_group).to(lhs.dtype)
         if ctx.needs_input_grad[2]:
             drhs = _quantized_dot(drhs_spec, lhs, g, stochastic=True,
                                   group=_TOKEN_GROUP[0]).to(rhs.dtype)
-        return None, dlhs, drhs
+        return None, dlhs, drhs, None, None
 
 
-def int8_einsum(spec: str, lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def int8_einsum(spec: str, lhs: torch.Tensor, rhs: torch.Tensor, fwd_group=None,
+                dlhs_group=None) -> torch.Tensor:
     """Quantised stand-in for ``torch.einsum(spec, lhs, rhs)`` (JAX
-    ``quant_train.int8_einsum``)."""
-    return _Int8Einsum.apply(spec, lhs, rhs)
+    ``quant_train.int8_einsum``). ``fwd_group``: the ranks that split the
+    forward's contraction dim (a row-parallel product); ``dlhs_group``: the
+    ranks that split the output dim, which the input gradient's product
+    contracts (a column-parallel product)."""
+    return _Int8Einsum.apply(spec, lhs, rhs, fwd_group, dlhs_group)
 
 
 def make_dot(enabled: bool = True):

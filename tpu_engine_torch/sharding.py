@@ -52,8 +52,36 @@ last, a tied table (gpt2, gemma) on both.
 
 from __future__ import annotations
 
-from enum import IntEnum
+from enum import Enum, IntEnum
 from typing import Optional, Sequence
+
+import torch
+
+
+class OffloadDevice(str, Enum):
+    """JAX's ``OffloadDevice``: where a state subtree lives. The port's
+    config holds the values as strings (``TrainConfig.optimizer_offload``,
+    ``param_offload``), which compare equal to these members."""
+
+    NONE = "none"
+    HOST = "host"  # host memory (pinned on a card)
+    DISK = "disk"  # memory-mapped spill files (optimizer state only)
+
+
+class Precision(str, Enum):
+    """JAX's ``Precision``: the compute and master dtypes' names."""
+
+    BF16 = "bf16"
+    FP32 = "fp32"
+    FP16 = "fp16"
+
+
+_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}
+
+
+def dtype_of(p) -> torch.dtype:
+    """The torch dtype of a :class:`Precision` or its string."""
+    return _DTYPES[getattr(p, "value", p)]
 
 
 class ShardingStage(IntEnum):

@@ -34,7 +34,8 @@ pipelines over ``pipe``, one rank a stage (GPipe, 1F1B and zero-bubble,
 training run there too: a rank's shards of the state in its host memory,
 or spilled under a directory of its own with the attach and reseed
 decisions agreed over the world; int8's weight-gradient scales span the
-ranks that split the tokens.
+ranks that split the tokens, and a product's scales span the ``model``
+ranks where that axis splits the dim it contracts.
 """
 
 from __future__ import annotations
@@ -92,9 +93,9 @@ class TrainConfig:
     JAX's XLA flag fields (``async_collectives``,
     ``latency_hiding_scheduler``, ``xla_extra_flags``) have no counterpart:
     the port's collectives are explicit calls. Refused on a mesh, with
-    ``NotImplementedError``: int8 training with ``model > 1``, and a model
-    whose heads, MLP or experts do not split over ``model`` (JAX's program
-    refuses that too; ``tpu_engine_torch/sharding.py``)."""
+    ``NotImplementedError``: a model whose heads, MLP or experts do not
+    split over ``model`` (JAX's program refuses that too;
+    ``tpu_engine_torch/sharding.py``)."""
 
     model_name: str = "gpt-125m"
     micro_batch_size: int = 1
@@ -153,6 +154,29 @@ class TrainConfig:
     comm_secondary_weights: bool = False
     comm_quant_grads: bool = False
     comm_quant_block_size: int = 256
+    # The supervised job's fields (tpu_engine_torch/supervisor.py), JAX's:
+    # the LoRA base from an HF directory; elastic resume within declared
+    # device and effective-batch bounds; the kernel build directory
+    # (tpu_engine_torch/compile_cache.py); checkpoints; the token files of
+    # training and eval; the metrics log.
+    lora_base_hf_checkpoint: Optional[str] = None
+    elastic_resume: bool = True
+    elastic_min_devices: Optional[int] = None
+    elastic_max_devices: Optional[int] = None
+    elastic_min_batch_size: Optional[int] = None
+    elastic_max_batch_size: Optional[int] = None
+    elastic_target_batch_size: Optional[int] = None
+    compilation_cache_dir: Optional[str] = None
+    checkpoint_dir: Optional[str] = None
+    checkpoint_interval_steps: int = 500
+    max_checkpoints_to_keep: int = 3
+    dataset_path: Optional[str] = None   # flat binary token file; None = synthetic
+    dataset_dtype: str = "uint16"        # uint16 | int32
+    eval_interval_steps: Optional[int] = None
+    eval_batches: int = 4
+    eval_dataset_path: Optional[str] = None
+    log_every_steps: int = 100
+    metrics_log_path: Optional[str] = None
 
     def __post_init__(self):
         # Enum-valued fields of the JAX config arrive as str subclasses.
@@ -204,10 +228,21 @@ class TrainConfig:
             (self.pipeline_schedule in sharding.PIPELINE_SCHEDULES,
              f"pipeline_schedule={self.pipeline_schedule!r}: auto, gpipe, 1f1b or zb"),
             (self.comm_quant_block_size >= 8, "comm_quant_block_size must be >= 8"),
+            (all(getattr(self, n) is None or getattr(self, n) >= 1 for n in (
+                "elastic_min_devices", "elastic_max_devices", "elastic_min_batch_size",
+                "elastic_max_batch_size", "elastic_target_batch_size", "eval_interval_steps")),
+             "elastic bounds and eval_interval_steps must be >= 1"),
+            (self.checkpoint_interval_steps >= 1 and self.max_checkpoints_to_keep >= 1
+             and self.eval_batches >= 1 and self.log_every_steps >= 1,
+             "checkpoint_interval_steps, max_checkpoints_to_keep, eval_batches and "
+             "log_every_steps must be >= 1"),
+            (self.dataset_dtype in ("uint16", "int32"),
+             f"dataset_dtype={self.dataset_dtype!r}: uint16 or int32"),
         ]
         for ok, msg in checks:
             if not ok:
                 raise ValueError(msg)
+        self._check_elastic_bounds()
         self.quant_train_targets = tuple(self.quant_train_targets)
         self.lora_targets = tuple(self.lora_targets)
         quant_train.check_targets(self.quant_train_targets, self.quant_training,
@@ -234,6 +269,33 @@ class TrainConfig:
                     "reduced-dtype collective the option exists for would never "
                     "materialise (use 'gpipe', or drop grad_allreduce_dtype)")
         comm_compress.validate_config(self)
+
+    def _check_elastic_bounds(self) -> None:
+        """JAX's ``_validate_elastic_bounds``, with its messages."""
+        lo, hi = self.elastic_min_devices, self.elastic_max_devices
+        if lo is not None and hi is not None and hi < lo:
+            raise ValueError(f"elastic_max_devices={hi} < elastic_min_devices={lo}")
+        if hi is not None and lo is None:
+            raise ValueError(
+                "elastic_max_devices requires elastic_min_devices (the bounds "
+                "are one declaration: 'this job may run between X and Y chips')")
+        blo, bhi = self.elastic_min_batch_size, self.elastic_max_batch_size
+        if blo is not None and bhi is not None and bhi < blo:
+            raise ValueError(f"elastic_max_batch_size={bhi} < elastic_min_batch_size={blo}")
+
+    @property
+    def effective_batch_size(self) -> int:
+        """micro × accum × data-parallel world (JAX's): ``data = -1`` is
+        resolved against the ranks of the process group (one without), and
+        conservatively taken as 1 where the mesh does not fit them."""
+        data = self.mesh.data
+        if data == -1:
+            world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+            try:
+                data = self.mesh.resolved_shape(world)[0]
+            except ValueError:
+                data = 1
+        return self.micro_batch_size * self.gradient_accumulation_steps * data * self.mesh.fsdp
 
     def _check_disk_offload(self) -> None:
         """JAX's ``_validate_disk_offload``: the combinations the disk tier
@@ -1436,12 +1498,6 @@ def _runtime_for(cfg: TrainConfig, device: torch.device,
                     or cfg.quant_training != "none")
     if single_paths and runtime.n_devices == 1:
         return None
-    if cfg.quant_training != "none" and runtime.axis_sizes["model"] > 1:
-        raise NotImplementedError(
-            "quant_training='int8' with model > 1 is not ported: a product "
-            "whose contraction dim the model axis splits (o and down forward, "
-            "the other projections' input gradients) needs its per-channel "
-            "absmax reduced over the model ranks, as JAX's GSPMD program takes it")
     if (cfg.optimizer_offload == "disk"
             and cfg.sharding_stage < sharding.ShardingStage.FULL_PARTITIONING):
         # JAX's refusal across processes; every rank of the port is one.

@@ -96,7 +96,12 @@ Each fault patches one function for the length of its reading:
   rank 1's host walk uploads its masters unchanged
   (``disk_offload.DiskAdamW.update``); ``int8_rank1_grad_scales_dropped``:
   rank 1 dequantizes its weight gradient's product without the scales'
-  outer product (``quant_train._quantized_dot``); ``moe_offset_dropped``:
+  outer product (``quant_train._quantized_dot``); ``int8_tp_absmax_local``:
+  ``tp2_int8``'s o and down products quantised on each model rank with its
+  own forward absmax (``transformer._split_dot``; the sum over model still
+  runs), read also by the run's scale probe (``row_scales``: o's and
+  down's operands whose scales differ from the whole operand's);
+  ``moe_offset_dropped``:
   the sequence ranks' capacity offset left out, each rank placing its
   tokens from slot 0 (``transformer._rank_prefix``; the all-gather still
   runs); ``outer_leaves_unwritten``: the last stage saves its layer block
@@ -105,7 +110,8 @@ Each fault patches one function for the length of its reading:
   ``STATE_INT8_LOSS_REL``.
 
 ``python3 train_faults.py --mesh`` reads the mesh alone (``--mesh --state``
-only train_mesh_state's runs), ``--comm`` the
+only train_mesh_state's runs; ``--mesh --state tp2_int8 ...`` only the
+runs named), ``--comm`` the
 compressed collectives alone, ``--offload`` the placements alone (llama-1b
 at ``chip_smoke.OFFLOAD_L`` layers). The readings are
 printed and written to ``chiprun_out/train_faults.json``.
@@ -476,6 +482,16 @@ def _int8_rank1_grad_scales_dropped(real):
     return dot
 
 
+def _tp_absmax_local(real):
+    """o's and down's forward absmax left to each model rank: every rank
+    quantises its block with scales of its own (the partial products are
+    still dequantised and summed over model)."""
+    def split(dot, tp, row):
+        return dot if row else real(dot, tp, row)
+
+    return split
+
+
 def _moe_offset_dropped(real):
     """The sequence ranks' capacity offset left out: each rank places its
     tokens from slot 0 (the all-gather of the counts still runs)."""
@@ -511,6 +527,7 @@ def mesh_fault(name: str):
             "disk_rank1_update_skipped": (dsk.DiskAdamW, "update", _disk_rank1_update_skipped),
             "int8_rank1_grad_scales_dropped": (quant_train, "_quantized_dot",
                                                _int8_rank1_grad_scales_dropped),
+            "int8_tp_absmax_local": (transformer, "_split_dot", _tp_absmax_local),
             "moe_offset_dropped": (transformer, "_rank_prefix", _moe_offset_dropped),
             "outer_leaves_unwritten": (checkpoint.TrainCheckpointManager, "_write",
                                        _outer_leaves_unwritten),
@@ -556,23 +573,29 @@ def mesh_readings(cs, out: dict, steps: int = 3) -> None:
                   f"{r['ref_losses']}, {r['ref_grad_norms']}", flush=True)
 
 
-def state_readings(cs, out: dict, steps: int = 3) -> None:
+def state_readings(cs, out: dict, steps: int = 3, only=None) -> None:
     """train_mesh_state's readings: each run's largest relative gap to its
     world-1 run per rank, sound and under its planted fault, and
     pipe_ckpt's restore (bitwise on the ranks) sound and with the last
-    stage's outer leaves unwritten."""
+    stage's outer leaves unwritten. ``only``: the runs read (all of
+    STATE_RUNS by default)."""
     import shutil
     import tempfile
 
-    w1 = cs.mesh_world1(list(dict.fromkeys(cs.MESH_RUNS[r][3] for r in cs.STATE_RUNS)), steps)
+    only = list(only or cs.STATE_RUNS)
+    w1 = cs.mesh_world1(list(dict.fromkeys(cs.MESH_RUNS[r][3] for r in only)), steps)
     for name, runs, fault in (
             ("state_sound", list(cs.STATE_RUNS), None),
             ("state_host_shard_not_uploaded", ["place2"], "host_shard_not_uploaded"),
             ("state_disk_rank1_update_skipped", ["disk2"], "disk_rank1_update_skipped"),
             ("state_int8_rank1_grad_scales_dropped", ["int8_d2"],
              "int8_rank1_grad_scales_dropped"),
+            ("state_int8_tp_absmax_local", ["tp2_int8"], "int8_tp_absmax_local"),
             ("state_moe_offset_dropped", ["moe_seq2"], "moe_offset_dropped"),
             ("state_outer_leaves_unwritten", ["pipe_ckpt"], "outer_leaves_unwritten")):
+        runs = [r for r in runs if r in only]
+        if not runs:
+            continue
         work = tempfile.mkdtemp(prefix="train_faults_state_")
         try:
             ranks = cs.mesh_launch(runs, 2, steps, f"faults_{name}", fault, work=work)
@@ -586,11 +609,14 @@ def state_readings(cs, out: dict, steps: int = 3) -> None:
                 "ref_losses": ref["losses"], "bound": cs.state_bound(run)}
             if run == "pipe_ckpt":
                 r["ckpt_bitwise"] = [rk["runs"][run]["ckpt"]["bitwise"] for rk in ranks]
+            if run == "tp2_int8":
+                r["row_scales"] = [rk["runs"][run]["row_scales"] for rk in ranks]
             print(f"{name} {run}: largest relative gap to the world-1 run, per rank, "
                   f"{[f'{x:.4e}' for x in r['rel']]} (bound {r['bound']}); losses "
                   f"{r['losses']}; world 1 {r['ref_losses']}"
-                  + (f"; restore bitwise {r['ckpt_bitwise']}" if "ckpt_bitwise" in r else ""),
-                  flush=True)
+                  + (f"; restore bitwise {r['ckpt_bitwise']}" if "ckpt_bitwise" in r else "")
+                  + (f"; o/down scales against the whole operand's {r['row_scales']}"
+                     if "row_scales" in r else ""), flush=True)
 
 
 def _offload_run(cs, extra: dict) -> tuple[list, dict, list]:
@@ -704,9 +730,9 @@ def main() -> int:
                                         "mesh_ep_loss_rel": MESH_EP_LOSS_REL,
                                         "state_loss_rel": STATE_LOSS_REL,
                                         "state_int8_loss_rel": STATE_INT8_LOSS_REL}}
-        if sys.argv[2:] != ["--state"]:
+        if sys.argv[2:3] != ["--state"]:
             mesh_readings(cs, out)
-        state_readings(cs, out)
+        state_readings(cs, out, only=sys.argv[3:])
         _write(out)
         return 0
     if sys.argv[1:] == ["--comm"]:

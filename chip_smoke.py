@@ -153,24 +153,24 @@ of them loaded the kernels:
    host's memory and each configuration's reckoned bytes;
 22. train_window: ``train`` with ``sliding_window=1024``: every K1-K3
    launch windowed, the first loss held to the plain windowed path's;
-23. train_mesh: llama-1b at full width and 4 of its 16 layers on a mesh
+23. train_mesh: llama-1b at full width and 2 of its 16 layers on a mesh
    through NCCL, 3 steps a run: at world 1 in this process, the mesh
    program at stage 3 bitwise the no-mesh program (seq 2048 × 4), and at
-   seq 8192 × 1 (4 layers); then two ranks, a process each on the one card
+   seq 8192 × 1 (2 layers); then two ranks, a process each on the one card
    (``--mesh-worker``; each its own ``NCCL_HOSTID``): fsdp=2 at stage 3
    (seq 2048 × 2 a rank), a ring and Ulysses over sequence=2 (seq 8192 ×
-   1, 4 layers), tensor parallelism at model=2 (``tp2``: 8 heads, 2752 MLP
+   1, 2 layers), tensor parallelism at model=2 (``tp2``: 8 heads, 2752 MLP
    columns, 16000 vocabulary rows a
    rank, seq 2048 × 4), and ``train_moe``'s moe-8x7b at model=2 (``ep2``:
    4 experts a rank, seq 2048 × 2, held to its own world-1 run
-   ``w1_moe``), LoRA on q/k/v/o and the MLP at model=2 (``lora_tp2``, 4
+   ``w1_moe``), LoRA on q/k/v/o and the MLP at model=2 (``lora_tp2``, 2
    layers, held to ``w1_lora``) and Adafactor at model=2 (``adafactor_tp2``,
-   4 layers, held to ``w1_ada``), each held to the world-1 run at the same
+   2 layers, held to ``w1_ada``), each held to the world-1 run at the same
    global batch by MESH_LOSS_REL (ep2: MESH_EP_LOSS_REL; train_faults.py),
    the ranks' losses and norms equal, launch counts exact per rank; step
    time, peak memory and the bytes each collective moved a step, per rank;
-24. train_pipe: llama-1b at full width and 4 of its 16 layers on pipe=2
-   (2 layers a rank, two ``--mesh-worker`` processes), seq 2048 × 1 × 4 microbatches,
+24. train_pipe: llama-1b at full width and 2 of its 16 layers on pipe=2
+   (1 layer a rank, two ``--mesh-worker`` processes), seq 2048 × 1 × 4 microbatches,
    3 steps under each of gpipe, 1f1b and zb, held to the world-1 program
    at the same global batch by MESH_LOSS_REL, the ranks' losses and norms
    equal, K1-K3 launches exact per rank and schedule; step time, peak
@@ -209,6 +209,24 @@ of them loaded the kernels:
    cycle's) and the nvidia-smi snapshot; then preempted through the
    simulated check, with an emergency save; (c) resumed at (b)'s step,
    COMPLETED, its compile recorded in the compile index;
+   then train_fleet: the fleet's scheduling half as a user drives it: (a)
+   ``python -m tpu_engine_torch.launcher --preset 1b --dry-run`` in a
+   subprocess, exit 0 and a plan; (b) ``TPULauncher().launch`` of the 1b
+   preset at fsdp=1 (llama-1b at 16 layers, 3 steps of 4 × 4 × 2048, train's
+   learning rate on one repeated batch): COMPLETED, finite losses falling
+   after step 0, K1 twice a layer a microbatch, K2 and K3 once (the path of
+   the ``kernels`` line); (c) a ``FleetScheduler`` over the card's live
+   fleet (``TPUManager().get_fleet_status``), one job at a time: job L
+   (llama-1b's width at 2 layers, 2048 × 4, LOW, 8 steps, saving only when
+   preempted and at its end) and, after its step 3, job H (HIGH, 4 steps):
+   L preempted (one emergency save), H COMPLETED, L requeued, resumed from
+   its emergency step and COMPLETED at 8, its losses after the resume
+   bitwise a plain loop restored from that step; counters 1/1/2; both on
+   the card's flash kernels; the goodput categories of each summing to its
+   wall within 1 %, L's preempt drain, restore and queue wait above 0; the
+   planner's gang of 1 on the one card (its predicted step beside the
+   measured one, not gated); a llama-70b submission at fsdp=1 held by the
+   HBM gate, then cancelled;
 25. serve_mesh: the ContinuousBatcher at llama-1b's width and 2 layers on
    model=2 (two ranks, ``--mesh-worker`` processes, rank 0 submitting
    ``serve``'s 16 requests), with the bf16 and the int8 pool, and with the
@@ -986,7 +1004,7 @@ def phase_kernels(res: dict) -> None:
 D128_PATHS = ("train", "train_job", "train_ring", "train_moe", "train_int8", "train_lora",
               "train_adafactor", "train_lion", "remat", "train_offload", "train_7b",
               "train_window", "train_mesh", "train_pipe", "train_data", "train_comm",
-              "train_mesh_state")
+              "train_mesh_state", "train_fleet")
 
 
 def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
@@ -3398,11 +3416,11 @@ def phase_train_window(res: dict, steps: int = OFFLOAD_STEPS) -> None:
 # to the no-mesh one bitwise; the two-rank runs are held to the world-1 run
 # at the same global batch by MESH_LOSS_REL (train_faults.py, set from its
 # planted-fault readings).
-# The run's time limit (PERF.md §4): llama-1b's 16 layers cut to 4 (the
-# runs at seq 2048 and the pipelines, as the two-rank ring and Ulysses
-# runs and their world-1 run).
-MESH_L = 4
-MESH_SEQ_L = 4
+# The run's time limit (PERF.md §4): llama-1b's 16 layers cut to 4, then
+# to 2 (the runs at seq 2048 and the pipelines, as the two-rank ring and
+# Ulysses runs and their world-1 run).
+MESH_L = 2
+MESH_SEQ_L = 2
 MESH_SEQ = 8192
 MESH_MOE = dict(model_name="moe-8x7b", moe_impl="dense")  # at MOE_TRAIN_LAYERS layers
 MESH_LORA = dict(lora_rank=16, lora_alpha=32.0, lora_targets=("q", "k", "v", "o", "gate",
@@ -3472,7 +3490,7 @@ STATE_L = 2
 STATE_MOE_L = 1
 STATE_RUNS = ("place2", "disk2", "int8_d2", "tp2_int8", "moe_seq2", "pipe_ckpt")
 # Layers of the runs not at MESH_L (the run's time limit, PERF.md §4).
-MESH_LAYERS = {"w1_lora": 4, "lora_tp2": 4, "w1_ada": 4, "adafactor_tp2": 4,
+MESH_LAYERS = {"w1_lora": 2, "lora_tp2": 2, "w1_ada": 2, "adafactor_tp2": 2,
                **{k: STATE_L for k in ("w1_state", "place2", "disk2", "w1_int8", "int8_d2",
                                        "tp2_int8", "pipe_ckpt")},
                "w1_moe_seq": STATE_MOE_L, "moe_seq2": STATE_MOE_L}
@@ -4046,10 +4064,12 @@ def _job_records(ck: str, job_id: str) -> list:
         return [r for r in map(json.loads, f) if r["job_id"] == job_id]
 
 
-def _plain_losses(cfg, model_cfg, steps: range, restore_from=None, ck=None, lr_scale=1.0):
+def _plain_losses(cfg, model_cfg, steps: range, restore_from=None, ck=None, lr_scale=1.0,
+                  batch_fn=None):
     """A plain ``TrainProgram.step`` loop over ``steps`` on the synthetic
-    batch of each step, from a fresh init or restored from ``ck``'s
-    ``restore_from`` (``lr_scale`` then set): its losses."""
+    batch of each step (or ``batch_fn(step)``), from a fresh init or
+    restored from ``ck``'s ``restore_from`` (``lr_scale`` then set): its
+    losses."""
     import torch
 
     from tpu_engine_torch import checkpoint as ckm
@@ -4066,7 +4086,7 @@ def _plain_losses(cfg, model_cfg, steps: range, restore_from=None, ck=None, lr_s
         state["lr_scale"] = lr_scale
     losses = []
     for i in steps:
-        state, m = prog.step(state, prog.synthetic_batch(i))
+        state, m = prog.step(state, batch_fn(i) if batch_fn else prog.synthetic_batch(i))
         losses.append(float(m["loss"]))
     del prog, state
     torch.cuda.empty_cache()
@@ -4329,6 +4349,297 @@ def phase_train_job(res: dict) -> None:
             session.stop()
         shutil.rmtree(ck, ignore_errors=True)
         shutil.rmtree(trace_dir, ignore_errors=True)
+        _free()
+
+
+FLEET_L = 2              # llama-1b's layers in the scheduler's jobs of train_fleet (c)
+FLEET_LOW_STEPS = 8      # job L's last step
+FLEET_HIGH_STEPS = 4     # job H's
+FLEET_PREEMPT_AT = 4     # L's first attempt's batch of this step waits to be preempted
+FLEET_WAIT_S = 120.0     # the longest wait for any scheduler state of (c)
+
+
+def _fleet_losses(path: str) -> dict:
+    """{step: loss} of a job's metrics log (``kind == "train"``, newest wins)."""
+    with open(path) as f:
+        return {r["step"]: r["loss"] for r in map(json.loads, f) if r.get("kind") == "train"}
+
+
+def _await(pred, what: str, timeout: float = FLEET_WAIT_S, detail=None) -> None:
+    """Wait for ``pred``; past ``timeout`` raise, naming ``what`` and what
+    ``detail()`` says of the scheduler then."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"train_fleet: {what} not reached in {timeout:.0f} s"
+                                 + (f": {detail()}" if detail else ""))
+        time.sleep(0.02)
+
+
+def phase_train_fleet(res: dict) -> None:
+    """The fleet's scheduling half (module docstring, train_fleet): (a) the
+    launcher's CLI dry run in a subprocess; (b) ``TPULauncher().launch`` of
+    the 1b preset at fsdp=1, full depth, 3 steps (every launch counter set
+    to 0 just before, read just after: K1 twice a layer a microbatch, K2
+    and K3 once); (c) a ``FleetScheduler`` over the card's live fleet: L
+    preempted by H, requeued and resumed bitwise, a llama-70b submission
+    held by the HBM gate, the goodput account of L and H."""
+    import shutil
+
+    import torch
+
+    from tpu_engine_torch import goodput, tracing
+    from tpu_engine_torch.launcher import TPULauncher
+    from tpu_engine_torch.mesh_runtime import MeshConfig
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+    from tpu_engine_torch.ops import _flash_cuda as fc
+    from tpu_engine_torch.scheduler import FleetScheduler, JobPriority
+    from tpu_engine_torch.tpu_manager import TPUManager
+    from tpu_engine_torch.train import TrainConfig
+
+    work = ROOT / "chiprun_out" / "train_fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = res["train_fleet"] = {"card": _card_line()}
+    fails = []
+    t_phase = time.perf_counter()
+    cli = None
+    try:
+        # (a) The CLI, as a user starts it: a process of its own, read after
+        # (b) and (c), beside which it runs (its 10-15 s are imports and one
+        # nvidia-smi read).
+        t_cli = time.perf_counter()
+        cli = subprocess.Popen([sys.executable, "-m", "tpu_engine_torch.launcher", "--preset",
+                                "1b", "--dry-run"], cwd=ROOT, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+        # (b) The launcher at full width and depth: the 1b preset on one card
+        # (fsdp=1), train's learning rate on one repeated batch so that the
+        # loss can fall in 3 steps.
+        launcher = TPULauncher()
+        preset = launcher.presets()["1b"]
+        cfg = dataclasses.replace(preset, mesh=MeshConfig(data=1, fsdp=1), log_every_steps=1,
+                                  metrics_log_path=str(work / "launch.jsonl"), **TRAIN_LR)
+        accum, micro = cfg.gradient_accumulation_steps, cfg.micro_batch_size
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = torch.randint(0, MODEL_CONFIGS["llama-1b"].vocab_size, (accum, micro, cfg.seq_len),
+                              generator=gen, device="cuda")
+        steps = 3
+        torch.cuda.synchronize()
+        fc.reset_launches()
+        t0 = time.perf_counter()
+        launched = launcher.launch(cfg, max_steps=steps, block=True, data_fn=lambda step: batch)
+        torch.cuda.synchronize()
+        launch_s = time.perf_counter() - t0
+        launches = {k: v for k, v in fc.launches.items() if v}
+        job = launcher.get_job(launched.job_id)
+        L = MODEL_CONFIGS["llama-1b"].n_layers
+        want = {"flash_fwd": 2 * L * steps * accum, "flash_bwd_dq": L * steps * accum,
+                "flash_bwd_dkv": L * steps * accum}
+        losses = [v for _, v in sorted(_fleet_losses(work / "launch.jsonl").items())]
+        d = job.describe() if job is not None else {}
+        impl = job.program.model_config.attention_impl if job and job.program else None
+        out.update(steps=steps, accum=accum, launches=launches, launches_expected=want)
+        out["launch"] = {"status": launched.status, "job": d.get("status"), "losses": losses,
+                         "seconds": launch_s, "attention": impl,
+                         "device": str(job.program.device) if job and job.program else None,
+                         "last_step_time_s": d.get("last_step_time_s")}
+        print(f"train_fleet (b) TPULauncher().launch(1b preset, fsdp=1, {steps} steps of "
+              f"{accum} x {micro} x {cfg.seq_len}): {launched.status}, job {d.get('status')}, "
+              f"{launch_s:.1f} s, losses {losses}, attention {impl}, launches {launches}, "
+              f"error {launched.error or (job.error if job else None)}", flush=True)
+        if (launched.status != "launched" or d.get("status") != "completed"
+                or impl != "flash" or out["launch"]["device"] != "cuda:0"):
+            fails.append(f"launch: {out['launch']}")
+        if (len(losses) != steps or not all(math.isfinite(x) for x in losses)
+                or not all(b < a for a, b in zip(losses[1:], losses[2:]))):
+            fails.append(f"launch losses {losses}: not {steps} finite ones falling after step 0")
+        if launches != want:
+            fails.append(f"launch counts {launches} != {want}")
+        if job is not None:
+            launcher.delete_job(launched.job_id)
+            job._state = job.program = None
+        launcher.scheduler.shutdown()
+        del job, launcher, batch
+        _free()
+
+        # (c) The scheduler over the card's live fleet.
+        model_cfg = MODEL_CONFIGS["llama-1b"].with_(n_layers=FLEET_L)
+        sched = FleetScheduler(max_concurrent_jobs=1, fleet_fn=TPUManager().get_fleet_status,
+                               poll_interval_s=0.05)
+        base = _llama_1b_cfg(attention_impl="flash", log_every_steps=1, total_steps=100)
+        # L saves only when preempted and at its end; H keeps no checkpoint.
+        lcfg = dataclasses.replace(base, metrics_log_path=str(work / "low.jsonl"),
+                                   checkpoint_dir=str(work / "low_ckpt"),
+                                   checkpoint_interval_steps=1000)
+        shape = (1, base.micro_batch_size, base.seq_len)
+
+        def fleet_batch(step: int):
+            g = torch.Generator(device="cuda").manual_seed(1000 + step)
+            return torch.randint(0, model_cfg.vocab_size, shape, generator=g, device="cuda")
+
+        subs: dict = {}
+
+        def where():
+            fleet = sched._fleet()
+            card = fleet.devices[0] if fleet and fleet.devices else None
+            return {"subs": {n: (x.state.value, x.attempts, x.last_skip_reason,
+                                 x.job.current_step if x.job else None,
+                                 x.job.error if x.job else None) for n, x in subs.items()},
+                    "card": None if card is None else (card.is_available, card.duty_cycle_pct,
+                                                       round(card.hbm_used_gb, 2),
+                                                       card.health_status.value)}
+
+        def low_batch(step: int):
+            # L's first attempt waits here at FLEET_PREEMPT_AT until the
+            # scheduler has asked it to save (it may ask sooner): the
+            # preemption then lands mid-run, whatever the card's speed.
+            low = subs["low"]
+            if step >= FLEET_PREEMPT_AT and low.attempts == 1:
+                _await(lambda: low.job is not None and low.job.watcher.fired,
+                       "the preemption request", detail=where)
+            return fleet_batch(step)
+
+        t0 = time.perf_counter()
+        try:
+            low = subs["low"] = sched.submit(
+                lcfg, priority=JobPriority.LOW, job_kwargs={
+                    "max_steps": FLEET_LOW_STEPS, "model_config": model_cfg,
+                    "data_fn": low_batch})
+            _await(lambda: low.job is not None and low.job.current_step >= 3,
+                   "L's step 3", detail=where)
+            high = sched.submit(base, priority=JobPriority.HIGH, job_kwargs={
+                "max_steps": FLEET_HIGH_STEPS, "model_config": model_cfg,
+                "data_fn": fleet_batch})
+            _await(lambda: high.state.value in ("completed", "failed"), "H's end",
+                   detail=where)
+            high_attempt = high.job
+            _await(lambda: low.state.value in ("completed", "failed"), "L's end",
+                   detail=where)
+            sched_s = time.perf_counter() - t0
+            st = sched.stats()
+            resumed = low.job.resumed_from_step
+            jobs = {"low": low, "high": high}
+            out["scheduler"] = {
+                "seconds": sched_s,
+                **{k: st[k] for k in ("preemptions_total", "requeues_total", "completed_total",
+                                      "failed_total")},
+                **{n: {"state": s.state.value, "attempts": s.attempts,
+                       "preemptions": s.preemptions, "placement": s.placement,
+                       "skip": s.last_skip_reason,
+                       "attention": s.job.program.model_config.attention_impl
+                       if s.job.program else None,
+                       "device": str(s.job.program.device) if s.job.program else None,
+                       "step": s.job.current_step, "resumed_from_step": s.job.resumed_from_step,
+                       "error": s.job.error, "step_s": s.job.last_step_time_s}
+                   for n, s in jobs.items()}}
+            print(f"train_fleet (c) scheduler: {json.dumps(out['scheduler'])}", flush=True)
+            if (st["preemptions_total"], st["requeues_total"], st["completed_total"]) != (1, 1, 2):
+                fails.append(f"scheduler counters {st['preemptions_total']}/"
+                             f"{st['requeues_total']}/{st['completed_total']} != 1/1/2")
+            for n, s in jobs.items():
+                o = out["scheduler"][n]
+                if s.state.value != "completed" or o["attention"] != "flash" or \
+                        o["device"] != "cuda:0":
+                    fails.append(f"job {n}: {o}")
+            if not (low.preemptions == 1 and low.attempts == 2 and resumed is not None
+                    and 3 <= resumed < FLEET_LOW_STEPS
+                    and low.job.current_step == FLEET_LOW_STEPS
+                    and high_attempt.current_step == FLEET_HIGH_STEPS):
+                fails.append(f"L preempted {low.preemptions}, attempts {low.attempts}, resumed "
+                             f"from {resumed}, step {low.job.current_step}")
+            else:
+                got = _fleet_losses(work / "low.jsonl")
+                after = [got[s] for s in range(resumed + 1, FLEET_LOW_STEPS + 1)]
+                plain = _plain_losses(lcfg, model_cfg, range(resumed, FLEET_LOW_STEPS),
+                                      restore_from=resumed, ck=low.config.checkpoint_dir,
+                                      batch_fn=fleet_batch)
+                out["low_losses"] = {"after_resume": after, "plain": plain,
+                                     "resumed_from_step": resumed}
+                print(f"train_fleet L losses after the resume from step {resumed} {after}, "
+                      f"a plain loop restored there {plain}", flush=True)
+                if after != plain:
+                    fails.append("L's losses after the resume are not bitwise the plain loop's")
+
+            # The goodput account of each trace (closed at its terminal state).
+            rec = tracing.get_recorder()
+            out["goodput"] = {}
+            for n, s in jobs.items():
+                dec = goodput.decompose_trace(rec, s.trace_id)
+                cats = dec["categories"]
+                out["goodput"][n] = {"wall_s": dec["wall_s"], "categories": cats}
+                print(f"train_fleet goodput {n}: wall {dec['wall_s']:.2f} s, "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in cats.items() if v), flush=True)
+                if abs(sum(cats.values()) - dec["wall_s"]) > 0.01 * dec["wall_s"]:
+                    fails.append(f"goodput {n}: categories sum {sum(cats.values())} vs wall "
+                                 f"{dec['wall_s']}")
+                need = ("productive", "preempt_drain", "restore", "queue_wait") if n == "low" \
+                    else ("productive",)
+                if not all(cats[k] > 0 for k in need):
+                    fails.append(f"goodput {n}: {need} not all above 0: {cats}")
+
+            # The planner on the one-card fleet: a gang of 1, its prediction
+            # beside the measured step (neither gated).
+            fleet = sched._fleet()
+            eligible = [d for d in fleet.devices if d.is_available] if fleet else []
+            plan = sched.planner.plan(lcfg, devices=eligible or None, reserved=dict(sched._reserved),
+                                      n_avail=1)
+            cut = sched.planner.predict(lcfg, gang=1, model_cfg=model_cfg)
+            best = plan.best
+            out["placement"] = {
+                "best": best.label if best else None, "gang": best.gang if best else None,
+                "predicted_step_s_16_layers": best.predicted_step_time_s if best else None,
+                "predicted_step_s_cut": cut.predicted_step_time_s,
+                "measured_step_s": low.job.last_step_time_s, "evaluated": plan.evaluated}
+            print(f"train_fleet placement: {json.dumps(out['placement'])} ({_card_line()})",
+                  flush=True)
+            if best is None or best.gang != 1:
+                fails.append(f"planner on one card: {out['placement']}")
+
+            # llama-70b at fsdp=1: held by the HBM gate, then cancelled. Its
+            # factory refuses: were the gate to let it through, nothing is built.
+            def never(sub):
+                raise AssertionError("llama-70b admitted past the HBM gate")
+
+            big = sched.submit(TrainConfig(model_name="llama-70b", mesh=MeshConfig(data=1),
+                                           micro_batch_size=1, seq_len=4096), job_factory=never)
+            try:
+                _await(lambda: "GiB/device" in (big.last_skip_reason or ""), "the HBM gate",
+                       timeout=60, detail=lambda: (big.state.value, big.last_skip_reason,
+                                                   where()["card"]))
+            except AssertionError as e:
+                fails.append(str(e))
+            out["hbm_gate"] = {"state": big.state.value, "skip": big.last_skip_reason,
+                               "estimate_gib": big.estimate.device_total_gib
+                               if big.estimate else None}
+            print(f"train_fleet llama-70b at fsdp=1: {json.dumps(out['hbm_gate'])}", flush=True)
+            sched.cancel(big.submission_id)
+            if big.state.value != "cancelled":
+                fails.append(f"llama-70b: {out['hbm_gate']}")
+        finally:
+            for s in list(sched._subs.values()):
+                if s.job is not None and s.job.is_alive:
+                    s.job.stop()
+            sched.shutdown()
+        stdout, stderr = cli.communicate(timeout=300)
+        plan = json.loads(stdout) if cli.returncode == 0 else {}
+        out["cli"] = {"rc": cli.returncode, "seconds": time.perf_counter() - t_cli,
+                      "status": plan.get("status"),
+                      "mesh": plan.get("plan", {}).get("mesh"),
+                      "placement": plan.get("plan", {}).get("placement", {}).get("ranked_plans")}
+        print(f"train_fleet (a) CLI --preset 1b --dry-run: rc {cli.returncode}, done within "
+              f"{out['cli']['seconds']:.1f} s, status {out['cli']['status']}, mesh "
+              f"{out['cli']['mesh']}", flush=True)
+        if cli.returncode != 0 or plan.get("status") != "dry_run":
+            fails.append(f"CLI dry run: rc {cli.returncode}, {stderr[-1500:]}")
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"train_fleet: {out['phase_s']:.1f} s", flush=True)
+        if fails:
+            raise AssertionError("; ".join(fails))
+    finally:
+        if cli is not None and cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+        shutil.rmtree(work, ignore_errors=True)
         _free()
 
 
@@ -5102,6 +5413,7 @@ def main() -> int:
         run("train", phase_train, res, args.steps)
         run("train_data", phase_train_data, res)
         run("train_job", phase_train_job, res)
+        run("train_fleet", phase_train_fleet, res)
         run("ring", phase_ring, res)
         run("train_ring", phase_train_ring, res, args.steps)
         run("train_fp32", phase_train_fp32, res, args.steps)

@@ -205,7 +205,8 @@ def test_make_data_fn_mesh_rank_reads_its_rows(token_file):
     """On a mesh of (data=2, fsdp=2) × model=2 each rank reads its rows of
     JAX's global stream, [accum, micro, S]: the row index is the rank's
     (data, fsdp) coordinate, ranks differing in ``model`` read alike. An
-    unequal row assignment raises ``NotImplementedError``."""
+    unequal row assignment raises JAX's ``ValueError``: it is not the
+    sharding's per-process partition."""
     gm = 8
     jds = jdata.TokenFileDataset(token_file, SEQ, prefer_native=False)
     jds.start(2 * gm, seed=7)
@@ -222,10 +223,65 @@ def test_make_data_fn_mesh_rank_reads_its_rows(token_file):
                 for step in range(3):
                     np.testing.assert_array_equal(fn(step).numpy(),
                                                   want[step][:, 2 * i:2 * i + 2])
-                with pytest.raises(NotImplementedError, match="heterogeneous rebalancer"):
+                with pytest.raises(ValueError, match="per-process batch partition"):
                     fn.reassign([1, 3, 2, 2])
                 assert fn.reassign([2, 2, 2, 2]) == [2, 2, 2, 2]
                 fn.close()
-    with pytest.raises(NotImplementedError, match="non-uniform"):
+    with pytest.raises(ValueError, match=r"partition \[2, 2, 2, 2\]"):
         tdata.make_data_fn(_program(gm, rt), tdata.TokenFileDataset(token_file, SEQ),
                            row_assignment=[1, 3, 2, 2])
+
+
+def test_unequal_row_split_rejected_with_jax_message(token_file, monkeypatch):
+    """JAX's rule on a runtime of several processes: a sharded stream
+    takes only the sharding's per-process partition. The port raises
+    JAX's ``ValueError``, word for word, at construction and in
+    ``reassign``; its windows stay the equal split. The synthetic path
+    takes the same vector (every rank holds the whole batch)."""
+    rows = [1, 3, 2, 2]
+    monkeypatch.setattr(jdata.jax, "process_count", lambda: 4)
+    monkeypatch.setattr(jdata, "_sharding_batch_partition", lambda sharding, shape: [2, 2, 2, 2])
+    with pytest.raises(ValueError) as want:
+        jdata._check_stream_assignment_feasible(rows, None, (2, 8, SEQ))
+    rt = SimpleNamespace(data_parallel_size=lambda: 4, coords={"data": 1, "fsdp": 0},
+                         axis_sizes={"data": 2, "fsdp": 2})
+    with pytest.raises(ValueError) as got:
+        tdata.make_data_fn(_program(8, rt), tdata.TokenFileDataset(token_file, SEQ),
+                           row_assignment=rows)
+    assert str(got.value) == str(want.value)
+    fn = tdata.make_data_fn(_program(8, rt), tdata.TokenFileDataset(token_file, SEQ), seed=3)
+    first = fn(0)
+    with pytest.raises(ValueError) as got:
+        fn.reassign(rows)
+    assert str(got.value) == str(want.value)
+    assert fn(1).shape == first.shape == (2, 2, SEQ)
+    fn.close()
+    syn = tdata.make_data_fn(_program(8, rt), tdata.SyntheticDataset(512, SEQ), seed=1,
+                             row_assignment=rows)
+    assert syn.reassign([2, 2, 1, 3]) == [2, 2, 1, 3] and syn(0).shape == (2, 8, SEQ)
+
+
+def test_mesh_job_survives_a_rejected_unequal_plan(tmp_path):
+    """Two ``gloo`` ranks run a supervised job from a token file, once
+    with a planted live plan that moves rows off the slow rank: the plan
+    is rejected (``hetero_reassign_rejected``), reverted to the equal
+    split, and the job completes with the losses of the run without it."""
+    from torch_mesh_worker import spawn
+
+    token_file = str(tmp_path / "tiny.bin")
+    jdata.write_token_file(np.random.default_rng(1).integers(0, 500, 64 * SEQ + 1)
+                           .astype(np.uint16), token_file)
+    base = {"kind": "hetero_job", "mesh": {"data": 2}, "out": str(tmp_path / "out"),
+            "cfg": {"model_name": "gpt-tiny", "micro_batch_size": 2, "seq_len": SEQ,
+                    "precision": "fp32", "total_steps": 3, "warmup_steps": 1,
+                    "sharding_stage": 0, "activation_checkpointing": False,
+                    "dataset_path": token_file, "attention_impl": "xla"}}
+    cases = [{**base, "name": "plain", "plant": False}, {**base, "name": "plant", "plant": True}]
+    got = spawn({"cases": cases}, 2, tmp_path)
+    for r in range(2):
+        plain, plant = got[("plain", r)], got[("plant", r)]
+        assert str(plain["status"]) == str(plant["status"]) == "completed", plant["error"]
+        assert int(plant["rejected"]) >= 1 and int(plain["rejected"]) == 0
+        assert plant["assignment"].tolist() == [2, 2]
+        assert len(plant["losses"]) == 3
+        np.testing.assert_array_equal(plant["losses"], plain["losses"])

@@ -152,9 +152,9 @@ def test_broadcast_agree_is_identity_in_one_process():
 
 
 def test_live_unequal_plan_on_a_mesh_meets_the_equal_split_rule(tmp_path):
-    """A live plan's unequal rows on a mesh of two row ranks raise
-    ``data.py``'s refusal; the equal split passes; one process takes any
-    plan."""
+    """A live plan's unequal rows on a mesh of two row ranks raise JAX's
+    ``ValueError`` (not the sharding's per-process partition); the equal
+    split passes; one process takes any plan."""
     path = tdata.write_token_file(np.arange(64 * 33, dtype=np.uint16) % 500,
                                   str(tmp_path / "tok.bin"))
     ds = tdata.TokenFileDataset(path, seq_len=32)
@@ -175,7 +175,7 @@ def test_live_unequal_plan_on_a_mesh_meets_the_equal_split_rule(tmp_path):
     assert plan is not None and plan.assignment != [2, 2]
     fn = tdata.make_data_fn(Program, ds, process_count=2, process_index=0)
     try:
-        with pytest.raises(NotImplementedError, match="non-uniform rows per rank"):
+        with pytest.raises(ValueError, match="per-process batch partition"):
             fn.reassign(plan.assignment)
         assert fn.reassign([2, 2]) == [2, 2]
     finally:

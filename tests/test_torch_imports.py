@@ -36,7 +36,8 @@ def test_port_modules_import_neither_jax_nor_tpu_engine():
               "disk_offload", "mesh_runtime", "sharding", "comm", "comm_compress", "checkpoint",
               "reshard", "data", "native", "historian", "journal", "tracing", "loss_monitor",
               "preemption", "faults", "compile_cache", "compile_index", "profiler", "telemetry",
-              "tpu_manager", "hbm_estimate", "hetero", "supervisor"}
+              "tpu_manager", "hbm_estimate", "hetero", "supervisor", "goodput", "placement",
+              "scheduler", "launcher"}
     have = {m.name.rsplit(".", 1)[-1] for m in pkgutil.walk_packages(
         [str(ROOT / "tpu_engine_torch")])}
     assert wanted <= have and int(count) >= len(have)

@@ -4,7 +4,8 @@
 ``tests/test_torch_tp_lora.py``, ``tests/test_torch_tp_int8_serving.py``,
 ``tests/test_torch_comm_compress.py``, ``tests/test_torch_checkpoint.py``,
 ``tests/test_torch_reshard.py``, ``tests/test_torch_mesh_place.py``,
-``tests/test_torch_mesh_int8.py``, ``tests/test_torch_mesh_moe_seq.py``),
+``tests/test_torch_mesh_int8.py``, ``tests/test_torch_mesh_moe_seq.py``,
+``tests/test_torch_data.py``),
 run as its own process on the CPU with ``gloo``, and the parent's launcher
 (:func:`spawn`).
 
@@ -465,6 +466,47 @@ def _int8_tp_scales(case: dict, rank: int) -> dict:
     return out
 
 
+def _hetero_job(case: dict, rank: int) -> dict:
+    """A supervised job on the mesh reading a token file through the
+    sharded stream, with (``plant``) a live heterogeneity plan that moves
+    rows off a slow rank: JAX's rule rejects the unequal split, the job
+    records ``hetero_reassign_rejected``, keeps its split and completes.
+    Returns the status, the losses and the rejection events' count."""
+    import torch.distributed as dist
+
+    from tpu_engine_torch import hetero, tracing
+    from tpu_engine_torch.mesh_runtime import MeshConfig
+    from tpu_engine_torch.supervisor import TrainingJob
+    from tpu_engine_torch.train import TrainConfig
+
+    log_path = os.path.join(case["out"], f"{case['name']}.rank{rank}.jsonl")
+    cfg = TrainConfig(mesh=MeshConfig(**case["mesh"]), metrics_log_path=log_path,
+                      log_every_steps=1, **case["cfg"])
+    world = dist.get_world_size()
+    reb = None
+    if case["plant"]:
+        reb = hetero.HeteroRebalancer(
+            hetero.ThroughputTracker(world), cfg.micro_batch_size * world, sustain_consults=1,
+            min_gain=0.01, dry_run=False, cooldown_steps=100,
+            agree_fn=hetero.broadcast_agree_fn())
+        for _ in range(30):
+            reb.tracker.note_host_slow(world - 1, 1.0, 1.0)
+    job = TrainingJob(f"hetero-{case['name']}", cfg, devices=["cpu"] * world,
+                      hetero_rebalancer=reb, hetero_check_interval_steps=1,
+                      anomaly_detection=False)
+    job.start()
+    job.join(timeout=100)
+    losses = []
+    if os.path.exists(log_path):  # absent when the job failed before its first step
+        with open(log_path) as f:
+            losses = [r["loss"] for r in map(json.loads, f) if r.get("kind") == "train"]
+    rejected = [e for e in tracing.get_recorder().events(limit=0)
+                if e["name"] == "hetero_reassign_rejected"]
+    return {"status": job.status.value, "error": str(job.error), "losses": np.array(losses),
+            "rejected": len(rejected),
+            "assignment": np.array(reb.assignment if reb is not None else [])}
+
+
 def _rendezvous(case: dict, rank: int) -> dict:
     """The process group as ``initialize_distributed`` joined it: the
     default mesh over every rank, the topology report and one all-reduce."""
@@ -500,7 +542,7 @@ def main(job_path: str, rank: int, world: int) -> None:
         assert initialize_distributed(f"file://{job['store']}", world, rank, device="cpu")
     run = {"train": _train, "attention": _attention, "rendezvous": _rendezvous,
            "serve": _serve, "ckpt": _ckpt, "disk": _disk, "int8_scales": _int8_scales,
-           "int8_tp_scales": _int8_tp_scales}
+           "int8_tp_scales": _int8_tp_scales, "hetero_job": _hetero_job}
     for case in job["cases"]:
         out = run[case["kind"]](case, rank)
         np.savez(os.path.join(job["out"], f"{case['name']}.rank{rank}.npz"), **out)

@@ -70,10 +70,21 @@ The supervised job and the device plane:
   ``hbm_estimate``; ``compile_cache`` and ``compile_index`` — the kernel
   build directory and its warm/cold index.
 
+The fleet's scheduling half:
+
+- ``tpu_engine_torch.goodput`` — the wall-clock account of each job and
+  its SLO burn-rate alerts;
+- ``tpu_engine_torch.placement`` — the layout planner (H100 constants);
+- ``tpu_engine_torch.scheduler`` — ``FleetScheduler``: queue, quotas,
+  HBM-aware admission, preemption and requeue, elastic shrink/grow;
+- ``tpu_engine_torch.launcher`` — ``TPULauncher``, the presets and the CLI
+  (``python -m tpu_engine_torch.launcher``).
+
 Imports here stay light: submodules are imported by the caller.
 """
 
 __all__ = ["checkpoint", "comm", "comm_compress", "compile_cache", "compile_index", "data",
-           "disk_offload", "generate", "hbm_estimate", "hetero", "lora", "mesh_runtime",
-           "models", "native", "offload", "ops", "parallel", "profiler", "quant", "quant_train",
-           "reshard", "serving", "sharding", "supervisor", "telemetry", "tpu_manager", "train"]
+           "disk_offload", "generate", "goodput", "hbm_estimate", "hetero", "launcher", "lora",
+           "mesh_runtime", "models", "native", "offload", "ops", "parallel", "placement",
+           "profiler", "quant", "quant_train", "reshard", "scheduler", "serving", "sharding",
+           "supervisor", "telemetry", "tpu_manager", "train"]

@@ -454,16 +454,22 @@ def _check_seq_len(dataset: Any, seq_len: int) -> None:
         )
 
 
-def _uniform_only(rows: list[int], global_micro: int, pc: int) -> None:
-    """A rank's rows are its ``micro_batch_size`` of each microbatch; an
-    unequal split (a live plan of the heterogeneous rebalancer) needs a
-    train step that takes a different row count on each rank, which the
-    port's mesh step does not."""
-    if rows != [global_micro // pc] * pc:
-        raise NotImplementedError(
-            f"row assignment {rows} is not the equal split of the mesh's {pc} row ranks: "
-            "non-uniform rows per rank are not ported (the heterogeneous rebalancer's "
-            "live plans need a mesh step with a row count per rank)")
+def _check_stream_assignment_feasible(rows: list[int], global_micro: int, pc: int) -> None:
+    """JAX's rule for a sharded stream on a runtime of several processes: a
+    rank reads only its own row window, so a row vector is placeable only
+    where it equals the fixed per-process batch partition, the equal
+    split here (each rank steps on ``micro_batch_size`` rows of each
+    microbatch). Any other vector raises JAX's ``ValueError``, which the
+    supervisor audits as ``hetero_reassign_rejected``, keeping the old
+    split."""
+    partition = [global_micro // pc] * pc
+    if rows != partition:
+        raise ValueError(
+            f"row assignment {rows} does not match the sharding's per-process "
+            f"batch partition {partition}; a sharded stream cannot place rows "
+            "its own devices do not address (heterogeneous sharding is limited "
+            "to partition-compatible assignments on multi-host runtimes)"
+        )
 
 
 def _reader_of(dataset: Any) -> str:
@@ -501,9 +507,12 @@ def make_data_fn(
     override the mesh's row ranks (a test seam).
 
     ``row_assignment``: rows a row rank, validated
-    (:func:`validate_row_assignment`); on a mesh only the equal split runs
-    (an unequal one, a live plan of the heterogeneous rebalancer, raises
-    ``NotImplementedError``: the mesh step takes one row count a rank). The returned function has ``reader``
+    (:func:`validate_row_assignment`). A sharded stream takes JAX's rule
+    for several processes: only the sharding's per-process partition, the
+    equal split; another vector raises JAX's ``ValueError`` at
+    construction and in ``reassign``. The synthetic path takes any valid
+    vector, as JAX's whole-array placement does: every rank holds the
+    whole batch, so the step's math is unchanged. The returned function has ``reader``
     (``"native"``, ``"numpy"``, ``"synthetic"``), ``reassign(assignment)``
     and ``close()``.
     """
@@ -520,7 +529,7 @@ def make_data_fn(
     if pc > 1 and hasattr(dataset, "read_batch"):
         if row_assignment is not None:
             rows_vec = validate_row_assignment(row_assignment, global_micro, pc, accum)
-            _uniform_only(rows_vec, global_micro, pc)
+            _check_stream_assignment_feasible(rows_vec, global_micro, pc)
         else:
             if global_micro % pc != 0:
                 raise ValueError(
@@ -537,7 +546,7 @@ def make_data_fn(
 
         def reassign(assignment: Any) -> list[int]:
             rv = validate_row_assignment(assignment, global_micro, pc, accum)
-            _uniform_only(rv, global_micro, pc)
+            _check_stream_assignment_feasible(rv, global_micro, pc)
             stream.reassign(sum(rv[:pi]), rv[pi])
             return rv
 

@@ -227,6 +227,35 @@ of them loaded the kernels:
    planner's gang of 1 on the one card (its predicted step beside the
    measured one, not gated); a llama-70b submission at fsdp=1 held by the
    HBM gate, then cancelled;
+   then serve_fleet: the serving fleet over one ``FleetScheduler`` on the
+   card's live fleet, llama-1b at full width and depth in bf16 (seed-0
+   weights drawn by ``build_replica_engine`` on each replica's thread): (a)
+   a ``ServingFleet`` of serve's batcher settings (8 slots x 2048 lanes,
+   prefill chunk 256, a 1024-token prefix cache) and an armed
+   ``FleetAutopilot``: 8 of serve's requests (32 tokens each) on one
+   replica, the autopilot's ``rescale_serving`` firing on the 100 ms p99
+   SLO's burn and the fleet at 2 replicas, 8 more; every request done, the
+   shared-prefix ones routed by affinity to the replica holding the
+   prefix, greedy streams teacher-forced within SERVE_TAU beside one plain
+   ``ContinuousBatcher``'s; (b) a ``DisaggServingFleet`` (one prefill, one
+   decode replica) serving 8 prompts with the fp32 wire and with the int8
+   wire into a ``kv_quant`` pool: each request's trace shows every phase,
+   its handoff's wire bytes the [L, T, KV, HD] arithmetic, streams within
+   SERVE_TAU; two held requests moved by ``reshard.migrate_held_requests``
+   and a prefix exported, parked in a ``HostKVTier`` and installed by
+   ``rehydrate_from_host``, its first logits within SERVE_REL of a cold
+   server's; (d) two ``SpecServingFleet``s under one
+   ``SpecSpillController``, llama-1b as its own draft and the 2-layer
+   draft, 8 requests each: the verify pool's own streams, the own draft's
+   acceptance EMA above the floor, the 2-layer draft spilled by an audited
+   ``DecisionRecord`` and canary probes after; (c) an interactive replica
+   (NORMAL) and a batch replica of 106 x 4096 lanes (LOW) whose
+   reservations leave less headroom than a CRITICAL job's estimate: the
+   job (train_fleet's L shape, 3 steps, K1/K2/K3 counted: the
+   ``serve_fleet`` column) is admitted only after the scheduler evicts the
+   batch replica with 8 requests in flight, checkpoint-free; the replica
+   queued while the job runs, readmitted after it, every request done,
+   counters 1/1/1;
 25. serve_mesh: the ContinuousBatcher at llama-1b's width and 2 layers on
    model=2 (two ranks, ``--mesh-worker`` processes, rank 0 submitting
    ``serve``'s 16 requests), with the bf16 and the int8 pool, and with the
@@ -1004,7 +1033,7 @@ def phase_kernels(res: dict) -> None:
 D128_PATHS = ("train", "train_job", "train_ring", "train_moe", "train_int8", "train_lora",
               "train_adafactor", "train_lion", "remat", "train_offload", "train_7b",
               "train_window", "train_mesh", "train_pipe", "train_data", "train_comm",
-              "train_mesh_state", "train_fleet")
+              "train_mesh_state", "train_fleet", "serve_fleet")
 
 
 def _d256_rows(fc, res: dict, main: dict, main_full: dict) -> list:
@@ -4643,6 +4672,601 @@ def phase_train_fleet(res: dict) -> None:
         _free()
 
 
+# serve_fleet: the port's serving fleet (serving_fleet, disagg, reshard's
+# serving half, prefix_plane, autopilot, spec_pool) over one FleetScheduler
+# on the card's live fleet, llama-1b at full width and depth (seed-0
+# weights drawn in bf16 by build_replica_engine on each replica's thread,
+# the same weights as _llama_1b's). (a) unified replicas with serve's
+# batcher settings, scaled from 1 to 2 by an armed FleetAutopilot on a
+# 100 ms p99 SLO; (b) disaggregated pools, fp32 wire and int8 wire into a
+# kv_quant decode pool, then held-request migration and a prefix through
+# the host tier on engines stepped here; (d) speculative fleets with
+# llama-1b as its own draft and the 2-layer draft; (c) a replica whose pool
+# leaves less headroom than a CRITICAL training job's estimate, evicted by
+# the scheduler's own admission and readmitted after the job.
+FLEET_SPEC = dict(model_name="llama-1b", max_slots=8, max_len=2048, prefill_chunk=256,
+                  decode_chunk_steps=8, seed=0)
+FLEET_NEW = 32              # new tokens of every request of (a), (b) and (d)
+FLEET_P99_SLO_MS = 100.0    # (a)'s p99 SLO, which one replica misses under 8 requests: the autopilot scales
+FLEET_SERVE_WAIT_S = 240.0  # the longest wait for any state of serve_fleet
+# (c): an interactive fleet (one replica of FLEET_SPEC, NORMAL) and a batch
+# fleet (one replica of EVICT_SLOTS x EVICT_LEN lanes, LOW) on the card, then
+# a CRITICAL job of train_fleet's L shape (llama-1b's width at FLEET_L
+# layers, 2048 x 4, EVICT_STEPS steps) whose estimate by the scheduler's
+# default estimator (the config's llama-1b, 16 layers) is 16.0 GiB. The
+# scheduler's headroom is the live free memory less every running
+# submission's reservation; the batch replica's 54.77 GiB leaves it below
+# the job's estimate, and keeps it below the batch replica's own while the
+# job and the interactive replica hold theirs. The arithmetic is in
+# PERF.md's serve_fleet findings.
+EVICT_SLOTS, EVICT_LEN = 106, 4096
+EVICT_REQUESTS, EVICT_NEW = 8, 16
+EVICT_STEPS = 3
+
+
+def _fleet_await(pred, what: str, timeout: float = FLEET_SERVE_WAIT_S, tick=None,
+                 detail=None) -> float:
+    """Wait for ``pred``, calling ``tick`` every 0.25 s between reads; the
+    seconds waited. Past ``timeout`` raise, naming ``what`` and
+    ``detail()``."""
+    t0 = last = time.perf_counter()
+    while not pred():
+        now = time.perf_counter()
+        if now - t0 > timeout:
+            raise AssertionError(f"serve_fleet: {what} not reached in {timeout:.0f} s"
+                                 + (f": {detail()}" if detail else ""))
+        if tick is not None and now - last >= 0.25:
+            tick()
+            last = now
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _fresh_reading(sched):
+    """The scheduler's fleet view with nvidia-smi read now: the port's
+    telemetry serves one nvidia-smi reading for 10 s, so a reading taken
+    while the card idles lets the admissions of the next seconds see it
+    idle (its duty cycle gates availability at 90 %)."""
+    from tpu_engine_torch import telemetry
+
+    for src in telemetry.sources():
+        if isinstance(src, telemetry.NvidiaSmiSource):
+            src._cached_at = float("-inf")
+    return sched._fleet()
+
+
+def _card_memory() -> dict:
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return {"total_gib": total / 2**30, "used_gib": (total - free) / 2**30}
+
+
+def _stopped(fleet, *pools) -> None:
+    """Stop a fleet and wait until each replica thread of its pools (the
+    fleet itself, or ``pools``) has torn its engine down and returned its
+    memory."""
+    fleet.stop()
+    subs = [s for pool in (pools or (fleet,)) for s in pool._replicas.values()]
+    _fleet_await(lambda: all(s.job is None or not s.job.is_alive for s in subs),
+                 "the replicas' teardown")
+
+
+def _one_replica(lo: int = 1, hi: int = 1):
+    from tpu_engine_torch.serving_fleet import AutoscalerConfig, ReplicaAutoscaler
+
+    return ReplicaAutoscaler(AutoscalerConfig(min_replicas=lo, max_replicas=hi,
+                                              target_queue_per_replica=1e6, p99_slo_ms=1e9,
+                                              scale_down_cooldown_s=1e9))
+
+
+def _first_logits(srv, prompt: list):
+    """The prefill logits row that seeds ``prompt``'s first token on a
+    batcher stepped here."""
+    rows = []
+    real = srv._first_token
+
+    def spy(logits, req):
+        rows.append(logits.float().clone())
+        return real(logits, req)
+
+    srv._first_token = spy
+    rid = srv.submit(prompt, max_new_tokens=1)
+    while srv.result(rid)["status"] not in ("done", "failed"):
+        srv.step()
+    srv._first_token = real
+    return rows[0]
+
+
+def _drive(srv, rids) -> None:
+    while not all(srv.result(r)["status"] in ("done", "failed") for r in rids):
+        srv.step()
+
+
+def _fleet_unified(out: dict, fails: list, sched, state: dict, plan: list) -> None:
+    """(a): 8 requests on one replica; the autopilot sees the p99 SLO burn
+    and scales the fleet to 2; 8 more, the shared-prefix ones pinned to the
+    replica holding the prefix."""
+    from tpu_engine_torch import autopilot, goodput, historian
+    from tpu_engine_torch import serving as tsrv
+    from tpu_engine_torch.serving_fleet import ServingFleet, ServingReplicaSpec
+
+    cfg, params = _llama_1b(state)
+    hist = historian.MetricHistorian()
+    alerter = goodput.get_alerter()
+    goodput.set_alerter(goodput.SLOBurnRateAlerter(goodput.get_ledger(),
+                                                   p99_slo_ms=FLEET_P99_SLO_MS, historian=hist))
+    fleet = ServingFleet(sched, ServingReplicaSpec(**FLEET_SPEC, prefix_cache_tokens=1024),
+                         autoscaler=_one_replica(1, 2), submitter="serve-fleet-a")
+    ap = autopilot.FleetAutopilot(
+        autopilot.AutopilotConfig(trend_window_s=60.0, sustain_consults=2, cooldown_s=600.0),
+        dry_run=False, historian=hist, scheduler=sched, serving_fleet=fleet)
+    try:
+        t0 = time.perf_counter()
+        _fresh_reading(sched)
+        fleet.start()
+        a = out["a"] = {"first_replica_s": _fleet_await(
+            lambda: len(fleet.running_replicas()) == 1, "(a)'s first replica")}
+        fids = {}
+
+        def submit(idx):
+            for i in idx:
+                prompt, _, temp = plan[i]
+                fids[i] = fleet.submit_request(prompt, FLEET_NEW, temp)
+
+        def done(idx):
+            return all(fleet.result(fids[i])["status"] in ("done", "failed") for i in idx)
+
+        submit(range(8))
+        a["wave1_s"] = _fleet_await(lambda: done(range(8)), "(a)'s first 8 requests",
+                                    tick=ap.tick)
+        _fresh_reading(sched)
+        a["scale_up_s"] = _fleet_await(lambda: len(fleet.running_replicas()) == 2,
+                                       "the autopilot's second replica", tick=ap.tick,
+                                       detail=lambda: ap.decisions(limit=4))
+        submit(range(8, 16))
+        a["wave2_s"] = _fleet_await(lambda: done(range(8, 16)), "(a)'s last 8 requests",
+                                    tick=ap.tick)
+        results = {i: fleet.result(f) for i, f in fids.items()}
+        engines = fleet.running_replicas()
+        served = [sum(r["replica"] == sid for r in results.values()) for sid in engines]
+        rescale = [d for d in ap.decisions(limit=0) if d["rule"] == "rescale_serving"]
+        shared = {i: results[i]["replica"] for i in SERVE_SHARED}
+        holder = engines.get(shared[SERVE_SHARED[0]])
+        a.update(seconds=time.perf_counter() - t0,
+                 statuses=sorted({r["status"] for r in results.values()}),
+                 served_per_replica=served, affinity_hits=fleet.router.affinity_hits,
+                 shared_replicas=shared,
+                 holder_prefix_hits=holder.stats()["prefix_cache"]["hits"] if holder else None,
+                 rescale={k: sum((d["suppressed_reason"] or "fired") == k for d in rescale)
+                          for k in {d["suppressed_reason"] or "fired" for d in rescale}},
+                 autopilot=ap.stats(), fleet=fleet.status()["router"],
+                 ttft_p50_ms=fleet.status()["ttft_p50_ms"],
+                 ttft_p99_ms=fleet.status()["ttft_p99_ms"],
+                 p99_ms=fleet.status()["p99_latency_ms"])
+        if a["statuses"] != ["done"] or len(engines) != 2:
+            fails.append(f"(a) statuses {a['statuses']}, {len(engines)} replicas")
+        if a["rescale"].get("fired") != 1:
+            fails.append(f"(a) rescale_serving never fired: {a['rescale']}")
+        if (len(set(shared.values())) != 1 or not a["holder_prefix_hits"]
+                or a["affinity_hits"] < len(SERVE_SHARED) - 1):
+            fails.append(f"(a) shared prefix on {shared}, holder's prefix hits "
+                         f"{a['holder_prefix_hits']}, affinity hits {a['affinity_hits']}")
+        greedy = [i for i in range(16) if plan[i][2] == 0.0]
+        gaps = [_stream_gap(params, cfg, plan[i][0], results[i]["tokens"]) for i in greedy]
+        # One plain batcher (serve's settings) over the same 16 requests.
+        srv = tsrv.ContinuousBatcher(params, cfg, **SERVE_CFG)
+        rids = {i: srv.submit(p, max_new_tokens=FLEET_NEW, temperature=t)
+                for i, (p, _, t) in enumerate(plan)}
+        _drive(srv, rids.values())
+        plain = {i: srv.result(r)["tokens"] for i, r in rids.items()}
+        plain_gaps = [_stream_gap(params, cfg, plan[i][0], plain[i]) for i in greedy]
+        del srv
+        a.update(max_gap=max(gaps), plain_max_gap=max(plain_gaps),
+                 identical_to_plain=sum(results[i]["tokens"] == plain[i] for i in greedy),
+                 greedy=len(greedy))
+        print(f"serve_fleet (a) unified: 2 replicas after the autopilot's rescale_serving "
+              f"decisions {a['rescale']} ({a['scale_up_s']:.1f} s to the second after the first "
+              f"8 requests' {a['wave1_s']:.1f} s), requests a replica "
+              f"{served}, shared prefix on {sorted(set(shared.values()))} with "
+              f"{a['affinity_hits']} affinity hits and {a['holder_prefix_hits']} prefix hits, "
+              f"largest teacher-forced gap {a['max_gap']:.4f} (tau {SERVE_TAU}; one plain "
+              f"batcher {a['plain_max_gap']:.4f}, {a['identical_to_plain']}/{len(greedy)} "
+              f"greedy streams identical to its), TTFT p50 {a['ttft_p50_ms']} ms p99 "
+              f"{a['ttft_p99_ms']} ms, {a['seconds']:.1f} s ({_card_line()})", flush=True)
+        if a["max_gap"] > SERVE_TAU:
+            fails.append(f"(a) teacher-forced gap {a['max_gap']} > {SERVE_TAU}")
+    finally:
+        _stopped(fleet)
+        goodput.set_alerter(alerter)
+
+
+def disagg_streams(sched, plan: list, wire_quant: bool, kv_quant: bool) -> dict:
+    """(b)'s DisaggServingFleet serving ``plan``'s prompts greedily, its two
+    pools (one replica each) sized by ``plan_serving_pool`` against the
+    card's headroom: each request's tokens, TTFT, the phases its trace
+    shows, and its handoff's wire bytes and resident length."""
+    from tpu_engine_torch import tracing
+    from tpu_engine_torch.disagg import DisaggServingFleet
+    from tpu_engine_torch.placement import plan_serving_pool
+    from tpu_engine_torch.serving_fleet import ServingReplicaSpec
+
+    t0 = time.perf_counter()
+    dev = _fresh_reading(sched).devices[0]
+    pools = {}
+    for role in ("prefill", "decode"):
+        best = plan_serving_pool(
+            FLEET_SPEC["model_name"], role, 1, max_len=FLEET_SPEC["max_len"],
+            hbm_free_gib=(dev.hbm_free_gb - sched._reserved.get(dev.index, 0.0)) / 2,
+            candidate_slots=(FLEET_SPEC["max_slots"],), inflight_handoffs=4,
+            prefill_chunk=FLEET_SPEC["prefill_chunk"], kv_quant=kv_quant and role == "decode")[0]
+        if not best.feasible:
+            raise AssertionError(f"serve_fleet: no feasible {role} pool: {best.skip_reason}")
+        pools[role] = best.max_slots
+    fleet = DisaggServingFleet(
+        sched, ServingReplicaSpec(**FLEET_SPEC, inflight_handoffs=pools["prefill"]),
+        ServingReplicaSpec(**{**FLEET_SPEC, "max_slots": pools["decode"]}, kv_quant=kv_quant),
+        prefill_autoscaler=_one_replica(), decode_autoscaler=_one_replica(),
+        wire_quant=wire_quant)
+    rec = tracing.get_recorder()
+    try:
+        fleet.start()
+        _fleet_await(lambda: len(fleet.prefill.running_replicas()) == 1
+                     and len(fleet.decode.running_replicas()) == 1, "(b)'s pools")
+        up = time.perf_counter() - t0
+        fids = [fleet.submit_request(p, FLEET_NEW) for p, _, _ in plan]
+        outs = [fleet.wait(f, timeout=FLEET_SERVE_WAIT_S) for f in fids]
+        rows = []
+        for o in outs:
+            events = {e["name"] for e in rec.events(trace_id=o["trace_id"], limit=0)}
+            spans = rec.spans(trace_id=o["trace_id"], limit=0)
+            hand = [s["attrs"] for s in spans if s["kind"] == "kv_handoff"]
+            req = [s["attrs"] for s in spans if s["kind"] == "serving_request"]
+            rows.append({
+                "status": o["status"], "tokens": o["tokens"], "ttft_ms": o.get("ttft_ms"),
+                "phases": {"prefilling": "route_prefill" in events,
+                           "extracting": bool(hand),
+                           "handoff": any(h.get("status") == "delivered" for h in hand),
+                           "decoding": "route_decode" in events,
+                           "done": any(r.get("status") == "done" for r in req)},
+                "wire_bytes": [h.get("wire_bytes") for h in hand],
+                "kv_tokens": [h.get("kv_tokens") for h in hand],
+                "redispatches": o["redispatches"]})
+        status = fleet.status()
+        return {"rows": rows, "pools_up_s": up, "seconds": time.perf_counter() - t0, "slots": pools,
+                "handoffs": status["handoffs_total"], "bytes": status["handoff_bytes_total"],
+                "ttft_p50_ms": status["ttft_p50_ms"], "reprefills": status["reprefills_total"]}
+    finally:
+        _stopped(fleet, fleet.prefill, fleet.decode)
+
+
+def _wire_bytes(cfg, tokens: int, quantized: bool) -> int:
+    """K and V [L, T, KV, HD] on the wire: fp32, or int8 codes with fp32
+    [L, T, KV, 1] scales."""
+    n = 2 * cfg.n_layers * tokens * cfg.n_kv_heads
+    return n * (cfg.head_dim + 4) if quantized else n * cfg.head_dim * 4
+
+
+def _fleet_disagg(out: dict, fails: list, sched, state: dict, plan: list) -> None:
+    """(b): both wires through the pools, then reshard's serving half on two
+    engines stepped here: held requests migrated, a prefix moved through
+    the host tier."""
+    import numpy as np
+
+    from tpu_engine_torch import reshard
+    from tpu_engine_torch import serving as tsrv
+    from tpu_engine_torch.prefix_plane import HostKVTier
+
+    cfg, params = _llama_1b(state)
+    b = out["b"] = {}
+    prompts = [(p, n, 0.0) for p, n, _ in plan[:8]]
+    for name, wire_quant, kv_quant in (("fp32_wire", False, False),
+                                       ("int8_wire", True, True)):
+        r = b[name] = disagg_streams(sched, prompts, wire_quant, kv_quant)
+        gaps = [_stream_gap(params, cfg, p, row["tokens"])
+                for (p, _, _), row in zip(prompts, r["rows"])]
+        want = [_wire_bytes(cfg, len(p), wire_quant) for p, _, _ in prompts]
+        r.update(max_gap=max(gaps), gaps=gaps, want_bytes=want)
+        bad = [i for i, row in enumerate(r["rows"])
+               if row["status"] != "done" or not all(row["phases"].values())
+               or row["wire_bytes"] != [want[i]] or row["kv_tokens"] != [len(prompts[i][0])]]
+        print(f"serve_fleet (b) {name}: pools of {r['slots']} slots (plan_serving_pool), "
+              f"{r['handoffs']} handoffs, {r['bytes']} wire bytes "
+              f"(the [L, T, KV, HD] arithmetic {sum(want)}), every phase seen by "
+              f"{8 - len(bad)}/8, TTFT p50 {r['ttft_p50_ms']} ms, largest teacher-forced gap "
+              f"{r['max_gap']:.4f} (tau {SERVE_TAU}), {r['seconds']:.1f} s", flush=True)
+        if bad:
+            fails.append(f"(b) {name}: requests {bad}: {[r['rows'][i] for i in bad]}")
+        if r["max_gap"] > SERVE_TAU:
+            fails.append(f"(b) {name}: teacher-forced gap {r['max_gap']} > {SERVE_TAU}")
+
+    t0 = time.perf_counter()
+    geom = dict(max_slots=4, max_len=FLEET_SPEC["max_len"],
+                prefill_chunk=FLEET_SPEC["prefill_chunk"], prefix_cache_tokens=1024)
+    src, dst, cold = (tsrv.ContinuousBatcher(params, cfg, **geom) for _ in range(3))
+    shared = [plan[i][0] for i in SERVE_SHARED[:2]]
+    held = [src.submit(p, max_new_tokens=1, hold_kv=True) for p in shared]
+    _drive(src, held)
+    moved = reshard.migrate_held_requests(src, dst, max_new_tokens=16)
+    _drive(dst, moved["mapping"].values())
+    streams = [src.result(h)["tokens"] + dst.result(moved["mapping"][h])["tokens"]
+               for h in held]
+    mig_gap = max(_stream_gap(params, cfg, p, s) for p, s in zip(shared, streams))
+    key = max(src._prefix_cache._entries, key=len)
+    tier = HostKVTier(budget_bytes=1 << 30)
+    tier.put(key, src.export_prefix(list(key)))
+    installed = reshard.rehydrate_from_host(tier, list(key), dst)
+    probe = list(key) + np.random.default_rng(24).integers(1, cfg.vocab_size, 40).tolist()
+    warm, want = _first_logits(dst, probe), _first_logits(cold, probe)
+    rel = _rel_err(warm, want)
+    b["reshard"] = {"migrated": moved["migrated"], "wire_bytes": moved["wire_bytes"],
+                    "mttr_s": moved["mttr_s"], "max_gap": mig_gap, "prefix_tokens": len(key),
+                    "installed": installed, "host_bytes": tier.total_bytes,
+                    "warm_hits": dst.stats()["prefix_cache"]["hits"],
+                    "cold_hits": cold.stats()["prefix_cache"]["hits"],
+                    "first_logits_rel": rel, "seconds": time.perf_counter() - t0}
+    print(f"serve_fleet (b) reshard: {moved['migrated']} held requests migrated "
+          f"({moved['wire_bytes']} wire bytes, {moved['mttr_s']:.3f} s), largest teacher-forced "
+          f"gap {mig_gap:.4f}; a {len(key)}-token prefix through the host tier "
+          f"({tier.total_bytes} bytes, int8) into a fresh engine: first logits {rel:.4e} from a "
+          f"cold server's (SERVE_REL {SERVE_REL['bf16']})", flush=True)
+    if moved["migrated"] != 2 or src.held_requests() or mig_gap > SERVE_TAU:
+        fails.append(f"(b) migration: {b['reshard']}")
+    if not installed or b["reshard"]["warm_hits"] != 1 or rel > SERVE_REL["bf16"]:
+        fails.append(f"(b) prefix through the host tier: {b['reshard']}")
+
+
+def _fleet_spec(out: dict, fails: list, sched, state: dict, plan: list) -> None:
+    """(d): a SpecServingFleet a draft, one spill controller over both."""
+    from tpu_engine_torch import historian
+    from tpu_engine_torch import serving as tsrv
+    from tpu_engine_torch.serving_fleet import ServingReplicaSpec, build_replica_engine
+    from tpu_engine_torch.spec_pool import SpecServingFleet, SpecSpillConfig, SpecSpillController
+
+    cfg, params = _llama_1b(state)
+    dcfg, dparams = _draft_2l(state)
+    hist = historian.MetricHistorian()
+    ctl = SpecSpillController(hist, SpecSpillConfig(window_s=120.0, sustain_consults=2,
+                                                    cooldown_s=0.0, canary_every=2))
+
+    def draft_2l(spec):
+        if spec.pool_role == "draft":
+            return tsrv.ContinuousBatcher(dparams, dcfg, max_slots=spec.max_slots,
+                                          max_len=spec.max_len, prefill_chunk=spec.prefill_chunk,
+                                          chunk_steps=spec.decode_chunk_steps)
+        return build_replica_engine(spec)
+
+    fleets = {name: SpecServingFleet(
+        sched, ServingReplicaSpec(**FLEET_SPEC), ServingReplicaSpec(**FLEET_SPEC),
+        verify_autoscaler=_one_replica(), draft_autoscaler=_one_replica(), historian=hist,
+        spill=ctl, spec_gamma=4, submitter=f"serve-fleet-{name}", **kw)
+        for name, kw in (("own", {}), ("2l", {"engine_factory": draft_2l}))}
+    d = out["d"] = {}
+    try:
+        t0 = time.perf_counter()
+        _fresh_reading(sched)
+        for f in fleets.values():
+            f.start()
+        _fleet_await(lambda: all(len(f.draft.running_replicas()) == 1
+                                 and len(f.verify.running_replicas()) == 1
+                                 for f in fleets.values()), "(d)'s pools")
+        prompts = [p for p, _, _ in plan[:8]]
+        got = {}
+
+        def serve(name, batch):
+            fleet = fleets[name]
+            fids = [fleet.submit_request(p, FLEET_NEW, tenant=name) for p in batch]
+            for fid in fids:
+                o = fleet.wait(fid, timeout=FLEET_SERVE_WAIT_S)
+                r = fleet._requests[fid]
+                own = fleet.verify.running_replicas()[r["verify_sid"]].result(r["verify_rid"])
+                got.setdefault(name, []).append((o, own["tokens"]))
+
+        serve("own", prompts)
+        serve("2l", prompts[:4])
+        for f in fleets.values():
+            f.tick()
+            f.tick()
+        serve("2l", prompts[4:])
+        for f in fleets.values():
+            f.tick()
+        fired = [(x.rule, x.target) for x in ctl.decisions if x.outcome == "fired"]
+        for name, rows in got.items():
+            gaps = [_stream_gap(params, cfg, p, o["tokens"]) for p, (o, _) in zip(prompts, rows)]
+            d[name] = {
+                "accept_ema": fleets[name].tenant_accept_rates()[name],
+                "own_streams": all(o["tokens"] == own for o, own in rows),
+                "done": all(o["status"] == "done" for o, _ in rows),
+                "speculated": [o["speculated"] for o, _ in rows],
+                "canary": [o["canary"] for o, _ in rows],
+                "max_gap": max(gaps),
+                "legs": {k: fleets[name].status()[k]
+                         for k in ("draft_legs_total", "plain_legs_total")}}
+        d.update(spilled=ctl.spilled(), fired=fired, seconds=time.perf_counter() - t0)
+        print(f"serve_fleet (d) speculation: acceptance EMA own {d['own']['accept_ema']}, "
+              f"2-layer {d['2l']['accept_ema']} (floor {ctl.cfg.accept_floor}); spilled "
+              f"{d['spilled']} by {fired}; 2-layer requests speculated {d['2l']['speculated']}, "
+              f"canaries {d['2l']['canary']}; largest teacher-forced gap own "
+              f"{d['own']['max_gap']:.4f}, 2-layer {d['2l']['max_gap']:.4f}, "
+              f"{d['seconds']:.1f} s", flush=True)
+        if not all(d[n]["done"] and d[n]["own_streams"] and d[n]["max_gap"] <= SERVE_TAU
+                   for n in ("own", "2l")):
+            fails.append(f"(d) streams: {d}")
+        if not (d["own"]["accept_ema"] > ctl.cfg.accept_floor and d["spilled"] == ["2l"]
+                and fired == [("spill_low_acceptance", "2l")]
+                and d["2l"]["canary"][4:] == [False, True, False, True]):
+            fails.append(f"(d) spill: {d}")
+    finally:
+        for f in fleets.values():
+            _stopped(f, f.draft, f.verify)
+
+
+def _fleet_evict(out: dict, fails: list, sched, work) -> None:
+    """(c): the scheduler's own admission evicts the batch replica for a
+    CRITICAL training job (K1-K3 counted around its steps) and readmits it
+    after the job's end."""
+    import numpy as np
+    import torch
+
+    from tpu_engine_torch import tracing
+    from tpu_engine_torch.hbm_estimate import estimate_job_hbm
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+    from tpu_engine_torch.ops import _flash_cuda as fc
+    from tpu_engine_torch.scheduler import JobPriority
+    from tpu_engine_torch.serving_fleet import ServingFleet, ServingReplicaSpec
+
+    c = out["c"] = {}
+    interactive = ServingFleet(sched, ServingReplicaSpec(**FLEET_SPEC),
+                               autoscaler=_one_replica(), submitter="serve-fleet-interactive")
+    fleet = ServingFleet(sched, ServingReplicaSpec(**{**FLEET_SPEC, "max_slots": EVICT_SLOTS,
+                                                      "max_len": EVICT_LEN}),
+                         autoscaler=_one_replica(), priority=JobPriority.LOW,
+                         submitter="serve-fleet-batch")
+    model_cfg = MODEL_CONFIGS["llama-1b"].with_(n_layers=FLEET_L)
+    cfg = _llama_1b_cfg(attention_impl="flash", log_every_steps=1, total_steps=100,
+                        metrics_log_path=str(work / "critical.jsonl"))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = torch.randint(0, model_cfg.vocab_size, (1, cfg.micro_batch_size, cfg.seq_len),
+                          generator=gen, device="cuda")
+    before = sched.stats()
+    job = None
+    try:
+        c["memory_before"] = _card_memory()
+        for f in (interactive, fleet):  # one at a time: each admitted on its own reading
+            _fresh_reading(sched)
+            f.start()
+            _fleet_await(lambda f=f: len(f.running_replicas()) == 1, "(c)'s replicas")
+        (replica,) = fleet._replicas.values()
+        dev = _fresh_reading(sched).devices[0]
+        c.update(memory_serving=_card_memory(),
+                 replica_estimates_gib=[s.estimate.device_total_gib for f in (interactive, fleet)
+                                        for s in f._replicas.values()],
+                 job_estimate_gib=estimate_job_hbm(cfg, 1).device_total_gib,
+                 hbm_total_gb=dev.hbm_total_gb, hbm_used_gb=dev.hbm_used_gb,
+                 reserved_gib=sched._reserved.get(dev.index, 0.0), available=dev.is_available,
+                 duty_pct=dev.duty_cycle_pct)
+        c["headroom_gib"] = dev.hbm_free_gb - c["reserved_gib"]
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(1, model_cfg.vocab_size, int(n)).tolist()
+                   for n in rng.integers(256, 1025, EVICT_REQUESTS)]
+        fids = [fleet.submit_request(p, EVICT_NEW) for p in prompts]
+        torch.cuda.synchronize()
+        fc.reset_launches()
+        t_sub = time.perf_counter()
+        crit = sched.submit(cfg, priority=JobPriority.CRITICAL, submitter="serve-fleet-critical",
+                            job_kwargs={"max_steps": EVICT_STEPS, "model_config": model_cfg,
+                                        "data_fn": lambda step: batch})
+        c["evict_s"] = _fleet_await(lambda: replica.preemptions == 1, "the eviction",
+                                    detail=lambda: (crit.last_skip_reason, replica.state.value))
+        c["in_flight_at_eviction"] = sum(not fleet._requests[f]["done"] for f in fids)
+        _fleet_await(lambda: crit.state.value == "running", "the CRITICAL job's admission",
+                     detail=lambda: crit.last_skip_reason)
+        c["admit_s"] = time.perf_counter() - t_sub
+        c["memory_after_teardown"] = _card_memory()
+        job = crit.job
+        _fleet_await(lambda: crit.state.value in ("completed", "failed"), "the job's end",
+                     tick=lambda: fleet.result(fids[0]))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in fc.launches.items() if v}
+        _fleet_await(
+            lambda: replica.state.value == "running" and len(fleet.running_replicas()) == 1,
+            "the replica's readmission", tick=lambda: fleet.result(fids[0]),
+            detail=lambda: (replica.state.value, replica.last_skip_reason))
+        # The scheduler's own stamps: the pass that reaps the job may admit
+        # the replica in the same breath.
+        c["readmit_s"] = replica.last_admitted_at - crit.finished_at
+        c["done_s"] = _fleet_await(
+            lambda: all(fleet.result(f)["status"] in ("done", "failed") for f in fids),
+            "the re-dispatched requests")
+        events = tracing.get_recorder().events(trace_id=crit.trace_id, kind="scheduler", limit=0)
+        c["job_skips"] = [e["attrs"]["reason"] for e in events if e["name"] == "admission_skip"]
+        c["preempted"] = [e["attrs"].get("victim") for e in events
+                          if e["name"] == "preempt_requested"]
+        statuses = [fleet.result(f)["status"] for f in fids]
+        losses = [v for _, v in sorted(_fleet_losses(work / "critical.jsonl").items())]
+        st = sched.stats()
+        L = model_cfg.n_layers
+        want = {"flash_fwd": 2 * L * EVICT_STEPS, "flash_bwd_dq": L * EVICT_STEPS,
+                "flash_bwd_dkv": L * EVICT_STEPS}
+        out.update(steps=EVICT_STEPS, accum=cfg.gradient_accumulation_steps, launches=launches,
+                   launches_expected=want)
+        c.update(job=crit.state.value, job_error=job.error if job else None, losses=losses,
+                 statuses=sorted(set(statuses)), replica_attempts=replica.attempts,
+                 replica_checkpoint_dir=replica.config.checkpoint_dir,
+                 interactive_running=len(interactive.running_replicas()),
+                 counters={k: st[k] - before[k] for k in ("preemptions_total", "requeues_total",
+                                                          "completed_total")},
+                 seconds=time.perf_counter() - t_sub)
+        print(f"serve_fleet (c) eviction: headroom {c['headroom_gib']:.2f} GiB (card "
+              f"{c['hbm_total_gb']:.2f}, used {c['hbm_used_gb']:.2f}, reserved "
+              f"{c['reserved_gib']:.2f}) against the job's {c['job_estimate_gib']:.2f} GiB; the job "
+              f"skipped {c['job_skips']}; evicted {c['evict_s']:.2f} s after its submission with "
+              f"{c['in_flight_at_eviction']} requests in flight, card used "
+              f"{c['memory_after_teardown']['used_gib']:.2f} GiB after the teardown; job "
+              f"{c['job']}, losses {losses}, launches {launches}; the replica readmitted "
+              f"{c['readmit_s']:.3f} s after its end, requests {c['statuses']} "
+              f"{c['done_s']:.1f} s later; counters {c['counters']} ({_card_line()})", flush=True)
+        if not c["headroom_gib"] < c["job_estimate_gib"] or not c["available"]:
+            fails.append(f"(c) the card before the job: {c}")
+        if (c["in_flight_at_eviction"] < 1 or c["preempted"] != [replica.submission_id]
+                or not any("GiB/device" in r for r in c["job_skips"])):
+            fails.append(f"(c) the eviction: {c}")
+        if c["job"] != "completed" or len(losses) != EVICT_STEPS or not all(
+                b < a for a, b in zip(losses[1:], losses[2:])) or launches != want:
+            fails.append(f"(c) the job: {c['job']}, {losses}, {launches} (want {want})")
+        if (c["statuses"] != ["done"] or c["replica_attempts"] != 2
+                or c["readmit_s"] < 0
+                or c["replica_checkpoint_dir"] is not None or c["interactive_running"] != 1
+                or c["counters"] != {"preemptions_total": 1, "requeues_total": 1,
+                                     "completed_total": 1}):
+            fails.append(f"(c) readmission: {c}")
+    finally:
+        _stopped(fleet)
+        _stopped(interactive)
+        if job is not None:
+            job._state = job.program = None
+        _free()
+
+
+def phase_serve_fleet(res: dict) -> None:
+    """The serving fleet (module docstring, serve_fleet): (a), (b) and (d)
+    on one FleetScheduler over the card's live fleet, then (c) on the same
+    scheduler; the CRITICAL job's K1-K3 launches are the bf16 D 128 rows'
+    ``serve_fleet`` column."""
+    import shutil
+
+    from tpu_engine_torch.scheduler import FleetScheduler
+    from tpu_engine_torch.tpu_manager import TPUManager
+
+    work = ROOT / "chiprun_out" / "serve_fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = res["serve_fleet"] = {"card": _card_line()}
+    fails: list = []
+    state: dict = {}
+    t0 = time.perf_counter()
+    sched = FleetScheduler(max_concurrent_jobs=8, fleet_fn=TPUManager().get_fleet_status,
+                           poll_interval_s=0.05)
+    try:
+        plan = _serve_plan(_llama_1b(state)[0])
+        for part in (_fleet_unified, _fleet_disagg, _fleet_spec):
+            part(out, fails, sched, state, plan)
+        state.clear()
+        _free()
+        _fleet_evict(out, fails, sched, work)
+    finally:
+        for s in list(sched._subs.values()):
+            if s.job is not None and s.job.is_alive:
+                s.job._stop.set()
+        sched.shutdown()
+        state.clear()
+        shutil.rmtree(work, ignore_errors=True)
+        _free()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"serve_fleet: {out['phase_s']:.1f} s", flush=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+
 def phase_train_pipe(res: dict, steps: int) -> None:
     """llama-1b at full width and MESH_L of its 16 layers (d_model 2048, 16
     heads of 128, d_ff 5504, vocab 32000), bf16 compute, fp32 masters,
@@ -5414,6 +6038,7 @@ def main() -> int:
         run("train_data", phase_train_data, res)
         run("train_job", phase_train_job, res)
         run("train_fleet", phase_train_fleet, res)
+        run("serve_fleet", phase_serve_fleet, res)
         run("ring", phase_ring, res)
         run("train_ring", phase_train_ring, res, args.steps)
         run("train_fp32", phase_train_fp32, res, args.steps)

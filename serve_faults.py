@@ -6,6 +6,7 @@ there are set from these readings.
     python3 serve_faults.py          # llama-1b: streams, int8 pool, speculative
     python3 serve_faults.py --moe    # moe-8x7b in weight-only int8 (serve_moe)
     python3 serve_faults.py --mesh   # llama-1b on model=2 (serve_mesh)
+    python3 serve_faults.py --handoff  # the KV handoff of serve_fleet (b)
 
 llama-1b at full width and depth (seed-0 weights cast once to bf16) serves
 the ``serve`` phase's 16 requests (``chip_smoke._serve_plan``, the same
@@ -87,6 +88,23 @@ one-rank pool's on the same tokens (``chip_smoke.serve_mesh_rel``; held to
 Each mesh fault is read on the bf16 weights and on their weight-only int8
 tree (``quant.quantize_params``; the batcher cuts it as JAX's
 ``quantize_pspecs`` splits it).
+
+Handoff faults (``--handoff``), on ``chip_smoke.py``'s ``serve_fleet``
+(b): a ``DisaggServingFleet`` of one llama-1b prefill and one decode replica
+on the card's live fleet serving ``serve``'s first 8 prompts greedily
+(``chip_smoke.disagg_streams``), read as the largest teacher-forced gap of
+the stitched streams (held to ``SERVE_TAU``):
+
+- ``handoff_sound`` (fp32 wire, bf16 pools), ``handoff_sound_int8`` (int8
+  wire into a ``kv_quant`` decode pool);
+- ``handoff_length_short``: the decode pool's slot takes the resident
+  length one short (the last prompt token's K/V hidden, and decode runs a
+  position behind);
+- ``handoff_lane_head_swap``: extraction reshapes the pool's
+  ``[L, KV, T, HD]`` slice to the wire's ``[L, T, KV, HD]`` instead of
+  swapping the axes, so lanes and heads mix under the right shape;
+- ``handoff_int8_scales_dropped``: the int8 insert leaves every scale at 1
+  (codes read as values).
 
 Each fault is a patch of one function of the package for its own run; no
 file changes. Prints the card's name and power limit, one line per reading
@@ -201,6 +219,77 @@ def main_mesh(card: str) -> dict:
             print(f"{name}: teacher-forced decode logits of the {tree} weights on model=2 "
                   f"against one rank, relative {r:.4e} (SERVE_TP_REL {SERVE_TP_REL})",
                   flush=True)
+    return out
+
+
+def _length_short(real):
+    def insert(self, handoff, slot):
+        real(self, handoff, slot)
+        self._cache.lengths[slot] -= 1
+
+    return insert
+
+
+def _lane_head_swap(real):
+    def to_wire(t):
+        t = t.float() if t.dtype.is_floating_point and t.element_size() == 2 else t
+        L, KV, T, X = t.shape
+        return t.contiguous().reshape(L, T, KV, X).cpu().numpy()
+
+    return to_wire
+
+
+def _scales_dropped(real):
+    def to_cache(handoff, **kw):
+        cache = real(handoff, **kw)
+        if cache.k_scale is not None:
+            cache.k_scale.fill_(1.0)
+            cache.v_scale.fill_(1.0)
+        return cache
+
+    return to_cache
+
+
+def main_handoff(card: str) -> dict:
+    import chip_smoke as cs
+    from tpu_engine_torch import disagg
+    from tpu_engine_torch import serving as tsrv
+    from tpu_engine_torch.scheduler import FleetScheduler
+    from tpu_engine_torch.tpu_manager import TPUManager
+
+    state: dict = {}
+    cfg, params = cs._llama_1b(state)
+    prompts = [(p, n, 0.0) for p, n, _ in cs._serve_plan(cfg)[:8]]
+    faults = {
+        "handoff_sound": (False, None),
+        "handoff_length_short": (False, (tsrv.ContinuousBatcher, "_insert_handoff",
+                                         _length_short)),
+        "handoff_lane_head_swap": (False, (disagg, "_to_wire", _lane_head_swap)),
+        "handoff_sound_int8": (True, None),
+        "handoff_int8_scales_dropped": (True, (disagg, "handoff_to_cache", _scales_dropped)),
+    }
+    out: dict = {"card": card, "tau": cs.SERVE_TAU, "handoff": {}}
+    sched = FleetScheduler(max_concurrent_jobs=8, fleet_fn=TPUManager().get_fleet_status,
+                           poll_interval_s=0.05)
+    try:
+        for name, (quant, patch) in faults.items():
+            with _patched(patch):
+                try:
+                    run = cs.disagg_streams(sched, prompts, quant, quant)
+                except Exception as e:  # a fault may fail the requests outright
+                    out["handoff"][name] = {"error": f"{type(e).__name__}: {e}"}
+                    print(f"handoff {name}: {out['handoff'][name]['error']}", flush=True)
+                    continue
+            rows = run["rows"]
+            gaps = [cs._stream_gap(params, cfg, p, r["tokens"]) if r["status"] == "done"
+                    else float("inf") for (p, _, _), r in zip(prompts, rows)]
+            out["handoff"][name] = {"max_gap": max(gaps), "per_request": gaps,
+                                    "statuses": [r["status"] for r in rows]}
+            print(f"handoff {name}: largest teacher-forced gap {max(gaps):.4f} (tau "
+                  f"{cs.SERVE_TAU}), statuses {sorted(set(r['status'] for r in rows))}",
+                  flush=True)
+    finally:
+        sched.shutdown()
     return out
 
 
@@ -365,6 +454,13 @@ def main() -> int:
         print(json.dumps(out), flush=True)
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "serve_faults_moe.json").write_text(json.dumps(out, indent=1))
+        return 0
+    if "--handoff" in sys.argv[1:]:
+        out = main_handoff(card)
+        print(json.dumps(out), flush=True)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "serve_faults_handoff.json").write_text(
+            json.dumps(out, indent=1))
         return 0
     if "--mesh" in sys.argv[1:]:
         out = main_mesh(card)

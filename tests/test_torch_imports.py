@@ -37,7 +37,8 @@ def test_port_modules_import_neither_jax_nor_tpu_engine():
               "reshard", "data", "native", "historian", "journal", "tracing", "loss_monitor",
               "preemption", "faults", "compile_cache", "compile_index", "profiler", "telemetry",
               "tpu_manager", "hbm_estimate", "hetero", "supervisor", "goodput", "placement",
-              "scheduler", "launcher"}
+              "scheduler", "launcher", "disagg", "serving_fleet", "prefix_plane", "autopilot",
+              "spec_pool"}
     have = {m.name.rsplit(".", 1)[-1] for m in pkgutil.walk_packages(
         [str(ROOT / "tpu_engine_torch")])}
     assert wanted <= have and int(count) >= len(have)

@@ -331,9 +331,12 @@ def test_slot_at_capacity_mid_chunk_matches_jax(llama):
 def test_capacity_and_guards(llama, gqa_window):
     """JAX's ValueError guards, and NotImplementedError for what is not
     ported: a mesh with data=2 (the batcher runs on ranks of ``model``
-    alone) and the disaggregated-serving plane. Speculative serving
-    is ported: a draft builds on llama, and a windowed model is refused
-    with JAX's ``draft_ring_window``."""
+    alone). Speculative serving is ported: a draft builds on llama, and a
+    windowed model is refused with JAX's ``draft_ring_window``. The
+    disaggregated-serving plane answers as JAX's does: ``hold_kv`` is
+    taken, an unknown request is a ``KeyError``, nothing is held or
+    extracted yet, and a server without a prefix cache neither exports nor
+    installs one (``tests/test_torch_disagg.py`` holds the plane to JAX's)."""
     _, cfg, _, tp = llama
     srv = _port(llama, max_slots=1, max_len=32)
     with pytest.raises(ValueError, match="max_len"):
@@ -350,11 +353,15 @@ def test_capacity_and_guards(llama, gqa_window):
     with pytest.raises(tsrv.SpecGeometryError, match="sliding-window") as info:
         _port(gqa_window, max_len=128, prefill_chunk=16, draft_params=wtp, draft_cfg=wcfg)
     assert info.value.kind == "draft_ring_window"
-    with pytest.raises(NotImplementedError):
-        srv.submit([1, 2], max_new_tokens=1, hold_kv=True)
-    for name in ("submit_prefilled", "request_handoff", "release_held", "take_handoff",
-                 "wait_handoff", "export_prefix", "install_prefix"):
-        with pytest.raises(NotImplementedError):
-            getattr(srv, name)(0)
+    held = srv.submit([1, 2], max_new_tokens=1, hold_kv=True)
+    assert srv.held_requests() == [] and srv.stats()["held_slots"] == 0
+    with pytest.raises(KeyError):
+        srv.request_handoff(held + 1)
+    assert srv.take_handoff(held) is None and srv.release_held(held) is None
+    with pytest.raises(TimeoutError, match="not extracted"):
+        srv.wait_handoff(held, timeout=0.01)
+    assert srv.export_prefix([1, 2]) is None and srv.install_prefix([1, 2], None) is False
+    with pytest.raises(AttributeError):
+        srv.submit_prefilled(0)
     ring = tsrv.init_slot_cache(gqa_window[1], 2, 64, prefill_chunk=16, device="cpu")
     assert ring.ring and ring.n_lanes == WINDOW + 16 - 1 and ring.pos.shape == (2, 27)

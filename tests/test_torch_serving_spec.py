@@ -247,8 +247,9 @@ def test_guards_raise_as_jax(target, weak):
     """Every ``SpecGeometryError`` kind, the prefix-cache refusal and the
     submit guards raise JAX's type, message, kind and reason, in JAX's
     order: a speculative server refuses sampling, ``hold_kv`` and
-    ``submit_prefilled`` with ``ValueError`` before the port's
-    ``NotImplementedError`` for the handoff plane."""
+    ``submit_prefilled`` with ``ValueError``; a plain server takes the
+    handoff plane's calls as JAX's does (a payload that is not one fails
+    alike)."""
     windowed = _model(5, sliding_window=8)
 
     def no_cfg(make):
@@ -283,5 +284,6 @@ def test_guards_raise_as_jax(target, weak):
         assert type(terr) is type(jerr) is ValueError and str(terr) == str(jerr)
     with pytest.raises(ValueError, match="speculative"):
         spec.submit_prefilled(None)
-    with pytest.raises(NotImplementedError):
-        _port(target, max_len=64).submit_prefilled(None)
+    jerr = _raised(lambda: _jax(target, max_len=64).submit_prefilled(None))
+    terr = _raised(lambda: _port(target, max_len=64).submit_prefilled(None))
+    assert type(terr) is type(jerr) is AttributeError and str(terr) == str(jerr)

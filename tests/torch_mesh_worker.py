@@ -3,6 +3,7 @@
 ``tests/test_torch_tp_serving.py``, ``tests/test_torch_pipeline.py``,
 ``tests/test_torch_tp_lora.py``, ``tests/test_torch_tp_int8_serving.py``,
 ``tests/test_torch_comm_compress.py``, ``tests/test_torch_checkpoint.py``,
+``tests/test_torch_disagg.py``,
 ``tests/test_torch_reshard.py``, ``tests/test_torch_mesh_place.py``,
 ``tests/test_torch_mesh_int8.py``, ``tests/test_torch_mesh_moe_seq.py``,
 ``tests/test_torch_data.py``),
@@ -260,6 +261,70 @@ def _serve(case: dict, rank: int) -> dict:
         out[f"status_done:{i}"] = res["status"] == "done"
         out[f"first:{i}"] = first[i]
     return out
+
+
+def _handoff(case: dict, rank: int) -> dict:
+    """The batcher's handoff plane on the mesh, rank 0 calling it and
+    stepping, the others stepping until it stops them: a held prefill of
+    ``prompt`` extracted with the fp32 and the int8 wire, the given payload
+    (``payload``: its arrays, ``payload_meta``: the rest) decoded, a prefix
+    exported after ``long_prompt``, and the given payload installed under
+    ``install_key``, with the first logits of ``probe`` after it."""
+    import torch
+
+    from tpu_engine_torch.disagg import KVHandoff
+    from tpu_engine_torch.models.config import MODEL_CONFIGS
+    from tpu_engine_torch.serving import ContinuousBatcher
+
+    rt = _runtime(case["mesh"])
+    cfg = MODEL_CONFIGS[case["model"]]
+    params = {k: torch.tensor(v) for k, v in np.load(case["init"]).items()}
+    srv = ContinuousBatcher(params, cfg, compute_dtype=torch.float32, device="cpu", mesh=rt,
+                            **case["batcher"])
+    out = {"kv_heads": srv._cache.k.shape[2]}
+    if rt.coords["model"] != 0:
+        while not srv._closed:
+            srv.step()
+        return {**out, "held": len(srv.held_requests())}
+    arrays = dict(np.load(case["payload"]))
+    given = KVHandoff(**case["payload_meta"], k=arrays["k"], v=arrays["v"])
+
+    def until(pred):
+        for _ in range(300):
+            if pred():
+                return
+            srv.step()
+        raise AssertionError("the mesh batcher stalled")
+
+    for q in (0, 1):
+        rid = srv.submit(case["prompt"], max_new_tokens=1, hold_kv=True)
+        until(lambda: srv.result(rid)["status"] == "done")
+        srv.request_handoff(rid, quantize=bool(q))
+        got = []
+        until(lambda: got.append(srv.take_handoff(rid)) or got[-1] is not None)
+        h = got[-1]
+        out.update({f"extract{q}:k": h.k, f"extract{q}:v": h.v,
+                    f"extract{q}:meta": np.array([h.length, h.n_kv_heads] + h.emitted)})
+        if q:
+            out.update({"extract1:k_scale": h.k_scale, "extract1:v_scale": h.v_scale})
+    d = srv.submit_prefilled(given, max_new_tokens=6)
+    until(lambda: srv.result(d)["status"] == "done")
+    out["decoded"] = np.array(srv.result(d)["tokens"])
+    r = srv.submit(case["long_prompt"], max_new_tokens=1)
+    until(lambda: srv.result(r)["status"] == "done")
+    key = max(srv._prefix_cache._entries, key=len)
+    e = srv.export_prefix(list(key))
+    out.update({"export:key": np.array(key), "export:k": e.k, "export:v": e.v})
+    out["installed"] = srv.install_prefix(case["install_key"], given)
+    first = []
+    real = srv._first_token
+    srv._first_token = lambda logits, req: first.append(logits.numpy().copy()) or real(logits, req)
+    p = srv.submit(case["probe"], max_new_tokens=1)
+    until(lambda: srv.result(p)["status"] == "done")
+    out.update(probe_first=first[-1], hits=srv.stats()["prefix_cache"]["hits"],
+               handoffs=[srv.handoffs_out, srv.handoffs_in])
+    srv.shutdown()
+    return {**out, "held": len(srv.held_requests())}
 
 
 def _flat_tensors(state: dict) -> dict:
@@ -542,7 +607,7 @@ def main(job_path: str, rank: int, world: int) -> None:
         assert initialize_distributed(f"file://{job['store']}", world, rank, device="cpu")
     run = {"train": _train, "attention": _attention, "rendezvous": _rendezvous,
            "serve": _serve, "ckpt": _ckpt, "disk": _disk, "int8_scales": _int8_scales,
-           "int8_tp_scales": _int8_tp_scales, "hetero_job": _hetero_job}
+           "int8_tp_scales": _int8_tp_scales, "hetero_job": _hetero_job, "handoff": _handoff}
     for case in job["cases"]:
         out = run[case["kind"]](case, rank)
         np.savez(os.path.join(job["out"], f"{case['name']}.rank{rank}.npz"), **out)

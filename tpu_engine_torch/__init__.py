@@ -80,11 +80,21 @@ The fleet's scheduling half:
 - ``tpu_engine_torch.launcher`` — ``TPULauncher``, the presets and the CLI
   (``python -m tpu_engine_torch.launcher``).
 
+The serving fleet:
+
+- ``tpu_engine_torch.serving_fleet`` — replicas as scheduler submissions,
+  ``FleetRouter``, ``ReplicaAutoscaler``, ``ServingFleet``;
+- ``tpu_engine_torch.disagg`` — the ``KVHandoff`` wire and
+  ``DisaggServingFleet`` (prefill and decode pools);
+- ``tpu_engine_torch.prefix_plane``, ``autopilot`` and ``spec_pool`` — the
+  fleet prefix plane, the audited control loop and speculative pools.
+
 Imports here stay light: submodules are imported by the caller.
 """
 
-__all__ = ["checkpoint", "comm", "comm_compress", "compile_cache", "compile_index", "data",
-           "disk_offload", "generate", "goodput", "hbm_estimate", "hetero", "launcher", "lora",
-           "mesh_runtime", "models", "native", "offload", "ops", "parallel", "placement",
-           "profiler", "quant", "quant_train", "reshard", "scheduler", "serving", "sharding",
-           "supervisor", "telemetry", "tpu_manager", "train"]
+__all__ = ["autopilot", "checkpoint", "comm", "comm_compress", "compile_cache", "compile_index",
+           "data", "disagg", "disk_offload", "generate", "goodput", "hbm_estimate", "hetero",
+           "launcher", "lora", "mesh_runtime", "models", "native", "offload", "ops", "parallel",
+           "placement", "prefix_plane", "profiler", "quant", "quant_train", "reshard",
+           "scheduler", "serving", "serving_fleet", "sharding", "spec_pool", "supervisor",
+           "telemetry", "tpu_manager", "train"]

@@ -18,8 +18,11 @@ on another:
   layouts: it is quantized again from the restored shards.
 
 A ``pipe`` change is refused (stage-stacked state cannot be re-chunked).
-The serving half of JAX's module (moving held KV and prefix payloads
-between pools) waits for the disaggregated-serving and prefix planes.
+
+The serving half moves KV between serving pools on the handoff wire
+(:mod:`tpu_engine_torch.disagg`): :func:`rebucket_for_pool`,
+:func:`migrate_held_requests`, :func:`note_migrated_completions`,
+:func:`migrate_prefix` and :func:`rehydrate_from_host`, with JAX's counters.
 """
 
 from __future__ import annotations
@@ -52,8 +55,16 @@ _STATS: Dict[str, float] = {
     "bytes_remapped_total": 0,
     "parity_checks_total": 0,
     "parity_failures_total": 0,
+    "kv_rebuckets_total": 0,
+    "kv_rebucket_bytes_total": 0,
+    "migrations_total": 0,
+    "held_requests_migrated_total": 0,
+    "held_requests_completed_total": 0,
+    "prefix_payloads_migrated_total": 0,
+    # Gauges: the most recent plan/migration snapshot.
     "last_plan_bytes": 0,
     "last_plan_leaves": 0,
+    "last_migration_mttr_s": 0,
 }
 
 
@@ -387,3 +398,111 @@ def restore_resharded(mgr: Any, state_like: dict, *, step: Optional[int] = None,
     report.update(step=int(s), parity_ok=True, leaves=plan.leaves,
                   bytes_remapped=plan.bytes_to_remap)
     return s, state, report
+
+
+# -- serving executor ---------------------------------------------------------
+
+
+def rebucket_for_pool(
+    handoff: Any,
+    *,
+    chunk: int,
+    max_lanes: int,
+    kv_quant: bool,
+) -> Any:
+    """Re-bucket a wire payload for a destination pool's geometry and
+    storage mode (counted wrapper over
+    :func:`tpu_engine_torch.disagg.rebucket_handoff`)."""
+    from tpu_engine_torch.disagg import rebucket_handoff
+
+    out = rebucket_handoff(
+        handoff, chunk=chunk, max_lanes=max_lanes, kv_quant=kv_quant
+    )
+    _bump(kv_rebuckets_total=1, kv_rebucket_bytes_total=out.wire_bytes())
+    return out
+
+
+def migrate_held_requests(
+    src_engine: Any,
+    dst_engine: Any,
+    req_ids: Optional[List[int]] = None,
+    *,
+    max_new_tokens: int = 16,
+    quantize: bool = False,
+    pump_steps: int = 200,
+    now_s: Optional[float] = None,
+) -> Dict[str, Any]:
+    """Move every held ``hold_kv`` request from ``src_engine`` onto
+    ``dst_engine`` without dropping any: extract each held slot by
+    ``request_handoff``, then admit the payload by ``submit_prefilled`` (the
+    destination's ``handoff_to_cache`` re-buckets it to its own geometry and
+    storage mode). Both engines must be caller-stepped. Returns
+    ``{"mapping": {src_id: dst_id}, "migrated", "wire_bytes", "mttr_s"}``."""
+    import time as _time
+
+    if req_ids is None:
+        req_ids = src_engine.held_requests()
+    t0 = _time.time() if now_s is None else None
+    mapping: Dict[int, int] = {}
+    wire_bytes = 0
+    for rid in req_ids:
+        src_engine.request_handoff(rid, quantize=quantize)
+        handoff = None
+        for _ in range(pump_steps):
+            src_engine.step()
+            handoff = src_engine.take_handoff(rid)
+            if handoff is not None:
+                break
+        if handoff is None:
+            raise RuntimeError(
+                f"migration stalled: request {rid} never produced a handoff"
+            )
+        wire_bytes += int(handoff.wire_bytes())
+        mapping[rid] = dst_engine.submit_prefilled(
+            handoff, max_new_tokens=max_new_tokens
+        )
+    mttr = (now_s if now_s is not None
+            else max(_time.time() - t0, 0.0))
+    _bump(migrations_total=1, held_requests_migrated_total=len(mapping))
+    _gauge(last_migration_mttr_s=float(mttr))
+    return {
+        "mapping": mapping,
+        "migrated": len(mapping),
+        "wire_bytes": wire_bytes,
+        "mttr_s": float(mttr),
+    }
+
+
+def note_migrated_completions(n: int) -> None:
+    """Count migrated requests that finished decode on the destination
+    (the caller drives the destination engine and reports back)."""
+    _bump(held_requests_completed_total=int(n))
+
+
+def migrate_prefix(src_engine: Any, dst_engine: Any,
+                   prefix: List[int]) -> bool:
+    """Ship a replica-resident prefix-cache entry across pools:
+    ``export_prefix`` on the source, ``install_prefix`` on the destination
+    (every wire × pool conversion rides ``handoff_to_cache``). False when
+    the source does not hold the prefix or the destination refuses it."""
+    payload = src_engine.export_prefix(list(prefix))
+    if payload is None:
+        return False
+    ok = bool(dst_engine.install_prefix(list(prefix), payload))
+    if ok:
+        _bump(prefix_payloads_migrated_total=1)
+    return ok
+
+
+def rehydrate_from_host(tier: Any, prefix: List[int], dst_engine: Any,
+                        now: Optional[float] = None) -> bool:
+    """Move a prefix plane's host-tier payload into a destination pool's
+    prefix cache: the cross-pool leg of a replica drain (the source replica
+    spilled to the host; the replacement pool pulls from it)."""
+    payload = tier.get(prefix, now=now)
+    if payload is None:
+        return False
+    ok = bool(dst_engine.install_prefix(list(prefix), payload))
+    if ok:
+        _bump(prefix_payloads_migrated_total=1)
+    return ok

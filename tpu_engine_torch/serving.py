@@ -62,13 +62,23 @@ the logits gathered whole. Results are read on rank 0 (every rank holds
 the same). Rank 0's :meth:`ContinuousBatcher.shutdown` (or its
 ``serve_forever`` stopping) ends the other ranks' ``serve_forever``.
 
-Not ported yet; each raises ``NotImplementedError`` when asked for: a
-mesh with ``data``, ``fsdp``, ``pipe`` or ``sequence`` above 1, and the
-disaggregated-serving plane (``hold_kv``,
-``submit_prefilled``, ``request_handoff``, ``release_held``,
-``take_handoff``, ``wait_handoff``, ``export_prefix``, ``install_prefix``),
-after JAX's own guards (a speculative server refuses ``hold_kv`` and
-``submit_prefilled`` with ``ValueError``, as JAX does).
+The disaggregated-serving handoff plane (:mod:`tpu_engine_torch.disagg`):
+``submit(hold_kv=True)`` keeps a finished request's slot and K/V pinned;
+``request_handoff`` orders the engine thread to extract it as a
+:class:`~tpu_engine_torch.disagg.KVHandoff` (collected by ``take_handoff`` or
+``wait_handoff``) or ``release_held`` to discard it; ``submit_prefilled``
+admits a payload from either package's prefill pool straight to decode; and
+``export_prefix`` / ``install_prefix`` move prefix-cache entries on the same
+wire. The wire is ``[L, T, KV, HD]``; extraction and insertion swap the
+pool's head and lane axes. On a mesh rank 0 calls the plane: its orders,
+payloads and prefix moves reach every rank in the next step's broadcast, an
+extraction or export gathers the kv heads whole over ``model`` (rank 0 keeps
+the payload), an insertion takes each rank's heads, and ``export_prefix`` /
+``install_prefix`` step the engine until served (engine-thread only, as
+JAX's).
+
+Not ported yet; it raises ``NotImplementedError``: a mesh with ``data``,
+``fsdp``, ``pipe`` or ``sequence`` above 1.
 """
 
 from __future__ import annotations
@@ -104,7 +114,8 @@ from tpu_engine_torch.models.transformer import (
 from tpu_engine_torch.parallel.tensor_parallel import gather_vocab, model_axis, model_block
 from tpu_engine_torch.quant import QuantWeight
 
-_DISAGG = "the disaggregated-serving handoff plane is not ported"
+_RANK0 = ("on a mesh, submit on rank 0 of model: each step broadcasts its admissions to the "
+          "other ranks")
 
 
 @dataclass
@@ -454,6 +465,10 @@ class Request:
     submitted_at: float = field(default_factory=time.time)
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # Disaggregated serving: a finished ``hold_kv`` request keeps its slot
+    # (and the prompt K/V in it) until the handoff plane extracts or
+    # releases it (:mod:`tpu_engine_torch.disagg`).
+    hold_kv: bool = False
 
 
 class SpecGeometryError(ValueError):
@@ -535,14 +550,15 @@ class ContinuousBatcher:
             if others:
                 raise NotImplementedError(
                     f"serving on a mesh with {others} is not ported: the batcher runs on a "
-                    "mesh whose ranks all lie on model (replicas over data, fsdp, pipe or "
-                    "sequence belong to the serving fleet, which the port lacks)")
+                    "mesh whose ranks all lie on model (replicas over data are the serving "
+                    "fleet's, serving_fleet.ServingFleet, each its own batcher)")
             self._tp = model_axis(mesh, cfg)
             self._lead = mesh.coords["model"] == 0
             if self._tp is not None:
                 params = model_block(params, cfg, self._tp.size, self._tp.index)
         self._group = None if self._tp is None else self._tp.group
         self._unsent: list[Request] = []  # rank 0's submissions not yet broadcast
+        self._unsent_orders: list[tuple] = []  # and its handoff-plane orders
         self._closed = False
         self.cfg = cfg
         self.max_slots = int(max_slots)
@@ -634,6 +650,21 @@ class ContinuousBatcher:
         self._prefilling: "collections.OrderedDict[int, _PrefillState]" = \
             collections.OrderedDict()
         self._pending_first_logits: dict[int, torch.Tensor] = {}
+        # The handoff plane: _held maps a finished hold_kv request to the
+        # slot still pinning its K/V; _handoff_requests queues (req_id,
+        # quantize or None) orders for the engine thread (None = discard);
+        # _handoffs holds extracted payloads until collected;
+        # _prefilled_queue holds incoming payloads awaiting a free slot.
+        self._held: dict[int, int] = {}
+        self._handoff_requests: list[tuple[int, Optional[bool]]] = []
+        self._handoffs: dict[int, Any] = {}
+        self._prefilled_queue: list[tuple[Request, Any]] = []
+        # On a mesh: prefix moves for every rank's next step, and rank 0's
+        # results of them.
+        self._prefix_orders: list[tuple] = []
+        self._prefix_results: dict[tuple, Any] = {}
+        self.handoffs_out = 0
+        self.handoffs_in = 0
         self._lock = threading.Lock()
         self._done = threading.Condition(self._lock)
         self._tokens_out = 0
@@ -665,17 +696,15 @@ class ContinuousBatcher:
             raise ValueError(
                 "hold_kv with speculative serving is not supported (the draft cache "
                 "cannot travel on the handoff wire)")
-        if hold_kv:
-            raise NotImplementedError(f"hold_kv: {_DISAGG}")
         if len(prompt) + max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds the server's max_len {self.max_len}")
         if not self._lead:
-            raise ValueError("on a mesh, submit on rank 0 of model: each step broadcasts its "
-                             "admissions to the other ranks")
+            raise ValueError(_RANK0)
         req = Request(id=next(self._ids), prompt=[int(t) for t in prompt],
-                      max_new_tokens=int(max_new_tokens), temperature=float(temperature))
+                      max_new_tokens=int(max_new_tokens), temperature=float(temperature),
+                      hold_kv=bool(hold_kv))
         with self._lock:
             # Re-check under the lock: the failure handler drains the queue
             # holding it, so a submit racing the shutdown cannot strand a
@@ -688,10 +717,27 @@ class ContinuousBatcher:
             (self._unsent if self._group is not None else self._queue).append(req)
         return req.id
 
+    # -- the handoff plane (tpu_engine_torch/disagg.py) -----------------------
+
+    def _check_geometry(self, handoff: Any) -> None:
+        if handoff.n_layers != self.cfg.n_layers or \
+                handoff.n_kv_heads != self.cfg.n_kv_heads or \
+                handoff.head_dim != self.cfg.head_dim:
+            raise ValueError(
+                "handoff KV geometry does not match this engine's model "
+                f"({handoff.n_layers}L/{handoff.n_kv_heads}KV/"
+                f"{handoff.head_dim}HD vs {self.cfg.n_layers}L/"
+                f"{self.cfg.n_kv_heads}KV/{self.cfg.head_dim}HD)")
+
     def submit_prefilled(self, handoff: Any, max_new_tokens: int = 64,
                          temperature: float = 0.0) -> int:
-        """JAX's guards, then ``NotImplementedError``: the handoff plane is
-        not ported."""
+        """Admit a request whose prompt K/V arrives on the handoff wire (a
+        :class:`~tpu_engine_torch.disagg.KVHandoff` from either package's
+        prefill pool) instead of being prefilled here: the engine inserts
+        the wire K/V into a free slot by ``_insert_prefill`` and the request
+        goes straight to decode. The token history (prompt and the tokens
+        the prefill engine emitted) counts against ``max_len``;
+        ``max_new_tokens`` bounds the tokens this engine adds."""
         if self.last_error is not None:
             raise RuntimeError(f"serving loop failed: {self.last_error}")
         if self._cache.ring:
@@ -700,25 +746,203 @@ class ContinuousBatcher:
             raise ValueError(
                 "submit_prefilled with speculative serving is not supported (the "
                 "draft cache has no wire form)")
-        raise NotImplementedError(_DISAGG)
+        history = [int(t) for t in handoff.prompt] + [int(t) for t in handoff.emitted]
+        if handoff.length != len(history) - 1:
+            raise ValueError(
+                f"handoff length {handoff.length} != resident invariant "
+                f"(history {len(history)} - 1): wire payload is inconsistent")
+        self._check_geometry(handoff)
+        if len(history) + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"handoff history ({len(history)}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds the server's max_len {self.max_len}")
+        if not self._lead:
+            raise ValueError(_RANK0)
+        # ``prompt`` holds the whole history, so _emit's max_len guard sees
+        # the true context; its last token is the decode input (the
+        # resident K/V is everything but it: the pool's steady state).
+        req = Request(id=next(self._ids), prompt=history,
+                      max_new_tokens=int(max_new_tokens), temperature=float(temperature))
+        with self._lock:
+            if self.last_error is not None:
+                raise RuntimeError(f"serving loop failed: {self.last_error}")
+            self._requests[req.id] = req
+            if self._group is not None:
+                self._unsent_orders.append(("prefilled", req, handoff))
+            else:
+                self._prefilled_queue.append((req, handoff))
+        return req.id
 
-    def request_handoff(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_DISAGG)
+    def _order(self, rid: int, quantize: Optional[bool]) -> None:
+        """Queue a handoff order for the engine (on a mesh, for every rank's
+        next step). Caller holds the lock."""
+        if not self._lead:
+            raise ValueError(_RANK0)
+        if self._group is not None:
+            self._unsent_orders.append(("handoff", rid, quantize))
+        else:
+            self._handoff_requests.append((rid, quantize))
 
-    def release_held(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_DISAGG)
+    def request_handoff(self, req_id: int, quantize: bool = False) -> None:
+        """Order the engine thread to extract the held slot's K/V into a
+        wire payload (collect it with :meth:`take_handoff` or
+        :meth:`wait_handoff`) and free the slot. Only for a ``hold_kv``
+        request."""
+        with self._lock:
+            req = self._requests.get(req_id)
+            if req is None:
+                raise KeyError(req_id)
+            if not req.hold_kv:
+                raise ValueError(f"request {req_id} was not submitted hold_kv")
+            self._order(req_id, bool(quantize))
 
-    def take_handoff(self, *args, **kwargs) -> Any:
-        raise NotImplementedError(_DISAGG)
+    def release_held(self, req_id: int) -> None:
+        """Discard a held slot's K/V without extracting it."""
+        with self._lock:
+            self._order(req_id, None)
 
-    def wait_handoff(self, *args, **kwargs) -> Any:
-        raise NotImplementedError(_DISAGG)
+    def held_requests(self) -> list[int]:
+        """Request ids pinning a held slot: the reshard plane's drain
+        worklist (``reshard.migrate_held_requests``)."""
+        with self._lock:
+            return sorted(self._held)
 
-    def export_prefix(self, *args, **kwargs) -> Any:
-        raise NotImplementedError(_DISAGG)
+    def take_handoff(self, req_id: int) -> Any:
+        """Non-blocking collect: the extracted payload, or None if the
+        engine has not serviced the order yet. Raises ``RuntimeError`` if
+        extraction failed (the slot was no longer held)."""
+        with self._lock:
+            if req_id not in self._handoffs:
+                return None
+            out = self._handoffs.pop(req_id)
+        if out is None:
+            raise RuntimeError(
+                f"handoff extraction failed for request {req_id}: slot no longer held")
+        return out
 
-    def install_prefix(self, *args, **kwargs) -> bool:
-        raise NotImplementedError(_DISAGG)
+    def wait_handoff(self, req_id: int, timeout: float = 30.0) -> Any:
+        """Block until the engine extracts the payload ordered by
+        :meth:`request_handoff`."""
+        deadline = time.time() + timeout
+        with self._done:
+            while req_id not in self._handoffs:
+                if self.last_error is not None:
+                    raise RuntimeError(f"serving loop failed: {self.last_error}")
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    raise TimeoutError(f"handoff {req_id} not extracted in {timeout}s")
+                self._done.wait(remaining)
+            out = self._handoffs.pop(req_id)
+        if out is None:
+            raise RuntimeError(
+                f"handoff extraction failed for request {req_id}: slot no longer held")
+        return out
+
+    def export_prefix(self, prefix: list[int]) -> Optional[Any]:
+        """A resident prefix-cache entry as a wire payload (the host tier's
+        transport): ``length == len(prefix)``, ``emitted == []``, so it is a
+        cache entry, not a decodable request (``submit_prefilled`` refuses
+        it; :meth:`install_prefix` takes it). An int8 pool ships its codes
+        and scales, an fp pool the wire fp dtype. None when the prefix is not
+        resident. Engine-thread only, like every prefix-cache touch."""
+        if self._prefix_cache is None:
+            return None
+        key = tuple(int(t) for t in prefix)
+        if self._group is not None:
+            return self._mesh_prefix(("export", key))
+        return self._export_local(key)
+
+    def install_prefix(self, prefix: list[int], handoff: Any) -> bool:
+        """Rehydrate a host-tier payload into this replica's prefix cache,
+        so that the next prompt sharing ``prefix`` prefills only its tail.
+        The payload's resident K/V must cover the prefix. False when this
+        engine has no prefix cache or the entry exceeds its budget.
+        Engine-thread only."""
+        if self._prefix_cache is None:
+            return False
+        key = tuple(int(t) for t in prefix)
+        if not key:
+            raise ValueError("empty prefix")
+        self._check_geometry(handoff)
+        history = list(handoff.prompt) + list(handoff.emitted)
+        if handoff.length < len(key) or [int(t) for t in history[: len(key)]] != list(key):
+            raise ValueError(
+                "handoff does not cover the prefix: resident K/V is "
+                f"{handoff.length} tokens of a different history")
+        if self._group is not None:
+            return self._mesh_prefix(("install", key, handoff))
+        return self._install_local(key, handoff)
+
+    def _export_local(self, key: tuple) -> Optional[Any]:
+        from tpu_engine_torch import disagg
+
+        entry = self._prefix_cache._entries.get(key)
+        if entry is None:
+            return None
+        return disagg.extract_slot_kv(entry, 0, int(entry.length), cfg=self.cfg,
+                                      prompt=list(key), emitted=[])
+
+    def _install_local(self, key: tuple, handoff: Any) -> bool:
+        from tpu_engine_torch import disagg
+
+        if not self._prefix_cache.wants(key):
+            # Already resident (success) or over budget (refusal).
+            return key in self._prefix_cache._entries
+        c1 = disagg.handoff_to_cache(
+            self._local_heads(handoff), dtype=self._compute_dtype, kv_quant=self.kv_quant,
+            chunk=self.prefill_chunk, max_lanes=self._cache.n_lanes, device=self.device)
+        # A prefix entry is pasted into fresh ingestion caches: give it the
+        # lane == position form _slice_prefix stores.
+        c1 = dataclasses.replace(
+            c1, pos=torch.arange(c1.max_len, dtype=torch.int64, device=self.device),
+            length=len(key))
+        self._prefix_cache.insert(key, c1)
+        return key in self._prefix_cache._entries
+
+    def _mesh_prefix(self, order: tuple) -> Any:
+        """On a mesh every rank takes part in a prefix move, so rank 0's call
+        becomes an order for every rank's next step; the calling (engine)
+        thread steps until its result is in."""
+        if not self._lead:
+            raise ValueError(_RANK0)
+        with self._lock:
+            self._unsent_orders.append(order)
+        while order[:2] not in self._prefix_results:
+            if self._closed or self.last_error is not None:
+                raise RuntimeError(f"serving loop stopped before the {order[0]} of a prefix")
+            self.step()
+        return self._prefix_results.pop(order[:2])
+
+    def _local_heads(self, handoff: Any) -> Any:
+        """``handoff`` cut to this rank's kv heads of the pool (whole off a
+        mesh, or where the kv heads do not split over ``model``)."""
+        tp = self._tp
+        if tp is None or not tp.kv_split:
+            return handoff
+        heads = slice(tp.kv_first, tp.kv_first + tp.kv_count)
+
+        def cut(a):
+            return None if a is None else a[:, :, heads]
+
+        return dataclasses.replace(handoff, n_kv_heads=tp.kv_count, k=cut(handoff.k),
+                                   v=cut(handoff.v), k_scale=cut(handoff.k_scale),
+                                   v_scale=cut(handoff.v_scale))
+
+    def _whole_heads(self, payload: Any) -> Any:
+        """A payload of this rank's kv heads, gathered whole over ``model``
+        (every rank calls it with a payload or with None alike)."""
+        tp = self._tp
+        if tp is None or not tp.kv_split or payload is None:
+            return payload
+        parts = [None] * tp.size
+        dist.all_gather_object(parts, (payload.k, payload.v, payload.k_scale, payload.v_scale),
+                               group=self._group)
+
+        def cat(i):
+            return None if parts[0][i] is None else np.concatenate([p[i] for p in parts], axis=2)
+
+        return dataclasses.replace(payload, n_kv_heads=self.cfg.n_kv_heads, k=cat(0), v=cat(1),
+                                   k_scale=cat(2), v_scale=cat(3))
 
     def _result_locked(self, req: Request) -> dict[str, Any]:
         out = {"id": req.id, "status": req.status, "tokens": list(req.tokens),
@@ -789,10 +1013,13 @@ class ContinuousBatcher:
                 "sharded": self._mesh is not None,
                 "speculative": self._draft_params is not None,
                 "kv_quant": self.kv_quant,
-                "held_slots": 0,
-                "queued_handoffs": 0,
-                "handoffs_out": 0,
-                "handoffs_in": 0,
+                # Held: finished prefills pinning K/V for extraction;
+                # queued_handoffs: payloads awaiting a decode slot (the
+                # fleet router counts both against the free slots).
+                "held_slots": len(self._held),
+                "queued_handoffs": len(self._prefilled_queue),
+                "handoffs_out": self.handoffs_out,
+                "handoffs_in": self.handoffs_in,
             }
             if self._prefix_cache is not None:
                 out["prefix_cache"] = self._prefix_cache.stats()
@@ -892,14 +1119,41 @@ class ContinuousBatcher:
         (:meth:`_sync`); a step after rank 0's shutdown does nothing."""
         if self._group is not None and (self._closed or not self._sync()):
             return 0
+        # Handoff orders first: an extraction frees its held slot, which the
+        # admission below can reuse in the same step.
+        with self._lock:
+            orders, self._handoff_requests = self._handoff_requests, []
+        for rid, quantize in orders:
+            self._service_handoff(rid, quantize)
+        with self._lock:
+            moves, self._prefix_orders = self._prefix_orders, []
+        for kind, key, *payload in moves:  # on a mesh: every rank, in order
+            out = (self._whole_heads(self._export_local(key)) if kind == "export"
+                   else self._install_local(key, payload[0]))
+            if self._lead:
+                with self._lock:
+                    self._prefix_results[(kind, key)] = out
+
+        # Admission: wire-prefilled requests win free slots (their prompt
+        # K/V is paid for), then queued prompts.
+        admitted_handoffs: list[tuple[int, Request, Any]] = []
         admitted: list[tuple[int, Request]] = []
         with self._lock:
             for slot in range(self.max_slots):
-                if self._slots[slot] is None and self._queue:
+                if self._slots[slot] is not None:
+                    continue
+                if self._prefilled_queue:
+                    req, handoff = self._prefilled_queue.pop(0)
+                    req.status, req.slot = "running", slot
+                    self._slots[slot] = req
+                    admitted_handoffs.append((slot, req, handoff))
+                elif self._queue:
                     req = self._queue.pop(0)
                     req.status, req.slot = "running", slot
                     self._slots[slot] = req
                     admitted.append((slot, req))
+        for slot, req, handoff in admitted_handoffs:
+            self._insert_handoff(handoff, slot)
         for slot, req in admitted:
             self._prefilling[slot] = self._begin_prefill(req, slot)
 
@@ -924,6 +1178,8 @@ class ContinuousBatcher:
                 self._emit(req, slot, tok)
                 produced += 1
             self._note_tokens(produced)
+            # A held slot (a finished hold_kv request) stays out of decode:
+            # advancing its length would write past the extraction frontier.
             active_reqs = [(i, r) for i, r in enumerate(self._slots)
                            if r is not None and r.status == "running"
                            and i not in self._prefilling]
@@ -984,24 +1240,89 @@ class ContinuousBatcher:
             self._note_tokens(emitted)
         return produced + emitted
 
+    def _service_handoff(self, rid: int, quantize: Optional[bool]) -> None:
+        """Engine thread: extract a held slot's K/V into a wire payload
+        (``quantize`` True or False) or discard it (None), then free the
+        slot."""
+        from tpu_engine_torch import disagg
+
+        with self._lock:
+            slot = self._held.get(rid)
+            req = self._requests.get(rid)
+        if slot is None or req is None or self._slots[slot] is not req:
+            if quantize is not None and self._lead:
+                with self._lock:
+                    self._handoffs[rid] = None  # the extraction-failed marker
+                    self._done.notify_all()
+            return
+        payload = None
+        if quantize is not None:
+            # Resident K/V: the whole history but the last emitted token
+            # (decode writes its input token's K/V).
+            length = len(req.prompt) + len(req.tokens) - 1
+            payload = self._whole_heads(disagg.extract_slot_kv(
+                self._cache, slot, length, cfg=self.cfg,
+                prompt=req.prompt, emitted=req.tokens, quantize=quantize))
+        _reset_slot(self._cache, slot)
+        with self._lock:
+            self._held.pop(rid, None)
+            if self._slots[slot] is req:
+                self._slots[slot] = None
+            if quantize is not None:
+                if self._lead:  # on a mesh rank 0 hands the payload out
+                    self._handoffs[rid] = payload
+                self.handoffs_out += 1
+            self._done.notify_all()
+
+    def _insert_handoff(self, handoff: Any, slot: int) -> None:
+        """Engine thread: a wire payload as a single-row ingestion cache in
+        this pool's dtype and storage mode, copied into ``slot`` by
+        ``_insert_prefill``."""
+        from tpu_engine_torch import disagg
+
+        c1 = disagg.handoff_to_cache(
+            self._local_heads(handoff), dtype=self._compute_dtype, kv_quant=self.kv_quant,
+            chunk=self.prefill_chunk, max_lanes=self._cache.n_lanes, device=self.device)
+        _insert_prefill(self._cache, c1, slot, int(handoff.length))
+        self._last_tokens[slot] = handoff.last_token
+        self.handoffs_in += 1
+
     def _sync(self, stop: bool = False) -> bool:
-        """Rank 0's requests submitted since the last step, broadcast over
-        ``model`` and queued on every rank in the same order (and rank 0's
-        ``stop``). Returns False once rank 0 has stopped."""
+        """Rank 0's requests submitted since the last step and its
+        handoff-plane orders, broadcast over ``model`` and queued on every
+        rank in the same order (and rank 0's ``stop``). Returns False once
+        rank 0 has stopped."""
         new: list[Request] = []
+        orders: list[tuple] = []
         if self._lead:
             with self._lock:
                 new, self._unsent = self._unsent, []
-        box = [(stop, [(r.id, r.prompt, r.max_new_tokens, r.temperature) for r in new])]
+                orders, self._unsent_orders = self._unsent_orders, []
+        wire = [("prefilled", (o[1].id, o[1].prompt, o[1].max_new_tokens, o[1].temperature),
+                 o[2]) if o[0] == "prefilled" else o for o in orders]
+        box = [(stop, [(r.id, r.prompt, r.max_new_tokens, r.temperature, r.hold_kv)
+                       for r in new], wire)]
         dist.broadcast_object_list(box, src=dist.get_global_rank(self._group, 0),
                                    group=self._group, device=self.device)
-        stop, sent = box[0]
+        stop, sent, wire = box[0]
         with self._lock:
             if not self._lead:
-                new = [Request(id=i, prompt=list(p), max_new_tokens=n, temperature=t)
-                       for i, p, n, t in sent]
+                new = [Request(id=i, prompt=list(p), max_new_tokens=n, temperature=t, hold_kv=h)
+                       for i, p, n, t, h in sent]
                 self._requests.update((r.id, r) for r in new)
             self._queue.extend(new)
+            for kind, *rest in wire:
+                if kind == "prefilled":
+                    (i, p, n, t), handoff = rest
+                    req = self._requests.get(i) if self._lead else None
+                    if req is None:
+                        req = self._requests[i] = Request(id=i, prompt=list(p),
+                                                          max_new_tokens=n, temperature=t)
+                    self._prefilled_queue.append((req, handoff))
+                elif kind == "handoff":
+                    self._handoff_requests.append(tuple(rest))
+                else:
+                    self._prefix_orders.append((kind, *rest))
         self._closed = bool(stop)
         return not self._closed
 
@@ -1044,6 +1365,13 @@ class ContinuousBatcher:
         if finished:
             req.status = "done"
             req.finished_at = time.time()
+            if req.hold_kv:
+                # Disaggregated prefill: the slot (and its K/V) stays pinned
+                # for the handoff plane; _slots[slot] stays set, so admission
+                # skips it, and step's status filter keeps it out of decode.
+                self._held[req.id] = slot
+                self._done.notify_all()
+                return
             self._slots[slot] = None
             # Zero the slot's length (and ring positions): its overshoot
             # lanes become invisible and admission reuses it cleanly.
@@ -1072,7 +1400,9 @@ class ContinuousBatcher:
                     return
                 # Sleep only when idle: a step that advanced a prefill chunk
                 # or left admissions waiting loops at once.
-                if produced == 0 and not self._prefilling and not self._queue and not follower:
+                if produced == 0 and not self._prefilling and not self._queue and \
+                        not self._handoff_requests and not self._prefilled_queue and \
+                        not follower:
                     time.sleep(idle_sleep)
         finally:
             if self.last_error is None:
@@ -1084,13 +1414,20 @@ class ContinuousBatcher:
         submits, and wake every waiter."""
         self.last_error = msg  # reject new submits first
         with self._lock:
-            for req in list(self._slots) + list(self._queue):
+            pending_prefilled = [req for req, _ in self._prefilled_queue] + [
+                o[1] for o in self._unsent_orders if o[0] == "prefilled"]
+            for req in list(self._slots) + list(self._queue) + pending_prefilled:
                 if req is not None and req.status in ("queued", "running"):
                     req.status, req.error = "failed", msg
                     req.finished_at = time.time()
             self._slots = [None] * self.max_slots
             self._queue.clear()
             self._prefilling.clear()
+            self._held.clear()
+            self._handoff_requests.clear()
+            self._prefilled_queue.clear()
+            self._unsent_orders.clear()
+            self._prefix_orders.clear()
             self._done.notify_all()
 
 
